@@ -41,10 +41,21 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_FP32_FLOPS = 67e12
 
-# kernel vs plain version: same rounding points, different order of fp32
-# sums, so a bf16 rounding may move by an ulp; allow 4 ulps of the largest
-# value (2**-5 of it)
-KERNEL_RTOL_OF_MAX = 2.0 ** -5
+# Kernel vs plain version: the same rounding points, but a different order
+# of fp32 sums and hardware exp, rsqrt and division, so a bf16 rounding
+# moves by one ulp only where the fp32 value lies next to a rounding
+# boundary.  Each comparison is held to three limits:
+MAX_ERR_OF_MAX = 2.0 ** -5  # max |err| <= 4 bf16 ulps of the largest value
+NORM_ERR = 2.0 ** -8        # ||err|| <= the bf16 unit roundoff x ||ref||
+# share of elements that are not bit-equal, one kernel alone: a rounding
+# point moved or a different activation (erf GELU for QuickGELU) changes
+# more than one element in sixteen (tests/test_torch_chip_checks.py),
+# boundary cases about one in a thousand or fewer
+DIFFER_SHARE = 2.0 ** -8
+# the served path against the plain path on the card, 12 text or 12 vision
+# layers deep, where one-ulp flips propagate
+TEXT_MAX_ERR, TEXT_NORM_ERR = 2.0 ** -4, 2.0 ** -5      # text features
+LOGITS_MAX_ERR, LOGITS_NORM_ERR = 2.0 ** -3, 2.0 ** -3  # logits, rows centred
 
 BATCH, N_CLS, N_CTX, DEPTH = 384, 100, 2, 9
 REQUESTS = 20
@@ -113,19 +124,33 @@ class Kernel:
         }
 
 
-def check_close(what: str, got, ref, kernel: Kernel = None) -> float:
+def check_close(what: str, got, ref, kernel: Kernel = None, max_limit=MAX_ERR_OF_MAX,
+                norm_limit=NORM_ERR, share_limit=DIFFER_SHARE) -> str:
+    """Hold ``got`` to ``ref``: max abs error within ``max_limit`` of the
+    largest value, relative norm error within ``norm_limit``, and at most
+    ``share_limit`` of the elements not bit-equal (None: not held).
+    Returns the readings as text."""
     import torch
 
-    torch.cuda.synchronize()
+    if got.is_cuda:
+        torch.cuda.synchronize()
     if got.shape != ref.shape or not torch.isfinite(got.float()).all():
         raise AssertionError(f"{what}: shape {tuple(got.shape)} vs {tuple(ref.shape)} or non-finite")
-    err = (got.float() - ref.float()).abs().max().item()
-    tol = KERNEL_RTOL_OF_MAX * ref.float().abs().max().item()
-    if not err <= tol:
-        raise AssertionError(f"{what}: max abs err {err} > tolerance {tol}")
+    diff = got.float() - ref.float()
+    err = diff.abs().max().item()
+    norm = (diff.norm() / ref.float().norm()).item()
+    share = (got != ref).float().mean().item()
+    largest = ref.float().abs().max().item()
+    reading = f"err {err:.3g} of max {largest:.3g} norm {norm:.3g} differ {share:.3g}"
+    if not err <= max_limit * largest:
+        raise AssertionError(f"{what}: {reading}: max abs err over {max_limit} of the largest value")
+    if not norm <= norm_limit:
+        raise AssertionError(f"{what}: {reading}: relative norm error over {norm_limit}")
+    if share_limit is not None and not share <= share_limit:
+        raise AssertionError(f"{what}: {reading}: share of differing elements over {share_limit}")
     if kernel is not None:
         kernel.max_abs_err = max(kernel.max_abs_err, err)
-    return err
+    return reading
 
 
 def phase_kernels(F, kernels: dict) -> None:
@@ -145,14 +170,14 @@ def phase_kernels(F, kernels: dict) -> None:
         x = rn(rows, D, std=2.0)
         s = rn(D, dtype=torch.float32) * 0.1 + 1
         b = rn(D, dtype=torch.float32) * 0.1
-        err = check_close(f"layernorm {rows}x{D}", F.layer_norm_fwd(x, s, b),
-                          F.layer_norm_plain(x, s, b), kernels["layernorm_fwd"])
+        reading = check_close(f"layernorm {rows}x{D}", F.layer_norm_fwd(x, s, b),
+                              F.layer_norm_plain(x, s, b), kernels["layernorm_fwd"])
         ms = time_ms(lambda: F.layer_norm_fwd(x, s, b))
         plain = time_ms(lambda: F.layer_norm_plain(x, s, b))
         s16, b16 = s.bfloat16(), b.bfloat16()
         lib = time_ms(lambda: tf.layer_norm(x, (D,), s16, b16, 1e-5))
         bms, by = bound(2 * rows * D * 2 + 2 * D * 4, 0, 8 * rows * D)
-        say("kernels", f"layernorm_fwd {rows}x{D}: err {err:.3g} ms {ms:.4f} plain {plain:.4f} "
+        say("kernels", f"layernorm_fwd {rows}x{D}: {reading} ms {ms:.4f} plain {plain:.4f} "
                        f"library(F.layer_norm) {lib:.4f} bound {bms:.4f} ({by})")
         for _ in range(per_layer):
             kernels["layernorm_fwd"].add(ms, plain, lib, bms, by)
@@ -164,14 +189,15 @@ def phase_kernels(F, kernels: dict) -> None:
         w = rn(K, N, std=K ** -0.5)
         bias = rn(N, std=0.1)
         r = rn(M, N) if ep == "residual" else None
-        err = check_close(f"gemm {K}->{N} {ep}", F.gemm_epilogue(a, w, bias, ep, r),
-                          F.gemm_epilogue_plain(a, w, bias, ep, r), kernels["gemm_bf16_epilogue"])
+        reading = check_close(f"gemm {K}->{N} {ep}", F.gemm_epilogue(a, w, bias, ep, r),
+                              F.gemm_epilogue_plain(a, w, bias, ep, r),
+                              kernels["gemm_bf16_epilogue"])
         ms = time_ms(lambda: F.gemm_epilogue(a, w, bias, ep, r))
         plain = time_ms(lambda: F.gemm_epilogue_plain(a, w, bias, ep, r), 3)
         lib = time_ms(lambda: torch.addmm(bias, a, w))
         nbytes = (M * K + K * N + N + M * N * (2 if r is not None else 1)) * 2
         bms, by = bound(nbytes, 2 * M * N * K)
-        say("kernels", f"gemm_bf16_epilogue {ep} {M}x{K}->{N}: err {err:.3g} ms {ms:.4f} "
+        say("kernels", f"gemm_bf16_epilogue {ep} {M}x{K}->{N}: {reading} ms {ms:.4f} "
                        f"({2 * M * N * K / ms / 1e9:.1f} TFLOP/s) plain {plain:.4f} "
                        f"library(torch.addmm) {lib:.4f} bound {bms:.4f} ({by})")
         kernels["gemm_bf16_epilogue"].add(ms, plain, lib, bms, by)
@@ -184,8 +210,8 @@ def phase_kernels(F, kernels: dict) -> None:
     for label, B, S, H, causal, per_layer in cases:
         D = 64 * H
         qkv = rn(B, S, 3 * D)
-        err = check_close(f"attention {label}", F.attention_fwd(qkv, H, causal),
-                          F.attention_plain(qkv, H, causal), kernels["attention_fwd"])
+        reading = check_close(f"attention {label}", F.attention_fwd(qkv, H, causal),
+                              F.attention_plain(qkv, H, causal), kernels["attention_fwd"])
         ms = time_ms(lambda: F.attention_fwd(qkv, H, causal))
         plain = time_ms(lambda: F.attention_plain(qkv, H, causal), 3)
         L, is_causal, valid = F._block_spec(S, causal)
@@ -199,7 +225,7 @@ def phase_kernels(F, kernels: dict) -> None:
             lib = time_ms(lambda: tf.scaled_dot_product_attention(q, k, v, is_causal=is_causal))
         pairs = sum(min(r + 1, valid) if is_causal else valid for r in range(L))
         bms, by = bound(4 * B * S * D * 2, 4 * 64 * pairs * n * H, 5 * pairs * n * H)
-        say("kernels", f"attention_fwd {label} B={B} S={S} H={H}: err {err:.3g} ms {ms:.4f} "
+        say("kernels", f"attention_fwd {label} B={B} S={S} H={H}: {reading} ms {ms:.4f} "
                        f"plain {plain:.4f} library(sdpa) {lib:.4f} bound {bms:.4f} ({by})")
         if per_layer:
             kernels["attention_fwd"].add(ms, plain, lib, bms, by)
@@ -212,11 +238,13 @@ def phase_kernels(F, kernels: dict) -> None:
               rn(D, std=0.1), rn(D, dtype=torch.float32) * 0.1 + 1,
               rn(D, dtype=torch.float32) * 0.1, rn(D, 4 * D, std=D ** -0.5),
               rn(4 * D, std=0.1), rn(4 * D, D, std=(4 * D) ** -0.5), rn(D, std=0.1)]
-        err = check_close(f"layer_fullblock D={D}", F.layer_fullblock(x, *ps, H, causal),
-                          F.layer_fullblock_plain(x, *ps, H, causal))
+        # a one-ulp flip early in the chain moves later roundings: the
+        # share of differing elements is printed, not held
+        reading = check_close(f"layer_fullblock D={D}", F.layer_fullblock(x, *ps, H, causal),
+                              F.layer_fullblock_plain(x, *ps, H, causal), share_limit=None)
         ms = time_ms(lambda: F.layer_fullblock(x, *ps, H, causal))
         plain = time_ms(lambda: F.layer_fullblock_plain(x, *ps, H, causal), 3)
-        say("kernels", f"layer_fullblock D={D} B={B} S={S} mask={causal}: err {err:.3g} "
+        say("kernels", f"layer_fullblock D={D} B={B} S={S} mask={causal}: {reading} "
                        f"ms {ms:.4f} plain {plain:.4f}")
 
 
@@ -314,20 +342,26 @@ def phase_serving(F) -> dict:
         raise AssertionError("predictions or logits malformed")
     if not torch.equal(preds, logits.argmax(-1).to(torch.int32)):
         raise AssertionError("eval_step_cached disagrees with argmax of image_logits")
-    t_err = (txt.float() - txt_ref.float()).abs().max().item()
+    # kernels and plain chain round at the same points, but over 12 bf16
+    # layers a one-ulp flip grows like any bf16 drift
+    t_read = check_close("text features", txt, txt_ref, max_limit=TEXT_MAX_ERR,
+                         norm_limit=TEXT_NORM_ERR, share_limit=None)
+    # random weights leave the logits of a row close together: the error is
+    # held against their spread around the row's mean, not their size
+    centred, centred_ref = (t - t.mean(-1, keepdim=True) for t in (logits, logits_ref))
+    l_read = check_close("logits, rows centred", centred, centred_ref, max_limit=LOGITS_MAX_ERR,
+                         norm_limit=LOGITS_NORM_ERR, share_limit=None)
     drift = (logits - logits_ref).abs().max().item()
     scale = logits_ref.abs().max().item()
     top = logits_ref.topk(2, dim=-1).values
     decisive = (top[:, 0] - top[:, 1]) > 2 * drift
     agree = (logits.argmax(-1) == logits_ref.argmax(-1))
-    say("serving", f"vs plain path on the card: text features max abs err {t_err:.4g}; "
-                   f"logits max abs err {drift:.4g} of max {scale:.4g}; top-1 agreement "
+    say("serving", f"vs plain path on the card: text features {t_read}; logits, rows centred "
+                   f"{l_read}; logits max abs err {drift:.4g} of max {scale:.4g}; top-1 agreement "
                    f"{agree.float().mean().item():.4f}; {int(decisive.sum())} decisive rows, "
                    f"{int(agree[decisive].sum())} equal")
-    # kernels and plain chain round at the same points, but over 24 bf16
-    # layers a one-ulp flip grows like any bf16 drift: hold the logits to the
-    # bound of tests/test_precision_drift.py (5% of the largest magnitude,
-    # every top-1 whose margin exceeds the drift equal, 75% agreement)
+    # and the bound of tests/test_precision_drift.py: 5% of the largest
+    # magnitude, every top-1 whose margin exceeds the drift equal, 75% agreement
     if drift > 0.05 * scale or not agree[decisive].all() or agree.float().mean() < 0.75:
         raise AssertionError(f"logits vs plain path: drift {drift} (scale {scale}), "
                              f"agreement {agree.float().mean().item()}")

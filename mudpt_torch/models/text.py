@@ -27,7 +27,7 @@ _AUTO_PACK_MIN_GROUPS = 8
 _TRUNC_MIN = 16
 
 
-def _auto_pack_g(padded_seq: int, n_rows: int = 1 << 30) -> int:
+def _auto_pack_g(padded_seq: int, n_rows: int) -> int:
     """Power of two nearest 256 / P, capped at 8, shrunk until the rows
     fill at least 8 groups (``text.py:64-75``)."""
     ratio = max(1.0, _AUTO_PACK_TOKENS / max(1, padded_seq))
@@ -38,11 +38,9 @@ def _auto_pack_g(padded_seq: int, n_rows: int = 1 << 30) -> int:
     return g
 
 
-def effective_text_length(max_eot: int, full_length: int, truncate: bool = True) -> int:
+def effective_text_length(max_eot: int, full_length: int) -> int:
     """max(eot)+1 rounded up to 8, floored at 16, never above the full
-    length (``text.py:121-127``); the full length when ``truncate`` is off."""
-    if not truncate:
-        return full_length
+    length (``text.py:121-127``)."""
     L = max(_TRUNC_MIN, -(-(int(max_eot) + 1) // 8) * 8)
     return min(full_length, L)
 

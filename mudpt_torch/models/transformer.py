@@ -24,23 +24,21 @@ from mudpt_torch.models.layers import residual_block
 def make_injection_schedule(
     num_layers: int,
     deep_prompts: Optional[torch.Tensor],
-    *,
-    first_layer: int = 1,
 ) -> Tuple[Optional[torch.Tensor], Optional[np.ndarray]]:
     """Padded per-layer prompts (L, n_ctx, D) and a static (L,) bool mask of
     the layers that splice (``transformer.py:90-122``).  ``deep_prompts``
-    (depth-1, n_ctx, D) feed layers ``first_layer .. first_layer+depth-2``;
-    rows deeper than the tower are never consumed."""
+    (depth-1, n_ctx, D) feed layers ``1 .. depth-1``; rows deeper than the
+    tower are never consumed."""
     if deep_prompts is None or deep_prompts.shape[0] == 0:
         return None, None
     depth_m1, n_ctx, dim = deep_prompts.shape
-    head = deep_prompts.new_zeros((first_layer, n_ctx, dim))
+    head = deep_prompts.new_zeros((1, n_ctx, dim))
     prompts = torch.cat([head, deep_prompts], dim=0)[:num_layers]
     if prompts.shape[0] < num_layers:
         tail = deep_prompts.new_zeros((num_layers - prompts.shape[0], n_ctx, dim))
         prompts = torch.cat([prompts, tail], dim=0)
     layer_ids = np.arange(num_layers)
-    mask = (layer_ids >= first_layer) & (layer_ids < first_layer + depth_m1)
+    mask = (layer_ids >= 1) & (layer_ids < 1 + depth_m1)
     return prompts, mask
 
 

@@ -135,11 +135,11 @@ _WS_RE = re.compile(f"[{_WHITESPACE}]+")
 
 
 class ClipBPE:
-    def __init__(self, bpe_path: str = _ASSET):
+    def __init__(self):
         self.byte_to_u = _byte_unicode_table()
         self.u_to_byte = {u: b for b, u in self.byte_to_u.items()}
 
-        with gzip.open(bpe_path, "rt", encoding="utf-8") as f:
+        with gzip.open(_ASSET, "rt", encoding="utf-8") as f:
             lines = f.read().split("\n")
         merge_lines = lines[1 : _N_MERGES + 1]
         merges: List[Tuple[str, str]] = [tuple(m.split()) for m in merge_lines]

@@ -16,8 +16,9 @@ The ``MuDPT`` trainer class waits for the engine slice.
 from __future__ import annotations
 
 from mudpt_torch.models.clip import cosine_logits, encode_image
+from mudpt_torch.models.layers import linear
 from mudpt_torch.models.text import text_forward
-from mudpt_torch.trainers.prompt_utils import compose_prompts, linear
+from mudpt_torch.trainers.prompt_utils import compose_prompts
 
 
 def mudpt_text_features(trainable, frozen, aux, *, clip_cfg, compute_dtype):

@@ -8,14 +8,13 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import List, Sequence
+from typing import Sequence
 
 import numpy as np
 import torch
 
-from mudpt_torch.models.layers import linear  # noqa: F401  (the prompt learners' linear)
 from mudpt_torch.models.text import effective_text_length
-from mudpt_torch.tokenizer import get_tokenizer, tokenize
+from mudpt_torch.tokenizer import tokenize
 
 
 @dataclasses.dataclass
@@ -23,13 +22,10 @@ class ClassPromptAux:
     """Class-dependent static buffers: the SOS prefix and the class-name
     suffix embeddings, and the EOT positions."""
 
-    tokenized: np.ndarray        # (n_cls, 77) int32
     eot_idx: np.ndarray          # (n_cls,) int32
     token_prefix: torch.Tensor   # (n_cls, 1, D)
     token_suffix: torch.Tensor   # (n_cls, 77-1-n_ctx, D)
-    name_lens: List[int]
     n_ctx: int
-    prompt_prefix: str
 
     def effective_length(self) -> int:
         """Composed-sequence length after EOT truncation."""
@@ -55,21 +51,16 @@ def embed_classnames(
 ) -> ClassPromptAux:
     """Tokenize and embed "<prefix> <name>." per class; the embedding
     gather runs on the token table's device."""
-    tok = get_tokenizer()
     names = [name.replace("_", " ") for name in classnames]
-    name_lens = [len(tok.encode(name)) for name in names]
     tokenized = tokenize([f"{prompt_prefix} {name}." for name in names])
     table = text_params["token_embedding"]
     ids = torch.from_numpy(tokenized).to(table.device).long()
     embedding = table[ids].float()
     return ClassPromptAux(
-        tokenized=tokenized,
         eot_idx=tokenized.argmax(axis=-1).astype(np.int32),
         token_prefix=embedding[:, :1],
         token_suffix=embedding[:, 1 + n_ctx:],
-        name_lens=name_lens,
         n_ctx=n_ctx,
-        prompt_prefix=prompt_prefix,
     )
 
 
@@ -92,5 +83,6 @@ def init_linear(g: torch.Generator, d_in: int, d_out: int) -> dict:
     return {"w": _uniform(g, (d_in, d_out), bound), "b": _uniform(g, (d_out,), bound)}
 
 
-def random_ctx(g: torch.Generator, shape, std: float = 0.02) -> torch.Tensor:
-    return torch.randn(shape, generator=g, device=g.device) * std
+def random_ctx(g: torch.Generator, shape) -> torch.Tensor:
+    """N(0, 0.02^2) prompt vectors."""
+    return torch.randn(shape, generator=g, device=g.device) * 0.02
