@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Run the PyTorch/CUDA port's MuDPT ViT-B/16 serving path on one GPU.
+"""Run the PyTorch/CUDA port's MuDPT ViT-B/16 serving path and train step on
+one GPU.
 
     python3 chip_smoke.py
 
@@ -7,29 +8,35 @@ Phases, each printed with the card's name and power limit:
 
   1. device   CUDA present; TF32 off for the plain versions.
   2. build    nvcc builds mudpt_torch/csrc/*.cu (parallel, one per source).
-  3. kernels  every kernel of the path against its plain PyTorch version at
-              the serving shapes, with the kernel's, the plain version's and
-              one library call's time (the library call is a yardstick,
-              never used by the port), and the bound from bytes and
-              operations; then the whole layer chain against its plain
-              version at D=768 and D=512.
+  3. kernels  every kernel against its plain PyTorch version at the shapes
+              of the serving path and the train step, with the kernel's, the
+              plain version's and one library call's time (the library call
+              is a yardstick, never used by the port), and the bound from
+              bytes and operations; then the whole layer against its plain
+              version at D=768 and D=512, forward alone and forward with
+              backward.
   4. serving  build_synth_mudpt_server("ViT-B/16", 384, 100, 2, 9) on
               seeded random weights: encode the class text once, answer
               requests of 384 images, count kernel launches, check logits
               against the plain path on the card, report images/s.
+  5. train    build_synth_mudpt_step("ViT-B/16", 384, 100, 2, 9): one step's
+              loss and gradients of the ten trainable leaves against the
+              plain path on the card, warm-up and timed steps (launches
+              counted per step, losses finite), images/s, and a traced step.
 
 The last three lines are one JSON object describing each kernel, the
 card's name and power limit, and {"ok": true, "device": {...}}.  Times in
-the kernel object are totals over one vision layer's launches at the
-serving shapes (LayerNorm twice, the four projections, attention once);
-"launches" counts the served path.  Any failed check raises, and the
-script exits non-zero without a result; so it does without CUDA, and
-outside a checkout of the repository.
+the kernel object are totals over one vision layer's launches in the train
+step (LayerNorm twice, the eight projections, attention once, each way);
+"launches" counts the train step's timed run, "launches_by_path" each
+path's.  Any failed check raises, and the script exits non-zero without a
+result; so it does without CUDA, and outside a checkout of the repository.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -48,17 +55,42 @@ PEAK_FP32_FLOPS = 67e12
 MAX_ERR_OF_MAX = 2.0 ** -5  # max |err| <= 4 bf16 ulps of the largest value
 NORM_ERR = 2.0 ** -8        # ||err|| <= the bf16 unit roundoff x ||ref||
 # share of elements that are not bit-equal, one kernel alone: a rounding
-# point moved or a different activation (erf GELU for QuickGELU) changes
-# more than one element in sixteen (tests/test_torch_chip_checks.py),
-# boundary cases about one in a thousand or fewer
+# point moved or a different activation (erf GELU for QuickGELU; in the
+# backward, ds from bf16(p), QuickGELU' of the unrounded h, a rounding
+# before the residual) changes more than one element in sixteen
+# (tests/test_torch_chip_checks.py), boundary cases about one in a thousand
+# or fewer
 DIFFER_SHARE = 2.0 ** -8
 # the served path against the plain path on the card, 12 text or 12 vision
 # layers deep, where one-ulp flips propagate
 TEXT_MAX_ERR, TEXT_NORM_ERR = 2.0 ** -4, 2.0 ** -5      # text features
 LOGITS_MAX_ERR, LOGITS_NORM_ERR = 2.0 ** -3, 2.0 ** -3  # logits, rows centred
 
+# fp32 outputs (the GEMM's store_f32): the sum order alone moves the last
+# bits of nearly every element, so no bit-equal share is held; the error is
+# that of fp32 sums of K bf16 products
+F32_MAX_ERR, F32_NORM_ERR = 2.0 ** -15, 2.0 ** -16
+# the layer's dx against the plain chain: seven kernels deep, where one-ulp
+# flips of bf16 intermediates propagate (limits under PERF.md Findings)
+LAYER_DX_MAX_ERR, LAYER_DX_NORM_ERR = 2.0 ** -5, 2.0 ** -7
+# one train step's gradients of the trainable leaves against the plain path
+# on the card, both towers deep (relative norm error per leaf) and the loss
+GRAD_NORM_ERR, LOSS_REL_ERR = 2.0 ** -4, 2.0 ** -12
+# and the kernels' gradients no further from the fp32 ones than this times
+# the plain bf16 path's
+GRAD_FP32_RATIO = 1.5
+
 BATCH, N_CLS, N_CTX, DEPTH = 384, 100, 2, 9
 REQUESTS = 20
+WARMUP_STEPS, TIMED_STEPS = 3, 10
+
+TPU = "mudpt_tpu/ops/fused_block.py"
+FWD = f"{TPU}:851 _layer_fwd_nosave_kernel, :831 _layer_fwd_kernel"
+BWD = f"{TPU}:868 _layer_bwd_kernel"
+REPLACES = {
+    "layernorm_fwd": FWD, "gemm_bf16_epilogue": f"{FWD}, :868 _layer_bwd_kernel",
+    "attention_fwd": FWD, "layernorm_bwd": BWD, "attention_bwd": BWD,
+}
 
 
 def smi() -> str:
@@ -94,7 +126,8 @@ def bound(bytes_moved: float, bf16_ops: float, fp32_ops: float = 0.0):
 
 
 class Kernel:
-    """Totals of one kernel over the launches of one vision layer."""
+    """Totals of one kernel over the launches of one vision layer of the
+    train step (forward and backward)."""
 
     def __init__(self, name: str):
         self.name = name
@@ -112,12 +145,13 @@ class Kernel:
         else:
             self.t_ops += bound_ms
 
-    def record(self, launches: int) -> dict:
+    def record(self, launches: dict) -> dict:
         return {
             "name": self.name, "route": "cuda",
             "source": f"mudpt_torch/csrc/{self.name}.cu",
-            "replaces": "mudpt_tpu/ops/fused_block.py:851",
-            "launches": launches, "max_abs_err": self.max_abs_err,
+            "replaces": REPLACES[self.name],
+            "launches": launches["train_step"], "launches_by_path": launches,
+            "max_abs_err": self.max_abs_err,
             "ms": self.ms, "plain_ms": self.plain_ms, "bound_ms": self.bound_ms,
             "bound_by": "bytes" if self.t_bytes >= self.t_ops else "operations",
             "library_ms": self.library_ms,
@@ -182,27 +216,82 @@ def phase_kernels(F, kernels: dict) -> None:
         for _ in range(per_layer):
             kernels["layernorm_fwd"].add(ms, plain, lib, bms, by)
 
-    # ---- GEMM with each epilogue at the vision shapes (one of each per layer)
-    for K, N, ep in ((768, 2304, "qkv"), (768, 768, "residual"), (768, 3072, "fc_gelu"),
-                     (3072, 768, "residual")):
+    # ---- GEMM with each epilogue at the vision shapes.  The forward
+    # epilogues take W (K, N); the backward ones W (N, K), read transposed.
+    # The last field: launches in one vision layer of the train step
+    cases = (("qkv", 768, 2304, 1), ("residual", 768, 768, 1), ("fc_gelu", 768, 3072, 0),
+             ("fc_gelu_save", 768, 3072, 1), ("residual", 3072, 768, 1),
+             ("gelu_bwd", 768, 3072, 1), ("store_f32", 3072, 768, 1),
+             ("store_bf16", 768, 768, 1), ("store_f32", 2304, 768, 1))
+    for ep, K, N, per_layer in cases:
+        w_nk = F.EPILOGUES[ep][1]
         a = rn(M, K)
-        w = rn(K, N, std=K ** -0.5)
-        bias = rn(N, std=0.1)
-        r = rn(M, N) if ep == "residual" else None
-        reading = check_close(f"gemm {K}->{N} {ep}", F.gemm_epilogue(a, w, bias, ep, r),
-                              F.gemm_epilogue_plain(a, w, bias, ep, r),
-                              kernels["gemm_bf16_epilogue"])
-        ms = time_ms(lambda: F.gemm_epilogue(a, w, bias, ep, r))
-        plain = time_ms(lambda: F.gemm_epilogue_plain(a, w, bias, ep, r), 3)
-        lib = time_ms(lambda: torch.addmm(bias, a, w))
-        nbytes = (M * K + K * N + N + M * N * (2 if r is not None else 1)) * 2
-        bms, by = bound(nbytes, 2 * M * N * K)
+        w = rn(N, K, std=K ** -0.5) if w_nk else rn(K, N, std=K ** -0.5)
+        bias = rn(N, std=0.1) if ep in F._BIASED else None
+        extra = None
+        if ep == "residual":
+            extra = rn(M, N)
+        elif ep == "gelu_bwd":
+            extra = rn(M, N, std=2.0)  # a saved pre-activation
+        got = F.gemm_epilogue(a, w, bias, ep, extra)
+        ref = F.gemm_epilogue_plain(a, w, bias, ep, extra)
+        if ep == "fc_gelu_save":
+            reading = "h " + check_close(f"gemm {ep} h", got[0], ref[0], kernels["gemm_bf16_epilogue"])
+            reading += "; a " + check_close(f"gemm {ep} a", got[1], ref[1],
+                                            kernels["gemm_bf16_epilogue"])
+        elif ep == "store_f32":
+            reading = check_close(f"gemm {K}->{N} {ep}", got, ref, kernels["gemm_bf16_epilogue"],
+                                  max_limit=F32_MAX_ERR, norm_limit=F32_NORM_ERR, share_limit=None)
+        else:
+            reading = check_close(f"gemm {K}->{N} {ep}", got, ref, kernels["gemm_bf16_epilogue"])
+        del got, ref
+        ms = time_ms(lambda: F.gemm_epilogue(a, w, bias, ep, extra))
+        plain = time_ms(lambda: F.gemm_epilogue_plain(a, w, bias, ep, extra), 3)
+        if w_nk:
+            lib = time_ms(lambda: torch.matmul(a, w.t()))
+            lib_name = "torch.matmul(a, W.t())"
+        else:
+            lib = time_ms(lambda: torch.addmm(bias, a, w))
+            lib_name = "torch.addmm"
+        out_bytes = {"store_f32": 4, "fc_gelu_save": 4}.get(ep, 2)
+        nbytes = (M * K + K * N) * 2 + M * N * (out_bytes + (2 if extra is not None else 0))
+        bms, by = bound(nbytes + (N * 2 if bias is not None else 0), 2 * M * N * K)
         say("kernels", f"gemm_bf16_epilogue {ep} {M}x{K}->{N}: {reading} ms {ms:.4f} "
                        f"({2 * M * N * K / ms / 1e9:.1f} TFLOP/s) plain {plain:.4f} "
-                       f"library(torch.addmm) {lib:.4f} bound {bms:.4f} ({by})")
-        kernels["gemm_bf16_epilogue"].add(ms, plain, lib, bms, by)
+                       f"library({lib_name}) {lib:.4f} bound {bms:.4f} ({by})")
+        for _ in range(per_layer):
+            kernels["gemm_bf16_epilogue"].add(ms, plain, lib, bms, by)
+        del a, w, extra
 
-    # ---- attention: vision (1 per layer), text causal, packed text rows
+    # ---- LayerNorm dx: the layer's two (fp32 dxn, with a residual), at the
+    # vision shape (2 per layer) and the packed text rows; a tower LayerNorm
+    # (bf16 dxn, no residual) at the vision shape
+    for rows, D, dxn_dt, with_r, per_layer in ((M, 768, torch.float32, True, 2),
+                                               (13 * 128, 512, torch.float32, True, 0),
+                                               (M, 768, torch.bfloat16, False, 0)):
+        x = rn(rows, D, std=2.0)
+        dxn = rn(rows, D, dtype=dxn_dt)
+        s = rn(D, dtype=torch.float32) * 0.1 + 1
+        r = rn(rows, D) if with_r else None
+        reading = check_close(f"layernorm_bwd {rows}x{D}", F.layer_norm_bwd(dxn, x, s, r),
+                              F.layer_norm_bwd_plain(dxn, x, s, r), kernels["layernorm_bwd"])
+        ms = time_ms(lambda: F.layer_norm_bwd(dxn, x, s, r))
+        plain = time_ms(lambda: F.layer_norm_bwd_plain(dxn, x, s, r))
+        xr = x.detach().requires_grad_(True)
+        y = tf.layer_norm(xr, (D,), s.bfloat16(), s.bfloat16(), 1e-5)
+        g16 = dxn.bfloat16()
+        lib = time_ms(lambda: torch.autograd.grad(y, xr, g16, retain_graph=True))
+        nbytes = rows * D * (dxn.element_size() + 2 + 2 + (2 if with_r else 0)) + D * 4
+        bms, by = bound(nbytes, 0, 15 * rows * D)
+        say("kernels", f"layernorm_bwd {rows}x{D} dxn {str(dxn_dt)[6:]} residual {with_r}: "
+                       f"{reading} ms {ms:.4f} plain {plain:.4f} library(F.layer_norm "
+                       f"backward) {lib:.4f} bound {bms:.4f} ({by})")
+        for _ in range(per_layer):
+            kernels["layernorm_bwd"].add(ms, plain, lib, bms, by)
+        del x, dxn, r, xr, y, g16
+
+    # ---- attention: vision (1 per layer), text causal, packed text rows;
+    # forward, then backward from a seeded upstream gradient
     cases = (("vision", 384, 199, 12, False, True),
              ("text causal", 100, 16, 8, True, False),
              ("text packed (16,16)", 13, 128, 8, (16, 16), False),
@@ -210,28 +299,51 @@ def phase_kernels(F, kernels: dict) -> None:
     for label, B, S, H, causal, per_layer in cases:
         D = 64 * H
         qkv = rn(B, S, 3 * D)
+        L, is_causal, valid = F._block_spec(S, causal)
+        n = B * (S // L)
+        pairs = sum(min(r + 1, valid) if is_causal else valid for r in range(L))
+        q, k, v = (t.detach().requires_grad_(True)
+                   for t in qkv.view(n, L, 3, H, 64).permute(2, 0, 3, 1, 4))
+        if isinstance(causal, tuple):
+            i = torch.arange(L, device=dev)
+            allowed = (i[None, :] <= i[:, None]) & (i[None, :] < valid)
+            sdpa = lambda: tf.scaled_dot_product_attention(q, k, v, attn_mask=allowed)  # noqa: E731
+        else:
+            sdpa = lambda: tf.scaled_dot_product_attention(q, k, v, is_causal=is_causal)  # noqa: E731
+
         reading = check_close(f"attention {label}", F.attention_fwd(qkv, H, causal),
                               F.attention_plain(qkv, H, causal), kernels["attention_fwd"])
         ms = time_ms(lambda: F.attention_fwd(qkv, H, causal))
         plain = time_ms(lambda: F.attention_plain(qkv, H, causal), 3)
-        L, is_causal, valid = F._block_spec(S, causal)
-        n = B * (S // L)
-        q, k, v = qkv.view(n, L, 3, H, 64).permute(2, 0, 3, 1, 4)
-        if isinstance(causal, tuple):
-            i = torch.arange(L, device=dev)
-            allowed = (i[None, :] <= i[:, None]) & (i[None, :] < valid)
-            lib = time_ms(lambda: tf.scaled_dot_product_attention(q, k, v, attn_mask=allowed))
-        else:
-            lib = time_ms(lambda: tf.scaled_dot_product_attention(q, k, v, is_causal=is_causal))
-        pairs = sum(min(r + 1, valid) if is_causal else valid for r in range(L))
+        with torch.no_grad():
+            lib = time_ms(sdpa)
         bms, by = bound(4 * B * S * D * 2, 4 * 64 * pairs * n * H, 5 * pairs * n * H)
         say("kernels", f"attention_fwd {label} B={B} S={S} H={H}: {reading} ms {ms:.4f} "
                        f"plain {plain:.4f} library(sdpa) {lib:.4f} bound {bms:.4f} ({by})")
         if per_layer:
             kernels["attention_fwd"].add(ms, plain, lib, bms, by)
 
-    # ---- the whole layer, kernel chain against the plain chain
-    for D, B, S, H, causal in ((768, 384, 199, 12, False), (512, 13, 128, 8, (16, 16))):
+        do = rn(B, S, D, std=0.1)
+        reading = check_close(f"attention_bwd {label}", F.attention_bwd(qkv, do, H, causal),
+                              F.attention_bwd_plain(qkv, do, H, causal), kernels["attention_bwd"])
+        ms = time_ms(lambda: F.attention_bwd(qkv, do, H, causal))
+        plain = time_ms(lambda: F.attention_bwd_plain(qkv, do, H, causal), 3)
+        out = sdpa()
+        do4 = do.view(n, L, H, 64).permute(0, 2, 1, 3)
+        lib = time_ms(lambda: torch.autograd.grad(out, (q, k, v), do4, retain_graph=True))
+        bms, by = bound(7 * B * S * D * 2, 5 * 2 * 64 * pairs * n * H, 8 * pairs * n * H)
+        say("kernels", f"attention_bwd {label} B={B} S={S} H={H}: {reading} ms {ms:.4f} "
+                       f"plain {plain:.4f} library(sdpa backward) {lib:.4f} bound {bms:.4f} ({by})")
+        if per_layer:
+            kernels["attention_bwd"].add(ms, plain, lib, bms, by)
+        del qkv, q, k, v, do, do4, out
+
+    # ---- the whole layer, kernel chain against the plain chain: the no-save
+    # forward, then the saving forward with the backward (LayerFullblockFn).
+    # The main path's row counts are multiples of the GEMM's 128-row tile;
+    # the unpacked causal text rows (1,600) also reach its masked last tile
+    for D, B, S, H, causal in ((768, 384, 199, 12, False), (512, 13, 128, 8, (16, 16)),
+                               (512, 100, 16, 8, True)):
         x = rn(B, S, D)
         ps = [rn(D, dtype=torch.float32) * 0.1 + 1, rn(D, dtype=torch.float32) * 0.1,
               rn(D, 3 * D, std=D ** -0.5), rn(3 * D, std=0.1), rn(D, D, std=D ** -0.5),
@@ -246,6 +358,24 @@ def phase_kernels(F, kernels: dict) -> None:
         plain = time_ms(lambda: F.layer_fullblock_plain(x, *ps, H, causal), 3)
         say("kernels", f"layer_fullblock D={D} B={B} S={S} mask={causal}: {reading} "
                        f"ms {ms:.4f} plain {plain:.4f}")
+
+        xg = x.detach().requires_grad_(True)
+        gy = rn(B, S, D)
+
+        def step(plain_fns):
+            y = F.layer_fullblock(xg, *ps, H, causal, plain=plain_fns)
+            return y, torch.autograd.grad(y, xg, gy)[0]
+
+        (y, dx), (y_ref, dx_ref) = step(False), step(True)
+        r_y = check_close(f"layer_fullblock save D={D} y", y, y_ref, share_limit=None)
+        r_dx = check_close(f"layer_fullblock D={D} dx", dx, dx_ref, max_limit=LAYER_DX_MAX_ERR,
+                           norm_limit=LAYER_DX_NORM_ERR, share_limit=None)
+        del y, dx, y_ref, dx_ref
+        ms = time_ms(lambda: step(False))
+        plain = time_ms(lambda: step(True), 3)
+        say("kernels", f"layer_fullblock forward-save + backward D={D} B={B} S={S} "
+                       f"mask={causal}: y {r_y}; dx {r_dx}; ms {ms:.4f} plain {plain:.4f}")
+        del x, xg, gy, ps
 
 
 def phase_serving(F) -> dict:
@@ -283,7 +413,8 @@ def phase_serving(F) -> dict:
 
     n_req = REQUESTS + 1
     per_layer = {"layernorm_fwd": 2, "gemm_bf16_epilogue": 4, "attention_fwd": 1,
-                 "layer_fullblock": 1}
+                 "layernorm_bwd": 0, "attention_bwd": 0, "layer_fullblock": 1,
+                 "layer_fullblock_bwd": 0}
     tl = st.clip_cfg.transformer_layers
     # plus the towers' own LayerNorms: ln_final once; ln_pre, ln_post per request
     want_text = {k: c * tl + (k == "layernorm_fwd") for k, c in per_layer.items()}
@@ -368,6 +499,158 @@ def phase_serving(F) -> dict:
     return counts
 
 
+def to_float(tree):
+    """A parameter tree with every floating tensor in fp32."""
+    if isinstance(tree, dict):
+        return {k: to_float(v) for k, v in tree.items()}
+    return tree.float() if tree.is_floating_point() else tree
+
+
+def device_time_by_kernel(prof) -> tuple:
+    """({category: device us}, {other kernel: us}) from a profiler run:
+    the forward kernels, the backward kernels (the GEMM by its epilogue's
+    template argument), and everything else."""
+    import re
+
+    import torch
+
+    cats = {"forward kernels": 0.0, "backward kernels": 0.0, "other": 0.0}
+    by_kernel, others = {}, {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue  # host-side ops also report their kernels' time
+        us = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+        gemm = re.search(r"gemm_bf16_kernel<(\d)>", e.key)
+        if gemm:
+            name, bwd = f"gemm_bf16_kernel<{gemm.group(1)}>", int(gemm.group(1)) >= 4
+        else:
+            name = next((k for k in ("layernorm_fwd_kernel", "attention_fwd_kernel",
+                                     "layernorm_bwd_kernel", "attention_bwd_kernel")
+                         if k in e.key), None)
+            bwd = name is not None and "bwd" in name
+        if name is None:
+            cats["other"] += us
+            if us > 0:
+                others[e.key[:60]] = others.get(e.key[:60], 0.0) + us
+            continue
+        cats["backward kernels" if bwd else "forward kernels"] += us
+        by_kernel[name] = by_kernel.get(name, 0.0) + us
+    return cats, by_kernel, others
+
+
+def phase_train(F) -> dict:
+    import torch
+
+    from mudpt_torch.models.layers import plain_blocks
+    from mudpt_torch.trainers.mudpt import mudpt_forward
+    from mudpt_torch.utils.synth_step import build_synth_mudpt_step, leaves, nll_loss
+
+    t0 = time.perf_counter()
+    st = build_synth_mudpt_step("ViT-B/16", BATCH, N_CLS, N_CTX, DEPTH, seed=0)
+    torch.cuda.synchronize()
+    tr = leaves(st.trainable)
+    names = [f"{k}/{kk}" if isinstance(v, dict) else k
+             for k, v in st.trainable.items() for kk in (v if isinstance(v, dict) else [None])]
+    say("train", f"built ViT-B/16 train step (random weights, seed 0) in "
+                 f"{time.perf_counter() - t0:.2f} s; {len(tr)} trainable leaves, "
+                 f"{sum(t.numel() for t in tr)} values")
+
+    # ---- one step's gradients from the same starting state: kernels, then
+    # the plain versions on the card; and, to show how far bf16 alone moves
+    # them, the plain versions in fp32 on the same values (TF32 off)
+    loss = st.loss_fn(st.images, st.labels)
+    grads = torch.autograd.grad(loss, tr)
+    with plain_blocks():
+        loss_ref = st.loss_fn(st.images, st.labels)
+        grads_ref = torch.autograd.grad(loss_ref, tr)
+        params32 = to_float(st.params)
+        logits32 = mudpt_forward(st.trainable, params32, st.aux, st.images.float(),
+                                 clip_cfg=st.clip_cfg, compute_dtype=torch.float32)
+        grads32 = torch.autograd.grad(nll_loss(logits32, st.labels), tr)
+        del params32, logits32
+    torch.cuda.synchronize()
+    loss, loss_ref = loss.item(), loss_ref.item()
+    rel = abs(loss - loss_ref) / abs(loss_ref)
+    worst = worst_ratio = 0.0
+    parts = []
+    for name, gk, gp, g32 in zip(names, grads, grads_ref, grads32):
+        if not (torch.isfinite(gk).all() and gk.shape == gp.shape):
+            raise AssertionError(f"gradient of {name}: non-finite or misshapen")
+        err = ((gk - gp).norm() / gp.norm()).item()
+        k32, p32 = (((g - g32).norm() / g32.norm()).item() for g in (gk, gp))
+        worst, worst_ratio = max(worst, err), max(worst_ratio, k32 / p32)
+        parts.append(f"{name} {err:.3g} ({k32:.3g} / {p32:.3g})")
+    say("train", f"one step vs plain path on the card: loss {loss:.6f} vs {loss_ref:.6f} "
+                 f"(rel {rel:.3g}); gradient relative norm errors, kernels vs plain "
+                 f"(kernels vs fp32 / plain vs fp32): " + ", ".join(parts))
+    if not (rel <= LOSS_REL_ERR and worst <= GRAD_NORM_ERR and worst_ratio <= GRAD_FP32_RATIO):
+        raise AssertionError(f"train step vs plain path: loss rel err {rel} (limit "
+                             f"{LOSS_REL_ERR}), worst gradient norm err {worst} (limit "
+                             f"{GRAD_NORM_ERR}), worst ratio of distances to fp32 "
+                             f"{worst_ratio} (limit {GRAD_FP32_RATIO})")
+    del grads, grads_ref, grads32
+
+    # ---- the main path, counted: warm-up, then timed steps
+    for _ in range(WARMUP_STEPS):
+        st.train_step(st.images, st.labels)
+    torch.cuda.synchronize()
+    F.reset_launches()
+    step_s, losses, after = [], [], [dict(F.LAUNCHES)]
+    t_all = time.perf_counter()
+    for _ in range(TIMED_STEPS):
+        t0 = time.perf_counter()
+        losses.append(st.train_step(st.images, st.labels))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        after.append(dict(F.LAUNCHES))
+    t_all = time.perf_counter() - t_all
+    counts = after[-1]
+    losses = [v.item() for v in losses]
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite training loss: {losses}")
+
+    layers = st.clip_cfg.vision_layers + st.clip_cfg.transformer_layers
+    per_step = {"layer_fullblock": layers, "layer_fullblock_bwd": layers,
+                "attention_fwd": layers, "attention_bwd": layers,
+                "gemm_bf16_epilogue": 8 * layers,
+                # ln_1, ln_2 per layer plus ln_pre, ln_post and ln_final
+                "layernorm_fwd": 2 * layers + 3, "layernorm_bwd": 2 * layers + 3}
+    for i in range(TIMED_STEPS):
+        got = {k: after[i + 1][k] - after[i][k] for k in per_step}
+        if got != per_step:
+            raise AssertionError(f"train step {i}: launches {got} != {per_step}")
+    say("train", f"launches per step: {per_step}; over {TIMED_STEPS} steps: {counts}")
+    ips = BATCH * TIMED_STEPS / t_all
+    say("train", f"{TIMED_STEPS} steps of {BATCH} images: median "
+                 f"{statistics.median(step_s) * 1e3:.2f} ms, max {max(step_s) * 1e3:.2f} ms; "
+                 f"training throughput {ips:.1f} images/s; losses {losses[0]:.5f} .. "
+                 f"{losses[-1]:.5f}; peak device memory "
+                 f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+
+    # ---- where one step's device time goes (a separate, traced step)
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        st.train_step(st.images, st.labels)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    cats, by_kernel, others = device_time_by_kernel(prof)
+    busy = sum(cats.values())
+    if busy > 0:
+        share = ", ".join(f"{k} {v / 1e3:.2f} ms ({v / busy:.1%})" for k, v in cats.items())
+        say("train", f"traced step: device busy {busy / 1e3:.2f} ms of {wall_us / 1e3:.2f} ms "
+                     f"wall ({1 - busy / wall_us:.1%} idle); {share}")
+        say("train", "by kernel: " + "; ".join(
+            f"{k} {v / 1e3:.3f} ms" for k, v in sorted(by_kernel.items(), key=lambda kv: -kv[1])))
+        top = sorted(others.items(), key=lambda kv: -kv[1])[:8]
+        say("train", "largest other device time: " +
+            "; ".join(f"{k} {v / 1e3:.3f} ms" for k, v in top))
+    else:
+        say("train", "traced step: the profiler recorded no device time (not measured)")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -396,9 +679,12 @@ def main() -> int:
 
     kernels = {name: Kernel(name) for name in _build.SIGNATURES}
     phase_kernels(F, kernels)
-    counts = phase_serving(F)
+    serving = phase_serving(F)
+    train = phase_train(F)
 
-    print(json.dumps({"kernels": [k.record(counts[k.name]) for k in kernels.values()]}))
+    print(json.dumps({"kernels": [
+        k.record({"serving": serving[k.name], "train_step": train[k.name]})
+        for k in kernels.values()]}))
     print(smi())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

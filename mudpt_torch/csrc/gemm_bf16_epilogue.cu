@@ -1,33 +1,50 @@
-// gemm_bf16_epilogue: C[M,N] = epilogue(A[M,K] . W[K,N]), bf16 operands,
-// fp32 accumulation, W in its (in, out) row-major layout.
+// gemm_bf16_epilogue: C[M,N] = epilogue(A[M,K] . B[K,N]), bf16 operands,
+// fp32 accumulation.  B is W in its (in, out) = (K, N) row-major layout for
+// the forward epilogues, and W^T for the backward ones, with W (N, K)
+// row-major: the layer's weights are used in their stored layout both ways.
 //
-// Replaces: the four projections of the TPU layer kernel
-//   _layer_fwd_nosave_kernel (mudpt_tpu/ops/fused_block.py:851-865):
-//   qkv      _attn_project  (:301-307)  C = bf16(bf16(acc) + bf16(b))
-//   out-proj _attn_finish   (:310-315)  C = R + bf16(bf16(acc) + b)
-//   fc       _mlp_pre + QuickGELU (:392-400, :860)
-//                                       C = bf16(g(acc + f32(b))), g(h) = h*sigmoid(1.702h)
-//   proj     (:861-865)                 C = R + bf16(bf16(acc) + b)
-//   Each epilogue rounds to bf16 at the same points as the Pallas code, so
-//   the kernel and its plain version differ only in the order of the fp32
-//   sums.
-// Bound on the H100: tensor-core operations.  At the serving shapes
+// Replaces: the projections of the TPU layer kernels in
+//   mudpt_tpu/ops/fused_block.py, each epilogue rounding to bf16 at the
+//   same points as the Pallas code:
+//   _layer_fwd_nosave_kernel (:851-865) and _layer_fwd_kernel (:831-848):
+//   qkv          _attn_project  (:301-307)  C = bf16(bf16(acc) + bf16(b))
+//   out-proj     _attn_finish   (:310-315)  C = R + bf16(bf16(acc) + b)
+//   fc           _mlp_pre + QuickGELU (:392-400, :860)
+//                                           C = bf16(g(acc + f32(b))), g(h) = h*sigmoid(1.702h)
+//   fc, saving   (:841-843)                 C = bf16(h32), C2 = bf16(g(h32)), h32 = acc + f32(b)
+//   proj         (:861-865)                 C = R + bf16(bf16(acc) + b)
+//   _layer_bwd_kernel (:868-880), through _mlp_bwd_core (:429) and
+//   _attn_bwd_core (:336), all four reading W transposed:
+//   g.proj_w^T   (:430-434)                 C = bf16(acc * g'(f32(H))), H the saved h
+//   dh.fc_w^T    (:435-438)                 C = acc (fp32)
+//   dy1.out_w^T  (:340-343, :274-275)       C = bf16(acc)
+//   dqkv.qkv_w^T (:349-352)                 C = acc (fp32)
+//   so the kernel and its plain version differ only in the order of the
+//   fp32 sums.
+// Bound on the H100: tensor-core operations.  At the vision shapes
 //   (M = 384*199 = 76,416 tokens, K, N in 768..3072) a product does
 //   2*M*N*K operations over (M*K + K*N + M*N)*2 bytes, i.e. hundreds of
 //   operations per byte, above the ~295 where bf16 tensor cores bind.
 // Design: Hopper's warpgroup MMA, fed by TMA, warp-specialized.  A block
 //   owns a 128 x 256 output tile.  One thread of warpgroup 0 keeps a 3-stage
 //   ring of 64-wide K slices full with TMA copies (A as K-major boxes of
-//   128 x 64, W as N-major boxes of 64 x 64, both 128-byte swizzled as the
-//   wgmma descriptors read them, so W keeps its (in, out) layout and is
-//   read through the descriptor's transpose bit); mbarriers say when a
-//   stage is full and when it is free again.  Warpgroups 1 and 2 each
-//   accumulate a 64 x 256 slab in registers with wgmma m64n256k16 straight
-//   from shared memory, keeping one slice's products in flight while they
-//   wait for the next.  TMA zero-fills the ragged M edge, which the store
-//   masks; N must be a multiple of 8 and K of 64.  The epilogue runs on
-//   the accumulator registers and leaves through a shared-memory slab in
-//   16-byte rows, the residual read the same way.  Blocks are
+//   128 x 64; a (K, N) W as N-major boxes of 64 x 64, read through the
+//   descriptor's transpose bit; an (N, K) W as one K-major box of 256 x 64,
+//   wgmma's native B layout; all 128-byte swizzled as the wgmma
+//   descriptors read them, so no transposed copy of a weight exists);
+//   mbarriers say when a stage is full and when it is free again.
+//   Warpgroups 1 and 2 each accumulate a 64 x 256 slab in registers with
+//   wgmma m64n256k16 straight from shared memory, keeping one slice's
+//   products in flight while they wait for the next.  TMA zero-fills the
+//   ragged M edge, which the store masks; N must be a multiple of 8 and K
+//   of 64.  The bf16 epilogues run on the accumulator registers and leave
+//   through a shared-memory slab in 16-byte rows (the residual read the
+//   same way; the saved h copied into the slab by cp.async while the
+//   products run, and read back at the fragment positions; the saving fc
+//   epilogue's h stored straight from the registers beside it).  The fp32 epilogue stores straight from the registers: a quad
+//   of lanes writes 32 contiguous bytes of a row, a whole sector, and a
+//   staged fp32 tile would need 64 KB more shared memory than the 3-stage
+//   ring leaves (216,064 of 232,448 bytes are in use).  Blocks are
 //   persistent, one per SM walking the tiles, so the producer loads the
 //   next tile while the consumers store this one.
 
@@ -38,7 +55,10 @@
 
 namespace {
 
-enum Epilogue { kQkv = 0, kResidual = 1, kFcGelu = 2 };
+enum Epilogue {
+  kQkv = 0, kResidual = 1, kFcGelu = 2, kFcGeluSave = 3,  // B = W, W (K, N)
+  kGeluBwd = 4, kStoreBf16 = 5, kStoreF32 = 6                // B = W^T, W (N, K)
+};
 
 // mbarrier helpers (shared-window addresses)
 __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
@@ -84,6 +104,13 @@ __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16(v));
 }
 
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  const int bytes = pred ? 16 : 0;  // 0 source bytes: 16 zero bytes land in smem
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(bytes));
+}
+
 // a 128 x 256 tile, 64-wide K slices, a 3-stage ring: the fastest of the
 // tile and ring shapes measured at the serving shapes (PERF.md)
 constexpr int BM = 128, BN = 256, BK = 64, STAGES = 3;
@@ -106,7 +133,9 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint3
          ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
 }
 
-// d (64 x 256 fp32 per warpgroup) += A (64 x 16, K-major) . B (16 x 256, N-major)
+// d (64 x 256 fp32 per warpgroup) += A (64 x 16, K-major) . B (16 x 256),
+// B N-major (TRANS_B = 1) or K-major (TRANS_B = 0)
+template <int TRANS_B>
 __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t desc_a,
                                                  uint64_t desc_b, int scale_d) {
   asm volatile(
@@ -128,7 +157,7 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t desc_
       "%104, %105, %106, %107, %108, %109, %110, %111, "
       "%112, %113, %114, %115, %116, %117, %118, %119, "
       "%120, %121, %122, %123, %124, %125, %126, %127}, "
-      "%128, %129, p, 1, 1, 0, 1;\n}\n"
+      "%128, %129, p, 1, 1, 0, %131;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -161,7 +190,17 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t desc_
         "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
         "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
+}
+
+// hardware exp and division (a few fp32 ulps), far below the bf16 rounding
+__device__ __forceinline__ float quick_gelu(float h) {
+  return __fdividef(h, 1.0f + __expf(-1.702f * h));
+}
+
+__device__ __forceinline__ float quick_gelu_grad(float h) {
+  const float s = __fdividef(1.0f, 1.0f + __expf(-1.702f * h));
+  return s + 1.702f * h * s * (1.0f - s);
 }
 
 template <int MODE>
@@ -169,7 +208,9 @@ __global__ void __launch_bounds__(THREADS, 1)
 gemm_bf16_kernel(const __grid_constant__ CUtensorMap map_a,
                  const __grid_constant__ CUtensorMap map_w,
                  const __nv_bfloat16* __restrict__ bias, const __nv_bfloat16* __restrict__ R,
-                 __nv_bfloat16* __restrict__ C, int M, int N, int K) {
+                 void* __restrict__ C, __nv_bfloat16* __restrict__ C2, int M, int N, int K) {
+  constexpr bool kWt = MODE >= kGeluBwd;      // B = W^T, W (N, K): K-major B
+  constexpr bool kBias = MODE <= kFcGeluSave;
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES];
   const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
@@ -206,9 +247,14 @@ gemm_bf16_kernel(const __grid_constant__ CUtensorMap map_a,
           const uint32_t bar = full0 + 8 * s;
           mbar_expect_tx(bar, STAGE_A + STAGE_B);
           tma_load_2d(sA + s * STAGE_A, &map_a, kt * BK, m0, bar);
+          if (kWt) {
+            // W rows n0 .. n0+255, K columns of this slice: 256 x 128 B
+            tma_load_2d(sB + s * STAGE_B, &map_w, kt * BK, n0, bar);
+          } else {
 #pragma unroll
-          for (int nb = 0; nb < BN / 64; ++nb)
-            tma_load_2d(sB + s * STAGE_B + nb * BK * 128, &map_w, n0 + 64 * nb, kt * BK, bar);
+            for (int nb = 0; nb < BN / 64; ++nb)
+              tma_load_2d(sB + s * STAGE_B + nb * BK * 128, &map_w, n0 + 64 * nb, kt * BK, bar);
+          }
         }
       }
     }
@@ -220,9 +266,22 @@ gemm_bf16_kernel(const __grid_constant__ CUtensorMap map_a,
   __nv_bfloat16* slab =
       reinterpret_cast<__nv_bfloat16*>(smem_raw + (sB + STAGES * STAGE_B - raw)) + c * 64 * OUT_LD;
   const bool releaser = (wtid & 31) == 0;
+  const int warp = wtid >> 5, lane = wtid & 31;
   int it = 0;
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const int m0 = (tile / n_nb) * BM, n0 = (tile % n_nb) * BN;
+    if (MODE == kGeluBwd) {
+      // the saved h tile into the slab with cp.async, in flight during the
+      // products; read back at the fragment positions in the epilogue
+      warpgroup_sync(1 + c);  // the previous tile's copy-out is done with the slab
+      for (int i = wtid; i < 64 * (BN / 8); i += 128) {
+        const int rl = i / (BN / 8), cl = (i % (BN / 8)) * 8;
+        const int gr = m0 + c * 64 + rl, gc = n0 + cl;
+        const bool ok = gr < M && gc < N;
+        cp_async16(slab + rl * OUT_LD + cl, ok ? R + (size_t)gr * N + gc : R, ok);
+      }
+      asm volatile("cp.async.commit_group;\n" ::);
+    }
     // no zero-fill: the first products are written with scale-d = 0, so no
     // ordinary instruction defines an accumulator register, which would
     // serialize the wgmma pipeline
@@ -235,9 +294,15 @@ gemm_bf16_kernel(const __grid_constant__ CUtensorMap map_a,
       asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
       for (int k = 0; k < BK / 16; ++k) {
-        // A: 32 bytes further along the 128-byte row; W: two k-groups further
-        wgmma_m64n256k16(d, smem_desc(a + k * 32, 16, 1024),
-                         smem_desc(b + k * 2048, BK * 128, 1024), kt > 0 || k > 0);
+        // A (and a K-major B): 32 bytes further along the 128-byte row;
+        // an N-major B: two k-groups further
+        if (kWt) {
+          wgmma_m64n256k16<0>(d, smem_desc(a + k * 32, 16, 1024),
+                              smem_desc(b + k * 32, 16, 1024), kt > 0 || k > 0);
+        } else {
+          wgmma_m64n256k16<1>(d, smem_desc(a + k * 32, 16, 1024),
+                              smem_desc(b + k * 2048, BK * 128, 1024), kt > 0 || k > 0);
+        }
       }
       asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
       // slice `it` stays in flight; slice it-1 is done: release its stage
@@ -248,43 +313,75 @@ gemm_bf16_kernel(const __grid_constant__ CUtensorMap map_a,
     if (releaser) mbar_arrive(empty0 + 8 * ((it - 1) % STAGES));
 
     // d[4j + 0..1]: row 16*warp + lane/4, cols 8j + 2*(lane%4) + 0..1;
-    // d[4j + 2..3]: row + 8.  Epilogue math on the registers, the bf16
-    // results through shared memory, then 16-byte rows out (with the
-    // residual added there, in 16-byte reads)
-    const int warp = wtid >> 5, lane = wtid & 31;
-    warpgroup_sync(1 + c);  // the previous tile's copy-out is done with the slab
+    // d[4j + 2..3]: row + 8
+    if (MODE == kStoreF32) {
+      float* Cf = static_cast<float*>(C);
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int gc = n0 + j * 8 + 2 * (lane & 3);
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int gr = m0 + c * 64 + warp * 16 + (lane >> 2) + half * 8;
+          if (gr < M && gc < N)
+            *reinterpret_cast<float2*>(Cf + (size_t)gr * N + gc) =
+                make_float2(d[4 * j + 2 * half], d[4 * j + 2 * half + 1]);
+        }
+      }
+      continue;
+    }
+
+    // bf16 epilogues: math on the registers, the results through the
+    // shared-memory slab, then 16-byte rows out (with the residual added
+    // there, in 16-byte reads); the saving fc epilogue's h leaves straight
+    // from the registers, a quad of lanes writing 16 contiguous bytes
+    if (MODE == kGeluBwd) asm volatile("cp.async.wait_group 0;\n" ::);
+    warpgroup_sync(1 + c);  // the slab is free (or holds this tile's h)
+    __nv_bfloat16* Cb = static_cast<__nv_bfloat16*>(C);
 #pragma unroll
     for (int j = 0; j < BN / 8; ++j) {
       const int cl = j * 8 + 2 * (lane & 3);
       float bb[2] = {0.f, 0.f};
-      if (n0 + cl < N) {
+      if (kBias && n0 + cl < N) {
         const __nv_bfloat162 b2 = *reinterpret_cast<const __nv_bfloat162*>(bias + n0 + cl);
         bb[0] = __low2float(b2);
         bb[1] = __high2float(b2);
       }
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
+        const int rl = warp * 16 + (lane >> 2) + half * 8;
+        __nv_bfloat162* slot = reinterpret_cast<__nv_bfloat162*>(slab + rl * OUT_LD + cl);
+        float hv[2] = {0.f, 0.f};
+        if (MODE == kGeluBwd) {
+          const float2 h2 = __bfloat1622float2(*slot);
+          hv[0] = h2.x;
+          hv[1] = h2.y;
+        }
         float v[2];
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const float acc = d[4 * j + 2 * half + e];
-          if (MODE == kQkv) {
-            v[e] = bf16_round(acc) + bb[e];
-          } else if (MODE == kResidual) {
-            v[e] = bf16_round(acc) + bb[e];  // + R, after this rounds to bf16
+          if (MODE == kQkv || MODE == kResidual) {
+            v[e] = bf16_round(acc) + bb[e];  // kResidual: + R, after this rounds to bf16
+          } else if (MODE == kFcGelu || MODE == kFcGeluSave) {
+            hv[e] = acc + bb[e];
+            v[e] = quick_gelu(hv[e]);
+          } else if (MODE == kGeluBwd) {
+            v[e] = acc * quick_gelu_grad(hv[e]);
           } else {
-            const float h = acc + bb[e];
-            // hardware exp and division (a few fp32 ulps), far below the
-            // bf16 rounding
-            v[e] = __fdividef(h, 1.0f + __expf(-1.702f * h));
+            v[e] = acc;  // kStoreBf16
           }
         }
-        const int rl = warp * 16 + (lane >> 2) + half * 8;
-        *reinterpret_cast<__nv_bfloat162*>(slab + rl * OUT_LD + cl) =
-            __floats2bfloat162_rn(v[0], v[1]);
+        if (MODE == kFcGeluSave) {
+          const int gr = m0 + c * 64 + rl;
+          if (gr < M && n0 + cl < N)
+            *reinterpret_cast<__nv_bfloat162*>(Cb + (size_t)gr * N + n0 + cl) =
+                __floats2bfloat162_rn(hv[0], hv[1]);
+        }
+        *slot = __floats2bfloat162_rn(v[0], v[1]);
       }
     }
     warpgroup_sync(1 + c);
+    __nv_bfloat16* out = MODE == kFcGeluSave ? C2 : Cb;
     for (int i = wtid; i < 64 * (BN / 8); i += 128) {
       const int rl = i / (BN / 8), cl = (i % (BN / 8)) * 8;
       const int gr = m0 + c * 64 + rl, gc = n0 + cl;
@@ -300,7 +397,7 @@ gemm_bf16_kernel(const __grid_constant__ CUtensorMap map_a,
           vp[e] = __floats2bfloat162_rn(r2.x + a2.x, r2.y + a2.y);
         }
       }
-      *reinterpret_cast<uint4*>(C + (size_t)gr * N + gc) = v;
+      *reinterpret_cast<uint4*>(out + (size_t)gr * N + gc) = v;
     }
   }
 }
@@ -341,11 +438,13 @@ bool make_map(CUtensorMap* map, const void* ptr, int rows, int cols, int box_row
 
 template <int MODE>
 int launch(const __nv_bfloat16* a, const __nv_bfloat16* w, const __nv_bfloat16* b,
-           const __nv_bfloat16* r, __nv_bfloat16* c, int M, int N, int K, cudaStream_t s) {
+           const __nv_bfloat16* r, void* c, __nv_bfloat16* c2, int M, int N, int K,
+           cudaStream_t s) {
   if (K % BK || N % 8) return (int)cudaErrorInvalidValue;
   CUtensorMap map_a, map_w;
-  if (!make_map(&map_a, a, M, K, BM) || !make_map(&map_w, w, K, N, BK))
-    return (int)cudaErrorInvalidValue;
+  const bool w_ok = MODE >= kGeluBwd ? make_map(&map_w, w, N, K, BN)   // W (N, K)
+                                     : make_map(&map_w, w, K, N, BK);  // W (K, N)
+  if (!make_map(&map_a, a, M, K, BM) || !w_ok) return (int)cudaErrorInvalidValue;
   auto kernel = gemm_bf16_kernel<MODE>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          SMEM_BYTES);
@@ -357,26 +456,33 @@ int launch(const __nv_bfloat16* a, const __nv_bfloat16* w, const __nv_bfloat16* 
     cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
   }
   const int n_tiles = ((N + BN - 1) / BN) * ((M + BM - 1) / BM);
-  kernel<<<n_tiles < n_sm ? n_tiles : n_sm, THREADS, SMEM_BYTES, s>>>(map_a, map_w, b, r, c, M,
-                                                                    N, K);
+  kernel<<<n_tiles < n_sm ? n_tiles : n_sm, THREADS, SMEM_BYTES, s>>>(map_a, map_w, b, r, c, c2,
+                                                                    M, N, K);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// mode: Epilogue.  bias: (N) bf16 for modes 0-3, else unused.  R: the
+// residual (mode 1) or the saved h (mode 4), (M, N) bf16.  C: (M, N), fp32
+// for mode 6, else bf16.  C2: the second output of mode 3.
 extern "C" int gemm_bf16_epilogue(const void* A, const void* W, const void* bias,
-                                  const void* R, void* C, int M, int N, int K, int mode,
-                                  void* stream) {
+                                  const void* R, void* C, void* C2, int M, int N, int K,
+                                  int mode, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
   const auto* a = static_cast<const __nv_bfloat16*>(A);
   const auto* w = static_cast<const __nv_bfloat16*>(W);
   const auto* b = static_cast<const __nv_bfloat16*>(bias);
   const auto* r = static_cast<const __nv_bfloat16*>(R);
-  auto* c = static_cast<__nv_bfloat16*>(C);
+  auto* c2 = static_cast<__nv_bfloat16*>(C2);
   switch (mode) {
-    case kQkv: return launch<kQkv>(a, w, b, r, c, M, N, K, s);
-    case kResidual: return launch<kResidual>(a, w, b, r, c, M, N, K, s);
-    case kFcGelu: return launch<kFcGelu>(a, w, b, r, c, M, N, K, s);
+    case kQkv: return launch<kQkv>(a, w, b, r, C, c2, M, N, K, s);
+    case kResidual: return launch<kResidual>(a, w, b, r, C, c2, M, N, K, s);
+    case kFcGelu: return launch<kFcGelu>(a, w, b, r, C, c2, M, N, K, s);
+    case kFcGeluSave: return launch<kFcGeluSave>(a, w, b, r, C, c2, M, N, K, s);
+    case kGeluBwd: return launch<kGeluBwd>(a, w, b, r, C, c2, M, N, K, s);
+    case kStoreBf16: return launch<kStoreBf16>(a, w, b, r, C, c2, M, N, K, s);
+    case kStoreF32: return launch<kStoreF32>(a, w, b, r, C, c2, M, N, K, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

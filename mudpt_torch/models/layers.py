@@ -5,10 +5,11 @@ LayerNorm computes in float32 and casts back to the input dtype; QuickGELU
 is ``x * sigmoid(1.702 x)``; weights use the ``(in, out)`` layout.
 
 :func:`residual_block` is the dispatch of ``layers.py:209-285``: a CUDA
-tensor goes to the hand-written ``layer_fullblock`` kernels, a CPU tensor
-to their plain version.  A CUDA tensor the kernels cannot take raises; it
+tensor goes to the hand-written ``layer_fullblock`` kernels (the saving
+forward and the kernel backward when x needs a gradient), a CPU tensor to
+their plain versions.  A CUDA tensor the kernels cannot take raises; it
 never quietly runs the plain body.  :func:`plain_blocks` lets a reference
-run ask for the plain body on the card explicitly.
+run ask for the plain versions on the card explicitly.
 """
 
 from __future__ import annotations
@@ -25,9 +26,10 @@ _PLAIN_ON_CUDA = False
 
 @contextlib.contextmanager
 def plain_blocks():
-    """Run every residual block through ``layer_fullblock_plain`` on any
-    device while the context is open: the reference that the kernels are
-    held against on the card."""
+    """Run every residual block and tower LayerNorm through the plain
+    versions on any device while the context is open (the layer's saving
+    forward and backward too): the reference that the kernels are held
+    against on the card."""
     global _PLAIN_ON_CUDA
     prev, _PLAIN_ON_CUDA = _PLAIN_ON_CUDA, True
     try:
@@ -45,15 +47,38 @@ def _require_bf16(x: torch.Tensor) -> None:
         )
 
 
+class LayerNormFn(torch.autograd.Function):
+    """A tower LayerNorm whose input needs a gradient: ``layernorm_fwd``
+    forward, ``layernorm_bwd`` backward (no residual, the bf16 upstream
+    gradient as dxn), dx only (JAX: XLA's autodiff of ``layer_norm``
+    :67-80, with scale and bias frozen)."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, eps):
+        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
+            raise ValueError("LayerNormFn returns dx only: scale and bias must not require grad")
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return fused_block.layer_norm_fwd(x, scale, bias, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale = ctx.saved_tensors
+        return fused_block.layer_norm_bwd(g.contiguous(), x, scale, None, ctx.eps), None, None, None
+
+
 def layer_norm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """fp32 statistics, cast back to x's dtype; on the card through the
-    ``layernorm_fwd`` kernel (bf16 activations only)."""
-    if not x.is_cuda or _PLAIN_ON_CUDA:
+    ``layernorm_fwd`` kernel and, when x needs a gradient, ``layernorm_bwd``
+    (bf16 activations only)."""
+    if _PLAIN_ON_CUDA:
         return fused_block.layer_norm_plain(x, p["scale"], p["bias"], eps)
-    _require_bf16(x)
-    D = x.shape[-1]
-    y = fused_block.layer_norm_fwd(x.contiguous().view(-1, D), p["scale"], p["bias"], eps)
-    return y.view(x.shape)
+    if x.is_cuda:
+        _require_bf16(x)
+    x = x.contiguous()
+    if torch.is_grad_enabled() and x.requires_grad:
+        return LayerNormFn.apply(x, p["scale"], p["bias"], eps)
+    return fused_block.layer_norm_fwd(x, p["scale"], p["bias"], eps)
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
@@ -100,14 +125,13 @@ def residual_block(p: dict, x: torch.Tensor, n_head: int,
         p["mlp"]["proj_w"], p["mlp"]["proj_b"],
         n_head, causal,
     )
-    if not x.is_cuda or _PLAIN_ON_CUDA:
-        return fused_block.layer_fullblock_plain(*args)
-    D = x.shape[-1]
-    if D > fused_block.MAX_WIDTH:
-        raise NotImplementedError(
-            f"width {D} > {fused_block.MAX_WIDTH} on CUDA needs the attention/MLP "
-            "half-block kernels (ROADMAP.md queue B item 2, attn_halfblock / "
-            "mlp_halfblock)"
-        )
-    _require_bf16(x)
-    return fused_block.layer_fullblock(*args)
+    if x.is_cuda and not _PLAIN_ON_CUDA:
+        D = x.shape[-1]
+        if D > fused_block.MAX_WIDTH:
+            raise NotImplementedError(
+                f"width {D} > {fused_block.MAX_WIDTH} on CUDA needs the attention/MLP "
+                "half-block kernels (ROADMAP.md queue B item 2, attn_halfblock / "
+                "mlp_halfblock)"
+            )
+        _require_bf16(x)
+    return fused_block.layer_fullblock(*args, plain=_PLAIN_ON_CUDA)

@@ -9,6 +9,10 @@ position -> @ projection.  Two shape levers of the JAX package carry over:
   * row packing (:35-75): G class rows share one kernel row of G*P tokens
     under the packed ``(period, valid)`` mask, so the projections run at
     G times the rows per launch while attention stays per sequence.
+
+Training keeps the JAX package's save/recompute policy (:130-157): above
+512 x 80 row-tokens the text tower's backward recomputes instead of saving,
+which needs the half-block kernels the port does not have yet.
 """
 
 from __future__ import annotations
@@ -25,6 +29,9 @@ _AUTO_PACK_TOKENS = 256
 _AUTO_PACK_MAX_G = 8
 _AUTO_PACK_MIN_GROUPS = 8
 _TRUNC_MIN = 16
+# row-token count from which the text tower's backward recomputes rather
+# than saves (text.py:150, the measured crossover of 512 rows x 80 tokens)
+_AUTO_RECOMPUTE_MIN_ROW_TOKENS = 512 * 80
 
 
 def _auto_pack_g(padded_seq: int, n_rows: int) -> int:
@@ -36,6 +43,11 @@ def _auto_pack_g(padded_seq: int, n_rows: int) -> int:
     while g > 1 and n_rows < _AUTO_PACK_MIN_GROUPS * g:
         g //= 2
     return g
+
+
+def _text_saves_off(n_rows: int, padded_seq: int) -> bool:
+    """``text._text_saves_off`` :154-157 under its default "auto" rule."""
+    return n_rows * padded_seq >= _AUTO_RECOMPUTE_MIN_ROW_TOKENS
 
 
 def effective_text_length(max_eot: int, full_length: int) -> int:
@@ -67,6 +79,12 @@ def text_forward(
         )
     prompts, pmask = make_injection_schedule(num_layers_of(p["blocks"]), deep_prompts)
     P = -(-S // 8) * 8
+    if x.is_cuda and torch.is_grad_enabled() and x.requires_grad and _text_saves_off(N, P):
+        raise NotImplementedError(
+            f"{N} text rows x {P} tokens train with saves off (recompute backward), "
+            "which on CUDA needs the attention/MLP half-block kernels (ROADMAP.md "
+            "queue B item 2, attn_halfblock / mlp_halfblock)"
+        )
     G = _auto_pack_g(P, N) if pack is None else pack
     kw = dict(n_head=n_head, prompts=prompts, prompt_mask=pmask, n_ctx=n_ctx, is_text=True)
     if G > 1:

@@ -66,7 +66,9 @@ def transformer_forward(
     """Run the tower, x (B, S, D) -> (B, S, D).  Splices write the prompt
     rows in place into the previous layer's output, which nothing else
     holds; ``x`` itself is written only if layer 0 splices, which the
-    towers' schedules never ask for."""
+    towers' schedules never ask for.  Autograd accepts the write: the
+    layer's forward saves its input, not its output, and returns a tensor
+    of its own (not a view)."""
     B, S, D = x.shape
     for l in range(num_layers_of(stacked_params)):
         if prompts is not None and prompt_mask[l]:

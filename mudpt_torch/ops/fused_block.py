@@ -1,16 +1,23 @@
-"""``layer_fullblock`` forward as a chain of hand-written Hopper kernels.
+"""``layer_fullblock`` as chains of hand-written Hopper kernels.
 
-Counterpart of the inference primal of ``mudpt_tpu/ops/fused_block.py``
-(``layer_fullblock`` :907, which runs ``_layer_fwd_nosave_kernel`` :851).
-The Pallas program holds a whole layer's weights for one image in VMEM; an
-SM's shared memory cannot, so the layer becomes a chain of tiled kernels
-(``csrc/``):
+Counterpart of ``mudpt_tpu/ops/fused_block.py`` :826-959: the inference
+primal (``layer_fullblock`` :907, which runs ``_layer_fwd_nosave_kernel``
+:851), and the custom VJP's saving forward (``_layer_fwd`` :926,
+``_layer_fwd_kernel`` :831) and backward (``_layer_bwd`` :946,
+``_layer_bwd_kernel`` :868).  The Pallas programs hold a whole layer's
+weights for one image in VMEM; an SM's shared memory cannot, so each
+becomes a chain of tiled kernels (``csrc/``):
 
-  LN1 -> qkv GEMM -> attention -> out-proj GEMM + residual (y1)
-      -> LN2 -> fc GEMM + QuickGELU -> proj GEMM + residual
+  forward   LN1 -> qkv GEMM -> attention -> out-proj GEMM + residual (y1)
+            -> LN2 -> fc GEMM + QuickGELU -> proj GEMM + residual
+  backward  GEMM g.proj_w^T * QuickGELU'(h) -> GEMM dh.fc_w^T -> LN2 dx + g
+            (dy1) -> GEMM dy1.out_w^T -> attention dq/dk/dv
+            -> GEMM dqkv.qkv_w^T -> LN1 dx + dy1
 
 with bf16 activations and weights, fp32 LayerNorm parameters and statistics,
 fp32 accumulation, and bf16 rounding at the same points as the Pallas code.
+The saving forward also writes y1, qkv and h (bf16); the backward returns
+dx only, as the Pallas VJP does (the layer's weights are frozen).
 
 Every kernel has a wrapper and a plain PyTorch version beside it.  A wrapper
 given CPU tensors runs the plain version (the CPU tests); given CUDA tensors
@@ -32,16 +39,33 @@ import torch
 from mudpt_torch.ops import _build
 
 NEG = -1e30  # additive mask value of the Pallas kernels (fused_block._NEG)
-HEAD_DIM = 64  # the attention kernel's head dim (every CLIP tower's)
+HEAD_DIM = 64  # the attention kernels' head dim (every CLIP tower's)
 MAX_WIDTH = 768  # widest tower layer_fullblock takes (models/layers.py:257)
+ATTN_BWD_MAX_BLOCK = 208  # longest sequence block attention_bwd holds
 
-EPILOGUES = {"qkv": 0, "residual": 1, "fc_gelu": 2}
+# epilogue -> (kernel mode, W given as (N, K) and read transposed).  The
+# forward epilogues take W in its (in, out) = (K, N) layout; the backward
+# ones compute A . W^T with W in the same stored layout, which is (N, K).
+EPILOGUES = {
+    "qkv": (0, False),
+    "residual": (1, False),
+    "fc_gelu": (2, False),
+    "fc_gelu_save": (3, False),
+    "gelu_bwd": (4, True),
+    "store_bf16": (5, True),
+    "store_f32": (6, True),
+}
+_BIASED = ("qkv", "residual", "fc_gelu", "fc_gelu_save")
+_EXTRA = ("residual", "gelu_bwd")  # take a second (M, N) bf16 operand
 
 LAUNCHES = {
     "layernorm_fwd": 0,
     "gemm_bf16_epilogue": 0,
     "attention_fwd": 0,
+    "layernorm_bwd": 0,
+    "attention_bwd": 0,
     "layer_fullblock": 0,
+    "layer_fullblock_bwd": 0,
 }
 
 Causal = Union[bool, Tuple[int, int]]
@@ -70,25 +94,35 @@ def _require(t: torch.Tensor, what: str, dtype: torch.dtype, shape=None) -> None
         raise ValueError(f"{what}: data pointer is not 16-byte aligned")
 
 
+def quick_gelu_grad(h):
+    """d/dh of h*sigmoid(1.702h) (``fused_block._quick_gelu_grad`` :387)."""
+    s = torch.sigmoid(1.702 * h)
+    return s + 1.702 * h * s * (1.0 - s)
+
+
 # ---------------------------------------------------------------------------
-# LayerNorm (csrc/layernorm_fwd.cu)
+# LayerNorm forward (csrc/layernorm_fwd.cu) and dx (csrc/layernorm_bwd.cu)
 # ---------------------------------------------------------------------------
+
+def _ln_stats(x32, eps):
+    mean = x32.mean(-1, keepdim=True)
+    var = (x32 - mean).square().mean(-1, keepdim=True)
+    inv = torch.rsqrt(var + eps)
+    return (x32 - mean) * inv, inv
+
 
 def layer_norm_plain(x, scale, bias, eps: float = 1e-5):
     """fp32 statistics and affine, cast back to x's dtype
     (``fused_block._ln_fp32`` :150 with the casts at :303, :394)."""
-    x32 = x.float()
-    mean = x32.mean(-1, keepdim=True)
-    var = (x32 - mean).square().mean(-1, keepdim=True)
-    y = (x32 - mean) * torch.rsqrt(var + eps)
-    return (y * scale.float() + bias.float()).to(x.dtype)
+    xhat, _ = _ln_stats(x.float(), eps)
+    return (xhat * scale.float() + bias.float()).to(x.dtype)
 
 
 def layer_norm_fwd(x, scale, bias, eps: float = 1e-5):
-    """LayerNorm over the last dim of a (rows, D) tensor."""
+    """LayerNorm over the last dim of x, any leading shape."""
     if not x.is_cuda:
         return layer_norm_plain(x, scale, bias, eps)
-    rows, D = x.shape
+    D = x.shape[-1]
     if D % 8 or D > 1024:
         raise ValueError(f"layernorm_fwd: D={D} must be a multiple of 8 and <= 1024")
     _require(x, "layernorm_fwd x", torch.bfloat16)
@@ -97,65 +131,129 @@ def layer_norm_fwd(x, scale, bias, eps: float = 1e-5):
     y = torch.empty_like(x)
     lib = _build.load()["layernorm_fwd"]
     _build.check(lib.layernorm_fwd(x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-                                   y.data_ptr(), rows, D, eps, _stream()), "layernorm_fwd")
+                                   y.data_ptr(), x.numel() // D, D, eps, _stream()),
+                 "layernorm_fwd")
     LAUNCHES["layernorm_fwd"] += 1
     return y
 
 
+def layer_norm_bwd_plain(dxn, x, scale, residual=None, eps: float = 1e-5):
+    """dx of LayerNorm from the gradient ``dxn`` on its normalized output,
+    statistics recomputed from x in fp32 (``fused_block._ln_bwd_dx`` :160
+    with ``_ln_fp32``), plus an optional residual gradient, rounded once to
+    x's dtype: ``dt(f32(r) + ln_bwd_dx)`` (:353-355, :439-441)."""
+    xhat, inv = _ln_stats(x.float(), eps)
+    g = dxn.float() * scale.float()
+    gm = g.mean(-1, keepdim=True)
+    gx = (g * xhat).mean(-1, keepdim=True)
+    dx = (g - gm - xhat * gx) * inv
+    if residual is not None:
+        dx = residual.float() + dx
+    return dx.to(x.dtype)
+
+
+def layer_norm_bwd(dxn, x, scale, residual=None, eps: float = 1e-5):
+    """LayerNorm dx over the last dim; ``dxn`` fp32 or bf16, x and the
+    optional residual bf16, any leading shape."""
+    if not x.is_cuda:
+        return layer_norm_bwd_plain(dxn, x, scale, residual, eps)
+    D = x.shape[-1]
+    if D % 8 or D > 1024:
+        raise ValueError(f"layernorm_bwd: D={D} must be a multiple of 8 and <= 1024")
+    _require(x, "layernorm_bwd x", torch.bfloat16)
+    if dxn.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"layernorm_bwd dxn: expected float32 or bfloat16, got {dxn.dtype}")
+    _require(dxn, "layernorm_bwd dxn", dxn.dtype, x.shape)
+    _require(scale, "layernorm_bwd scale", torch.float32, (D,))
+    if residual is not None:
+        _require(residual, "layernorm_bwd residual", torch.bfloat16, x.shape)
+    dx = torch.empty_like(x)
+    lib = _build.load()["layernorm_bwd"]
+    r_ptr = residual.data_ptr() if residual is not None else None
+    _build.check(lib.layernorm_bwd(dxn.data_ptr(), int(dxn.dtype == torch.bfloat16),
+                                   x.data_ptr(), scale.data_ptr(), r_ptr, dx.data_ptr(),
+                                   x.numel() // D, D, eps, _stream()), "layernorm_bwd")
+    LAUNCHES["layernorm_bwd"] += 1
+    return dx
+
+
 # ---------------------------------------------------------------------------
-# GEMM with the layer's three epilogues (csrc/gemm_bf16_epilogue.cu)
+# GEMM with the layer's epilogues (csrc/gemm_bf16_epilogue.cu)
 # ---------------------------------------------------------------------------
 
-def gemm_epilogue_plain(a, w, bias, epilogue: str, residual=None):
-    """``epilogue(a @ w)`` with fp32 accumulation and the Pallas rounding
-    points (dt = a's dtype):
-
-      qkv       dt(acc) + dt(b)                        (:304-307)
-      residual  r + (dt(acc) + dt(b))                  (:310-315, :861-865)
-      fc_gelu   dt(quickgelu(acc + f32(b))) in fp32    (:392-400, :860)
-    """
-    dt = a.dtype
-    acc = torch.matmul(a.float(), w.float())
-    if epilogue == "fc_gelu":
-        h = acc + bias.float()
-        return (h * torch.sigmoid(1.702 * h)).to(dt)
-    out = acc.to(dt) + bias.to(dt)
-    if epilogue == "qkv":
-        return out
-    if epilogue == "residual":
-        return residual + out
-    raise ValueError(f"unknown epilogue {epilogue!r}; known: {sorted(EPILOGUES)}")
-
-
-def gemm_epilogue(a, w, bias, epilogue: str, residual=None):
-    """(M, K) @ (K, N) with W in its (in, out) layout, then the epilogue."""
-    if not a.is_cuda:
-        return gemm_epilogue_plain(a, w, bias, epilogue, residual)
+def _epilogue(epilogue: str):
     if epilogue not in EPILOGUES:
         raise ValueError(f"unknown epilogue {epilogue!r}; known: {sorted(EPILOGUES)}")
-    M, K = a.shape
-    N = w.shape[1]
+    return EPILOGUES[epilogue]
+
+
+def gemm_epilogue_plain(a, w, bias, epilogue: str, extra=None):
+    """``epilogue(a @ W)`` with fp32 accumulation and the Pallas rounding
+    points (dt = a's dtype; W is w, or w^T for the backward epilogues):
+
+      qkv           dt(acc) + dt(b)                        (:304-307)
+      residual      r + (dt(acc) + dt(b)), r = extra       (:310-315, :861-865)
+      fc_gelu       dt(quickgelu(acc + f32(b)))            (:392-400, :860)
+      fc_gelu_save  (dt(h32), dt(quickgelu(h32))), h32 = acc + f32(b)  (:841-843)
+      gelu_bwd      dt(acc * quickgelu'(f32(h))), h = extra (:430-434)
+      store_bf16    dt(acc)                                (:340-343, :274-275)
+      store_f32     acc                                    (:435-438, :349-352)
+    """
+    _, w_nk = _epilogue(epilogue)
+    dt = a.dtype
+    acc = torch.matmul(a.float(), w.float().t() if w_nk else w.float())
+    if epilogue in ("fc_gelu", "fc_gelu_save"):
+        h = acc + bias.float()
+        act = (h * torch.sigmoid(1.702 * h)).to(dt)
+        return (h.to(dt), act) if epilogue == "fc_gelu_save" else act
+    if epilogue == "gelu_bwd":
+        return (acc * quick_gelu_grad(extra.float())).to(dt)
+    if epilogue == "store_bf16":
+        return acc.to(dt)
+    if epilogue == "store_f32":
+        return acc
+    out = acc.to(dt) + bias.to(dt)
+    return out if epilogue == "qkv" else extra + out
+
+
+def gemm_epilogue(a, w, bias, epilogue: str, extra=None):
+    """(..., K) times W, then the epilogue: W is (K, N) for the forward
+    epilogues and (N, K), read transposed, for the backward ones.  ``extra``
+    is the residual r (``residual``) or the saved pre-activation h
+    (``gelu_bwd``).  ``fc_gelu_save`` returns (h, a)."""
+    if not a.is_cuda:
+        return gemm_epilogue_plain(a, w, bias, epilogue, extra)
+    mode, w_nk = _epilogue(epilogue)
+    K = a.shape[-1]
+    M = a.numel() // K
+    N = w.shape[0] if w_nk else w.shape[1]
     if K % 64 or N % 8:
         raise ValueError(f"gemm_bf16_epilogue: K={K} must be a multiple of 64, N={N} of 8")
+    out_shape = (*a.shape[:-1], N)
     _require(a, "gemm a", torch.bfloat16)
-    _require(w, "gemm w", torch.bfloat16, (K, N))
-    _require(bias, "gemm bias", torch.bfloat16, (N,))
-    if epilogue == "residual":
-        _require(residual, "gemm residual", torch.bfloat16, (M, N))
-    elif residual is not None:
-        raise ValueError(f"epilogue {epilogue!r} takes no residual")
-    c = torch.empty((M, N), dtype=torch.bfloat16, device=a.device)
+    _require(w, "gemm w", torch.bfloat16, (N, K) if w_nk else (K, N))
+    if epilogue in _BIASED:
+        _require(bias, "gemm bias", torch.bfloat16, (N,))
+    elif bias is not None:
+        raise ValueError(f"epilogue {epilogue!r} takes no bias")
+    if epilogue in _EXTRA:
+        _require(extra, f"gemm {epilogue} operand", torch.bfloat16, out_shape)
+    elif extra is not None:
+        raise ValueError(f"epilogue {epilogue!r} takes no second operand")
+    dt = torch.float32 if epilogue == "store_f32" else torch.bfloat16
+    c = torch.empty(out_shape, dtype=dt, device=a.device)
+    c2 = torch.empty_like(c) if epilogue == "fc_gelu_save" else None
     lib = _build.load()["gemm_bf16_epilogue"]
-    r_ptr = residual.data_ptr() if residual is not None else None
-    _build.check(lib.gemm_bf16_epilogue(a.data_ptr(), w.data_ptr(), bias.data_ptr(), r_ptr,
-                                        c.data_ptr(), M, N, K, EPILOGUES[epilogue],
-                                        _stream()), "gemm_bf16_epilogue")
+    ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
+    _build.check(lib.gemm_bf16_epilogue(a.data_ptr(), w.data_ptr(), ptr(bias), ptr(extra),
+                                        c.data_ptr(), ptr(c2), M, N, K, mode, _stream()),
+                 "gemm_bf16_epilogue")
     LAUNCHES["gemm_bf16_epilogue"] += 1
-    return c
+    return (c, c2) if c2 is not None else c
 
 
 # ---------------------------------------------------------------------------
-# attention (csrc/attention_fwd.cu)
+# attention forward (csrc/attention_fwd.cu) and backward (csrc/attention_bwd.cu)
 # ---------------------------------------------------------------------------
 
 def _block_spec(S: int, causal: Causal):
@@ -169,32 +267,42 @@ def _block_spec(S: int, causal: Causal):
     return S, bool(causal), S
 
 
+def _split_heads(qkv, n_head: int, causal: Causal):
+    """q, k, v as (n, H, L, hd) per sequence block, and the block spec."""
+    B, S, D3 = qkv.shape
+    hd = D3 // 3 // n_head
+    L, is_causal, valid = _block_spec(S, causal)
+    q, k, v = qkv.reshape(B * (S // L), L, 3, n_head, hd).permute(2, 0, 3, 1, 4)
+    return q, k, v, L, is_causal, valid
+
+
+def _probs_plain(q, k, L: int, is_causal: bool, valid: int):
+    """fp32 softmax(q k^T * hd^-0.5 + mask) (``_head_probs`` :197)."""
+    scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * q.shape[-1] ** -0.5
+    row = torch.arange(L, device=q.device)[:, None]
+    col = torch.arange(L, device=q.device)[None, :]
+    masked = col >= valid
+    if is_causal:
+        masked = masked | (col > row)
+    if is_causal or valid < L:
+        scores = scores + torch.where(masked, NEG, 0.0)
+    return torch.softmax(scores, dim=-1)
+
+
 def attention_plain(qkv, n_head: int, causal: Causal = False):
     """Multi-head attention from a packed (B, S, 3D) qkv -> (B, S, D):
     scores fp32(q k^T) * hd^-0.5 + mask (-1e30), fp32 softmax, probabilities
     cast to qkv's dtype before P.V, fp32 accumulation, output in qkv's dtype
     (``_mha_acc`` :222, ``_head_probs`` :197)."""
     B, S, D3 = qkv.shape
-    D = D3 // 3
-    hd = D // n_head
-    L, is_causal, valid = _block_spec(S, causal)
-    n = B * (S // L)
-    q, k, v = qkv.reshape(n, L, 3, n_head, hd).permute(2, 0, 3, 1, 4)  # (n, H, L, hd)
-    scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * hd ** -0.5
-    row = torch.arange(L, device=qkv.device)[:, None]
-    col = torch.arange(L, device=qkv.device)[None, :]
-    masked = col >= valid
-    if is_causal:
-        masked = masked | (col > row)
-    if is_causal or valid < L:
-        scores = scores + torch.where(masked, NEG, 0.0)
-    p = torch.softmax(scores, dim=-1).to(qkv.dtype)
+    q, k, v, L, is_causal, valid = _split_heads(qkv, n_head, causal)
+    p = _probs_plain(q, k, L, is_causal, valid).to(qkv.dtype)
     o = torch.matmul(p.float(), v.float()).to(qkv.dtype)  # (n, H, L, hd)
-    return o.permute(0, 2, 1, 3).reshape(B, S, D)
+    return o.permute(0, 2, 1, 3).reshape(B, S, D3 // 3)
 
 
 def attention_fwd(qkv, n_head: int, causal: Causal = False):
-    """Attention per (sequence block, head, 64-query tile) on the card."""
+    """Attention per (sequence block, head, 128-query tile) on the card."""
     if not qkv.is_cuda:
         return attention_plain(qkv, n_head, causal)
     B, S, D3 = qkv.shape
@@ -214,45 +322,158 @@ def attention_fwd(qkv, n_head: int, causal: Causal = False):
     return out
 
 
+def attention_bwd_plain(qkv, do, n_head: int, causal: Causal = False):
+    """dq, dk, dv of every (sequence block, head) packed as (B, S, 3D) in
+    qkv's dtype (``_mha_grads_into`` :242, ``_head_grads`` :267): the fp32
+    softmax p recomputed from the saved q and k; dp = do.v^T and
+    dv = dt(p)^T.do in fp32; ds = p * (dp - rowsum(dp * p)) * hd^-0.5 in
+    fp32; dq = dt(ds).k and dk = dt(ds)^T.q in fp32; each stored in dt."""
+    B, S, D3 = qkv.shape
+    dt = qkv.dtype
+    q, k, v, L, is_causal, valid = _split_heads(qkv, n_head, causal)
+    hd = q.shape[-1]
+    dO = do.reshape(q.shape[0], L, n_head, hd).permute(0, 2, 1, 3).float()
+    p = _probs_plain(q, k, L, is_causal, valid)
+    dp = torch.matmul(dO, v.float().transpose(-1, -2))
+    dv = torch.matmul(p.to(dt).float().transpose(-1, -2), dO)
+    ds = (p * (dp - (dp * p).sum(-1, keepdim=True)) * hd ** -0.5).to(dt).float()
+    dq = torch.matmul(ds, k.float())
+    dk = torch.matmul(ds.transpose(-1, -2), q.float())
+    # (3, n, H, L, hd) -> (n, L, 3, H, hd): the layout of the packed qkv
+    return torch.stack([dq, dk, dv]).permute(1, 3, 0, 2, 4).reshape(B, S, D3).to(dt)
+
+
+def attention_bwd(qkv, do, n_head: int, causal: Causal = False):
+    """dqkv per (sequence block, head) on the card, from the saved qkv and
+    the bf16 gradient ``do`` of the attention output."""
+    if not qkv.is_cuda:
+        return attention_bwd_plain(qkv, do, n_head, causal)
+    B, S, D3 = qkv.shape
+    D = D3 // 3
+    if D != n_head * HEAD_DIM:
+        raise ValueError(f"attention_bwd: head dim must be {HEAD_DIM} (D={D}, heads={n_head})")
+    L, is_causal, valid = _block_spec(S, causal)
+    if L > ATTN_BWD_MAX_BLOCK:
+        raise ValueError(f"attention_bwd: sequence block {L} > {ATTN_BWD_MAX_BLOCK} "
+                         "does not fit shared memory")
+    _require(qkv, "attention_bwd qkv", torch.bfloat16)
+    _require(do, "attention_bwd do", torch.bfloat16, (B, S, D))
+    dqkv = torch.empty_like(qkv)
+    lib = _build.load()["attention_bwd"]
+    _build.check(lib.attention_bwd(qkv.data_ptr(), do.data_ptr(), dqkv.data_ptr(),
+                                   B * (S // L), L, D, n_head, int(is_causal), valid,
+                                   HEAD_DIM ** -0.5, _stream()), "attention_bwd")
+    LAUNCHES["attention_bwd"] += 1
+    return dqkv
+
+
 # ---------------------------------------------------------------------------
 # the layer
 # ---------------------------------------------------------------------------
 
-def _layer_chain(ln, gemm, attn, x, ln1_s, ln1_b, qkv_w, qkv_b, out_w, out_b,
-                 ln2_s, ln2_b, fc_w, fc_b, proj_w, proj_b, n_head, causal):
-    B, S, D = x.shape
-    x2 = x.reshape(B * S, D)
-    qkv = gemm(ln(x2, ln1_s, ln1_b), qkv_w, qkv_b, "qkv")
-    a = attn(qkv.reshape(B, S, 3 * D), n_head, causal).reshape(B * S, D)
-    y1 = gemm(a, out_w, out_b, "residual", x2)
-    h = gemm(ln(y1, ln2_s, ln2_b), fc_w, fc_b, "fc_gelu")
-    return gemm(h, proj_w, proj_b, "residual", y1).reshape(B, S, D)
+_PLAIN = (layer_norm_plain, gemm_epilogue_plain, attention_plain,
+          layer_norm_bwd_plain, attention_bwd_plain)
+_KERNELS = (layer_norm_fwd, gemm_epilogue, attention_fwd, layer_norm_bwd, attention_bwd)
+
+
+def _layer_chain(fns, x, ln1_s, ln1_b, qkv_w, qkv_b, out_w, out_b,
+                 ln2_s, ln2_b, fc_w, fc_b, proj_w, proj_b, n_head, causal, save):
+    """The forward on 3-D tensors; ``save`` also returns y1, qkv and h."""
+    ln, gemm, attn = fns[:3]
+    qkv = gemm(ln(x, ln1_s, ln1_b), qkv_w, qkv_b, "qkv")
+    y1 = gemm(attn(qkv, n_head, causal), out_w, out_b, "residual", x)
+    xn2 = ln(y1, ln2_s, ln2_b)
+    if not save:
+        return gemm(gemm(xn2, fc_w, fc_b, "fc_gelu"), proj_w, proj_b, "residual", y1)
+    h, act = gemm(xn2, fc_w, fc_b, "fc_gelu_save")
+    return gemm(act, proj_w, proj_b, "residual", y1), y1, qkv, h
+
+
+def _layer_bwd_chain(fns, x, y1, qkv, h, g, ln1_s, qkv_w, out_w, ln2_s, fc_w, proj_w,
+                     n_head, causal):
+    """dx of the layer from the saved tensors (``_layer_bwd_kernel`` :868:
+    ``_mlp_bwd_core`` :429, then ``_attn_bwd_core`` :336)."""
+    gemm, ln_bwd, attn_bwd = fns[1], fns[3], fns[4]
+    dh = gemm(g, proj_w, None, "gelu_bwd", h)
+    dy1 = ln_bwd(gemm(dh, fc_w, None, "store_f32"), y1, ln2_s, g)
+    dqkv = attn_bwd(qkv, gemm(dy1, out_w, None, "store_bf16"), n_head, causal)
+    return ln_bwd(gemm(dqkv, qkv_w, None, "store_f32"), x, ln1_s, dy1)
 
 
 def layer_fullblock_plain(x, ln1_s, ln1_b, qkv_w, qkv_b, out_w, out_b,
                           ln2_s, ln2_b, fc_w, fc_b, proj_w, proj_b,
                           n_head: int, causal: Causal = False):
     """The layer from the kernels' plain versions, on any device."""
-    return _layer_chain(layer_norm_plain, gemm_epilogue_plain, attention_plain,
-                        x, ln1_s, ln1_b, qkv_w, qkv_b, out_w, out_b,
-                        ln2_s, ln2_b, fc_w, fc_b, proj_w, proj_b, n_head, causal)
+    return _layer_chain(_PLAIN, x, ln1_s, ln1_b, qkv_w, qkv_b, out_w, out_b,
+                        ln2_s, ln2_b, fc_w, fc_b, proj_w, proj_b, n_head, causal, False)
+
+
+def layer_fullblock_fwd_save_plain(x, ln1_s, ln1_b, qkv_w, qkv_b, out_w, out_b,
+                                   ln2_s, ln2_b, fc_w, fc_b, proj_w, proj_b,
+                                   n_head: int, causal: Causal = False):
+    """(y, y1, qkv, h) from the plain versions (``_layer_fwd`` :926)."""
+    return _layer_chain(_PLAIN, x, ln1_s, ln1_b, qkv_w, qkv_b, out_w, out_b,
+                        ln2_s, ln2_b, fc_w, fc_b, proj_w, proj_b, n_head, causal, True)
+
+
+def layer_fullblock_bwd_plain(x, y1, qkv, h, g, ln1_s, qkv_w, out_w, ln2_s, fc_w, proj_w,
+                              n_head: int, causal: Causal = False):
+    """dx from the plain versions (``_layer_bwd`` :946)."""
+    return _layer_bwd_chain(_PLAIN, x, y1, qkv, h, g, ln1_s, qkv_w, out_w, ln2_s, fc_w,
+                            proj_w, n_head, causal)
+
+
+class LayerFullblockFn(torch.autograd.Function):
+    """``layer_fullblock.defvjp(_layer_fwd, _layer_bwd)`` (:926-959): the
+    forward saves x, y1, qkv and h; the backward returns dx and no weight
+    gradient.  ``plain`` runs the plain versions of both chains (the
+    reference on the card); otherwise the kernel wrappers, which on CPU
+    tensors run the same plain versions."""
+
+    @staticmethod
+    def forward(ctx, x, ln1_s, ln1_b, qkv_w, qkv_b, out_w, out_b,
+                ln2_s, ln2_b, fc_w, fc_b, proj_w, proj_b, n_head, causal, plain):
+        if any(ctx.needs_input_grad[1:13]):
+            raise ValueError("layer_fullblock returns dx only: its weights must not "
+                             "require grad (the frozen-backbone regime)")
+        fns = _PLAIN if plain else _KERNELS
+        y, y1, qkv, h = _layer_chain(fns, x, ln1_s, ln1_b, qkv_w, qkv_b, out_w, out_b,
+                                     ln2_s, ln2_b, fc_w, fc_b, proj_w, proj_b,
+                                     n_head, causal, True)
+        ctx.save_for_backward(x, y1, qkv, h, ln1_s, qkv_w, out_w, ln2_s, fc_w, proj_w)
+        ctx.n_head, ctx.causal, ctx.plain = n_head, causal, plain
+        if x.is_cuda and not plain:
+            LAUNCHES["layer_fullblock"] += 1
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x = ctx.saved_tensors[0]
+        dx = _layer_bwd_chain(_PLAIN if ctx.plain else _KERNELS, *ctx.saved_tensors[:4],
+                              g.contiguous(), *ctx.saved_tensors[4:], ctx.n_head, ctx.causal)
+        if x.is_cuda and not ctx.plain:
+            LAUNCHES["layer_fullblock_bwd"] += 1
+        return (dx,) + (None,) * 15
 
 
 def layer_fullblock(x, ln1_s, ln1_b, qkv_w, qkv_b, out_w, out_b,
                     ln2_s, ln2_b, fc_w, fc_b, proj_w, proj_b,
-                    n_head: int, causal: Causal = False):
-    """One pre-LN residual CLIP layer, x (B, S, D) -> (B, S, D), forward
-    only.  Same signature and mask spec as the Pallas wrapper
-    (``fused_block.layer_fullblock`` :907)."""
-    if not x.is_cuda:
-        return layer_fullblock_plain(x, ln1_s, ln1_b, qkv_w, qkv_b, out_w, out_b,
-                                     ln2_s, ln2_b, fc_w, fc_b, proj_w, proj_b,
-                                     n_head, causal)
-    if x.shape[-1] > MAX_WIDTH:
-        raise ValueError(f"layer_fullblock takes D <= {MAX_WIDTH}, got {x.shape[-1]}")
-    _require(x, "layer_fullblock x", torch.bfloat16)
-    y = _layer_chain(layer_norm_fwd, gemm_epilogue, attention_fwd,
-                     x, ln1_s, ln1_b, qkv_w, qkv_b, out_w, out_b,
-                     ln2_s, ln2_b, fc_w, fc_b, proj_w, proj_b, n_head, causal)
+                    n_head: int, causal: Causal = False, plain: bool = False):
+    """One pre-LN residual CLIP layer, x (B, S, D) -> (B, S, D).  Same
+    signature and mask spec as the Pallas wrapper (``layer_fullblock``
+    :907).  When x needs a gradient the layer runs :class:`LayerFullblockFn`
+    (saving forward, kernel backward); otherwise the no-save forward.
+    ``plain`` runs the plain versions on any device."""
+    args = (x, ln1_s, ln1_b, qkv_w, qkv_b, out_w, out_b,
+            ln2_s, ln2_b, fc_w, fc_b, proj_w, proj_b)
+    if x.is_cuda and not plain:
+        if x.shape[-1] > MAX_WIDTH:
+            raise ValueError(f"layer_fullblock takes D <= {MAX_WIDTH}, got {x.shape[-1]}")
+        _require(x, "layer_fullblock x", torch.bfloat16)
+    if torch.is_grad_enabled() and x.requires_grad:
+        return LayerFullblockFn.apply(*args, n_head, causal, plain)
+    if plain or not x.is_cuda:
+        return layer_fullblock_plain(*args, n_head, causal)
+    y = _layer_chain(_KERNELS, *args, n_head, causal, False)
     LAUNCHES["layer_fullblock"] += 1
     return y

@@ -1,5 +1,5 @@
-"""MuDPT inference: multi-modal deep prompts with bidirectional cross-modal
-projections (counterpart of ``mudpt_tpu/trainers/mudpt.py:41-81``).
+"""MuDPT forward: multi-modal deep prompts with bidirectional cross-modal
+projections (counterpart of ``mudpt_tpu/trainers/mudpt.py:41-87``).
 
 Coupling math:
 
@@ -48,3 +48,10 @@ def mudpt_image_logits(trainable, frozen, aux, images, txt, *, clip_cfg, compute
         layer0_prompt=layer0_visual, deep_prompts=visual_deep,
     )
     return cosine_logits(img.float(), txt.float(), frozen["logit_scale"])
+
+
+def mudpt_forward(trainable, frozen, aux, images, *, clip_cfg, compute_dtype):
+    """Training forward: text features, then image logits (``mudpt.py:84-87``)."""
+    kw = dict(clip_cfg=clip_cfg, compute_dtype=compute_dtype)
+    txt = mudpt_text_features(trainable, frozen, aux, **kw)
+    return mudpt_image_logits(trainable, frozen, aux, images, txt, **kw)

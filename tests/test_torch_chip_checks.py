@@ -1,8 +1,10 @@
 """``chip_smoke.check_close`` -- the limits each kernel is held to on the
 card -- catches a systematic fault that stays inside the max-error limit:
-emulated on the CPU with the plain GEMM, a GELU of the wrong form and a
-missing bf16 rounding of the accumulator fail, while a change of fp32 sum
-order passes."""
+emulated on the CPU with the plain versions, a GELU of the wrong form and a
+missing bf16 rounding of the accumulator fail, and so do three backward
+faults (the softmax gradient from the bf16 probabilities, the QuickGELU
+gradient of the unrounded pre-activation, a second rounding before the
+residual of the LayerNorm dx), while a change of fp32 sum order passes."""
 
 import importlib.util
 from pathlib import Path
@@ -71,3 +73,45 @@ def test_check_close_passes_sum_order_change(epilogue):
         got = acc + b.float()
         got = (got * torch.sigmoid(1.702 * got)).bfloat16()
     C.check_close(epilogue, got, ref)
+
+
+def _attention_bwd_ds_from_bf16_p(qkv, do, n_head):
+    """attention_bwd_plain with ds built from bf16(p) instead of fp32 p."""
+    B, S, D3 = qkv.shape
+    q, k, v, L, is_causal, valid = F._split_heads(qkv, n_head, False)
+    dO = do.reshape(q.shape[0], L, n_head, -1).permute(0, 2, 1, 3).float()
+    p = F._probs_plain(q, k, L, is_causal, valid)
+    dp = torch.matmul(dO, v.float().transpose(-1, -2))
+    dv = torch.matmul(p.bfloat16().float().transpose(-1, -2), dO)
+    p_lo = p.bfloat16().float()
+    ds = (p_lo * (dp - (dp * p).sum(-1, keepdim=True)) * q.shape[-1] ** -0.5).bfloat16().float()
+    dq, dk = torch.matmul(ds, k.float()), torch.matmul(ds.transpose(-1, -2), q.float())
+    return torch.stack([dq, dk, dv]).permute(1, 3, 0, 2, 4).reshape(B, S, D3).bfloat16()
+
+
+def _bwd_case(fault):
+    g = torch.Generator().manual_seed(2)
+    rn = lambda *s, std=1.0: (torch.randn(*s, generator=g) * std)  # noqa: E731
+    if fault == "ds_from_bf16_p":
+        qkv, do = rn(4, 64, 3 * 128).bfloat16(), rn(4, 64, 128, std=0.1).bfloat16()
+        return (_attention_bwd_ds_from_bf16_p(qkv, do, 2),
+                F.attention_bwd_plain(qkv, do, 2, False))
+    if fault == "gelu_grad_of_h32":
+        a, w, h32 = rn(M, K).bfloat16(), (rn(N, K) * K ** -0.5).bfloat16(), rn(M, N) * 2
+        acc = torch.matmul(a.float(), w.float().t())
+        return ((acc * F.quick_gelu_grad(h32)).bfloat16(),
+                F.gemm_epilogue_plain(a, w, None, "gelu_bwd", h32.bfloat16()))
+    # the LayerNorm dx rounded to bf16 before the residual is added
+    x, dxn, r = rn(M, K).bfloat16(), rn(M, K), rn(M, K).bfloat16()
+    s = rn(K) * 0.1 + 1
+    return (r + F.layer_norm_bwd_plain(dxn, x, s), F.layer_norm_bwd_plain(dxn, x, s, r))
+
+
+@pytest.mark.parametrize("fault", ["ds_from_bf16_p", "gelu_grad_of_h32", "ln_bwd_residual_rounding"])
+def test_check_close_catches_backward_fault(fault):
+    C = _chip_smoke()
+    got, ref = _bwd_case(fault)
+    assert (got.float() - ref.float()).abs().max() <= C.MAX_ERR_OF_MAX * ref.float().abs().max()
+    assert (got != ref).float().mean() > 16 * C.DIFFER_SHARE
+    with pytest.raises(AssertionError, match="share of differing|relative norm"):
+        C.check_close(fault, got, ref)
