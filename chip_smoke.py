@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Run the PyTorch/CUDA port's MuDPT ViT-B/16 serving path and train step on
-one GPU.
+"""Run the PyTorch/CUDA port's MuDPT serving paths and train steps on one
+GPU: ViT-B/16 and ViT-L/14.
 
     python3 chip_smoke.py
 
@@ -9,12 +9,12 @@ Phases, each printed with the card's name and power limit:
   1. device   CUDA present; TF32 off for the plain versions.
   2. build    nvcc builds mudpt_torch/csrc/*.cu (parallel, one per source).
   3. kernels  every kernel against its plain PyTorch version at the shapes
-              of the serving path and the train step, with the kernel's, the
-              plain version's and one library call's time (the library call
-              is a yardstick, never used by the port), and the bound from
-              bytes and operations; then the whole layer against its plain
-              version at D=768 and D=512, forward alone and forward with
-              backward.
+              of the ViT-B/16 serving path and train step, with the
+              kernel's, the plain version's and one library call's time (the
+              library call is a yardstick, never used by the port), and the
+              bound from bytes and operations; then the whole layer against
+              its plain version at D=768 and D=512, forward alone and
+              forward with backward.
   4. serving  build_synth_mudpt_server("ViT-B/16", 384, 100, 2, 9) on
               seeded random weights: encode the class text once, answer
               requests of 384 images, count kernel launches, check logits
@@ -23,14 +23,27 @@ Phases, each printed with the card's name and power limit:
               loss and gradients of the ten trainable leaves against the
               plain path on the card, warm-up and timed steps (launches
               counted per step, losses finite), images/s, and a traced step.
+  6. kernels ViT-L/14   the same at the ViT-L/14 shapes (vision 1024 wide,
+              259 tokens, 16 heads; text 768 wide, 12 heads), the two
+              recompute epilogues, attention_bwd at its longest block, and
+              the four half-block chains, forward alone and forward with
+              backward, qkv and h saved and recomputed.
+  7. serving ViT-L/14   as 4, for build_synth_mudpt_server("ViT-L/14", ...).
+  8. train ViT-L/14     gradients against the plain path and an fp32 plain
+              step at batch 32, twice: the vision MLP recomputing h, then
+              2,560 classes, whose text tower trains with saves off; then
+              timed steps at batch 384 (the vision MLP recomputes h there),
+              launches per step, peak device memory and a traced step.
 
 The last three lines are one JSON object describing each kernel, the
 card's name and power limit, and {"ok": true, "device": {...}}.  Times in
-the kernel object are totals over one vision layer's launches in the train
-step (LayerNorm twice, the eight projections, attention once, each way);
-"launches" counts the train step's timed run, "launches_by_path" each
-path's.  Any failed check raises, and the script exits non-zero without a
-result; so it does without CUDA, and outside a checkout of the repository.
+the kernel object are totals over one vision layer's launches in the
+ViT-B/16 train step (LayerNorm twice, the eight projections, attention once,
+each way), and under "vit_l14" in the ViT-L/14 train step (LayerNorm three
+times, nine projections); "launches" counts the ViT-B/16 train step's timed
+run, "launches_by_path" each path's.  Any failed check raises, and the
+script exits non-zero without a result; so it does without CUDA, and
+outside a checkout of the repository.
 """
 
 from __future__ import annotations
@@ -74,8 +87,13 @@ F32_MAX_ERR, F32_NORM_ERR = 2.0 ** -15, 2.0 ** -16
 # flips of bf16 intermediates propagate (limits under PERF.md Findings)
 LAYER_DX_MAX_ERR, LAYER_DX_NORM_ERR = 2.0 ** -5, 2.0 ** -7
 # one train step's gradients of the trainable leaves against the plain path
-# on the card, both towers deep (relative norm error per leaf) and the loss
+# on the card, both towers deep (relative norm error per leaf) and the loss.
+# The gradient limit holds at 12 layers (ViT-B/16's towers); bf16 rounding
+# adds up over the layers like a random walk, so a deeper tower's limit
+# grows with the square root of its depth: ViT-L/14's 24 vision layers,
+# 2^-4 x sqrt(2) (readings under PERF.md Findings, tools/torch_grad_noise.py)
 GRAD_NORM_ERR, LOSS_REL_ERR = 2.0 ** -4, 2.0 ** -12
+GRAD_DEPTH = 12
 # and the kernels' gradients no further from the fp32 ones than this times
 # the plain bf16 path's
 GRAD_FP32_RATIO = 1.5
@@ -83,14 +101,62 @@ GRAD_FP32_RATIO = 1.5
 BATCH, N_CLS, N_CTX, DEPTH = 384, 100, 2, 9
 REQUESTS = 20
 WARMUP_STEPS, TIMED_STEPS = 3, 10
+# ViT-L/14 gradient checks: an fp32 plain step at batch 384 would not fit
+# the card; 2,560 classes x 16 tokens = 40,960 text row-tokens, where the
+# text tower trains with saves off (models/text._text_saves_off)
+GRAD_BATCH, SAVES_OFF_N_CLS = 32, 2560
 
 TPU = "mudpt_tpu/ops/fused_block.py"
 FWD = f"{TPU}:851 _layer_fwd_nosave_kernel, :831 _layer_fwd_kernel"
 BWD = f"{TPU}:868 _layer_bwd_kernel"
+ATTN_FWD = ":318 _attn_fwd_kernel, :326 _attn_fwd_save_kernel"
+MLP_FWD = ":403 _mlp_fwd_kernel, :415 _mlp_fwd_save_kernel"
+ATTN_BWD = ":369 _attn_bwd_save_kernel, :358 _attn_bwd_kernel"
+MLP_BWD = ":451 _mlp_bwd_save_kernel, :444 _mlp_bwd_kernel"
 REPLACES = {
-    "layernorm_fwd": FWD, "gemm_bf16_epilogue": f"{FWD}, :868 _layer_bwd_kernel",
-    "attention_fwd": FWD, "layernorm_bwd": BWD, "attention_bwd": BWD,
+    "layernorm_fwd": f"{FWD}, {ATTN_FWD}, {MLP_FWD}, :358 _attn_bwd_kernel, "
+                     ":444 _mlp_bwd_kernel",
+    "gemm_bf16_epilogue": f"{FWD}, :868 _layer_bwd_kernel, {ATTN_FWD}, {MLP_FWD}, "
+                          f"{ATTN_BWD}, {MLP_BWD}",
+    "attention_fwd": f"{FWD}, {ATTN_FWD}",
+    "layernorm_bwd": f"{BWD}, {ATTN_BWD}, {MLP_BWD}",
+    "attention_bwd": f"{BWD}, {ATTN_BWD}",
 }
+
+# kernel launches of one layer on each route of models/layers.residual_block
+# (the half-block routes count the Functions of both halves)
+_HALVES = dict(attn_halfblock=1, mlp_halfblock=1)
+_HALVES_TRAIN = dict(_HALVES, attn_halfblock_bwd=1, mlp_halfblock_bwd=1,
+                     attention_fwd=1, attention_bwd=1, layernorm_bwd=2)
+ROUTES = {
+    # no gradient: the no-save forwards
+    "full": dict(layernorm_fwd=2, gemm_bf16_epilogue=4, attention_fwd=1, layer_fullblock=1),
+    "half": dict(_HALVES, layernorm_fwd=2, gemm_bf16_epilogue=4, attention_fwd=1),
+    # training, forward and backward: the whole layer (saves on, D <= 768);
+    # the halves with qkv and h saved; with h recomputed (LN2 and the fc
+    # product again); with saves off (LN1 and the qkv product again too)
+    "full_train": dict(layernorm_fwd=2, gemm_bf16_epilogue=8, attention_fwd=1,
+                       layernorm_bwd=2, attention_bwd=1, layer_fullblock=1,
+                       layer_fullblock_bwd=1),
+    "half_train": dict(_HALVES_TRAIN, layernorm_fwd=2, gemm_bf16_epilogue=8),
+    "half_train_recompute_h": dict(_HALVES_TRAIN, layernorm_fwd=3, gemm_bf16_epilogue=9),
+    "half_train_saves_off": dict(_HALVES_TRAIN, layernorm_fwd=4, gemm_bf16_epilogue=10),
+}
+
+
+def expect(keys, *parts) -> dict:
+    """Launches of a path: the sum of (count, route or dict) parts, over
+    every key of the launch counter."""
+    out = dict.fromkeys(keys, 0)
+    for n, route in parts:
+        for k, v in (ROUTES[route] if isinstance(route, str) else route).items():
+            out[k] += n * v
+    return out
+
+
+def tower_lns(fwd: int, bwd: int = 0) -> dict:
+    """The towers' own LayerNorms (ln_pre, ln_post, ln_final)."""
+    return dict(layernorm_fwd=fwd, layernorm_bwd=bwd)
 
 
 def smi() -> str:
@@ -145,16 +211,19 @@ class Kernel:
         else:
             self.t_ops += bound_ms
 
-    def record(self, launches: dict) -> dict:
+    def times(self) -> dict:
+        return {"ms": self.ms, "plain_ms": self.plain_ms, "bound_ms": self.bound_ms,
+                "bound_by": "bytes" if self.t_bytes >= self.t_ops else "operations",
+                "library_ms": self.library_ms}
+
+    def record(self, launches: dict, vit_l: "Kernel") -> dict:
         return {
             "name": self.name, "route": "cuda",
             "source": f"mudpt_torch/csrc/{self.name}.cu",
             "replaces": REPLACES[self.name],
             "launches": launches["train_step"], "launches_by_path": launches,
-            "max_abs_err": self.max_abs_err,
-            "ms": self.ms, "plain_ms": self.plain_ms, "bound_ms": self.bound_ms,
-            "bound_by": "bytes" if self.t_bytes >= self.t_ops else "operations",
-            "library_ms": self.library_ms,
+            "max_abs_err": max(self.max_abs_err, vit_l.max_abs_err),
+            **self.times(), "vit_l14": vit_l.times(),
         }
 
 
@@ -187,20 +256,67 @@ def check_close(what: str, got, ref, kernel: Kernel = None, max_limit=MAX_ERR_OF
     return reading
 
 
-def phase_kernels(F, kernels: dict) -> None:
+# the kernels' shapes on each model's paths; the last field of a case: its
+# launches in one vision layer of the train step
+M_B, M_L = BATCH * 199, BATCH * 259  # vision tokens per batch: 197 or 257 + n_ctx
+SHAPES = {
+    "ViT-B/16": dict(
+        tag="kernels",
+        ln=((M_B, 768, 2), (13 * 128, 512, 0)),
+        gemm=(("qkv", M_B, 768, 2304, 1), ("residual", M_B, 768, 768, 1),
+              ("fc_gelu", M_B, 768, 3072, 0), ("fc_gelu_save", M_B, 768, 3072, 1),
+              ("residual", M_B, 3072, 768, 1), ("gelu_bwd", M_B, 768, 3072, 1),
+              ("store_f32", M_B, 3072, 768, 1), ("store_bf16", M_B, 768, 768, 1),
+              ("store_f32", M_B, 2304, 768, 1)),
+        ln_bwd=((M_B, 768, "float32", True, 2), (13 * 128, 512, "float32", True, 0),
+                (M_B, 768, "bfloat16", False, 0)),
+        attn=(("vision", 384, 199, 12, False, True), ("text causal", 100, 16, 8, True, False),
+              ("text packed (16,16)", 13, 128, 8, (16, 16), False),
+              ("text packed (16,11)", 13, 128, 8, (16, 11), False)),
+    ),
+    # the train step at batch 384 recomputes the vision MLP's h: LN2 and the
+    # fc product run again in the backward, which stores QuickGELU'(h32)
+    # (fc_gelu_grad) for the g.proj_w^T product to apply (mul_f32)
+    "ViT-L/14": dict(
+        tag="kernels ViT-L/14",
+        ln=((M_L, 1024, 3), (13 * 128, 768, 0)),
+        gemm=(("qkv", M_L, 1024, 3072, 1), ("residual", M_L, 1024, 1024, 1),
+              ("fc_gelu", M_L, 1024, 4096, 1), ("fc_gelu_save", M_L, 1024, 4096, 0),
+              ("residual", M_L, 4096, 1024, 1), ("fc_gelu_grad", M_L, 1024, 4096, 1),
+              ("mul_f32", M_L, 1024, 4096, 1), ("gelu_bwd", M_L, 1024, 4096, 0),
+              ("store_f32", M_L, 4096, 1024, 1), ("store_bf16", M_L, 1024, 1024, 1),
+              ("store_f32", M_L, 3072, 1024, 1)),
+        ln_bwd=((M_L, 1024, "float32", True, 2), (13 * 128, 768, "float32", True, 0),
+                (M_L, 1024, "bfloat16", False, 0)),
+        attn=(("vision", 384, 259, 16, False, True),
+              ("text packed (16,16)", 13, 128, 12, (16, 16), False),
+              ("longest block", 8, 384, 16, False, False)),
+    ),
+}
+
+
+def randn_fn(seed: int):
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rn(*shape, std=1.0, dtype=torch.bfloat16):
+        return (torch.randn(shape, generator=g, device="cuda") * std).to(dtype)
+    return rn
+
+
+def phase_kernels(F, kernels: dict, model: str):
+    """Every kernel at the model's shapes; returns the seeded generator,
+    which the layer checks go on drawing from."""
     import torch
     import torch.nn.functional as tf
 
-    g = torch.Generator(device="cuda").manual_seed(0)
-    dev = "cuda"
+    spec = SHAPES[model]
+    tag = spec["tag"]
+    rn = randn_fn(0)
 
-    def rn(*shape, std=1.0, dtype=torch.bfloat16):
-        return (torch.randn(shape, generator=g, device=dev) * std).to(dtype)
-
-    M = BATCH * 199  # vision tokens per request (197 + n_ctx)
-
-    # ---- LayerNorm: vision (2 per layer) and packed text rows
-    for rows, D, per_layer in ((M, 768, 2), (13 * 128, 512, 0)):
+    # ---- LayerNorm: vision (per layer as the last field) and packed text rows
+    for rows, D, per_layer in spec["ln"]:
         x = rn(rows, D, std=2.0)
         s = rn(D, dtype=torch.float32) * 0.1 + 1
         b = rn(D, dtype=torch.float32) * 0.1
@@ -211,19 +327,14 @@ def phase_kernels(F, kernels: dict) -> None:
         s16, b16 = s.bfloat16(), b.bfloat16()
         lib = time_ms(lambda: tf.layer_norm(x, (D,), s16, b16, 1e-5))
         bms, by = bound(2 * rows * D * 2 + 2 * D * 4, 0, 8 * rows * D)
-        say("kernels", f"layernorm_fwd {rows}x{D}: {reading} ms {ms:.4f} plain {plain:.4f} "
+        say(tag, f"layernorm_fwd {rows}x{D}: {reading} ms {ms:.4f} plain {plain:.4f} "
                        f"library(F.layer_norm) {lib:.4f} bound {bms:.4f} ({by})")
         for _ in range(per_layer):
             kernels["layernorm_fwd"].add(ms, plain, lib, bms, by)
 
     # ---- GEMM with each epilogue at the vision shapes.  The forward
-    # epilogues take W (K, N); the backward ones W (N, K), read transposed.
-    # The last field: launches in one vision layer of the train step
-    cases = (("qkv", 768, 2304, 1), ("residual", 768, 768, 1), ("fc_gelu", 768, 3072, 0),
-             ("fc_gelu_save", 768, 3072, 1), ("residual", 3072, 768, 1),
-             ("gelu_bwd", 768, 3072, 1), ("store_f32", 3072, 768, 1),
-             ("store_bf16", 768, 768, 1), ("store_f32", 2304, 768, 1))
-    for ep, K, N, per_layer in cases:
+    # epilogues take W (K, N); the backward ones W (N, K), read transposed
+    for ep, M, K, N, per_layer in spec["gemm"]:
         w_nk = F.EPILOGUES[ep][1]
         a = rn(M, K)
         w = rn(N, K, std=K ** -0.5) if w_nk else rn(K, N, std=K ** -0.5)
@@ -233,13 +344,15 @@ def phase_kernels(F, kernels: dict) -> None:
             extra = rn(M, N)
         elif ep == "gelu_bwd":
             extra = rn(M, N, std=2.0)  # a saved pre-activation
+        elif ep == "mul_f32":  # QuickGELU' of an fp32 pre-activation
+            extra = F.quick_gelu_grad(rn(M, N, std=2.0, dtype=torch.float32))
         got = F.gemm_epilogue(a, w, bias, ep, extra)
         ref = F.gemm_epilogue_plain(a, w, bias, ep, extra)
         if ep == "fc_gelu_save":
             reading = "h " + check_close(f"gemm {ep} h", got[0], ref[0], kernels["gemm_bf16_epilogue"])
             reading += "; a " + check_close(f"gemm {ep} a", got[1], ref[1],
                                             kernels["gemm_bf16_epilogue"])
-        elif ep == "store_f32":
+        elif ep in F._F32_OUT:
             reading = check_close(f"gemm {K}->{N} {ep}", got, ref, kernels["gemm_bf16_epilogue"],
                                   max_limit=F32_MAX_ERR, norm_limit=F32_NORM_ERR, share_limit=None)
         else:
@@ -253,10 +366,11 @@ def phase_kernels(F, kernels: dict) -> None:
         else:
             lib = time_ms(lambda: torch.addmm(bias, a, w))
             lib_name = "torch.addmm"
-        out_bytes = {"store_f32": 4, "fc_gelu_save": 4}.get(ep, 2)
-        nbytes = (M * K + K * N) * 2 + M * N * (out_bytes + (2 if extra is not None else 0))
+        out_bytes = {"store_f32": 4, "fc_gelu_save": 4, "fc_gelu_grad": 4}.get(ep, 2)
+        extra_bytes = 0 if extra is None else extra.element_size()
+        nbytes = (M * K + K * N) * 2 + M * N * (out_bytes + extra_bytes)
         bms, by = bound(nbytes + (N * 2 if bias is not None else 0), 2 * M * N * K)
-        say("kernels", f"gemm_bf16_epilogue {ep} {M}x{K}->{N}: {reading} ms {ms:.4f} "
+        say(tag, f"gemm_bf16_epilogue {ep} {M}x{K}->{N}: {reading} ms {ms:.4f} "
                        f"({2 * M * N * K / ms / 1e9:.1f} TFLOP/s) plain {plain:.4f} "
                        f"library({lib_name}) {lib:.4f} bound {bms:.4f} ({by})")
         for _ in range(per_layer):
@@ -266,9 +380,8 @@ def phase_kernels(F, kernels: dict) -> None:
     # ---- LayerNorm dx: the layer's two (fp32 dxn, with a residual), at the
     # vision shape (2 per layer) and the packed text rows; a tower LayerNorm
     # (bf16 dxn, no residual) at the vision shape
-    for rows, D, dxn_dt, with_r, per_layer in ((M, 768, torch.float32, True, 2),
-                                               (13 * 128, 512, torch.float32, True, 0),
-                                               (M, 768, torch.bfloat16, False, 0)):
+    for rows, D, dxn_name, with_r, per_layer in spec["ln_bwd"]:
+        dxn_dt = getattr(torch, dxn_name)
         x = rn(rows, D, std=2.0)
         dxn = rn(rows, D, dtype=dxn_dt)
         s = rn(D, dtype=torch.float32) * 0.1 + 1
@@ -283,7 +396,7 @@ def phase_kernels(F, kernels: dict) -> None:
         lib = time_ms(lambda: torch.autograd.grad(y, xr, g16, retain_graph=True))
         nbytes = rows * D * (dxn.element_size() + 2 + 2 + (2 if with_r else 0)) + D * 4
         bms, by = bound(nbytes, 0, 15 * rows * D)
-        say("kernels", f"layernorm_bwd {rows}x{D} dxn {str(dxn_dt)[6:]} residual {with_r}: "
+        say(tag, f"layernorm_bwd {rows}x{D} dxn {dxn_name} residual {with_r}: "
                        f"{reading} ms {ms:.4f} plain {plain:.4f} library(F.layer_norm "
                        f"backward) {lib:.4f} bound {bms:.4f} ({by})")
         for _ in range(per_layer):
@@ -292,11 +405,7 @@ def phase_kernels(F, kernels: dict) -> None:
 
     # ---- attention: vision (1 per layer), text causal, packed text rows;
     # forward, then backward from a seeded upstream gradient
-    cases = (("vision", 384, 199, 12, False, True),
-             ("text causal", 100, 16, 8, True, False),
-             ("text packed (16,16)", 13, 128, 8, (16, 16), False),
-             ("text packed (16,11)", 13, 128, 8, (16, 11), False))
-    for label, B, S, H, causal, per_layer in cases:
+    for label, B, S, H, causal, per_layer in spec["attn"]:
         D = 64 * H
         qkv = rn(B, S, 3 * D)
         L, is_causal, valid = F._block_spec(S, causal)
@@ -305,7 +414,7 @@ def phase_kernels(F, kernels: dict) -> None:
         q, k, v = (t.detach().requires_grad_(True)
                    for t in qkv.view(n, L, 3, H, 64).permute(2, 0, 3, 1, 4))
         if isinstance(causal, tuple):
-            i = torch.arange(L, device=dev)
+            i = torch.arange(L, device=qkv.device)
             allowed = (i[None, :] <= i[:, None]) & (i[None, :] < valid)
             sdpa = lambda: tf.scaled_dot_product_attention(q, k, v, attn_mask=allowed)  # noqa: E731
         else:
@@ -318,7 +427,7 @@ def phase_kernels(F, kernels: dict) -> None:
         with torch.no_grad():
             lib = time_ms(sdpa)
         bms, by = bound(4 * B * S * D * 2, 4 * 64 * pairs * n * H, 5 * pairs * n * H)
-        say("kernels", f"attention_fwd {label} B={B} S={S} H={H}: {reading} ms {ms:.4f} "
+        say(tag, f"attention_fwd {label} B={B} S={S} H={H}: {reading} ms {ms:.4f} "
                        f"plain {plain:.4f} library(sdpa) {lib:.4f} bound {bms:.4f} ({by})")
         if per_layer:
             kernels["attention_fwd"].add(ms, plain, lib, bms, by)
@@ -332,11 +441,27 @@ def phase_kernels(F, kernels: dict) -> None:
         do4 = do.view(n, L, H, 64).permute(0, 2, 1, 3)
         lib = time_ms(lambda: torch.autograd.grad(out, (q, k, v), do4, retain_graph=True))
         bms, by = bound(7 * B * S * D * 2, 5 * 2 * 64 * pairs * n * H, 8 * pairs * n * H)
-        say("kernels", f"attention_bwd {label} B={B} S={S} H={H}: {reading} ms {ms:.4f} "
+        say(tag, f"attention_bwd {label} B={B} S={S} H={H}: {reading} ms {ms:.4f} "
                        f"plain {plain:.4f} library(sdpa backward) {lib:.4f} bound {bms:.4f} ({by})")
         if per_layer:
             kernels["attention_bwd"].add(ms, plain, lib, bms, by)
         del qkv, q, k, v, do, do4, out
+    return rn
+
+
+def layer_params(rn, D: int) -> list:
+    """The twelve weights of a layer at width D, seeded."""
+    import torch
+
+    return [rn(D, dtype=torch.float32) * 0.1 + 1, rn(D, dtype=torch.float32) * 0.1,
+            rn(D, 3 * D, std=D ** -0.5), rn(3 * D, std=0.1), rn(D, D, std=D ** -0.5),
+            rn(D, std=0.1), rn(D, dtype=torch.float32) * 0.1 + 1,
+            rn(D, dtype=torch.float32) * 0.1, rn(D, 4 * D, std=D ** -0.5),
+            rn(4 * D, std=0.1), rn(4 * D, D, std=(4 * D) ** -0.5), rn(D, std=0.1)]
+
+
+def phase_layer_chains(F, rn) -> None:
+    import torch
 
     # ---- the whole layer, kernel chain against the plain chain: the no-save
     # forward, then the saving forward with the backward (LayerFullblockFn).
@@ -345,11 +470,7 @@ def phase_kernels(F, kernels: dict) -> None:
     for D, B, S, H, causal in ((768, 384, 199, 12, False), (512, 13, 128, 8, (16, 16)),
                                (512, 100, 16, 8, True)):
         x = rn(B, S, D)
-        ps = [rn(D, dtype=torch.float32) * 0.1 + 1, rn(D, dtype=torch.float32) * 0.1,
-              rn(D, 3 * D, std=D ** -0.5), rn(3 * D, std=0.1), rn(D, D, std=D ** -0.5),
-              rn(D, std=0.1), rn(D, dtype=torch.float32) * 0.1 + 1,
-              rn(D, dtype=torch.float32) * 0.1, rn(D, 4 * D, std=D ** -0.5),
-              rn(4 * D, std=0.1), rn(4 * D, D, std=(4 * D) ** -0.5), rn(D, std=0.1)]
+        ps = layer_params(rn, D)
         # a one-ulp flip early in the chain moves later roundings: the
         # share of differing elements is printed, not held
         reading = check_close(f"layer_fullblock D={D}", F.layer_fullblock(x, *ps, H, causal),
@@ -378,19 +499,126 @@ def phase_kernels(F, kernels: dict) -> None:
         del x, xg, gy, ps
 
 
-def phase_serving(F) -> dict:
+def phase_halfblock_chains(F) -> None:
+    """The four half-block chains against their plain versions: each half's
+    forward alone, then its forward with the backward, qkv or h saved and
+    recomputed; at the ViT-L/14 vision shape and at the packed text rows of
+    2,560 classes, which train with saves off."""
+    import torch
+
+    tag = SHAPES["ViT-L/14"]["tag"]
+    rn = randn_fn(2)
+    for label, B, S, D, H, causal in (("vision", BATCH, 259, 1024, 16, False),
+                                      ("text packed", SAVES_OFF_N_CLS // 8, 128, 768, 12,
+                                       (16, 16))):
+        x = rn(B, S, D)
+        ps = layer_params(rn, D)
+        halves = {"attn": (F.attn_halfblock, F.attn_halfblock_plain, ps[:6], (H, causal)),
+                  "mlp": (F.mlp_halfblock, F.mlp_halfblock_plain, ps[6:], ())}
+        serve_ms, train_ms = {}, {}
+        for half, (fn, plain_fn, p, extra) in halves.items():
+            reading = check_close(f"{half}_halfblock {label}", fn(x, *p, *extra),
+                                  plain_fn(x, *p, *extra), share_limit=None)
+            ms = time_ms(lambda: fn(x, *p, *extra))
+            plain = time_ms(lambda: plain_fn(x, *p, *extra), 3)
+            serve_ms[half] = (ms, plain)
+            say(tag, f"{half}_halfblock {label} B={B} S={S} D={D} mask={causal}: {reading} "
+                     f"ms {ms:.4f} plain {plain:.4f}")
+            xg = x.detach().requires_grad_(True)
+            gy = rn(B, S, D)
+            for save in (True, False):
+                def step(plain_fns):
+                    F.set_save_mlp_wide("1" if save else "0")
+                    with F.saved_acts(save):
+                        y = fn(xg, *p, *extra, plain=plain_fns)
+                    F.set_save_mlp_wide("auto")
+                    if (y.grad_fn.saved_tensors[-1] is not None) != save:
+                        raise AssertionError(f"{half}_halfblock save={save}: wrong backward")
+                    return y, torch.autograd.grad(y, xg, gy)[0]
+
+                (y, dx), (y_ref, dx_ref) = step(False), step(True)
+                what = f"{half}_halfblock {label} {'save' if save else 'recompute'}"
+                r_y = check_close(f"{what} y", y, y_ref, share_limit=None)
+                r_dx = check_close(f"{what} dx", dx, dx_ref, max_limit=LAYER_DX_MAX_ERR,
+                                   norm_limit=LAYER_DX_NORM_ERR, share_limit=None)
+                del y, dx, y_ref, dx_ref
+                ms = time_ms(lambda: step(False), 5)
+                plain = time_ms(lambda: step(True), 2)
+                train_ms[half, save] = (ms, plain)
+                kept = {"attn": "qkv", "mlp": "h"}[half]
+                say(tag, f"{half}_halfblock forward + backward {label}, {kept} "
+                         f"{'saved' if save else 'recomputed'}: y {r_y}; dx {r_dx}; "
+                         f"ms {ms:.4f} plain {plain:.4f}")
+            del xg, gy
+        if label == "vision":
+            # one vision layer of the serving path, and of the train step at
+            # batch 384 (qkv saved, h recomputed)
+            fwd = [sum(v[i] for v in serve_ms.values()) for i in (0, 1)]
+            trn = [train_ms["attn", True][i] + train_ms["mlp", False][i] for i in (0, 1)]
+            say(tag, f"one ViT-L/14 vision layer: forward ms {fwd[0]:.4f} plain {fwd[1]:.4f}; "
+                     f"train step's forward + backward ms {trn[0]:.4f} plain {trn[1]:.4f}")
+        del x, ps
+
+
+def traced(phase: str, fn, cats_of) -> None:
+    """Run ``fn`` once under the profiler and print where the device time
+    went: ``cats_of(prof)`` gives ({category: us}, {kernel: us}, {other: us})."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    cats, by_kernel, others = cats_of(prof)
+    busy = sum(cats.values())
+    what = "request" if phase.startswith("serving") else "step"
+    if busy <= 0:
+        say(phase, f"traced {what}: the profiler recorded no device time (not measured)")
+        return
+    share = ", ".join(f"{k} {v / 1e3:.2f} ms ({v / busy:.1%})" for k, v in cats.items())
+    say(phase, f"traced {what}: device busy {busy / 1e3:.2f} ms of {wall_us / 1e3:.2f} ms "
+               f"wall ({1 - busy / wall_us:.1%} idle); {share}")
+    if by_kernel:
+        say(phase, "by kernel: " + "; ".join(
+            f"{k} {v / 1e3:.3f} ms" for k, v in sorted(by_kernel.items(), key=lambda kv: -kv[1])))
+    top = sorted(others.items(), key=lambda kv: -kv[1])[:8]
+    say(phase, "largest other device time: " + "; ".join(f"{k} {v / 1e3:.3f} ms" for k, v in top))
+
+
+def serving_time_by_kernel(prof) -> tuple:
+    """({kernel or "other": device us}, {}, {other kernel: us}) of a request."""
+    import torch
+
+    by_kernel = {"gemm_bf16_kernel": 0.0, "attention_fwd_kernel": 0.0,
+                 "layernorm_fwd_kernel": 0.0, "other": 0.0}
+    others = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue  # host-side ops also report their kernels' time
+        us = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+        key = next((k for k in by_kernel if k in e.key), "other")
+        by_kernel[key] += us
+        if key == "other" and us > 0:
+            others[e.key[:60]] = us
+    return by_kernel, {}, others
+
+
+def phase_serving(F, model: str) -> dict:
     import torch
 
     from mudpt_torch.models.layers import plain_blocks
     from mudpt_torch.utils.synth_step import build_synth_mudpt_server
 
+    phase = "serving" if model == "ViT-B/16" else f"serving {model}"
     t0 = time.perf_counter()
-    st = build_synth_mudpt_server("ViT-B/16", BATCH, N_CLS, N_CTX, DEPTH, seed=0)
+    st = build_synth_mudpt_server(model, BATCH, N_CLS, N_CTX, DEPTH, seed=0)
     torch.cuda.synchronize()
-    say("serving", f"built ViT-B/16 server (random weights, seed 0) in "
-                   f"{time.perf_counter() - t0:.2f} s; text rows {tuple(st.aux['token_suffix'].shape)}")
+    say(phase, f"built {model} server (random weights, seed 0) in "
+               f"{time.perf_counter() - t0:.2f} s; text rows {tuple(st.aux['token_suffix'].shape)}")
     tr, params, aux, images = st.trainable, st.params, st.aux, st.images
-    layers = st.clip_cfg.vision_layers
+    cfg = st.clip_cfg
 
     # ---- the main path, counted: text encode once, then requests
     F.reset_launches()
@@ -411,55 +639,30 @@ def phase_serving(F) -> dict:
     t_all = time.perf_counter() - t_all
     counts = dict(F.LAUNCHES)
 
+    # the text tower (D <= 768, saves on) runs whole layers, plus ln_final;
+    # a request runs the vision tower's layers (whole at D <= 768, halves
+    # above), plus ln_pre and ln_post
     n_req = REQUESTS + 1
-    per_layer = {"layernorm_fwd": 2, "gemm_bf16_epilogue": 4, "attention_fwd": 1,
-                 "layernorm_bwd": 0, "attention_bwd": 0, "layer_fullblock": 1,
-                 "layer_fullblock_bwd": 0}
-    tl = st.clip_cfg.transformer_layers
-    # plus the towers' own LayerNorms: ln_final once; ln_pre, ln_post per request
-    want_text = {k: c * tl + (k == "layernorm_fwd") for k, c in per_layer.items()}
+    vision = "full" if cfg.vision_width <= F.FULLBLOCK_MAX_WIDTH else "half"
+    want_text = expect(F.LAUNCHES, (cfg.transformer_layers, "full"), (1, tower_lns(1)))
     if text_counts != want_text:
         raise AssertionError(f"text encode launches {text_counts} != {want_text}")
-    want = {k: want_text[k] + n_req * (c * layers + 2 * (k == "layernorm_fwd"))
-            for k, c in per_layer.items()}
+    want = expect(F.LAUNCHES, (1, want_text), (n_req * cfg.vision_layers, vision),
+                  (n_req, tower_lns(2)))
     if counts != want:
         raise AssertionError(f"main-path launches {counts} != {want}")
-    say("serving", f"launches: text encode {text_counts}; text + {n_req} requests {counts}")
+    per_request = expect(F.LAUNCHES, (cfg.vision_layers, vision), (1, tower_lns(2)))
+    say(phase, f"launches: text encode {text_counts}; per request "
+               f"{ {k: v for k, v in per_request.items() if v} }; text + {n_req} requests {counts}")
 
     ips = BATCH * REQUESTS / t_all
-    say("serving", f"text encode {t_text * 1e3:.1f} ms (once, {N_CLS} classes); "
-                   f"{REQUESTS} requests of {BATCH} images: median {statistics.median(lat) * 1e3:.2f} ms, "
-                   f"max {max(lat) * 1e3:.2f} ms; cached-text throughput {ips:.1f} images/s")
+    say(phase, f"text encode {t_text * 1e3:.1f} ms (once, {N_CLS} classes); "
+               f"{REQUESTS} requests of {BATCH} images: median {statistics.median(lat) * 1e3:.2f} ms, "
+               f"max {max(lat) * 1e3:.2f} ms; cached-text throughput {ips:.1f} images/s")
 
     # ---- where one request's device time goes (a separate, traced request)
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        st.eval_step_cached(tr, params, aux, images, txt)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    by_kernel = {"gemm_bf16_kernel": 0.0, "attention_fwd_kernel": 0.0,
-                 "layernorm_fwd_kernel": 0.0, "other": 0.0}
-    others = {}
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue  # host-side ops also report their kernels' time
-        us = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
-        key = next((k for k in by_kernel if k in e.key), "other")
-        by_kernel[key] += us
-        if key == "other" and us > 0:
-            others[e.key[:60]] = us
-    busy = sum(by_kernel.values())
-    if busy > 0:
-        share = ", ".join(f"{k} {v / 1e3:.2f} ms ({v / busy:.1%})" for k, v in by_kernel.items())
-        say("serving", f"traced request: device busy {busy / 1e3:.2f} ms of {wall_us / 1e3:.2f} ms "
-                       f"wall ({1 - busy / wall_us:.1%} idle); {share}")
-        top = sorted(others.items(), key=lambda kv: -kv[1])[:6]
-        say("serving", "largest other device time: " +
-            "; ".join(f"{k} {v / 1e3:.3f} ms" for k, v in top))
-    else:
-        say("serving", "traced request: the profiler recorded no device time (not measured)")
+    traced(phase, lambda: st.eval_step_cached(tr, params, aux, images, txt),
+           serving_time_by_kernel)
 
     # ---- outputs: shape, finiteness, agreement with the plain path on the card
     logits = st.image_logits(tr, params, aux, images, txt)
@@ -467,7 +670,7 @@ def phase_serving(F) -> dict:
         txt_ref = st.text_features(tr, params, aux)
         logits_ref = st.image_logits(tr, params, aux, images, txt_ref)
     torch.cuda.synchronize()
-    if txt.shape != (N_CLS, st.clip_cfg.embed_dim) or logits.shape != (BATCH, N_CLS):
+    if txt.shape != (N_CLS, cfg.embed_dim) or logits.shape != (BATCH, N_CLS):
         raise AssertionError(f"shapes: text {tuple(txt.shape)}, logits {tuple(logits.shape)}")
     if preds.shape != (BATCH,) or preds.dtype != torch.int32 or not torch.isfinite(logits).all():
         raise AssertionError("predictions or logits malformed")
@@ -487,10 +690,10 @@ def phase_serving(F) -> dict:
     top = logits_ref.topk(2, dim=-1).values
     decisive = (top[:, 0] - top[:, 1]) > 2 * drift
     agree = (logits.argmax(-1) == logits_ref.argmax(-1))
-    say("serving", f"vs plain path on the card: text features {t_read}; logits, rows centred "
-                   f"{l_read}; logits max abs err {drift:.4g} of max {scale:.4g}; top-1 agreement "
-                   f"{agree.float().mean().item():.4f}; {int(decisive.sum())} decisive rows, "
-                   f"{int(agree[decisive].sum())} equal")
+    say(phase, f"vs plain path on the card: text features {t_read}; logits, rows centred "
+               f"{l_read}; logits max abs err {drift:.4g} of max {scale:.4g}; top-1 agreement "
+               f"{agree.float().mean().item():.4f}; {int(decisive.sum())} decisive rows, "
+               f"{int(agree[decisive].sum())} equal")
     # and the bound of tests/test_precision_drift.py: 5% of the largest
     # magnitude, every top-1 whose margin exceeds the drift equal, 75% agreement
     if drift > 0.05 * scale or not agree[decisive].all() or agree.float().mean() < 0.75:
@@ -538,28 +741,31 @@ def device_time_by_kernel(prof) -> tuple:
     return cats, by_kernel, others
 
 
-def phase_train(F) -> dict:
+def grad_limit(cfg) -> float:
+    """The gradient limit at the depth of the model's deeper tower."""
+    depth = max(cfg.vision_layers, cfg.transformer_layers, GRAD_DEPTH)
+    return GRAD_NORM_ERR * math.sqrt(depth / GRAD_DEPTH)
+
+
+def grad_check(F, st, phase: str, label: str, want: dict) -> None:
+    """One step's loss and gradients of the trainable leaves from the same
+    starting state: the kernels (their launches held to ``want``), the plain
+    versions on the card and, to show how far bf16 alone moves them, the
+    plain versions in fp32 on the same values (TF32 off)."""
     import torch
 
     from mudpt_torch.models.layers import plain_blocks
     from mudpt_torch.trainers.mudpt import mudpt_forward
-    from mudpt_torch.utils.synth_step import build_synth_mudpt_step, leaves, nll_loss
+    from mudpt_torch.utils.synth_step import leaves, nll_loss
 
-    t0 = time.perf_counter()
-    st = build_synth_mudpt_step("ViT-B/16", BATCH, N_CLS, N_CTX, DEPTH, seed=0)
-    torch.cuda.synchronize()
     tr = leaves(st.trainable)
     names = [f"{k}/{kk}" if isinstance(v, dict) else k
              for k, v in st.trainable.items() for kk in (v if isinstance(v, dict) else [None])]
-    say("train", f"built ViT-B/16 train step (random weights, seed 0) in "
-                 f"{time.perf_counter() - t0:.2f} s; {len(tr)} trainable leaves, "
-                 f"{sum(t.numel() for t in tr)} values")
-
-    # ---- one step's gradients from the same starting state: kernels, then
-    # the plain versions on the card; and, to show how far bf16 alone moves
-    # them, the plain versions in fp32 on the same values (TF32 off)
+    F.reset_launches()
     loss = st.loss_fn(st.images, st.labels)
     grads = torch.autograd.grad(loss, tr)
+    if dict(F.LAUNCHES) != want:
+        raise AssertionError(f"{label}: launches {dict(F.LAUNCHES)} != {want}")
     with plain_blocks():
         loss_ref = st.loss_fn(st.images, st.labels)
         grads_ref = torch.autograd.grad(loss_ref, tr)
@@ -580,20 +786,75 @@ def phase_train(F) -> dict:
         k32, p32 = (((g - g32).norm() / g32.norm()).item() for g in (gk, gp))
         worst, worst_ratio = max(worst, err), max(worst_ratio, k32 / p32)
         parts.append(f"{name} {err:.3g} ({k32:.3g} / {p32:.3g})")
-    say("train", f"one step vs plain path on the card: loss {loss:.6f} vs {loss_ref:.6f} "
-                 f"(rel {rel:.3g}); gradient relative norm errors, kernels vs plain "
-                 f"(kernels vs fp32 / plain vs fp32): " + ", ".join(parts))
-    if not (rel <= LOSS_REL_ERR and worst <= GRAD_NORM_ERR and worst_ratio <= GRAD_FP32_RATIO):
-        raise AssertionError(f"train step vs plain path: loss rel err {rel} (limit "
+    limit = grad_limit(st.clip_cfg)
+    say(phase, f"{label} vs plain path on the card: loss {loss:.6f} vs {loss_ref:.6f} "
+               f"(rel {rel:.3g}); gradient relative norm errors, kernels vs plain, limit "
+               f"{limit:.4g} (kernels vs fp32 / plain vs fp32): " + ", ".join(parts))
+    if not (rel <= LOSS_REL_ERR and worst <= limit and worst_ratio <= GRAD_FP32_RATIO):
+        raise AssertionError(f"{label} vs plain path: loss rel err {rel} (limit "
                              f"{LOSS_REL_ERR}), worst gradient norm err {worst} (limit "
-                             f"{GRAD_NORM_ERR}), worst ratio of distances to fp32 "
+                             f"{limit}), worst ratio of distances to fp32 "
                              f"{worst_ratio} (limit {GRAD_FP32_RATIO})")
-    del grads, grads_ref, grads32
+
+
+def step_launches(F, cfg, text_route: str, vision_route: str) -> dict:
+    """Launches of one train step: both towers' layers, and ln_pre,
+    ln_post, ln_final forward and backward."""
+    return expect(F.LAUNCHES, (cfg.transformer_layers, text_route),
+                  (cfg.vision_layers, vision_route), (1, tower_lns(3, 3)))
+
+
+def phase_train(F, model: str) -> dict:
+    import torch
+
+    from mudpt_torch.utils.synth_step import build_synth_mudpt_step, leaves
+
+    phase = "train" if model == "ViT-B/16" else f"train {model}"
+    if model == "ViT-L/14":
+        # ---- gradients at batch 32, where an fp32 plain step fits: the
+        # vision MLP recomputing h (its "0" mode), then 2,560 classes, whose
+        # text tower trains with saves off while the vision MLP saves h
+        F.set_save_mlp_wide("0")
+        try:
+            st = build_synth_mudpt_step(model, GRAD_BATCH, N_CLS, N_CTX, DEPTH, seed=0)
+            grad_check(F, st, phase, f"one step at batch {GRAD_BATCH}, h recomputed",
+                       step_launches(F, st.clip_cfg, "full_train", "half_train_recompute_h"))
+        finally:
+            F.set_save_mlp_wide("auto")
+        del st
+        st = build_synth_mudpt_step(model, GRAD_BATCH, SAVES_OFF_N_CLS, N_CTX, DEPTH, seed=0)
+        grad_check(F, st, phase, f"one step at batch {GRAD_BATCH}, {SAVES_OFF_N_CLS} classes "
+                                 "(text saves off, h saved)",
+                   step_launches(F, st.clip_cfg, "half_train_saves_off", "half_train"))
+        del st
+        torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    st = build_synth_mudpt_step(model, BATCH, N_CLS, N_CTX, DEPTH, seed=0)
+    torch.cuda.synchronize()
+    tr = leaves(st.trainable)
+    cfg = st.clip_cfg
+    say(phase, f"built {model} train step (random weights, seed 0) in "
+               f"{time.perf_counter() - t0:.2f} s; {len(tr)} trainable leaves, "
+               f"{sum(t.numel() for t in tr)} values")
+    # the text tower (768 wide or less, 100 classes) saves and runs whole
+    # layers; the vision tower too at ViT-B; at ViT-L its halves, the MLP's
+    # h over the row-token budget at batch 384, so recomputed
+    if cfg.vision_width <= F.FULLBLOCK_MAX_WIDTH:
+        vision_route = "full_train"
+    elif F.wide_mlp_save(BATCH * cfg.vision_seq_len + BATCH * N_CTX):
+        vision_route = "half_train"
+    else:
+        vision_route = "half_train_recompute_h"
+    per_step = step_launches(F, cfg, "full_train", vision_route)
+    if model == "ViT-B/16":
+        grad_check(F, st, phase, "one step", per_step)
 
     # ---- the main path, counted: warm-up, then timed steps
     for _ in range(WARMUP_STEPS):
         st.train_step(st.images, st.labels)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     F.reset_launches()
     step_s, losses, after = [], [], [dict(F.LAUNCHES)]
     t_all = time.perf_counter()
@@ -609,45 +870,21 @@ def phase_train(F) -> dict:
     if not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"non-finite training loss: {losses}")
 
-    layers = st.clip_cfg.vision_layers + st.clip_cfg.transformer_layers
-    per_step = {"layer_fullblock": layers, "layer_fullblock_bwd": layers,
-                "attention_fwd": layers, "attention_bwd": layers,
-                "gemm_bf16_epilogue": 8 * layers,
-                # ln_1, ln_2 per layer plus ln_pre, ln_post and ln_final
-                "layernorm_fwd": 2 * layers + 3, "layernorm_bwd": 2 * layers + 3}
     for i in range(TIMED_STEPS):
         got = {k: after[i + 1][k] - after[i][k] for k in per_step}
         if got != per_step:
             raise AssertionError(f"train step {i}: launches {got} != {per_step}")
-    say("train", f"launches per step: {per_step}; over {TIMED_STEPS} steps: {counts}")
+    say(phase, f"launches per step ({vision_route} vision layers): "
+               f"{ {k: v for k, v in per_step.items() if v} }; over {TIMED_STEPS} steps: {counts}")
     ips = BATCH * TIMED_STEPS / t_all
-    say("train", f"{TIMED_STEPS} steps of {BATCH} images: median "
-                 f"{statistics.median(step_s) * 1e3:.2f} ms, max {max(step_s) * 1e3:.2f} ms; "
-                 f"training throughput {ips:.1f} images/s; losses {losses[0]:.5f} .. "
-                 f"{losses[-1]:.5f}; peak device memory "
-                 f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    say(phase, f"{TIMED_STEPS} steps of {BATCH} images: median "
+               f"{statistics.median(step_s) * 1e3:.2f} ms, max {max(step_s) * 1e3:.2f} ms; "
+               f"training throughput {ips:.1f} images/s; losses {losses[0]:.5f} .. "
+               f"{losses[-1]:.5f}; peak device memory over the timed steps "
+               f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
 
     # ---- where one step's device time goes (a separate, traced step)
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        st.train_step(st.images, st.labels)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    cats, by_kernel, others = device_time_by_kernel(prof)
-    busy = sum(cats.values())
-    if busy > 0:
-        share = ", ".join(f"{k} {v / 1e3:.2f} ms ({v / busy:.1%})" for k, v in cats.items())
-        say("train", f"traced step: device busy {busy / 1e3:.2f} ms of {wall_us / 1e3:.2f} ms "
-                     f"wall ({1 - busy / wall_us:.1%} idle); {share}")
-        say("train", "by kernel: " + "; ".join(
-            f"{k} {v / 1e3:.3f} ms" for k, v in sorted(by_kernel.items(), key=lambda kv: -kv[1])))
-        top = sorted(others.items(), key=lambda kv: -kv[1])[:8]
-        say("train", "largest other device time: " +
-            "; ".join(f"{k} {v / 1e3:.3f} ms" for k, v in top))
-    else:
-        say("train", "traced step: the profiler recorded no device time (not measured)")
+    traced(phase, lambda: st.train_step(st.images, st.labels), device_time_by_kernel)
     return counts
 
 
@@ -672,18 +909,35 @@ def main() -> int:
                   f"{torch.cuda.device_count()} device(s)")
 
     _build.load()
-    regs = {name: [ln.strip() for ln in log.splitlines() if "registers" in ln]
+    regs = {name: [ln.split(":", 1)[-1].strip() for ln in log.splitlines()
+                   if "registers" in ln or "spill" in ln]
             for name, log in _build.build_logs.items()}
     say("build", f"{len(_build.SIGNATURES)} kernel sources built in "
                  f"{_build.build_seconds:.2f} s; ptxas: {json.dumps(regs)}")
 
     kernels = {name: Kernel(name) for name in _build.SIGNATURES}
-    phase_kernels(F, kernels)
-    serving = phase_serving(F)
-    train = phase_train(F)
+    kernels_l = {name: Kernel(name) for name in _build.SIGNATURES}
+    paths = {}
+
+    def run(phase: str, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        say(phase, f"phase done in {time.perf_counter() - t0:.1f} s")
+        return out
+
+    rn = run("kernels", phase_kernels, F, kernels, "ViT-B/16")
+    run("kernels", phase_layer_chains, F, rn)
+    paths["serving"] = run("serving", phase_serving, F, "ViT-B/16")
+    paths["train_step"] = run("train", phase_train, F, "ViT-B/16")
+    run("kernels ViT-L/14", phase_kernels, F, kernels_l, "ViT-L/14")
+    run("kernels ViT-L/14", phase_halfblock_chains, F)
+    paths["serving_vit_l14"] = run("serving ViT-L/14", phase_serving, F, "ViT-L/14")
+    paths["train_step_vit_l14"] = run("train ViT-L/14", phase_train, F, "ViT-L/14")
 
     print(json.dumps({"kernels": [
-        k.record({"serving": serving[k.name], "train_step": train[k.name]})
+        k.record({path: counts[k.name] for path, counts in paths.items()}, kernels_l[k.name])
         for k in kernels.values()]}))
     print(smi())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

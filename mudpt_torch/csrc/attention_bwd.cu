@@ -10,20 +10,30 @@
 //   recomputed from the saved bf16 q and k; dp = do.v^T and
 //   dv = bf16(p)^T.do accumulate in fp32; ds = p * (dp - rowsum(dp * p))
 //   * hd^-0.5 in fp32; dq = bf16(ds).k and dk = bf16(ds)^T.q in fp32; all
-//   three are stored as bf16.
+//   three are stored as bf16.  The attention half's backwards,
+//   _attn_bwd_save_kernel (:369) and _attn_bwd_kernel (:358), run the same
+//   _mha_grads_into through _attn_bwd_core (:336).
 // Mask specs: none; causal; packed (period, valid), where the wrapper passes
 //   L = period and every `period` consecutive tokens form an independent
 //   causal sequence whose keys at position >= valid are masked.
-// Bound on the H100: at the vision shape (L = 199) a (image, head) does
-//   five useful products of 2*L*L*64 operations (25 M) on 7*L*64*2 = 178 KB
-//   of q, k, v, do and dqkv, ~140 operations per byte: below the ~295 where
-//   bf16 tensor cores bind, so device-memory bytes bound it.
+// Bound on the H100: at the ViT-B/16 vision shape (L = 199) a (image, head)
+//   does five useful products of 2*L*L*64 operations (25 M) on 7*L*64*2 =
+//   178 KB of q, k, v, do and dqkv, ~140 operations per byte (~180 at
+//   ViT-L/14's L = 259): below the ~295 where bf16 tensor cores bind, so
+//   device-memory bytes bound it.
 // Design: one block per (sequence block, head) holds q, k, v and do of the
 //   whole block in shared memory (staged by cp.async, zero rows past L; at
-//   most 208 rows, 122 KB), one warp per 16 rows, so dk and dv are summed
-//   over all queries inside one warp's registers: no atomics, and the
-//   result is the same from run to run.  mma.sync m16n8k16 bf16 tiles fed
-//   by ldmatrix, as in attention_fwd.  The flash-attention shortcut
+//   most 384 rows, 221 KB).  Rows go in 16-row tiles, tile i to warp
+//   i mod W.  The SM's registers are split over its four sub-partitions,
+//   16,384 each, so W sets the cap: up to 208 rows (13 tiles) W = 13, one
+//   tile a warp (the tile loop compiled to one pass), four warps on a
+//   sub-partition, 128 registers a thread, where the kernel spills a few
+//   dozen bytes; longer blocks W = 12, three warps a sub-partition, 168
+//   registers and no spill, some warps walking two tiles.  dk and dv of a
+//   key tile are summed over all queries in order inside one warp's
+//   registers: no atomics, the result is the same from run to run, and it
+//   does not depend on which warp takes the tile.  mma.sync m16n8k16 bf16
+//   tiles fed by ldmatrix, as in attention_fwd.  The flash-attention shortcut
 //   rowsum(dp * p) = rowsum(do * o) needs the attention output, which the
 //   layer does not save, so three phases:
 //     A (query rows): s = q.k^T and dp = do.v^T over all keys, giving each
@@ -46,8 +56,9 @@ namespace {
 
 constexpr int HD = 64;               // head dim
 constexpr int LD = HD + 8;           // bf16 elements per staged row
-constexpr int kMaxL = 208;           // longest sequence block: 13 warps of 16 rows
-constexpr int kMaxWarps = kMaxL / 16;
+constexpr int kMaxL = 384;           // longest sequence block: 4 * 384 staged rows fit
+constexpr int kOneTileWarps = 13;    // up to 13 tiles (208 rows): one warp a tile
+constexpr int kWalkWarps = 12;       // longer blocks: 12 warps walk the tiles
 constexpr float kNeg = -1e30f;
 
 __host__ __device__ __forceinline__ int pad16(int L) { return (L + 15) & ~15; }
@@ -165,7 +176,8 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* dst, size_t row_stride
   }
 }
 
-__global__ void __launch_bounds__(kMaxWarps * 32, 1)
+template <int WARPS>
+__global__ void __launch_bounds__(WARPS * 32, 1)
 attention_bwd_kernel(const __nv_bfloat16* __restrict__ qkv, const __nv_bfloat16* __restrict__ dout,
                      __nv_bfloat16* __restrict__ dqkv, int L, int D, int causal, int valid,
                      float scale) {
@@ -180,6 +192,7 @@ attention_bwd_kernel(const __nv_bfloat16* __restrict__ qkv, const __nv_bfloat16*
   float* st_d = st_inv + Lpad;                              // rowsum(dp * p)
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int n_warps = blockDim.x >> 5, n_tiles = Lpad >> 4;
   const int seq = blockIdx.x, h = blockIdx.y;
   const size_t qkv_stride = 3 * (size_t)D;
   const __nv_bfloat16* base = qkv + (size_t)seq * L * qkv_stride + h * HD;
@@ -200,7 +213,6 @@ attention_bwd_kernel(const __nv_bfloat16* __restrict__ qkv, const __nv_bfloat16*
   __syncthreads();
 
   const int g = lane >> 2, t = lane & 3;
-  const int r0 = warp * 16;  // this warp's query rows (A, B), then key rows (C)
 
   // scaled, masked score of query `row`, key `col`: keys past L excluded
   auto masked = [&](float v, int row, int col) {
@@ -210,7 +222,9 @@ attention_bwd_kernel(const __nv_bfloat16* __restrict__ qkv, const __nv_bfloat16*
     return v;
   };
 
-  {
+  // phases A and B over this warp's query tiles
+  for (int tile = warp; tile < n_tiles; tile += n_warps) {
+    const int r0 = tile * 16;
     uint32_t qa[HD / 16][4], oa[HD / 16][4];
     load_a(qa, Qs, r0, lane);
     load_a(oa, Os, r0, lane);
@@ -273,56 +287,74 @@ attention_bwd_kernel(const __nv_bfloat16* __restrict__ qkv, const __nv_bfloat16*
       accum_nn(dq, da, Ks, k0, lane);
     }
     store_rows(dqkv + (size_t)seq * L * qkv_stride + h * HD, qkv_stride, r0, L, dq, lane);
+    if (WARPS == kOneTileWarps) break;  // launched one warp a tile: no second pass
   }
   __syncthreads();  // every row's stats are in shared memory
 
-  // phase C: this warp's 16 key rows; for 16-query chunks, s^T and dp^T,
+  // phase C over this warp's key tiles: for 16-query chunks, s^T and dp^T,
   // then p^T and ds^T from the query rows' stats; dv += bf16(p^T) . do and
   // dk += bf16(ds^T) . q, summed over all queries in registers
-  uint32_t ka[HD / 16][4], va[HD / 16][4];
-  load_a(ka, Ks, r0, lane);
-  load_a(va, Vs, r0, lane);
-  const int key[2] = {r0 + g, r0 + g + 8};
-  float dk[HD / 8][4], dv[HD / 8][4];
+  for (int tile = warp; tile < n_tiles; tile += n_warps) {
+    const int r0 = tile * 16;
+    uint32_t ka[HD / 16][4], va[HD / 16][4];
+    load_a(ka, Ks, r0, lane);
+    load_a(va, Vs, r0, lane);
+    const int key[2] = {r0 + g, r0 + g + 8};
+    float dk[HD / 8][4], dv[HD / 8][4];
 #pragma unroll
-  for (int j = 0; j < HD / 8; ++j) {
-    dk[j][0] = dk[j][1] = dk[j][2] = dk[j][3] = 0.f;
-    dv[j][0] = dv[j][1] = dv[j][2] = dv[j][3] = 0.f;
-  }
-  for (int q0 = 0; q0 < Lpad; q0 += 16) {
-    float pt[2][4], dst[2][4];
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int n0 = q0 + 8 * half;
-      float s[4], dp[4];
-      product_nt(s, ka, Qs, n0, lane);
-      product_nt(dp, va, Os, n0, lane);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qi = n0 + 2 * t + (e & 1);  // the query: a column here
-        float p = 0.f, ds = 0.f;
-        if (qi < L) {
-          p = __expf(masked(s[e], qi, key[e >> 1]) - st_m[qi]) * st_inv[qi];
-          ds = p * (dp[e] - st_d[qi]) * scale;
-        }
-        pt[half][e] = p;
-        dst[half][e] = ds;
-      }
+    for (int j = 0; j < HD / 8; ++j) {
+      dk[j][0] = dk[j][1] = dk[j][2] = dk[j][3] = 0.f;
+      dv[j][0] = dv[j][1] = dv[j][2] = dv[j][3] = 0.f;
     }
-    const uint32_t pa[4] = {pack_bf16(pt[0][0], pt[0][1]), pack_bf16(pt[0][2], pt[0][3]),
-                            pack_bf16(pt[1][0], pt[1][1]), pack_bf16(pt[1][2], pt[1][3])};
-    const uint32_t da[4] = {pack_bf16(dst[0][0], dst[0][1]), pack_bf16(dst[0][2], dst[0][3]),
-                            pack_bf16(dst[1][0], dst[1][1]), pack_bf16(dst[1][2], dst[1][3])};
-    accum_nn(dv, pa, Os, q0, lane);
-    accum_nn(dk, da, Qs, q0, lane);
+    for (int q0 = 0; q0 < Lpad; q0 += 16) {
+      float pt[2][4], dst[2][4];
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int n0 = q0 + 8 * half;
+        float s[4], dp[4];
+        product_nt(s, ka, Qs, n0, lane);
+        product_nt(dp, va, Os, n0, lane);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qi = n0 + 2 * t + (e & 1);  // the query: a column here
+          float p = 0.f, ds = 0.f;
+          if (qi < L) {
+            p = __expf(masked(s[e], qi, key[e >> 1]) - st_m[qi]) * st_inv[qi];
+            ds = p * (dp[e] - st_d[qi]) * scale;
+          }
+          pt[half][e] = p;
+          dst[half][e] = ds;
+        }
+      }
+      const uint32_t pa[4] = {pack_bf16(pt[0][0], pt[0][1]), pack_bf16(pt[0][2], pt[0][3]),
+                              pack_bf16(pt[1][0], pt[1][1]), pack_bf16(pt[1][2], pt[1][3])};
+      const uint32_t da[4] = {pack_bf16(dst[0][0], dst[0][1]), pack_bf16(dst[0][2], dst[0][3]),
+                              pack_bf16(dst[1][0], dst[1][1]), pack_bf16(dst[1][2], dst[1][3])};
+      accum_nn(dv, pa, Os, q0, lane);
+      accum_nn(dk, da, Qs, q0, lane);
+    }
+    __nv_bfloat16* out = dqkv + (size_t)seq * L * qkv_stride + h * HD;
+    store_rows(out + D, qkv_stride, r0, L, dk, lane);
+    store_rows(out + 2 * D, qkv_stride, r0, L, dv, lane);
+    if (WARPS == kOneTileWarps) break;
   }
-  __nv_bfloat16* out = dqkv + (size_t)seq * L * qkv_stride + h * HD;
-  store_rows(out + D, qkv_stride, r0, L, dk, lane);
-  store_rows(out + 2 * D, qkv_stride, r0, L, dv, lane);
 }
 
 int smem_bytes(int L) {
   return 4 * pad16(L) * LD * (int)sizeof(__nv_bfloat16) + 3 * pad16(L) * (int)sizeof(float);
+}
+
+template <int WARPS>
+int launch(const void* qkv, const void* dout, void* dqkv, int n_seq, int L, int D, int n_head,
+           int causal, int valid, float scale, int warps, cudaStream_t stream) {
+  const int smem = smem_bytes(L);
+  cudaError_t err = cudaFuncSetAttribute(attention_bwd_kernel<WARPS>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  attention_bwd_kernel<WARPS><<<dim3(n_seq, n_head), warps * 32, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(qkv), static_cast<const __nv_bfloat16*>(dout),
+      static_cast<__nv_bfloat16*>(dqkv), L, D, causal, valid, scale);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -332,13 +364,11 @@ extern "C" int attention_bwd(const void* qkv, const void* dout, void* dqkv, int 
                              int D, int n_head, int causal, int valid, float scale,
                              void* stream) {
   if (L < 1 || L > kMaxL || D != n_head * HD) return (int)cudaErrorInvalidValue;
-  const int smem = smem_bytes(L);
-  cudaError_t err = cudaFuncSetAttribute(attention_bwd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(n_seq, n_head);
-  attention_bwd_kernel<<<grid, pad16(L) / 16 * 32, smem, (cudaStream_t)stream>>>(
-      static_cast<const __nv_bfloat16*>(qkv), static_cast<const __nv_bfloat16*>(dout),
-      static_cast<__nv_bfloat16*>(dqkv), L, D, causal, valid, scale);
-  return (int)cudaGetLastError();
+  const int tiles = pad16(L) / 16;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (tiles <= kOneTileWarps)
+    return launch<kOneTileWarps>(qkv, dout, dqkv, n_seq, L, D, n_head, causal, valid, scale,
+                                 tiles, s);
+  return launch<kWalkWarps>(qkv, dout, dqkv, n_seq, L, D, n_head, causal, valid, scale,
+                            kWalkWarps, s);
 }

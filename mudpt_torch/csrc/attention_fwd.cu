@@ -4,7 +4,9 @@
 // Replaces: the attention core of the TPU layer kernel, _mha_acc
 //   (mudpt_tpu/ops/fused_block.py:222-239) with _head_probs (:197-205) and
 //   the masks of _causal_mask / _attn_block_spec (:168-219), inside
-//   _layer_fwd_nosave_kernel (:851).  Same numerics: scores are fp32
+//   _layer_fwd_nosave_kernel (:851), _layer_fwd_kernel (:831) and the
+//   attention half's _attn_fwd_kernel (:318) and _attn_fwd_save_kernel
+//   (:326).  Same numerics: scores are fp32
 //   q.k^T (bf16 operands) times hd^-0.5, the mask adds -1e30 (_NEG, :46),
 //   softmax is fp32 (exp(s - max) / sum), probabilities are rounded to
 //   bf16 before P.V, which accumulates in fp32 and is written as bf16.

@@ -5,7 +5,8 @@
 //
 // Replaces: the projections of the TPU layer kernels in
 //   mudpt_tpu/ops/fused_block.py, each epilogue rounding to bf16 at the
-//   same points as the Pallas code:
+//   same points as the Pallas code (the half-blocks' kernels, :318-456,
+//   run the same projections as the layer's):
 //   _layer_fwd_nosave_kernel (:851-865) and _layer_fwd_kernel (:831-848):
 //   qkv          _attn_project  (:301-307)  C = bf16(bf16(acc) + bf16(b))
 //   out-proj     _attn_finish   (:310-315)  C = R + bf16(bf16(acc) + b)
@@ -19,8 +20,12 @@
 //   dh.fc_w^T    (:435-438)                 C = acc (fp32)
 //   dy1.out_w^T  (:340-343, :274-275)       C = bf16(acc)
 //   dqkv.qkv_w^T (:349-352)                 C = acc (fp32)
+//   and the recompute backward of the MLP half, _mlp_bwd_kernel (:444),
+//   whose QuickGELU' takes the fp32 h32 = acc + f32(b) never rounded:
+//   fc, gradient (:447, :434)               C = g'(acc + f32(b)) (fp32)
+//   g.proj_w^T   (:430-434)                 C = bf16(acc * F), F the fp32 tile above
 //   so the kernel and its plain version differ only in the order of the
-//   fp32 sums.
+//   fp32 sums (and the hardware exp and division of g and g').
 // Bound on the H100: tensor-core operations.  At the vision shapes
 //   (M = 384*199 = 76,416 tokens, K, N in 768..3072) a product does
 //   2*M*N*K operations over (M*K + K*N + M*N)*2 bytes, i.e. hundreds of
@@ -41,12 +46,14 @@
 //   through a shared-memory slab in 16-byte rows (the residual read the
 //   same way; the saved h copied into the slab by cp.async while the
 //   products run, and read back at the fragment positions; the saving fc
-//   epilogue's h stored straight from the registers beside it).  The fp32 epilogue stores straight from the registers: a quad
-//   of lanes writes 32 contiguous bytes of a row, a whole sector, and a
-//   staged fp32 tile would need 64 KB more shared memory than the 3-stage
-//   ring leaves (216,064 of 232,448 bytes are in use).  Blocks are
-//   persistent, one per SM walking the tiles, so the producer loads the
-//   next tile while the consumers store this one.
+//   epilogue's h stored straight from the registers beside it).  The fp32
+//   epilogues store straight from the registers: a quad of lanes writes 32
+//   contiguous bytes of a row, a whole sector, and a staged fp32 tile would
+//   need 64 KB more shared memory than the 3-stage ring leaves (216,064 of
+//   232,448 bytes are in use); for the same reason the fp32 factor F of
+//   the recompute backward is read at the fragment positions, a sector per
+//   quad, not staged.  Blocks are persistent, one per SM walking the tiles,
+//   so the producer loads the next tile while the consumers store this one.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -57,8 +64,20 @@ namespace {
 
 enum Epilogue {
   kQkv = 0, kResidual = 1, kFcGelu = 2, kFcGeluSave = 3,  // B = W, W (K, N)
-  kGeluBwd = 4, kStoreBf16 = 5, kStoreF32 = 6                // B = W^T, W (N, K)
+  kGeluBwd = 4, kStoreBf16 = 5, kStoreF32 = 6,               // B = W^T, W (N, K)
+  kFcGeluGrad = 7,                                            // B = W
+  kMulF32 = 8                                                 // B = W^T
 };
+
+__host__ __device__ constexpr bool w_transposed(int mode) {
+  return mode == kGeluBwd || mode == kStoreBf16 || mode == kStoreF32 || mode == kMulF32;
+}
+__host__ __device__ constexpr bool biased(int mode) {
+  return mode <= kFcGeluSave || mode == kFcGeluGrad;
+}
+__host__ __device__ constexpr bool f32_out(int mode) {
+  return mode == kStoreF32 || mode == kFcGeluGrad;
+}
 
 // mbarrier helpers (shared-window addresses)
 __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
@@ -207,10 +226,12 @@ template <int MODE>
 __global__ void __launch_bounds__(THREADS, 1)
 gemm_bf16_kernel(const __grid_constant__ CUtensorMap map_a,
                  const __grid_constant__ CUtensorMap map_w,
-                 const __nv_bfloat16* __restrict__ bias, const __nv_bfloat16* __restrict__ R,
+                 const __nv_bfloat16* __restrict__ bias, const void* __restrict__ R_,
                  void* __restrict__ C, __nv_bfloat16* __restrict__ C2, int M, int N, int K) {
-  constexpr bool kWt = MODE >= kGeluBwd;      // B = W^T, W (N, K): K-major B
-  constexpr bool kBias = MODE <= kFcGeluSave;
+  constexpr bool kWt = w_transposed(MODE);  // B = W^T, W (N, K): K-major B
+  constexpr bool kBias = biased(MODE);
+  const __nv_bfloat16* R = static_cast<const __nv_bfloat16*>(R_);  // residual or h
+  const float* F = static_cast<const float*>(R_);                  // kMulF32's factor
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES];
   const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
@@ -314,17 +335,27 @@ gemm_bf16_kernel(const __grid_constant__ CUtensorMap map_a,
 
     // d[4j + 0..1]: row 16*warp + lane/4, cols 8j + 2*(lane%4) + 0..1;
     // d[4j + 2..3]: row + 8
-    if (MODE == kStoreF32) {
+    if (f32_out(MODE)) {
       float* Cf = static_cast<float*>(C);
 #pragma unroll
       for (int j = 0; j < BN / 8; ++j) {
         const int gc = n0 + j * 8 + 2 * (lane & 3);
+        float bb[2] = {0.f, 0.f};
+        if (kBias && gc < N) {
+          const __nv_bfloat162 b2 = *reinterpret_cast<const __nv_bfloat162*>(bias + gc);
+          bb[0] = __low2float(b2);
+          bb[1] = __high2float(b2);
+        }
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
           const int gr = m0 + c * 64 + warp * 16 + (lane >> 2) + half * 8;
+          float v0 = d[4 * j + 2 * half], v1 = d[4 * j + 2 * half + 1];
+          if (MODE == kFcGeluGrad) {
+            v0 = quick_gelu_grad(v0 + bb[0]);
+            v1 = quick_gelu_grad(v1 + bb[1]);
+          }
           if (gr < M && gc < N)
-            *reinterpret_cast<float2*>(Cf + (size_t)gr * N + gc) =
-                make_float2(d[4 * j + 2 * half], d[4 * j + 2 * half + 1]);
+            *reinterpret_cast<float2*>(Cf + (size_t)gr * N + gc) = make_float2(v0, v1);
         }
       }
       continue;
@@ -355,6 +386,13 @@ gemm_bf16_kernel(const __grid_constant__ CUtensorMap map_a,
           const float2 h2 = __bfloat1622float2(*slot);
           hv[0] = h2.x;
           hv[1] = h2.y;
+        } else if (MODE == kMulF32) {
+          const int gr = m0 + c * 64 + rl;
+          if (gr < M && n0 + cl < N) {
+            const float2 f2 = *reinterpret_cast<const float2*>(F + (size_t)gr * N + n0 + cl);
+            hv[0] = f2.x;
+            hv[1] = f2.y;
+          }
         }
         float v[2];
 #pragma unroll
@@ -367,6 +405,8 @@ gemm_bf16_kernel(const __grid_constant__ CUtensorMap map_a,
             v[e] = quick_gelu(hv[e]);
           } else if (MODE == kGeluBwd) {
             v[e] = acc * quick_gelu_grad(hv[e]);
+          } else if (MODE == kMulF32) {
+            v[e] = acc * hv[e];
           } else {
             v[e] = acc;  // kStoreBf16
           }
@@ -438,12 +478,11 @@ bool make_map(CUtensorMap* map, const void* ptr, int rows, int cols, int box_row
 
 template <int MODE>
 int launch(const __nv_bfloat16* a, const __nv_bfloat16* w, const __nv_bfloat16* b,
-           const __nv_bfloat16* r, void* c, __nv_bfloat16* c2, int M, int N, int K,
-           cudaStream_t s) {
+           const void* r, void* c, __nv_bfloat16* c2, int M, int N, int K, cudaStream_t s) {
   if (K % BK || N % 8) return (int)cudaErrorInvalidValue;
   CUtensorMap map_a, map_w;
-  const bool w_ok = MODE >= kGeluBwd ? make_map(&map_w, w, N, K, BN)   // W (N, K)
-                                     : make_map(&map_w, w, K, N, BK);  // W (K, N)
+  const bool w_ok = w_transposed(MODE) ? make_map(&map_w, w, N, K, BN)   // W (N, K)
+                                       : make_map(&map_w, w, K, N, BK);  // W (K, N)
   if (!make_map(&map_a, a, M, K, BM) || !w_ok) return (int)cudaErrorInvalidValue;
   auto kernel = gemm_bf16_kernel<MODE>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -463,9 +502,10 @@ int launch(const __nv_bfloat16* a, const __nv_bfloat16* w, const __nv_bfloat16* 
 
 }  // namespace
 
-// mode: Epilogue.  bias: (N) bf16 for modes 0-3, else unused.  R: the
-// residual (mode 1) or the saved h (mode 4), (M, N) bf16.  C: (M, N), fp32
-// for mode 6, else bf16.  C2: the second output of mode 3.
+// mode: Epilogue.  bias: (N) bf16 for modes 0-3 and 7, else unused.  R: the
+// residual (mode 1) or the saved h (mode 4), (M, N) bf16; the factor F
+// (mode 8), (M, N) fp32.  C: (M, N), fp32 for modes 6 and 7, else bf16.
+// C2: the second output of mode 3.
 extern "C" int gemm_bf16_epilogue(const void* A, const void* W, const void* bias,
                                   const void* R, void* C, void* C2, int M, int N, int K,
                                   int mode, void* stream) {
@@ -473,16 +513,17 @@ extern "C" int gemm_bf16_epilogue(const void* A, const void* W, const void* bias
   const auto* a = static_cast<const __nv_bfloat16*>(A);
   const auto* w = static_cast<const __nv_bfloat16*>(W);
   const auto* b = static_cast<const __nv_bfloat16*>(bias);
-  const auto* r = static_cast<const __nv_bfloat16*>(R);
   auto* c2 = static_cast<__nv_bfloat16*>(C2);
   switch (mode) {
-    case kQkv: return launch<kQkv>(a, w, b, r, C, c2, M, N, K, s);
-    case kResidual: return launch<kResidual>(a, w, b, r, C, c2, M, N, K, s);
-    case kFcGelu: return launch<kFcGelu>(a, w, b, r, C, c2, M, N, K, s);
-    case kFcGeluSave: return launch<kFcGeluSave>(a, w, b, r, C, c2, M, N, K, s);
-    case kGeluBwd: return launch<kGeluBwd>(a, w, b, r, C, c2, M, N, K, s);
-    case kStoreBf16: return launch<kStoreBf16>(a, w, b, r, C, c2, M, N, K, s);
-    case kStoreF32: return launch<kStoreF32>(a, w, b, r, C, c2, M, N, K, s);
+    case kQkv: return launch<kQkv>(a, w, b, R, C, c2, M, N, K, s);
+    case kResidual: return launch<kResidual>(a, w, b, R, C, c2, M, N, K, s);
+    case kFcGelu: return launch<kFcGelu>(a, w, b, R, C, c2, M, N, K, s);
+    case kFcGeluSave: return launch<kFcGeluSave>(a, w, b, R, C, c2, M, N, K, s);
+    case kGeluBwd: return launch<kGeluBwd>(a, w, b, R, C, c2, M, N, K, s);
+    case kStoreBf16: return launch<kStoreBf16>(a, w, b, R, C, c2, M, N, K, s);
+    case kStoreF32: return launch<kStoreF32>(a, w, b, R, C, c2, M, N, K, s);
+    case kFcGeluGrad: return launch<kFcGeluGrad>(a, w, b, R, C, c2, M, N, K, s);
+    case kMulF32: return launch<kMulF32>(a, w, b, R, C, c2, M, N, K, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

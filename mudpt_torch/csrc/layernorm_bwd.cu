@@ -9,7 +9,8 @@
 //   (:160-165) after the VPU-only recompute of _ln_fp32 (:150), with the
 //   residual gradient added in fp32 and one bf16 rounding, in
 //   _mlp_bwd_core (:439-441, r = g, giving dy1) and _attn_bwd_core
-//   (:353-355, r = dy1, giving dx).  Without a residual and with a bf16
+//   (:353-355, r = dy1, giving dx), which the half-blocks' backwards
+//   (:358, :369, :444, :451) run too.  Without a residual and with a bf16
 //   dxn it is also the dx of the towers' own LayerNorms (ln_pre, ln_post,
 //   ln_final; XLA's autodiff of models/layers.layer_norm in JAX).
 // Bound on the H100: device-memory bytes.  A row reads x, r (bf16) and

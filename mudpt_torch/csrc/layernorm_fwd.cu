@@ -3,7 +3,9 @@
 // Replaces: the LayerNorm of the TPU layer kernel,
 //   mudpt_tpu/ops/fused_block.py:150 (_ln_fp32) with its bf16 casts at
 //   :303 (_attn_project) and :394 (_mlp_pre), inside
-//   _layer_fwd_nosave_kernel (:851).
+//   _layer_fwd_nosave_kernel (:851), _layer_fwd_kernel (:831), the
+//   half-blocks' forwards (:318, :326, :403, :415) and the recompute
+//   backwards (_attn_bwd_kernel :358, _mlp_bwd_kernel :444).
 // Bound on the H100: device-memory bytes.  Each row is read once and
 //   written once (2 * D * 2 bytes) for ~8 fp32 operations per element, far
 //   below the ~295 operations per byte where the tensor cores would bind.

@@ -52,6 +52,12 @@ class CLIPConfig:
 
 
 VIT_B16 = CLIPConfig()
+# mudpt_tpu/models/clip.py:72-75: vision 1024 x 24 layers x 16 heads, patch
+# 14 at 224 px (257 tokens); text 768 x 12 layers x 12 heads
+VIT_L14 = CLIPConfig(
+    embed_dim=768, vision_layers=24, vision_width=1024, vision_patch_size=14,
+    transformer_width=768, transformer_heads=12, transformer_layers=12,
+)
 # CPU smoke size (mudpt_tpu/trainers/base.py TINY_TEST)
 TINY_TEST = CLIPConfig(
     embed_dim=64, image_resolution=32, vision_layers=2, vision_width=64,

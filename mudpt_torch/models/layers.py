@@ -4,12 +4,14 @@
 LayerNorm computes in float32 and casts back to the input dtype; QuickGELU
 is ``x * sigmoid(1.702 x)``; weights use the ``(in, out)`` layout.
 
-:func:`residual_block` is the dispatch of ``layers.py:209-285``: a CUDA
-tensor goes to the hand-written ``layer_fullblock`` kernels (the saving
-forward and the kernel backward when x needs a gradient), a CPU tensor to
-their plain versions.  A CUDA tensor the kernels cannot take raises; it
-never quietly runs the plain body.  :func:`plain_blocks` lets a reference
-run ask for the plain versions on the card explicitly.
+:func:`residual_block` is the dispatch of ``layers.py:209-285``: the whole
+layer (``layer_fullblock``) or its two halves (``attn_halfblock``,
+``mlp_halfblock``) as the JAX package picks them; a CUDA tensor goes to
+their hand-written kernels (the saving forward and the kernel backward when
+x needs a gradient), a CPU tensor to the kernels' plain versions.  A CUDA
+tensor the kernels cannot take raises; it never quietly runs the plain
+body.  :func:`plain_blocks` lets a reference run ask for the plain versions
+on the card explicitly.
 """
 
 from __future__ import annotations
@@ -113,25 +115,31 @@ def mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
 
 def residual_block(p: dict, x: torch.Tensor, n_head: int,
                    causal: fused_block.Causal = False) -> torch.Tensor:
-    """One pre-LN residual block through ``layer_fullblock`` (mask spec
-    ``causal``: False, True or ``(period, valid)``)."""
-    args = (
-        x,
-        p["ln_1"]["scale"], p["ln_1"]["bias"],
-        p["attn"]["qkv_w"], p["attn"]["qkv_b"],
-        p["attn"]["out_w"], p["attn"]["out_b"],
-        p["ln_2"]["scale"], p["ln_2"]["bias"],
-        p["mlp"]["fc_w"], p["mlp"]["fc_b"],
-        p["mlp"]["proj_w"], p["mlp"]["proj_b"],
-        n_head, causal,
-    )
+    """One pre-LN residual block (mask spec ``causal``: False, True or
+    ``(period, valid)``), routed as ``layers.py:249-282`` routes it on
+    either device: ``layer_fullblock`` while saves are on and D <= 768,
+    else ``attn_halfblock`` then ``mlp_halfblock``.  Wider than 1024 the
+    JAX package falls back to XLA, which the port does not have: it raises."""
+    D = x.shape[-1]
+    if D > fused_block.MAX_WIDTH:
+        raise NotImplementedError(
+            f"width {D} > {fused_block.MAX_WIDTH}: the JAX package runs XLA layers "
+            "there; the port has no such route (ROADMAP.md queue B item 5, "
+            "mlp_halfblock_chunked)"
+        )
     if x.is_cuda and not _PLAIN_ON_CUDA:
-        D = x.shape[-1]
-        if D > fused_block.MAX_WIDTH:
-            raise NotImplementedError(
-                f"width {D} > {fused_block.MAX_WIDTH} on CUDA needs the attention/MLP "
-                "half-block kernels (ROADMAP.md queue B item 2, attn_halfblock / "
-                "mlp_halfblock)"
-            )
         _require_bf16(x)
-    return fused_block.layer_fullblock(*args, plain=_PLAIN_ON_CUDA)
+    plain = _PLAIN_ON_CUDA
+    ln_1, attn, ln_2, mlp_p = p["ln_1"], p["attn"], p["ln_2"], p["mlp"]
+    if fused_block.save_acts_enabled() and D <= fused_block.FULLBLOCK_MAX_WIDTH:
+        return fused_block.layer_fullblock(
+            x, ln_1["scale"], ln_1["bias"], attn["qkv_w"], attn["qkv_b"],
+            attn["out_w"], attn["out_b"], ln_2["scale"], ln_2["bias"],
+            mlp_p["fc_w"], mlp_p["fc_b"], mlp_p["proj_w"], mlp_p["proj_b"],
+            n_head, causal, plain=plain)
+    x = fused_block.attn_halfblock(
+        x, ln_1["scale"], ln_1["bias"], attn["qkv_w"], attn["qkv_b"],
+        attn["out_w"], attn["out_b"], n_head, causal, plain=plain)
+    return fused_block.mlp_halfblock(
+        x, ln_2["scale"], ln_2["bias"], mlp_p["fc_w"], mlp_p["fc_b"],
+        mlp_p["proj_w"], mlp_p["proj_b"], plain=plain)

@@ -10,13 +10,14 @@ position -> @ projection.  Two shape levers of the JAX package carry over:
     under the packed ``(period, valid)`` mask, so the projections run at
     G times the rows per launch while attention stays per sequence.
 
-Training keeps the JAX package's save/recompute policy (:130-157): above
-512 x 80 row-tokens the text tower's backward recomputes instead of saving,
-which needs the half-block kernels the port does not have yet.
+The tower keeps the JAX package's save/recompute policy (:130-157, :222-230):
+from 512 x 80 row-tokens on it runs with saves off, so its layers go to the
+half-blocks, whose backward recomputes qkv and h instead of saving them.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional
 
@@ -24,6 +25,7 @@ import torch
 
 from mudpt_torch.models.layers import layer_norm
 from mudpt_torch.models.transformer import make_injection_schedule, num_layers_of, transformer_forward
+from mudpt_torch.ops.fused_block import saved_acts
 
 _AUTO_PACK_TOKENS = 256
 _AUTO_PACK_MAX_G = 8
@@ -79,26 +81,21 @@ def text_forward(
         )
     prompts, pmask = make_injection_schedule(num_layers_of(p["blocks"]), deep_prompts)
     P = -(-S // 8) * 8
-    if x.is_cuda and torch.is_grad_enabled() and x.requires_grad and _text_saves_off(N, P):
-        raise NotImplementedError(
-            f"{N} text rows x {P} tokens train with saves off (recompute backward), "
-            "which on CUDA needs the attention/MLP half-block kernels (ROADMAP.md "
-            "queue B item 2, attn_halfblock / mlp_halfblock)"
-        )
     G = _auto_pack_g(P, N) if pack is None else pack
     kw = dict(n_head=n_head, prompts=prompts, prompt_mask=pmask, n_ctx=n_ctx, is_text=True)
-    if G > 1:
-        # (N, S, D) -> (Npad/G, G*P, D): sequences at offsets g*P, pad rows
-        # and pad positions zero; their outputs are dropped at unpack
-        Npad = -(-N // G) * G
-        xp = x.new_zeros((Npad, P, D))
-        xp[:N, :S] = x
-        xp = transformer_forward(
-            p["blocks"], xp.reshape(Npad // G, G * P, D),
-            causal=(P, S), splice_period=P, **kw,
-        )
-        x = xp.reshape(Npad, P, D)[:N, :S]
-    else:
-        x = transformer_forward(p["blocks"], x, causal=True, **kw)
+    with saved_acts(False) if _text_saves_off(N, P) else contextlib.nullcontext():
+        if G > 1:
+            # (N, S, D) -> (Npad/G, G*P, D): sequences at offsets g*P, pad rows
+            # and pad positions zero; their outputs are dropped at unpack
+            Npad = -(-N // G) * G
+            xp = x.new_zeros((Npad, P, D))
+            xp[:N, :S] = x
+            xp = transformer_forward(
+                p["blocks"], xp.reshape(Npad // G, G * P, D),
+                causal=(P, S), splice_period=P, **kw,
+            )
+            x = xp.reshape(Npad, P, D)[:N, :S]
+        else:
+            x = transformer_forward(p["blocks"], x, causal=True, **kw)
     pooled = layer_norm(p["ln_final"], x[torch.arange(N, device=x.device), eot_idx.long()])
     return torch.matmul(pooled, p["projection"].to(pooled.dtype))

@@ -1,23 +1,34 @@
-"""``layer_fullblock`` as chains of hand-written Hopper kernels.
+"""``layer_fullblock``, ``attn_halfblock`` and ``mlp_halfblock`` as chains
+of hand-written Hopper kernels.
 
-Counterpart of ``mudpt_tpu/ops/fused_block.py`` :826-959: the inference
-primal (``layer_fullblock`` :907, which runs ``_layer_fwd_nosave_kernel``
-:851), and the custom VJP's saving forward (``_layer_fwd`` :926,
-``_layer_fwd_kernel`` :831) and backward (``_layer_bwd`` :946,
-``_layer_bwd_kernel`` :868).  The Pallas programs hold a whole layer's
-weights for one image in VMEM; an SM's shared memory cannot, so each
-becomes a chain of tiled kernels (``csrc/``):
+Counterpart of ``mudpt_tpu/ops/fused_block.py`` :297-456 and :678-959.  The
+attention half ``y = x + out(MHA(LN x))`` (``attn_halfblock`` :679:
+``_attn_fwd_kernel`` :318, the saving ``_attn_fwd_save_kernel`` :326, the
+backwards ``_attn_bwd_save_kernel`` :369 and ``_attn_bwd_kernel`` :358) and
+the MLP half ``y = x + proj(QuickGELU(fc(LN x)))`` (``mlp_halfblock`` :753:
+``_mlp_fwd_kernel`` :403, ``_mlp_fwd_save_kernel`` :415, the backwards
+``_mlp_bwd_save_kernel`` :451 and ``_mlp_bwd_kernel`` :444); the whole layer
+is the two halves (``layer_fullblock`` :907: ``_layer_fwd_nosave_kernel``
+:851, ``_layer_fwd_kernel`` :831, ``_layer_bwd_kernel`` :868).  The Pallas
+programs hold a half's or a layer's weights for one image in VMEM; an SM's
+shared memory cannot, so each becomes a chain of tiled kernels (``csrc/``):
 
-  forward   LN1 -> qkv GEMM -> attention -> out-proj GEMM + residual (y1)
-            -> LN2 -> fc GEMM + QuickGELU -> proj GEMM + residual
-  backward  GEMM g.proj_w^T * QuickGELU'(h) -> GEMM dh.fc_w^T -> LN2 dx + g
-            (dy1) -> GEMM dy1.out_w^T -> attention dq/dk/dv
-            -> GEMM dqkv.qkv_w^T -> LN1 dx + dy1
+  attention  forward   LN -> qkv GEMM -> attention -> out-proj GEMM + residual
+             backward  [LN -> qkv GEMM, when qkv was not saved]
+                       -> GEMM g.out_w^T -> attention dq/dk/dv
+                       -> GEMM dqkv.qkv_w^T -> LN dx + g
+  MLP        forward   LN -> fc GEMM + QuickGELU -> proj GEMM + residual
+             backward  GEMM g.proj_w^T * QuickGELU'(h), h the saved bf16 h;
+                       or LN -> fc GEMM storing QuickGELU'(h32) in fp32, then
+                       GEMM g.proj_w^T * that (h32 unrounded, when h was not
+                       saved) -> GEMM dh.fc_w^T -> LN dx + g
 
 with bf16 activations and weights, fp32 LayerNorm parameters and statistics,
 fp32 accumulation, and bf16 rounding at the same points as the Pallas code.
-The saving forward also writes y1, qkv and h (bf16); the backward returns
-dx only, as the Pallas VJP does (the layer's weights are frozen).
+A saving forward also writes qkv (attention) or h (MLP) in bf16; a backward
+returns dx only, as the Pallas VJPs do (the weights are frozen).  Which half
+saves what is the JAX package's policy (:69-136), copied here without its
+environment variables.
 
 Every kernel has a wrapper and a plain PyTorch version beside it.  A wrapper
 given CPU tensors runs the plain version (the CPU tests); given CUDA tensors
@@ -32,7 +43,8 @@ masked).
 
 from __future__ import annotations
 
-from typing import Tuple, Union
+import contextlib
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -40,8 +52,9 @@ from mudpt_torch.ops import _build
 
 NEG = -1e30  # additive mask value of the Pallas kernels (fused_block._NEG)
 HEAD_DIM = 64  # the attention kernels' head dim (every CLIP tower's)
-MAX_WIDTH = 768  # widest tower layer_fullblock takes (models/layers.py:257)
-ATTN_BWD_MAX_BLOCK = 208  # longest sequence block attention_bwd holds
+FULLBLOCK_MAX_WIDTH = 768  # widest tower layer_fullblock takes (models/layers.py:257)
+MAX_WIDTH = 1024  # widest tower the half-blocks take (models/layers.py:249)
+ATTN_BWD_MAX_BLOCK = 384  # longest sequence block attention_bwd holds
 
 # epilogue -> (kernel mode, W given as (N, K) and read transposed).  The
 # forward epilogues take W in its (in, out) = (K, N) layout; the backward
@@ -54,9 +67,13 @@ EPILOGUES = {
     "gelu_bwd": (4, True),
     "store_bf16": (5, True),
     "store_f32": (6, True),
+    "fc_gelu_grad": (7, False),
+    "mul_f32": (8, True),
 }
-_BIASED = ("qkv", "residual", "fc_gelu", "fc_gelu_save")
-_EXTRA = ("residual", "gelu_bwd")  # take a second (M, N) bf16 operand
+_BIASED = ("qkv", "residual", "fc_gelu", "fc_gelu_save", "fc_gelu_grad")
+_EXTRA = {"residual": torch.bfloat16, "gelu_bwd": torch.bfloat16,  # a second (M, N)
+          "mul_f32": torch.float32}                                # operand, its type
+_F32_OUT = ("store_f32", "fc_gelu_grad")
 
 LAUNCHES = {
     "layernorm_fwd": 0,
@@ -66,6 +83,10 @@ LAUNCHES = {
     "attention_bwd": 0,
     "layer_fullblock": 0,
     "layer_fullblock_bwd": 0,
+    "attn_halfblock": 0,
+    "attn_halfblock_bwd": 0,
+    "mlp_halfblock": 0,
+    "mlp_halfblock_bwd": 0,
 }
 
 Causal = Union[bool, Tuple[int, int]]
@@ -74,6 +95,60 @@ Causal = Union[bool, Tuple[int, int]]
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+# ---------------------------------------------------------------------------
+# what the training forward saves (fused_block.py:69-136), without the
+# environment variables: the same kernels run as in the JAX package
+# ---------------------------------------------------------------------------
+
+_SAVE_ACTS = True
+_SAVE_MLP_WIDE = "auto"
+# row-token budget of the MLP h-save at 768 < D <= 1024 under "auto": 112
+# images x 264 padded tokens, the JAX package's budget (:89), set for a
+# TPU's memory and kept so that both packages pick the same kernels; the
+# H100's memory at ViT-L stands in PERF.md
+_WIDE_SAVE_ROW_TOKENS = 112 * 264
+
+
+def set_save_acts(on: bool) -> None:
+    """Save qkv and h in the training forward (True), or recompute them in
+    the backward (False)."""
+    global _SAVE_ACTS
+    _SAVE_ACTS = bool(on)
+
+
+def save_acts_enabled() -> bool:
+    return _SAVE_ACTS
+
+
+@contextlib.contextmanager
+def saved_acts(on: bool):
+    """The save policy inside the context (:124-136): the forward values
+    are the same; only what the forward keeps for the backward changes."""
+    prev = _SAVE_ACTS
+    set_save_acts(on)
+    try:
+        yield
+    finally:
+        set_save_acts(prev)
+
+
+def set_save_mlp_wide(mode: str) -> None:
+    """The MLP h-save at 768 < D <= 1024: "auto" within the row-token
+    budget, "1" always, "0" never (:92-95)."""
+    if str(mode) not in ("auto", "1", "0"):
+        raise ValueError(f"save_mlp_wide mode {mode!r}: expected 'auto', '1' or '0'")
+    global _SAVE_MLP_WIDE
+    _SAVE_MLP_WIDE = str(mode)
+
+
+def wide_mlp_save(row_tokens: Optional[int] = None) -> bool:
+    """Whether the MLP h-save applies at 768 < D <= 1024 for a call over
+    ``row_tokens`` = rows x sequence (:98-105; None: the budget unknown)."""
+    if _SAVE_MLP_WIDE == "auto":
+        return row_tokens is None or row_tokens <= _WIDE_SAVE_ROW_TOKENS
+    return _SAVE_MLP_WIDE == "1"
 
 
 def _stream() -> int:
@@ -198,6 +273,12 @@ def gemm_epilogue_plain(a, w, bias, epilogue: str, extra=None):
       gelu_bwd      dt(acc * quickgelu'(f32(h))), h = extra (:430-434)
       store_bf16    dt(acc)                                (:340-343, :274-275)
       store_f32     acc                                    (:435-438, :349-352)
+      fc_gelu_grad  quickgelu'(h32), h32 = acc + f32(b), fp32  (:447, :434)
+      mul_f32       dt(acc * f), f = extra (fp32)          (:430-434)
+
+    The last two are the recompute backward's ``dt(da * quickgelu'(h32))``
+    with h32 never rounded (``_mlp_bwd_kernel`` :444): the fc product
+    stores the factor, the g.proj_w^T product applies it.
     """
     _, w_nk = _epilogue(epilogue)
     dt = a.dtype
@@ -206,8 +287,12 @@ def gemm_epilogue_plain(a, w, bias, epilogue: str, extra=None):
         h = acc + bias.float()
         act = (h * torch.sigmoid(1.702 * h)).to(dt)
         return (h.to(dt), act) if epilogue == "fc_gelu_save" else act
+    if epilogue == "fc_gelu_grad":
+        return quick_gelu_grad(acc + bias.float())
     if epilogue == "gelu_bwd":
         return (acc * quick_gelu_grad(extra.float())).to(dt)
+    if epilogue == "mul_f32":
+        return (acc * extra.float()).to(dt)
     if epilogue == "store_bf16":
         return acc.to(dt)
     if epilogue == "store_f32":
@@ -219,8 +304,9 @@ def gemm_epilogue_plain(a, w, bias, epilogue: str, extra=None):
 def gemm_epilogue(a, w, bias, epilogue: str, extra=None):
     """(..., K) times W, then the epilogue: W is (K, N) for the forward
     epilogues and (N, K), read transposed, for the backward ones.  ``extra``
-    is the residual r (``residual``) or the saved pre-activation h
-    (``gelu_bwd``).  ``fc_gelu_save`` returns (h, a)."""
+    is the residual r (``residual``), the saved pre-activation h
+    (``gelu_bwd``) or the fp32 factor (``mul_f32``).  ``fc_gelu_save``
+    returns (h, a)."""
     if not a.is_cuda:
         return gemm_epilogue_plain(a, w, bias, epilogue, extra)
     mode, w_nk = _epilogue(epilogue)
@@ -237,10 +323,10 @@ def gemm_epilogue(a, w, bias, epilogue: str, extra=None):
     elif bias is not None:
         raise ValueError(f"epilogue {epilogue!r} takes no bias")
     if epilogue in _EXTRA:
-        _require(extra, f"gemm {epilogue} operand", torch.bfloat16, out_shape)
+        _require(extra, f"gemm {epilogue} operand", _EXTRA[epilogue], out_shape)
     elif extra is not None:
         raise ValueError(f"epilogue {epilogue!r} takes no second operand")
-    dt = torch.float32 if epilogue == "store_f32" else torch.bfloat16
+    dt = torch.float32 if epilogue in _F32_OUT else torch.bfloat16
     c = torch.empty(out_shape, dtype=dt, device=a.device)
     c2 = torch.empty_like(c) if epilogue == "fc_gelu_save" else None
     lib = _build.load()["gemm_bf16_epilogue"]
@@ -368,7 +454,7 @@ def attention_bwd(qkv, do, n_head: int, causal: Causal = False):
 
 
 # ---------------------------------------------------------------------------
-# the layer
+# the half-blocks and the layer
 # ---------------------------------------------------------------------------
 
 _PLAIN = (layer_norm_plain, gemm_epilogue_plain, attention_plain,
@@ -376,28 +462,205 @@ _PLAIN = (layer_norm_plain, gemm_epilogue_plain, attention_plain,
 _KERNELS = (layer_norm_fwd, gemm_epilogue, attention_fwd, layer_norm_bwd, attention_bwd)
 
 
+def _attn_chain(fns, x, ln_s, ln_b, qkv_w, qkv_b, out_w, out_b, n_head, causal):
+    """(y, qkv) of the attention half (``_attn_fwd_save_kernel`` :326;
+    ``_attn_fwd_kernel`` :318 drops qkv)."""
+    ln, gemm, attn = fns[:3]
+    qkv = gemm(ln(x, ln_s, ln_b), qkv_w, qkv_b, "qkv")
+    return gemm(attn(qkv, n_head, causal), out_w, out_b, "residual", x), qkv
+
+
+def _attn_bwd_chain(fns, x, qkv, g, ln_s, ln_b, qkv_w, qkv_b, out_w, n_head, causal):
+    """dx of the attention half (``_attn_bwd_core`` :336) from the saved qkv
+    (``_attn_bwd_save_kernel`` :369) or, with qkv None, from qkv recomputed
+    (``_attn_bwd_kernel`` :358)."""
+    ln, gemm, ln_bwd, attn_bwd = fns[0], fns[1], fns[3], fns[4]
+    if qkv is None:
+        qkv = gemm(ln(x, ln_s, ln_b), qkv_w, qkv_b, "qkv")
+    dqkv = attn_bwd(qkv, gemm(g, out_w, None, "store_bf16"), n_head, causal)
+    return ln_bwd(gemm(dqkv, qkv_w, None, "store_f32"), x, ln_s, g)
+
+
+def _mlp_chain(fns, x, ln_s, ln_b, fc_w, fc_b, proj_w, proj_b, save):
+    """(y, h) of the MLP half, h the bf16 pre-activation when ``save``
+    (``_mlp_fwd_save_kernel`` :415), else None (``_mlp_fwd_kernel`` :403)."""
+    ln, gemm = fns[:2]
+    xn = ln(x, ln_s, ln_b)
+    if not save:
+        return gemm(gemm(xn, fc_w, fc_b, "fc_gelu"), proj_w, proj_b, "residual", x), None
+    h, act = gemm(xn, fc_w, fc_b, "fc_gelu_save")
+    return gemm(act, proj_w, proj_b, "residual", x), h
+
+
+def _mlp_bwd_chain(fns, x, h, g, ln_s, ln_b, fc_w, fc_b, proj_w):
+    """dx of the MLP half (``_mlp_bwd_core`` :429): QuickGELU' of the saved
+    bf16 h (``_mlp_bwd_save_kernel`` :451) or, with h None, of the fp32 h32
+    recomputed and never rounded (``_mlp_bwd_kernel`` :444)."""
+    ln, gemm, ln_bwd = fns[0], fns[1], fns[3]
+    if h is None:
+        f = gemm(ln(x, ln_s, ln_b), fc_w, fc_b, "fc_gelu_grad")
+        dh = gemm(g, proj_w, None, "mul_f32", f)
+        del f  # fp32 and 4D wide: free it before the next product allocates
+    else:
+        dh = gemm(g, proj_w, None, "gelu_bwd", h)
+    return ln_bwd(gemm(dh, fc_w, None, "store_f32"), x, ln_s, g)
+
+
+def _check_width(x, what: str, max_width: int) -> None:
+    if x.shape[-1] > max_width:
+        raise ValueError(f"{what} takes D <= {max_width}, got {x.shape[-1]}")
+    _require(x, f"{what} x", torch.bfloat16)
+
+
+def _mlp_saves(x) -> bool:
+    """Whether the MLP half's training forward saves h (``_mlp_fwd`` :771)."""
+    B, S, D = x.shape
+    return _SAVE_ACTS and D <= (MAX_WIDTH if wide_mlp_save(B * S) else FULLBLOCK_MAX_WIDTH)
+
+
+def attn_halfblock_plain(x, ln_s, ln_b, qkv_w, qkv_b, out_w, out_b,
+                         n_head: int, causal: Causal = False):
+    """The attention half from the kernels' plain versions, on any device."""
+    return _attn_chain(_PLAIN, x, ln_s, ln_b, qkv_w, qkv_b, out_w, out_b, n_head, causal)[0]
+
+
+def attn_halfblock_fwd_save_plain(x, ln_s, ln_b, qkv_w, qkv_b, out_w, out_b,
+                                  n_head: int, causal: Causal = False):
+    """(y, qkv) from the plain versions (``_attn_fwd`` :705)."""
+    return _attn_chain(_PLAIN, x, ln_s, ln_b, qkv_w, qkv_b, out_w, out_b, n_head, causal)
+
+
+def attn_halfblock_bwd_plain(x, qkv, g, ln_s, ln_b, qkv_w, qkv_b, out_w,
+                             n_head: int, causal: Causal = False):
+    """dx from the plain versions (``_attn_bwd`` :725); qkv None recomputes."""
+    return _attn_bwd_chain(_PLAIN, x, qkv, g, ln_s, ln_b, qkv_w, qkv_b, out_w, n_head, causal)
+
+
+def mlp_halfblock_plain(x, ln_s, ln_b, fc_w, fc_b, proj_w, proj_b):
+    """The MLP half from the kernels' plain versions, on any device."""
+    return _mlp_chain(_PLAIN, x, ln_s, ln_b, fc_w, fc_b, proj_w, proj_b, False)[0]
+
+
+def mlp_halfblock_fwd_save_plain(x, ln_s, ln_b, fc_w, fc_b, proj_w, proj_b):
+    """(y, h) from the plain versions (``_mlp_fwd`` :772)."""
+    return _mlp_chain(_PLAIN, x, ln_s, ln_b, fc_w, fc_b, proj_w, proj_b, True)
+
+
+def mlp_halfblock_bwd_plain(x, h, g, ln_s, ln_b, fc_w, fc_b, proj_w):
+    """dx from the plain versions (``_mlp_bwd`` :789); h None recomputes."""
+    return _mlp_bwd_chain(_PLAIN, x, h, g, ln_s, ln_b, fc_w, fc_b, proj_w)
+
+
+class AttnHalfblockFn(torch.autograd.Function):
+    """``attn_halfblock.defvjp(_attn_fwd, _attn_bwd)`` (:696-749): the
+    forward saves its input x and, when ``save``, qkv; the backward
+    recomputes qkv where it was not saved and returns dx and no weight
+    gradient.  ``plain`` runs the plain versions of both chains (the
+    reference on the card); otherwise the kernel wrappers, which on CPU
+    tensors run the same plain versions."""
+
+    @staticmethod
+    def forward(ctx, x, ln_s, ln_b, qkv_w, qkv_b, out_w, out_b, n_head, causal, save, plain):
+        if any(ctx.needs_input_grad[1:7]):
+            raise ValueError("attn_halfblock returns dx only: its weights must not "
+                             "require grad (the frozen-backbone regime)")
+        y, qkv = _attn_chain(_PLAIN if plain else _KERNELS, x, ln_s, ln_b, qkv_w, qkv_b,
+                             out_w, out_b, n_head, causal)
+        ctx.save_for_backward(x, ln_s, ln_b, qkv_w, qkv_b, out_w, qkv if save else None)
+        ctx.n_head, ctx.causal, ctx.plain = n_head, causal, plain
+        if x.is_cuda and not plain:
+            LAUNCHES["attn_halfblock"] += 1
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, ln_s, ln_b, qkv_w, qkv_b, out_w, qkv = ctx.saved_tensors
+        dx = _attn_bwd_chain(_PLAIN if ctx.plain else _KERNELS, x, qkv, g.contiguous(),
+                             ln_s, ln_b, qkv_w, qkv_b, out_w, ctx.n_head, ctx.causal)
+        if x.is_cuda and not ctx.plain:
+            LAUNCHES["attn_halfblock_bwd"] += 1
+        return (dx,) + (None,) * 10
+
+
+class MlpHalfblockFn(torch.autograd.Function):
+    """``mlp_halfblock.defvjp(_mlp_fwd, _mlp_bwd)`` (:765-806): the forward
+    saves its input x and, when ``save``, the bf16 h; the backward takes
+    QuickGELU' of that h, or of the fp32 h32 it recomputes, and returns dx
+    and no weight gradient.  ``plain`` as in :class:`AttnHalfblockFn`."""
+
+    @staticmethod
+    def forward(ctx, x, ln_s, ln_b, fc_w, fc_b, proj_w, proj_b, save, plain):
+        if any(ctx.needs_input_grad[1:7]):
+            raise ValueError("mlp_halfblock returns dx only: its weights must not "
+                             "require grad (the frozen-backbone regime)")
+        y, h = _mlp_chain(_PLAIN if plain else _KERNELS, x, ln_s, ln_b, fc_w, fc_b,
+                          proj_w, proj_b, save)
+        ctx.save_for_backward(x, ln_s, ln_b, fc_w, fc_b, proj_w, h)
+        ctx.plain = plain
+        if x.is_cuda and not plain:
+            LAUNCHES["mlp_halfblock"] += 1
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, ln_s, ln_b, fc_w, fc_b, proj_w, h = ctx.saved_tensors
+        dx = _mlp_bwd_chain(_PLAIN if ctx.plain else _KERNELS, x, h, g.contiguous(),
+                            ln_s, ln_b, fc_w, fc_b, proj_w)
+        if x.is_cuda and not ctx.plain:
+            LAUNCHES["mlp_halfblock_bwd"] += 1
+        return (dx,) + (None,) * 8
+
+
+def attn_halfblock(x, ln_s, ln_b, qkv_w, qkv_b, out_w, out_b,
+                   n_head: int, causal: Causal = False, plain: bool = False):
+    """y = x + out(MHA(LN x)), x (B, S, D) -> (B, S, D); the Pallas
+    wrapper's signature and mask spec (``attn_halfblock`` :679).  When x
+    needs a gradient it runs :class:`AttnHalfblockFn`, saving qkv under the
+    save policy (:704); otherwise the no-save forward.  ``plain`` runs the
+    plain versions on any device."""
+    args = (x, ln_s, ln_b, qkv_w, qkv_b, out_w, out_b)
+    if x.is_cuda and not plain:
+        _check_width(x, "attn_halfblock", MAX_WIDTH)
+    if torch.is_grad_enabled() and x.requires_grad:
+        save = _SAVE_ACTS and x.shape[-1] <= MAX_WIDTH
+        return AttnHalfblockFn.apply(*args, n_head, causal, save, plain)
+    y = _attn_chain(_PLAIN if plain else _KERNELS, *args, n_head, causal)[0]
+    if x.is_cuda and not plain:
+        LAUNCHES["attn_halfblock"] += 1
+    return y
+
+
+def mlp_halfblock(x, ln_s, ln_b, fc_w, fc_b, proj_w, proj_b, plain: bool = False):
+    """y = x + proj(QuickGELU(fc(LN x))), x (B, S, D) -> (B, S, D)
+    (``mlp_halfblock`` :753).  When x needs a gradient it runs
+    :class:`MlpHalfblockFn`, saving h under the save policy and the wide-MLP
+    budget (:771); otherwise the no-save forward."""
+    args = (x, ln_s, ln_b, fc_w, fc_b, proj_w, proj_b)
+    if x.is_cuda and not plain:
+        _check_width(x, "mlp_halfblock", MAX_WIDTH)
+    if torch.is_grad_enabled() and x.requires_grad:
+        return MlpHalfblockFn.apply(*args, _mlp_saves(x), plain)
+    y = _mlp_chain(_PLAIN if plain else _KERNELS, *args, False)[0]
+    if x.is_cuda and not plain:
+        LAUNCHES["mlp_halfblock"] += 1
+    return y
+
+
 def _layer_chain(fns, x, ln1_s, ln1_b, qkv_w, qkv_b, out_w, out_b,
                  ln2_s, ln2_b, fc_w, fc_b, proj_w, proj_b, n_head, causal, save):
-    """The forward on 3-D tensors; ``save`` also returns y1, qkv and h."""
-    ln, gemm, attn = fns[:3]
-    qkv = gemm(ln(x, ln1_s, ln1_b), qkv_w, qkv_b, "qkv")
-    y1 = gemm(attn(qkv, n_head, causal), out_w, out_b, "residual", x)
-    xn2 = ln(y1, ln2_s, ln2_b)
-    if not save:
-        return gemm(gemm(xn2, fc_w, fc_b, "fc_gelu"), proj_w, proj_b, "residual", y1)
-    h, act = gemm(xn2, fc_w, fc_b, "fc_gelu_save")
-    return gemm(act, proj_w, proj_b, "residual", y1), y1, qkv, h
+    """The forward on 3-D tensors, the attention half then the MLP half;
+    ``save`` also returns y1, qkv and h (``_layer_fwd_kernel`` :831)."""
+    y1, qkv = _attn_chain(fns, x, ln1_s, ln1_b, qkv_w, qkv_b, out_w, out_b, n_head, causal)
+    y, h = _mlp_chain(fns, y1, ln2_s, ln2_b, fc_w, fc_b, proj_w, proj_b, save)
+    return (y, y1, qkv, h) if save else y
 
 
 def _layer_bwd_chain(fns, x, y1, qkv, h, g, ln1_s, qkv_w, out_w, ln2_s, fc_w, proj_w,
                      n_head, causal):
     """dx of the layer from the saved tensors (``_layer_bwd_kernel`` :868:
     ``_mlp_bwd_core`` :429, then ``_attn_bwd_core`` :336)."""
-    gemm, ln_bwd, attn_bwd = fns[1], fns[3], fns[4]
-    dh = gemm(g, proj_w, None, "gelu_bwd", h)
-    dy1 = ln_bwd(gemm(dh, fc_w, None, "store_f32"), y1, ln2_s, g)
-    dqkv = attn_bwd(qkv, gemm(dy1, out_w, None, "store_bf16"), n_head, causal)
-    return ln_bwd(gemm(dqkv, qkv_w, None, "store_f32"), x, ln1_s, dy1)
+    dy1 = _mlp_bwd_chain(fns, y1, h, g, ln2_s, None, fc_w, None, proj_w)
+    return _attn_bwd_chain(fns, x, qkv, dy1, ln1_s, None, qkv_w, None, out_w, n_head, causal)
 
 
 def layer_fullblock_plain(x, ln1_s, ln1_b, qkv_w, qkv_b, out_w, out_b,
@@ -467,13 +730,10 @@ def layer_fullblock(x, ln1_s, ln1_b, qkv_w, qkv_b, out_w, out_b,
     args = (x, ln1_s, ln1_b, qkv_w, qkv_b, out_w, out_b,
             ln2_s, ln2_b, fc_w, fc_b, proj_w, proj_b)
     if x.is_cuda and not plain:
-        if x.shape[-1] > MAX_WIDTH:
-            raise ValueError(f"layer_fullblock takes D <= {MAX_WIDTH}, got {x.shape[-1]}")
-        _require(x, "layer_fullblock x", torch.bfloat16)
+        _check_width(x, "layer_fullblock", FULLBLOCK_MAX_WIDTH)
     if torch.is_grad_enabled() and x.requires_grad:
         return LayerFullblockFn.apply(*args, n_head, causal, plain)
-    if plain or not x.is_cuda:
-        return layer_fullblock_plain(*args, n_head, causal)
-    y = _layer_chain(_KERNELS, *args, n_head, causal, False)
-    LAUNCHES["layer_fullblock"] += 1
+    y = _layer_chain(_PLAIN if plain else _KERNELS, *args, n_head, causal, False)
+    if x.is_cuda and not plain:
+        LAUNCHES["layer_fullblock"] += 1
     return y

@@ -17,12 +17,13 @@ from types import SimpleNamespace
 
 import torch
 
-from mudpt_torch.models.clip import TINY_TEST, VIT_B16, cast_matmul_weights, init_clip_params
+from mudpt_torch.models.clip import (TINY_TEST, VIT_B16, VIT_L14, cast_matmul_weights,
+                                     init_clip_params)
 from mudpt_torch.trainers.mudpt import mudpt_forward, mudpt_image_logits, mudpt_text_features
 from mudpt_torch.trainers.prompt_utils import embed_classnames, init_linear, random_ctx
 from mudpt_torch.utils.device import resolve_device
 
-MODELS = {"ViT-B/16": VIT_B16, "test-tiny": TINY_TEST}
+MODELS = {"ViT-B/16": VIT_B16, "ViT-L/14": VIT_L14, "test-tiny": TINY_TEST}
 LR, MOMENTUM = 2.5e-3, 0.9  # synth_step.py:81
 
 

@@ -1,10 +1,13 @@
 """``chip_smoke.check_close`` -- the limits each kernel is held to on the
 card -- catches a systematic fault that stays inside the max-error limit:
 emulated on the CPU with the plain versions, a GELU of the wrong form and a
-missing bf16 rounding of the accumulator fail, and so do three backward
+missing bf16 rounding of the accumulator fail, and so do the backward
 faults (the softmax gradient from the bf16 probabilities, the QuickGELU
-gradient of the unrounded pre-activation, a second rounding before the
-residual of the LayerNorm dx), while a change of fp32 sum order passes."""
+gradient of the unrounded pre-activation where the bf16 h was saved and of
+the bf16 h where the recompute backward keeps h32 unrounded, a second
+rounding before the residual of the LayerNorm dx) and two faults of
+``attention_bwd``'s row tiling at ViT-L/14's 259-token blocks, while a
+change of fp32 sum order passes."""
 
 import importlib.util
 from pathlib import Path
@@ -101,17 +104,73 @@ def _bwd_case(fault):
         acc = torch.matmul(a.float(), w.float().t())
         return ((acc * F.quick_gelu_grad(h32)).bfloat16(),
                 F.gemm_epilogue_plain(a, w, None, "gelu_bwd", h32.bfloat16()))
+    if fault in ("mul_f32_of_bf16_h", "fc_gelu_grad_of_bf16_h"):
+        # the recompute backward's QuickGELU' taken of bf16(h32), as the
+        # port's old route through layer_fullblock's chain did.  Readings:
+        # the product 0.236 of the elements not bit-equal, norm err 1.3e-3;
+        # the fp32 factor alone max err 1.0e-3 of its largest value
+        a, w, fc_a = rn(M, K).bfloat16(), (rn(N, K) * K ** -0.5).bfloat16(), rn(M, K).bfloat16()
+        fc_w, fc_b = (rn(K, N) * K ** -0.5).bfloat16(), (rn(N) * 0.1).bfloat16()
+        f = F.gemm_epilogue_plain(fc_a, fc_w, fc_b, "fc_gelu_grad")
+        h32 = torch.matmul(fc_a.float(), fc_w.float()) + fc_b.float()
+        if fault == "fc_gelu_grad_of_bf16_h":
+            return F.quick_gelu_grad(h32.bfloat16().float()), f
+        return (F.gemm_epilogue_plain(a, w, None, "gelu_bwd", h32.bfloat16()),
+                F.gemm_epilogue_plain(a, w, None, "mul_f32", f))
     # the LayerNorm dx rounded to bf16 before the residual is added
     x, dxn, r = rn(M, K).bfloat16(), rn(M, K), rn(M, K).bfloat16()
     s = rn(K) * 0.1 + 1
     return (r + F.layer_norm_bwd_plain(dxn, x, s), F.layer_norm_bwd_plain(dxn, x, s, r))
 
 
-@pytest.mark.parametrize("fault", ["ds_from_bf16_p", "gelu_grad_of_h32", "ln_bwd_residual_rounding"])
+@pytest.mark.parametrize("fault", ["ds_from_bf16_p", "gelu_grad_of_h32", "mul_f32_of_bf16_h",
+                                   "fc_gelu_grad_of_bf16_h", "ln_bwd_residual_rounding"])
 def test_check_close_catches_backward_fault(fault):
     C = _chip_smoke()
     got, ref = _bwd_case(fault)
     assert (got.float() - ref.float()).abs().max() <= C.MAX_ERR_OF_MAX * ref.float().abs().max()
+    if fault == "fc_gelu_grad_of_bf16_h":
+        # an fp32 output, held as chip_smoke holds the GEMM's fp32 epilogues
+        with pytest.raises(AssertionError, match="max abs err|relative norm"):
+            C.check_close(fault, got, ref, max_limit=C.F32_MAX_ERR,
+                          norm_limit=C.F32_NORM_ERR, share_limit=None)
+        return
     assert (got != ref).float().mean() > 16 * C.DIFFER_SHARE
     with pytest.raises(AssertionError, match="share of differing|relative norm"):
+        C.check_close(fault, got, ref)
+
+
+def _attention_bwd_tiling_fault(qkv, do, n_head, fault):
+    """attention_bwd_plain at one 259-token block with a fault of the
+    kernel's row tiling (17 tiles of 16 rows over 12 warps).  Readings:
+    max err 0.78 and 0.58 of the largest value."""
+    dqkv = F.attention_bwd_plain(qkv, do, n_head)
+    if fault == "last_tile_skipped":  # the partial 17th tile never stored
+        dqkv = dqkv.clone()
+        dqkv[:, 256:] = 0
+        return dqkv
+    # "second_query_pass_dropped": dk and dv of each key tile summed over
+    # the queries of the first 12 tiles only (phase C's loop over the
+    # warps' tiles, not the whole block)
+    B, S, D3 = qkv.shape
+    q, k, v, L, _, _ = F._split_heads(qkv, n_head, False)
+    dO = do.reshape(B, L, n_head, -1).permute(0, 2, 1, 3).float()
+    p = F._probs_plain(q, k, L, False, L)
+    dp = torch.matmul(dO, v.float().transpose(-1, -2))
+    ds = (p * (dp - (dp * p).sum(-1, keepdim=True)) * q.shape[-1] ** -0.5).bfloat16().float()
+    kept = (torch.arange(L) < 12 * 16).float()[:, None]
+    dv = torch.matmul((p.bfloat16().float() * kept).transpose(-1, -2), dO)
+    dk = torch.matmul((ds * kept).transpose(-1, -2), q.float())
+    dq = torch.matmul(ds, k.float())
+    return torch.stack([dq, dk, dv]).permute(1, 3, 0, 2, 4).reshape(B, S, D3).bfloat16()
+
+
+@pytest.mark.parametrize("fault", ["last_tile_skipped", "second_query_pass_dropped"])
+def test_check_close_catches_attention_bwd_tiling_fault(fault):
+    C = _chip_smoke()
+    g = torch.Generator().manual_seed(3)
+    qkv = torch.randn(2, 259, 3 * 128, generator=g).bfloat16()
+    do = (torch.randn(2, 259, 128, generator=g) * 0.1).bfloat16()
+    got, ref = _attention_bwd_tiling_fault(qkv, do, 2, fault), F.attention_bwd_plain(qkv, do, 2)
+    with pytest.raises(AssertionError, match="max abs err|share of differing|relative norm"):
         C.check_close(fault, got, ref)
