@@ -34,16 +34,30 @@ Phases, each printed with the card's name and power limit:
               2,560 classes, whose text tower trains with saves off; then
               timed steps at batch 384 (the vision MLP recomputes h there),
               launches per step, peak device memory and a traced step.
+  9. kernels int8   the int8 kernels against their plain versions at the
+              ViT-B/16 shapes (LayerNorm-quant, the row quantizer with a
+              probe of exact ties, every s8 GEMM epilogue with torch._int_mm
+              as its yardstick, attention_fwd's fp32 output), then the four
+              int8 layer chains: the dynamic and the static forward, the
+              saving forwards, and the quantization-aware forward with its
+              backward, activations saved and recomputed.
+ 10. serving int8, serving int8_static   as 4, with quant="int8" and
+              "int8_static" (calibrated at build), and the top-1 agreement
+              with the bf16 tier on the same weights printed.
+ 11. train int8_ste, train int8_ste_static   as 5, quantization-aware.
 
 The last three lines are one JSON object describing each kernel, the
 card's name and power limit, and {"ok": true, "device": {...}}.  Times in
 the kernel object are totals over one vision layer's launches in the
 ViT-B/16 train step (LayerNorm twice, the eight projections, attention once,
-each way), and under "vit_l14" in the ViT-L/14 train step (LayerNorm three
-times, nine projections); "launches" counts the ViT-B/16 train step's timed
-run, "launches_by_path" each path's.  Any failed check raises, and the
-script exits non-zero without a result; so it does without CUDA, and
-outside a checkout of the repository.
+each way), under "vit_l14" in the ViT-L/14 train step (LayerNorm three
+times, nine projections) and, for attention_fwd, under "int8" its fp32
+output in the int8 request; the int8 kernels' totals are over one vision
+layer of the int8 request, under "int8_static" of the int8_static request.
+"launches" counts the main path's run ("main_path": the ViT-B/16 train
+step, or the int8 request), "launches_by_path" each path's.  Any failed
+check raises, and the script exits non-zero without a result; so it does
+without CUDA, and outside a checkout of the repository.
 """
 
 from __future__ import annotations
@@ -60,6 +74,7 @@ from pathlib import Path
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_FP32_FLOPS = 67e12
+PEAK_INT8_OPS = 1979e12
 
 # Kernel vs plain version: the same rounding points, but a different order
 # of fp32 sums and hardware exp, rsqrt and division, so a bf16 rounding
@@ -98,6 +113,20 @@ GRAD_DEPTH = 12
 # the plain bf16 path's
 GRAD_FP32_RATIO = 1.5
 
+# int8 codes of the quantizing kernels against their plain versions.  The
+# row quantizer and the s8 GEMM's qkv and residual epilogues compute the
+# plain version's arithmetic exactly and are held bit-equal.  LayerNorm's
+# statistics sum in another order and QuickGELU's exp is the card's, so
+# there a code moves by one step where the fp32 value lies next to a
+# rounding boundary: codes within one step, at most this share differing
+CODE_STEP, CODE_SHARE = 1, 2.0 ** -8
+# LayerNorm-quant's row scales: the row's absmax moves by an fp32 ulp or two
+LN_SCALE_ERR = 2.0 ** -20
+# the attention output in fp32 (the int8 layers quantize it unrounded): the
+# card's exp moves a bf16 probability by an ulp now and then, and the fp32
+# sums run in another order, so no element is held bit-equal; its codes are
+ATTN_F32_MAX_ERR, ATTN_F32_NORM_ERR = 2.0 ** -5, 2.0 ** -12
+
 BATCH, N_CLS, N_CTX, DEPTH = 384, 100, 2, 9
 REQUESTS = 20
 WARMUP_STEPS, TIMED_STEPS = 3, 10
@@ -113,21 +142,31 @@ ATTN_FWD = ":318 _attn_fwd_kernel, :326 _attn_fwd_save_kernel"
 MLP_FWD = ":403 _mlp_fwd_kernel, :415 _mlp_fwd_save_kernel"
 ATTN_BWD = ":369 _attn_bwd_save_kernel, :358 _attn_bwd_kernel"
 MLP_BWD = ":451 _mlp_bwd_save_kernel, :444 _mlp_bwd_kernel"
+Q8 = ("mudpt_tpu/ops/quant_block.py:89 _layer_fwd_q8_kernel, :178 _layer_fwd_q8_save_kernel, "
+      ":377 _layer_fwd_q8_static_kernel, :563 _layer_fwd_q8_static_save_kernel")
 REPLACES = {
     "layernorm_fwd": f"{FWD}, {ATTN_FWD}, {MLP_FWD}, :358 _attn_bwd_kernel, "
                      ":444 _mlp_bwd_kernel",
     "gemm_bf16_epilogue": f"{FWD}, :868 _layer_bwd_kernel, {ATTN_FWD}, {MLP_FWD}, "
                           f"{ATTN_BWD}, {MLP_BWD}",
-    "attention_fwd": f"{FWD}, {ATTN_FWD}",
+    "attention_fwd": f"{FWD}, {ATTN_FWD}; {Q8}",
     "layernorm_bwd": f"{BWD}, {ATTN_BWD}, {MLP_BWD}",
     "attention_bwd": f"{BWD}, {ATTN_BWD}",
+    "layernorm_q8": Q8,
+    "gemm_s8_epilogue": Q8,
+    "quant_rows": Q8,
 }
+# the int8 kernels, whose times in the kernel object are those of one
+# vision layer of the ViT-B/16 int8 request, and whose launches are that path's
+Q8_KERNELS = ("layernorm_q8", "gemm_s8_epilogue", "quant_rows")
 
 # kernel launches of one layer on each route of models/layers.residual_block
 # (the half-block routes count the Functions of both halves)
 _HALVES = dict(attn_halfblock=1, mlp_halfblock=1)
 _HALVES_TRAIN = dict(_HALVES, attn_halfblock_bwd=1, mlp_halfblock_bwd=1,
                      attention_fwd=1, attention_bwd=1, layernorm_bwd=2)
+_Q8_BWD = dict(gemm_bf16_epilogue=4, layernorm_bwd=2, attention_bwd=1,
+               layer_fullblock_q8_ste_bwd=1)
 ROUTES = {
     # no gradient: the no-save forwards
     "full": dict(layernorm_fwd=2, gemm_bf16_epilogue=4, attention_fwd=1, layer_fullblock=1),
@@ -141,7 +180,21 @@ ROUTES = {
     "half_train": dict(_HALVES_TRAIN, layernorm_fwd=2, gemm_bf16_epilogue=8),
     "half_train_recompute_h": dict(_HALVES_TRAIN, layernorm_fwd=3, gemm_bf16_epilogue=9),
     "half_train_saves_off": dict(_HALVES_TRAIN, layernorm_fwd=4, gemm_bf16_epilogue=10),
+    # the int8 layer chains: dynamic (the attention output and g quantized
+    # by quant_rows) and static (g quantized in the fc product's epilogue);
+    # quantization-aware training adds PR 2's bf16 layer backward
+    "q8": dict(layernorm_q8=2, gemm_s8_epilogue=4, attention_fwd=1, quant_rows=2,
+               layer_fullblock_q8=1),
+    "q8s": dict(layernorm_q8=2, gemm_s8_epilogue=4, attention_fwd=1, quant_rows=1,
+                layer_fullblock_q8_static=1),
+    "q8_train": dict(layernorm_q8=2, gemm_s8_epilogue=4, attention_fwd=1, quant_rows=2,
+                     layer_fullblock_q8_ste=1, **_Q8_BWD),
+    "q8s_train": dict(layernorm_q8=2, gemm_s8_epilogue=4, attention_fwd=1, quant_rows=1,
+                      layer_fullblock_q8_ste_static=1, **_Q8_BWD),
 }
+# each tier's layer route, serving and training
+Q8_ROUTES = {"int8": "q8", "int8_static": "q8s", "int8_ste": "q8_train",
+             "int8_ste_static": "q8s_train"}
 
 
 def expect(keys, *parts) -> dict:
@@ -184,27 +237,29 @@ def time_ms(fn, iters: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(bytes_moved: float, bf16_ops: float, fp32_ops: float = 0.0):
+def bound(bytes_moved: float, bf16_ops: float, fp32_ops: float = 0.0, int8_ops: float = 0.0):
     """(ms, 'bytes' | 'operations'): the least time for the work."""
     t_bytes = bytes_moved / PEAK_BYTES_PER_S
-    t_ops = bf16_ops / PEAK_BF16_FLOPS + fp32_ops / PEAK_FP32_FLOPS
+    t_ops = bf16_ops / PEAK_BF16_FLOPS + fp32_ops / PEAK_FP32_FLOPS + int8_ops / PEAK_INT8_OPS
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
 class Kernel:
-    """Totals of one kernel over the launches of one vision layer of the
-    train step (forward and backward)."""
+    """Totals of one kernel over the launches of one vision layer of a path
+    (the train step's forward and backward, or an int8 request)."""
 
     def __init__(self, name: str):
         self.name = name
-        self.ms = self.plain_ms = self.bound_ms = self.library_ms = 0.0
+        self.ms = self.plain_ms = self.bound_ms = 0.0
+        self.library_ms = None  # None while no launch has a library yardstick
         self.t_bytes = self.t_ops = 0.0
         self.max_abs_err = 0.0
 
     def add(self, ms, plain_ms, library_ms, bound_ms, by):
         self.ms += ms
         self.plain_ms += plain_ms
-        self.library_ms += library_ms
+        if library_ms is not None:
+            self.library_ms = (self.library_ms or 0.0) + library_ms
         self.bound_ms += bound_ms
         if by == "bytes":
             self.t_bytes += bound_ms
@@ -216,23 +271,26 @@ class Kernel:
                 "bound_by": "bytes" if self.t_bytes >= self.t_ops else "operations",
                 "library_ms": self.library_ms}
 
-    def record(self, launches: dict, vit_l: "Kernel") -> dict:
+    def record(self, launches: dict, main_path: str, **more: "Kernel") -> dict:
+        """The kernel's JSON entry: its times, those of ``more`` under their
+        keys, and its launches on ``main_path``."""
         return {
             "name": self.name, "route": "cuda",
             "source": f"mudpt_torch/csrc/{self.name}.cu",
             "replaces": REPLACES[self.name],
-            "launches": launches["train_step"], "launches_by_path": launches,
-            "max_abs_err": max(self.max_abs_err, vit_l.max_abs_err),
-            **self.times(), "vit_l14": vit_l.times(),
+            "launches": launches[main_path], "main_path": main_path,
+            "launches_by_path": launches,
+            "max_abs_err": max([self.max_abs_err] + [k.max_abs_err for k in more.values()]),
+            **self.times(), **{key: k.times() for key, k in more.items()},
         }
 
 
 def check_close(what: str, got, ref, kernel: Kernel = None, max_limit=MAX_ERR_OF_MAX,
-                norm_limit=NORM_ERR, share_limit=DIFFER_SHARE) -> str:
+                norm_limit=NORM_ERR, share_limit=DIFFER_SHARE, abs_limit=None) -> str:
     """Hold ``got`` to ``ref``: max abs error within ``max_limit`` of the
-    largest value, relative norm error within ``norm_limit``, and at most
-    ``share_limit`` of the elements not bit-equal (None: not held).
-    Returns the readings as text."""
+    largest value (or within ``abs_limit``, where given), relative norm
+    error within ``norm_limit``, and at most ``share_limit`` of the
+    elements not bit-equal (None: not held).  Returns the readings as text."""
     import torch
 
     if got.is_cuda:
@@ -245,7 +303,10 @@ def check_close(what: str, got, ref, kernel: Kernel = None, max_limit=MAX_ERR_OF
     share = (got != ref).float().mean().item()
     largest = ref.float().abs().max().item()
     reading = f"err {err:.3g} of max {largest:.3g} norm {norm:.3g} differ {share:.3g}"
-    if not err <= max_limit * largest:
+    if abs_limit is not None:
+        if not err <= abs_limit:
+            raise AssertionError(f"{what}: {reading}: max abs err over {abs_limit}")
+    elif not err <= max_limit * largest:
         raise AssertionError(f"{what}: {reading}: max abs err over {max_limit} of the largest value")
     if not norm <= norm_limit:
         raise AssertionError(f"{what}: {reading}: relative norm error over {norm_limit}")
@@ -254,6 +315,17 @@ def check_close(what: str, got, ref, kernel: Kernel = None, max_limit=MAX_ERR_OF
     if kernel is not None:
         kernel.max_abs_err = max(kernel.max_abs_err, err)
     return reading
+
+
+def check_codes(what: str, got, ref, kernel: Kernel = None) -> str:
+    """int8 codes within one step of the plain version's, at most
+    ``CODE_SHARE`` of them differing."""
+    return check_close(what, got, ref, kernel, abs_limit=CODE_STEP, share_limit=CODE_SHARE)
+
+
+def check_equal(what: str, got, ref, kernel: Kernel = None) -> str:
+    """Bit-equal to the plain version."""
+    return check_close(what, got, ref, kernel, abs_limit=0, norm_limit=0, share_limit=0)
 
 
 # the kernels' shapes on each model's paths; the last field of a case: its
@@ -560,6 +632,254 @@ def phase_halfblock_chains(F) -> None:
         del x, ps
 
 
+# the int8 kernels' cases at the ViT-B/16 shapes; the last two fields of a
+# case: its launches in one vision layer of the int8 and of the int8_static
+# request.  LayerNorm-quant: rows, D, static
+Q8_LN = ((M_B, 768, False, 2, 0), (M_B, 768, True, 0, 2), (13 * 128, 512, False, 0, 0))
+# the row quantizer: rows, X (the attention output, g), static
+Q8_ROWS = ((M_B, 768, False, 1, 0), (M_B, 3072, False, 1, 0), (M_B, 768, True, 0, 1))
+# the s8 GEMM: epilogue, M, K, N, h saved (the quantization-aware forward)
+Q8_GEMM = (("q8_qkv", M_B, 768, 2304, False, 1, 0), ("q8_residual", M_B, 768, 768, False, 1, 0),
+           ("q8_fc_gelu", M_B, 768, 3072, False, 1, 0), ("q8_fc_gelu", M_B, 768, 3072, True, 0, 0),
+           ("q8_residual", M_B, 3072, 768, False, 1, 0), ("q8s_qkv", M_B, 768, 2304, False, 0, 1),
+           ("q8s_residual", M_B, 768, 768, False, 0, 1),
+           ("q8s_fc_gelu", M_B, 768, 3072, False, 0, 1), ("q8s_fc_gelu", M_B, 768, 3072, True, 0, 0),
+           ("q8s_residual", M_B, 3072, 768, False, 0, 1))
+# fp32 operations of the GEMM's epilogue per output element (dequant, bias,
+# conversion or residual add; QuickGELU's exp and division counted as one each)
+Q8_EPILOGUE_OPS = {"qkv": 4, "residual": 5, "fc_gelu": 9}
+
+
+def _per_layer(kernels: tuple, counts: tuple, *times) -> None:
+    for k, n in zip(kernels, counts):
+        for _ in range(n):
+            k.add(*times)
+
+
+def phase_kernels_int8(F, Q, kq: dict, kqs: dict) -> None:
+    """Every int8 kernel against its plain version at the ViT-B/16 shapes:
+    LayerNorm-quant, the row quantizer (with a probe of exact ties), each
+    s8 GEMM epilogue, and attention_fwd's fp32 output."""
+    import torch
+    import torch.nn.functional as tf
+
+    tag = "kernels int8"
+    rn = randn_fn(4)
+    one = lambda v: torch.full((), v, dtype=torch.float32, device="cuda")  # noqa: E731
+
+    for rows, D, static, n_dyn, n_st in Q8_LN:
+        x = rn(rows, D, std=2.0)
+        s = rn(D, dtype=torch.float32) * 0.1 + 1
+        b = rn(D, dtype=torch.float32) * 0.1
+        r = one(127.0) / F.layer_norm_plain(x, s, b).float().abs().amax() if static else None
+        (q, sc), (q_ref, sc_ref) = Q.ln_quant(x, s, b, r), Q.ln_quant_plain(x, s, b, r)
+        reading = check_codes(f"layernorm_q8 {rows}x{D}", q, q_ref, kq["layernorm_q8"])
+        if not static:
+            reading += "; scales " + check_close(f"layernorm_q8 {rows}x{D} scales", sc, sc_ref,
+                                                 max_limit=LN_SCALE_ERR, norm_limit=LN_SCALE_ERR,
+                                                 share_limit=None)
+        ms = time_ms(lambda: Q.ln_quant(x, s, b, r))
+        plain = time_ms(lambda: Q.ln_quant_plain(x, s, b, r), 3)
+        bms, by = bound(rows * D * 3 + rows * 4 + 2 * D * 4, 0, 12 * rows * D)
+        say(tag, f"layernorm_q8 {rows}x{D} {'static' if static else 'dynamic'}: {reading} "
+                 f"ms {ms:.4f} plain {plain:.4f} library none bound {bms:.4f} ({by})")
+        _per_layer((kq["layernorm_q8"], kqs["layernorm_q8"]), (n_dyn, n_st), ms, plain, None,
+                   bms, by)
+        del x, q, q_ref
+
+    for rows, X, static, n_dyn, n_st in Q8_ROWS:
+        x = rn(rows, X, dtype=torch.float32)
+        r = one(127.0) / x.abs().amax() if static else None
+        (q, sc), (q_ref, sc_ref) = Q.quantize_rows(x, r), Q.quantize_rows_plain(x, r)
+        reading = check_equal(f"quant_rows {rows}x{X}", q, q_ref, kq["quant_rows"])
+        if not static:
+            reading += "; scales " + check_equal(f"quant_rows {rows}x{X} scales", sc, sc_ref)
+        ms = time_ms(lambda: Q.quantize_rows(x, r))
+        plain = time_ms(lambda: Q.quantize_rows_plain(x, r), 3)
+        bms, by = bound(rows * X * 5 + rows * 4, 0, 5 * rows * X)
+        say(tag, f"quant_rows {rows}x{X} {'static' if static else 'dynamic'}: {reading} "
+                 f"ms {ms:.4f} plain {plain:.4f} library none bound {bms:.4f} ({by})")
+        _per_layer((kq["quant_rows"], kqs["quant_rows"]), (n_dyn, n_st), ms, plain, None, bms, by)
+        del x, q, q_ref
+    # exact ties, rint's half-to-even: rows of k + 1/2 whose largest value is
+    # 127, so the dynamic scale is 1 and x / s lands on the tie; static r = 1
+    k = torch.randint(-127, 127, (64, 768), device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(5))
+    ties = k.float() + 0.5
+    ties[:, 0] = 127.0
+    for r in (None, one(1.0)):
+        reading = check_equal("quant_rows ties", Q.quantize_rows(ties, r)[0],
+                              Q.quantize_rows_plain(ties, r)[0], kq["quant_rows"])
+        say(tag, f"quant_rows 64x768 of exact ties, {'static' if r is not None else 'dynamic'}: "
+                 f"{reading}")
+
+    for ep, M, K, N, save, n_dyn, n_st in Q8_GEMM:
+        static = ep.startswith("q8s_")
+        x32 = rn(M, K, dtype=torch.float32)
+        wq, ws = Q.quantize_cols(rn(K, N, std=K ** -0.5))
+        wq = wq.t().contiguous()
+        if static:  # per-tensor codes, the site's dequant factor folded into ws
+            amax = x32.abs().amax()
+            a, xs = Q.quantize_rows_plain(x32, one(127.0) / amax)[0], None
+            ws = ws * (amax / 127.0)
+        else:
+            a, xs = Q.quantize_rows_plain(x32)
+        del x32
+        bias = rn(N, std=0.1)
+        extra = rn(M, N) if ep.endswith("residual") else None
+        r = None
+        if ep == "q8s_fc_gelu":
+            v = Q._s8_matmul(a, wq) * ws + bias.float()
+            r = one(127.0) / (v * torch.sigmoid(1.702 * v)).abs().amax()
+            del v
+        args = (a, xs, wq, ws, bias, ep, extra, r, save)
+        got, ref = Q.gemm_s8(*args), Q.gemm_s8_plain(*args)
+        what = f"gemm_s8 {ep} {K}->{N}"
+        kern = kq["gemm_s8_epilogue"] if not static else kqs["gemm_s8_epilogue"]
+        if save:
+            reading = "h " + check_equal(f"{what} h", got[0], ref[0], kern) + "; "
+            got, ref = got[1], ref[1]
+        else:
+            reading = ""
+        if ep == "q8_fc_gelu":
+            reading += "g " + check_close(f"{what} g", got, ref, kern, max_limit=F32_MAX_ERR,
+                                          norm_limit=F32_NORM_ERR, share_limit=None)
+            # g's codes, as quant_rows (held on its own above) would make them
+            reading += "; g's codes " + check_codes(f"{what} g's codes",
+                                                     Q.quantize_rows_plain(got)[0],
+                                                     Q.quantize_rows_plain(ref)[0])
+        elif ep == "q8s_fc_gelu":
+            reading += "codes " + check_codes(what, got, ref, kern)
+        else:
+            reading += check_equal(what, got, ref, kern)
+        del got, ref
+        ms = time_ms(lambda: Q.gemm_s8(*args))
+        plain = time_ms(lambda: Q.gemm_s8_plain(*args), 3)
+        lib = time_ms(lambda: torch._int_mm(a, wq.t()))  # the yardstick: int32 out, no epilogue
+        out_bytes = {"q8_fc_gelu": 4, "q8s_fc_gelu": 1}.get(ep, 2)
+        nbytes = (M * K + N * K + M * N * (out_bytes + (2 if extra is not None or save else 0))
+                  + (0 if static else M * 4) + N * 6)
+        e_ops = Q8_EPILOGUE_OPS[ep.split("_", 1)[1]] - static
+        bms, by = bound(nbytes, 0, e_ops * M * N, 2 * M * N * K)
+        say(tag, f"gemm_s8_epilogue {ep}{' save h' if save else ''} {M}x{K}->{N}: {reading} "
+                 f"ms {ms:.4f} ({2 * M * N * K / ms / 1e9:.1f} TOP/s) plain {plain:.4f} "
+                 f"library(torch._int_mm) {lib:.4f} "
+                 f"bound {bms:.4f} ({by})")
+        _per_layer((kq["gemm_s8_epilogue"], kqs["gemm_s8_epilogue"]), (n_dyn, n_st), ms, plain,
+                   lib, bms, by)
+        del a, xs, wq, ws, bias, extra, args
+
+    # attention's fp32 output, the int8 layers' accumulator, and its codes
+    for label, B, S, H, causal, per_layer in (("vision", BATCH, 199, 12, False, 1),
+                                              ("text packed (16,16)", 13, 128, 8, (16, 16), 0)):
+        D = 64 * H
+        qkv = rn(B, S, 3 * D)
+        got, ref = F.attention_fwd(qkv, H, causal, True), F.attention_plain(qkv, H, causal, True)
+        reading = check_close(f"attention_fwd fp32 {label}", got, ref, kq["attention_fwd"],
+                              max_limit=ATTN_F32_MAX_ERR, norm_limit=ATTN_F32_NORM_ERR,
+                              share_limit=None)
+        reading += "; codes " + check_codes(f"attention_fwd fp32 {label} codes",
+                                            Q.quantize_rows_plain(got)[0],
+                                            Q.quantize_rows_plain(ref)[0])
+        del got, ref
+        ms = time_ms(lambda: F.attention_fwd(qkv, H, causal, True))
+        plain = time_ms(lambda: F.attention_plain(qkv, H, causal, True), 3)
+        L, is_causal, valid = F._block_spec(S, causal)
+        n = B * (S // L)
+        pairs = sum(min(i + 1, valid) if is_causal else valid for i in range(L))
+        q, k_, v = qkv.view(n, L, 3, H, 64).permute(2, 0, 3, 1, 4)
+        mask = None
+        if isinstance(causal, tuple):
+            i = torch.arange(L, device=qkv.device)
+            mask = (i[None, :] <= i[:, None]) & (i[None, :] < valid)
+        lib = time_ms(lambda: tf.scaled_dot_product_attention(q, k_, v, attn_mask=mask))
+        bms, by = bound(B * S * D * (3 * 2 + 4), 4 * 64 * pairs * n * H, 5 * pairs * n * H)
+        say(tag, f"attention_fwd fp32 out {label} B={B} S={S} H={H}: {reading} ms {ms:.4f} "
+                 f"plain {plain:.4f} library(sdpa, bf16 out) {lib:.4f} bound {bms:.4f} ({by})")
+        if per_layer:
+            kq["attention_fwd"].add(ms, plain, lib, bms, by)
+        del qkv, q, k_, v
+
+
+def q8_block(ps: list) -> dict:
+    """The twelve layer weights as a block's parameter tree."""
+    names = (("ln_1", "scale"), ("ln_1", "bias"), ("attn", "qkv_w"), ("attn", "qkv_b"),
+             ("attn", "out_w"), ("attn", "out_b"), ("ln_2", "scale"), ("ln_2", "bias"),
+             ("mlp", "fc_w"), ("mlp", "fc_b"), ("mlp", "proj_w"), ("mlp", "proj_b"))
+    blk = {}
+    for (group, name), p in zip(names, ps):
+        blk.setdefault(group, {})[name] = p
+    return blk
+
+
+def phase_q8_chains(F, Q, layers) -> None:
+    """The four int8 layer chains against their plain versions at the
+    ViT-B/16 vision shape and the packed text rows: the dynamic and the
+    static serving forward, the saving forwards, and the quantization-aware
+    forward with its backward, h and qkv saved and recomputed."""
+    import torch
+
+    tag = "kernels int8"
+    rn = randn_fn(6)
+    for label, B, S, D, H, causal in (("vision", BATCH, 199, 768, 12, False),
+                                      ("text packed", 13, 128, 512, 8, (16, 16))):
+        x = rn(B, S, D)
+        ps = layer_params(rn, D)
+        blk = q8_block(ps)
+        amax = Q.calibrate(lambda: layers.residual_block(blk, x, H, causal))[0]
+        qw = Q.quantize_weights(blk)
+        qp = Q._quantize_layer(ps, qw)
+        qps, r = Q._quantize_layer_static(ps, amax, qw)
+        serve = {}
+        for tier, fn, ops in (("int8", Q.layer_fullblock_q8, (*qp,)),
+                              ("int8_static", Q.layer_fullblock_q8_static, (*qps, r))):
+            y, y_ref = fn(x, *ops, H, causal), fn(x, *ops, H, causal, plain=True)
+            reading = check_close(f"{tier} layer {label}", y, y_ref, share_limit=None)
+            serve[tier] = y
+            ms = time_ms(lambda: fn(x, *ops, H, causal))
+            plain = time_ms(lambda: fn(x, *ops, H, causal, plain=True), 2)
+            say(tag, f"{tier} layer {label} B={B} S={S} D={D} mask={causal}: {reading} "
+                     f"ms {ms:.4f} plain {plain:.4f}")
+            rs = None if tier == "int8" else r
+            got = Q.q8_save_forward(x, qps if rs is not None else qp, H, causal, rs)
+            ref = Q.q8_save_forward(x, qps if rs is not None else qp, H, causal, rs, plain=True)
+            check_equal(f"{tier} saving forward {label}: y vs the serving forward", got[0], y)
+            readings = [f"{n} " + check_close(f"{tier} saving forward {label} {n}", g, w,
+                                              share_limit=None)
+                        for n, g, w in zip(("y", "y1", "qkv", "h"), got, ref)]
+            say(tag, f"{tier} saving forward {label}: " + "; ".join(readings))
+            del y, y_ref, got, ref
+
+        xg = x.detach().requires_grad_(True)
+        gy = rn(B, S, D)
+        for tier in ("int8_ste", "int8_ste_static"):
+            for save in (True, False):
+                def step(plain_fns):
+                    with F.saved_acts(save):
+                        if tier == "int8_ste":
+                            y = Q.layer_fullblock_q8_ste(xg, *ps, H, causal, plain_fns, qw)
+                        else:
+                            y = Q.layer_fullblock_q8_ste_static(xg, amax, *ps, H, causal,
+                                                                plain_fns, qw)
+                    if (y.grad_fn.saved_tensors[1] is not None) != save:
+                        raise AssertionError(f"{tier} save={save}: wrong route")
+                    return y, torch.autograd.grad(y, xg, gy)[0]
+
+                (y, dx), (y_ref, dx_ref) = step(False), step(True)
+                what = f"{tier} {label} {'saved' if save else 'recomputed'}"
+                served = serve["int8" if tier == "int8_ste" else "int8_static"]
+                check_equal(f"{what}: y vs the serving forward", y.detach(), served)
+                r_y = check_close(f"{what} y", y, y_ref, share_limit=None)
+                r_dx = check_close(f"{what} dx", dx, dx_ref, max_limit=LAYER_DX_MAX_ERR,
+                                   norm_limit=LAYER_DX_NORM_ERR, share_limit=None)
+                del y, dx, y_ref, dx_ref
+                ms = time_ms(lambda: step(False), 5)
+                plain = time_ms(lambda: step(True), 1)
+                say(tag, f"{what} forward + backward: y {r_y}; dx {r_dx}; ms {ms:.4f} "
+                         f"plain {plain:.4f}")
+        del x, xg, gy, ps, blk, qw, qp, qps, serve
+
+
 def traced(phase: str, fn, cats_of) -> None:
     """Run ``fn`` once under the profiler and print where the device time
     went: ``cats_of(prof)`` gives ({category: us}, {kernel: us}, {other: us})."""
@@ -591,8 +911,9 @@ def serving_time_by_kernel(prof) -> tuple:
     """({kernel or "other": device us}, {}, {other kernel: us}) of a request."""
     import torch
 
-    by_kernel = {"gemm_bf16_kernel": 0.0, "attention_fwd_kernel": 0.0,
-                 "layernorm_fwd_kernel": 0.0, "other": 0.0}
+    by_kernel = {"gemm_bf16_kernel": 0.0, "gemm_s8_kernel": 0.0, "attention_fwd_kernel": 0.0,
+                 "layernorm_fwd_kernel": 0.0, "layernorm_q8_kernel": 0.0,
+                 "quant_rows_kernel": 0.0, "other": 0.0}
     others = {}
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
@@ -602,21 +923,33 @@ def serving_time_by_kernel(prof) -> tuple:
         by_kernel[key] += us
         if key == "other" and us > 0:
             others[e.key[:60]] = us
-    return by_kernel, {}, others
+    return {k: v for k, v in by_kernel.items() if v or k == "other"}, {}, others
 
 
-def phase_serving(F, model: str) -> dict:
+def phase_name(kind: str, model: str, quant: str) -> str:
+    return " ".join([kind] + ([model] if model != "ViT-B/16" else [])
+                    + ([quant] if quant != "none" else []))
+
+
+def phase_serving(F, model: str, quant: str = "none") -> dict:
     import torch
 
     from mudpt_torch.models.layers import plain_blocks
+    from mudpt_torch.trainers.mudpt import mudpt_image_logits, mudpt_text_features
     from mudpt_torch.utils.synth_step import build_synth_mudpt_server
 
-    phase = "serving" if model == "ViT-B/16" else f"serving {model}"
+    phase = phase_name("serving", model, quant)
     t0 = time.perf_counter()
-    st = build_synth_mudpt_server(model, BATCH, N_CLS, N_CTX, DEPTH, seed=0)
+    st = build_synth_mudpt_server(model, BATCH, N_CLS, N_CTX, DEPTH, seed=0, quant=quant)
     torch.cuda.synchronize()
-    say(phase, f"built {model} server (random weights, seed 0) in "
+    say(phase, f"built {model} server (random weights, seed 0, quant {quant}) in "
                f"{time.perf_counter() - t0:.2f} s; text rows {tuple(st.aux['token_suffix'].shape)}")
+    if st.quantize_s is not None:
+        say(phase, f"both towers' weights quantized once, per output channel into (Dout, Din) "
+                   f"int8: {st.quantize_s * 1e3:.2f} ms")
+    if st.calibration_s is not None:
+        say(phase, f"calibration (text encoded under int8, then both towers' activation "
+                   f"absmax on the plain route) {st.calibration_s:.3f} s")
     tr, params, aux, images = st.trainable, st.params, st.aux, st.images
     cfg = st.clip_cfg
 
@@ -644,7 +977,10 @@ def phase_serving(F, model: str) -> dict:
     # above), plus ln_pre and ln_post
     n_req = REQUESTS + 1
     vision = "full" if cfg.vision_width <= F.FULLBLOCK_MAX_WIDTH else "half"
-    want_text = expect(F.LAUNCHES, (cfg.transformer_layers, "full"), (1, tower_lns(1)))
+    text = "full"
+    if quant != "none":  # every layer of both towers runs the tier's int8 chain
+        vision = text = Q8_ROUTES[quant]
+    want_text = expect(F.LAUNCHES, (cfg.transformer_layers, text), (1, tower_lns(1)))
     if text_counts != want_text:
         raise AssertionError(f"text encode launches {text_counts} != {want_text}")
     want = expect(F.LAUNCHES, (1, want_text), (n_req * cfg.vision_layers, vision),
@@ -699,6 +1035,15 @@ def phase_serving(F, model: str) -> dict:
     if drift > 0.05 * scale or not agree[decisive].all() or agree.float().mean() < 0.75:
         raise AssertionError(f"logits vs plain path: drift {drift} (scale {scale}), "
                              f"agreement {agree.float().mean().item()}")
+    if quant != "none":
+        # printed, not held: how often int8 serving picks the bf16 tier's class
+        kw = dict(clip_cfg=cfg, compute_dtype=torch.bfloat16)
+        with torch.inference_mode():
+            txt16 = mudpt_text_features(tr, params, aux, **kw)
+            logits16 = mudpt_image_logits(tr, params, aux, images, txt16, **kw)
+        same = (logits.argmax(-1) == logits16.argmax(-1)).float().mean().item()
+        say(phase, f"top-1 agreement with the bf16 tier on the same weights: {same:.4f}; "
+                   f"logits max abs difference {(logits - logits16).abs().max().item():.4g}")
     return counts
 
 
@@ -728,7 +1073,9 @@ def device_time_by_kernel(prof) -> tuple:
             name, bwd = f"gemm_bf16_kernel<{gemm.group(1)}>", int(gemm.group(1)) >= 4
         else:
             name = next((k for k in ("layernorm_fwd_kernel", "attention_fwd_kernel",
-                                     "layernorm_bwd_kernel", "attention_bwd_kernel")
+                                     "layernorm_bwd_kernel", "attention_bwd_kernel",
+                                     "gemm_s8_kernel", "layernorm_q8_kernel",
+                                     "quant_rows_kernel")
                          if k in e.key), None)
             bwd = name is not None and "bwd" in name
         if name is None:
@@ -804,12 +1151,12 @@ def step_launches(F, cfg, text_route: str, vision_route: str) -> dict:
                   (cfg.vision_layers, vision_route), (1, tower_lns(3, 3)))
 
 
-def phase_train(F, model: str) -> dict:
+def phase_train(F, model: str, quant: str = "none") -> dict:
     import torch
 
     from mudpt_torch.utils.synth_step import build_synth_mudpt_step, leaves
 
-    phase = "train" if model == "ViT-B/16" else f"train {model}"
+    phase = phase_name("train", model, quant)
     if model == "ViT-L/14":
         # ---- gradients at batch 32, where an fp32 plain step fits: the
         # vision MLP recomputing h (its "0" mode), then 2,560 classes, whose
@@ -830,23 +1177,32 @@ def phase_train(F, model: str) -> dict:
         torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    st = build_synth_mudpt_step(model, BATCH, N_CLS, N_CTX, DEPTH, seed=0)
+    st = build_synth_mudpt_step(model, BATCH, N_CLS, N_CTX, DEPTH, seed=0, quant=quant)
     torch.cuda.synchronize()
     tr = leaves(st.trainable)
     cfg = st.clip_cfg
-    say(phase, f"built {model} train step (random weights, seed 0) in "
+    say(phase, f"built {model} train step (random weights, seed 0, quant {quant}) in "
                f"{time.perf_counter() - t0:.2f} s; {len(tr)} trainable leaves, "
                f"{sum(t.numel() for t in tr)} values")
+    if st.quantize_s is not None:
+        say(phase, f"both towers' weights quantized once: {st.quantize_s * 1e3:.2f} ms")
+    if st.calibration_s is not None:
+        say(phase, f"calibration (both towers' activation absmax on the plain route) "
+                   f"{st.calibration_s:.3f} s")
     # the text tower (768 wide or less, 100 classes) saves and runs whole
     # layers; the vision tower too at ViT-B; at ViT-L its halves, the MLP's
-    # h over the row-token budget at batch 384, so recomputed
-    if cfg.vision_width <= F.FULLBLOCK_MAX_WIDTH:
+    # h over the row-token budget at batch 384, so recomputed.  Under a
+    # quantization-aware tier every layer saves and runs its int8 chain
+    text_route = "full_train"
+    if quant != "none":
+        vision_route = text_route = Q8_ROUTES[quant]
+    elif cfg.vision_width <= F.FULLBLOCK_MAX_WIDTH:
         vision_route = "full_train"
     elif F.wide_mlp_save(BATCH * cfg.vision_seq_len + BATCH * N_CTX):
         vision_route = "half_train"
     else:
         vision_route = "half_train_recompute_h"
-    per_step = step_launches(F, cfg, "full_train", vision_route)
+    per_step = step_launches(F, cfg, text_route, vision_route)
     if model == "ViT-B/16":
         grad_check(F, st, phase, "one step", per_step)
 
@@ -899,8 +1255,10 @@ def main() -> int:
         print(f"chip_smoke: no mudpt_torch package beside {__file__}", file=sys.stderr)
         return 3
     sys.path.insert(0, str(root))
+    from mudpt_torch.models import layers
     from mudpt_torch.ops import _build
     from mudpt_torch.ops import fused_block as F
+    from mudpt_torch.ops import quant_block as Q
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -915,8 +1273,13 @@ def main() -> int:
     say("build", f"{len(_build.SIGNATURES)} kernel sources built in "
                  f"{_build.build_seconds:.2f} s; ptxas: {json.dumps(regs)}")
 
-    kernels = {name: Kernel(name) for name in _build.SIGNATURES}
-    kernels_l = {name: Kernel(name) for name in _build.SIGNATURES}
+    bf16_names = [name for name in _build.SIGNATURES if name not in Q8_KERNELS]
+    kernels = {name: Kernel(name) for name in bf16_names}
+    kernels_l = {name: Kernel(name) for name in bf16_names}
+    # one vision layer of the int8 request (attention_fwd's fp32 output
+    # mode with them) and of the int8_static request
+    kernels_q = {name: Kernel(name) for name in (*Q8_KERNELS, "attention_fwd")}
+    kernels_qs = {name: Kernel(name) for name in Q8_KERNELS}
     paths = {}
 
     def run(phase: str, fn, *args):
@@ -935,10 +1298,22 @@ def main() -> int:
     run("kernels ViT-L/14", phase_halfblock_chains, F)
     paths["serving_vit_l14"] = run("serving ViT-L/14", phase_serving, F, "ViT-L/14")
     paths["train_step_vit_l14"] = run("train ViT-L/14", phase_train, F, "ViT-L/14")
+    run("kernels int8", phase_kernels_int8, F, Q, kernels_q, kernels_qs)
+    run("kernels int8", phase_q8_chains, F, Q, layers)
+    for quant in ("int8", "int8_static"):
+        paths[f"serving_{quant}"] = run(f"serving {quant}", phase_serving, F, "ViT-B/16", quant)
+    for quant in ("int8_ste", "int8_ste_static"):
+        paths[f"train_step_{quant}"] = run(f"train {quant}", phase_train, F, "ViT-B/16", quant)
 
-    print(json.dumps({"kernels": [
-        k.record({path: counts[k.name] for path, counts in paths.items()}, kernels_l[k.name])
-        for k in kernels.values()]}))
+    def by_path(name: str) -> dict:
+        return {path: counts[name] for path, counts in paths.items()}
+
+    records = [k.record(by_path(name), "train_step", vit_l14=kernels_l[name],
+                        **({"int8": kernels_q[name]} if name in kernels_q else {}))
+               for name, k in kernels.items()]
+    records += [kernels_q[name].record(by_path(name), "serving_int8", int8_static=kernels_qs[name])
+                for name in Q8_KERNELS]
+    print(json.dumps({"kernels": records}))
     print(smi())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

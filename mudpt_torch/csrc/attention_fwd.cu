@@ -17,6 +17,10 @@
 //   a (image, head) does 4*S*S*64 = 10 M operations on 4*S*64*2 = 102 KB of
 //   q, k, v and output, ~100 operations per byte, a third of the ~295 where
 //   bf16 tensor cores bind; the packed text rows (S = 16) are further below.
+// fp32 output mode: the int8 layer kernels keep the attention accumulator
+//   in fp32 (mudpt_tpu/ops/quant_block.py:146, :259, :283, :443, :624:
+//   VMEM((S, D), float32) into which _mha_acc stores o unrounded) and
+//   quantize it from there (:101); the same kernel then stores o as fp32.
 // Design: a block of 8 warps stages K, V and its 128 queries in shared
 //   memory with cp.async (zero rows past L, so the ragged S = 199 needs no
 //   special path); each warp owns 16 query rows and keeps everything else
@@ -99,8 +103,9 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
+template <bool F32_OUT>
 __global__ void __launch_bounds__(kWarps * 32)
-attention_fwd_kernel(const __nv_bfloat16* __restrict__ qkv, __nv_bfloat16* __restrict__ out,
+attention_fwd_kernel(const __nv_bfloat16* __restrict__ qkv, void* __restrict__ out,
                      int L, int D, int causal, int valid, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int Lpad = pad16(L);
@@ -218,12 +223,18 @@ attention_fwd_kernel(const __nv_bfloat16* __restrict__ qkv, __nv_bfloat16* __res
   }
 
   // o[j][0..1]: row0, dims 8j+2t, 8j+2t+1; o[j][2..3]: row1
-  __nv_bfloat16* dst0 = out + ((size_t)seq * L + row0) * D + h * HD + 2 * t;
-  __nv_bfloat16* dst1 = dst0 + 8 * (size_t)D;
+  const size_t off0 = ((size_t)seq * L + row0) * D + h * HD + 2 * t, off1 = off0 + 8 * (size_t)D;
 #pragma unroll
   for (int j = 0; j < HD / 8; ++j) {
-    if (row0 < L) *reinterpret_cast<uint32_t*>(dst0 + j * 8) = pack_bf16(o[j][0], o[j][1]);
-    if (row1 < L) *reinterpret_cast<uint32_t*>(dst1 + j * 8) = pack_bf16(o[j][2], o[j][3]);
+    if (F32_OUT) {
+      float* dst = static_cast<float*>(out);
+      if (row0 < L) *reinterpret_cast<float2*>(dst + off0 + j * 8) = make_float2(o[j][0], o[j][1]);
+      if (row1 < L) *reinterpret_cast<float2*>(dst + off1 + j * 8) = make_float2(o[j][2], o[j][3]);
+    } else {
+      __nv_bfloat16* dst = static_cast<__nv_bfloat16*>(out);
+      if (row0 < L) *reinterpret_cast<uint32_t*>(dst + off0 + j * 8) = pack_bf16(o[j][0], o[j][1]);
+      if (row1 < L) *reinterpret_cast<uint32_t*>(dst + off1 + j * 8) = pack_bf16(o[j][2], o[j][3]);
+    }
   }
 }
 
@@ -231,19 +242,27 @@ int smem_bytes(int L) {
   return (QT * LD + 2 * pad16(L) * LD) * (int)sizeof(__nv_bfloat16);
 }
 
-}  // namespace
-
-extern "C" int attention_fwd(const void* qkv, void* out, int n_seq, int L, int D, int n_head,
-                             int causal, int valid, float scale, void* stream) {
-  if (L < 1 || L > kMaxL || D != n_head * HD) return (int)cudaErrorInvalidValue;
+template <bool F32_OUT>
+int launch(const void* qkv, void* out, int n_seq, int L, int D, int n_head, int causal,
+           int valid, float scale, cudaStream_t stream) {
   const int smem = smem_bytes(L);
-  cudaError_t err = cudaFuncSetAttribute(attention_fwd_kernel,
+  cudaError_t err = cudaFuncSetAttribute(attention_fwd_kernel<F32_OUT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const int n_qt = (L + QT - 1) / QT;
   const dim3 grid(n_seq * n_qt, n_head);
-  attention_fwd_kernel<<<grid, kWarps * 32, smem, (cudaStream_t)stream>>>(
-      static_cast<const __nv_bfloat16*>(qkv), static_cast<__nv_bfloat16*>(out), L, D, causal,
-      valid, scale);
+  attention_fwd_kernel<F32_OUT><<<grid, kWarps * 32, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(qkv), out, L, D, causal, valid, scale);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// out: (n_seq * L, D) bf16, or fp32 when out_f32 is 1.
+extern "C" int attention_fwd(const void* qkv, void* out, int n_seq, int L, int D, int n_head,
+                             int causal, int valid, float scale, int out_f32, void* stream) {
+  if (L < 1 || L > kMaxL || D != n_head * HD) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  return out_f32 ? launch<true>(qkv, out, n_seq, L, D, n_head, causal, valid, scale, s)
+                 : launch<false>(qkv, out, n_seq, L, D, n_head, causal, valid, scale, s);
 }

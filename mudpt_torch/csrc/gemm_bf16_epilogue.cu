@@ -480,14 +480,17 @@ template <int MODE>
 int launch(const __nv_bfloat16* a, const __nv_bfloat16* w, const __nv_bfloat16* b,
            const void* r, void* c, __nv_bfloat16* c2, int M, int N, int K, cudaStream_t s) {
   if (K % BK || N % 8) return (int)cudaErrorInvalidValue;
-  CUtensorMap map_a, map_w;
-  const bool w_ok = w_transposed(MODE) ? make_map(&map_w, w, N, K, BN)   // W (N, K)
-                                       : make_map(&map_w, w, K, N, BK);  // W (K, N)
-  if (!make_map(&map_a, a, M, K, BM) || !w_ok) return (int)cudaErrorInvalidValue;
+  // a runtime call first: it makes the device's primary context current in
+  // this thread (autograd's backward thread may not have one yet), which the
+  // driver's tensor-map encoder below needs
   auto kernel = gemm_bf16_kernel<MODE>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
+  CUtensorMap map_a, map_w;
+  const bool w_ok = w_transposed(MODE) ? make_map(&map_w, w, N, K, BN)   // W (N, K)
+                                       : make_map(&map_w, w, K, N, BK);  // W (K, N)
+  if (!make_map(&map_a, a, M, K, BM) || !w_ok) return (int)cudaErrorInvalidValue;
   static int n_sm = 0;
   if (n_sm == 0) {
     int dev = 0;

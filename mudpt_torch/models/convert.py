@@ -7,6 +7,8 @@ into the port's tensors, keeping names and layouts.  bfloat16 leaves come
 as ``ml_dtypes`` arrays (dtype name ``bfloat16``) or as their ``uint16``
 bit views; both become ``torch.bfloat16`` through a bit view, without a
 round trip through float.  The port itself never imports ``ml_dtypes``.
+A tower's calibrated ``q8_scales`` leaf (the JAX ``quant_block.attach_scales``,
+(L, 4) fp32) crosses over like any other, and each layer reads its row.
 """
 
 from __future__ import annotations

@@ -12,6 +12,12 @@ x needs a gradient), a CPU tensor to the kernels' plain versions.  A CUDA
 tensor the kernels cannot take raises; it never quietly runs the plain
 body.  :func:`plain_blocks` lets a reference run ask for the plain versions
 on the card explicitly.
+
+Under a quant mode (:func:`set_quant_mode`, :func:`quantized`) every block
+runs an int8 tier of ``ops/quant_block.py`` instead (``layers.py:182-248``).
+:func:`calibration_capture` selects a plain unquantized route, ``x +
+attention(LN x) + mlp(LN x)`` with an additive mask, whose four quant sites
+record their absmax (``layers.py:28-53``, which forces the XLA blocks).
 """
 
 from __future__ import annotations
@@ -21,9 +27,70 @@ from typing import Optional
 
 import torch
 
-from mudpt_torch.ops import fused_block
+from mudpt_torch.ops import fused_block, quant_block
 
 _PLAIN_ON_CUDA = False
+
+# The activation-absmax sink of calibration_capture: while installed, the
+# plain route's attention and mlp record the absmax of their four quant
+# sites (LN1 output, MHA output, LN2 output, post-GELU), 4 values a block
+_CALIB_SINK: Optional[list] = None
+
+# 'none' | 'int8' | 'int8_static' | 'int8_ste' | 'int8_ste_static' (the JAX
+# package's quant modes, layers.py:182-206, without MUDPT_TPU_QUANT)
+QUANT_MODES = ("none", "int8", "int8_static", "int8_ste", "int8_ste_static")
+_QUANT_MODE = "none"
+
+
+def set_quant_mode(name: str) -> None:
+    """'int8': every block's projections s8 x s8 -> s32 with dynamic per-row
+    activation scales, serving only (a backward raises).  'int8_static':
+    blocks with a ``q8_scales`` leaf quantize activations by calibrated
+    per-tensor scales, the others fall back to 'int8'.  'int8_ste' /
+    'int8_ste_static': the same forwards with a straight-through backward
+    (quantization-aware prompt tuning)."""
+    if name not in QUANT_MODES:
+        raise ValueError(f"quant mode {name!r}: expected one of {QUANT_MODES}")
+    global _QUANT_MODE
+    _QUANT_MODE = name
+
+
+def quant_mode() -> str:
+    return _QUANT_MODE
+
+
+@contextlib.contextmanager
+def quantized(name: str):
+    """The quant mode inside the context, the previous one after it."""
+    prev = _QUANT_MODE
+    set_quant_mode(name)
+    try:
+        yield
+    finally:
+        set_quant_mode(prev)
+
+
+@contextlib.contextmanager
+def calibration_capture(sink: list):
+    """Install an activation-absmax sink; every block takes the plain
+    unquantized route and every LayerNorm its plain version meanwhile, on
+    either device (``layers.py:37-48``: the JAX capture forces XLA blocks)."""
+    global _CALIB_SINK, _QUANT_MODE, _PLAIN_ON_CUDA
+    prev = (_CALIB_SINK, _QUANT_MODE, _PLAIN_ON_CUDA)
+    _CALIB_SINK, _QUANT_MODE, _PLAIN_ON_CUDA = sink, "none", True
+    try:
+        yield
+    finally:
+        _CALIB_SINK, _QUANT_MODE, _PLAIN_ON_CUDA = prev
+
+
+def calibrating() -> bool:
+    return _CALIB_SINK is not None
+
+
+def _calib_record(x: torch.Tensor) -> None:
+    if _CALIB_SINK is not None:
+        _CALIB_SINK.append(x.float().abs().amax())
 
 
 @contextlib.contextmanager
@@ -97,6 +164,7 @@ def attention(p: dict, x: torch.Tensor, n_head: int,
     optional additive (S, S) mask (``layers.py:91-128``)."""
     B, S, D = x.shape
     hd = D // n_head
+    _calib_record(x)  # site 1: the qkv product's input (LN1 output)
     qkv = torch.matmul(x, p["qkv_w"].to(x.dtype)) + p["qkv_b"].to(x.dtype)
     q, k, v = qkv.reshape(B, S, 3, n_head, hd).permute(2, 0, 3, 1, 4)  # (B, H, S, hd)
     scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * hd ** -0.5
@@ -104,13 +172,68 @@ def attention(p: dict, x: torch.Tensor, n_head: int,
         scores = scores + mask.float()
     probs = torch.softmax(scores, dim=-1).to(x.dtype)
     out = torch.matmul(probs, v).permute(0, 2, 1, 3).reshape(B, S, D)
+    _calib_record(out)  # site 2: the out-projection's input (MHA output)
     return torch.matmul(out, p["out_w"].to(x.dtype)) + p["out_b"].to(x.dtype)
 
 
 def mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
     """``layers.py:131-136``."""
+    _calib_record(x)  # site 3: the fc product's input (LN2 output)
     h = quick_gelu(torch.matmul(x, p["fc_w"].to(x.dtype)) + p["fc_b"].to(x.dtype))
+    _calib_record(h)  # site 4: the proj product's input (post-GELU)
     return torch.matmul(h, p["proj_w"].to(x.dtype)) + p["proj_b"].to(x.dtype)
+
+
+def _additive_mask(S: int, causal: fused_block.Causal, device) -> Optional[torch.Tensor]:
+    """The XLA route's (S, S) mask: none; causal, -inf above the diagonal
+    (``text.causal_mask``); packed ``(period, valid)``, -1e30 outside each
+    block's causal window and at pad keys (``fused_block._causal_mask``)."""
+    if causal is False:
+        return None
+    row = torch.arange(S, device=device)[:, None]
+    col = torch.arange(S, device=device)[None, :]
+    if causal is True:
+        return torch.where(col > row, float("-inf"), 0.0)
+    period, valid = causal
+    ok = (col <= row) & (row // period == col // period) & (col % period < valid)
+    return torch.where(ok, 0.0, fused_block.NEG)
+
+
+def _plain_route(p: dict, x: torch.Tensor, n_head: int,
+                 causal: fused_block.Causal) -> torch.Tensor:
+    """``x + attention(LN x)``, then ``+ mlp(LN x)`` (``layers.py:283-285``)."""
+    mask = _additive_mask(x.shape[1], causal, x.device)
+    x = x + attention(p["attn"], layer_norm(p["ln_1"], x), n_head, mask)
+    return x + mlp(p["mlp"], layer_norm(p["ln_2"], x))
+
+
+def _valid_mask_spec(causal) -> bool:
+    if isinstance(causal, bool):
+        return True
+    return (isinstance(causal, tuple) and len(causal) == 2
+            and all(isinstance(v, int) for v in causal))
+
+
+def _quant_block(p: dict, x: torch.Tensor, n_head: int, causal) -> torch.Tensor:
+    """The quant dispatch (``layers.py:218-248``): the int8 tiers exist only
+    as the q8 chains, so an unsupported mask or width raises rather than
+    serve an unquantized block the caller did not ask for."""
+    D = x.shape[-1]
+    if not (_valid_mask_spec(causal) and D <= fused_block.MAX_WIDTH):
+        raise ValueError(
+            f"quant mode {_QUANT_MODE!r} requires the q8 layer chains (causal or "
+            f"unmasked attention, width <= {fused_block.MAX_WIDTH}; got mask spec "
+            f"{causal!r}, D={D}); set_quant_mode('none')"
+        )
+    if x.is_cuda and not _PLAIN_ON_CUDA:
+        _require_bf16(x)
+    plain = _PLAIN_ON_CUDA
+    if _QUANT_MODE in ("int8_ste", "int8_ste_static"):
+        return quant_block.residual_block_q8_ste(p, x, n_head, causal, plain)
+    if _QUANT_MODE == "int8_static" and "q8_scales" in p:
+        return quant_block.residual_block_q8_static(p, x, n_head, causal, plain)
+    # 'int8', or 'int8_static' on a tower without calibrated scales
+    return quant_block.residual_block_q8(p, x, n_head, causal, plain)
 
 
 def residual_block(p: dict, x: torch.Tensor, n_head: int,
@@ -119,7 +242,13 @@ def residual_block(p: dict, x: torch.Tensor, n_head: int,
     ``(period, valid)``), routed as ``layers.py:249-282`` routes it on
     either device: ``layer_fullblock`` while saves are on and D <= 768,
     else ``attn_halfblock`` then ``mlp_halfblock``.  Wider than 1024 the
-    JAX package falls back to XLA, which the port does not have: it raises."""
+    JAX package falls back to XLA, which the port does not have: it raises.
+    Under a quant mode the int8 tiers run instead; under
+    :func:`calibration_capture` the plain route."""
+    if _CALIB_SINK is not None:
+        return _plain_route(p, x, n_head, causal)
+    if _QUANT_MODE != "none":
+        return _quant_block(p, x, n_head, causal)
     D = x.shape[-1]
     if D > fused_block.MAX_WIDTH:
         raise NotImplementedError(

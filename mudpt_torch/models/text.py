@@ -23,7 +23,7 @@ from typing import Optional
 
 import torch
 
-from mudpt_torch.models.layers import layer_norm
+from mudpt_torch.models.layers import calibrating, layer_norm
 from mudpt_torch.models.transformer import make_injection_schedule, num_layers_of, transformer_forward
 from mudpt_torch.ops.fused_block import saved_acts
 
@@ -81,7 +81,12 @@ def text_forward(
         )
     prompts, pmask = make_injection_schedule(num_layers_of(p["blocks"]), deep_prompts)
     P = -(-S // 8) * 8
-    G = _auto_pack_g(P, N) if pack is None else pack
+    if pack is None:
+        # the calibration capture runs the tower unpacked, as the JAX
+        # capture's XLA blocks do (text._resolve_pack :78-93): packed pad
+        # rows would enter the absmax
+        pack = 1 if calibrating() else _auto_pack_g(P, N)
+    G = pack
     kw = dict(n_head=n_head, prompts=prompts, prompt_mask=pmask, n_ctx=n_ctx, is_text=True)
     with saved_acts(False) if _text_saves_off(N, P) else contextlib.nullcontext():
         if G > 1:

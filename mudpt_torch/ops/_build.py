@@ -45,13 +45,22 @@ SIGNATURES = {
         "gemm_bf16_epilogue": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
     },
     "attention_fwd": {
-        "attention_fwd": ([_P, _P, _I, _I, _I, _I, _I, _I, _F, _P], _I),
+        "attention_fwd": ([_P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P], _I),
     },
     "layernorm_bwd": {
         "layernorm_bwd": ([_P, _I, _P, _P, _P, _P, _I, _I, _F, _P], _I),
     },
     "attention_bwd": {
         "attention_bwd": ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P], _I),
+    },
+    "layernorm_q8": {
+        "layernorm_q8": ([_P, _P, _P, _P, _P, _P, _I, _I, _F, _P], _I),
+    },
+    "gemm_s8_epilogue": {
+        "gemm_s8_epilogue": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+    },
+    "quant_rows": {
+        "quant_rows": ([_P, _P, _P, _P, _I, _I, _P], _I),
     },
 }
 

@@ -87,6 +87,15 @@ LAUNCHES = {
     "attn_halfblock_bwd": 0,
     "mlp_halfblock": 0,
     "mlp_halfblock_bwd": 0,
+    # the int8 tiers (ops/quant_block.py): its kernels and its layer chains
+    "layernorm_q8": 0,
+    "gemm_s8_epilogue": 0,
+    "quant_rows": 0,
+    "layer_fullblock_q8": 0,
+    "layer_fullblock_q8_static": 0,
+    "layer_fullblock_q8_ste": 0,
+    "layer_fullblock_q8_ste_static": 0,
+    "layer_fullblock_q8_ste_bwd": 0,
 }
 
 Causal = Union[bool, Tuple[int, int]]
@@ -375,22 +384,26 @@ def _probs_plain(q, k, L: int, is_causal: bool, valid: int):
     return torch.softmax(scores, dim=-1)
 
 
-def attention_plain(qkv, n_head: int, causal: Causal = False):
+def attention_plain(qkv, n_head: int, causal: Causal = False, out_f32: bool = False):
     """Multi-head attention from a packed (B, S, 3D) qkv -> (B, S, D):
     scores fp32(q k^T) * hd^-0.5 + mask (-1e30), fp32 softmax, probabilities
     cast to qkv's dtype before P.V, fp32 accumulation, output in qkv's dtype
-    (``_mha_acc`` :222, ``_head_probs`` :197)."""
+    (``_mha_acc`` :222, ``_head_probs`` :197) or, with ``out_f32``, in fp32
+    unrounded (the int8 layers' fp32 accumulator, ``quant_block.py:146``)."""
     B, S, D3 = qkv.shape
     q, k, v, L, is_causal, valid = _split_heads(qkv, n_head, causal)
     p = _probs_plain(q, k, L, is_causal, valid).to(qkv.dtype)
-    o = torch.matmul(p.float(), v.float()).to(qkv.dtype)  # (n, H, L, hd)
+    o = torch.matmul(p.float(), v.float())  # (n, H, L, hd)
+    if not out_f32:
+        o = o.to(qkv.dtype)
     return o.permute(0, 2, 1, 3).reshape(B, S, D3 // 3)
 
 
-def attention_fwd(qkv, n_head: int, causal: Causal = False):
-    """Attention per (sequence block, head, 128-query tile) on the card."""
+def attention_fwd(qkv, n_head: int, causal: Causal = False, out_f32: bool = False):
+    """Attention per (sequence block, head, 128-query tile) on the card;
+    the output bf16, or fp32 with ``out_f32``."""
     if not qkv.is_cuda:
-        return attention_plain(qkv, n_head, causal)
+        return attention_plain(qkv, n_head, causal, out_f32)
     B, S, D3 = qkv.shape
     D = D3 // 3
     if D != n_head * HEAD_DIM:
@@ -399,11 +412,12 @@ def attention_fwd(qkv, n_head: int, causal: Causal = False):
     if L > 400:
         raise ValueError(f"attention_fwd: sequence block {L} > 400 does not fit shared memory")
     _require(qkv, "attention qkv", torch.bfloat16)
-    out = torch.empty((B, S, D), dtype=torch.bfloat16, device=qkv.device)
+    out = torch.empty((B, S, D), dtype=torch.float32 if out_f32 else torch.bfloat16,
+                      device=qkv.device)
     lib = _build.load()["attention_fwd"]
     _build.check(lib.attention_fwd(qkv.data_ptr(), out.data_ptr(), B * (S // L), L, D,
                                    n_head, int(is_causal), valid, HEAD_DIM ** -0.5,
-                                   _stream()), "attention_fwd")
+                                   int(out_f32), _stream()), "attention_fwd")
     LAUNCHES["attention_fwd"] += 1
     return out
 

@@ -7,7 +7,11 @@ gradient of the unrounded pre-activation where the bf16 h was saved and of
 the bf16 h where the recompute backward keeps h32 unrounded, a second
 rounding before the residual of the LayerNorm dx) and two faults of
 ``attention_bwd``'s row tiling at ViT-L/14's 259-token blocks, while a
-change of fp32 sum order passes."""
+change of fp32 sum order passes.  The int8 kernels' limits (codes within
+one step, few of them differing) reject the attention output rounded to
+bf16 before the row quantizer, rounding half away from zero, and the LN1
+output quantized from bf16, and pass LayerNorm statistics summed in
+another order."""
 
 import importlib.util
 from pathlib import Path
@@ -17,6 +21,7 @@ import torch
 import torch.nn.functional as tf
 
 from mudpt_torch.ops import fused_block as F
+from mudpt_torch.ops import quant_block as Q
 
 ROOT = Path(__file__).resolve().parent.parent
 M, K, N = 512, 768, 768
@@ -174,3 +179,76 @@ def test_check_close_catches_attention_bwd_tiling_fault(fault):
     got, ref = _attention_bwd_tiling_fault(qkv, do, 2, fault), F.attention_bwd_plain(qkv, do, 2)
     with pytest.raises(AssertionError, match="max abs err|share of differing|relative norm"):
         C.check_close(fault, got, ref)
+
+
+def _ln_quant_sum_order(x, s, b):
+    """ln_quant_plain with the LayerNorm statistics summed in float64, then
+    rounded: another order of the same fp32 sums, as the kernel's warp
+    reduction has."""
+    x64 = x.double()
+    mean = x64.mean(-1, keepdim=True).float()
+    var = (x.float() - mean).double().square().mean(-1, keepdim=True).float()
+    xn = (x.float() - mean) * torch.rsqrt(var + 1e-5) * s + b
+    return Q.quantize_rows_plain(xn)[0]
+
+
+def _q8_case(fault):
+    """(codes of the fault, codes of the plain version) of an int8 kernel."""
+    g = torch.Generator().manual_seed(4)
+    if fault == "attention_out_rounded_to_bf16":
+        qkv = torch.randn(4, 64, 3 * 128, generator=g).bfloat16()
+        ref = F.attention_plain(qkv, 2, False, out_f32=True)
+        return (Q.quantize_rows_plain(F.attention_plain(qkv, 2, False).float())[0],
+                Q.quantize_rows_plain(ref)[0])
+    if fault == "round_half_away_from_zero":
+        # chip_smoke's probe of exact ties: rows of k + 1/2, largest 127
+        ties = torch.randint(-127, 127, (64, 768), generator=g).float() + 0.5
+        ties[:, 0] = 127.0
+        q, s = Q.quantize_rows_plain(ties)
+        v = ties / s
+        away = (v.sign() * (v.abs() + 0.5).floor()).clamp(-127, 127).to(torch.int8)
+        return away, q
+    x = (torch.randn(512, 768, generator=g) * 2).bfloat16()
+    s, b = torch.randn(768, generator=g) * 0.1 + 1, torch.randn(768, generator=g) * 0.1
+    ref = Q.ln_quant_plain(x, s, b)[0]
+    if fault == "ln1_quantized_from_bf16":
+        return Q.quantize_rows_plain(F.layer_norm_plain(x, s, b).float())[0], ref
+    return _ln_quant_sum_order(x, s, b), ref
+
+
+# Readings: the share of codes not equal to the plain version's, and the
+# largest step: attention output rounded to bf16 0.064, 1; half away from
+# zero on the ties probe 0.50, 1; LN1 output quantized from bf16 0.052, 1;
+# the LayerNorm statistics summed in another order 0, 0.  The bf16-rounded
+# attention output itself: norm error 1.7e-3, max 2.9e-3 of the largest
+@pytest.mark.parametrize("fault", ["attention_out_rounded_to_bf16", "round_half_away_from_zero",
+                                   "ln1_quantized_from_bf16"])
+def test_check_codes_catches_int8_fault(fault):
+    """Each fault moves codes by one step only, which the step limit lets
+    through; the share of differing codes, or their norm error, rejects it."""
+    C = _chip_smoke()
+    got, ref = _q8_case(fault)
+    assert (got.int() - ref.int()).abs().max() <= C.CODE_STEP
+    assert (got != ref).float().mean() > 4 * C.CODE_SHARE
+    with pytest.raises(AssertionError, match="share of differing|relative norm"):
+        C.check_codes(fault, got, ref)
+    with pytest.raises(AssertionError):
+        C.check_equal(fault, got, ref)
+
+
+def test_check_close_catches_attention_output_rounded_to_bf16():
+    """The fp32 attention output itself, held as chip_smoke holds
+    attention_fwd's fp32 mode: bf16 rounding exceeds the norm limit."""
+    C = _chip_smoke()
+    qkv = torch.randn(4, 64, 3 * 128, generator=torch.Generator().manual_seed(4)).bfloat16()
+    ref = F.attention_plain(qkv, 2, False, out_f32=True)
+    with pytest.raises(AssertionError, match="relative norm"):
+        C.check_close("attention fp32", F.attention_plain(qkv, 2, False).float(), ref,
+                      max_limit=C.ATTN_F32_MAX_ERR, norm_limit=C.ATTN_F32_NORM_ERR,
+                      share_limit=None)
+
+
+def test_check_codes_passes_ln_sum_order_change():
+    C = _chip_smoke()
+    got, ref = _q8_case("ln_sum_order")
+    C.check_codes("ln sum order", got, ref)
