@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Run the PyTorch/CUDA port's MuDPT serving paths and train steps on one
-GPU: ViT-B/16 and ViT-L/14.
+GPU, ViT-B/16 and ViT-L/14, and its chunked MLP half-block.
 
     python3 chip_smoke.py
 
@@ -45,6 +45,14 @@ Phases, each printed with the card's name and power limit:
               "int8_static" (calibrated at build), and the top-1 agreement
               with the bf16 tier on the same weights printed.
  11. train int8_ste, train int8_ste_static   as 5, quantization-aware.
+ 12. kernels chunked   mlp_halfblock_chunked, the MLP half streamed over
+              hidden-dim chunks: LayerNorm forward and dx at D = 1024 and
+              1280; each GEMM of its chain at ViT-L/14's chunk (the fc
+              weight's column chunk read in place, y and the fp32 dxn
+              updated in place); then the op against its plain version,
+              forward and forward with backward, launches per call held, at
+              ViT-L/14's vision MLP (K = 8 chunks), ViT-B/16's (K = 2) and
+              D = 1280 (K = 10), timed beside mlp_halfblock at ViT-L/14.
 
 The last three lines are one JSON object describing each kernel, the
 card's name and power limit, and {"ok": true, "device": {...}}.  Times in
@@ -53,9 +61,11 @@ ViT-B/16 train step (LayerNorm twice, the eight projections, attention once,
 each way), under "vit_l14" in the ViT-L/14 train step (LayerNorm three
 times, nine projections) and, for attention_fwd, under "int8" its fp32
 output in the int8 request; the int8 kernels' totals are over one vision
-layer of the int8 request, under "int8_static" of the int8_static request.
-"launches" counts the main path's run ("main_path": the ViT-B/16 train
-step, or the int8 request), "launches_by_path" each path's.  Any failed
+layer of the int8 request, under "int8_static" of the int8_static request;
+under "chunked" one call of the chunked MLP half's forward and backward at
+ViT-L/14 (LayerNorm twice, 40 products, LayerNorm dx once).  "launches"
+counts the main path's run ("main_path": the ViT-B/16 train step, or the
+int8 request), "launches_by_path" each path's.  Any failed
 check raises, and the script exits non-zero without a result; so it does
 without CUDA, and outside a checkout of the repository.
 """
@@ -142,15 +152,16 @@ ATTN_FWD = ":318 _attn_fwd_kernel, :326 _attn_fwd_save_kernel"
 MLP_FWD = ":403 _mlp_fwd_kernel, :415 _mlp_fwd_save_kernel"
 ATTN_BWD = ":369 _attn_bwd_save_kernel, :358 _attn_bwd_kernel"
 MLP_BWD = ":451 _mlp_bwd_save_kernel, :444 _mlp_bwd_kernel"
+CHUNK_FWD, CHUNK_BWD = ":477 _mlp_chunk_fwd_kernel", ":500 _mlp_chunk_bwd_kernel"
 Q8 = ("mudpt_tpu/ops/quant_block.py:89 _layer_fwd_q8_kernel, :178 _layer_fwd_q8_save_kernel, "
       ":377 _layer_fwd_q8_static_kernel, :563 _layer_fwd_q8_static_save_kernel")
 REPLACES = {
     "layernorm_fwd": f"{FWD}, {ATTN_FWD}, {MLP_FWD}, :358 _attn_bwd_kernel, "
-                     ":444 _mlp_bwd_kernel",
+                     f":444 _mlp_bwd_kernel, {CHUNK_FWD}, {CHUNK_BWD}",
     "gemm_bf16_epilogue": f"{FWD}, :868 _layer_bwd_kernel, {ATTN_FWD}, {MLP_FWD}, "
-                          f"{ATTN_BWD}, {MLP_BWD}",
+                          f"{ATTN_BWD}, {MLP_BWD}, {CHUNK_FWD}, {CHUNK_BWD}",
     "attention_fwd": f"{FWD}, {ATTN_FWD}; {Q8}",
-    "layernorm_bwd": f"{BWD}, {ATTN_BWD}, {MLP_BWD}",
+    "layernorm_bwd": f"{BWD}, {ATTN_BWD}, {MLP_BWD}, {CHUNK_BWD}",
     "attention_bwd": f"{BWD}, {ATTN_BWD}",
     "layernorm_q8": Q8,
     "gemm_s8_epilogue": Q8,
@@ -159,6 +170,9 @@ REPLACES = {
 # the int8 kernels, whose times in the kernel object are those of one
 # vision layer of the ViT-B/16 int8 request, and whose launches are that path's
 Q8_KERNELS = ("layernorm_q8", "gemm_s8_epilogue", "quant_rows")
+# the chunked MLP half's kernels, whose times under "chunked" are those of
+# one call of its forward and backward at ViT-L/14's vision MLP
+CHUNKED_KERNELS = ("layernorm_fwd", "gemm_bf16_epilogue", "layernorm_bwd")
 
 # kernel launches of one layer on each route of models/layers.residual_block
 # (the half-block routes count the Functions of both halves)
@@ -377,6 +391,112 @@ def randn_fn(seed: int):
     return rn
 
 
+def check_ln_fwd(F, rn, tag: str, rows: int, D: int, kernel: Kernel, per_layer: int) -> None:
+    """layernorm_fwd at (rows, D) against its plain version, timed beside
+    F.layer_norm, added ``per_layer`` times to ``kernel``'s totals."""
+    import torch
+    import torch.nn.functional as tf
+
+    x = rn(rows, D, std=2.0)
+    s = rn(D, dtype=torch.float32) * 0.1 + 1
+    b = rn(D, dtype=torch.float32) * 0.1
+    reading = check_close(f"layernorm {rows}x{D}", F.layer_norm_fwd(x, s, b),
+                          F.layer_norm_plain(x, s, b), kernel)
+    ms = time_ms(lambda: F.layer_norm_fwd(x, s, b))
+    plain = time_ms(lambda: F.layer_norm_plain(x, s, b))
+    s16, b16 = s.bfloat16(), b.bfloat16()
+    lib = time_ms(lambda: tf.layer_norm(x, (D,), s16, b16, 1e-5))
+    bms, by = bound(2 * rows * D * 2 + 2 * D * 4, 0, 8 * rows * D)
+    say(tag, f"layernorm_fwd {rows}x{D}: {reading} ms {ms:.4f} plain {plain:.4f} "
+             f"library(F.layer_norm) {lib:.4f} bound {bms:.4f} ({by})")
+    for _ in range(per_layer):
+        kernel.add(ms, plain, lib, bms, by)
+
+
+def check_ln_bwd(F, rn, tag: str, rows: int, D: int, dxn_name: str, with_r: bool,
+                 kernel: Kernel, per_layer: int) -> None:
+    """layernorm_bwd at (rows, D) against its plain version, timed beside
+    F.layer_norm's backward, added ``per_layer`` times to ``kernel``."""
+    import torch
+    import torch.nn.functional as tf
+
+    dxn_dt = getattr(torch, dxn_name)
+    x = rn(rows, D, std=2.0)
+    dxn = rn(rows, D, dtype=dxn_dt)
+    s = rn(D, dtype=torch.float32) * 0.1 + 1
+    r = rn(rows, D) if with_r else None
+    reading = check_close(f"layernorm_bwd {rows}x{D}", F.layer_norm_bwd(dxn, x, s, r),
+                          F.layer_norm_bwd_plain(dxn, x, s, r), kernel)
+    ms = time_ms(lambda: F.layer_norm_bwd(dxn, x, s, r))
+    plain = time_ms(lambda: F.layer_norm_bwd_plain(dxn, x, s, r))
+    xr = x.detach().requires_grad_(True)
+    y = tf.layer_norm(xr, (D,), s.bfloat16(), s.bfloat16(), 1e-5)
+    g16 = dxn.bfloat16()
+    lib = time_ms(lambda: torch.autograd.grad(y, xr, g16, retain_graph=True))
+    nbytes = rows * D * (dxn.element_size() + 2 + 2 + (2 if with_r else 0)) + D * 4
+    bms, by = bound(nbytes, 0, 15 * rows * D)
+    say(tag, f"layernorm_bwd {rows}x{D} dxn {dxn_name} residual {with_r}: "
+             f"{reading} ms {ms:.4f} plain {plain:.4f} library(F.layer_norm "
+             f"backward) {lib:.4f} bound {bms:.4f} ({by})")
+    for _ in range(per_layer):
+        kernel.add(ms, plain, lib, bms, by)
+
+
+def check_gemm(F, tag: str, ep: str, a, w, bias, extra, kernel: Kernel, per_layer: int,
+               out=None, note: str = "") -> None:
+    """The GEMM with epilogue ``ep`` against its plain version, timed beside
+    one library product, added ``per_layer`` times to ``kernel``.  ``out``:
+    the fp32 accumulator of ``add_f32`` (each side adds into a copy); for
+    ``chunk_residual``, ``out`` given means y in place, the kernel writing
+    into the copy of ``extra`` that it reads."""
+    import torch
+
+    w_nk = F.EPILOGUES[ep][1]
+    M, K = a.shape
+    N = w.shape[0] if w_nk else w.shape[1]
+    if ep == "add_f32":
+        got = F.gemm_epilogue(a, w, bias, ep, extra, out.clone())
+        ref = F.gemm_epilogue_plain(a, w, bias, ep, extra, out.clone())
+    elif out is not None:
+        y = extra.clone()
+        got = F.gemm_epilogue(a, w, bias, ep, y, out=y)
+        ref = F.gemm_epilogue_plain(a, w, bias, ep, extra)
+    else:
+        got = F.gemm_epilogue(a, w, bias, ep, extra)
+        ref = F.gemm_epilogue_plain(a, w, bias, ep, extra)
+    if ep == "fc_gelu_save":
+        reading = "h " + check_close(f"gemm {ep} h", got[0], ref[0], kernel)
+        reading += "; a " + check_close(f"gemm {ep} a", got[1], ref[1], kernel)
+    elif ep in F._F32_OUT:
+        reading = check_close(f"gemm {K}->{N} {ep}", got, ref, kernel,
+                              max_limit=F32_MAX_ERR, norm_limit=F32_NORM_ERR, share_limit=None)
+    else:
+        reading = check_close(f"gemm {K}->{N} {ep}", got, ref, kernel)
+    del got, ref
+    # timed in place where the epilogue writes in place (the sums only grow)
+    ms = time_ms(lambda: F.gemm_epilogue(a, w, bias, ep, extra, out))
+    plain = time_ms(lambda: F.gemm_epilogue_plain(a, w, bias, ep, extra, out), 3)
+    if w_nk:
+        lib = time_ms(lambda: torch.matmul(a, w.t()))
+        lib_name = "torch.matmul(a, W.t())"
+    elif bias is None:
+        lib = time_ms(lambda: torch.matmul(a, w))
+        lib_name = "torch.matmul"
+    else:
+        lib = time_ms(lambda: torch.addmm(bias, a, w))
+        lib_name = "torch.addmm"
+    out_bytes = {"store_f32": 4, "fc_gelu_save": 4, "fc_gelu_grad": 4, "add_f32": 4}.get(ep, 2)
+    # add_f32 reads the fp32 accumulator it writes
+    extra_bytes = 4 if ep == "add_f32" else 0 if extra is None else extra.element_size()
+    nbytes = (M * K + K * N) * 2 + M * N * (out_bytes + extra_bytes)
+    bms, by = bound(nbytes + (N * 2 if bias is not None else 0), 2 * M * N * K)
+    say(tag, f"gemm_bf16_epilogue {ep} {M}x{K}->{N}{note}: {reading} ms {ms:.4f} "
+             f"({2 * M * N * K / ms / 1e9:.1f} TFLOP/s) plain {plain:.4f} "
+             f"library({lib_name}) {lib:.4f} bound {bms:.4f} ({by})")
+    for _ in range(per_layer):
+        kernel.add(ms, plain, lib, bms, by)
+
+
 def phase_kernels(F, kernels: dict, model: str):
     """Every kernel at the model's shapes; returns the seeded generator,
     which the layer checks go on drawing from."""
@@ -389,20 +509,7 @@ def phase_kernels(F, kernels: dict, model: str):
 
     # ---- LayerNorm: vision (per layer as the last field) and packed text rows
     for rows, D, per_layer in spec["ln"]:
-        x = rn(rows, D, std=2.0)
-        s = rn(D, dtype=torch.float32) * 0.1 + 1
-        b = rn(D, dtype=torch.float32) * 0.1
-        reading = check_close(f"layernorm {rows}x{D}", F.layer_norm_fwd(x, s, b),
-                              F.layer_norm_plain(x, s, b), kernels["layernorm_fwd"])
-        ms = time_ms(lambda: F.layer_norm_fwd(x, s, b))
-        plain = time_ms(lambda: F.layer_norm_plain(x, s, b))
-        s16, b16 = s.bfloat16(), b.bfloat16()
-        lib = time_ms(lambda: tf.layer_norm(x, (D,), s16, b16, 1e-5))
-        bms, by = bound(2 * rows * D * 2 + 2 * D * 4, 0, 8 * rows * D)
-        say(tag, f"layernorm_fwd {rows}x{D}: {reading} ms {ms:.4f} plain {plain:.4f} "
-                       f"library(F.layer_norm) {lib:.4f} bound {bms:.4f} ({by})")
-        for _ in range(per_layer):
-            kernels["layernorm_fwd"].add(ms, plain, lib, bms, by)
+        check_ln_fwd(F, rn, tag, rows, D, kernels["layernorm_fwd"], per_layer)
 
     # ---- GEMM with each epilogue at the vision shapes.  The forward
     # epilogues take W (K, N); the backward ones W (N, K), read transposed
@@ -418,62 +525,14 @@ def phase_kernels(F, kernels: dict, model: str):
             extra = rn(M, N, std=2.0)  # a saved pre-activation
         elif ep == "mul_f32":  # QuickGELU' of an fp32 pre-activation
             extra = F.quick_gelu_grad(rn(M, N, std=2.0, dtype=torch.float32))
-        got = F.gemm_epilogue(a, w, bias, ep, extra)
-        ref = F.gemm_epilogue_plain(a, w, bias, ep, extra)
-        if ep == "fc_gelu_save":
-            reading = "h " + check_close(f"gemm {ep} h", got[0], ref[0], kernels["gemm_bf16_epilogue"])
-            reading += "; a " + check_close(f"gemm {ep} a", got[1], ref[1],
-                                            kernels["gemm_bf16_epilogue"])
-        elif ep in F._F32_OUT:
-            reading = check_close(f"gemm {K}->{N} {ep}", got, ref, kernels["gemm_bf16_epilogue"],
-                                  max_limit=F32_MAX_ERR, norm_limit=F32_NORM_ERR, share_limit=None)
-        else:
-            reading = check_close(f"gemm {K}->{N} {ep}", got, ref, kernels["gemm_bf16_epilogue"])
-        del got, ref
-        ms = time_ms(lambda: F.gemm_epilogue(a, w, bias, ep, extra))
-        plain = time_ms(lambda: F.gemm_epilogue_plain(a, w, bias, ep, extra), 3)
-        if w_nk:
-            lib = time_ms(lambda: torch.matmul(a, w.t()))
-            lib_name = "torch.matmul(a, W.t())"
-        else:
-            lib = time_ms(lambda: torch.addmm(bias, a, w))
-            lib_name = "torch.addmm"
-        out_bytes = {"store_f32": 4, "fc_gelu_save": 4, "fc_gelu_grad": 4}.get(ep, 2)
-        extra_bytes = 0 if extra is None else extra.element_size()
-        nbytes = (M * K + K * N) * 2 + M * N * (out_bytes + extra_bytes)
-        bms, by = bound(nbytes + (N * 2 if bias is not None else 0), 2 * M * N * K)
-        say(tag, f"gemm_bf16_epilogue {ep} {M}x{K}->{N}: {reading} ms {ms:.4f} "
-                       f"({2 * M * N * K / ms / 1e9:.1f} TFLOP/s) plain {plain:.4f} "
-                       f"library({lib_name}) {lib:.4f} bound {bms:.4f} ({by})")
-        for _ in range(per_layer):
-            kernels["gemm_bf16_epilogue"].add(ms, plain, lib, bms, by)
+        check_gemm(F, tag, ep, a, w, bias, extra, kernels["gemm_bf16_epilogue"], per_layer)
         del a, w, extra
 
     # ---- LayerNorm dx: the layer's two (fp32 dxn, with a residual), at the
     # vision shape (2 per layer) and the packed text rows; a tower LayerNorm
     # (bf16 dxn, no residual) at the vision shape
     for rows, D, dxn_name, with_r, per_layer in spec["ln_bwd"]:
-        dxn_dt = getattr(torch, dxn_name)
-        x = rn(rows, D, std=2.0)
-        dxn = rn(rows, D, dtype=dxn_dt)
-        s = rn(D, dtype=torch.float32) * 0.1 + 1
-        r = rn(rows, D) if with_r else None
-        reading = check_close(f"layernorm_bwd {rows}x{D}", F.layer_norm_bwd(dxn, x, s, r),
-                              F.layer_norm_bwd_plain(dxn, x, s, r), kernels["layernorm_bwd"])
-        ms = time_ms(lambda: F.layer_norm_bwd(dxn, x, s, r))
-        plain = time_ms(lambda: F.layer_norm_bwd_plain(dxn, x, s, r))
-        xr = x.detach().requires_grad_(True)
-        y = tf.layer_norm(xr, (D,), s.bfloat16(), s.bfloat16(), 1e-5)
-        g16 = dxn.bfloat16()
-        lib = time_ms(lambda: torch.autograd.grad(y, xr, g16, retain_graph=True))
-        nbytes = rows * D * (dxn.element_size() + 2 + 2 + (2 if with_r else 0)) + D * 4
-        bms, by = bound(nbytes, 0, 15 * rows * D)
-        say(tag, f"layernorm_bwd {rows}x{D} dxn {dxn_name} residual {with_r}: "
-                       f"{reading} ms {ms:.4f} plain {plain:.4f} library(F.layer_norm "
-                       f"backward) {lib:.4f} bound {bms:.4f} ({by})")
-        for _ in range(per_layer):
-            kernels["layernorm_bwd"].add(ms, plain, lib, bms, by)
-        del x, dxn, r, xr, y, g16
+        check_ln_bwd(F, rn, tag, rows, D, dxn_name, with_r, kernels["layernorm_bwd"], per_layer)
 
     # ---- attention: vision (1 per layer), text causal, packed text rows;
     # forward, then backward from a seeded upstream gradient
@@ -527,9 +586,16 @@ def layer_params(rn, D: int) -> list:
 
     return [rn(D, dtype=torch.float32) * 0.1 + 1, rn(D, dtype=torch.float32) * 0.1,
             rn(D, 3 * D, std=D ** -0.5), rn(3 * D, std=0.1), rn(D, D, std=D ** -0.5),
-            rn(D, std=0.1), rn(D, dtype=torch.float32) * 0.1 + 1,
-            rn(D, dtype=torch.float32) * 0.1, rn(D, 4 * D, std=D ** -0.5),
-            rn(4 * D, std=0.1), rn(4 * D, D, std=(4 * D) ** -0.5), rn(D, std=0.1)]
+            rn(D, std=0.1), *mlp_params(rn, D)]
+
+
+def mlp_params(rn, D: int) -> list:
+    """The six weights of an MLP half at width D (hidden 4D), seeded."""
+    import torch
+
+    return [rn(D, dtype=torch.float32) * 0.1 + 1, rn(D, dtype=torch.float32) * 0.1,
+            rn(D, 4 * D, std=D ** -0.5), rn(4 * D, std=0.1), rn(4 * D, D, std=(4 * D) ** -0.5),
+            rn(D, std=0.1)]
 
 
 def phase_layer_chains(F, rn) -> None:
@@ -880,6 +946,137 @@ def phase_q8_chains(F, Q, layers) -> None:
         del x, xg, gy, ps, blk, qw, qp, qps, serve
 
 
+# the chunked MLP half (mlp_halfblock_chunked): its kernels at ViT-L/14's
+# vision rows and chunk (D 1024, hidden 4096 in 8 chunks of 512), per call
+# of its forward and backward; then the op at three shapes: ViT-L/14's
+# vision MLP, ViT-B/16's (2 chunks of 1536) and one width above 1024, the
+# ViT family's next (ViT-H/14's 1280, 10 chunks of 512: a shape, not a
+# model of the repository), at batch 128
+M_H = 128 * 259
+CHUNK_D, CHUNK_DH = 1024, 4096
+CHUNKED = (("ViT-L/14", BATCH, 259, 1024), ("ViT-B/16", BATCH, 199, 768),
+           ("D=1280", 128, 259, 1280))
+
+
+def chunked_launches(K: int) -> tuple:
+    """Launches of one call of the chunked MLP half over K chunks: the
+    forward (LN, then the fc and proj products of each chunk) and the
+    backward (LN again; per chunk fc_gelu_grad, mul_f32 and the dxn
+    product; LN dx)."""
+    return (dict(layernorm_fwd=1, gemm_bf16_epilogue=2 * K, mlp_halfblock_chunked=1),
+            dict(layernorm_fwd=1, gemm_bf16_epilogue=3 * K, layernorm_bwd=1,
+                 mlp_halfblock_chunked_bwd=1))
+
+
+def phase_kernels_chunked(F, kc: dict) -> dict:
+    """The chunked MLP half: LayerNorm forward and dx at D = 1024 and 1280;
+    each GEMM of its chain at ViT-L/14's chunk, the fc weight's column
+    chunk read in place (strided rows); then the op against its plain
+    version at the three CHUNKED shapes, forward and forward + backward,
+    launches per call asserted, and its time beside mlp_halfblock's at
+    ViT-L/14.  Returns the launches of the op's forward and of its backward
+    at ViT-L/14 ({path: counts})."""
+    import torch
+
+    tag = "kernels chunked"
+    rn = randn_fn(7)
+    D, Dh = CHUNK_D, CHUNK_DH
+    c = F._pick_chunk(Dh, D)
+    K = Dh // c
+    # LayerNorm: twice per call (the forward's and the backward's), dx once
+    check_ln_fwd(F, rn, tag, M_L, D, kc["layernorm_fwd"], 2)
+    check_ln_fwd(F, rn, tag, M_H, 1280, kc["layernorm_fwd"], 0)
+    check_ln_bwd(F, rn, tag, M_L, D, "float32", True, kc["layernorm_bwd"], 1)
+    check_ln_bwd(F, rn, tag, M_H, 1280, "float32", True, kc["layernorm_bwd"], 0)
+
+    # the chain's GEMMs at the second chunk (a column chunk off the start of
+    # fc_w, 16-byte aligned): per call K each, the first chunk's proj and
+    # dxn products once, the others' K - 1 times
+    kern = kc["gemm_bf16_epilogue"]
+    cols = slice(c, 2 * c)
+    fc_w, fc_b = rn(D, Dh, std=D ** -0.5), rn(Dh, std=0.1)
+    proj_w, proj_b = rn(Dh, D, std=Dh ** -0.5), rn(D, std=0.1)
+    xn, x, g = rn(M_L, D), rn(M_L, D), rn(M_L, D)
+    act, dh = rn(M_L, c), rn(M_L, c)
+    factor = F.quick_gelu_grad(rn(M_L, c, std=2.0, dtype=torch.float32))
+    dxn = rn(M_L, D, dtype=torch.float32)
+    chunk = f", W a column chunk of ({D}, {Dh})"
+    check_gemm(F, tag, "fc_gelu", xn, fc_w[:, cols], fc_b[cols], None, kern, K, note=chunk)
+    check_gemm(F, tag, "chunk_residual", act, proj_w[cols], proj_b, x, kern, 1,
+               note=", first chunk: r = x, + proj_b")
+    check_gemm(F, tag, "chunk_residual", act, proj_w[cols], None, x, kern, K - 1, out=x,
+               note=", y in place")
+    check_gemm(F, tag, "fc_gelu_grad", xn, fc_w[:, cols], fc_b[cols], None, kern, K, note=chunk)
+    check_gemm(F, tag, "mul_f32", g, proj_w[cols], None, factor, kern, K)
+    check_gemm(F, tag, "store_f32", dh, fc_w[:, cols], None, None, kern, 1, note=chunk)
+    check_gemm(F, tag, "add_f32", dh, fc_w[:, cols], None, None, kern, K - 1, out=dxn,
+               note=chunk + ", into the fp32 dxn")
+    del fc_w, fc_b, proj_w, proj_b, xn, x, g, act, dh, factor, dxn
+
+    paths = {}
+    for label, B, S, D in CHUNKED:
+        K = 4 * D // F._pick_chunk(4 * D, D)
+        n_fwd, n_bwd = chunked_launches(K)
+        x = rn(B, S, D)
+        ps = mlp_params(rn, D)
+        F.reset_launches()
+        y = F.mlp_halfblock_chunked(x, *ps)
+        if dict(F.LAUNCHES) != expect(F.LAUNCHES, (1, n_fwd)):
+            raise AssertionError(f"mlp_halfblock_chunked {label}: launches {dict(F.LAUNCHES)}")
+        reading = check_close(f"mlp_halfblock_chunked {label} y", y,
+                              F.mlp_halfblock_chunked_plain(x, *ps), share_limit=None)
+        del y
+        ms = time_ms(lambda: F.mlp_halfblock_chunked(x, *ps))
+        plain = time_ms(lambda: F.mlp_halfblock_chunked_plain(x, *ps), 3)
+        say(tag, f"mlp_halfblock_chunked {label} B={B} S={S} D={D} K={K}: {reading} "
+                 f"ms {ms:.4f} plain {plain:.4f}")
+
+        xg = x.detach().requires_grad_(True)
+        gy = rn(B, S, D)
+
+        def step(plain_fns):
+            y = F.mlp_halfblock_chunked(xg, *ps, plain=plain_fns)
+            return y, torch.autograd.grad(y, xg, gy)[0]
+
+        F.reset_launches()
+        y = F.mlp_halfblock_chunked(xg, *ps)
+        counts_f = dict(F.LAUNCHES)
+        F.reset_launches()
+        dx = torch.autograd.grad(y, xg, gy)[0]
+        counts_b = dict(F.LAUNCHES)
+        if counts_f != expect(F.LAUNCHES, (1, n_fwd)) or counts_b != expect(F.LAUNCHES, (1, n_bwd)):
+            raise AssertionError(f"mlp_halfblock_chunked {label}: launches forward {counts_f}, "
+                                 f"backward {counts_b}")
+        y_ref, dx_ref = step(True)
+        r_y = check_close(f"mlp_halfblock_chunked {label} y (saving forward)", y, y_ref,
+                          share_limit=None)
+        r_dx = check_close(f"mlp_halfblock_chunked {label} dx", dx, dx_ref,
+                           max_limit=LAYER_DX_MAX_ERR, norm_limit=LAYER_DX_NORM_ERR,
+                           share_limit=None)
+        del y, dx, y_ref, dx_ref
+        ms_t = time_ms(lambda: step(False), 5)
+        plain_t = time_ms(lambda: step(True), 2)
+        say(tag, f"mlp_halfblock_chunked forward + backward {label}: y {r_y}; dx {r_dx}; "
+                 f"ms {ms_t:.4f} plain {plain_t:.4f}; launches per call: forward "
+                 f"{ {k: v for k, v in counts_f.items() if v} }, backward "
+                 f"{ {k: v for k, v in counts_b.items() if v} }")
+        if label == "ViT-L/14":
+            paths["mlp_halfblock_chunked"], paths["mlp_halfblock_chunked_bwd"] = counts_f, counts_b
+            # the monolithic half's chain on the same inputs, h recomputed
+            # in its backward as the chunked op recomputes h32
+            half_f = time_ms(lambda: F.mlp_halfblock(x, *ps))
+            F.set_save_mlp_wide("0")
+            try:
+                half_t = time_ms(lambda: torch.autograd.grad(F.mlp_halfblock(xg, *ps), xg, gy), 5)
+            finally:
+                F.set_save_mlp_wide("auto")
+            say(tag, f"at ViT-L/14: forward chunked {ms:.4f} ms, mlp_halfblock {half_f:.4f} ms; "
+                     f"forward + backward chunked {ms_t:.4f} ms, mlp_halfblock (h recomputed) "
+                     f"{half_t:.4f} ms")
+        del x, xg, gy, ps
+    return paths
+
+
 def traced(phase: str, fn, cats_of) -> None:
     """Run ``fn`` once under the profiler and print where the device time
     went: ``cats_of(prof)`` gives ({category: us}, {kernel: us}, {other: us})."""
@@ -1068,9 +1265,10 @@ def device_time_by_kernel(prof) -> tuple:
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue  # host-side ops also report their kernels' time
         us = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
-        gemm = re.search(r"gemm_bf16_kernel<(\d)>", e.key)
-        if gemm:
-            name, bwd = f"gemm_bf16_kernel<{gemm.group(1)}>", int(gemm.group(1)) >= 4
+        gemm = re.search(r"gemm_bf16_kernel<(\d+)>", e.key)
+        if gemm:  # modes 0-3 and 9 are the forward epilogues
+            mode = int(gemm.group(1))
+            name, bwd = f"gemm_bf16_kernel<{mode}>", mode >= 4 and mode != 9
         else:
             name = next((k for k in ("layernorm_fwd_kernel", "attention_fwd_kernel",
                                      "layernorm_bwd_kernel", "attention_bwd_kernel",
@@ -1280,6 +1478,8 @@ def main() -> int:
     # mode with them) and of the int8_static request
     kernels_q = {name: Kernel(name) for name in (*Q8_KERNELS, "attention_fwd")}
     kernels_qs = {name: Kernel(name) for name in Q8_KERNELS}
+    # one call of the chunked MLP half's forward and backward at ViT-L/14
+    kernels_c = {name: Kernel(name) for name in CHUNKED_KERNELS}
     paths = {}
 
     def run(phase: str, fn, *args):
@@ -1304,12 +1504,14 @@ def main() -> int:
         paths[f"serving_{quant}"] = run(f"serving {quant}", phase_serving, F, "ViT-B/16", quant)
     for quant in ("int8_ste", "int8_ste_static"):
         paths[f"train_step_{quant}"] = run(f"train {quant}", phase_train, F, "ViT-B/16", quant)
+    paths.update(run("kernels chunked", phase_kernels_chunked, F, kernels_c))
 
     def by_path(name: str) -> dict:
         return {path: counts[name] for path, counts in paths.items()}
 
     records = [k.record(by_path(name), "train_step", vit_l14=kernels_l[name],
-                        **({"int8": kernels_q[name]} if name in kernels_q else {}))
+                        **({"int8": kernels_q[name]} if name in kernels_q else {}),
+                        **({"chunked": kernels_c[name]} if name in kernels_c else {}))
                for name, k in kernels.items()]
     records += [kernels_q[name].record(by_path(name), "serving_int8", int8_static=kernels_qs[name])
                 for name in Q8_KERNELS]

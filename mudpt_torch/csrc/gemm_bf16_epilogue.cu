@@ -24,6 +24,20 @@
 //   whose QuickGELU' takes the fp32 h32 = acc + f32(b) never rounded:
 //   fc, gradient (:447, :434)               C = g'(acc + f32(b)) (fp32)
 //   g.proj_w^T   (:430-434)                 C = bf16(acc * F), F the fp32 tile above
+//   and the chunked MLP half (mlp_halfblock_chunked :586), whose kernels
+//   _mlp_chunk_fwd_kernel (:477) and _mlp_chunk_bwd_kernel (:500) stream
+//   the hidden dim in chunks of c columns of fc_w and rows of proj_w, y
+//   rounded after every chunk and dxn summed over the chunks in fp32:
+//   fc chunk     (:488-492, :513-516)       the fc epilogues above, W a
+//                                           column chunk of fc_w read in
+//                                           place through a row stride
+//   proj chunk   (:486, :493-497)           C = bf16(R' + bf16(acc)), R' =
+//                                           bf16(R + b) on the first chunk
+//                                           (R = x), else R' = R = C (y,
+//                                           updated in place)
+//   dh.fc_w^T    (:522-525)                 C = acc (fp32) on the first
+//                                           chunk, then C += acc (fp32, in
+//                                           place); W^T a chunk, strided
 //   so the kernel and its plain version differ only in the order of the
 //   fp32 sums (and the hardware exp and division of g and g').
 // Bound on the H100: tensor-core operations.  At the vision shapes
@@ -66,17 +80,22 @@ enum Epilogue {
   kQkv = 0, kResidual = 1, kFcGelu = 2, kFcGeluSave = 3,  // B = W, W (K, N)
   kGeluBwd = 4, kStoreBf16 = 5, kStoreF32 = 6,               // B = W^T, W (N, K)
   kFcGeluGrad = 7,                                            // B = W
-  kMulF32 = 8                                                 // B = W^T
+  kMulF32 = 8,                                                // B = W^T
+  kChunkResidual = 9,                                         // B = W
+  kAddF32 = 10                                                // B = W^T
 };
 
 __host__ __device__ constexpr bool w_transposed(int mode) {
-  return mode == kGeluBwd || mode == kStoreBf16 || mode == kStoreF32 || mode == kMulF32;
+  return mode == kGeluBwd || mode == kStoreBf16 || mode == kStoreF32 || mode == kMulF32 ||
+         mode == kAddF32;
 }
+// the bias read at the fragment positions (kChunkResidual's optional bias
+// is read at the copy-out instead, where it meets the residual)
 __host__ __device__ constexpr bool biased(int mode) {
   return mode <= kFcGeluSave || mode == kFcGeluGrad;
 }
 __host__ __device__ constexpr bool f32_out(int mode) {
-  return mode == kStoreF32 || mode == kFcGeluGrad;
+  return mode == kStoreF32 || mode == kFcGeluGrad || mode == kAddF32;
 }
 
 // mbarrier helpers (shared-window addresses)
@@ -335,6 +354,40 @@ gemm_bf16_kernel(const __grid_constant__ CUtensorMap map_a,
 
     // d[4j + 0..1]: row 16*warp + lane/4, cols 8j + 2*(lane%4) + 0..1;
     // d[4j + 2..3]: row + 8
+    if (MODE == kAddF32) {
+      // C += acc in fp32: the old values of four fragment columns are all
+      // loaded before any of them is stored, so the loads overlap (C is
+      // read and written through one pointer; registers allow no more)
+      float* Cf = static_cast<float*>(C);
+#pragma unroll
+      for (int j0 = 0; j0 < BN / 8; j0 += 4) {
+        float2 old[4][2];
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int gr = m0 + c * 64 + warp * 16 + (lane >> 2) + half * 8;
+            const int gc = n0 + (j0 + jj) * 8 + 2 * (lane & 3);
+            old[jj][half] = gr < M && gc < N
+                                ? *reinterpret_cast<const float2*>(Cf + (size_t)gr * N + gc)
+                                : make_float2(0.f, 0.f);
+          }
+        }
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int gr = m0 + c * 64 + warp * 16 + (lane >> 2) + half * 8;
+            const int gc = n0 + (j0 + jj) * 8 + 2 * (lane & 3);
+            const int e = 4 * (j0 + jj) + 2 * half;
+            if (gr < M && gc < N)  // as the plain C + acc
+              *reinterpret_cast<float2*>(Cf + (size_t)gr * N + gc) =
+                  make_float2(old[jj][half].x + d[e], old[jj][half].y + d[e + 1]);
+          }
+        }
+      }
+      continue;
+    }
     if (f32_out(MODE)) {
       float* Cf = static_cast<float*>(C);
 #pragma unroll
@@ -408,7 +461,7 @@ gemm_bf16_kernel(const __grid_constant__ CUtensorMap map_a,
           } else if (MODE == kMulF32) {
             v[e] = acc * hv[e];
           } else {
-            v[e] = acc;  // kStoreBf16
+            v[e] = acc;  // kStoreBf16, kChunkResidual
           }
         }
         if (MODE == kFcGeluSave) {
@@ -422,15 +475,28 @@ gemm_bf16_kernel(const __grid_constant__ CUtensorMap map_a,
     }
     warpgroup_sync(1 + c);
     __nv_bfloat16* out = MODE == kFcGeluSave ? C2 : Cb;
+    // kChunkResidual with R null: y in place, the residual read through C
+    // (each element read, then written, by one thread)
+    const __nv_bfloat16* Rr = MODE == kChunkResidual && R == nullptr ? Cb : R;
     for (int i = wtid; i < 64 * (BN / 8); i += 128) {
       const int rl = i / (BN / 8), cl = (i % (BN / 8)) * 8;
       const int gr = m0 + c * 64 + rl, gc = n0 + cl;
       if (gr >= M || gc >= N) continue;
       uint4 v = *reinterpret_cast<const uint4*>(slab + rl * OUT_LD + cl);
-      if (MODE == kResidual) {
-        const uint4 r = *reinterpret_cast<const uint4*>(R + (size_t)gr * N + gc);
+      if (MODE == kResidual || MODE == kChunkResidual) {
+        uint4 r = *reinterpret_cast<const uint4*>(Rr + (size_t)gr * N + gc);
         __nv_bfloat162* vp = reinterpret_cast<__nv_bfloat162*>(&v);
-        const __nv_bfloat162* rp = reinterpret_cast<const __nv_bfloat162*>(&r);
+        __nv_bfloat162* rp = reinterpret_cast<__nv_bfloat162*>(&r);
+        if (MODE == kChunkResidual && bias != nullptr) {
+          // the first chunk: R' = bf16(x + b) before any product is added
+          const uint4 b = *reinterpret_cast<const uint4*>(bias + gc);
+          const __nv_bfloat162* bp = reinterpret_cast<const __nv_bfloat162*>(&b);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float2 r2 = __bfloat1622float2(rp[e]), b2 = __bfloat1622float2(bp[e]);
+            rp[e] = __floats2bfloat162_rn(r2.x + b2.x, r2.y + b2.y);
+          }
+        }
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const float2 a2 = __bfloat1622float2(vp[e]), r2 = __bfloat1622float2(rp[e]);
@@ -461,13 +527,15 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// a row-major (rows, cols) bf16 matrix read in boxes of box_rows x 64
-// columns, 128-byte swizzled as the wgmma descriptors expect
-bool make_map(CUtensorMap* map, const void* ptr, int rows, int cols, int box_rows) {
+// a row-major (rows, cols) bf16 matrix whose rows lie ld elements apart
+// (ld = cols when contiguous; wider for a column chunk of a wider matrix,
+// read in place), read in boxes of box_rows x 64 columns, 128-byte
+// swizzled as the wgmma descriptors expect
+bool make_map(CUtensorMap* map, const void* ptr, int rows, int cols, int box_rows, int ld) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * 2};
   const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
   const cuuint32_t elem[2] = {1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides,
@@ -478,8 +546,12 @@ bool make_map(CUtensorMap* map, const void* ptr, int rows, int cols, int box_row
 
 template <int MODE>
 int launch(const __nv_bfloat16* a, const __nv_bfloat16* w, const __nv_bfloat16* b,
-           const void* r, void* c, __nv_bfloat16* c2, int M, int N, int K, cudaStream_t s) {
-  if (K % BK || N % 8) return (int)cudaErrorInvalidValue;
+           const void* r, void* c, __nv_bfloat16* c2, int M, int N, int K, int ldw,
+           cudaStream_t s) {
+  // TMA: a 16-byte-aligned start and a row stride of 16-byte multiples
+  const int w_cols = w_transposed(MODE) ? K : N;
+  if (K % BK || N % 8 || ldw < w_cols || ldw % 8 || reinterpret_cast<uintptr_t>(w) % 16)
+    return (int)cudaErrorInvalidValue;
   // a runtime call first: it makes the device's primary context current in
   // this thread (autograd's backward thread may not have one yet), which the
   // driver's tensor-map encoder below needs
@@ -488,9 +560,9 @@ int launch(const __nv_bfloat16* a, const __nv_bfloat16* w, const __nv_bfloat16* 
                                          SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
   CUtensorMap map_a, map_w;
-  const bool w_ok = w_transposed(MODE) ? make_map(&map_w, w, N, K, BN)   // W (N, K)
-                                       : make_map(&map_w, w, K, N, BK);  // W (K, N)
-  if (!make_map(&map_a, a, M, K, BM) || !w_ok) return (int)cudaErrorInvalidValue;
+  const bool w_ok = w_transposed(MODE) ? make_map(&map_w, w, N, K, BN, ldw)   // W (N, K)
+                                       : make_map(&map_w, w, K, N, BK, ldw);  // W (K, N)
+  if (!make_map(&map_a, a, M, K, BM, K) || !w_ok) return (int)cudaErrorInvalidValue;
   static int n_sm = 0;
   if (n_sm == 0) {
     int dev = 0;
@@ -505,28 +577,33 @@ int launch(const __nv_bfloat16* a, const __nv_bfloat16* w, const __nv_bfloat16* 
 
 }  // namespace
 
-// mode: Epilogue.  bias: (N) bf16 for modes 0-3 and 7, else unused.  R: the
-// residual (mode 1) or the saved h (mode 4), (M, N) bf16; the factor F
-// (mode 8), (M, N) fp32.  C: (M, N), fp32 for modes 6 and 7, else bf16.
+// mode: Epilogue.  W: (K, N), or (N, K) for the B = W^T modes, its rows
+// ldw elements apart.  bias: (N) bf16 for modes 0-3 and 7, optional for
+// mode 9, else unused.  R: the residual (modes 1 and 9; for mode 9 null
+// means C itself, y in place) or the saved h (mode 4), (M, N) bf16; the
+// factor F (mode 8), (M, N) fp32.  C: (M, N), fp32 for modes 6, 7 and 10
+// (10 adds to it), else bf16.
 // C2: the second output of mode 3.
 extern "C" int gemm_bf16_epilogue(const void* A, const void* W, const void* bias,
                                   const void* R, void* C, void* C2, int M, int N, int K,
-                                  int mode, void* stream) {
+                                  int ldw, int mode, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
   const auto* a = static_cast<const __nv_bfloat16*>(A);
   const auto* w = static_cast<const __nv_bfloat16*>(W);
   const auto* b = static_cast<const __nv_bfloat16*>(bias);
   auto* c2 = static_cast<__nv_bfloat16*>(C2);
   switch (mode) {
-    case kQkv: return launch<kQkv>(a, w, b, R, C, c2, M, N, K, s);
-    case kResidual: return launch<kResidual>(a, w, b, R, C, c2, M, N, K, s);
-    case kFcGelu: return launch<kFcGelu>(a, w, b, R, C, c2, M, N, K, s);
-    case kFcGeluSave: return launch<kFcGeluSave>(a, w, b, R, C, c2, M, N, K, s);
-    case kGeluBwd: return launch<kGeluBwd>(a, w, b, R, C, c2, M, N, K, s);
-    case kStoreBf16: return launch<kStoreBf16>(a, w, b, R, C, c2, M, N, K, s);
-    case kStoreF32: return launch<kStoreF32>(a, w, b, R, C, c2, M, N, K, s);
-    case kFcGeluGrad: return launch<kFcGeluGrad>(a, w, b, R, C, c2, M, N, K, s);
-    case kMulF32: return launch<kMulF32>(a, w, b, R, C, c2, M, N, K, s);
+    case kQkv: return launch<kQkv>(a, w, b, R, C, c2, M, N, K, ldw, s);
+    case kResidual: return launch<kResidual>(a, w, b, R, C, c2, M, N, K, ldw, s);
+    case kFcGelu: return launch<kFcGelu>(a, w, b, R, C, c2, M, N, K, ldw, s);
+    case kFcGeluSave: return launch<kFcGeluSave>(a, w, b, R, C, c2, M, N, K, ldw, s);
+    case kGeluBwd: return launch<kGeluBwd>(a, w, b, R, C, c2, M, N, K, ldw, s);
+    case kStoreBf16: return launch<kStoreBf16>(a, w, b, R, C, c2, M, N, K, ldw, s);
+    case kStoreF32: return launch<kStoreF32>(a, w, b, R, C, c2, M, N, K, ldw, s);
+    case kFcGeluGrad: return launch<kFcGeluGrad>(a, w, b, R, C, c2, M, N, K, ldw, s);
+    case kMulF32: return launch<kMulF32>(a, w, b, R, C, c2, M, N, K, ldw, s);
+    case kChunkResidual: return launch<kChunkResidual>(a, w, b, R, C, c2, M, N, K, ldw, s);
+    case kAddF32: return launch<kAddF32>(a, w, b, R, C, c2, M, N, K, ldw, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

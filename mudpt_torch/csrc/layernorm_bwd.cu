@@ -10,7 +10,8 @@
 //   residual gradient added in fp32 and one bf16 rounding, in
 //   _mlp_bwd_core (:439-441, r = g, giving dy1) and _attn_bwd_core
 //   (:353-355, r = dy1, giving dx), which the half-blocks' backwards
-//   (:358, :369, :444, :451) run too.  Without a residual and with a bf16
+//   (:358, :369, :444, :451) run too, and the chunked MLP half's backward
+//   (_mlp_chunk_bwd_kernel :527-532, r = g, dxn summed over the chunks).  Without a residual and with a bf16
 //   dxn it is also the dx of the towers' own LayerNorms (ln_pre, ln_post,
 //   ln_final; XLA's autodiff of models/layers.layer_norm in JAX).
 // Bound on the H100: device-memory bytes.  A row reads x, r (bf16) and
@@ -22,7 +23,9 @@
 //   Each lane loads 16-byte vectors with neighbouring lanes on neighbouring
 //   addresses and keeps its slice of x and g in registers between the
 //   passes, so every input is read from device memory once.  Supports
-//   D % 8 == 0 and D <= 1024.
+//   D % 8 == 0 and D <= 1024 (four vectors a lane), and, compiled as cases
+//   of their own so that the narrower rows keep their code, D % 64 == 0
+//   and D <= 2048 (eight vectors a lane).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -30,8 +33,7 @@
 
 namespace {
 
-constexpr int kMaxVecPerLane = 4;  // 32 lanes * 4 vectors * 8 = 1024 columns
-constexpr int kRowsPerBlock = 8;   // one warp per row
+constexpr int kRowsPerBlock = 8;  // one warp per row
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -53,7 +55,8 @@ __device__ __forceinline__ void load8(const float* p, float (&out)[8]) {
   out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
 }
 
-template <typename DXN>
+// kMaxVecPerLane: 4 (32 lanes * 4 vectors * 8 = 1024 columns) or 8 (2048)
+template <typename DXN, int kMaxVecPerLane>
 __global__ void __launch_bounds__(kRowsPerBlock * 32)
 layernorm_bwd_kernel(const DXN* __restrict__ dxn, const __nv_bfloat16* __restrict__ x,
                      const float* __restrict__ scale, const __nv_bfloat16* __restrict__ r,
@@ -137,19 +140,26 @@ layernorm_bwd_kernel(const DXN* __restrict__ dxn, const __nv_bfloat16* __restric
 extern "C" int layernorm_bwd(const void* dxn, int dxn_bf16, const void* x, const void* scale,
                              const void* r, void* dx, int rows, int D, float eps,
                              void* stream) {
-  if (D % 8 || D > 32 * kMaxVecPerLane * 8) return (int)cudaErrorInvalidValue;
+  if (D % 8 || D > 2048 || (D > 1024 && D % 64)) return (int)cudaErrorInvalidValue;
   const int blocks = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
   const auto* xb = static_cast<const __nv_bfloat16*>(x);
   const auto* sc = static_cast<const float*>(scale);
   const auto* rb = static_cast<const __nv_bfloat16*>(r);
   auto* out = static_cast<__nv_bfloat16*>(dx);
   const cudaStream_t s = (cudaStream_t)stream;
-  if (dxn_bf16) {
-    layernorm_bwd_kernel<__nv_bfloat16><<<blocks, kRowsPerBlock * 32, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(dxn), xb, sc, rb, out, rows, D, eps);
+  const auto* d16 = static_cast<const __nv_bfloat16*>(dxn);
+  const auto* d32 = static_cast<const float*>(dxn);
+  const int threads = kRowsPerBlock * 32;
+  if (D <= 1024 && dxn_bf16) {
+    layernorm_bwd_kernel<__nv_bfloat16, 4><<<blocks, threads, 0, s>>>(d16, xb, sc, rb, out, rows,
+                                                                        D, eps);
+  } else if (D <= 1024) {
+    layernorm_bwd_kernel<float, 4><<<blocks, threads, 0, s>>>(d32, xb, sc, rb, out, rows, D, eps);
+  } else if (dxn_bf16) {
+    layernorm_bwd_kernel<__nv_bfloat16, 8><<<blocks, threads, 0, s>>>(d16, xb, sc, rb, out, rows,
+                                                                        D, eps);
   } else {
-    layernorm_bwd_kernel<float><<<blocks, kRowsPerBlock * 32, 0, s>>>(
-        static_cast<const float*>(dxn), xb, sc, rb, out, rows, D, eps);
+    layernorm_bwd_kernel<float, 8><<<blocks, threads, 0, s>>>(d32, xb, sc, rb, out, rows, D, eps);
   }
   return (int)cudaGetLastError();
 }

@@ -4,8 +4,10 @@
 //   mudpt_tpu/ops/fused_block.py:150 (_ln_fp32) with its bf16 casts at
 //   :303 (_attn_project) and :394 (_mlp_pre), inside
 //   _layer_fwd_nosave_kernel (:851), _layer_fwd_kernel (:831), the
-//   half-blocks' forwards (:318, :326, :403, :415) and the recompute
-//   backwards (_attn_bwd_kernel :358, _mlp_bwd_kernel :444).
+//   half-blocks' forwards (:318, :326, :403, :415), the recompute
+//   backwards (_attn_bwd_kernel :358, _mlp_bwd_kernel :444) and the
+//   chunked MLP half's (_mlp_chunk_fwd_kernel :484, _mlp_chunk_bwd_kernel
+//   :509).
 // Bound on the H100: device-memory bytes.  Each row is read once and
 //   written once (2 * D * 2 bytes) for ~8 fp32 operations per element, far
 //   below the ~295 operations per byte where the tensor cores would bind.
@@ -16,7 +18,10 @@
 //   statistics passes and the affine, so x is read from device memory once.
 //   Statistics are fp32 (mean, then the mean of squared deviations, then
 //   rsqrt(var + eps)) as in the TPU kernel; the output is rounded to bf16
-//   once.  Supports D % 8 == 0 and D <= 1024.
+//   once.  Supports D % 8 == 0 and D <= 1024 (four vectors a lane), and,
+//   compiled as a case of its own so that the narrower rows keep their
+//   code, D % 64 == 0 and D <= 2048 (eight vectors a lane: the chunked MLP
+//   half's towers wider than 1024).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -24,8 +29,7 @@
 
 namespace {
 
-constexpr int kMaxVecPerLane = 4;  // 32 lanes * 4 vectors * 8 = 1024 columns
-constexpr int kRowsPerBlock = 8;   // one warp per row
+constexpr int kRowsPerBlock = 8;  // one warp per row
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -33,6 +37,8 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// kMaxVecPerLane: 4 (32 lanes * 4 vectors * 8 = 1024 columns) or 8 (2048)
+template <int kMaxVecPerLane>
 __global__ void __launch_bounds__(kRowsPerBlock * 32)
 layernorm_fwd_kernel(const __nv_bfloat16* __restrict__ x,
                      const float* __restrict__ scale,
@@ -99,9 +105,17 @@ layernorm_fwd_kernel(const __nv_bfloat16* __restrict__ x,
 
 extern "C" int layernorm_fwd(const void* x, const void* scale, const void* bias,
                              void* y, int rows, int D, float eps, void* stream) {
+  if (D % 8 || D > 2048 || (D > 1024 && D % 64)) return (int)cudaErrorInvalidValue;
   const int blocks = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
-  layernorm_fwd_kernel<<<blocks, kRowsPerBlock * 32, 0, (cudaStream_t)stream>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(scale),
-      static_cast<const float*>(bias), static_cast<__nv_bfloat16*>(y), rows, D, eps);
+  const auto* xb = static_cast<const __nv_bfloat16*>(x);
+  const auto* sc = static_cast<const float*>(scale);
+  const auto* bi = static_cast<const float*>(bias);
+  auto* out = static_cast<__nv_bfloat16*>(y);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (D <= 1024) {
+    layernorm_fwd_kernel<4><<<blocks, kRowsPerBlock * 32, 0, s>>>(xb, sc, bi, out, rows, D, eps);
+  } else {
+    layernorm_fwd_kernel<8><<<blocks, kRowsPerBlock * 32, 0, s>>>(xb, sc, bi, out, rows, D, eps);
+  }
   return (int)cudaGetLastError();
 }

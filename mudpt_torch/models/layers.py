@@ -252,9 +252,9 @@ def residual_block(p: dict, x: torch.Tensor, n_head: int,
     D = x.shape[-1]
     if D > fused_block.MAX_WIDTH:
         raise NotImplementedError(
-            f"width {D} > {fused_block.MAX_WIDTH}: the JAX package runs XLA layers "
-            "there; the port has no such route (ROADMAP.md queue B item 5, "
-            "mlp_halfblock_chunked)"
+            f"width {D} > {fused_block.MAX_WIDTH}: the JAX package runs its XLA layer "
+            "there (models/layers.py:283-284, no Pallas kernel); the port has no such "
+            "route (ROADMAP.md queue A item 6)"
         )
     if x.is_cuda and not _PLAIN_ON_CUDA:
         _require_bf16(x)

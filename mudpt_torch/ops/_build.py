@@ -42,7 +42,7 @@ SIGNATURES = {
         "layernorm_fwd": ([_P, _P, _P, _P, _I, _I, _F, _P], _I),
     },
     "gemm_bf16_epilogue": {
-        "gemm_bf16_epilogue": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+        "gemm_bf16_epilogue": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
     },
     "attention_fwd": {
         "attention_fwd": ([_P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P], _I),

@@ -1,5 +1,5 @@
-"""``layer_fullblock``, ``attn_halfblock`` and ``mlp_halfblock`` as chains
-of hand-written Hopper kernels.
+"""``layer_fullblock``, ``attn_halfblock``, ``mlp_halfblock`` and
+``mlp_halfblock_chunked`` as chains of hand-written Hopper kernels.
 
 Counterpart of ``mudpt_tpu/ops/fused_block.py`` :297-456 and :678-959.  The
 attention half ``y = x + out(MHA(LN x))`` (``attn_halfblock`` :679:
@@ -22,6 +22,17 @@ shared memory cannot, so each becomes a chain of tiled kernels (``csrc/``):
                        or LN -> fc GEMM storing QuickGELU'(h32) in fp32, then
                        GEMM g.proj_w^T * that (h32 unrounded, when h was not
                        saved) -> GEMM dh.fc_w^T -> LN dx + g
+
+and the MLP half streamed over the hidden dim in chunks of c columns
+(``mlp_halfblock_chunked`` :587: ``_mlp_chunk_fwd_kernel`` :477 and
+``_mlp_chunk_bwd_kernel`` :500, c from ``_pick_chunk`` :535), y rounded
+after every chunk:
+
+  chunked    forward   LN -> per chunk: fc GEMM + QuickGELU (a column chunk
+                       of fc_w read in place) -> proj GEMM adding into y
+             backward  LN -> per chunk: fc GEMM storing QuickGELU'(h32) ->
+                       GEMM g.proj_w^T * that -> GEMM dh.fc_w^T adding into
+                       the fp32 dxn -> LN dx + g
 
 with bf16 activations and weights, fp32 LayerNorm parameters and statistics,
 fp32 accumulation, and bf16 rounding at the same points as the Pallas code.
@@ -54,6 +65,9 @@ NEG = -1e30  # additive mask value of the Pallas kernels (fused_block._NEG)
 HEAD_DIM = 64  # the attention kernels' head dim (every CLIP tower's)
 FULLBLOCK_MAX_WIDTH = 768  # widest tower layer_fullblock takes (models/layers.py:257)
 MAX_WIDTH = 1024  # widest tower the half-blocks take (models/layers.py:249)
+# widest row the LayerNorm kernels and so the chunked MLP half take on the
+# card (rows wider than 1024 in multiples of 64, the GEMM's K step)
+CHUNKED_MAX_WIDTH = 2048
 ATTN_BWD_MAX_BLOCK = 384  # longest sequence block attention_bwd holds
 
 # epilogue -> (kernel mode, W given as (N, K) and read transposed).  The
@@ -69,11 +83,14 @@ EPILOGUES = {
     "store_f32": (6, True),
     "fc_gelu_grad": (7, False),
     "mul_f32": (8, True),
+    "chunk_residual": (9, False),
+    "add_f32": (10, True),
 }
 _BIASED = ("qkv", "residual", "fc_gelu", "fc_gelu_save", "fc_gelu_grad")
 _EXTRA = {"residual": torch.bfloat16, "gelu_bwd": torch.bfloat16,  # a second (M, N)
-          "mul_f32": torch.float32}                                # operand, its type
-_F32_OUT = ("store_f32", "fc_gelu_grad")
+          "mul_f32": torch.float32, "chunk_residual": torch.bfloat16}  # operand, its type
+_F32_OUT = ("store_f32", "fc_gelu_grad", "add_f32")
+_IN_PLACE = ("chunk_residual", "add_f32")  # may write (add_f32: must) into ``out``
 
 LAUNCHES = {
     "layernorm_fwd": 0,
@@ -87,6 +104,8 @@ LAUNCHES = {
     "attn_halfblock_bwd": 0,
     "mlp_halfblock": 0,
     "mlp_halfblock_bwd": 0,
+    "mlp_halfblock_chunked": 0,
+    "mlp_halfblock_chunked_bwd": 0,
     # the int8 tiers (ops/quant_block.py): its kernels and its layer chains
     "layernorm_q8": 0,
     "gemm_s8_epilogue": 0,
@@ -164,15 +183,23 @@ def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
-def _require(t: torch.Tensor, what: str, dtype: torch.dtype, shape=None) -> None:
-    """The kernels take contiguous, 16-byte-aligned CUDA tensors only."""
+def _require(t: torch.Tensor, what: str, dtype: torch.dtype, shape=None,
+             strided_rows: bool = False) -> None:
+    """The kernels take contiguous, 16-byte-aligned CUDA tensors only; with
+    ``strided_rows``, a matrix whose rows lie a multiple of 16 bytes apart
+    (a column chunk of a wider weight, which the GEMM reads in place)."""
     if not t.is_cuda:
         raise ValueError(f"{what}: expected a CUDA tensor, got {t.device}")
     if t.dtype != dtype:
         raise TypeError(f"{what}: expected {dtype}, got {t.dtype}")
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{what}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
-    if not t.is_contiguous():
+    if strided_rows:
+        if (t.dim() != 2 or t.stride(1) != 1 or t.stride(0) < t.shape[1]
+                or t.stride(0) * t.element_size() % 16):
+            raise ValueError(f"{what}: expected contiguous rows a multiple of 16 bytes "
+                             f"apart, got strides {t.stride()}")
+    elif not t.is_contiguous():
         raise ValueError(f"{what}: expected a contiguous tensor")
     if t.data_ptr() % 16:
         raise ValueError(f"{what}: data pointer is not 16-byte aligned")
@@ -202,13 +229,18 @@ def layer_norm_plain(x, scale, bias, eps: float = 1e-5):
     return (xhat * scale.float() + bias.float()).to(x.dtype)
 
 
+def _check_ln_width(D: int, what: str) -> None:
+    if D % 8 or D > CHUNKED_MAX_WIDTH or (D > 1024 and D % 64):
+        raise ValueError(f"{what}: D={D} must be a multiple of 8 and <= 1024, or of 64 "
+                         f"and <= {CHUNKED_MAX_WIDTH}")
+
+
 def layer_norm_fwd(x, scale, bias, eps: float = 1e-5):
     """LayerNorm over the last dim of x, any leading shape."""
     if not x.is_cuda:
         return layer_norm_plain(x, scale, bias, eps)
     D = x.shape[-1]
-    if D % 8 or D > 1024:
-        raise ValueError(f"layernorm_fwd: D={D} must be a multiple of 8 and <= 1024")
+    _check_ln_width(D, "layernorm_fwd")
     _require(x, "layernorm_fwd x", torch.bfloat16)
     _require(scale, "layernorm_fwd scale", torch.float32, (D,))
     _require(bias, "layernorm_fwd bias", torch.float32, (D,))
@@ -242,8 +274,7 @@ def layer_norm_bwd(dxn, x, scale, residual=None, eps: float = 1e-5):
     if not x.is_cuda:
         return layer_norm_bwd_plain(dxn, x, scale, residual, eps)
     D = x.shape[-1]
-    if D % 8 or D > 1024:
-        raise ValueError(f"layernorm_bwd: D={D} must be a multiple of 8 and <= 1024")
+    _check_ln_width(D, "layernorm_bwd")
     _require(x, "layernorm_bwd x", torch.bfloat16)
     if dxn.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"layernorm_bwd dxn: expected float32 or bfloat16, got {dxn.dtype}")
@@ -271,7 +302,7 @@ def _epilogue(epilogue: str):
     return EPILOGUES[epilogue]
 
 
-def gemm_epilogue_plain(a, w, bias, epilogue: str, extra=None):
+def gemm_epilogue_plain(a, w, bias, epilogue: str, extra=None, out=None):
     """``epilogue(a @ W)`` with fp32 accumulation and the Pallas rounding
     points (dt = a's dtype; W is w, or w^T for the backward epilogues):
 
@@ -284,10 +315,18 @@ def gemm_epilogue_plain(a, w, bias, epilogue: str, extra=None):
       store_f32     acc                                    (:435-438, :349-352)
       fc_gelu_grad  quickgelu'(h32), h32 = acc + f32(b), fp32  (:447, :434)
       mul_f32       dt(acc * f), f = extra (fp32)          (:430-434)
+      chunk_residual  dt(r' + dt(acc)), r' = dt(r + dt(b)) with a bias b,
+                    else r; r = extra                      (:486, :493-497)
+      add_f32       out + acc, fp32, into out              (:522-525)
 
-    The last two are the recompute backward's ``dt(da * quickgelu'(h32))``
-    with h32 never rounded (``_mlp_bwd_kernel`` :444): the fc product
-    stores the factor, the g.proj_w^T product applies it.
+    ``fc_gelu_grad`` and ``mul_f32`` are the recompute backward's
+    ``dt(da * quickgelu'(h32))`` with h32 never rounded (``_mlp_bwd_kernel``
+    :444): the fc product stores the factor, the g.proj_w^T product applies
+    it.  The last two carry the chunked MLP half across its chunks
+    (``_mlp_chunk_fwd_kernel`` :477, ``_mlp_chunk_bwd_kernel`` :500): y
+    starts as dt(x + dt(proj_b)) and takes each chunk's rounded product,
+    rounded again; dxn sums the chunks' products in fp32.  Both write into
+    ``out`` where it is given (``chunk_residual``'s may be ``extra``).
     """
     _, w_nk = _epilogue(epilogue)
     dt = a.dtype
@@ -306,18 +345,27 @@ def gemm_epilogue_plain(a, w, bias, epilogue: str, extra=None):
         return acc.to(dt)
     if epilogue == "store_f32":
         return acc
-    out = acc.to(dt) + bias.to(dt)
-    return out if epilogue == "qkv" else extra + out
+    if epilogue == "add_f32":
+        return out.add_(acc)
+    if epilogue == "chunk_residual":
+        r = extra if bias is None else extra + bias.to(dt)
+        y = r + acc.to(dt)
+        return y if out is None else out.copy_(y)
+    res = acc.to(dt) + bias.to(dt)
+    return res if epilogue == "qkv" else extra + res
 
 
-def gemm_epilogue(a, w, bias, epilogue: str, extra=None):
+def gemm_epilogue(a, w, bias, epilogue: str, extra=None, out=None):
     """(..., K) times W, then the epilogue: W is (K, N) for the forward
-    epilogues and (N, K), read transposed, for the backward ones.  ``extra``
-    is the residual r (``residual``), the saved pre-activation h
-    (``gelu_bwd``) or the fp32 factor (``mul_f32``).  ``fc_gelu_save``
-    returns (h, a)."""
+    epilogues and (N, K), read transposed, for the backward ones; its rows
+    may lie further apart than its width (a column chunk of a wider weight,
+    read in place).  ``extra`` is the residual r (``residual``,
+    ``chunk_residual``), the saved pre-activation h (``gelu_bwd``) or the
+    fp32 factor (``mul_f32``).  ``fc_gelu_save`` returns (h, a).  ``out``
+    receives ``chunk_residual``'s result (it may be ``extra``: y in place)
+    and is the fp32 accumulator that ``add_f32`` adds to."""
     if not a.is_cuda:
-        return gemm_epilogue_plain(a, w, bias, epilogue, extra)
+        return gemm_epilogue_plain(a, w, bias, epilogue, extra, out)
     mode, w_nk = _epilogue(epilogue)
     K = a.shape[-1]
     M = a.numel() // K
@@ -326,8 +374,8 @@ def gemm_epilogue(a, w, bias, epilogue: str, extra=None):
         raise ValueError(f"gemm_bf16_epilogue: K={K} must be a multiple of 64, N={N} of 8")
     out_shape = (*a.shape[:-1], N)
     _require(a, "gemm a", torch.bfloat16)
-    _require(w, "gemm w", torch.bfloat16, (N, K) if w_nk else (K, N))
-    if epilogue in _BIASED:
+    _require(w, "gemm w", torch.bfloat16, (N, K) if w_nk else (K, N), strided_rows=True)
+    if epilogue in _BIASED or (epilogue == "chunk_residual" and bias is not None):
         _require(bias, "gemm bias", torch.bfloat16, (N,))
     elif bias is not None:
         raise ValueError(f"epilogue {epilogue!r} takes no bias")
@@ -336,12 +384,30 @@ def gemm_epilogue(a, w, bias, epilogue: str, extra=None):
     elif extra is not None:
         raise ValueError(f"epilogue {epilogue!r} takes no second operand")
     dt = torch.float32 if epilogue in _F32_OUT else torch.bfloat16
-    c = torch.empty(out_shape, dtype=dt, device=a.device)
+    r = extra
+    if out is not None:
+        if epilogue not in _IN_PLACE:
+            raise ValueError(f"epilogue {epilogue!r} takes no out")
+        _require(out, f"gemm {epilogue} out", dt, out_shape)
+        base = out.untyped_storage().data_ptr()
+        if a.untyped_storage().data_ptr() == base or (
+                extra is not None and extra is not out
+                and extra.untyped_storage().data_ptr() == base):
+            raise ValueError(f"gemm {epilogue}: out must not share memory with a, nor "
+                             "with extra unless it is extra")
+        if extra is out:
+            r = None  # y in place: the kernel reads the residual through C
+        c = out
+    elif epilogue == "add_f32":
+        raise ValueError("epilogue 'add_f32' adds into out, the fp32 accumulator")
+    else:
+        c = torch.empty(out_shape, dtype=dt, device=a.device)
     c2 = torch.empty_like(c) if epilogue == "fc_gelu_save" else None
     lib = _build.load()["gemm_bf16_epilogue"]
     ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
-    _build.check(lib.gemm_bf16_epilogue(a.data_ptr(), w.data_ptr(), ptr(bias), ptr(extra),
-                                        c.data_ptr(), ptr(c2), M, N, K, mode, _stream()),
+    _build.check(lib.gemm_bf16_epilogue(a.data_ptr(), w.data_ptr(), ptr(bias), ptr(r),
+                                        c.data_ptr(), ptr(c2), M, N, K, w.stride(0), mode,
+                                        _stream()),
                  "gemm_bf16_epilogue")
     LAUNCHES["gemm_bf16_epilogue"] += 1
     return (c, c2) if c2 is not None else c
@@ -657,6 +723,125 @@ def mlp_halfblock(x, ln_s, ln_b, fc_w, fc_b, proj_w, proj_b, plain: bool = False
     y = _mlp_chain(_PLAIN if plain else _KERNELS, *args, False)[0]
     if x.is_cuda and not plain:
         LAUNCHES["mlp_halfblock"] += 1
+    return y
+
+
+# ---------------------------------------------------------------------------
+# the MLP half streamed over hidden-dim chunks (fused_block.py:459-616)
+# ---------------------------------------------------------------------------
+
+def _pick_chunk(dh: int, d: int) -> int:
+    """The chunk width of ``mlp_halfblock_chunked`` (``_pick_chunk`` :535),
+    chosen for a TPU's VMEM; kept because y is rounded after every chunk,
+    so the width is part of the numerics: 1536 at ViT-B/16 (K = 2), 512 at
+    ViT-L/14 and any D > 768 with Dh % 512 == 0."""
+    max_chunk = 2048 if d <= 768 else 512
+    for c in (2048, 1536, 1024, 512):
+        if c <= max_chunk and dh % c == 0:
+            return c
+    return dh
+
+
+def _chunks(D: int, Dh: int):
+    c = _pick_chunk(Dh, D)
+    return [slice(k * c, (k + 1) * c) for k in range(Dh // c)]
+
+
+def _mlp_chunked_chain(fns, x, ln_s, ln_b, fc_w, fc_b, proj_w, proj_b):
+    """y of the chunked MLP half (``_mlp_chunk_fwd_kernel`` :477): xn once,
+    then per chunk a = dt(quickgelu(xn.fc_w[:, k] + fc_b[k])) and
+    y = dt(y + dt(a.proj_w[k])), y starting as dt(x + dt(proj_b)).  One
+    (M, c) activation at a time; the fc weight's column chunk is read in
+    place."""
+    ln, gemm = fns[:2]
+    xn = ln(x, ln_s, ln_b)
+    y = None
+    for k, cols in enumerate(_chunks(x.shape[-1], fc_w.shape[1])):
+        a = gemm(xn, fc_w[:, cols], fc_b[cols], "fc_gelu")
+        if k == 0:
+            y = gemm(a, proj_w[cols], proj_b, "chunk_residual", x)
+        else:
+            gemm(a, proj_w[cols], None, "chunk_residual", y, out=y)
+        del a  # free it before the next chunk's allocates
+    return y
+
+
+def _mlp_chunked_bwd_chain(fns, x, g, ln_s, ln_b, fc_w, fc_b, proj_w):
+    """dx of the chunked MLP half (``_mlp_chunk_bwd_kernel`` :500): xn
+    once; per chunk h32 recomputed and never rounded, dh =
+    dt(g.proj_w[k]^T * quickgelu'(h32)), dxn += dh.fc_w[:, k]^T in fp32;
+    then dx = dt(f32(g) + LN_dx(dxn)).  One (M, c) fp32 factor, one (M, c)
+    bf16 dh and the (M, D) fp32 dxn at a time."""
+    ln, gemm, ln_bwd = fns[0], fns[1], fns[3]
+    xn = ln(x, ln_s, ln_b)
+    dxn = None
+    for k, cols in enumerate(_chunks(x.shape[-1], fc_w.shape[1])):
+        f = gemm(xn, fc_w[:, cols], fc_b[cols], "fc_gelu_grad")
+        dh = gemm(g, proj_w[cols], None, "mul_f32", f)
+        del f
+        if k == 0:
+            dxn = gemm(dh, fc_w[:, cols], None, "store_f32")
+        else:
+            gemm(dh, fc_w[:, cols], None, "add_f32", out=dxn)
+        del dh
+    return ln_bwd(dxn, x, ln_s, g)
+
+
+def mlp_halfblock_chunked_plain(x, ln_s, ln_b, fc_w, fc_b, proj_w, proj_b):
+    """The chunked MLP half from the kernels' plain versions, on any device."""
+    return _mlp_chunked_chain(_PLAIN, x, ln_s, ln_b, fc_w, fc_b, proj_w, proj_b)
+
+
+def mlp_halfblock_chunked_bwd_plain(x, g, ln_s, ln_b, fc_w, fc_b, proj_w):
+    """dx of the chunked MLP half from the plain versions (``_mlp_chunk_bwd``
+    :604)."""
+    return _mlp_chunked_bwd_chain(_PLAIN, x, g, ln_s, ln_b, fc_w, fc_b, proj_w)
+
+
+class MlpHalfblockChunkedFn(torch.autograd.Function):
+    """``mlp_halfblock_chunked.defvjp(_mlp_chunk_fwd, _mlp_chunk_bwd)``
+    (:586-616): the forward saves its input x and the weights, nothing
+    else; the backward recomputes h32 chunk by chunk and returns dx and no
+    weight gradient.  ``plain`` as in :class:`AttnHalfblockFn`."""
+
+    @staticmethod
+    def forward(ctx, x, ln_s, ln_b, fc_w, fc_b, proj_w, proj_b, plain):
+        if any(ctx.needs_input_grad[1:7]):
+            raise ValueError("mlp_halfblock_chunked returns dx only: its weights must not "
+                             "require grad (the frozen-backbone regime)")
+        y = _mlp_chunked_chain(_PLAIN if plain else _KERNELS, x, ln_s, ln_b, fc_w, fc_b,
+                               proj_w, proj_b)
+        ctx.save_for_backward(x, ln_s, ln_b, fc_w, fc_b, proj_w)
+        ctx.plain = plain
+        if x.is_cuda and not plain:
+            LAUNCHES["mlp_halfblock_chunked"] += 1
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, ln_s, ln_b, fc_w, fc_b, proj_w = ctx.saved_tensors
+        dx = _mlp_chunked_bwd_chain(_PLAIN if ctx.plain else _KERNELS, x, g.contiguous(),
+                                    ln_s, ln_b, fc_w, fc_b, proj_w)
+        if x.is_cuda and not ctx.plain:
+            LAUNCHES["mlp_halfblock_chunked_bwd"] += 1
+        return (dx,) + (None,) * 7
+
+
+def mlp_halfblock_chunked(x, ln_s, ln_b, fc_w, fc_b, proj_w, proj_b, plain: bool = False):
+    """y = x + proj(QuickGELU(fc(LN x))), x (B, S, D) -> (B, S, D), with the
+    hidden dim streamed in chunks and y rounded after each
+    (``mlp_halfblock_chunked`` :587).  The JAX package routes no layer
+    here; it is its own entry point, for towers up to D = 2048 on the card.
+    When x needs a gradient it runs :class:`MlpHalfblockChunkedFn`;
+    ``plain`` runs the plain versions on any device."""
+    args = (x, ln_s, ln_b, fc_w, fc_b, proj_w, proj_b)
+    if x.is_cuda and not plain:
+        _check_width(x, "mlp_halfblock_chunked", CHUNKED_MAX_WIDTH)
+    if torch.is_grad_enabled() and x.requires_grad:
+        return MlpHalfblockChunkedFn.apply(*args, plain)
+    y = _mlp_chunked_chain(_PLAIN if plain else _KERNELS, *args)
+    if x.is_cuda and not plain:
+        LAUNCHES["mlp_halfblock_chunked"] += 1
     return y
 
 

@@ -7,7 +7,10 @@ gradient of the unrounded pre-activation where the bf16 h was saved and of
 the bf16 h where the recompute backward keeps h32 unrounded, a second
 rounding before the residual of the LayerNorm dx) and two faults of
 ``attention_bwd``'s row tiling at ViT-L/14's 259-token blocks, while a
-change of fp32 sum order passes.  The int8 kernels' limits (codes within
+change of fp32 sum order passes; two faults of the chunked MLP half (y
+rounded once after the whole product, proj_b folded into the first chunk's
+product) fail the chain check or the epilogue check that chip_smoke runs
+for them.  The int8 kernels' limits (codes within
 one step, few of them differing) reject the attention output rounded to
 bf16 before the row quantizer, rounding half away from zero, and the LN1
 output quantized from bf16, and pass LayerNorm statistics summed in
@@ -179,6 +182,63 @@ def test_check_close_catches_attention_bwd_tiling_fault(fault):
     got, ref = _attention_bwd_tiling_fault(qkv, do, 2, fault), F.attention_bwd_plain(qkv, do, 2)
     with pytest.raises(AssertionError, match="max abs err|share of differing|relative norm"):
         C.check_close(fault, got, ref)
+
+
+def _chunked_mlp_case(fault):
+    """(the faulty y, the plain chain's y) of the chunked MLP half at
+    ViT-L/14's width (D = 1024, K = 8 chunks of 512), weights at
+    chip_smoke's scales; for "proj_b_folded" also (the faulty first-chunk
+    epilogue, the plain one): the residual epilogue's r + (dt(acc) + dt(b))
+    in place of dt(dt(r + dt(b)) + dt(acc))."""
+    g = torch.Generator().manual_seed(5)
+    rn = lambda *s, std=1.0: (torch.randn(*s, generator=g) * std).bfloat16()  # noqa: E731
+    D, Dh = 1024, 4096
+    x = rn(M, D)
+    ln_s = torch.randn(D, generator=g) * 0.1 + 1
+    ln_b = torch.randn(D, generator=g) * 0.1
+    fc_w, fc_b = rn(D, Dh, std=D ** -0.5), rn(Dh, std=0.1)
+    proj_w, proj_b = rn(Dh, D, std=Dh ** -0.5), rn(D, std=0.1)
+    ref = F.mlp_halfblock_chunked_plain(x, ln_s, ln_b, fc_w, fc_b, proj_w, proj_b)
+    xn = F.layer_norm_plain(x, ln_s, ln_b)
+    acts = [(F.gemm_epilogue_plain(xn, fc_w[:, c], fc_b[c], "fc_gelu"), proj_w[c])
+            for c in F._chunks(D, Dh)]
+    accs = [a.float() @ w.float() for a, w in acts]
+    if fault == "y_rounded_once":  # the half-block's rounding: one, after the fp32 sum
+        return (x + proj_b) + sum(accs).bfloat16(), ref
+    y = x + (accs[0].bfloat16() + proj_b)
+    for acc in accs[1:]:
+        y = y + acc.bfloat16()
+    a0, w0 = acts[0]
+    return (y, ref, x + (accs[0].bfloat16() + proj_b),
+            F.gemm_epilogue_plain(a0, w0, proj_b, "chunk_residual", x))
+
+
+# Readings (max err of the largest value, relative norm err, share not
+# bit-equal), against the plain chain: y rounded once 0.010, 5.0e-3, 0.60;
+# proj_b folded 0.010, 3.1e-3, 0.14; the first chunk's epilogue with proj_b
+# folded 0.0061, 2.8e-3, 0.28
+def test_check_close_catches_chunked_mlp_y_rounded_once():
+    """The chain check (share not held, as chip_smoke holds the chains):
+    the norm limit rejects y rounded once, 1.3x over it."""
+    C = _chip_smoke()
+    got, ref = _chunked_mlp_case("y_rounded_once")
+    assert (got.float() - ref.float()).abs().max() <= C.MAX_ERR_OF_MAX * ref.float().abs().max()
+    with pytest.raises(AssertionError, match="relative norm"):
+        C.check_close("y rounded once", got, ref, share_limit=None)
+
+
+def test_check_close_catches_chunked_mlp_proj_b_folded():
+    """proj_b folded as the residual epilogue folds it moves few enough
+    roundings to pass the chain check (norm 0.80x its limit); chip_smoke's
+    check of the first chunk's epilogue alone rejects it by the share of
+    differing elements, 70x over that limit."""
+    C = _chip_smoke()
+    got, ref, ep_got, ep_ref = _chunked_mlp_case("proj_b_folded")
+    C.check_close("proj_b folded, chain", got, ref, share_limit=None)
+    assert (ep_got.float() - ep_ref.float()).abs().max() <= (
+        C.MAX_ERR_OF_MAX * ep_ref.float().abs().max())
+    with pytest.raises(AssertionError, match="share of differing"):
+        C.check_close("proj_b folded, first chunk", ep_got, ep_ref)
 
 
 def _ln_quant_sum_order(x, s, b):
