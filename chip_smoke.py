@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Run the PyTorch/CUDA port's MuDPT serving paths and train steps on one
-GPU, ViT-B/16 and ViT-L/14, and its chunked MLP half-block.
+GPU, ViT-B/16 and ViT-L/14 (and ViT-L/14@336px serving), and its chunked
+MLP half-block.
 
     python3 chip_smoke.py
 
@@ -12,9 +13,11 @@ Phases, each printed with the card's name and power limit:
               of the ViT-B/16 serving path and train step, with the
               kernel's, the plain version's and one library call's time (the
               library call is a yardstick, never used by the port), and the
-              bound from bytes and operations; then the whole layer against
-              its plain version at D=768 and D=512, forward alone and
-              forward with backward.
+              bound from bytes and operations; attention_fwd at every block
+              length from 16 to 1,024 rows (both of its paths, K and V
+              resident and streamed), every mask spec, both output forms;
+              then the whole layer against its plain version at D=768 and
+              D=512, forward alone and forward with backward.
   4. serving  build_synth_mudpt_server("ViT-B/16", 384, 100, 2, 9) on
               seeded random weights: encode the class text once, answer
               requests of 384 images, count kernel launches, check logits
@@ -34,6 +37,9 @@ Phases, each printed with the card's name and power limit:
               2,560 classes, whose text tower trains with saves off; then
               timed steps at batch 384 (the vision MLP recomputes h there),
               launches per step, peak device memory and a traced step.
+  8b. kernels ViT-L/14@336px, serving ViT-L/14@336px   attention_fwd at 579
+              rows (577 + n_ctx) beside SDPA and its bound, then serving as
+              4 (training raises: attention_bwd takes at most 384 rows).
   9. kernels int8   the int8 kernels against their plain versions at the
               ViT-B/16 shapes (LayerNorm-quant, the row quantizer with a
               probe of exact ties, every s8 GEMM epilogue with torch._int_mm
@@ -59,7 +65,8 @@ card's name and power limit, and {"ok": true, "device": {...}}.  Times in
 the kernel object are totals over one vision layer's launches in the
 ViT-B/16 train step (LayerNorm twice, the eight projections, attention once,
 each way), under "vit_l14" in the ViT-L/14 train step (LayerNorm three
-times, nine projections) and, for attention_fwd, under "int8" its fp32
+times, nine projections) and, for attention_fwd, under "vit_l14_336px" its
+launch in the ViT-L/14@336px request, under "int8" its fp32
 output in the int8 request; the int8 kernels' totals are over one vision
 layer of the int8 request, under "int8_static" of the int8_static request;
 under "chunked" one call of the chunked MLP half's forward and backward at
@@ -108,6 +115,12 @@ LOGITS_MAX_ERR, LOGITS_NORM_ERR = 2.0 ** -3, 2.0 ** -3  # logits, rows centred
 # bits of nearly every element, so no bit-equal share is held; the error is
 # that of fp32 sums of K bf16 products
 F32_MAX_ERR, F32_NORM_ERR = 2.0 ** -15, 2.0 ** -16
+# the chunked MLP half's y against the plain chain: rounded after each chunk
+# as the plain chain rounds, so only one-ulp flips of the chunks' sums
+# differ (readings 2.8e-4-4.6e-4); y rounded once after the fp32 sum of all
+# chunks, the half-block's rounding, reads 5.0e-3
+# (tests/test_torch_chip_checks.py)
+CHUNK_Y_NORM_ERR = 2.0 ** -10
 # the layer's dx against the plain chain: seven kernels deep, where one-ulp
 # flips of bf16 intermediates propagate (limits under PERF.md Findings)
 LAYER_DX_MAX_ERR, LAYER_DX_NORM_ERR = 2.0 ** -5, 2.0 ** -7
@@ -120,8 +133,18 @@ LAYER_DX_MAX_ERR, LAYER_DX_NORM_ERR = 2.0 ** -5, 2.0 ** -7
 GRAD_NORM_ERR, LOSS_REL_ERR = 2.0 ** -4, 2.0 ** -12
 GRAD_DEPTH = 12
 # and the kernels' gradients no further from the fp32 ones than this times
-# the plain bf16 path's
-GRAD_FP32_RATIO = 1.5
+# the plain bf16 path's (the worst leaf).  Derived by
+# tools/torch_grad_noise.py --ratio as the mean + 4 standard deviations of
+# that ratio over eight seeds of each ViT-B/16 check (bf16, int8_ste,
+# int8_ste_static at batch 384), rounded up to a tenth: 24 cases, mean
+# 1.0547, sd 0.0595, largest 1.2118 (PERF.md).  The ViT-L/14 checks at batch
+# 32 spread wider, as wide with the first port's attention_fwd as with the
+# key-tiled one (16 cases each, one call: mean 1.1694 and 1.1818, sd 0.1504
+# and 0.1748, largest 1.6162 and 1.5520; seed 0, this script's case,
+# 1.24-1.41 as the kernels' rounding changed), the worst leaf being the
+# one whose plain-vs-fp32 distance is least: the same rule gives 1.8 and
+# 1.9
+GRAD_FP32_RATIO, GRAD_FP32_RATIO_L14 = 1.3, 1.9
 
 # int8 codes of the quantizing kernels against their plain versions.  The
 # row quantizer and the s8 GEMM's qkv and residual epilogues compute the
@@ -378,6 +401,12 @@ SHAPES = {
               ("text packed (16,16)", 13, 128, 12, (16, 16), False),
               ("longest block", 8, 384, 16, False, False)),
     ),
+    # ViT-L/14@336px serving: the vision tower's attention at 577 + n_ctx
+    # rows, forward only (its backward is not ported: ROADMAP B.1)
+    "ViT-L/14@336px": dict(
+        tag="kernels ViT-L/14@336px", ln=(), gemm=(), ln_bwd=(),
+        attn=(("vision", 384, 579, 16, False, True),),
+    ),
 }
 
 
@@ -497,6 +526,40 @@ def check_gemm(F, tag: str, ep: str, a, w, bias, extra, kernel: Kernel, per_laye
         kernel.add(ms, plain, lib, bms, by)
 
 
+def launch_profile(fn, symbol: str = None) -> str:
+    """What CUPTI records of one launch in ``fn`` (the kernel whose name
+    holds ``symbol``, else the longest): grid, block, registers a thread and
+    shared memory a block, read from the profiler's trace (written under
+    build/ and removed), and the warps an SM holds at those figures (64 K
+    registers and 228 KB of shared memory an SM, 1 KB of it reserved a
+    block).  CUPTI's stall reasons are not recorded."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof, \
+            torch.no_grad():
+        fn()
+        torch.cuda.synchronize()
+    path = Path(__file__).resolve().parent / "build" / "launch_profile.json"
+    path.parent.mkdir(exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    events = [e for e in json.loads(path.read_text()).get("traceEvents", [])
+              if e.get("cat") == "kernel" and (symbol is None or symbol in e.get("name", ""))]
+    path.unlink()
+    if not events:
+        return "not recorded"
+    e = max(events, key=lambda e: e.get("dur", 0))
+    a = e.get("args", {})
+    try:
+        threads = a["block"][0] * a["block"][1] * a["block"][2]
+        regs, smem = a["registers per thread"], a["shared memory"]
+    except (KeyError, TypeError, IndexError):
+        return f"{e['name'][:48]}: no launch figures"
+    blocks = min(65536 // (regs * threads), 233472 // (smem + 1024), 2048 // threads, 32)
+    return (f"{e['name'][:48]}: grid {a.get('grid')}, {threads} threads, {regs} registers, "
+            f"{smem} B shared: {blocks} blocks, {blocks * threads // 32} warps an SM")
+
+
 def phase_kernels(F, kernels: dict, model: str):
     """Every kernel at the model's shapes; returns the seeded generator,
     which the layer checks go on drawing from."""
@@ -562,6 +625,9 @@ def phase_kernels(F, kernels: dict, model: str):
                        f"plain {plain:.4f} library(sdpa) {lib:.4f} bound {bms:.4f} ({by})")
         if per_layer:
             kernels["attention_fwd"].add(ms, plain, lib, bms, by)
+        if L > F.ATTN_BWD_MAX_BLOCK:  # no backward at this block yet (ROADMAP B.1)
+            del qkv, q, k, v
+            continue
 
         do = rn(B, S, D, std=0.1)
         reading = check_close(f"attention_bwd {label}", F.attention_bwd(qkv, do, H, causal),
@@ -578,6 +644,54 @@ def phase_kernels(F, kernels: dict, model: str):
             kernels["attention_bwd"].add(ms, plain, lib, bms, by)
         del qkv, q, k, v, do, do4, out
     return rn
+
+
+# each vision tower's attention block: model, rows, heads
+ATTN_PROFILE_SHAPES = (("ViT-B/16", 199, 12), ("ViT-L/14", 259, 16), ("ViT-L/14@336px", 579, 16))
+
+
+def phase_attention_profiles(F) -> None:
+    """CUPTI's launch figures of attention_fwd and of SDPA at each vision
+    tower's block.  Run early: in the later phases the profiler's trace
+    held no kernel events."""
+    import torch.nn.functional as tf
+
+    rn = randn_fn(9)
+    for model, S, H in ATTN_PROFILE_SHAPES:
+        qkv = rn(BATCH, S, 3 * 64 * H)
+        q, k, v = qkv.view(BATCH, S, 3, H, 64).permute(2, 0, 3, 1, 4)
+        say("kernels", f"launch profile {model} {BATCH} x {S}, {H} heads: attention_fwd "
+                       f"{launch_profile(lambda: F.attention_fwd(qkv, H), 'attention_fwd')}; "
+                       f"sdpa {launch_profile(lambda: tf.scaled_dot_product_attention(q, k, v))}")
+        del qkv, q, k, v
+
+# attention_fwd's block lengths and mask specs: one query and key tile
+# (<= 64 rows), K and V resident (<= 768 rows) and streamed past that
+ATTN_SWEEP_S = (16, 40, 64, 128, 199, 259, 384, 579, 769, 1024)
+
+
+def phase_attention_sweep(F) -> None:
+    """attention_fwd against its plain version at every block length of the
+    models and past the resident limit, every mask spec (none, causal,
+    packed (S, S - 7) and (16, 11)), both output forms; 4 sequences of 2
+    heads each."""
+    rn = randn_fn(8)
+    for S in ATTN_SWEEP_S:
+        readings = []
+        for mask in (False, True, (S, S - 7), (16, 11)):
+            if S % mask[0] if isinstance(mask, tuple) else False:
+                continue
+            qkv = rn(4, S, 3 * 128)
+            for f32 in (False, True):
+                what = f"attention_fwd S={S} mask={mask} {'fp32' if f32 else 'bf16'}"
+                got, ref = F.attention_fwd(qkv, 2, mask, f32), F.attention_plain(qkv, 2, mask, f32)
+                if f32:
+                    check_close(what, got, ref, max_limit=ATTN_F32_MAX_ERR,
+                                norm_limit=ATTN_F32_NORM_ERR, share_limit=None)
+                else:
+                    check_close(what, got, ref)
+                readings.append(f"{mask}/{'f32' if f32 else 'bf16'}")
+        say("kernels", f"attention_fwd S={S}: within limits for {', '.join(readings)}")
 
 
 def layer_params(rn, D: int) -> list:
@@ -714,12 +828,63 @@ Q8_GEMM = (("q8_qkv", M_B, 768, 2304, False, 1, 0), ("q8_residual", M_B, 768, 76
 # fp32 operations of the GEMM's epilogue per output element (dequant, bias,
 # conversion or residual add; QuickGELU's exp and division counted as one each)
 Q8_EPILOGUE_OPS = {"qkv": 4, "residual": 5, "fc_gelu": 9}
+# every s8 epilogue at M, K, N that are no multiples of the kernel's tile
+S8_RAGGED = tuple((f"{kind}_{ep}", save) for kind in ("q8", "q8s")
+                  for ep, save in (("qkv", False), ("residual", False), ("fc_gelu", False),
+                                   ("fc_gelu", True)))
+S8_RAGGED_MKN = (1000, 80, 784)
 
 
 def _per_layer(kernels: tuple, counts: tuple, *times) -> None:
     for k, n in zip(kernels, counts):
         for _ in range(n):
             k.add(*times)
+
+
+def s8_case(Q, rn, ep: str, M: int, K: int, N: int, save: bool, kern: Kernel = None) -> tuple:
+    """One s8 GEMM epilogue against its plain version on seeded operands:
+    (the call's arguments, the reading).  qkv, residual and the saved h are
+    held bit-equal, g within F32_MAX_ERR, the static codes within a step."""
+    import torch
+
+    one = lambda v: torch.full((), v, dtype=torch.float32, device="cuda")  # noqa: E731
+    static = ep.startswith("q8s_")
+    x32 = rn(M, K, dtype=torch.float32)
+    wq, ws = Q.quantize_cols(rn(K, N, std=K ** -0.5))
+    wq = wq.t().contiguous()
+    if static:  # per-tensor codes, the site's dequant factor folded into ws
+        amax = x32.abs().amax()
+        a, xs = Q.quantize_rows_plain(x32, one(127.0) / amax)[0], None
+        ws = ws * (amax / 127.0)
+    else:
+        a, xs = Q.quantize_rows_plain(x32)
+    del x32
+    bias = rn(N, std=0.1)
+    extra = rn(M, N) if ep.endswith("residual") else None
+    r = None
+    if ep == "q8s_fc_gelu":
+        v = Q._s8_matmul(a, wq) * ws + bias.float()
+        r = one(127.0) / (v * torch.sigmoid(1.702 * v)).abs().amax()
+        del v
+    args = (a, xs, wq, ws, bias, ep, extra, r, save)
+    got, ref = Q.gemm_s8(*args), Q.gemm_s8_plain(*args)
+    what = f"gemm_s8 {ep} {M}x{K}->{N}"
+    reading = ""
+    if save:
+        reading = "h " + check_equal(f"{what} h", got[0], ref[0], kern) + "; "
+        got, ref = got[1], ref[1]
+    if ep == "q8_fc_gelu":
+        reading += "g " + check_close(f"{what} g", got, ref, kern, max_limit=F32_MAX_ERR,
+                                      norm_limit=F32_NORM_ERR, share_limit=None)
+        # g's codes, as quant_rows (held on its own above) would make them
+        reading += "; g's codes " + check_codes(f"{what} g's codes",
+                                                 Q.quantize_rows_plain(got)[0],
+                                                 Q.quantize_rows_plain(ref)[0])
+    elif ep == "q8s_fc_gelu":
+        reading += "codes " + check_codes(what, got, ref, kern)
+    else:
+        reading += check_equal(what, got, ref, kern)
+    return args, reading
 
 
 def phase_kernels_int8(F, Q, kq: dict, kqs: dict) -> None:
@@ -781,44 +946,9 @@ def phase_kernels_int8(F, Q, kq: dict, kqs: dict) -> None:
 
     for ep, M, K, N, save, n_dyn, n_st in Q8_GEMM:
         static = ep.startswith("q8s_")
-        x32 = rn(M, K, dtype=torch.float32)
-        wq, ws = Q.quantize_cols(rn(K, N, std=K ** -0.5))
-        wq = wq.t().contiguous()
-        if static:  # per-tensor codes, the site's dequant factor folded into ws
-            amax = x32.abs().amax()
-            a, xs = Q.quantize_rows_plain(x32, one(127.0) / amax)[0], None
-            ws = ws * (amax / 127.0)
-        else:
-            a, xs = Q.quantize_rows_plain(x32)
-        del x32
-        bias = rn(N, std=0.1)
-        extra = rn(M, N) if ep.endswith("residual") else None
-        r = None
-        if ep == "q8s_fc_gelu":
-            v = Q._s8_matmul(a, wq) * ws + bias.float()
-            r = one(127.0) / (v * torch.sigmoid(1.702 * v)).abs().amax()
-            del v
-        args = (a, xs, wq, ws, bias, ep, extra, r, save)
-        got, ref = Q.gemm_s8(*args), Q.gemm_s8_plain(*args)
-        what = f"gemm_s8 {ep} {K}->{N}"
         kern = kq["gemm_s8_epilogue"] if not static else kqs["gemm_s8_epilogue"]
-        if save:
-            reading = "h " + check_equal(f"{what} h", got[0], ref[0], kern) + "; "
-            got, ref = got[1], ref[1]
-        else:
-            reading = ""
-        if ep == "q8_fc_gelu":
-            reading += "g " + check_close(f"{what} g", got, ref, kern, max_limit=F32_MAX_ERR,
-                                          norm_limit=F32_NORM_ERR, share_limit=None)
-            # g's codes, as quant_rows (held on its own above) would make them
-            reading += "; g's codes " + check_codes(f"{what} g's codes",
-                                                     Q.quantize_rows_plain(got)[0],
-                                                     Q.quantize_rows_plain(ref)[0])
-        elif ep == "q8s_fc_gelu":
-            reading += "codes " + check_codes(what, got, ref, kern)
-        else:
-            reading += check_equal(what, got, ref, kern)
-        del got, ref
+        args, reading = s8_case(Q, rn, ep, M, K, N, save, kern)
+        a, wq, extra = args[0], args[2], args[6]
         ms = time_ms(lambda: Q.gemm_s8(*args))
         plain = time_ms(lambda: Q.gemm_s8_plain(*args), 3)
         lib = time_ms(lambda: torch._int_mm(a, wq.t()))  # the yardstick: int32 out, no epilogue
@@ -833,7 +963,14 @@ def phase_kernels_int8(F, Q, kq: dict, kqs: dict) -> None:
                  f"bound {bms:.4f} ({by})")
         _per_layer((kq["gemm_s8_epilogue"], kqs["gemm_s8_epilogue"]), (n_dyn, n_st), ms, plain,
                    lib, bms, by)
-        del a, xs, wq, ws, bias, extra, args
+        del a, wq, extra, args
+    # the ragged tile edges (tiles of 128 rows, 256 columns, 128 of K): the
+    # product's K tail and the rows past M arrive as TMA's zeros, the
+    # columns past N are cut from the ws and bias loads and the stores
+    for ep, save in S8_RAGGED:
+        M, K, N = S8_RAGGED_MKN
+        _, reading = s8_case(Q, rn, ep, M, K, N, save)
+        say(tag, f"gemm_s8_epilogue {ep}{' save h' if save else ''} {M}x{K}->{N}: {reading}")
 
     # attention's fp32 output, the int8 layers' accumulator, and its codes
     for label, B, S, H, causal, per_layer in (("vision", BATCH, 199, 12, False, 1),
@@ -1024,7 +1161,8 @@ def phase_kernels_chunked(F, kc: dict) -> dict:
         if dict(F.LAUNCHES) != expect(F.LAUNCHES, (1, n_fwd)):
             raise AssertionError(f"mlp_halfblock_chunked {label}: launches {dict(F.LAUNCHES)}")
         reading = check_close(f"mlp_halfblock_chunked {label} y", y,
-                              F.mlp_halfblock_chunked_plain(x, *ps), share_limit=None)
+                              F.mlp_halfblock_chunked_plain(x, *ps), norm_limit=CHUNK_Y_NORM_ERR,
+                              share_limit=None)
         del y
         ms = time_ms(lambda: F.mlp_halfblock_chunked(x, *ps))
         plain = time_ms(lambda: F.mlp_halfblock_chunked_plain(x, *ps), 3)
@@ -1049,7 +1187,7 @@ def phase_kernels_chunked(F, kc: dict) -> dict:
                                  f"backward {counts_b}")
         y_ref, dx_ref = step(True)
         r_y = check_close(f"mlp_halfblock_chunked {label} y (saving forward)", y, y_ref,
-                          share_limit=None)
+                          norm_limit=CHUNK_Y_NORM_ERR, share_limit=None)
         r_dx = check_close(f"mlp_halfblock_chunked {label} dx", dx, dx_ref,
                            max_limit=LAYER_DX_MAX_ERR, norm_limit=LAYER_DX_NORM_ERR,
                            share_limit=None)
@@ -1108,7 +1246,8 @@ def serving_time_by_kernel(prof) -> tuple:
     """({kernel or "other": device us}, {}, {other kernel: us}) of a request."""
     import torch
 
-    by_kernel = {"gemm_bf16_kernel": 0.0, "gemm_s8_kernel": 0.0, "attention_fwd_kernel": 0.0,
+    by_kernel = {"gemm_bf16_kernel": 0.0, "gemm_s8_kernel": 0.0,
+                 "attention_fwd_wgmma_kernel": 0.0,
                  "layernorm_fwd_kernel": 0.0, "layernorm_q8_kernel": 0.0,
                  "quant_rows_kernel": 0.0, "other": 0.0}
     others = {}
@@ -1270,7 +1409,7 @@ def device_time_by_kernel(prof) -> tuple:
             mode = int(gemm.group(1))
             name, bwd = f"gemm_bf16_kernel<{mode}>", mode >= 4 and mode != 9
         else:
-            name = next((k for k in ("layernorm_fwd_kernel", "attention_fwd_kernel",
+            name = next((k for k in ("layernorm_fwd_kernel", "attention_fwd_wgmma_kernel",
                                      "layernorm_bwd_kernel", "attention_bwd_kernel",
                                      "gemm_s8_kernel", "layernorm_q8_kernel",
                                      "quant_rows_kernel")
@@ -1332,14 +1471,16 @@ def grad_check(F, st, phase: str, label: str, want: dict) -> None:
         worst, worst_ratio = max(worst, err), max(worst_ratio, k32 / p32)
         parts.append(f"{name} {err:.3g} ({k32:.3g} / {p32:.3g})")
     limit = grad_limit(st.clip_cfg)
+    ratio_limit = GRAD_FP32_RATIO_L14 if st.clip_cfg.vision_layers > GRAD_DEPTH else GRAD_FP32_RATIO
     say(phase, f"{label} vs plain path on the card: loss {loss:.6f} vs {loss_ref:.6f} "
                f"(rel {rel:.3g}); gradient relative norm errors, kernels vs plain, limit "
-               f"{limit:.4g} (kernels vs fp32 / plain vs fp32): " + ", ".join(parts))
-    if not (rel <= LOSS_REL_ERR and worst <= limit and worst_ratio <= GRAD_FP32_RATIO):
+               f"{limit:.4g} (kernels vs fp32 / plain vs fp32): " + ", ".join(parts)
+               + f"; worst ratio {worst_ratio:.4f} (limit {ratio_limit})")
+    if not (rel <= LOSS_REL_ERR and worst <= limit and worst_ratio <= ratio_limit):
         raise AssertionError(f"{label} vs plain path: loss rel err {rel} (limit "
                              f"{LOSS_REL_ERR}), worst gradient norm err {worst} (limit "
                              f"{limit}), worst ratio of distances to fp32 "
-                             f"{worst_ratio} (limit {GRAD_FP32_RATIO})")
+                             f"{worst_ratio} (limit {ratio_limit})")
 
 
 def step_launches(F, cfg, text_route: str, vision_route: str) -> dict:
@@ -1480,6 +1621,8 @@ def main() -> int:
     kernels_qs = {name: Kernel(name) for name in Q8_KERNELS}
     # one call of the chunked MLP half's forward and backward at ViT-L/14
     kernels_c = {name: Kernel(name) for name in CHUNKED_KERNELS}
+    # attention_fwd in one vision layer of the ViT-L/14@336px request
+    kernels_336 = {"attention_fwd": Kernel("attention_fwd")}
     paths = {}
 
     def run(phase: str, fn, *args):
@@ -1491,6 +1634,8 @@ def main() -> int:
         return out
 
     rn = run("kernels", phase_kernels, F, kernels, "ViT-B/16")
+    run("kernels", phase_attention_profiles, F)
+    run("kernels", phase_attention_sweep, F)
     run("kernels", phase_layer_chains, F, rn)
     paths["serving"] = run("serving", phase_serving, F, "ViT-B/16")
     paths["train_step"] = run("train", phase_train, F, "ViT-B/16")
@@ -1498,6 +1643,9 @@ def main() -> int:
     run("kernels ViT-L/14", phase_halfblock_chains, F)
     paths["serving_vit_l14"] = run("serving ViT-L/14", phase_serving, F, "ViT-L/14")
     paths["train_step_vit_l14"] = run("train ViT-L/14", phase_train, F, "ViT-L/14")
+    run("kernels ViT-L/14@336px", phase_kernels, F, kernels_336, "ViT-L/14@336px")
+    paths["serving_vit_l14_336px"] = run("serving ViT-L/14@336px", phase_serving, F,
+                                         "ViT-L/14@336px")
     run("kernels int8", phase_kernels_int8, F, Q, kernels_q, kernels_qs)
     run("kernels int8", phase_q8_chains, F, Q, layers)
     for quant in ("int8", "int8_static"):
@@ -1510,6 +1658,7 @@ def main() -> int:
         return {path: counts[name] for path, counts in paths.items()}
 
     records = [k.record(by_path(name), "train_step", vit_l14=kernels_l[name],
+                        **({"vit_l14_336px": kernels_336[name]} if name in kernels_336 else {}),
                         **({"int8": kernels_q[name]} if name in kernels_q else {}),
                         **({"chunked": kernels_c[name]} if name in kernels_c else {}))
                for name, k in kernels.items()]

@@ -27,17 +27,30 @@
 //   for qkv and proj (the int8 tensor cores bind above ~590: 1,979 TOP/s
 //   over 3.35 TB/s), ~360 for fc with its fp32 output and ~300 for the
 //   768 -> 768 out-projection, which are bound by their bytes.
-// Design: a simple kernel that is right first (wgmma and TMA are later
-//   work).  A block of 8 warps owns a 128 x 128 output tile; each warp a
-//   64 x 32 slab of int32 accumulators from mma.sync m16n8k32 s8 tiles fed
-//   by ldmatrix.  A 4-stage cp.async ring stages 64-byte K slices of A and
-//   W (both K-major: W is the (N, K) int8 copy of the weight, the layout
-//   the s8 MMA takes for B), rows padded to 80 bytes so the ldmatrix rows
-//   fall on distinct banks.  Ragged M rows are zero-filled and not stored;
-//   N must be a multiple of 128 and K of 64.  The epilogue works on the
-//   accumulator registers and stores from them: a quad of lanes writes 8
-//   bf16 or fp32 values of a row at a time.
+// Design: the bf16 GEMM's skeleton (gemm_bf16_epilogue.cu) with the s8
+//   product.  A block owns a 128 x 256 output tile.  One thread of
+//   warpgroup 0 keeps a 3-stage ring of 128-byte K slices full with TMA
+//   copies (A as boxes of 128 rows, W as boxes of 256 rows, both K-major,
+//   the only layout the 8-bit wgmma takes, so no transposed copy exists;
+//   128-byte swizzled as the descriptors read them; mbarriers say when a
+//   stage is full and when it is free).  Warpgroups 1 and 2 each hold a
+//   64 x 256 int32 slab in registers from wgmma m64n256k32.s32.s8.s8,
+//   keeping one slice's products in flight while they wait for the next.
+//   TMA zero-fills the ragged M, N and K edges (zeros add nothing to the
+//   exact sums); N and K must be multiples of 16 (16-byte rows).  The
+//   epilogue runs on the int32 registers, the tile's ws and bias columns
+//   staged in shared memory and xs read per row; bf16 (qkv, residual, the
+//   saved h) and int8 codes are written into a 128-byte-swizzled slab
+//   (conflict-free from the fragments) and leave by TMA stores that run on
+//   while the next tile's products do, clipped at the matrix's edges; the
+//   residual tile arrives in the slab by TMA during the products and is
+//   added in place.  The fp32 g leaves straight from the registers, a quad
+//   of lanes writing one whole 32-byte sector of a row.  Blocks are
+//   persistent, one per SM walking the tiles, so the producer loads the
+//   next tile while the consumers finish this one; the producer gives up
+//   registers (setmaxnreg) for the consumers' epilogue.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
@@ -49,11 +62,69 @@ enum Mode { kQkv = 0, kResidual = 1, kFcGelu = 2, kSQkv = 3, kSResidual = 4, kSF
 
 __host__ __device__ constexpr bool is_static(int mode) { return mode >= kSQkv; }
 
-constexpr int BM = 128, BN = 128, BK = 64, STAGES = 4;
-constexpr int THREADS = 256;      // 8 warps: 2 along M x 4 along N
-constexpr int LDS = BK + 16;      // bytes per staged row
-constexpr int STAGE_BYTES = (BM + BN) * LDS;
-constexpr int SMEM_BYTES = STAGES * STAGE_BYTES;  // 81,920
+constexpr int BM = 128, BN = 256, BK = 128, STAGES = 3;
+constexpr int THREADS = 384;  // warpgroup 0 loads, warpgroups 1 and 2 compute
+constexpr int STAGE_A = BM * BK, STAGE_B = BN * BK;  // bytes: int8
+// each consumer's 64 x 256 output slab, the TMA store's source: four
+// 128-byte-swizzled boxes of 64 rows x 128 B (bf16: 64 columns each; int8
+// codes: two boxes of 128), then the tile's ws (fp32) and bias (bf16) columns
+constexpr int SLAB = 64 * BN * 2, COLS = BN * 8;
+constexpr int SMEM_BYTES = STAGES * (STAGE_A + STAGE_B) + 2 * (SLAB + COLS) + 1024;  // + align
+
+// mbarrier helpers (shared-window addresses)
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count));
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// one arrival that also announces `bytes` of TMA traffic for this phase
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// spin until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+// TMA: a 2-D box at (c0 innermost, c1) of the tensor map into shared memory,
+// completing its bytes on the mbarrier
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
+// TMA store of a 2-D shared-memory box at (c0 innermost, c1), committed by
+// the caller; the box's parts past the matrix are not written
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, uint32_t src, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%1, %2}], [%3];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(c0), "r"(c1), "r"(src)
+      : "memory");
+}
+
+// the stores committed so far have read their shared memory
+__device__ __forceinline__ void tma_store_read_wait() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -62,32 +133,85 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pr
                "r"(bytes));
 }
 
-// four 8 x 16-byte matrices, one row address per lane (lanes 8i..8i+7:
-// matrix i); lane T gets bytes 4(T%4)..4(T%4)+3 of row T/4 of each
-__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
+// barrier for the 128 threads of one warpgroup (ids 1, 2; 0 is __syncthreads)
+__device__ __forceinline__ void warpgroup_sync(int id) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
 }
 
-// c += a (16 x 32, row-major) . b (32 x 8, column-major), int32 accumulate
-__device__ __forceinline__ void mma_s8(int c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
+// shared-memory matrix descriptor, 128-byte swizzle (atoms of 8 x 128 B)
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
+         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
+}
+
+// d (64 x 256 int32 per warpgroup) (+)= A (64 x 32 int8, K-major) . B (32 x
+// 256 int8, K-major)
+__device__ __forceinline__ void wgmma_s8_m64n256k32(int (&d)[128], uint64_t desc_a,
+                                                    uint64_t desc_b, int scale_d) {
   asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]),
+        "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]),
+        "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]),
+        "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
+        "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]),
+        "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]),
+        "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]),
+        "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]),
+        "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]),
+        "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]),
+        "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]),
+        "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]),
+        "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]),
+        "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
+        "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]),
+        "+r"(d[124]), "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
 __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16(v));
 }
 
-// h * sigmoid(1.702 h) in fp32, IEEE division and accurate exp: within a
-// few fp32 ulps of the plain version's
+// h * sigmoid(1.702 h) in fp32 with the hardware exp and division (a few
+// fp32 ulps): g is held within 2^-15 of its largest value, its codes
+// within one step
 __device__ __forceinline__ float quick_gelu(float h) {
-  return __fmul_rn(h, __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-__fmul_rn(1.702f, h)))));
+  return __fdividef(h, 1.0f + __expf(-1.702f * h));
 }
 
 __device__ __forceinline__ int8_t quant_static(float v, float r) {
@@ -95,143 +219,287 @@ __device__ __forceinline__ int8_t quant_static(float v, float r) {
 }
 
 template <int MODE>
-__global__ void __launch_bounds__(THREADS, 2)
-gemm_s8_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ W,
-               const float* __restrict__ xs, const float* __restrict__ ws,
-               const __nv_bfloat16* __restrict__ bias, const __nv_bfloat16* __restrict__ R,
-               const float* __restrict__ r, void* __restrict__ C,
-               __nv_bfloat16* __restrict__ C2, int M, int N, int K) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wm = warp >> 2, wn = warp & 3;
-  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
-  const int KT = K / BK;
+__global__ void __launch_bounds__(THREADS, 1)
+gemm_s8_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_w,
+               const __grid_constant__ CUtensorMap map_c,
+               const __grid_constant__ CUtensorMap map_c2,
+               const __grid_constant__ CUtensorMap map_r, const float* __restrict__ xs,
+               const float* __restrict__ ws, const __nv_bfloat16* __restrict__ bias,
+               const float* __restrict__ r, float* __restrict__ G, int save_h, int M, int N,
+               int K) {
+  constexpr bool kFc = MODE == kFcGelu || MODE == kSFcGelu;
+  constexpr bool kRes = MODE == kResidual || MODE == kSResidual;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES], rbar[2];
+  const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
+  const uint32_t sA = (raw + 1023) & ~1023u;  // swizzle atoms need 1024-byte alignment
+  const uint32_t sB = sA + STAGES * STAGE_A;
+  const uint32_t full0 = static_cast<uint32_t>(__cvta_generic_to_shared(full));
+  const uint32_t empty0 = static_cast<uint32_t>(__cvta_generic_to_shared(empty));
+  const uint32_t rbar0 = static_cast<uint32_t>(__cvta_generic_to_shared(rbar));
 
-  // one K slice of A (128 rows) and W (128 rows), 16 bytes a copy, two
-  // copies of each per thread
-  auto load = [&](int stage, int kt) {
-    unsigned char* sa = smem + stage * STAGE_BYTES;
-    unsigned char* sb = sa + BM * LDS;
-    const int k0 = kt * BK;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int c = tid + i * THREADS;
-      const int row = c >> 2, col = (c & 3) * 16;
-      const bool ok = m0 + row < M;
-      cp_async16(sa + row * LDS + col, A + (size_t)(ok ? m0 + row : 0) * K + k0 + col, ok);
-      cp_async16(sb + row * LDS + col, W + (size_t)(n0 + row) * K + k0 + col, true);
+  const int tid = threadIdx.x, wg = tid >> 7, wtid = tid & 127;
+  const int KT = (K + BK - 1) / BK;
+  const int n_nb = (N + BN - 1) / BN, n_tiles = n_nb * ((M + BM - 1) / BM);
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full0 + 8 * s, 1);    // the producer's expect_tx arrival (+ bytes)
+      mbar_init(empty0 + 8 * s, 8);   // lane 0 of each consumer warp
     }
-  };
-
-  int acc[4][4][4];
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni) acc[mi][ni][0] = acc[mi][ni][1] = acc[mi][ni][2] = acc[mi][ni][3] = 0;
-
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < KT) load(s, s);
-    asm volatile("cp.async.commit_group;\n" ::);
+    mbar_init(rbar0, 1);
+    mbar_init(rbar0 + 8, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  for (int kt = 0; kt < KT; ++kt) {
-    asm volatile("cp.async.wait_group %0;\n" ::"n"(STAGES - 2));
-    __syncthreads();  // slice kt landed for every thread; slice kt-1's stage is free
-    if (kt + STAGES - 1 < KT) load((kt + STAGES - 1) % STAGES, kt + STAGES - 1);
-    asm volatile("cp.async.commit_group;\n" ::);
-    const unsigned char* sa = smem + (kt % STAGES) * STAGE_BYTES;
-    const unsigned char* sb = sa + BM * LDS;
-#pragma unroll
-    for (int kk = 0; kk < BK / 32; ++kk) {
-      uint32_t af[4][4], bf[2][4];
-      // A: rows 16mi + (lane & 15), bytes 16 * (lane >> 4) of the 32
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-        ldsm_x4(af[mi], sa + (wm * 64 + mi * 16 + (lane & 15)) * LDS + kk * 32 + (lane >> 4) * 16);
-      // W: n rows 16nj + (lane & 7) + 8 (lane >> 4), bytes 16 ((lane >> 3) & 1):
-      // b0, b1 of n-tile 2nj, then of 2nj + 1
-#pragma unroll
-      for (int nj = 0; nj < 2; ++nj)
-        ldsm_x4(bf[nj], sb + (wn * 32 + nj * 16 + (lane & 7) + ((lane >> 4) << 3)) * LDS +
-                            kk * 32 + ((lane >> 3) & 1) * 16);
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni)
-          mma_s8(acc[mi][ni], af[mi], bf[ni >> 1][(ni & 1) * 2], bf[ni >> 1][(ni & 1) * 2 + 1]);
-    }
-  }
+  __syncthreads();
 
-  // acc[mi][ni][0..1]: row 16mi + lane/4, cols 8ni + 2(lane%4) + 0..1;
-  // acc[mi][ni][2..3]: row + 8
-  const int g = lane >> 2, t = lane & 3;
-  float wsc[4][2], bb[4][2];
-#pragma unroll
-  for (int ni = 0; ni < 4; ++ni) {
-    const int col = n0 + wn * 32 + ni * 8 + 2 * t;
-    const float2 w2 = *reinterpret_cast<const float2*>(ws + col);
-    const float2 b2 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(bias + col));
-    wsc[ni][0] = w2.x;
-    wsc[ni][1] = w2.y;
-    bb[ni][0] = b2.x;
-    bb[ni][1] = b2.y;
-  }
-  float r3 = 0.f;
-  if (MODE == kSFcGelu) r3 = *r;
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int row = m0 + wm * 64 + mi * 16 + g + half * 8;
-      if (row >= M) continue;
-      const float xr = is_static(MODE) ? 1.f : xs[row];
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int col = n0 + wn * 32 + ni * 8 + 2 * t;
-        const size_t off = (size_t)row * N + col;
-        float v[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float a = __int2float_rn(acc[mi][ni][2 * half + e]);
-          if (!is_static(MODE)) a = __fmul_rn(a, xr);
-          v[e] = __fadd_rn(__fmul_rn(a, wsc[ni][e]), bb[ni][e]);
-        }
-        if (MODE == kQkv || MODE == kSQkv) {
-          *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(C) + off) =
-              __floats2bfloat162_rn(v[0], v[1]);
-        } else if (MODE == kResidual || MODE == kSResidual) {
-          const float2 r2 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(R + off));
-          *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(C) + off) =
-              __floats2bfloat162_rn(__fadd_rn(r2.x, bf16_round(v[0])),
-                                    __fadd_rn(r2.y, bf16_round(v[1])));
-        } else {
-          if (C2 != nullptr)
-            *reinterpret_cast<__nv_bfloat162*>(C2 + off) = __floats2bfloat162_rn(v[0], v[1]);
-          const float g0 = quick_gelu(v[0]), g1 = quick_gelu(v[1]);
-          if (MODE == kFcGelu) {
-            *reinterpret_cast<float2*>(static_cast<float*>(C) + off) = make_float2(g0, g1);
-          } else {
-            char2 q;
-            q.x = quant_static(g0, r3);
-            q.y = quant_static(g1, r3);
-            *reinterpret_cast<char2*>(static_cast<int8_t*>(C) + off) = q;
-          }
+  // persistent: each block walks tiles blockIdx.x, +gridDim.x, ... (N
+  // fastest, so neighbouring tiles share A rows); `it` counts K slices
+  // across tiles, giving each slice its ring stage and mbarrier phase
+  if (wg == 0) {
+    // producer: one thread keeps the ring full with TMA copies, running
+    // ahead into the next tile while the consumers finish this one
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (tid == 0) {
+      int it = 0;
+      for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+        const int m0 = (tile / n_nb) * BM, n0 = (tile % n_nb) * BN;
+        for (int kt = 0; kt < KT; ++kt, ++it) {
+          const int s = it % STAGES;
+          if (it >= STAGES) mbar_wait(empty0 + 8 * s, ((it / STAGES) - 1) & 1);
+          const uint32_t bar = full0 + 8 * s;
+          mbar_expect_tx(bar, STAGE_A + STAGE_B);
+          tma_load_2d(sA + s * STAGE_A, &map_a, kt * BK, m0, bar);
+          tma_load_2d(sB + s * STAGE_B, &map_w, kt * BK, n0, bar);
         }
       }
     }
+  } else {
+    // consumers: warpgroup c computes rows 64c .. 64c+63 of each tile
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int c = wg - 1;
+    const uint32_t slab = sB + STAGES * STAGE_B + c * (SLAB + COLS);  // 4 boxes of 64 x 128 B
+    unsigned char* slab_p = smem_raw + (slab - raw);
+    float* ws_s = reinterpret_cast<float*>(slab_p + SLAB);  // the tile's ws columns
+    __nv_bfloat16* b_s = reinterpret_cast<__nv_bfloat16*>(ws_s + BN);  // and its bias
+    const uint32_t my_rbar = rbar0 + 8 * c;
+    const bool releaser = (wtid & 31) == 0;
+    const int warp = wtid >> 5, lane = wtid & 31, g = lane >> 2, t = lane & 3;
+    const float r3 = MODE == kSFcGelu ? *r : 0.f;
+    int it = 0, n_r = 0;
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+      const int m0 = (tile / n_nb) * BM, n0 = (tile % n_nb) * BN, mc = m0 + c * 64;
+      // the tile's ws and bias columns and its rows' xs are read while the
+      // products run (cp.async, zeros past N), once the previous epilogue
+      // is done with them
+      warpgroup_sync(1 + c);
+      if (wtid < BN / 4) {
+        const int gc = n0 + 4 * wtid;
+        cp_async16(ws_s + 4 * wtid, gc < N ? ws + gc : ws, gc < N);
+      } else if (wtid < BN / 4 + BN / 8) {
+        const int gc = n0 + 8 * (wtid - BN / 4);
+        cp_async16(b_s + 8 * (wtid - BN / 4), gc < N ? bias + gc : bias, gc < N);
+      }
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+      float xr[2] = {1.f, 1.f};
+      if (!is_static(MODE)) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int gr = mc + warp * 16 + g + 8 * half;
+          xr[half] = gr < M ? xs[gr] : 0.f;
+        }
+      }
+      if (wtid == 0) {
+        // the previous tile's stores have read the slab; the residual tile
+        // lands in it while the products run
+        tma_store_read_wait();
+        if (kRes) {
+          mbar_expect_tx(my_rbar, SLAB);
+#pragma unroll
+          for (int b = 0; b < BN / 64; ++b)
+            tma_load_2d(slab + b * 8192, &map_r, n0 + 64 * b, mc, my_rbar);
+        }
+      }
+      // no zero-fill: the first products are written with scale-d = 0
+      int d[BN / 2];
+      for (int kt = 0; kt < KT; ++kt, ++it) {
+        const int s = it % STAGES;
+        mbar_wait(full0 + 8 * s, (it / STAGES) & 1);
+        const uint32_t a = sA + s * STAGE_A + c * 64 * BK;
+        const uint32_t b = sB + s * STAGE_B;
+        asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+        for (int k = 0; k < BK / 32; ++k)  // 32 bytes further along the 128-byte rows
+          wgmma_s8_m64n256k32(d, smem_desc(a + k * 32, 16, 1024), smem_desc(b + k * 32, 16, 1024),
+                              kt > 0 || k > 0);
+        asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+        // slice `it` stays in flight; slice it-1 is done: release its stage
+        asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+        if (kt > 0 && releaser) mbar_arrive(empty0 + 8 * ((it - 1) % STAGES));
+      }
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      if (releaser) mbar_arrive(empty0 + 8 * ((it - 1) % STAGES));
+
+      asm volatile("cp.async.wait_all;\n" ::: "memory");
+      warpgroup_sync(1 + c);  // every thread's ws and bias copies have landed
+      // v of fragment element e (row half e >> 1) of column group j
+      auto dequant = [&](int j, int e, float w, float bb) {
+        float a = __int2float_rn(d[4 * j + e]);
+        if (!is_static(MODE)) a = __fmul_rn(a, xr[e >> 1]);
+        return __fadd_rn(__fmul_rn(a, w), bb);
+      };
+      // the slab out by TMA: boxes of 64 rows x 128 B; rows and columns
+      // past the matrix are not written
+      auto store_slab = [&](const CUtensorMap* map, int box_cols) {
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        warpgroup_sync(1 + c);
+        if (wtid == 0) {
+          for (int b = 0; b < BN / box_cols; ++b)
+            tma_store_2d(map, slab + b * 8192, n0 + box_cols * b, mc);
+          asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+        }
+      };
+
+      // bf16(v): the qkv and residual outputs, or the saved h of the fc modes
+      // (bf16 element (row, col) at box col / 64, chunk (col % 64) / 8 ^ row % 8)
+      if (!kFc || save_h) {
+        if (kRes) {
+          mbar_wait(my_rbar, n_r & 1);
+          ++n_r;
+        }
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+          const int cl = 8 * j + 2 * t;
+          const float2 w2 = *reinterpret_cast<const float2*>(ws_s + cl);
+          const float2 b2 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(b_s + cl));
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int rl = warp * 16 + g + 8 * half;
+            __nv_bfloat162* slot = reinterpret_cast<__nv_bfloat162*>(
+                slab_p + (j >> 3) * 8192 + rl * 128 + (((j & 7) ^ (rl & 7)) << 4) + t * 4);
+            float v0 = dequant(j, 2 * half, w2.x, b2.x), v1 = dequant(j, 2 * half + 1, w2.y, b2.y);
+            if (kRes) {  // C = R + bf16(v), one rounding of the bf16 sum
+              const float2 r2 = __bfloat1622float2(*slot);
+              v0 = __fadd_rn(r2.x, bf16_round(v0));
+              v1 = __fadd_rn(r2.y, bf16_round(v1));
+            }
+            *slot = __floats2bfloat162_rn(v0, v1);
+          }
+        }
+        store_slab(kFc ? &map_c2 : &map_c, 64);
+      }
+      if (MODE == kFcGelu) {
+        // g in fp32 straight from the registers: a quad writes 32 bytes of a row
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+          const int cl = 8 * j + 2 * t;
+          const float2 w2 = *reinterpret_cast<const float2*>(ws_s + cl);
+          const float2 b2 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(b_s + cl));
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int gr = mc + warp * 16 + g + 8 * half, gc = n0 + cl;
+            const float g0 = quick_gelu(dequant(j, 2 * half, w2.x, b2.x));
+            const float g1 = quick_gelu(dequant(j, 2 * half + 1, w2.y, b2.y));
+            if (gr < M && gc < N)
+              *reinterpret_cast<float2*>(G + (size_t)gr * N + gc) = make_float2(g0, g1);
+          }
+        }
+      } else if (MODE == kSFcGelu) {
+        // int8 codes of g through the slab (byte (row, col) at box col / 128,
+        // chunk (col % 128) / 16 ^ row % 8), once the saved h has left it
+        if (save_h) {
+          if (wtid == 0) tma_store_read_wait();
+          warpgroup_sync(1 + c);
+        }
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+          const int cl = 8 * j + 2 * t;
+          const float2 w2 = *reinterpret_cast<const float2*>(ws_s + cl);
+          const float2 b2 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(b_s + cl));
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int rl = warp * 16 + g + 8 * half;
+            char2 q;
+            q.x = quant_static(quick_gelu(dequant(j, 2 * half, w2.x, b2.x)), r3);
+            q.y = quant_static(quick_gelu(dequant(j, 2 * half + 1, w2.y, b2.y)), r3);
+            const int chunk = ((j & 15) >> 1) ^ (rl & 7);
+            *reinterpret_cast<char2*>(slab_p + (j >> 4) * 8192 + rl * 128 + (chunk << 4) +
+                                      8 * (j & 1) + 2 * t) = q;
+          }
+        }
+        store_slab(&map_c, 128);
+      }
+    }
+    if (wtid == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
   }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// the CUDA driver API's cuTensorMapEncodeTiled, found through the runtime (no -lcuda)
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) ==
+            cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a row-major (rows, cols) matrix of 1- or 2-byte elements in boxes of
+// box_rows x 128 bytes, 128-byte swizzled (the wgmma descriptors' layout,
+// and the epilogue slab's); out-of-range elements load as zeros and are
+// not stored
+bool make_map(CUtensorMap* map, const void* ptr, int rows, int cols, int box_rows, bool bf16) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const int elem = bf16 ? 2 : 1;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * elem};
+  const cuuint32_t box[2] = {(cuuint32_t)(128 / elem), (cuuint32_t)box_rows};
+  const cuuint32_t estr[2] = {1, 1};
+  return fn(map, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_UINT8, 2,
+            const_cast<void*>(ptr), dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int MODE>
 int launch(const int8_t* a, const int8_t* w, const float* xs, const float* ws,
            const __nv_bfloat16* b, const __nv_bfloat16* R, const float* r, void* c,
            __nv_bfloat16* c2, int M, int N, int K, cudaStream_t s) {
+  // a runtime call first: it makes the device's primary context current in
+  // this thread, which the CUDA driver API's tensor-map encoder below needs
   auto kernel = gemm_s8_kernel<MODE>;
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(N / BN, (M + BM - 1) / BM);
-  kernel<<<grid, THREADS, SMEM_BYTES, s>>>(a, w, xs, ws, b, R, r, c, c2, M, N, K);
+  // C: bf16 (qkv, residual) or int8 codes (static fc) by TMA; the dynamic
+  // fc's fp32 g by pointer.  Unused maps stay zero
+  if ((MODE == kResidual || MODE == kSResidual) && R == nullptr) return (int)cudaErrorInvalidValue;
+  CUtensorMap map_a, map_w, map_c = {}, map_c2 = {}, map_r = {};
+  bool ok = make_map(&map_a, a, M, K, BM, false) && make_map(&map_w, w, N, K, BN, false);
+  if (MODE == kSFcGelu) ok = ok && make_map(&map_c, c, M, N, 64, false);
+  else if (MODE != kFcGelu) ok = ok && make_map(&map_c, c, M, N, 64, true);
+  if (c2 != nullptr) ok = ok && make_map(&map_c2, c2, M, N, 64, true);
+  if (R != nullptr) ok = ok && make_map(&map_r, R, M, N, 64, true);
+  if (!ok) return (int)cudaErrorInvalidValue;
+  static int n_sm = 0;
+  if (n_sm == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  }
+  const int n_tiles = ((N + BN - 1) / BN) * ((M + BM - 1) / BM);
+  kernel<<<n_tiles < n_sm ? n_tiles : n_sm, THREADS, SMEM_BYTES, s>>>(
+      map_a, map_w, map_c, map_c2, map_r, xs, ws, b, r, static_cast<float*>(c), c2 != nullptr, M,
+      N, K);
   return (int)cudaGetLastError();
 }
 
@@ -241,11 +509,12 @@ int launch(const int8_t* a, const int8_t* w, const float* xs, const float* ws,
 // 0-2, else unused); ws (N) fp32 column scales; bias (N) bf16; R (M, N)
 // bf16 residual (modes 1, 4); r one fp32 multiplier (mode 5).  C (M, N):
 // bf16 (modes 0, 1, 3, 4), fp32 (2) or int8 (5); C2 (M, N) bf16 h for the
-// fc modes 2 and 5, or null.
+// fc modes 2 and 5, or null.  Every pointer 16-byte aligned; N and K
+// multiples of 16.
 extern "C" int gemm_s8_epilogue(const void* A, const void* W, const void* xs, const void* ws,
                                 const void* bias, const void* R, const void* r, void* C,
                                 void* C2, int M, int N, int K, int mode, void* stream) {
-  if (M < 1 || N % BN || K % BK || K < BK) return (int)cudaErrorInvalidValue;
+  if (M < 1 || N < 16 || K < 16 || N % 16 || K % 16) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   const auto* a = static_cast<const int8_t*>(A);
   const auto* w = static_cast<const int8_t*>(W);

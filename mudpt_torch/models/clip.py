@@ -58,6 +58,9 @@ VIT_L14 = CLIPConfig(
     embed_dim=768, vision_layers=24, vision_width=1024, vision_patch_size=14,
     transformer_width=768, transformer_heads=12, transformer_layers=12,
 )
+# the 336px fine-tune (mudpt_tpu/trainers/base.py:76-79): the same towers,
+# a 24 x 24 patch grid, 577 tokens
+VIT_L14_336 = dataclasses.replace(VIT_L14, image_resolution=336)
 # CPU smoke size (mudpt_tpu/trainers/base.py TINY_TEST)
 TINY_TEST = CLIPConfig(
     embed_dim=64, image_resolution=32, vision_layers=2, vision_width=64,

@@ -8,7 +8,7 @@ backwards ``_attn_bwd_save_kernel`` :369 and ``_attn_bwd_kernel`` :358) and
 the MLP half ``y = x + proj(QuickGELU(fc(LN x)))`` (``mlp_halfblock`` :753:
 ``_mlp_fwd_kernel`` :403, ``_mlp_fwd_save_kernel`` :415, the backwards
 ``_mlp_bwd_save_kernel`` :451 and ``_mlp_bwd_kernel`` :444); the whole layer
-is the two halves (``layer_fullblock`` :907: ``_layer_fwd_nosave_kernel``
+is the two halves (``layer_fullblock`` :908: ``_layer_fwd_nosave_kernel``
 :851, ``_layer_fwd_kernel`` :831, ``_layer_bwd_kernel`` :868).  The Pallas
 programs hold a half's or a layer's weights for one image in VMEM; an SM's
 shared memory cannot, so each becomes a chain of tiled kernels (``csrc/``):
@@ -466,7 +466,7 @@ def attention_plain(qkv, n_head: int, causal: Causal = False, out_f32: bool = Fa
 
 
 def attention_fwd(qkv, n_head: int, causal: Causal = False, out_f32: bool = False):
-    """Attention per (sequence block, head, 128-query tile) on the card;
+    """Attention per (sequence block, head) on the card, any block length;
     the output bf16, or fp32 with ``out_f32``."""
     if not qkv.is_cuda:
         return attention_plain(qkv, n_head, causal, out_f32)
@@ -475,8 +475,6 @@ def attention_fwd(qkv, n_head: int, causal: Causal = False, out_f32: bool = Fals
     if D != n_head * HEAD_DIM:
         raise ValueError(f"attention_fwd: head dim must be {HEAD_DIM} (D={D}, heads={n_head})")
     L, is_causal, valid = _block_spec(S, causal)
-    if L > 400:
-        raise ValueError(f"attention_fwd: sequence block {L} > 400 does not fit shared memory")
     _require(qkv, "attention qkv", torch.bfloat16)
     out = torch.empty((B, S, D), dtype=torch.float32 if out_f32 else torch.bfloat16,
                       device=qkv.device)
@@ -923,7 +921,7 @@ def layer_fullblock(x, ln1_s, ln1_b, qkv_w, qkv_b, out_w, out_b,
                     n_head: int, causal: Causal = False, plain: bool = False):
     """One pre-LN residual CLIP layer, x (B, S, D) -> (B, S, D).  Same
     signature and mask spec as the Pallas wrapper (``layer_fullblock``
-    :907).  When x needs a gradient the layer runs :class:`LayerFullblockFn`
+    :908).  When x needs a gradient the layer runs :class:`LayerFullblockFn`
     (saving forward, kernel backward); otherwise the no-save forward.
     ``plain`` runs the plain versions on any device."""
     args = (x, ln1_s, ln1_b, qkv_w, qkv_b, out_w, out_b,

@@ -43,7 +43,9 @@ from mudpt_torch.ops.fused_block import LAUNCHES, Causal, _require, _stream
 # epilogue -> kernel mode (csrc/gemm_s8_epilogue.cu); "q8s_" are the static
 Q8_EPILOGUES = {"q8_qkv": 0, "q8_residual": 1, "q8_fc_gelu": 2,
                 "q8s_qkv": 3, "q8s_residual": 4, "q8s_fc_gelu": 5}
-GEMM_BN, GEMM_BK = 128, 64  # the s8 GEMM takes N % 128 == 0 and K % 64 == 0
+# the s8 GEMM reads and writes rows of N and K values in 16-byte pieces
+# (TMA zero-fills the ragged tile edges): N and K multiples of this
+S8_MULTIPLE = 16
 QUANT_ROWS_MAX = 4096       # widest row quant_rows holds
 
 INFERENCE_ONLY = (
@@ -260,9 +262,8 @@ def gemm_s8(a, xs, wq, ws, bias, epilogue: str, extra=None, r=None,
         raise ValueError(f"unknown epilogue {epilogue!r}; known: {sorted(Q8_EPILOGUES)}")
     K = a.shape[-1]
     M, N = a.numel() // K, wq.shape[0]
-    if N % GEMM_BN or K % GEMM_BK:
-        raise ValueError(f"gemm_s8_epilogue: N={N} must be a multiple of {GEMM_BN}, "
-                         f"K={K} of {GEMM_BK}")
+    if N % S8_MULTIPLE or K % S8_MULTIPLE:
+        raise ValueError(f"gemm_s8_epilogue: N={N} and K={K} must be multiples of {S8_MULTIPLE}")
     if out_dtype != torch.bfloat16:
         raise TypeError(f"gemm_s8_epilogue writes bfloat16 activations, not {out_dtype}")
     static = epilogue.startswith("q8s_")
