@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Run the PyTorch/CUDA port's MuDPT serving paths and train steps on one
-GPU, ViT-B/16 and ViT-L/14 (and ViT-L/14@336px serving), and its chunked
-MLP half-block.
+GPU, ViT-B/16, ViT-L/14 and ViT-L/14@336px, and its chunked MLP half-block.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --times-of ROOT   # only the kernel times of the
+                                            # checkout at ROOT (A/B of two trees)
 
 Phases, each printed with the card's name and power limit:
 
@@ -13,11 +14,13 @@ Phases, each printed with the card's name and power limit:
               of the ViT-B/16 serving path and train step, with the
               kernel's, the plain version's and one library call's time (the
               library call is a yardstick, never used by the port), and the
-              bound from bytes and operations; attention_fwd at every block
-              length from 16 to 1,024 rows (both of its paths, K and V
-              resident and streamed), every mask spec, both output forms;
-              then the whole layer against its plain version at D=768 and
-              D=512, forward alone and forward with backward.
+              bound from bytes and operations, and each GEMM epilogue and
+              attention_bwd launched twice on the same inputs, bit-equal;
+              attention_fwd and attention_bwd at every block length from 16
+              to 1,024 rows (their tiles resident and streamed), every mask
+              spec, attention_fwd's both output forms; then the whole layer
+              against its plain version at D=768 and D=512, forward alone
+              and forward with backward.
   4. serving  build_synth_mudpt_server("ViT-B/16", 384, 100, 2, 9) on
               seeded random weights: encode the class text once, answer
               requests of 384 images, count kernel launches, check logits
@@ -28,7 +31,7 @@ Phases, each printed with the card's name and power limit:
               counted per step, losses finite), images/s, and a traced step.
   6. kernels ViT-L/14   the same at the ViT-L/14 shapes (vision 1024 wide,
               259 tokens, 16 heads; text 768 wide, 12 heads), the two
-              recompute epilogues, attention_bwd at its longest block, and
+              recompute epilogues, attention at 8 blocks of 384 rows, and
               the four half-block chains, forward alone and forward with
               backward, qkv and h saved and recomputed.
   7. serving ViT-L/14   as 4, for build_synth_mudpt_server("ViT-L/14", ...).
@@ -37,9 +40,13 @@ Phases, each printed with the card's name and power limit:
               2,560 classes, whose text tower trains with saves off; then
               timed steps at batch 384 (the vision MLP recomputes h there),
               launches per step, peak device memory and a traced step.
-  8b. kernels ViT-L/14@336px, serving ViT-L/14@336px   attention_fwd at 579
-              rows (577 + n_ctx) beside SDPA and its bound, then serving as
-              4 (training raises: attention_bwd takes at most 384 rows).
+  8b. kernels ViT-L/14@336px, serving ViT-L/14@336px, train ViT-L/14@336px
+              every kernel at the 336px shapes (577 + n_ctx = 579 vision
+              rows, M = 384 x 579 = 222,336: LayerNorm, every GEMM mode of
+              the step, attention_fwd and attention_bwd beside SDPA), then
+              serving as 4, then the train step as 8: gradients against the
+              plain path and fp32 at batch 32 with h recomputed, timed steps
+              at batch 384, the vision saves reckoned, peak memory.
   9. kernels int8   the int8 kernels against their plain versions at the
               ViT-B/16 shapes (LayerNorm-quant, the row quantizer with a
               probe of exact ties, every s8 GEMM epilogue with torch._int_mm
@@ -64,9 +71,9 @@ The last three lines are one JSON object describing each kernel, the
 card's name and power limit, and {"ok": true, "device": {...}}.  Times in
 the kernel object are totals over one vision layer's launches in the
 ViT-B/16 train step (LayerNorm twice, the eight projections, attention once,
-each way), under "vit_l14" in the ViT-L/14 train step (LayerNorm three
-times, nine projections) and, for attention_fwd, under "vit_l14_336px" its
-launch in the ViT-L/14@336px request, under "int8" its fp32
+each way), under "vit_l14" and "vit_l14_336px" in the ViT-L/14 and
+ViT-L/14@336px train steps (LayerNorm three times, nine projections),
+under "int8" attention_fwd's fp32
 output in the int8 request; the int8 kernels' totals are over one vision
 layer of the int8 request, under "int8_static" of the int8_static request;
 under "chunked" one call of the chunked MLP half's forward and backward at
@@ -274,6 +281,33 @@ def time_ms(fn, iters: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
+SLEEP_CYCLES = 60_000_000  # ~30 ms of the card's clock: the queue's head start
+
+
+def queued_ms(fn, iters: int = 10) -> tuple:
+    """(device ms, host us) a call of ``fn``: the calls are issued while the
+    card sleeps, so that it runs them back to back whatever the host's pace
+    (``time_ms`` reads the slower of the two); host us, the time to issue
+    one call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    asleep, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    asleep.record()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    end.record()
+    torch.cuda.synchronize()
+    if host_ms >= asleep.elapsed_time(start):
+        raise AssertionError(f"issuing {iters} calls took {host_ms:.2f} ms, longer than the sleep")
+    return start.elapsed_time(end) / iters, host_ms * 1e3 / iters
+
+
 def bound(bytes_moved: float, bf16_ops: float, fp32_ops: float = 0.0, int8_ops: float = 0.0):
     """(ms, 'bytes' | 'operations'): the least time for the work."""
     t_bytes = bytes_moved / PEAK_BYTES_PER_S
@@ -368,6 +402,16 @@ def check_equal(what: str, got, ref, kernel: Kernel = None) -> str:
 # the kernels' shapes on each model's paths; the last field of a case: its
 # launches in one vision layer of the train step
 M_B, M_L = BATCH * 199, BATCH * 259  # vision tokens per batch: 197 or 257 + n_ctx
+M_336 = BATCH * 579                   # 577 + n_ctx at 336px
+# ViT-L/14's vision GEMMs; the train step at batch 384 recomputes the vision
+# MLP's h: LN2 and the fc product run again in the backward, which stores
+# QuickGELU'(h32) (fc_gelu_grad) for the g.proj_w^T product to apply (mul_f32)
+_L14_GEMM = (("qkv", M_L, 1024, 3072, 1), ("residual", M_L, 1024, 1024, 1),
+             ("fc_gelu", M_L, 1024, 4096, 1), ("fc_gelu_save", M_L, 1024, 4096, 0),
+             ("residual", M_L, 4096, 1024, 1), ("fc_gelu_grad", M_L, 1024, 4096, 1),
+             ("mul_f32", M_L, 1024, 4096, 1), ("gelu_bwd", M_L, 1024, 4096, 0),
+             ("store_f32", M_L, 4096, 1024, 1), ("store_bf16", M_L, 1024, 1024, 1),
+             ("store_f32", M_L, 3072, 1024, 1))
 SHAPES = {
     "ViT-B/16": dict(
         tag="kernels",
@@ -383,28 +427,24 @@ SHAPES = {
               ("text packed (16,16)", 13, 128, 8, (16, 16), False),
               ("text packed (16,11)", 13, 128, 8, (16, 11), False)),
     ),
-    # the train step at batch 384 recomputes the vision MLP's h: LN2 and the
-    # fc product run again in the backward, which stores QuickGELU'(h32)
-    # (fc_gelu_grad) for the g.proj_w^T product to apply (mul_f32)
     "ViT-L/14": dict(
         tag="kernels ViT-L/14",
         ln=((M_L, 1024, 3), (13 * 128, 768, 0)),
-        gemm=(("qkv", M_L, 1024, 3072, 1), ("residual", M_L, 1024, 1024, 1),
-              ("fc_gelu", M_L, 1024, 4096, 1), ("fc_gelu_save", M_L, 1024, 4096, 0),
-              ("residual", M_L, 4096, 1024, 1), ("fc_gelu_grad", M_L, 1024, 4096, 1),
-              ("mul_f32", M_L, 1024, 4096, 1), ("gelu_bwd", M_L, 1024, 4096, 0),
-              ("store_f32", M_L, 4096, 1024, 1), ("store_bf16", M_L, 1024, 1024, 1),
-              ("store_f32", M_L, 3072, 1024, 1)),
+        gemm=_L14_GEMM,
         ln_bwd=((M_L, 1024, "float32", True, 2), (13 * 128, 768, "float32", True, 0),
                 (M_L, 1024, "bfloat16", False, 0)),
         attn=(("vision", 384, 259, 16, False, True),
               ("text packed (16,16)", 13, 128, 12, (16, 16), False),
-              ("longest block", 8, 384, 16, False, False)),
+              ("384 rows", 8, 384, 16, False, False)),
     ),
-    # ViT-L/14@336px serving: the vision tower's attention at 577 + n_ctx
-    # rows, forward only (its backward is not ported: ROADMAP B.1)
+    # ViT-L/14@336px: the same towers on a 24 x 24 grid, 577 + n_ctx vision
+    # rows; the train step at batch 384 recomputes the vision MLP's h as
+    # ViT-L/14's does
     "ViT-L/14@336px": dict(
-        tag="kernels ViT-L/14@336px", ln=(), gemm=(), ln_bwd=(),
+        tag="kernels ViT-L/14@336px",
+        ln=((M_336, 1024, 3),),
+        gemm=tuple((ep, M_336, K, N, n) for ep, _, K, N, n in _L14_GEMM),
+        ln_bwd=((M_336, 1024, "float32", True, 2), (M_336, 1024, "bfloat16", False, 0)),
         attn=(("vision", 384, 579, 16, False, True),),
     ),
 }
@@ -483,16 +523,27 @@ def check_gemm(F, tag: str, ep: str, a, w, bias, extra, kernel: Kernel, per_laye
     w_nk = F.EPILOGUES[ep][1]
     M, K = a.shape
     N = w.shape[0] if w_nk else w.shape[1]
+    def launch(schedule="auto"):
+        if ep == "add_f32":
+            return F._gemm_epilogue(a, w, bias, ep, extra, out.clone(), schedule)
+        if out is not None:
+            y = extra.clone()
+            return F._gemm_epilogue(a, w, bias, ep, y, y, schedule)
+        return F._gemm_epilogue(a, w, bias, ep, extra, None, schedule)
+
+    got = launch()
     if ep == "add_f32":
-        got = F.gemm_epilogue(a, w, bias, ep, extra, out.clone())
         ref = F.gemm_epilogue_plain(a, w, bias, ep, extra, out.clone())
-    elif out is not None:
-        y = extra.clone()
-        got = F.gemm_epilogue(a, w, bias, ep, y, out=y)
-        ref = F.gemm_epilogue_plain(a, w, bias, ep, extra)
     else:
-        got = F.gemm_epilogue(a, w, bias, ep, extra)
         ref = F.gemm_epilogue_plain(a, w, bias, ep, extra)
+    # two launches on the same inputs give the same bits (no atomics), and
+    # so does every schedule: each output sums its K slices in one order
+    for schedule in F._GEMM_SCHEDULES:
+        again = launch(schedule)
+        for x, y in zip(got if ep == "fc_gelu_save" else (got,),
+                        again if ep == "fc_gelu_save" else (again,)):
+            check_equal(f"gemm {K}->{N} {ep}, launched again ({schedule})", x, y)
+        del again
     if ep == "fc_gelu_save":
         reading = "h " + check_close(f"gemm {ep} h", got[0], ref[0], kernel)
         reading += "; a " + check_close(f"gemm {ep} a", got[1], ref[1], kernel)
@@ -502,8 +553,16 @@ def check_gemm(F, tag: str, ep: str, a, w, bias, extra, kernel: Kernel, per_laye
     else:
         reading = check_close(f"gemm {K}->{N} {ep}", got, ref, kernel)
     del got, ref
-    # timed in place where the epilogue writes in place (the sums only grow)
+    # timed in place where the epilogue writes in place (the sums only grow);
+    # then each schedule beside the one the shape selects, in an order and
+    # its reverse (the card slows as it warms under back-to-back products)
     ms = time_ms(lambda: F.gemm_epilogue(a, w, bias, ep, extra, out))
+    schedules = F._GEMM_SCHEDULES[1:]
+    by_schedule = dict.fromkeys(schedules, 0.0)
+    for sch in schedules + schedules[::-1]:
+        by_schedule[sch] += time_ms(
+            lambda: F._gemm_epilogue(a, w, bias, ep, extra, out, sch)) / 2
+    by_schedule = ", ".join(f"{k} {v:.4f}" for k, v in by_schedule.items())
     plain = time_ms(lambda: F.gemm_epilogue_plain(a, w, bias, ep, extra, out), 3)
     if w_nk:
         lib = time_ms(lambda: torch.matmul(a, w.t()))
@@ -521,7 +580,7 @@ def check_gemm(F, tag: str, ep: str, a, w, bias, extra, kernel: Kernel, per_laye
     bms, by = bound(nbytes + (N * 2 if bias is not None else 0), 2 * M * N * K)
     say(tag, f"gemm_bf16_epilogue {ep} {M}x{K}->{N}{note}: {reading} ms {ms:.4f} "
              f"({2 * M * N * K / ms / 1e9:.1f} TFLOP/s) plain {plain:.4f} "
-             f"library({lib_name}) {lib:.4f} bound {bms:.4f} ({by})")
+             f"library({lib_name}) {lib:.4f} bound {bms:.4f} ({by}); schedules: {by_schedule}")
     for _ in range(per_layer):
         kernel.add(ms, plain, lib, bms, by)
 
@@ -556,8 +615,28 @@ def launch_profile(fn, symbol: str = None) -> str:
     except (KeyError, TypeError, IndexError):
         return f"{e['name'][:48]}: no launch figures"
     blocks = min(65536 // (regs * threads), 233472 // (smem + 1024), 2048 // threads, 32)
-    return (f"{e['name'][:48]}: grid {a.get('grid')}, {threads} threads, {regs} registers, "
-            f"{smem} B shared: {blocks} blocks, {blocks * threads // 32} warps an SM")
+    return (f"{e['name'][:48]}: {e.get('dur')} us, grid {a.get('grid')}, {threads} threads, "
+            f"{regs} registers, {smem} B shared: {blocks} blocks, "
+            f"{blocks * threads // 32} warps an SM")
+
+
+def gemm_operands(F, rn, ep: str, M: int, K: int, N: int) -> tuple:
+    """Seeded (a, W, bias, second operand) of a GEMM epilogue: the forward
+    epilogues take W (K, N), the backward ones W (N, K), read transposed."""
+    import torch
+
+    w_nk = F.EPILOGUES[ep][1]
+    a = rn(M, K)
+    w = rn(N, K, std=K ** -0.5) if w_nk else rn(K, N, std=K ** -0.5)
+    bias = rn(N, std=0.1) if ep in F._BIASED else None
+    extra = None
+    if ep == "residual":
+        extra = rn(M, N)
+    elif ep == "gelu_bwd":
+        extra = rn(M, N, std=2.0)  # a saved pre-activation
+    elif ep == "mul_f32":  # QuickGELU' of an fp32 pre-activation
+        extra = F.quick_gelu_grad(rn(M, N, std=2.0, dtype=torch.float32))
+    return a, w, bias, extra
 
 
 def phase_kernels(F, kernels: dict, model: str):
@@ -574,20 +653,9 @@ def phase_kernels(F, kernels: dict, model: str):
     for rows, D, per_layer in spec["ln"]:
         check_ln_fwd(F, rn, tag, rows, D, kernels["layernorm_fwd"], per_layer)
 
-    # ---- GEMM with each epilogue at the vision shapes.  The forward
-    # epilogues take W (K, N); the backward ones W (N, K), read transposed
+    # ---- GEMM with each epilogue at the vision shapes
     for ep, M, K, N, per_layer in spec["gemm"]:
-        w_nk = F.EPILOGUES[ep][1]
-        a = rn(M, K)
-        w = rn(N, K, std=K ** -0.5) if w_nk else rn(K, N, std=K ** -0.5)
-        bias = rn(N, std=0.1) if ep in F._BIASED else None
-        extra = None
-        if ep == "residual":
-            extra = rn(M, N)
-        elif ep == "gelu_bwd":
-            extra = rn(M, N, std=2.0)  # a saved pre-activation
-        elif ep == "mul_f32":  # QuickGELU' of an fp32 pre-activation
-            extra = F.quick_gelu_grad(rn(M, N, std=2.0, dtype=torch.float32))
+        a, w, bias, extra = gemm_operands(F, rn, ep, M, K, N)
         check_gemm(F, tag, ep, a, w, bias, extra, kernels["gemm_bf16_epilogue"], per_layer)
         del a, w, extra
 
@@ -625,13 +693,14 @@ def phase_kernels(F, kernels: dict, model: str):
                        f"plain {plain:.4f} library(sdpa) {lib:.4f} bound {bms:.4f} ({by})")
         if per_layer:
             kernels["attention_fwd"].add(ms, plain, lib, bms, by)
-        if L > F.ATTN_BWD_MAX_BLOCK:  # no backward at this block yet (ROADMAP B.1)
-            del qkv, q, k, v
-            continue
-
         do = rn(B, S, D, std=0.1)
-        reading = check_close(f"attention_bwd {label}", F.attention_bwd(qkv, do, H, causal),
+        got = F.attention_bwd(qkv, do, H, causal)
+        reading = check_close(f"attention_bwd {label}", got,
                               F.attention_bwd_plain(qkv, do, H, causal), kernels["attention_bwd"])
+        # no float atomics: a second launch gives the same bits
+        check_equal(f"attention_bwd {label}, launched twice", got,
+                    F.attention_bwd(qkv, do, H, causal))
+        del got
         ms = time_ms(lambda: F.attention_bwd(qkv, do, H, causal))
         plain = time_ms(lambda: F.attention_bwd_plain(qkv, do, H, causal), 3)
         out = sdpa()
@@ -664,17 +733,23 @@ def phase_attention_profiles(F) -> None:
                        f"{launch_profile(lambda: F.attention_fwd(qkv, H), 'attention_fwd')}; "
                        f"sdpa {launch_profile(lambda: tf.scaled_dot_product_attention(q, k, v))}")
         del qkv, q, k, v
+    # attention_bwd's two kernels at the text tower's causal 16-row blocks
+    qkv, do = rn(100, 16, 3 * 64 * 8), rn(100, 16, 64 * 8, std=0.1)
+    say("kernels", "launch profile text causal 100 x 16, 8 heads: attention_bwd " + "; ".join(
+        launch_profile(lambda: F.attention_bwd(qkv, do, 8, True), sym)
+        for sym in ("attn_bwd_query_kernel", "attn_bwd_key_kernel")))
 
-# attention_fwd's block lengths and mask specs: one query and key tile
-# (<= 64 rows), K and V resident (<= 768 rows) and streamed past that
+# the attention kernels' block lengths: one query and key tile (<= 64 rows),
+# the tiles resident (attention_fwd to 768 rows, attention_bwd to 640) and
+# streamed past that
 ATTN_SWEEP_S = (16, 40, 64, 128, 199, 259, 384, 579, 769, 1024)
 
 
 def phase_attention_sweep(F) -> None:
-    """attention_fwd against its plain version at every block length of the
-    models and past the resident limit, every mask spec (none, causal,
-    packed (S, S - 7) and (16, 11)), both output forms; 4 sequences of 2
-    heads each."""
+    """attention_fwd and attention_bwd against their plain versions at every
+    block length of the models and past the resident limits, every mask
+    spec (none, causal, packed (S, S - 7) and (16, 11)), attention_fwd's
+    both output forms; 4 sequences of 2 heads each."""
     rn = randn_fn(8)
     for S in ATTN_SWEEP_S:
         readings = []
@@ -682,6 +757,10 @@ def phase_attention_sweep(F) -> None:
             if S % mask[0] if isinstance(mask, tuple) else False:
                 continue
             qkv = rn(4, S, 3 * 128)
+            do = rn(4, S, 128, std=0.1)
+            check_close(f"attention_bwd S={S} mask={mask}", F.attention_bwd(qkv, do, 2, mask),
+                        F.attention_bwd_plain(qkv, do, 2, mask))
+            readings.append(f"{mask}/bwd")
             for f32 in (False, True):
                 what = f"attention_fwd S={S} mask={mask} {'fp32' if f32 else 'bf16'}"
                 got, ref = F.attention_fwd(qkv, 2, mask, f32), F.attention_plain(qkv, 2, mask, f32)
@@ -691,7 +770,7 @@ def phase_attention_sweep(F) -> None:
                 else:
                     check_close(what, got, ref)
                 readings.append(f"{mask}/{'f32' if f32 else 'bf16'}")
-        say("kernels", f"attention_fwd S={S}: within limits for {', '.join(readings)}")
+        say("kernels", f"attention S={S}: within limits for {', '.join(readings)}")
 
 
 def layer_params(rn, D: int) -> list:
@@ -1404,13 +1483,14 @@ def device_time_by_kernel(prof) -> tuple:
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue  # host-side ops also report their kernels' time
         us = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
-        gemm = re.search(r"gemm_bf16_kernel<(\d+)>", e.key)
-        if gemm:  # modes 0-3 and 9 are the forward epilogues
+        gemm = re.search(r"gemm_bf16_kernel<(\d+), (\d+)>", e.key)
+        if gemm:  # <epilogue, schedule>; epilogues 0-3 and 9 are the forward ones
             mode = int(gemm.group(1))
-            name, bwd = f"gemm_bf16_kernel<{mode}>", mode >= 4 and mode != 9
+            name, bwd = f"gemm_bf16_kernel<{mode}, {gemm.group(2)}>", mode >= 4 and mode != 9
         else:
             name = next((k for k in ("layernorm_fwd_kernel", "attention_fwd_wgmma_kernel",
-                                     "layernorm_bwd_kernel", "attention_bwd_kernel",
+                                     "layernorm_bwd_kernel", "attn_bwd_query_kernel",
+                                     "attn_bwd_key_kernel",
                                      "gemm_s8_kernel", "layernorm_q8_kernel",
                                      "quant_rows_kernel")
                          if k in e.key), None)
@@ -1496,10 +1576,11 @@ def phase_train(F, model: str, quant: str = "none") -> dict:
     from mudpt_torch.utils.synth_step import build_synth_mudpt_step, leaves
 
     phase = phase_name("train", model, quant)
-    if model == "ViT-L/14":
+    if model in ("ViT-L/14", "ViT-L/14@336px"):
         # ---- gradients at batch 32, where an fp32 plain step fits: the
-        # vision MLP recomputing h (its "0" mode), then 2,560 classes, whose
-        # text tower trains with saves off while the vision MLP saves h
+        # vision MLP recomputing h (its "0" mode), as at batch 384; then, at
+        # ViT-L/14, 2,560 classes, whose text tower trains with saves off
+        # while the vision MLP saves h (the 336px text tower is the same)
         F.set_save_mlp_wide("0")
         try:
             st = build_synth_mudpt_step(model, GRAD_BATCH, N_CLS, N_CTX, DEPTH, seed=0)
@@ -1508,11 +1589,12 @@ def phase_train(F, model: str, quant: str = "none") -> dict:
         finally:
             F.set_save_mlp_wide("auto")
         del st
-        st = build_synth_mudpt_step(model, GRAD_BATCH, SAVES_OFF_N_CLS, N_CTX, DEPTH, seed=0)
-        grad_check(F, st, phase, f"one step at batch {GRAD_BATCH}, {SAVES_OFF_N_CLS} classes "
-                                 "(text saves off, h saved)",
-                   step_launches(F, st.clip_cfg, "half_train_saves_off", "half_train"))
-        del st
+        if model == "ViT-L/14":
+            st = build_synth_mudpt_step(model, GRAD_BATCH, SAVES_OFF_N_CLS, N_CTX, DEPTH, seed=0)
+            grad_check(F, st, phase, f"one step at batch {GRAD_BATCH}, {SAVES_OFF_N_CLS} "
+                                     "classes (text saves off, h saved)",
+                       step_launches(F, st.clip_cfg, "half_train_saves_off", "half_train"))
+            del st
         torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
@@ -1544,6 +1626,15 @@ def phase_train(F, model: str, quant: str = "none") -> dict:
     per_step = step_launches(F, cfg, text_route, vision_route)
     if model == "ViT-B/16":
         grad_check(F, st, phase, "one step", per_step)
+    if vision_route.startswith("half_train"):
+        # what the vision tower saves for its backward, reckoned: per layer
+        # x (the attention half's input), qkv and y1 (the MLP half's input)
+        # in bf16, and h where it is saved
+        rows = BATCH * (cfg.vision_seq_len + N_CTX)
+        per_layer = rows * cfg.vision_width * (5 + (4 if vision_route == "half_train" else 0)) * 2
+        say(phase, f"vision saves reckoned: {per_layer / 1e9:.3f} GB a layer, "
+                   f"{cfg.vision_layers * per_layer / 1e9:.2f} GB over {cfg.vision_layers} layers "
+                   f"({rows} rows of {cfg.vision_width})")
 
     # ---- the main path, counted: warm-up, then timed steps
     for _ in range(WARMUP_STEPS):
@@ -1583,6 +1674,62 @@ def phase_train(F, model: str, quant: str = "none") -> dict:
     return counts
 
 
+AB_ITERS = 40  # launches a kernel time of --times-of averages
+
+
+def kernel_times(F) -> dict:
+    """ms per launch of every GEMM epilogue and attention_bwd case of
+    SHAPES (the three vision towers' paths and the text shapes) on seeded
+    inputs, through the public wrappers only, so that two trees' kernels
+    can be timed in one call (``--times-of``).  attention_bwd also by
+    ``queued_ms``: its text shapes take microseconds, where the host's
+    pace can set ``time_ms``.  A block length that a package refuses (an
+    attention_bwd with a row cap) is left out."""
+    import torch
+
+    rn = randn_fn(11)
+    times = {}
+    for model, spec in SHAPES.items():
+        for ep, M, K, N, _ in spec["gemm"]:
+            key = f"gemm_bf16_epilogue {ep} {M}x{K}->{N}"
+            if key in times:
+                continue
+            a, w, bias, extra = gemm_operands(F, rn, ep, M, K, N)
+            times[key] = time_ms(lambda: F.gemm_epilogue(a, w, bias, ep, extra), AB_ITERS)
+            del a, w, bias, extra
+        for label, B, S, H, causal, _ in spec["attn"]:
+            L = F._block_spec(S, causal)[0]
+            key = f"attention_bwd {model} {label} {B}x{S} H={H}"
+            if L > getattr(F, "ATTN_BWD_MAX_BLOCK", L) or key in times:
+                continue
+            qkv, do = rn(B, S, 3 * 64 * H), rn(B, S, 64 * H, std=0.1)
+            times[key] = time_ms(lambda: F.attention_bwd(qkv, do, H, causal), AB_ITERS)
+            times[key + " device"], times[key + " host us"] = queued_ms(
+                lambda: F.attention_bwd(qkv, do, H, causal), AB_ITERS)
+            del qkv, do
+        torch.cuda.empty_cache()
+    return times
+
+
+def times_of(root: Path) -> int:
+    """``python3 chip_smoke.py --times-of ROOT``: the kernel times of the
+    mudpt_torch package of the checkout at ROOT (its kernels built there),
+    one JSON line.  Run on two trees in turns (parent, change, change,
+    parent) in one call to compare their kernels on one card."""
+    import torch
+
+    sys.path.insert(0, str(root))
+    from mudpt_torch.ops import _build
+    from mudpt_torch.ops import fused_block as F
+
+    if Path(F.__file__).resolve().parents[2] != root:
+        raise AssertionError(f"imported {F.__file__}, not the package under {root}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.load()
+    print(json.dumps({"times_of": str(root), "card": smi(), "ms": kernel_times(F)}), flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -1590,9 +1737,13 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     root = Path(__file__).resolve().parent
+    if sys.argv[1:2] == ["--times-of"]:
+        root = Path(sys.argv[2]).resolve()
     if not (root / "mudpt_torch" / "__init__.py").is_file():
-        print(f"chip_smoke: no mudpt_torch package beside {__file__}", file=sys.stderr)
+        print(f"chip_smoke: no mudpt_torch package in {root}", file=sys.stderr)
         return 3
+    if sys.argv[1:2] == ["--times-of"]:
+        return times_of(root)
     sys.path.insert(0, str(root))
     from mudpt_torch.models import layers
     from mudpt_torch.ops import _build
@@ -1621,8 +1772,8 @@ def main() -> int:
     kernels_qs = {name: Kernel(name) for name in Q8_KERNELS}
     # one call of the chunked MLP half's forward and backward at ViT-L/14
     kernels_c = {name: Kernel(name) for name in CHUNKED_KERNELS}
-    # attention_fwd in one vision layer of the ViT-L/14@336px request
-    kernels_336 = {"attention_fwd": Kernel("attention_fwd")}
+    # one vision layer of the ViT-L/14@336px train step
+    kernels_336 = {name: Kernel(name) for name in bf16_names}
     paths = {}
 
     def run(phase: str, fn, *args):
@@ -1646,6 +1797,8 @@ def main() -> int:
     run("kernels ViT-L/14@336px", phase_kernels, F, kernels_336, "ViT-L/14@336px")
     paths["serving_vit_l14_336px"] = run("serving ViT-L/14@336px", phase_serving, F,
                                          "ViT-L/14@336px")
+    paths["train_step_vit_l14_336px"] = run("train ViT-L/14@336px", phase_train, F,
+                                            "ViT-L/14@336px")
     run("kernels int8", phase_kernels_int8, F, Q, kernels_q, kernels_qs)
     run("kernels int8", phase_q8_chains, F, Q, layers)
     for quant in ("int8", "int8_static"):
@@ -1658,7 +1811,7 @@ def main() -> int:
         return {path: counts[name] for path, counts in paths.items()}
 
     records = [k.record(by_path(name), "train_step", vit_l14=kernels_l[name],
-                        **({"vit_l14_336px": kernels_336[name]} if name in kernels_336 else {}),
+                        vit_l14_336px=kernels_336[name],
                         **({"int8": kernels_q[name]} if name in kernels_q else {}),
                         **({"chunked": kernels_c[name]} if name in kernels_c else {}))
                for name, k in kernels.items()]

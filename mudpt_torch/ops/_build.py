@@ -42,7 +42,7 @@ SIGNATURES = {
         "layernorm_fwd": ([_P, _P, _P, _P, _I, _I, _F, _P], _I),
     },
     "gemm_bf16_epilogue": {
-        "gemm_bf16_epilogue": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
+        "gemm_bf16_epilogue": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P], _I),
     },
     "attention_fwd": {
         "attention_fwd": ([_P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P], _I),
@@ -51,7 +51,7 @@ SIGNATURES = {
         "layernorm_bwd": ([_P, _I, _P, _P, _P, _P, _I, _I, _F, _P], _I),
     },
     "attention_bwd": {
-        "attention_bwd": ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P], _I),
+        "attention_bwd": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P], _I),
     },
     "layernorm_q8": {
         "layernorm_q8": ([_P, _P, _P, _P, _P, _P, _I, _I, _F, _P], _I),

@@ -68,7 +68,6 @@ MAX_WIDTH = 1024  # widest tower the half-blocks take (models/layers.py:249)
 # widest row the LayerNorm kernels and so the chunked MLP half take on the
 # card (rows wider than 1024 in multiples of 64, the GEMM's K step)
 CHUNKED_MAX_WIDTH = 2048
-ATTN_BWD_MAX_BLOCK = 384  # longest sequence block attention_bwd holds
 
 # epilogue -> (kernel mode, W given as (N, K) and read transposed).  The
 # forward epilogues take W in its (in, out) = (K, N) layout; the backward
@@ -91,6 +90,10 @@ _EXTRA = {"residual": torch.bfloat16, "gelu_bwd": torch.bfloat16,  # a second (M
           "mul_f32": torch.float32, "chunk_residual": torch.bfloat16}  # operand, its type
 _F32_OUT = ("store_f32", "fc_gelu_grad", "add_f32")
 _IN_PLACE = ("chunk_residual", "add_f32")  # may write (add_f32: must) into ``out``
+# the GEMM kernel's schedules (csrc/gemm_bf16_epilogue.cu): chosen by the
+# shape; ping-pong consumers owning 128 x 128 tiles; both consumers
+# cooperating on one 128 x 256 tile
+_GEMM_SCHEDULES = ("auto", "pingpong", "cooperative")
 
 LAUNCHES = {
     "layernorm_fwd": 0,
@@ -363,7 +366,16 @@ def gemm_epilogue(a, w, bias, epilogue: str, extra=None, out=None):
     ``chunk_residual``), the saved pre-activation h (``gelu_bwd``) or the
     fp32 factor (``mul_f32``).  ``fc_gelu_save`` returns (h, a).  ``out``
     receives ``chunk_residual``'s result (it may be ``extra``: y in place)
-    and is the fp32 accumulator that ``add_f32`` adds to."""
+    and is the fp32 accumulator that ``add_f32`` adds to.  On the card the
+    kernel chooses its schedule by the shape: ping-pong where the epilogue
+    weighs against the products, else cooperative."""
+    return _gemm_epilogue(a, w, bias, epilogue, extra, out, "auto")
+
+
+def _gemm_epilogue(a, w, bias, epilogue, extra, out, schedule):
+    """:func:`gemm_epilogue` with the kernel's schedule forced on the card
+    (one of ``_GEMM_SCHEDULES``), for the card's checks that every schedule
+    gives the same bits, and for timing each."""
     if not a.is_cuda:
         return gemm_epilogue_plain(a, w, bias, epilogue, extra, out)
     mode, w_nk = _epilogue(epilogue)
@@ -372,6 +384,8 @@ def gemm_epilogue(a, w, bias, epilogue: str, extra=None, out=None):
     N = w.shape[0] if w_nk else w.shape[1]
     if K % 64 or N % 8:
         raise ValueError(f"gemm_bf16_epilogue: K={K} must be a multiple of 64, N={N} of 8")
+    if schedule not in _GEMM_SCHEDULES:
+        raise ValueError(f"gemm_bf16_epilogue: schedule {schedule!r} not in {_GEMM_SCHEDULES}")
     out_shape = (*a.shape[:-1], N)
     _require(a, "gemm a", torch.bfloat16)
     _require(w, "gemm w", torch.bfloat16, (N, K) if w_nk else (K, N), strided_rows=True)
@@ -407,7 +421,7 @@ def gemm_epilogue(a, w, bias, epilogue: str, extra=None, out=None):
     ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
     _build.check(lib.gemm_bf16_epilogue(a.data_ptr(), w.data_ptr(), ptr(bias), ptr(r),
                                         c.data_ptr(), ptr(c2), M, N, K, w.stride(0), mode,
-                                        _stream()),
+                                        _GEMM_SCHEDULES.index(schedule), _stream()),
                  "gemm_bf16_epilogue")
     LAUNCHES["gemm_bf16_epilogue"] += 1
     return (c, c2) if c2 is not None else c
@@ -508,8 +522,8 @@ def attention_bwd_plain(qkv, do, n_head: int, causal: Causal = False):
 
 
 def attention_bwd(qkv, do, n_head: int, causal: Causal = False):
-    """dqkv per (sequence block, head) on the card, from the saved qkv and
-    the bf16 gradient ``do`` of the attention output."""
+    """dqkv per (sequence block, head) on the card, any block length, from
+    the saved qkv and the bf16 gradient ``do`` of the attention output."""
     if not qkv.is_cuda:
         return attention_bwd_plain(qkv, do, n_head, causal)
     B, S, D3 = qkv.shape
@@ -517,16 +531,17 @@ def attention_bwd(qkv, do, n_head: int, causal: Causal = False):
     if D != n_head * HEAD_DIM:
         raise ValueError(f"attention_bwd: head dim must be {HEAD_DIM} (D={D}, heads={n_head})")
     L, is_causal, valid = _block_spec(S, causal)
-    if L > ATTN_BWD_MAX_BLOCK:
-        raise ValueError(f"attention_bwd: sequence block {L} > {ATTN_BWD_MAX_BLOCK} "
-                         "does not fit shared memory")
     _require(qkv, "attention_bwd qkv", torch.bfloat16)
     _require(do, "attention_bwd do", torch.bfloat16, (B, S, D))
     dqkv = torch.empty_like(qkv)
+    # each row's (max, 1 / sum, rowsum(dp * p), 0): written by the kernel's
+    # query-major pass, read by its key-major pass
+    stats = torch.empty((B * n_head * S, 4), dtype=torch.float32, device=qkv.device)
     lib = _build.load()["attention_bwd"]
     _build.check(lib.attention_bwd(qkv.data_ptr(), do.data_ptr(), dqkv.data_ptr(),
-                                   B * (S // L), L, D, n_head, int(is_causal), valid,
-                                   HEAD_DIM ** -0.5, _stream()), "attention_bwd")
+                                   stats.data_ptr(), B * (S // L), L, D, n_head,
+                                   int(is_causal), valid, HEAD_DIM ** -0.5, _stream()),
+                 "attention_bwd")
     LAUNCHES["attention_bwd"] += 1
     return dqkv
 

@@ -30,7 +30,6 @@ from mudpt_torch.models.clip import (TINY_TEST, VIT_B16, VIT_L14, VIT_L14_336,
                                      cast_matmul_weights, init_clip_params)
 from mudpt_torch.models.layers import quantized
 from mudpt_torch.ops import quant_block
-from mudpt_torch.ops.fused_block import ATTN_BWD_MAX_BLOCK
 from mudpt_torch.trainers.mudpt import mudpt_forward, mudpt_image_logits, mudpt_text_features
 from mudpt_torch.trainers.prompt_utils import embed_classnames, init_linear, random_ctx
 from mudpt_torch.utils.device import resolve_device
@@ -143,11 +142,6 @@ def build_synth_mudpt_step(
     ``calibration_s`` seconds.  ``device=None`` means the card; it raises
     when CUDA is absent."""
     _check_quant(quant, STEP_QUANT, "train step")
-    if model in MODELS and MODELS[model].vision_seq_len + n_ctx > ATTN_BWD_MAX_BLOCK:
-        raise NotImplementedError(
-            f"training {model}: its vision blocks of {MODELS[model].vision_seq_len + n_ctx} "
-            f"tokens need attention_bwd past {ATTN_BWD_MAX_BLOCK} rows, not ported yet "
-            "(ROADMAP B.1, the backward half); build_synth_mudpt_server serves it")
     cfg, params, aux, trainable, images, labels = _setup(
         model, batch, n_cls, n_ctx, depth, device, seed)
     kw = dict(clip_cfg=cfg, compute_dtype=torch.bfloat16)

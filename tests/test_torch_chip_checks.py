@@ -5,9 +5,14 @@ missing bf16 rounding of the accumulator fail, and so do the backward
 faults (the softmax gradient from the bf16 probabilities, the QuickGELU
 gradient of the unrounded pre-activation where the bf16 h was saved and of
 the bf16 h where the recompute backward keeps h32 unrounded, a second
-rounding before the residual of the LayerNorm dx) and two faults of
-``attention_bwd``'s row tiling at ViT-L/14's 259-token blocks, while a
-change of fp32 sum order passes; two faults of the chunked MLP half (y
+rounding before the residual of the LayerNorm dx), two faults of a row
+tiling of ``attention_bwd`` and three of its key-tiled passes at ViT-L/14's
+259-token blocks (dk and dv cut short of the last query tile, row
+statistics of the first key tile only, a masked key tile let into dq), and
+two of the ping-pong GEMM's epilogue (one slab adding the neighbouring
+tile's residual, an fp32 part stored at the wrong columns), which
+``check_equal`` rejects too, while a change of fp32 sum order passes; two
+faults of the chunked MLP half (y
 rounded once after the whole product, proj_b folded into the first chunk's
 product) fail the chain check or the epilogue check that chip_smoke runs
 for them.  The int8 kernels' limits (codes within
@@ -182,6 +187,106 @@ def test_check_close_catches_attention_bwd_tiling_fault(fault):
     got, ref = _attention_bwd_tiling_fault(qkv, do, 2, fault), F.attention_bwd_plain(qkv, do, 2)
     with pytest.raises(AssertionError, match="max abs err|share of differing|relative norm"):
         C.check_close(fault, got, ref)
+
+
+def _attention_bwd_redesign_fault(qkv, do, n_head, fault):
+    """attention_bwd_plain with a fault of the key-tiled kernels' passes
+    (64-row tiles): "dkdv_last_query_tile_dropped", dk and dv summed over
+    all query tiles but the last (the key-major pass's item loop cut
+    short); "stats_from_first_key_tile", each row's max, sum and
+    rowsum(dp * p) taken over the first key tile only (the query-major
+    pass's first loop cut short); "masked_tile_in_dq", causal, a key tile
+    that the mask covers whole for a query tile skipped in the statistics
+    but not in dq (its p taken unmasked against the right statistics)."""
+    B, S, D3 = qkv.shape
+    causal = fault == "masked_tile_in_dq"
+    q, k, v, L, is_causal, valid = F._split_heads(qkv, n_head, causal)
+    hd = q.shape[-1]
+    dO = do.reshape(B, L, n_head, hd).permute(0, 2, 1, 3).float()
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * hd ** -0.5
+    p = F._probs_plain(q, k, L, is_causal, valid)
+    dp = torch.matmul(dO, v.float().transpose(-1, -2))
+    if fault == "stats_from_first_key_tile":
+        m = s[..., :64].amax(-1, keepdim=True)
+        p = torch.exp(s - m) / torch.exp(s[..., :64] - m).sum(-1, keepdim=True)
+        dsum = (dp * p)[..., :64].sum(-1, keepdim=True)
+    else:
+        dsum = (dp * p).sum(-1, keepdim=True)
+    ds = (p * (dp - dsum) * hd ** -0.5).bfloat16().float()
+    dv = torch.matmul(p.bfloat16().float().transpose(-1, -2), dO)
+    dk = torch.matmul(ds.transpose(-1, -2), q.float())
+    dq = torch.matmul(ds, k.float())
+    if fault == "dkdv_last_query_tile_dropped":
+        kept = (torch.arange(L) < (L - 1) // 64 * 64).float()[:, None]
+        dv = torch.matmul((p.bfloat16().float() * kept).transpose(-1, -2), dO)
+        dk = torch.matmul((ds * kept).transpose(-1, -2), q.float())
+    if fault == "masked_tile_in_dq":
+        i = torch.arange(L)
+        masked = i[None, :] > i[:, None]
+        whole = (i[None, :] // 64) > (i[:, None] // 64)  # a key tile after the query tile
+        m = s.masked_fill(masked, -float("inf")).amax(-1, keepdim=True)
+        l = torch.exp(s - m).masked_fill(masked, 0).sum(-1, keepdim=True)  # noqa: E741
+        p_dq = torch.where(whole, torch.exp(s - m) / l, p)
+        dq = torch.matmul((p_dq * (dp - dsum) * hd ** -0.5).bfloat16().float(), k.float())
+    return torch.stack([dq, dk, dv]).permute(1, 3, 0, 2, 4).reshape(B, S, D3).bfloat16()
+
+
+@pytest.mark.parametrize("fault", ["dkdv_last_query_tile_dropped", "stats_from_first_key_tile",
+                                   "masked_tile_in_dq"])
+def test_check_close_catches_attention_bwd_key_tiled_fault(fault):
+    """Readings at 2 x 259 x 2 heads (max err of the largest value, norm
+    err, share not bit-equal): dk and dv cut short 0.29, 0.082, 0.64;
+    statistics of one tile 4.1, 3.3, 1.0; a masked tile in dq 240, 50,
+    0.32.  check_equal (the launched-twice check) rejects each too."""
+    C = _chip_smoke()
+    g = torch.Generator().manual_seed(4)
+    qkv = torch.randn(2, 259, 3 * 128, generator=g).bfloat16()
+    do = (torch.randn(2, 259, 128, generator=g) * 0.1).bfloat16()
+    causal = fault == "masked_tile_in_dq"
+    got = _attention_bwd_redesign_fault(qkv, do, 2, fault)
+    ref = F.attention_bwd_plain(qkv, do, 2, causal)
+    with pytest.raises(AssertionError, match="max abs err|share of differing|relative norm"):
+        C.check_close(fault, got, ref)
+    with pytest.raises(AssertionError):
+        C.check_equal(fault, got, ref)
+
+
+def _gemm_pingpong_fault(fault):
+    """(faulty, plain) outputs of the ping-pong GEMM's epilogue faults, 128 x
+    128 tiles: "residual_slab_slip", one 64-row slab of a tile adding the
+    residual of the tile below it (the other consumer's); "f32_subtile_wrong
+    _columns", store_f32's second 64-column part of a tile stored over its
+    first, the second left unwritten.  Readings (max err of the largest
+    value, norm err, share): 0.94, 0.15, 0.021; 1.2, 0.25, 0.042."""
+    a, w, b = _operands(8)
+    g = torch.Generator().manual_seed(9)
+    if fault == "residual_slab_slip":
+        r = torch.randn(M, N, generator=g).bfloat16()
+        ref = F.gemm_epilogue_plain(a, w, b, "residual", r)
+        slipped = r.clone()
+        slipped[64:128, 0:128] = r[192:256, 0:128]
+        return F.gemm_epilogue_plain(a, w, b, "residual", slipped), ref
+    w_nk = w.t().contiguous()  # (N, K): the backward epilogues' layout
+    ref = F.gemm_epilogue_plain(a, w_nk, None, "store_f32")
+    got = ref.clone()
+    got[0:128, 0:64] = ref[0:128, 64:128]
+    got[0:128, 64:128] = 0
+    return got, ref
+
+
+@pytest.mark.parametrize("fault", ["residual_slab_slip", "f32_subtile_wrong_columns"])
+def test_check_close_catches_gemm_pingpong_fault(fault):
+    C = _chip_smoke()
+    got, ref = _gemm_pingpong_fault(fault)
+    if fault == "residual_slab_slip":
+        with pytest.raises(AssertionError, match="max abs err|share of differing|relative norm"):
+            C.check_close(fault, got, ref)
+    else:  # an fp32 output, held as chip_smoke holds the GEMM's fp32 epilogues
+        with pytest.raises(AssertionError, match="max abs err|relative norm"):
+            C.check_close(fault, got, ref, max_limit=C.F32_MAX_ERR,
+                          norm_limit=C.F32_NORM_ERR, share_limit=None)
+    with pytest.raises(AssertionError):
+        C.check_equal(fault, got, ref)
 
 
 def _chunked_mlp_case(fault):
