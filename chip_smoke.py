@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Run the PyTorch/CUDA port's MuDPT serving paths and train steps on one
-GPU, ViT-B/16, ViT-L/14 and ViT-L/14@336px, and its chunked MLP half-block.
+GPU, ViT-B/16, ViT-L/14 and ViT-L/14@336px, its training engine and bench
+entry point, and its chunked MLP half-block.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --times-of ROOT   # only the kernel times of the
@@ -29,6 +30,19 @@ Phases, each printed with the card's name and power limit:
               loss and gradients of the ten trainable leaves against the
               plain path on the card, warm-up and timed steps (launches
               counted per step, losses finite), images/s, and a traced step.
+  5a. engine  MuDPT ViT-B/16 through build_trainer (the MuDPT ViT-B/16
+              YAML on the synthetic dataset: 16 classes, 384 training
+              images at 224 px, batches of 64, two epochs, random weights):
+              the trainer's first step against the plain route (its
+              gradients at batch 64; loss and gradients on epoch 1's 384
+              images as one batch), a traced train step's launches,
+              one evaluate encoding the class text once over six batches,
+              the trainer's step ms beside build_synth_mudpt_step's at batch
+              64, and a run preempted after batch 3 of epoch 1 and resumed,
+              its losses and final prompts bit-equal to the uninterrupted run.
+  5b. bench   python -m mudpt_torch.bench in this process, --mode train and
+              --mode eval at ViT-B/16, batch 384: one JSON line each, its
+              value within 10% of the images/s of [train] and [serving].
   6. kernels ViT-L/14   the same at the ViT-L/14 shapes (vision 1024 wide,
               259 tokens, 16 heads; text 768 wide, 12 heads), the two
               recompute epilogues, attention at 8 blocks of 384 rows, and
@@ -79,7 +93,8 @@ layer of the int8 request, under "int8_static" of the int8_static request;
 under "chunked" one call of the chunked MLP half's forward and backward at
 ViT-L/14 (LayerNorm twice, 40 products, LayerNorm dx once).  "launches"
 counts the main path's run ("main_path": the ViT-B/16 train step, or the
-int8 request), "launches_by_path" each path's.  Any failed
+int8 request), "launches_by_path" each path's ("engine_train_step": one
+train step of the engine).  Any failed
 check raises, and the script exits non-zero without a result; so it does
 without CUDA, and outside a checkout of the repository.
 """
@@ -313,6 +328,36 @@ def bound(bytes_moved: float, bf16_ops: float, fp32_ops: float = 0.0, int8_ops: 
     t_bytes = bytes_moved / PEAK_BYTES_PER_S
     t_ops = bf16_ops / PEAK_BF16_FLOPS + fp32_ops / PEAK_FP32_FLOPS + int8_ops / PEAK_INT8_OPS
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def chain_bound(B: int, S: int, D: int, causal, halves=("attn", "mlp"), bwd: bool = False,
+                int8: bool = False) -> str:
+    """The least time of a layer chain (both halves or one) over B blocks
+    of S rows: its forward, with ``bwd`` also the dx-only backward.  Bytes:
+    x in and y out, the weights, and with the backward g in and dx out, each
+    once.  Operations: the projections' products at the bf16 peak (the
+    forward's at the int8 peak under ``int8``; the quantization-aware
+    backward is bf16, its weights read as bf16 too), attention's two
+    score-sized products over the keys each row attends (a causal row's
+    earlier keys, a packed block's own valid keys), four in the backward.
+    The recompute routes do the same work."""
+    M, attn, mlp = B * S, "attn" in halves, "mlp" in halves
+    if causal is False:
+        keys = S
+    elif causal is True:
+        keys = (S + 1) / 2
+    else:  # packed (period, valid): each period's valid rows, causal
+        period, valid = causal
+        keys = valid * (valid + 1) / 2 / period
+    weights = (4 * attn + 8 * mlp) * D * D
+    fwd_ops, bwd_ops = 2 * M * weights, 2 * M * weights * bwd
+    att_ops = 4 * M * keys * D * attn * (3 if bwd else 1)
+    nbytes = M * D * 2 * (4 if bwd else 2) + weights * ((1 + 2 * bwd) if int8 else 2)
+    if int8:
+        ms, by = bound(nbytes, att_ops + bwd_ops, int8_ops=fwd_ops)
+    else:
+        ms, by = bound(nbytes, fwd_ops + bwd_ops + att_ops)
+    return f"bound {ms:.4f} ({by})"
 
 
 class Kernel:
@@ -809,7 +854,7 @@ def phase_layer_chains(F, rn) -> None:
         ms = time_ms(lambda: F.layer_fullblock(x, *ps, H, causal))
         plain = time_ms(lambda: F.layer_fullblock_plain(x, *ps, H, causal), 3)
         say("kernels", f"layer_fullblock D={D} B={B} S={S} mask={causal}: {reading} "
-                       f"ms {ms:.4f} plain {plain:.4f}")
+                       f"ms {ms:.4f} plain {plain:.4f} {chain_bound(B, S, D, causal)}")
 
         xg = x.detach().requires_grad_(True)
         gy = rn(B, S, D)
@@ -826,7 +871,8 @@ def phase_layer_chains(F, rn) -> None:
         ms = time_ms(lambda: step(False))
         plain = time_ms(lambda: step(True), 3)
         say("kernels", f"layer_fullblock forward-save + backward D={D} B={B} S={S} "
-                       f"mask={causal}: y {r_y}; dx {r_dx}; ms {ms:.4f} plain {plain:.4f}")
+                       f"mask={causal}: y {r_y}; dx {r_dx}; ms {ms:.4f} plain {plain:.4f} "
+                       f"{chain_bound(B, S, D, causal, bwd=True)}")
         del x, xg, gy, ps
 
 
@@ -854,7 +900,7 @@ def phase_halfblock_chains(F) -> None:
             plain = time_ms(lambda: plain_fn(x, *p, *extra), 3)
             serve_ms[half] = (ms, plain)
             say(tag, f"{half}_halfblock {label} B={B} S={S} D={D} mask={causal}: {reading} "
-                     f"ms {ms:.4f} plain {plain:.4f}")
+                     f"ms {ms:.4f} plain {plain:.4f} {chain_bound(B, S, D, causal, (half,))}")
             xg = x.detach().requires_grad_(True)
             gy = rn(B, S, D)
             for save in (True, False):
@@ -879,7 +925,8 @@ def phase_halfblock_chains(F) -> None:
                 kept = {"attn": "qkv", "mlp": "h"}[half]
                 say(tag, f"{half}_halfblock forward + backward {label}, {kept} "
                          f"{'saved' if save else 'recomputed'}: y {r_y}; dx {r_dx}; "
-                         f"ms {ms:.4f} plain {plain:.4f}")
+                         f"ms {ms:.4f} plain {plain:.4f} "
+                         f"{chain_bound(B, S, D, causal, (half,), bwd=True)}")
             del xg, gy
         if label == "vision":
             # one vision layer of the serving path, and of the train step at
@@ -1121,7 +1168,7 @@ def phase_q8_chains(F, Q, layers) -> None:
             ms = time_ms(lambda: fn(x, *ops, H, causal))
             plain = time_ms(lambda: fn(x, *ops, H, causal, plain=True), 2)
             say(tag, f"{tier} layer {label} B={B} S={S} D={D} mask={causal}: {reading} "
-                     f"ms {ms:.4f} plain {plain:.4f}")
+                     f"ms {ms:.4f} plain {plain:.4f} {chain_bound(B, S, D, causal, int8=True)}")
             rs = None if tier == "int8" else r
             got = Q.q8_save_forward(x, qps if rs is not None else qp, H, causal, rs)
             ref = Q.q8_save_forward(x, qps if rs is not None else qp, H, causal, rs, plain=True)
@@ -1158,7 +1205,7 @@ def phase_q8_chains(F, Q, layers) -> None:
                 ms = time_ms(lambda: step(False), 5)
                 plain = time_ms(lambda: step(True), 1)
                 say(tag, f"{what} forward + backward: y {r_y}; dx {r_dx}; ms {ms:.4f} "
-                         f"plain {plain:.4f}")
+                         f"plain {plain:.4f} {chain_bound(B, S, D, causal, bwd=True, int8=True)}")
         del x, xg, gy, ps, blk, qw, qp, qps, serve
 
 
@@ -1246,7 +1293,7 @@ def phase_kernels_chunked(F, kc: dict) -> dict:
         ms = time_ms(lambda: F.mlp_halfblock_chunked(x, *ps))
         plain = time_ms(lambda: F.mlp_halfblock_chunked_plain(x, *ps), 3)
         say(tag, f"mlp_halfblock_chunked {label} B={B} S={S} D={D} K={K}: {reading} "
-                 f"ms {ms:.4f} plain {plain:.4f}")
+                 f"ms {ms:.4f} plain {plain:.4f} {chain_bound(B, S, D, False, ('mlp',))}")
 
         xg = x.detach().requires_grad_(True)
         gy = rn(B, S, D)
@@ -1274,7 +1321,8 @@ def phase_kernels_chunked(F, kc: dict) -> dict:
         ms_t = time_ms(lambda: step(False), 5)
         plain_t = time_ms(lambda: step(True), 2)
         say(tag, f"mlp_halfblock_chunked forward + backward {label}: y {r_y}; dx {r_dx}; "
-                 f"ms {ms_t:.4f} plain {plain_t:.4f}; launches per call: forward "
+                 f"ms {ms_t:.4f} plain {plain_t:.4f} "
+                 f"{chain_bound(B, S, D, False, ('mlp',), bwd=True)}; launches per call: forward "
                  f"{ {k: v for k, v in counts_f.items() if v} }, backward "
                  f"{ {k: v for k, v in counts_b.items() if v} }")
         if label == "ViT-L/14":
@@ -1407,6 +1455,7 @@ def phase_serving(F, model: str, quant: str = "none") -> dict:
                f"{ {k: v for k, v in per_request.items() if v} }; text + {n_req} requests {counts}")
 
     ips = BATCH * REQUESTS / t_all
+    THROUGHPUT[phase] = ips
     say(phase, f"text encode {t_text * 1e3:.1f} ms (once, {N_CLS} classes); "
                f"{REQUESTS} requests of {BATCH} images: median {statistics.median(lat) * 1e3:.2f} ms, "
                f"max {max(lat) * 1e3:.2f} ms; cached-text throughput {ips:.1f} images/s")
@@ -1511,11 +1560,14 @@ def grad_limit(cfg) -> float:
     return GRAD_NORM_ERR * math.sqrt(depth / GRAD_DEPTH)
 
 
-def grad_check(F, st, phase: str, label: str, want: dict) -> None:
+def grad_readings(F, st) -> dict:
     """One step's loss and gradients of the trainable leaves from the same
-    starting state: the kernels (their launches held to ``want``), the plain
+    starting state: the kernels (their launches recorded), the plain
     versions on the card and, to show how far bf16 alone moves them, the
-    plain versions in fp32 on the same values (TF32 off)."""
+    plain versions in fp32 on the same values (TF32 off).  Returns the
+    loss's relative difference, the worst leaf's relative norm error, the
+    worst ratio of the kernels' and the plain path's distances to fp32,
+    and a line a leaf."""
     import torch
 
     from mudpt_torch.models.layers import plain_blocks
@@ -1528,8 +1580,7 @@ def grad_check(F, st, phase: str, label: str, want: dict) -> None:
     F.reset_launches()
     loss = st.loss_fn(st.images, st.labels)
     grads = torch.autograd.grad(loss, tr)
-    if dict(F.LAUNCHES) != want:
-        raise AssertionError(f"{label}: launches {dict(F.LAUNCHES)} != {want}")
+    launches = dict(F.LAUNCHES)
     with plain_blocks():
         loss_ref = st.loss_fn(st.images, st.labels)
         grads_ref = torch.autograd.grad(loss_ref, tr)
@@ -1540,7 +1591,6 @@ def grad_check(F, st, phase: str, label: str, want: dict) -> None:
         del params32, logits32
     torch.cuda.synchronize()
     loss, loss_ref = loss.item(), loss_ref.item()
-    rel = abs(loss - loss_ref) / abs(loss_ref)
     worst = worst_ratio = 0.0
     parts = []
     for name, gk, gp, g32 in zip(names, grads, grads_ref, grads32):
@@ -1550,15 +1600,34 @@ def grad_check(F, st, phase: str, label: str, want: dict) -> None:
         k32, p32 = (((g - g32).norm() / g32.norm()).item() for g in (gk, gp))
         worst, worst_ratio = max(worst, err), max(worst_ratio, k32 / p32)
         parts.append(f"{name} {err:.3g} ({k32:.3g} / {p32:.3g})")
+    return dict(launches=launches, loss=loss, loss_ref=loss_ref,
+                rel=abs(loss - loss_ref) / abs(loss_ref), worst=worst,
+                worst_ratio=worst_ratio, parts=parts)
+
+
+def grad_check(F, st, phase: str, label: str, want: dict,
+               loss_limit: float | None = LOSS_REL_ERR) -> None:
+    """``grad_readings`` held: the kernels' launches to ``want``, the loss
+    to ``loss_limit`` (None: printed, not held), the gradients to
+    ``grad_limit`` and the ratio of distances to fp32 to
+    ``GRAD_FP32_RATIO`` (ViT-L/14's where the vision tower is deeper than
+    12 layers)."""
+    r = grad_readings(F, st)
+    if r["launches"] != want:
+        raise AssertionError(f"{label}: launches {r['launches']} != {want}")
     limit = grad_limit(st.clip_cfg)
     ratio_limit = GRAD_FP32_RATIO_L14 if st.clip_cfg.vision_layers > GRAD_DEPTH else GRAD_FP32_RATIO
-    say(phase, f"{label} vs plain path on the card: loss {loss:.6f} vs {loss_ref:.6f} "
-               f"(rel {rel:.3g}); gradient relative norm errors, kernels vs plain, limit "
-               f"{limit:.4g} (kernels vs fp32 / plain vs fp32): " + ", ".join(parts)
+    rel, worst, worst_ratio = r["rel"], r["worst"], r["worst_ratio"]
+    held = "not held" if loss_limit is None else f"limit {loss_limit:.3g}"
+    say(phase, f"{label} vs plain path on the card: loss {r['loss']:.6f} vs "
+               f"{r['loss_ref']:.6f} (rel {rel:.3g}, {held}); gradient "
+               f"relative norm errors, kernels vs plain, limit {limit:.4g} (kernels vs fp32 / "
+               f"plain vs fp32): " + ", ".join(r["parts"])
                + f"; worst ratio {worst_ratio:.4f} (limit {ratio_limit})")
-    if not (rel <= LOSS_REL_ERR and worst <= limit and worst_ratio <= ratio_limit):
+    if not ((loss_limit is None or rel <= loss_limit) and worst <= limit
+            and worst_ratio <= ratio_limit):
         raise AssertionError(f"{label} vs plain path: loss rel err {rel} (limit "
-                             f"{LOSS_REL_ERR}), worst gradient norm err {worst} (limit "
+                             f"{loss_limit}), worst gradient norm err {worst} (limit "
                              f"{limit}), worst ratio of distances to fp32 "
                              f"{worst_ratio} (limit {ratio_limit})")
 
@@ -1663,6 +1732,7 @@ def phase_train(F, model: str, quant: str = "none") -> dict:
     say(phase, f"launches per step ({vision_route} vision layers): "
                f"{ {k: v for k, v in per_step.items() if v} }; over {TIMED_STEPS} steps: {counts}")
     ips = BATCH * TIMED_STEPS / t_all
+    THROUGHPUT[phase] = ips
     say(phase, f"{TIMED_STEPS} steps of {BATCH} images: median "
                f"{statistics.median(step_s) * 1e3:.2f} ms, max {max(step_s) * 1e3:.2f} ms; "
                f"training throughput {ips:.1f} images/s; losses {losses[0]:.5f} .. "
@@ -1672,6 +1742,248 @@ def phase_train(F, model: str, quant: str = "none") -> dict:
     # ---- where one step's device time goes (a separate, traced step)
     traced(phase, lambda: st.train_step(st.images, st.labels), device_time_by_kernel)
     return counts
+
+
+# [engine]: MuDPT ViT-B/16 through build_trainer on the synthetic dataset,
+# 16 classes x 24 training images at 224 px (384, six batches of 64), two
+# epochs; the preempted run stops after batch 3 of epoch 1
+ENGINE_FILES = ("configs/datasets/synthetic.yaml",
+                "configs/trainers/MuDPT/vit_b16_bz4_ep5_nctx2_depth9.yaml")
+ENGINE_BATCH, ENGINE_PREEMPT_AFTER = 64, 3
+ENGINE_OPTS = ("TRAINER.NAME", "MuDPT", "MODEL.BACKBONE.PATH", "random",
+               "DATASET.SYNTHETIC_NUM_CLASSES", "16", "DATASET.SYNTHETIC_PER_CLASS", "24",
+               "DATALOADER.TRAIN_X.BATCH_SIZE", str(ENGINE_BATCH),
+               "DATALOADER.TEST.BATCH_SIZE", str(ENGINE_BATCH), "OPTIM.MAX_EPOCH", "2",
+               "TRAIN.PRINT_FREQ", "1")
+# [bench]: python -m mudpt_torch.bench's value within this share of the
+# images/s that [train] and [serving] read in the same run
+BENCH_AGREE = 0.10
+# images/s of each serving and train phase, for [bench]
+THROUGHPUT = {}
+
+
+def check_resumed(losses, resumed_losses, leaves, resumed_leaves) -> str:
+    """A preempted-then-resumed run against the uninterrupted one: every
+    per-step loss and every final trainable leaf bit-equal."""
+    import torch
+
+    if len(resumed_losses) != len(losses) or any(
+            a != b for a, b in zip(resumed_losses, losses)):
+        raise AssertionError(f"resumed losses {resumed_losses} != uninterrupted {losses}")
+    if len(resumed_leaves) != len(leaves) or not all(
+            torch.equal(a, b) for a, b in zip(resumed_leaves, leaves)):
+        raise AssertionError("resumed trainable leaves not bit-equal to the uninterrupted run's")
+    return f"{len(losses)} losses and {len(leaves)} trainable leaves bit-equal"
+
+
+def parse_bench_line(out: str) -> dict:
+    """The one JSON line ``python -m mudpt_torch.bench`` prints."""
+    lines = [ln for ln in out.splitlines() if ln.strip()]
+    if len(lines) != 1:
+        raise AssertionError(f"bench printed {len(lines)} lines, not one: {out!r}")
+    rec = json.loads(lines[0])
+    missing = {"metric", "value", "unit", "device", "card"} - set(rec)
+    if missing or rec["unit"] != "images/sec/chip":
+        raise AssertionError(f"bench line lacks {sorted(missing)} or has unit {rec.get('unit')}")
+    return rec
+
+
+def check_bench(what: str, value: float, reference: float) -> str:
+    """The bench's images/s within ``BENCH_AGREE`` of the phase's."""
+    rel = value / reference - 1
+    if not abs(rel) <= BENCH_AGREE:
+        raise AssertionError(f"bench {what}: {value:.1f} images/s is {rel:+.1%} off "
+                             f"{reference:.1f} (limit {BENCH_AGREE:.0%})")
+    return f"{value:.1f} images/s, {rel:+.2%} from {reference:.1f}"
+
+
+def _engine_trainer(root: Path, out: str, *more: str):
+    from mudpt_torch.config import load_config
+    from mudpt_torch.trainers.base import build_trainer
+
+    cfg = load_config(*(str(root / f) for f in ENGINE_FILES),
+                      opts=[*ENGINE_OPTS, "OUTPUT_DIR", out, *more])
+    return build_trainer(cfg)
+
+
+def _train_losses(out: str) -> list:
+    with open(Path(out) / "metrics.jsonl") as f:
+        return [r["loss"] for r in map(json.loads, f) if r["kind"] == "train"]
+
+
+def _synced_ms(fn) -> float:
+    import torch
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) * 1e3
+
+
+def phase_engine(F, root: Path) -> dict:
+    """MuDPT ViT-B/16 through the engine: build_trainer on the synthetic
+    dataset, the step's gradients and launches, one evaluate's text
+    encode, two epochs uninterrupted, and the same preempted and resumed."""
+    import copy
+    import shutil
+    import tempfile
+    from types import SimpleNamespace
+
+    import torch
+
+    from mudpt_torch.data.loader import DataLoader
+    from mudpt_torch.models.clip import leaves
+    from mudpt_torch.utils.synth_step import build_synth_mudpt_step
+
+    phase = "engine"
+    tmp = tempfile.mkdtemp(prefix="mudpt_engine_")
+    try:
+        t0 = time.perf_counter()
+        tr = _engine_trainer(root, f"{tmp}/check")
+        torch.cuda.synchronize()
+        cfg = tr.clip_cfg
+        n_train = len(tr.dm.dataset.train_x)
+        say(phase, f"built MuDPT ViT-B/16 trainer through build_trainer (random weights, "
+                   f"{tr.num_classes} classes, {n_train} training images) in "
+                   f"{time.perf_counter() - t0:.2f} s; {len(tr.dm.train_loader)} batches "
+                   f"of {ENGINE_BATCH} an epoch; text rows {tuple(tr.aux['token_suffix'].shape)}")
+        # epoch 1's batches, from a copy of the loader (the trainer's own
+        # keeps its epoch count)
+        batches = [tr._device_batch(b) for b in list(copy.copy(tr.dm.train_loader))]
+
+        # ---- the trainer's first step against the plain route, at its
+        # batch of 64 and on epoch 1's 384 images as one batch, with
+        # grad_check's limits.  The loss is held only at 384: its difference
+        # belongs to the class (each class's images meet one text feature
+        # row), so at 16 classes it averages over 16 rows at either batch,
+        # reads up to 9.6e-4 at 64 over three seeds and cannot tell two
+        # faulty routes from rounding (tools/torch_loss_drift.py, PERF.md)
+        per_step = step_launches(F, cfg, "full_train", "full_train")
+
+        def engine_st(b):
+            return SimpleNamespace(
+                trainable=tr.trainable, params=tr.frozen, aux=tr.aux, clip_cfg=cfg,
+                images=b["image"], labels=b["label"],
+                loss_fn=lambda images, labels: tr.loss_fn(
+                    {"image": images, "label": labels, "valid": b["valid"]})[0])
+
+        grad_check(F, engine_st(batches[0]), phase,
+                   f"the trainer's first step, batch of {ENGINE_BATCH}", per_step, loss_limit=None)
+        whole = {k: torch.cat([b[k] for b in batches]) for k in batches[0]}
+        grad_check(F, engine_st(whole), phase,
+                   f"the trainer's loss on epoch 1's {n_train} images", per_step)
+        del whole
+
+        # ---- a traced train step at batch 64, its launches held
+        F.reset_launches()
+        traced(phase, lambda: tr._train_step(batches[0]), device_time_by_kernel)
+        counts = dict(F.LAUNCHES)
+        if counts != per_step:
+            raise AssertionError(f"traced train step launches {counts} != {per_step}")
+        say(phase, f"launches of the traced train step: "
+                   f"{ {k: v for k, v in counts.items() if v} }")
+
+        # ---- evaluate: the class text once a pass, then one vision pass a
+        # batch (the training images through an eval loader: six batches)
+        loader = DataLoader(tr.dm.dataset.train_x, tr.dm.test_loader.transform, ENGINE_BATCH,
+                            num_workers=tr.cfg.DATALOADER.NUM_WORKERS)
+        n_batches = len(loader)
+        F.reset_launches()
+        t0 = time.perf_counter()
+        results = tr.evaluate(loader, split="train images, eval transform")
+        t_eval = time.perf_counter() - t0
+        want = expect(F.LAUNCHES, (cfg.transformer_layers, "full"), (1, tower_lns(1)),
+                      (n_batches * cfg.vision_layers, "full"), (n_batches, tower_lns(2)))
+        if dict(F.LAUNCHES) != want or results["total"] != n_train:
+            raise AssertionError(f"evaluate: launches {dict(F.LAUNCHES)} != {want} (one text "
+                                 f"encode, {n_batches} vision passes), or {results['total']} "
+                                 f"of {n_train} images scored")
+        say(phase, f"evaluate over {n_train} images ({n_batches} batches, the text encoded "
+                   f"once): {t_eval:.3f} s with the host loader, {n_train / t_eval:.1f} "
+                   f"images/s; accuracy {results['accuracy']:.2f}")
+        del tr, batches
+
+        # ---- two epochs uninterrupted, every step timed (synchronized)
+        full = _engine_trainer(root, f"{tmp}/full")
+        step_ms, step = [], full._train_step
+
+        def timed_step(b):
+            out = []
+            step_ms.append(_synced_ms(lambda: out.append(step(b))))
+            return out[0]
+
+        full._train_step = timed_step
+        t0 = time.perf_counter()
+        full.train()
+        t_train = time.perf_counter() - t0
+        losses = _train_losses(f"{tmp}/full")
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"non-finite engine loss: {losses}")
+        # the synthetic step at the same batch and class count
+        synth = build_synth_mudpt_step("ViT-B/16", ENGINE_BATCH, 16, N_CTX, DEPTH, seed=0)
+        for _ in range(WARMUP_STEPS):
+            synth.train_step(synth.images, synth.labels)
+        synth_ms = [_synced_ms(lambda: synth.train_step(synth.images, synth.labels))
+                    for _ in range(TIMED_STEPS)]
+        del synth
+        say(phase, f"2 epochs x {len(step_ms) // 2} steps of {ENGINE_BATCH} images in "
+                   f"{t_train:.2f} s with the loader, evaluation and checkpoints; trainer step "
+                   f"median {statistics.median(step_ms[1:]):.2f} ms (first {step_ms[0]:.2f} "
+                   f"ms) vs build_synth_mudpt_step at batch {ENGINE_BATCH} "
+                   f"{statistics.median(synth_ms):.2f} ms; losses {losses[0]:.5f} .. "
+                   f"{losses[-1]:.5f}")
+
+        # ---- the same run preempted after batch 3 of epoch 1, then resumed
+        part = _engine_trainer(root, f"{tmp}/part")
+        pstep = part._train_step
+
+        def preempting_step(b):
+            out = pstep(b)
+            if part.epoch == 0 and part.global_step == ENGINE_PREEMPT_AFTER - 1:
+                part._preempt = True  # as the SIGTERM handler sets it
+            return out
+
+        part._train_step = preempting_step
+        part.train()
+        if not (Path(tmp) / "part" / part.model_name / "model-preempt.pth.tar").exists():
+            raise AssertionError("no preemption checkpoint written")
+        del part
+        resumed = _engine_trainer(root, f"{tmp}/part", "RESUME", f"{tmp}/part")
+        resumed.train()
+        reading = check_resumed(losses, _train_losses(f"{tmp}/part"),
+                                leaves(full.trainable), leaves(resumed.trainable))
+        say(phase, f"preempted after batch {ENGINE_PREEMPT_AFTER} of epoch 1 and resumed: "
+                   f"{reading} with the uninterrupted run")
+        # the trainer's step again on one resident batch, no loader threads
+        # running beside it: how much of its time is the step's own
+        b = full._device_batch(list(copy.copy(full.dm.train_loader))[0])
+        alone_ms = [_synced_ms(lambda: step(b)) for _ in range(TIMED_STEPS)]
+        say(phase, f"trainer step on one resident batch of {ENGINE_BATCH}, no loader "
+                   f"running: median {statistics.median(alone_ms):.2f} ms")
+        return counts
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_bench(F) -> None:
+    """``python -m mudpt_torch.bench`` in this process, train and eval at
+    ViT-B/16, each value held to [train]'s and [serving]'s images/s."""
+    import contextlib
+    import io
+
+    from mudpt_torch import bench
+
+    for mode, ref in (("train", "train"), ("eval", "serving")):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            bench.main(["--mode", mode, "--model", "ViT-B/16", "--batch", str(BATCH),
+                        "--n-cls", str(N_CLS), "--n-ctx", str(N_CTX), "--depth", str(DEPTH),
+                        "--steps", str(TIMED_STEPS), "--warmup", str(WARMUP_STEPS)])
+        rec = parse_bench_line(out.getvalue())
+        say("bench", f"--mode {mode}: {json.dumps(rec)}")
+        say("bench", f"--mode {mode} vs [{ref}]: "
+                     + check_bench(mode, rec["value"], THROUGHPUT[ref]))
 
 
 AB_ITERS = 40  # launches a kernel time of --times-of averages
@@ -1790,6 +2102,8 @@ def main() -> int:
     run("kernels", phase_layer_chains, F, rn)
     paths["serving"] = run("serving", phase_serving, F, "ViT-B/16")
     paths["train_step"] = run("train", phase_train, F, "ViT-B/16")
+    paths["engine_train_step"] = run("engine", phase_engine, F, root)
+    run("bench", phase_bench, F)
     run("kernels ViT-L/14", phase_kernels, F, kernels_l, "ViT-L/14")
     run("kernels ViT-L/14", phase_halfblock_chains, F)
     paths["serving_vit_l14"] = run("serving ViT-L/14", phase_serving, F, "ViT-L/14")

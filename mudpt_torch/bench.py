@@ -1,0 +1,205 @@
+"""Benchmark of the port: MuDPT prompt-tuning train throughput or cached-text
+serving throughput (images/s) on one device, one JSON line
+(counterpart of ``bench.py``, its resident input only).
+
+    python -m mudpt_torch.bench [--mode train|eval] [--model ViT-B/16]
+        [--batch 384] [--n-cls 100] [--n-ctx 2] [--depth 9] [--steps 20]
+        [--warmup 3] [--quant none|int8|int8_static|int8_ste|int8_ste_static]
+        [--device cuda|cpu]
+
+It drives ``utils/synth_step.build_synth_mudpt_step`` (``--mode train``: one
+device-resident batch, random weights from seed 0, each step's loss
+fetched to the host) or
+``build_synth_mudpt_server`` (``--mode eval``: the class text encoded once,
+then one vision pass per batch, its predictions fetched to the host, against
+re-encoding the text every batch).
+The line carries ``bench.py``'s ``metric``, ``value`` and ``unit`` and its
+FLOP accounts (``bench.py:340-346``, ``:511-559``): ``model_*`` counts the
+algorithmic FLOPs (forward and dx-only backward, no recompute), ``exec_*``
+adds what the port's blocks recompute, each over the H100's dense peak
+(989e12 bf16, 1979e12 int8 for the int8 serving tiers).  It adds the
+device's name and, on the card, its name and power limit as
+``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
+them.  On the CPU (``--device cpu``, the plain versions) the FLOP rates and
+shares are null: they are device metrics.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import subprocess
+import time
+
+import torch
+
+from mudpt_torch.models.layers import QUANT_MODES
+from mudpt_torch.models.text import _text_saves_off
+from mudpt_torch.ops import fused_block
+from mudpt_torch.utils.device import resolve_device
+from mudpt_torch.utils.synth_step import (MODELS, build_synth_mudpt_server,
+                                          build_synth_mudpt_step)
+
+# H100 SXM published dense peaks (NVIDIA data sheet, at the 700 W limit)
+PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser(prog="python -m mudpt_torch.bench",
+                                 description=__doc__.split("\n")[0])
+    ap.add_argument("--mode", choices=["train", "eval"], default="train")
+    ap.add_argument("--model", choices=list(MODELS), default="ViT-B/16")
+    ap.add_argument("--batch", type=int, default=384)
+    ap.add_argument("--n-cls", type=int, default=100)
+    ap.add_argument("--n-ctx", type=int, default=2)
+    ap.add_argument("--depth", type=int, default=9)
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--warmup", type=int, default=3)
+    ap.add_argument("--quant", choices=QUANT_MODES, default="none")
+    ap.add_argument("--device", default=None,
+                    help="cuda (the default) or cpu (the kernels' plain versions)")
+    args = ap.parse_args(argv)
+    # bench.py:141-147
+    if args.quant in ("int8", "int8_static") and args.mode != "eval":
+        ap.error(f"--quant {args.quant} is inference-only; use with --mode eval (the "
+                 "quantized blocks have no backward); for training, --quant int8_ste is "
+                 "the straight-through variant")
+    if args.quant.startswith("int8_ste") and args.mode != "train":
+        ap.error(f"--quant {args.quant} is the TRAINING variant; for serving use --quant "
+                 "int8 (identical forward, no save writes)")
+    if args.steps < 1:
+        ap.error("--steps must be at least 1")
+    return args
+
+
+def card() -> str:
+    """``nvidia-smi``'s name and power limit of the first card."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
+def tower_fwd_flops(n_seq: int, n_layers: int, d: int, rows: int) -> float:
+    """Forward matmul FLOPs of a tower (``bench.py:511-513``)."""
+    return (12 * d * d + 4 * n_seq * d) * 2 * n_seq * n_layers * rows
+
+
+def tower_bwd_dx_flops(n_seq: int, n_layers: int, d: int, rows: int) -> float:
+    """dx-only backward: every linear again, the two S-wide head products
+    twice (``bench.py:515-519``)."""
+    return (12 * d * d + 8 * n_seq * d) * 2 * n_seq * n_layers * rows
+
+
+def train_flops(cfg, batch: int, n_cls: int, n_ctx: int, text_seq: int) -> tuple:
+    """(model FLOPs, executed FLOPs) of one train step: executed adds the
+    products the port's blocks run again in the backward: the fc product
+    where a vision MLP recomputes h (768 < D, over the row-token budget),
+    the qkv and fc products where the text tower trains with saves off."""
+    vis_seq = cfg.vision_seq_len + n_ctx
+    vis = (cfg.vision_layers, cfg.vision_width, batch)
+    txt = (cfg.transformer_layers, cfg.transformer_width, n_cls)
+    model = (tower_fwd_flops(vis_seq, *vis) + tower_bwd_dx_flops(vis_seq, *vis)
+             + tower_fwd_flops(text_seq, *txt) + tower_bwd_dx_flops(text_seq, *txt))
+    recompute = 0.0
+    d = cfg.vision_width
+    if d > fused_block.FULLBLOCK_MAX_WIDTH and not fused_block.wide_mlp_save(batch * vis_seq):
+        recompute += 4 * d * d * 2 * vis_seq * cfg.vision_layers * batch
+    if _text_saves_off(n_cls, -(-text_seq // 8) * 8):
+        d = cfg.transformer_width
+        recompute += 7 * d * d * 2 * text_seq * cfg.transformer_layers * n_cls
+    return model, model + recompute
+
+
+def run_train(args, dev: torch.device) -> dict:
+    st = build_synth_mudpt_step(args.model, args.batch, args.n_cls, args.n_ctx, args.depth,
+                                device=dev, seed=0, quant=args.quant)
+    for _ in range(args.warmup):
+        float(st.train_step(st.images, st.labels))
+    t0 = time.perf_counter()
+    # each step's loss fetched to the host before the next, as a training
+    # loop that logs every step
+    losses = [float(st.train_step(st.images, st.labels)) for _ in range(args.steps)]
+    dt = time.perf_counter() - t0
+    final_loss = losses[-1]
+    if not all(map(math.isfinite, losses)):
+        raise FloatingPointError(f"non-finite loss in the benchmark: {losses}")
+    text_seq = int(st.aux["token_suffix"].shape[1]) + 1 + args.n_ctx
+    model, executed = train_flops(st.clip_cfg, args.batch, args.n_cls, args.n_ctx, text_seq)
+    qlabel = {"int8_ste": "int8-ste", "int8_ste_static": "int8-ste-static"}.get(args.quant, "bf16")
+    return {
+        "metric": (f"MuDPT {args.model} prompt-tuning train throughput ({qlabel}, batch "
+                   f"{args.batch}, n_cls {args.n_cls}, depth {args.depth})"),
+        "value": round(args.batch * args.steps / dt, 2),
+        "unit": "images/sec/chip",
+        "step_ms": round(dt / args.steps * 1e3, 3),
+        "final_loss": final_loss,
+        **_device_metrics(dev, model_tflops_per_sec=(model * args.steps / dt / 1e12, 2),
+                          model_mfu=(model * args.steps / dt / PEAK_BF16_FLOPS, 3),
+                          exec_tflops_per_sec=(executed * args.steps / dt / 1e12, 2),
+                          hw_utilization=(executed * args.steps / dt / PEAK_BF16_FLOPS, 3)),
+    }
+
+
+def run_eval(args, dev: torch.device) -> dict:
+    st = build_synth_mudpt_server(args.model, args.batch, args.n_cls, args.n_ctx, args.depth,
+                                  device=dev, seed=0, quant=args.quant)
+    tr, params, aux, images = st.trainable, st.params, st.aux, st.images
+    txt = st.text_features(tr, params, aux)
+
+    def cached():
+        return st.eval_step_cached(tr, params, aux, images, txt)
+
+    def per_batch_text():
+        return st.eval_step_cached(tr, params, aux, images, st.text_features(tr, params, aux))
+
+    def images_per_s(fn) -> float:
+        """Each batch's predictions fetched to the host before the next, as
+        a server answers requests."""
+        for _ in range(max(1, args.warmup)):
+            fn().cpu()
+        t0 = time.perf_counter()
+        for _ in range(args.steps):
+            fn().cpu()
+        return args.batch * args.steps / (time.perf_counter() - t0)
+
+    ips, ips_full = images_per_s(cached), images_per_s(per_batch_text)
+    cfg = st.clip_cfg
+    img_fwd = tower_fwd_flops(cfg.vision_seq_len + args.n_ctx, cfg.vision_layers,
+                              cfg.vision_width, args.batch)
+    quantized = args.quant.startswith("int8")
+    peak = PEAK_INT8_OPS if quantized else PEAK_BF16_FLOPS
+    qlabel = {"int8": "int8", "int8_static": "int8-static"}.get(args.quant, "bf16")
+    return {
+        "metric": (f"MuDPT {args.model} inference throughput ({qlabel}, batch {args.batch}, "
+                   f"n_cls {args.n_cls}, cached text features)"),
+        "value": round(ips, 2),
+        "unit": "images/sec/chip",
+        "request_ms": round(args.batch / ips * 1e3, 3),
+        "uncached_img_per_sec": round(ips_full, 2),
+        "speedup_vs_per_batch_text": round(ips / ips_full, 3),
+        **_device_metrics(dev, model_mfu=(img_fwd * ips / args.batch / peak, 3)),
+    }
+
+
+def _device_metrics(dev: torch.device, **readings) -> dict:
+    """Rates and shares of the card's peak, each (value, digits), rounded;
+    null off the card."""
+    return {k: round(v, n) if dev.type == "cuda" else None for k, (v, n) in readings.items()}
+
+
+def main(argv=None) -> dict:
+    """Run the benchmark; print and return its JSON record."""
+    args = parse_args(argv)
+    dev = resolve_device(args.device)
+    record = run_eval(args, dev) if args.mode == "eval" else run_train(args, dev)
+    record["device"] = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    record["card"] = card() if dev.type == "cuda" else None
+    print(json.dumps(record), flush=True)
+    return record
+
+
+if __name__ == "__main__":
+    main()

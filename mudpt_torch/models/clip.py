@@ -52,6 +52,7 @@ class CLIPConfig:
 
 
 VIT_B16 = CLIPConfig()
+VIT_B32 = CLIPConfig(vision_patch_size=32)
 # mudpt_tpu/models/clip.py:72-75: vision 1024 x 24 layers x 16 heads, patch
 # 14 at 224 px (257 tokens); text 768 x 12 layers x 12 heads
 VIT_L14 = CLIPConfig(
@@ -105,7 +106,8 @@ def init_clip_params(cfg: CLIPConfig, generator: torch.Generator) -> dict:
     scheme of ``mudpt_tpu/models/clip.py:112-237`` (the draws differ: a
     torch generator is not a JAX key)."""
     if cfg.vision_arch != "vit":
-        raise NotImplementedError("the ResNet towers are not ported yet (ROADMAP.md queue A)")
+        raise NotImplementedError(
+            "the ResNet towers are not ported yet (ROADMAP.md A, 'the ResNet trunk')")
     g = generator
     vw, tw = cfg.vision_width, cfg.transformer_width
     vscale = vw ** -0.5
@@ -151,6 +153,14 @@ def _map(tree, fn):
     return fn(tree)
 
 
+def leaves(tree: dict) -> list:
+    """The tensors of a nested dict, in key order."""
+    out = []
+    for v in tree.values():
+        out.extend(leaves(v) if isinstance(v, dict) else [v])
+    return out
+
+
 def cast_matmul_weights(params: dict, dtype: torch.dtype) -> dict:
     """Cast the matmul weights and their biases (the ViT paths of
     ``mudpt_tpu/models/clip.py:240-302``); embeddings and LayerNorms stay
@@ -181,7 +191,8 @@ def encode_image(
     deep_prompts: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     if cfg.vision_arch != "vit":
-        raise NotImplementedError("the ResNet towers are not ported yet (ROADMAP.md queue A)")
+        raise NotImplementedError(
+            "the ResNet towers are not ported yet (ROADMAP.md A, 'the ResNet trunk')")
     from mudpt_torch.models.vit import vit_forward
 
     return vit_forward(

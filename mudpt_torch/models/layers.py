@@ -111,8 +111,8 @@ def _require_bf16(x: torch.Tensor) -> None:
     if x.dtype != torch.bfloat16:
         raise NotImplementedError(
             f"{x.dtype} activations on CUDA need kernels of that type "
-            "(ROADMAP.md queue A, 'fp32 compute on the card'); the port's "
-            "kernels take bfloat16"
+            "(ROADMAP.md B, 'fp32 activations'); the port's kernels take "
+            "bfloat16"
         )
 
 
@@ -254,7 +254,7 @@ def residual_block(p: dict, x: torch.Tensor, n_head: int,
         raise NotImplementedError(
             f"width {D} > {fused_block.MAX_WIDTH}: the JAX package runs its XLA layer "
             "there (models/layers.py:283-284, no Pallas kernel); the port has no such "
-            "route (ROADMAP.md queue A item 6)"
+            "route yet (ROADMAP.md A, 'the XLA block route')"
         )
     if x.is_cuda and not _PLAIN_ON_CUDA:
         _require_bf16(x)

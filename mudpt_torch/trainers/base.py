@@ -1,0 +1,679 @@
+"""Trainer engine (counterpart of ``mudpt_tpu/trainers/base.py``), the
+Dassl ``TrainerX`` equivalent on one device.
+
+Responsibilities (reference call stack SURVEY.md §3.1): data manager, model
+build, optimizer and schedule, the train step (forward, ``loss.backward()``
+with respect to the PROMPT tree only, one optimizer step: the frozen
+backbone's blocks run the dx-only kernel chains), the epoch loop with
+print-freq logging, per-epoch checkpoints, SIGTERM preemption with an exact
+mid-epoch resume, evaluation with the class text encoded once per pass and
+the argmax on the device, and the load-for-transfer semantics
+(class-dependent buffers rebuilt from the live dataset, learned prompts
+restored; reference trainers/mudpt.py:270-303).
+
+The JAX package's ``devices`` argument becomes the port's device: ``None``
+means the card and raises without CUDA (``utils/device.resolve_device``);
+``"cpu"`` runs the kernels' plain versions.  The port runs on one device:
+a mesh (``PARALLEL``) waits (ROADMAP.md A, 'the mesh').
+"""
+
+from __future__ import annotations
+
+import functools
+import glob
+import os
+import re
+import signal
+import time
+from typing import Callable, Dict, Optional
+
+import numpy as np
+import torch
+
+from mudpt_torch.config.perf import apply_perf_config
+from mudpt_torch.data import DataManager
+from mudpt_torch.models import layers
+from mudpt_torch.models.clip import (TINY_TEST, VIT_B16, VIT_B32, VIT_L14, VIT_L14_336, _map,
+                                     cast_matmul_weights, init_clip_params, leaves)
+from mudpt_torch.models.convert import load_clip_checkpoint
+from mudpt_torch.ops import quant_block
+from mudpt_torch.trainers.optim import build_optimizer, make_lr_schedule
+from mudpt_torch.utils.checkpoint import (load_checkpoint, restore_into, save_checkpoint,
+                                          to_numpy)
+from mudpt_torch.utils.device import resolve_device
+from mudpt_torch.utils.logging import MetricsLogger
+from mudpt_torch.utils.metrics import build_evaluator
+from mudpt_torch.utils.profiling import StepTimer, profile_trace
+from mudpt_torch.utils.registry import TRAINER_REGISTRY
+from mudpt_torch.utils.rng import new_rng, set_seed
+
+# the ViT entries of base.py:72-97; the RN presets wait (ROADMAP.md A,
+# 'the ResNet trunk')
+NAMED_CONFIGS = {
+    "ViT-B/16": VIT_B16,
+    "ViT-B/32": VIT_B32,
+    "ViT-L/14": VIT_L14,
+    "ViT-L/14@336px": VIT_L14_336,
+    "test-tiny": TINY_TEST,
+}
+_RN_NAMES = ("RN50", "RN101", "RN50x4", "RN50x16", "RN50x64", "test-tiny-rn")
+# the basenames of the OpenAI download cache (mudpt_tpu/models/download.py)
+_CACHE_NAMES = {"ViT-L/14@336px": "ViT-L-14-336px.pt"}
+
+
+def load_backbone(cfg, device):
+    """CLIP backbone (``base.py:101-158``): from a local ``.pt`` or ``.npz``
+    (MODEL.BACKBONE.PATH), the ``~/.cache/clip`` download cache, or random
+    init for the named architecture, ONLY when PATH='random' is explicit.
+    The port has no download: with PATH unset and no cached file it raises
+    as the JAX package does when its download fails.  Returns the config and
+    an fp32 tree on ``device``."""
+    path = cfg.MODEL.BACKBONE.PATH
+    name = cfg.MODEL.BACKBONE.NAME
+    if path and path != "random":
+        if not os.path.exists(path):
+            raise FileNotFoundError(
+                f"MODEL.BACKBONE.PATH={path!r} not found. This environment has "
+                "no network access; provide a local OpenAI CLIP .pt/.npz file."
+            )
+        clip_cfg, params = load_clip_checkpoint(path)
+        return clip_cfg, _to_device(params, device)
+    if name in _RN_NAMES:
+        raise NotImplementedError(
+            f"backbone {name!r}: the port's ResNet trunk waits (ROADMAP.md A, 'the "
+            "ResNet trunk')"
+        )
+    if path == "random":
+        if name not in NAMED_CONFIGS:
+            raise KeyError(f"Unknown backbone {name!r}; known: {list(NAMED_CONFIGS)}")
+        clip_cfg = NAMED_CONFIGS[name]
+        return clip_cfg, init_clip_params(clip_cfg, new_rng(0, device))
+    basename = _CACHE_NAMES.get(name, name.replace("/", "-") + ".pt")
+    cache = os.path.expanduser(os.path.join("~/.cache/clip", basename))
+    if os.path.exists(cache):
+        clip_cfg, params = load_clip_checkpoint(cache)
+        return clip_cfg, _to_device(params, device)
+    raise RuntimeError(
+        f"Pretrained CLIP {name!r} is not cached at {cache} and the port has no "
+        f"download. Place the OpenAI .pt file at that path (or set "
+        f"MODEL.BACKBONE.PATH to a local .pt/.npz), or opt into random weights "
+        f"explicitly with MODEL.BACKBONE.PATH='random'."
+    )
+
+
+def _to_device(tree, device):
+    return _map(tree, lambda t: t.to(device))
+
+
+class TrainerBase:
+    """Shared engine.  Subclasses implement ``build_model`` and set:
+
+      self.clip_cfg   CLIPConfig
+      self.frozen     backbone tree (device)
+      self.aux        static buffers tree (device)
+      self.trainable  prompt tree (device, fp32 leaves that require grad)
+      self.forward    fn(trainable, frozen, aux, images) -> (B, n_cls) logits
+      self.model_name checkpoint subdirectory name
+    """
+
+    model_name = "prompt_learner"
+    # trainers that splice prompts into the visual tower set this
+    requires_vit = False
+    # PREC when the trainer has no PREC hparam (see __init__)
+    prec_default = "fp32"
+    forward: Callable = None
+
+    def __init__(self, cfg, dataset=None, devices=None):
+        self.cfg = cfg
+        self.device = resolve_device(devices)
+        set_seed(cfg.SEED)
+        if cfg.PARALLEL.DATA not in (0, 1) or cfg.PARALLEL.MODEL != 1:
+            raise NotImplementedError(
+                f"PARALLEL.DATA={cfg.PARALLEL.DATA}, MODEL={cfg.PARALLEL.MODEL}: the "
+                "port runs on one device; the mesh waits (ROADMAP.md A, 'the mesh')"
+            )
+        if cfg.TRAIN.QUANT not in layers.QUANT_MODES:
+            raise ValueError(
+                f"TRAIN.QUANT must be 'none', 'int8' (eval-only, dynamic "
+                f"activation scales), 'int8_static' (eval-only, scales "
+                f"calibrated on a training batch), 'int8_ste' "
+                f"(quantization-aware training), or 'int8_ste_static' "
+                f"(QAT against the calibrated static serving tier); got "
+                f"{cfg.TRAIN.QUANT!r}"
+            )
+        if cfg.TRAIN.QUANT in ("int8_static", "int8_ste_static"):
+            raise NotImplementedError(
+                f"TRAIN.QUANT={cfg.TRAIN.QUANT!r} calibrates at build "
+                "(base.py:312-367), which waits (ROADMAP.md A, 'static-quant "
+                "calibration at build'); the synthetic builders of "
+                "utils/synth_step.py calibrate"
+            )
+        # the mode is process-global: set on every build, so a 'none'
+        # trainer clears a mode left by an earlier build in the process
+        layers.set_quant_mode(cfg.TRAIN.QUANT)
+        self.perf_resolved = apply_perf_config(cfg.PERF)
+        self.dm = DataManager(cfg, dataset)
+        self.num_classes = self.dm.num_classes
+        self.classnames = self.dm.classnames
+        self.metrics = MetricsLogger(cfg.OUTPUT_DIR)
+        self.metrics.log({"kind": "perf_config", **self.perf_resolved})
+        self.n_cls_padded = self.num_classes  # one device: no class-axis padding
+        self.epoch = 0
+        self._best_val = -1.0
+        self._preempt = False        # set by the SIGTERM handler
+        self._preempt_saved = False  # run_epoch wrote a mid-epoch checkpoint
+        self._skip_batches = 0       # mid-epoch resume fast-forward
+
+        hp = cfg.trainer_params() if cfg.TRAINER.NAME else None
+        prec = getattr(hp, "PREC", self.prec_default) if hp is not None else self.prec_default
+        # fp16 and amp -> bfloat16 (base.py:229-236)
+        self.compute_dtype = torch.bfloat16 if prec in ("fp16", "amp") else torch.float32
+
+        self.build_model()
+        if self.trainable is not None and cfg.MODEL.INIT_WEIGHTS:
+            # warm-start the prompt learner from a previous run's output
+            # directory (reference trainers/mudpt.py:220-221)
+            print(f"Initializing prompt weights from {cfg.MODEL.INIT_WEIGHTS}")
+            self.load_model(
+                cfg.MODEL.INIT_WEIGHTS,
+                epoch=self._resolve_checkpoint_epoch(cfg.MODEL.INIT_WEIGHTS),
+            )
+        if cfg.TRAIN.QUANT != "none":
+            # the frozen towers' projections quantized once, as the
+            # synthetic builders do (the JAX package quantizes per call:
+            # the same codes)
+            self._set_frozen({
+                k: dict(v, blocks=quant_block.quantize_blocks(v["blocks"]))
+                if isinstance(v, dict) and "blocks" in v else v
+                for k, v in self.frozen.items()
+            })
+        if self.trainable is not None:
+            self._build_train_state()
+        self._bind_steps()
+        self._cache_static_text()
+
+    # ------------------------------------------------------------------
+    # model plumbing helpers for subclasses
+    # ------------------------------------------------------------------
+    def load_clip(self):
+        clip_cfg, params = load_backbone(self.cfg, self.device)
+        if self.requires_vit and clip_cfg.vision_arch != "vit":
+            raise ValueError(
+                f"{type(self).__name__} injects visual prompts and needs a ViT "
+                f"backbone; got vision_arch={clip_cfg.vision_arch!r}"
+            )
+        if self.compute_dtype == torch.bfloat16:
+            params = cast_matmul_weights(params, torch.bfloat16)
+        return clip_cfg, params
+
+    def _set_forward(self, forward_fn, text_fn=None, image_fn=None, **kw):
+        """Bind the trainer's forward and, when its text features do not
+        depend on the image, the text/image split that lets evaluate()
+        encode the class prompts once per pass (``base.py:280-297``).
+        Contract: forward(tr, fz, aux, img) == image_fn(tr, fz, aux, img,
+        text_fn(tr, fz, aux))."""
+        self.forward = functools.partial(forward_fn, **kw)
+        if text_fn is not None:
+            self.forward_text = functools.partial(text_fn, **kw)
+            self.forward_image = functools.partial(image_fn, **kw)
+
+    def place(self, frozen, aux_class_tree, aux_repl, trainable):
+        """Device placement: every tree on the trainer's device, the
+        trainable leaves fp32 leaf tensors that require grad."""
+        self.frozen = _to_device(frozen, self.device)
+        aux = dict(aux_repl or {})
+        aux.update(aux_class_tree)
+        self.aux = _to_device(aux, self.device)
+        self.trainable = None
+        if trainable is not None:
+            self.trainable = _to_device(trainable, self.device)
+            for t in leaves(self.trainable):
+                t.requires_grad_(True)
+
+    def _set_frozen(self, frozen):
+        """Every post-build change of the frozen tree goes through here: the
+        static text cache is a function of it and is refreshed with it."""
+        self.frozen = frozen
+        if "static_text_features" in (getattr(self, "aux", None) or {}):
+            self._cache_static_text()
+
+    def _cache_static_text(self):
+        """Trainers whose text features do not depend on the trainable tree
+        (``static_text``) encode the class prompts once and train against
+        the cached rows (``base.py:379-401``)."""
+        if not getattr(self, "static_text", False):
+            return
+        fn = getattr(self, "_text_features", None)
+        if fn is None or self.trainable is None:
+            return
+        aux = {k: v for k, v in self.aux.items() if k != "static_text_features"}
+        self.aux["static_text_features"] = fn(self.trainable, self.frozen, aux)
+
+    # ------------------------------------------------------------------
+    def _build_train_state(self):
+        steps_per_epoch = max(1, len(self.dm.train_loader))
+        self._params = leaves(self.trainable)
+        self.optimizer, self.scheduler = build_optimizer(
+            self._params, self.cfg.OPTIM, steps_per_epoch)
+        self.lr_schedule = make_lr_schedule(self.cfg.OPTIM, steps_per_epoch)
+        self.global_step = 0
+
+    def _bind_steps(self):
+        """The eval steps and the text-feature function, with the argmax on
+        the device (``base.py:455-486``)."""
+        forward = self.forward
+        n_cls = self.num_classes
+        fwd_text = getattr(self, "forward_text", None)
+        fwd_image = getattr(self, "forward_image", None)
+
+        @torch.no_grad()
+        def eval_step(trainable, frozen, aux, images):
+            logits = forward(trainable, frozen, aux, images)
+            return logits[:, :n_cls].float().argmax(-1).to(torch.int32)
+
+        self._eval_step = eval_step
+        if fwd_text is not None:
+            self._text_features = torch.no_grad()(fwd_text)
+
+            @torch.no_grad()
+            def eval_step_cached(trainable, frozen, aux, images, txt):
+                logits = fwd_image(trainable, frozen, aux, images, txt)
+                return logits[:, :n_cls].float().argmax(-1).to(torch.int32)
+
+            self._eval_step_cached = eval_step_cached
+
+    def loss_fn(self, batch):
+        """(loss, accuracy) of a device batch: the NLL and top-1 over the
+        rows ``valid`` marks (``base.py:422-438``)."""
+        fwd_image = getattr(self, "forward_image", None)
+        if getattr(self, "static_text", False) and "static_text_features" in self.aux:
+            logits = fwd_image(self.trainable, self.frozen, self.aux, batch["image"],
+                               self.aux["static_text_features"])
+        else:
+            logits = self.forward(self.trainable, self.frozen, self.aux, batch["image"])
+        logits = logits[:, :self.num_classes].float()
+        labels = batch["label"]
+        valid = batch["valid"].float()
+        nll = -torch.log_softmax(logits, dim=-1).gather(1, labels[:, None])[:, 0]
+        denom = valid.sum().clamp_min(1.0)
+        loss = (nll * valid).sum() / denom
+        acc = ((logits.argmax(-1) == labels).float() * valid).sum() / denom
+        return loss, acc
+
+    def _train_step(self, batch):
+        """One step: forward, ``loss.backward()``, the optimizer and the
+        schedule stepped; returns the detached (loss, accuracy)."""
+        self.optimizer.zero_grad(set_to_none=True)
+        loss, acc = self.loss_fn(batch)
+        loss.backward()
+        self.optimizer.step()
+        self.scheduler.step()
+        return loss.detach(), acc.detach()
+
+    # ------------------------------------------------------------------
+    # training loop
+    # ------------------------------------------------------------------
+    def train(self):
+        cfg = self.cfg
+        max_epoch = cfg.OPTIM.MAX_EPOCH
+        num_batches = len(self.dm.train_loader)
+        start_epoch = self.resume_if_requested()
+        print(f"Start training: {max_epoch} epochs x {num_batches} batches")
+        restore_handler = (
+            self._install_sigterm_handler()
+            if cfg.TRAIN.CHECKPOINT_ON_SIGTERM and self.trainable is not None
+            else None
+        )
+        try:
+            for self.epoch in range(start_epoch, max_epoch):
+                if self._preempt:
+                    # the signal landed at an epoch boundary: record it
+                    self._save_preempt(0)
+                    return self._stop_preempted()
+                self.run_epoch()
+                if self._preempt and self._preempt_saved:
+                    return self._stop_preempted()  # stopped strictly mid-epoch
+                # a signal on the epoch's last batch falls through: the
+                # epoch completed, so after_epoch runs, then the loop top stops
+                self.after_epoch()
+        finally:
+            if restore_handler is not None:
+                restore_handler()
+        self.after_train()
+
+    def _stop_preempted(self):
+        print(f"Training preempted — set RESUME {self.cfg.OUTPUT_DIR} to continue exactly")
+        self.metrics.close()
+
+    def _install_sigterm_handler(self):
+        """SIGTERM -> finish the in-flight step, checkpoint, stop cleanly.
+        Returns a restore callable, or None off the main thread."""
+        def handler(signum, frame):
+            self._preempt = True
+            print("SIGTERM received — checkpointing at the next step boundary", flush=True)
+
+        try:
+            prev = signal.signal(signal.SIGTERM, handler)
+        except ValueError:  # not the main thread
+            return None
+        return lambda: signal.signal(signal.SIGTERM, prev)
+
+    def _opt_state_keys(self) -> tuple:
+        """The per-parameter state of the optimizer, in saved order."""
+        if isinstance(self.optimizer, torch.optim.SGD):
+            return ("momentum_buffer",) if self.cfg.OPTIM.MOMENTUM else ()
+        return ("exp_avg", "exp_avg_sq", "step")
+
+    def _opt_leaves(self) -> list:
+        """The optimizer state as arrays: the schedule's step, then each
+        parameter's state tensors (this package's own leaf order)."""
+        leaves = [np.asarray(self.scheduler.last_epoch, np.int64)]
+        for p in self._params:
+            state = self.optimizer.state.get(p, {})
+            leaves.extend(to_numpy(state[k]) for k in self._opt_state_keys() if k in state)
+        return leaves
+
+    def _save_preempt(self, batches_done: int):
+        """Mid-epoch checkpoint after SIGTERM: weights, optimizer state and
+        the exact position (0-based epoch, batches_done, global_step)."""
+        if self.trainable is None:
+            return
+        self._preempt_saved = True
+        path = save_checkpoint(
+            self.cfg.OUTPUT_DIR, self.model_name, self.epoch, self.trainable,
+            opt_state=self._opt_leaves(),
+            meta={
+                "trainer": self.cfg.TRAINER.NAME,
+                "batches_done": int(batches_done),
+                "global_step": int(self.global_step),
+                "best_val": float(self._best_val),
+            },
+            tag="preempt",
+        )
+        print(f"Preemption checkpoint saved to {path} "
+              f"(epoch {self.epoch + 1}, batch {batches_done})")
+
+    def resume_if_requested(self) -> int:
+        """cfg.RESUME: reload the newest checkpoint under that directory
+        (weights and optimizer state) and continue from its position; with
+        the stateless data order the resumed run equals an uninterrupted
+        one (``base.py:592-642``)."""
+        if not self.cfg.RESUME or self.trainable is None:
+            return 0
+        num_batches = max(1, len(self.dm.train_loader))
+        last = self._latest_epoch(self.cfg.RESUME)
+        pre = self._ckpt_meta(self.cfg.RESUME, tag="preempt")
+        if pre is not None and pre["global_step"] > last * num_batches:
+            self.load_model(self.cfg.RESUME, tag="preempt")
+            self._restore_opt_state(self.cfg.RESUME, tag="preempt")
+            epoch_idx, done = pre["epoch"], pre["batches_done"]
+            if done >= num_batches:  # the signal landed on the epoch's last batch
+                start = epoch_idx + 1
+            else:
+                start = epoch_idx
+                self._skip_batches = done
+            self.dm.train_loader.set_epoch(start)
+            self.global_step = epoch_idx * num_batches + done
+            self._best_val = pre.get("best_val", -1.0)
+            print(f"Resumed from preemption checkpoint (epoch {epoch_idx + 1}, "
+                  f"batch {done}/{num_batches})")
+            return start
+        if not last:
+            print("RESUME requested but no checkpoints under "
+                  f"{os.path.join(self.cfg.RESUME, self.model_name)}")
+            return 0
+        self.load_model(self.cfg.RESUME, epoch=last)
+        self._restore_opt_state(self.cfg.RESUME, epoch=last)
+        self.dm.train_loader.set_epoch(last)
+        self.global_step = last * num_batches
+        meta = self._ckpt_meta(self.cfg.RESUME, epoch=last)
+        self._best_val = meta.get("best_val", -1.0) if meta else -1.0
+        print(f"Resumed from epoch {last}")
+        return last
+
+    def _ckpt_meta(self, directory: str, epoch=None, tag=None):
+        """Position and score metadata of a checkpoint, from the npz itself;
+        None when absent.  A torn file is reported and treated as absent."""
+        fname = f"model-{tag}.pth.tar" if tag else f"model.pth.tar-{epoch}"
+        p = os.path.join(directory, self.model_name, fname)
+        if not os.path.exists(p):
+            return None
+        try:
+            with np.load(p, allow_pickle=False) as data:
+                meta = {k[len("meta/"):]: data[k].item() for k in data.files
+                        if k.startswith("meta/") and data[k].ndim == 0
+                        and data[k].dtype.kind in "ifu"}
+        except (OSError, ValueError, KeyError) as e:
+            print(f"WARNING: unreadable checkpoint meta at {p} "
+                  f"({type(e).__name__}: {e}) — ignoring it")
+            return None
+        return {"epoch": int(meta.get("epoch", 0)),
+                "batches_done": int(meta.get("batches_done", 0)),
+                "global_step": int(meta.get("global_step", 0)),
+                "best_val": float(meta.get("best_val", -1.0))}
+
+    def _restore_opt_state(self, directory: str, epoch: int = 0, tag: Optional[str] = None):
+        """Put the checkpoint's optimizer state into the live optimizer and
+        schedule; a checkpoint without matching state resumes with a fresh
+        optimizer, loudly."""
+        _, leaves, _ = load_checkpoint(directory, self.model_name, epoch, tag=tag)
+        keys = self._opt_state_keys()
+        if leaves is None or len(leaves) != 1 + len(keys) * len(self._params):
+            print("WARNING: checkpoint has no matching optimizer state — "
+                  "resuming with a FRESH optimizer (momentum reset)")
+            return
+        step, it = int(leaves[0]), iter(leaves[1:])
+        for p in self._params:
+            state = self.optimizer.state[p]
+            for k in keys:
+                a = next(it)
+                if k == "step":
+                    state[k] = torch.tensor(float(a), dtype=torch.float32)
+                else:
+                    state[k] = torch.from_numpy(np.array(a, copy=True)).to(p.device, p.dtype)
+        self.scheduler.last_epoch = step
+        for group in self.optimizer.param_groups:
+            group["lr"] = self.lr_schedule(step)
+
+    def _device_batch(self, batch):
+        """A host batch on the device: images in the compute dtype (cast on
+        the host, which halves the copy under bf16, as ``_cast_images``),
+        labels int64, ``valid`` bool."""
+        image = torch.from_numpy(np.asarray(batch["image"])).to(self.compute_dtype)
+        label = torch.from_numpy(np.asarray(batch["label"])).long()
+        valid = torch.from_numpy(np.asarray(batch["valid"]))
+        if self.device.type == "cuda":
+            image, label, valid = (t.pin_memory().to(self.device, non_blocking=True)
+                                   for t in (image, label, valid))
+        return {"image": image, "label": label, "valid": valid}
+
+    def _device_prefetch(self, loader):
+        """Move the next batch to the device while the current step runs."""
+        prev = None
+        for batch in loader:
+            cur = self._device_batch(batch)
+            if prev is not None:
+                yield prev
+            prev = cur
+        if prev is not None:
+            yield prev
+
+    def run_epoch(self):
+        cfg = self.cfg
+        num_batches = len(self.dm.train_loader)
+        t0 = time.time()
+        timer = StepTimer(device=self.device)
+        profiling = bool(cfg.TRAIN.PROFILE_DIR) and self.epoch == 0
+        skip = self._skip_batches
+        self._skip_batches = 0
+        src = self.dm.train_loader
+        if skip:
+            # mid-epoch resume: decode and drop the batches the preempted
+            # run consumed; the loader is deterministic per (seed, epoch)
+            def _fast_forward(loader=src, k=skip):
+                it = iter(loader)
+                for _ in range(k):
+                    next(it)
+                yield from it
+
+            src = _fast_forward()
+        for offset, batch in enumerate(self._device_prefetch(src)):
+            batch_idx = skip + offset
+            trace = profile_trace(cfg.TRAIN.PROFILE_DIR if profiling and batch_idx == 1 else None)
+            timer.start()
+            with trace:
+                loss, acc = self._train_step(batch)
+            timer.stop()
+            self.global_step += 1
+            if (batch_idx + 1) % max(1, cfg.TRAIN.PRINT_FREQ) == 0 or batch_idx + 1 == num_batches:
+                loss_v, acc_v = float(loss), float(acc)
+                lr = float(self.lr_schedule(self.global_step - 1))
+                bsz = cfg.DATALOADER.TRAIN_X.BATCH_SIZE
+                print(
+                    f"epoch [{self.epoch + 1}/{cfg.OPTIM.MAX_EPOCH}] "
+                    f"batch [{batch_idx + 1}/{num_batches}] "
+                    f"loss {loss_v:.4f} acc {100 * acc_v:.2f} lr {lr:.2e} "
+                    f"step {timer.avg * 1e3:.0f}ms "
+                    f"{timer.throughput(bsz):.1f}img/s ({time.time() - t0:.1f}s)"
+                )
+                self.metrics.log({
+                    "kind": "train", "epoch": self.epoch + 1, "step": self.global_step,
+                    "loss": loss_v, "acc": acc_v, "lr": lr, "step_time": timer.avg,
+                    "imgs_per_sec": timer.throughput(bsz),
+                })
+            if self._preempt and batch_idx + 1 < num_batches:
+                # strictly mid-epoch: record the exact position
+                self._save_preempt(batch_idx + 1)
+                return
+
+    def after_epoch(self):
+        cfg = self.cfg
+        is_last = self.epoch + 1 == cfg.OPTIM.MAX_EPOCH
+        freq = cfg.TRAIN.CHECKPOINT_FREQ
+        do_val = cfg.TEST.FINAL_MODEL == "best_val" and self.dm.val_loader is not None
+        is_best = False
+        if do_val:
+            score = self.evaluate(self.dm.val_loader, split="val")["accuracy"]
+            if score > self._best_val:
+                self._best_val, is_best = score, True
+        if is_last or is_best or (freq > 0 and (self.epoch + 1) % freq == 0):
+            self.save_model(is_best=is_best)
+
+    def after_train(self):
+        if not self.cfg.TEST.NO_TEST:
+            has_best = os.path.exists(
+                os.path.join(self.cfg.OUTPUT_DIR, self.model_name, "model-best.pth.tar"))
+            if self.cfg.TEST.FINAL_MODEL == "best_val" and self.trainable is not None and has_best:
+                print("Testing with the best-on-val checkpoint")
+                self.load_model(self.cfg.OUTPUT_DIR, epoch=None)
+            self.test()
+        self.metrics.close()
+
+    # ------------------------------------------------------------------
+    # evaluation
+    # ------------------------------------------------------------------
+    def evaluate(self, loader, split: str = "test") -> Dict[str, float]:
+        """Accuracy and F1 over ``loader``; the class text is encoded once
+        per pass, lazily on the first batch (``base.py:859-921``)."""
+        evaluator = build_evaluator(self.cfg, self.num_classes, self.classnames)
+        if loader is None:  # an empty split reports zero samples
+            loader = ()
+        text_fn = getattr(self, "_text_features", None)
+        txt = self.aux.get("static_text_features") if self.aux else None
+        eval_aux = ({k: v for k, v in self.aux.items() if k != "static_text_features"}
+                    if txt is not None else self.aux)
+        for batch in loader:
+            if text_fn is not None and txt is None:
+                txt = text_fn(self.trainable, self.frozen, self.aux)
+            images = self._device_batch(batch)["image"]
+            preds = (self._eval_step(self.trainable, self.frozen, self.aux, images)
+                     if txt is None else
+                     self._eval_step_cached(self.trainable, self.frozen, eval_aux, images, txt))
+            preds = preds.cpu().numpy()[:len(batch["label"])]
+            evaluator.process_preds(preds, batch["label"], batch["valid"])
+        results = evaluator.evaluate()
+        print(f"=> result on {split}: " + " ".join(
+            f"{k}: {v:.2f}" if isinstance(v, float) else f"{k}: {v}"
+            for k, v in results.items() if not isinstance(v, dict)))
+        self.metrics.log({"kind": "eval", "split": split, "epoch": self.epoch + 1,
+                          **{k: v for k, v in results.items() if not isinstance(v, dict)}})
+        return results
+
+    def test(self) -> Dict[str, float]:
+        split = self.cfg.TEST.SPLIT
+        loader = self.dm.val_loader if split == "val" else self.dm.test_loader
+        return self.evaluate(loader, split=split)
+
+    # ------------------------------------------------------------------
+    # checkpointing
+    # ------------------------------------------------------------------
+    def save_model(self, is_best: bool = False):
+        if self.trainable is None:
+            return
+        path = save_checkpoint(
+            self.cfg.OUTPUT_DIR, self.model_name, self.epoch + 1, self.trainable,
+            opt_state=self._opt_leaves() if hasattr(self, "optimizer") else None,
+            is_best=is_best,
+            meta={"trainer": self.cfg.TRAINER.NAME, "best_val": float(self._best_val)},
+        )
+        print(f"Checkpoint saved to {path}")
+        # an epoch-boundary checkpoint supersedes a preemption checkpoint of
+        # the segment that led to it (npz first: resume keys on it)
+        pre = os.path.join(self.cfg.OUTPUT_DIR, self.model_name, "model-preempt.pth.tar")
+        for p in (pre, pre + ".json"):
+            if os.path.exists(p):
+                os.remove(p)
+
+    def _latest_epoch(self, directory: str) -> int:
+        """Highest saved epoch under <directory>/<model_name> (0 if none)."""
+        eps = [0]
+        for path in glob.glob(os.path.join(directory, self.model_name, "model.pth.tar-*")):
+            m = re.search(r"model\.pth\.tar-(\d+)$", path)
+            if m:
+                eps.append(int(m.group(1)))
+        return max(eps)
+
+    def _resolve_checkpoint_epoch(self, directory: str) -> Optional[int]:
+        """None (= model-best.pth.tar) when a best checkpoint exists, else
+        the highest saved epoch."""
+        sub = os.path.join(directory, self.model_name)
+        if os.path.exists(os.path.join(sub, "model-best.pth.tar")):
+            return None
+        latest = self._latest_epoch(directory)
+        if latest == 0:
+            raise FileNotFoundError(
+                f"No checkpoints under {sub!r} (neither model-best.pth.tar "
+                "nor model.pth.tar-<epoch>) — check MODEL.INIT_WEIGHTS"
+            )
+        return latest
+
+    def load_model(self, directory: Optional[str], epoch: Optional[int] = None,
+                   tag: Optional[str] = None):
+        """Load learned prompt weights into the live trainable leaves (the
+        optimizer keeps them); class-dependent buffers stay as built
+        (``base.py:1000-1057``)."""
+        if not directory:
+            print("load_model() skipped: no pretrained model given")
+            return
+        loaded, _, meta = load_checkpoint(directory, self.model_name, epoch, tag=tag)
+        tree = restore_into(self.trainable, loaded)
+        with torch.no_grad():
+            for dst, src in zip(leaves(self.trainable), leaves(tree)):
+                if src is not dst:
+                    dst.copy_(src)
+        e = meta.get("epoch")
+        print(f"Loading weights for {self.model_name} from {directory} "
+              f"(epoch={int(e) if e is not None else -1})")
+
+    # -- abstract -------------------------------------------------------
+    def build_model(self):  # pragma: no cover
+        raise NotImplementedError
+
+
+def build_trainer(cfg, devices=None):
+    """The registered trainer ``cfg.TRAINER.NAME`` on ``devices`` (None:
+    the card)."""
+    import mudpt_torch.trainers.mudpt  # noqa: F401  (registration)
+
+    cls = TRAINER_REGISTRY.get(cfg.TRAINER.NAME)
+    return cls(cfg, devices=devices)

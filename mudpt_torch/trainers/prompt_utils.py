@@ -1,7 +1,8 @@
 """Shared prompt-learner machinery (counterpart of
-``mudpt_tpu/trainers/prompt_utils.py``): class-prompt embedding, the
-``'end'`` prompt layout, and torch-default initializers for the small
-learned modules.  Random draws take an explicit ``torch.Generator``.
+``mudpt_tpu/trainers/prompt_utils.py``): class-prompt embedding, context
+vectors from an init phrase, the ``'end'`` prompt layout, and
+torch-default initializers for the small learned modules.  Random draws
+take an explicit ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -62,6 +63,14 @@ def embed_classnames(
         token_suffix=embedding[:, 1 + n_ctx:],
         n_ctx=n_ctx,
     )
+
+
+def ctx_vectors_from_init(text_params: dict, ctx_init: str, n_ctx: int) -> torch.Tensor:
+    """fp32 context vectors from a phrase's token embeddings, positions
+    1..1+n_ctx (``prompt_utils.py:98-108``, reference mudpt.py:59-66)."""
+    tokens = tokenize(ctx_init.replace("_", " "))[0]
+    table = text_params["token_embedding"]
+    return table[torch.from_numpy(tokens[1:1 + n_ctx]).to(table.device).long()].float()
 
 
 def compose_prompts(ctx: torch.Tensor, prefix: torch.Tensor, suffix: torch.Tensor) -> torch.Tensor:

@@ -27,7 +27,7 @@ from types import SimpleNamespace
 import torch
 
 from mudpt_torch.models.clip import (TINY_TEST, VIT_B16, VIT_L14, VIT_L14_336,
-                                     cast_matmul_weights, init_clip_params)
+                                     cast_matmul_weights, init_clip_params, leaves)
 from mudpt_torch.models.layers import quantized
 from mudpt_torch.ops import quant_block
 from mudpt_torch.trainers.mudpt import mudpt_forward, mudpt_image_logits, mudpt_text_features
@@ -107,14 +107,6 @@ def _setup(model: str, batch: int, n_cls: int, n_ctx: int, depth: int, device, s
     ).to(torch.bfloat16)
     labels = torch.randint(0, n_cls, (batch,), generator=gen(3), device=dev)
     return cfg, params, aux, trainable, images, labels
-
-
-def leaves(tree: dict) -> list:
-    """The tensors of a nested dict, in key order."""
-    out = []
-    for v in tree.values():
-        out.extend(leaves(v) if isinstance(v, dict) else [v])
-    return out
 
 
 def nll_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

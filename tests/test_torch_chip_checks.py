@@ -19,11 +19,13 @@ for them.  The int8 kernels' limits (codes within
 one step, few of them differing) reject the attention output rounded to
 bf16 before the row quantizer, rounding half away from zero, and the LN1
 output quantized from bf16, and pass LayerNorm statistics summed in
-another order."""
+another order.  The engine's resume check rejects a loss or a leaf one ulp
+off, and the bench check a value 11% off its phase's images/s."""
 
 import importlib.util
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 import torch.nn.functional as tf
@@ -516,3 +518,66 @@ def test_check_equal_catches_s8_dequant_fma():
     assert (fused != ref).any()
     with pytest.raises(AssertionError):
         C.check_equal("s8 qkv, dequant contracted", fused, ref)
+
+
+def _run_leaves(seed):
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn(2, 512, generator=g), torch.randn(8, 2, 768, generator=g)]
+
+
+def test_check_resumed_catches_last_bit():
+    """[engine]'s resume check: a resumed loss or leaf one ulp off fails,
+    the same values pass."""
+    C = _chip_smoke()
+    losses = [2.772588729858398, 2.7514, 2.70153546333313]
+    leaves = _run_leaves(3)
+    C.check_resumed(losses, list(losses), leaves, [t.clone() for t in leaves])
+    off = list(losses)
+    off[1] = float(np.nextafter(np.float32(off[1]), np.float32(0)))
+    with pytest.raises(AssertionError, match="losses"):
+        C.check_resumed(losses, off, leaves, leaves)
+    with pytest.raises(AssertionError, match="losses"):
+        C.check_resumed(losses, losses[:2], leaves, leaves)
+    moved = [t.clone() for t in leaves]
+    moved[1][3, 1, 5] = torch.nextafter(moved[1][3, 1, 5], torch.tensor(0.0))
+    with pytest.raises(AssertionError, match="leaves"):
+        C.check_resumed(losses, losses, leaves, moved)
+
+
+@pytest.mark.parametrize("factor,ok", [(1.11, False), (0.89, False), (1.09, True),
+                                       (0.91, True)])
+def test_check_bench_holds_ten_percent(factor, ok):
+    """[bench]: a value 11% off [train]'s or [serving]'s fails, 9% passes."""
+    C = _chip_smoke()
+    if ok:
+        C.check_bench("train", 4578.0 * factor, 4578.0)
+    else:
+        with pytest.raises(AssertionError, match="limit 10%"):
+            C.check_bench("train", 4578.0 * factor, 4578.0)
+
+
+def test_parse_bench_line():
+    C = _chip_smoke()
+    line = ('{"metric": "MuDPT ViT-B/16 prompt-tuning train throughput", "value": 4500.0, '
+            '"unit": "images/sec/chip", "device": "NVIDIA H100 80GB HBM3", "card": "x"}')
+    assert C.parse_bench_line(line + "\n")["value"] == 4500.0
+    with pytest.raises(AssertionError, match="lines"):
+        C.parse_bench_line(line + "\n" + line)
+    with pytest.raises(AssertionError, match="lacks"):
+        C.parse_bench_line('{"metric": "m", "value": 1.0, "unit": "images/sec/chip"}')
+
+
+def test_chain_bound_counts_the_layer():
+    """The chain bound of the ViT-B/16 vision layer: its products at the
+    bf16 peak (forward, then with the dx-only backward), the int8 forward's
+    projections at the int8 peak, and a causal block's attended keys."""
+    C = _chip_smoke()
+    M, D, S = 384 * 199, 768, 199
+    fwd = 2 * M * 12 * D * D + 4 * M * S * D
+    assert C.chain_bound(384, S, D, False) == f"bound {fwd / 989e12 * 1e3:.4f} (operations)"
+    both = 2 * fwd + 4 * M * S * D  # the backward: four score-sized products
+    assert C.chain_bound(384, S, D, False, bwd=True) == f"bound {both / 989e12 * 1e3:.4f} (operations)"
+    q8 = 2 * M * 12 * D * D / 1979e12 + 4 * M * S * D / 989e12
+    assert C.chain_bound(384, S, D, False, int8=True) == f"bound {q8 * 1e3:.4f} (operations)"
+    causal = 2 * 1600 * 12 * 512 ** 2 + 4 * 1600 * 8.5 * 512
+    assert C.chain_bound(100, 16, 512, True) == f"bound {causal / 989e12 * 1e3:.4f} (operations)"
