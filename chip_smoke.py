@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Run the PyTorch/CUDA port's MuDPT serving paths and train steps on one
-GPU, ViT-B/16, ViT-L/14 and ViT-L/14@336px, its training engine and bench
-entry point, and its chunked MLP half-block.
+GPU, ViT-B/16, ViT-L/14 and ViT-L/14@336px, its training engine, CLI, trainer
+zoo and bench entry point, and its chunked MLP half-block.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --times-of ROOT   # only the kernel times of the
@@ -21,7 +21,8 @@ Phases, each printed with the card's name and power limit:
               to 1,024 rows (their tiles resident and streamed), every mask
               spec, attention_fwd's both output forms; then the whole layer
               against its plain version at D=768 and D=512, forward alone
-              and forward with backward.
+              and forward with backward, and forward alone at the zoo's
+              vision towers without a prompt (197 and 50 tokens).
   4. serving  build_synth_mudpt_server("ViT-B/16", 384, 100, 2, 9) on
               seeded random weights: encode the class text once, answer
               requests of 384 images, count kernel launches, check logits
@@ -43,11 +44,30 @@ Phases, each printed with the card's name and power limit:
   5b. bench   python -m mudpt_torch.bench in this process, --mode train and
               --mode eval at ViT-B/16, batch 384: one JSON line each, its
               value within 10% of the images/s of [train] and [serving].
+  5c. zoo     every registered trainer through the port's CLI
+              (mudpt_torch.train.main, in this process) on its own YAML,
+              the synthetic dataset cut as [engine]'s, one epoch: CoOp
+              (shared, and class-specific with the class token in the
+              middle), VPT, MPT, UMuDPT, UUMuDPT at ViT-B/16, CoCoOp at
+              ViT-B/32, ZeroshotCLIP and ZeroshotCLIP2.  For each that
+              trains: its first step's gradients against the plain route
+              (every leaf's finite and not zero), a traced step's launches
+              by route, the epoch's step ms at the YAML's batch and the
+              step at batch 64; for the zero-shot pair, text features and
+              logits against the plain route; for each, one evaluate's
+              launches (the class text once, cached, or a batch for CoCoOp)
+              and images/s.  Then cocoop_forward at 1,000 classes, 4
+              images: its text rows on the half-blocks with saves off at
+              D = 512, unchunked and in chunks of two (checkpointed), each
+              against the plain route, chunked against unchunked, launches
+              held (the recompute: one more text forward a chunk), peak
+              memory lower chunked.
   6. kernels ViT-L/14   the same at the ViT-L/14 shapes (vision 1024 wide,
               259 tokens, 16 heads; text 768 wide, 12 heads), the two
               recompute epilogues, attention at 8 blocks of 384 rows, and
               the four half-block chains, forward alone and forward with
-              backward, qkv and h saved and recomputed.
+              backward, qkv and h saved and recomputed, and the halves at
+              CoCoOp's packed text rows (D = 512, 8 heads), recomputed.
   7. serving ViT-L/14   as 4, for build_synth_mudpt_server("ViT-L/14", ...).
   8. train ViT-L/14     gradients against the plain path and an fp32 plain
               step at batch 32, twice: the vision MLP recomputing h, then
@@ -94,7 +114,9 @@ under "chunked" one call of the chunked MLP half's forward and backward at
 ViT-L/14 (LayerNorm twice, 40 products, LayerNorm dx once).  "launches"
 counts the main path's run ("main_path": the ViT-B/16 train step, or the
 int8 request), "launches_by_path" each path's ("engine_train_step": one
-train step of the engine).  Any failed
+train step of the engine; "zoo_<trainer>_step" one of each zoo trainer,
+"zoo_<trainer>_evaluate" the zero-shot pair's evaluate, "cocoop_scale_*"
+CoCoOp at 1,000 classes).  Any failed
 check raises, and the script exits non-zero without a result; so it does
 without CUDA, and outside a checkout of the repository.
 """
@@ -843,8 +865,13 @@ def phase_layer_chains(F, rn) -> None:
     # forward, then the saving forward with the backward (LayerFullblockFn).
     # The main path's row counts are multiples of the GEMM's 128-row tile;
     # the unpacked causal text rows (1,600) also reach its masked last tile
-    for D, B, S, H, causal in ((768, 384, 199, 12, False), (512, 13, 128, 8, (16, 16)),
-                               (512, 100, 16, 8, True)):
+    # the last two, forward alone: the zoo's vision towers without a prompt
+    # (ViT-B/16's 197 tokens, ViT-B/32's 50) at its batch of 64
+    for D, B, S, H, causal, train in ((768, 384, 199, 12, False, True),
+                                      (512, 13, 128, 8, (16, 16), True),
+                                      (512, 100, 16, 8, True, True),
+                                      (768, ZOO_BATCH, 197, 12, False, False),
+                                      (768, ZOO_BATCH, 50, 12, False, False)):
         x = rn(B, S, D)
         ps = layer_params(rn, D)
         # a one-ulp flip early in the chain moves later roundings: the
@@ -855,6 +882,8 @@ def phase_layer_chains(F, rn) -> None:
         plain = time_ms(lambda: F.layer_fullblock_plain(x, *ps, H, causal), 3)
         say("kernels", f"layer_fullblock D={D} B={B} S={S} mask={causal}: {reading} "
                        f"ms {ms:.4f} plain {plain:.4f} {chain_bound(B, S, D, causal)}")
+        if not train:
+            continue
 
         xg = x.detach().requires_grad_(True)
         gy = rn(B, S, D)
@@ -880,14 +909,19 @@ def phase_halfblock_chains(F) -> None:
     """The four half-block chains against their plain versions: each half's
     forward alone, then its forward with the backward, qkv or h saved and
     recomputed; at the ViT-L/14 vision shape and at the packed text rows of
-    2,560 classes, which train with saves off."""
+    2,560 classes, which train with saves off; and, recomputed only, at
+    CoCoOp's per-instance text rows (ViT-B/32's text tower, D = 512, 8
+    heads: B x 1,000 classes packed G to a row), which train with saves off."""
     import torch
 
     tag = SHAPES["ViT-L/14"]["tag"]
     rn = randn_fn(2)
-    for label, B, S, D, H, causal in (("vision", BATCH, 259, 1024, 16, False),
-                                      ("text packed", SAVES_OFF_N_CLS // 8, 128, 768, 12,
-                                       (16, 16))):
+    G, P = COCOOP_PACK
+    for label, B, S, D, H, causal, saves in (
+            ("vision", BATCH, 259, 1024, 16, False, (True, False)),
+            ("text packed", SAVES_OFF_N_CLS // 8, 128, 768, 12, (16, 16), (True, False)),
+            ("CoCoOp text packed", COCOOP_B * COCOOP_N_CLS // G, G * P, 512, 8, (P, P),
+             (False,))):
         x = rn(B, S, D)
         ps = layer_params(rn, D)
         halves = {"attn": (F.attn_halfblock, F.attn_halfblock_plain, ps[:6], (H, causal)),
@@ -903,7 +937,7 @@ def phase_halfblock_chains(F) -> None:
                      f"ms {ms:.4f} plain {plain:.4f} {chain_bound(B, S, D, causal, (half,))}")
             xg = x.detach().requires_grad_(True)
             gy = rn(B, S, D)
-            for save in (True, False):
+            for save in saves:
                 def step(plain_fns):
                     F.set_save_mlp_wide("1" if save else "0")
                     with F.saved_acts(save):
@@ -1560,14 +1594,39 @@ def grad_limit(cfg) -> float:
     return GRAD_NORM_ERR * math.sqrt(depth / GRAD_DEPTH)
 
 
+def leaf_names(tree: dict, prefix: str = "") -> list:
+    """The '/'-joined names of a tree's tensors, in ``leaves`` order."""
+    out = []
+    for k, v in tree.items():
+        out.extend(leaf_names(v, f"{prefix}{k}/") if isinstance(v, dict) else [prefix + k])
+    return out
+
+
+def check_leaf_grads(names, grads) -> None:
+    """Every trainable leaf gets a finite gradient that is not zero: a leaf
+    cut from the loss (a detached meta-net bias, a prompt head's LayerNorm
+    on a dx-only route) gets none, or zeros."""
+    import torch
+
+    for name, g in zip(names, grads):
+        if g is None or not bool((g != 0).any()):
+            raise AssertionError(f"gradient of {name}: none or all zero")
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"gradient of {name}: not finite")
+
+
 def grad_readings(F, st) -> dict:
     """One step's loss and gradients of the trainable leaves from the same
     starting state: the kernels (their launches recorded), the plain
     versions on the card and, to show how far bf16 alone moves them, the
-    plain versions in fp32 on the same values (TF32 off).  Returns the
-    loss's relative difference, the worst leaf's relative norm error, the
-    worst ratio of the kernels' and the plain path's distances to fp32,
-    and a line a leaf."""
+    plain versions in fp32 on the same values (TF32 off), through
+    ``st.forward32`` where given (a trainer's forward at fp32), else
+    ``mudpt_forward``.  Every leaf's gradient is held finite and not zero.
+    Returns the loss's relative difference, the worst leaf's relative norm
+    error, the worst ratio of the kernels' and the plain path's distances
+    to fp32, and a line a leaf."""
+    import functools
+
     import torch
 
     from mudpt_torch.models.layers import plain_blocks
@@ -1575,27 +1634,34 @@ def grad_readings(F, st) -> dict:
     from mudpt_torch.utils.synth_step import leaves, nll_loss
 
     tr = leaves(st.trainable)
-    names = [f"{k}/{kk}" if isinstance(v, dict) else k
-             for k, v in st.trainable.items() for kk in (v if isinstance(v, dict) else [None])]
+    names = leaf_names(st.trainable)
+    forward32 = getattr(st, "forward32", None) or functools.partial(
+        mudpt_forward, clip_cfg=st.clip_cfg, compute_dtype=torch.float32)
+
+    def grad(loss):
+        return torch.autograd.grad(loss, tr, allow_unused=True)
+
     F.reset_launches()
     loss = st.loss_fn(st.images, st.labels)
-    grads = torch.autograd.grad(loss, tr)
+    grads = grad(loss)
     launches = dict(F.LAUNCHES)
+    check_leaf_grads(names, grads)
     with plain_blocks():
         loss_ref = st.loss_fn(st.images, st.labels)
-        grads_ref = torch.autograd.grad(loss_ref, tr)
+        grads_ref = grad(loss_ref)
         params32 = to_float(st.params)
-        logits32 = mudpt_forward(st.trainable, params32, st.aux, st.images.float(),
-                                 clip_cfg=st.clip_cfg, compute_dtype=torch.float32)
-        grads32 = torch.autograd.grad(nll_loss(logits32, st.labels), tr)
+        logits32 = forward32(st.trainable, params32, st.aux, st.images.float())
+        grads32 = grad(nll_loss(logits32, st.labels))
         del params32, logits32
     torch.cuda.synchronize()
+    check_leaf_grads(names, grads_ref)
+    check_leaf_grads(names, grads32)
     loss, loss_ref = loss.item(), loss_ref.item()
     worst = worst_ratio = 0.0
     parts = []
     for name, gk, gp, g32 in zip(names, grads, grads_ref, grads32):
-        if not (torch.isfinite(gk).all() and gk.shape == gp.shape):
-            raise AssertionError(f"gradient of {name}: non-finite or misshapen")
+        if gk.shape != gp.shape:
+            raise AssertionError(f"gradient of {name}: misshapen")
         err = ((gk - gp).norm() / gp.norm()).item()
         k32, p32 = (((g - g32).norm() / g32.norm()).item() for g in (gk, gp))
         worst, worst_ratio = max(worst, err), max(worst_ratio, k32 / p32)
@@ -1606,17 +1672,18 @@ def grad_readings(F, st) -> dict:
 
 
 def grad_check(F, st, phase: str, label: str, want: dict,
-               loss_limit: float | None = LOSS_REL_ERR) -> None:
+               loss_limit: float | None = LOSS_REL_ERR, limits: tuple | None = None) -> None:
     """``grad_readings`` held: the kernels' launches to ``want``, the loss
     to ``loss_limit`` (None: printed, not held), the gradients to
     ``grad_limit`` and the ratio of distances to fp32 to
     ``GRAD_FP32_RATIO`` (ViT-L/14's where the vision tower is deeper than
-    12 layers)."""
+    12 layers), or to ``limits`` (gradient, ratio) where given."""
     r = grad_readings(F, st)
-    if r["launches"] != want:
-        raise AssertionError(f"{label}: launches {r['launches']} != {want}")
+    check_launches(label, r["launches"], want)
     limit = grad_limit(st.clip_cfg)
     ratio_limit = GRAD_FP32_RATIO_L14 if st.clip_cfg.vision_layers > GRAD_DEPTH else GRAD_FP32_RATIO
+    if limits is not None:
+        limit, ratio_limit = limits
     rel, worst, worst_ratio = r["rel"], r["worst"], r["worst_ratio"]
     held = "not held" if loss_limit is None else f"limit {loss_limit:.3g}"
     say(phase, f"{label} vs plain path on the card: loss {r['loss']:.6f} vs "
@@ -1961,6 +2028,8 @@ def phase_engine(F, root: Path) -> dict:
         alone_ms = [_synced_ms(lambda: step(b)) for _ in range(TIMED_STEPS)]
         say(phase, f"trainer step on one resident batch of {ENGINE_BATCH}, no loader "
                    f"running: median {statistics.median(alone_ms):.2f} ms")
+        ZOO_RESULTS["MuDPT (engine)"] = dict(batch=ENGINE_BATCH,
+                                             step64_ms=statistics.median(alone_ms))
         return counts
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -1984,6 +2053,359 @@ def phase_bench(F) -> None:
         say("bench", f"--mode {mode}: {json.dumps(rec)}")
         say("bench", f"--mode {mode} vs [{ref}]: "
                      + check_bench(mode, rec["value"], THROUGHPUT[ref]))
+
+
+# [zoo]: every registered trainer through the port's CLI
+# (mudpt_torch.train.main), each on its own YAML, the synthetic dataset cut
+# as [engine]'s (16 classes x 24 images at 224 px, one epoch), random
+# weights: (label, trainer, trainer YAML, more opts)
+ZOO_DATA = "configs/datasets/synthetic.yaml"
+ZOO_OPTS = ("DATASET.SYNTHETIC_NUM_CLASSES", "16", "DATASET.SYNTHETIC_PER_CLASS", "24",
+            "OPTIM.MAX_EPOCH", "1", "TRAIN.PRINT_FREQ", "1000")
+ZOO = (
+    ("CoOp", "CoOp", "configs/trainers/CoOp/vit_b16_ep50.yaml", ()),
+    ("CoOp_csc_middle", "CoOp", "configs/trainers/CoOp/vit_b16_c16_ep200.yaml",
+     ("TRAINER.COOP.CLASS_TOKEN_POSITION", "middle")),
+    ("VPT", "VPT", "configs/trainers/VPT/vit_b16_c2_ep5_batch4.yaml", ()),
+    ("MPT", "MPT", "configs/trainers/MPT/vit_b16_c2_ep5_batch4.yaml", ()),
+    ("UMuDPT", "UMuDPT", "configs/trainers/UMuDPT/vit_b16_bz4_ep5_nctx2_depth9.yaml", ()),
+    ("UUMuDPT", "UUMuDPT", "configs/trainers/UUMuDPT/vit_b16_bz4_ep10_nctx2_depth9.yaml", ()),
+    ("CoCoOp", "CoCoOp", "configs/trainers/CoCoOp/vit_b32_bz1_ep10_ctxv1.yaml", ()),
+    ("ZeroshotCLIP", "ZeroshotCLIP", "configs/trainers/vit_b16.yaml", ()),
+    ("ZeroshotCLIP2", "ZeroshotCLIP2", "configs/trainers/vit_b16.yaml", ()),
+)
+# the zoo's second step timing and its evaluate batch
+ZOO_BATCH = 64
+# each zoo trainer's step ms at its YAML's batch and at ZOO_BATCH and its
+# evaluate images/s, [engine]'s MuDPT step, CoCoOp at scale; printed by [zoo]
+ZOO_RESULTS = {}
+# a zoo trainer's first step at its YAML's batch (1 to 32 images, 16
+# classes) averages fewer samples than the checks above, and bf16 moves its
+# gradients further.  Where a trainer's own spread over eight seeds
+# (tools/torch_grad_noise.py --zoo, PERF.md) exceeds the default limits,
+# its check takes the spread's: (gradient relative norm error, ratio of
+# distances to fp32), each the mean + 4 sd, the first rounded up to a power
+# of two as GRAD_NORM_ERR is, the second to a tenth as GRAD_FP32_RATIO is;
+# the other trainers keep GRAD_NORM_ERR and GRAD_FP32_RATIO
+ZOO_GRAD_LIMITS = {"CoOp": (2.0 ** -3, 1.4), "MPT": (2.0 ** -3, 2.0),
+                   "UMuDPT": (2.0 ** -4, 1.5), "UUMuDPT": (2.0 ** -4, 1.4),
+                   "CoCoOp": (2.0 ** -2, 2.6)}
+# CoCoOp at scale: cocoop_forward over 1,000 classes at ViT-B/32, 4 images,
+# unchunked and in chunks of 2 instances; its text rows (G sequences of P
+# tokens packed to a row) are the half-block chains' case in
+# phase_halfblock_chains, and [zoo] holds the real ones to these
+COCOOP_B, COCOOP_N_CLS, COCOOP_CHUNK = 4, 1000, 2
+COCOOP_PACK = (8, 24)
+
+
+def zoo_step_launches(keys, cfg, text_trains: bool, vision_trains: bool) -> dict:
+    """A zoo train step's launches: the text tower's saving forward and
+    backward where text prompts train (none where its features are cached
+    at build), and the vision tower's, or its no-save forward where nothing
+    visual trains; the towers' LayerNorms likewise."""
+    parts = [(cfg.vision_layers, "full_train" if vision_trains else "full"),
+             (1, tower_lns(2, 2 if vision_trains else 0))]
+    if text_trains:
+        parts += [(cfg.transformer_layers, "full_train"), (1, tower_lns(1, 1))]
+    return expect(keys, *parts)
+
+
+def zoo_eval_launches(keys, cfg, n_batches: int, text_encodes: int,
+                      text_per_batch: bool) -> dict:
+    """An evaluate pass's launches: ``text_encodes`` class-text encodes (one
+    for the trainers with a text/image split, none where the features are
+    cached at build), a vision pass a batch, and with ``text_per_batch``
+    (CoCoOp) the text tower a batch too."""
+    per_batch = [(cfg.vision_layers, "full"), (1, tower_lns(2))]
+    text = [(cfg.transformer_layers, "full"), (1, tower_lns(1))]
+    if text_per_batch:
+        per_batch += text
+    return expect(keys, (n_batches, expect(keys, *per_batch)),
+                  (text_encodes, expect(keys, *text)))
+
+
+def cocoop_launches(keys, cfg, n_chunks: int) -> dict:
+    """Launches of one cocoop_forward and its backward at the scale case:
+    the vision tower's no-save forward, then a chunk at a time the text
+    tower's training forward and backward on the half-blocks with saves
+    off, and, chunked, the recompute torch.utils.checkpoint makes in the
+    backward: one more text forward a chunk."""
+    chunk = [(cfg.transformer_layers, "half_train_saves_off"), (1, tower_lns(1, 1))]
+    if n_chunks > 1:
+        chunk += [(cfg.transformer_layers, "half"), (1, tower_lns(1))]
+    return expect(keys, (cfg.vision_layers, "full"), (1, tower_lns(2)),
+                  (n_chunks, expect(keys, *chunk)))
+
+
+def check_launches(what: str, got: dict, want: dict) -> None:
+    if got != want:
+        diff = {k: (got.get(k), v) for k, v in want.items() if got.get(k) != v}
+        raise AssertionError(f"{what}: launches differ (got, expected): {diff}")
+
+
+def zoo_step_case(tr):
+    """(the trainer's first batch as ``grad_readings`` takes a step: its
+    loss, trees and fp32 forward; the device batch)."""
+    import copy
+    import functools
+    from types import SimpleNamespace
+
+    import torch
+
+    batch = tr._device_batch(next(iter(copy.copy(tr.dm.train_loader))))
+    st = SimpleNamespace(
+        trainable=tr.trainable, params=tr.frozen, aux=tr.aux, clip_cfg=tr.clip_cfg,
+        images=batch["image"], labels=batch["label"],
+        forward32=functools.partial(tr.forward, compute_dtype=torch.float32),
+        loss_fn=lambda images, labels: tr.loss_fn(
+            {"image": images, "label": labels, "valid": batch["valid"]})[0])
+    return st, batch
+
+
+def zoo_trainer(root: Path, trainer: str, yaml: str, more: tuple, out: str):
+    """The trainer as ``python -m mudpt_torch.train ... --no_train`` builds
+    it, in this process; the CLI's tee of stdout into the run's log is
+    undone after."""
+    from mudpt_torch import train as train_cli
+
+    argv = ["--trainer", trainer, "--trainer_config", str(root / yaml),
+            "--dataset_config", str(root / ZOO_DATA), "--output_dir", out,
+            "--backbone_path", "random", "--no_train", *ZOO_OPTS, *more]
+    streams = sys.stdout, sys.stderr
+    try:
+        return train_cli.main(train_cli.parse_args(argv))
+    finally:
+        sys.stdout, sys.stderr = streams
+
+
+def phase_zoo(F, root: Path) -> dict:
+    """Every registered trainer through the port's CLI, then CoCoOp at
+    1,000 classes unchunked and chunked.  Returns each path's launches."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from mudpt_torch.data.loader import DataLoader
+    from mudpt_torch.models.layers import plain_blocks
+    from mudpt_torch.trainers.zsclip import _encode_templates
+
+    phase = "zoo"
+    paths = {}
+    tmp = tempfile.mkdtemp(prefix="mudpt_zoo_")
+    try:
+        for label, trainer, yaml, more in ZOO:
+            t0 = time.perf_counter()
+            tr = zoo_trainer(root, trainer, yaml, more, f"{tmp}/{label}")
+            torch.cuda.synchronize()
+            cfg = tr.clip_cfg
+            bsz = tr.cfg.DATALOADER.TRAIN_X.BATCH_SIZE
+            n_leaves = len(leaf_names(tr.trainable)) if tr.trainable is not None else 0
+            say(phase, f"{label}: built {trainer} ({yaml}, {tr.cfg.MODEL.BACKBONE.NAME}, "
+                       f"{tr.num_classes} classes, {len(tr.dm.dataset.train_x)} training "
+                       f"images, batch {bsz}) through mudpt_torch.train in "
+                       f"{time.perf_counter() - t0:.2f} s; {n_leaves} trainable leaves")
+            loader = DataLoader(tr.dm.dataset.train_x, tr.dm.test_loader.transform, ZOO_BATCH,
+                                num_workers=tr.cfg.DATALOADER.NUM_WORKERS)
+            b64 = tr._device_batch(next(iter(loader)))
+            static = getattr(tr, "static_text", False)
+            split = getattr(tr, "forward_text", None) is not None
+            if tr.trainable is None:
+                # ---- zero-shot: text features and logits against the plain
+                # route on the card
+                templates = tr.template_list()
+                with torch.no_grad():
+                    logits = tr.forward(tr.trainable, tr.frozen, tr.aux, b64["image"])
+                    with plain_blocks():
+                        txt_ref = _encode_templates(tr.frozen, cfg, tr.classnames, templates,
+                                                    tr.compute_dtype, tr.device)
+                        logits_ref = tr.forward(tr.trainable, tr.frozen,
+                                                {"text_features": txt_ref}, b64["image"])
+                t_read = check_close(f"{label} text features", tr.aux["text_features"], txt_ref,
+                                     max_limit=TEXT_MAX_ERR, norm_limit=TEXT_NORM_ERR,
+                                     share_limit=None)
+                centred, centred_ref = (t - t.mean(-1, keepdim=True)
+                                        for t in (logits, logits_ref))
+                l_read = check_close(f"{label} logits, rows centred", centred, centred_ref,
+                                     max_limit=LOGITS_MAX_ERR, norm_limit=LOGITS_NORM_ERR,
+                                     share_limit=None)
+                say(phase, f"{label} vs plain route on the card ({len(templates)} templates): "
+                           f"text features {t_read}; logits of {ZOO_BATCH} images, rows "
+                           f"centred {l_read}")
+                step_ms = step64_ms = None
+            else:
+                # ---- the first step against the plain route, every leaf's
+                # gradient finite and not zero, the step's launches held
+                st, batch = zoo_step_case(tr)
+                per_step = zoo_step_launches(F.LAUNCHES, cfg, not static,
+                                             trainer not in ("CoOp", "CoCoOp"))
+                grad_check(F, st, phase, f"{label}: the first step, batch {bsz}, all "
+                                         f"{n_leaves} leaves' gradients finite and not zero",
+                           per_step, loss_limit=None, limits=ZOO_GRAD_LIMITS.get(label))
+                F.reset_launches()
+                traced(phase, lambda: tr._train_step(batch), device_time_by_kernel)
+                check_launches(f"{label} traced step", dict(F.LAUNCHES), per_step)
+                paths[f"zoo_{label}_step"] = dict(F.LAUNCHES)
+                say(phase, f"{label}: launches of a step "
+                           f"{ {k: v for k, v in per_step.items() if v} }")
+                # ---- one epoch at the YAML's batch, every step timed
+                times, step = [], tr._train_step
+
+                def timed_step(b, step=step, times=times):
+                    out = []
+                    times.append(_synced_ms(lambda: out.append(step(b))))
+                    return out[0]
+
+                tr._train_step = timed_step
+                t0 = time.perf_counter()
+                tr.train()
+                t_train = time.perf_counter() - t0
+                tr._train_step = step
+                losses = _train_losses(f"{tmp}/{label}")
+                if not all(math.isfinite(v) for v in losses):
+                    raise AssertionError(f"{label}: non-finite loss {losses}")
+                step_ms = statistics.median(times[1:])
+                for _ in range(WARMUP_STEPS):
+                    step(b64)
+                step64_ms = statistics.median(_synced_ms(lambda: step(b64))
+                                              for _ in range(TIMED_STEPS))
+                say(phase, f"{label}: one epoch of {len(times)} steps in {t_train:.2f} s "
+                           f"(loader, checkpoint and test in); step at batch {bsz} median "
+                           f"{step_ms:.2f} ms (first {times[0]:.2f} ms), at batch {ZOO_BATCH} "
+                           f"{step64_ms:.2f} ms; loss at the epoch's end {losses[-1]:.5f}")
+            # ---- evaluate over the training images at batch 64: the class
+            # text once where the forward splits, cached, or a batch (CoCoOp)
+            n_batches = len(loader)
+            F.reset_launches()
+            t0 = time.perf_counter()
+            results = tr.evaluate(loader, split="train images, eval transform")
+            t_eval = time.perf_counter() - t0
+            cocoop = trainer == "CoCoOp"
+            want = zoo_eval_launches(F.LAUNCHES, cfg, n_batches, int(split and not static),
+                                     cocoop)
+            check_launches(f"{label} evaluate", dict(F.LAUNCHES), want)
+            if results["total"] != len(tr.dm.dataset.train_x):
+                raise AssertionError(f"{label} evaluate scored {results['total']} images")
+            if tr.trainable is None:
+                paths[f"zoo_{label}_evaluate"] = dict(F.LAUNCHES)
+                tr.train()  # zero-shot: test()
+            ips = results["total"] / t_eval
+            text_note = "a batch" if cocoop else "once" if split and not static else "cached"
+            say(phase, f"{label}: evaluate over {results['total']} images ({n_batches} batches, "
+                       f"the class text {text_note}): {ips:.1f} images/s with the host "
+                       f"loader; accuracy {results['accuracy']:.2f}")
+            ZOO_RESULTS[label] = dict(batch=bsz, step_ms=step_ms, step64_ms=step64_ms,
+                                      eval_images_per_s=ips)
+            del tr, b64, loader
+            torch.cuda.empty_cache()
+        say(phase, "summary: " + json.dumps(ZOO_RESULTS))
+        paths.update(cocoop_at_scale(F))
+        return paths
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def cocoop_names(n: int) -> list:
+    """Synthetic class names of 3 to 12 words, whose prompts end within
+    24 tokens, as most of ImageNet's do."""
+    return [" ".join(["synthetic", "class", str(i)] + ["variant"] * (i % 10)) for i in range(n)]
+
+
+def cocoop_at_scale(F, device: str = "cuda") -> dict:
+    """cocoop_forward at 1,000 classes, 4 images, ViT-B/32 (seeded random
+    weights, CTX_INIT "a photo of a" as CoCoOp's YAML): its text rows take
+    the half-block route with saves off at D = 512.  Unchunked and chunked,
+    each against the plain route on the card, chunked against unchunked;
+    launches held, the step ms and peak memory of each, chunked lower."""
+    import contextlib
+
+    import torch
+
+    from mudpt_torch.models.clip import VIT_B32, cast_matmul_weights, init_clip_params, leaves
+    from mudpt_torch.models.layers import plain_blocks
+    from mudpt_torch.models.text import _auto_pack_g, _text_saves_off
+    from mudpt_torch.trainers.cocoop import cocoop_forward
+    from mudpt_torch.trainers.prompt_utils import (ctx_vectors_from_init, embed_classnames,
+                                                   init_linear)
+    from mudpt_torch.utils.rng import new_rng
+    from mudpt_torch.utils.synth_step import nll_loss
+
+    phase = "zoo"
+    cfg, dev = VIT_B32, torch.device(device)
+    g = new_rng(0, dev)
+    params = cast_matmul_weights(init_clip_params(cfg, g), torch.bfloat16)
+    aux = embed_classnames(params["text"], cocoop_names(COCOOP_N_CLS), 4,
+                           "a photo of a").as_device_tree()
+    trainable = {"ctx": ctx_vectors_from_init(params["text"], "a photo of a", 4),
+                 "meta_net": {"linear1": init_linear(g, cfg.embed_dim, cfg.embed_dim // 16),
+                              "linear2": init_linear(g, cfg.embed_dim // 16,
+                                                     cfg.transformer_width)}}
+    for t in leaves(trainable):
+        t.requires_grad_(True)
+    res = cfg.image_resolution
+    images = torch.randn(COCOOP_B, res, res, 3, generator=g, device=dev).to(torch.bfloat16)
+    labels = torch.randint(0, COCOOP_N_CLS, (COCOOP_B,), generator=g, device=dev)
+    S = aux["token_prefix"].shape[1] + 4 + aux["token_suffix"].shape[1]
+    P = -(-S // 8) * 8
+    G = _auto_pack_g(P, COCOOP_B * COCOOP_N_CLS)
+    if (G, P) != COCOOP_PACK or S != P or not _text_saves_off(COCOOP_B * COCOOP_N_CLS, P):
+        raise AssertionError(f"CoCoOp text rows: G {G}, P {P}, S {S}; the half-block chain "
+                             f"case was {COCOOP_PACK}, saves off")
+    names = leaf_names(trainable)
+
+    def run(chunk: int, plain: bool):
+        F.reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        with plain_blocks() if plain else contextlib.nullcontext():
+            logits = cocoop_forward(trainable, params, aux, images, clip_cfg=cfg,
+                                    compute_dtype=torch.bfloat16, encode_chunk=chunk)
+            grads = torch.autograd.grad(nll_loss(logits, labels), leaves(trainable),
+                                        allow_unused=True)
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        check_leaf_grads(names, grads)
+        return logits.detach(), grads, dict(F.LAUNCHES), peak
+
+    def compare(what, a, b):
+        (la, ga), (lb, gb) = a, b
+        centred = [t - t.mean(-1, keepdim=True) for t in (la, lb)]
+        reading = check_close(f"{what} logits, rows centred", *centred,
+                              max_limit=LOGITS_MAX_ERR, norm_limit=LOGITS_NORM_ERR,
+                              share_limit=None)
+        limit = grad_limit(cfg)
+        errs = [((x - y).norm() / y.norm()).item() for x, y in zip(ga, gb)]
+        if not max(errs) <= limit:
+            raise AssertionError(f"{what}: gradient relative norm errors {errs} over {limit}")
+        return f"logits {reading}; gradients " + ", ".join(
+            f"{n} {e:.3g}" for n, e in zip(names, errs)) + f" (limit {limit:.4g})"
+
+    out, runs = {}, {}
+    for chunk in (-1, COCOOP_CHUNK):
+        key = "unchunked" if chunk == -1 else f"chunks of {chunk}"
+        n_chunks = 1 if chunk == -1 else -(-COCOOP_B // chunk)
+        logits, grads, launches, peak = run(chunk, False)
+        check_launches(f"CoCoOp {key}", launches, cocoop_launches(F.LAUNCHES, cfg, n_chunks))
+        out[f"cocoop_scale_{'unchunked' if chunk == -1 else 'chunked'}"] = launches
+        ref = run(chunk, True)
+        reading = compare(f"CoCoOp {key} vs plain route", (logits, grads), ref[:2])
+        run(chunk, False)  # warm
+        ms = statistics.median(_synced_ms(lambda: run(chunk, False)) for _ in range(3))
+        runs[chunk] = (logits, grads, peak, ms)
+        say(phase, f"CoCoOp {COCOOP_B} images x {COCOOP_N_CLS} classes ({G} sequences of {P} "
+                   f"tokens a packed row, D = 512, saves off), {key}: forward + backward "
+                   f"{ms:.2f} ms, peak {peak:.3f} GiB over the inputs; launches "
+                   f"{ {k: v for k, v in launches.items() if v} }; vs plain route: {reading}")
+    (lu, gu, pu, mu), (lc, gcs, pc, mc) = runs[-1], runs[COCOOP_CHUNK]
+    reading = compare("CoCoOp chunked vs unchunked", (lc, gcs), (lu, gu))
+    if not pc < pu:
+        raise AssertionError(f"CoCoOp chunked peak {pc:.3f} GiB not below unchunked {pu:.3f}")
+    say(phase, f"CoCoOp chunked vs unchunked: {reading}; peak {pc:.3f} vs {pu:.3f} GiB, "
+               f"step {mc:.2f} vs {mu:.2f} ms")
+    ZOO_RESULTS["CoCoOp_scale"] = dict(unchunked_ms=mu, chunked_ms=mc, unchunked_peak_gib=pu,
+                                       chunked_peak_gib=pc)
+    return out
 
 
 AB_ITERS = 40  # launches a kernel time of --times-of averages
@@ -2104,6 +2526,7 @@ def main() -> int:
     paths["train_step"] = run("train", phase_train, F, "ViT-B/16")
     paths["engine_train_step"] = run("engine", phase_engine, F, root)
     run("bench", phase_bench, F)
+    paths.update(run("zoo", phase_zoo, F, root))
     run("kernels ViT-L/14", phase_kernels, F, kernels_l, "ViT-L/14")
     run("kernels ViT-L/14", phase_halfblock_chains, F)
     paths["serving_vit_l14"] = run("serving ViT-L/14", phase_serving, F, "ViT-L/14")

@@ -206,6 +206,23 @@ def encode_image(
     )
 
 
+def encode_text(
+    params: dict,
+    tokens: torch.Tensor,
+    cfg: CLIPConfig = VIT_B16,
+    *,
+    compute_dtype: torch.dtype = torch.float32,
+    deep_prompts: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Zero-shot text encoding from raw token ids (N, S) -> (N, embed_dim)
+    (``clip.py:347-368``); the EOT position is the token row's argmax."""
+    from mudpt_torch.models.text import embed_tokens, text_forward
+
+    x = embed_tokens(params["text"], tokens, compute_dtype)
+    return text_forward(params["text"], x, tokens.argmax(-1), n_head=cfg.transformer_heads,
+                        deep_prompts=deep_prompts)
+
+
 def cosine_logits(image_features, text_features, logit_scale) -> torch.Tensor:
     """L2-normalize both sides and scale by exp(logit_scale), in fp32."""
     img = image_features.float()

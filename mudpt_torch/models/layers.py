@@ -93,6 +93,27 @@ def _calib_record(x: torch.Tensor) -> None:
         _CALIB_SINK.append(x.float().abs().amax())
 
 
+def routes() -> tuple:
+    """The process-global routing state the blocks read at forward time:
+    (plain versions on the card, quant mode).  A recompute that runs after
+    its caller's contexts have closed (``torch.utils.checkpoint``) enters
+    :func:`routed` with this snapshot to take the forward's route."""
+    return _PLAIN_ON_CUDA, _QUANT_MODE
+
+
+@contextlib.contextmanager
+def routed(state: tuple):
+    """The routing state of :func:`routes` inside the context, the previous
+    one after it."""
+    global _PLAIN_ON_CUDA, _QUANT_MODE
+    prev = (_PLAIN_ON_CUDA, _QUANT_MODE)
+    _PLAIN_ON_CUDA, _QUANT_MODE = state
+    try:
+        yield
+    finally:
+        _PLAIN_ON_CUDA, _QUANT_MODE = prev
+
+
 @contextlib.contextmanager
 def plain_blocks():
     """Run every residual block and tower LayerNorm through the plain
@@ -148,6 +169,18 @@ def layer_norm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     if torch.is_grad_enabled() and x.requires_grad:
         return LayerNormFn.apply(x, p["scale"], p["bias"], eps)
     return fused_block.layer_norm_fwd(x, p["scale"], p["bias"], eps)
+
+
+def layer_norm_trainable(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """A LayerNorm whose scale and bias train: ``F.layer_norm`` on autograd
+    with the fp32 statistics and affine of ``layers.py:67-80``, cast back to
+    x's dtype, on any device (JAX runs it on XLA's autodiff).  Only the
+    trained prompt heads take it (:func:`residual_block_trainable`,
+    ``trainers/prompt_utils.prompt_transform_head``); a frozen tower's
+    LayerNorm is :func:`layer_norm`."""
+    y = torch.nn.functional.layer_norm(x.float(), x.shape[-1:], p["scale"].float(),
+                                       p["bias"].float(), eps)
+    return y.to(x.dtype)
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
@@ -272,3 +305,14 @@ def residual_block(p: dict, x: torch.Tensor, n_head: int,
     return fused_block.mlp_halfblock(
         x, ln_2["scale"], ln_2["bias"], mlp_p["fc_w"], mlp_p["fc_b"],
         mlp_p["proj_w"], mlp_p["proj_b"], plain=plain)
+
+
+def residual_block_trainable(p: dict, x: torch.Tensor, n_head: int,
+                             mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """A pre-LN residual block whose weights receive gradients
+    (``layers.py:288-300``): plain autograd ops on any device and dtype,
+    never the dx-only kernel chains, which raise when a weight requires
+    grad.  JAX runs this block on XLA's autodiff, not on Pallas.  Only the
+    UMuDPT/UUMuDPT prompt heads' LightTransformer takes it."""
+    x = x + attention(p["attn"], layer_norm_trainable(p["ln_1"], x), n_head, mask)
+    return x + mlp(p["mlp"], layer_norm_trainable(p["ln_2"], x))

@@ -10,6 +10,7 @@ position -> @ projection.  Two shape levers of the JAX package carry over:
     under the packed ``(period, valid)`` mask, so the projections run at
     G times the rows per launch while attention stays per sequence.
 
+A 4-D input (instances x classes, CoCoOp) runs as one batch of rows.
 The tower keeps the JAX package's save/recompute policy (:130-157, :222-230):
 from 512 x 80 row-tokens on it runs with saves off, so its layers go to the
 half-blocks, whose backward recomputes qkv and h instead of saving them.
@@ -59,6 +60,11 @@ def effective_text_length(max_eot: int, full_length: int) -> int:
     return min(full_length, L)
 
 
+def embed_tokens(p: dict, tokens: torch.Tensor, compute_dtype) -> torch.Tensor:
+    """Token embedding lookup: (N, S) int -> (N, S, width) (``text.py:170-172``)."""
+    return p["token_embedding"][tokens.long()].to(compute_dtype)
+
+
 def text_forward(
     p: dict,
     prompt_embeddings: torch.Tensor,
@@ -70,10 +76,21 @@ def text_forward(
 ) -> torch.Tensor:
     """Encode pre-embedded prompts (N, S, width) -> (N, embed_dim).
 
+    A 4-D input (B, N, S, width) is B instance-conditioned copies of the N
+    class rows (CoCoOp) -> (B, N, embed_dim): the B*N rows go through the
+    tower as one batch, so packing and the save/recompute rule see the true
+    row count (``text.py:225``, :274-287), and each copy reads its class's
+    EOT position (:295-299).
+
     ``pack``: rows per kernel row; None picks it as the JAX package's auto
     rule does, 1 runs the unpacked causal tower."""
-    N, S, D = prompt_embeddings.shape
-    x = prompt_embeddings + p["pos_embedding"][:S].to(prompt_embeddings.dtype)[None]
+    lead = prompt_embeddings.shape[:-2]
+    S, D = prompt_embeddings.shape[-2:]
+    x = prompt_embeddings + p["pos_embedding"][:S].to(prompt_embeddings.dtype)
+    x = x.reshape(-1, S, D)
+    N = x.shape[0]
+    if len(lead) == 2:
+        eot_idx = eot_idx.repeat(lead[0])
     n_ctx = deep_prompts.shape[-2] if deep_prompts is not None else 0
     if 1 + n_ctx > S:
         raise ValueError(
@@ -103,4 +120,5 @@ def text_forward(
         else:
             x = transformer_forward(p["blocks"], x, causal=True, **kw)
     pooled = layer_norm(p["ln_final"], x[torch.arange(N, device=x.device), eot_idx.long()])
-    return torch.matmul(pooled, p["projection"].to(pooled.dtype))
+    out = torch.matmul(pooled, p["projection"].to(pooled.dtype))
+    return out.reshape(*lead, out.shape[-1])

@@ -673,7 +673,7 @@ class TrainerBase:
 def build_trainer(cfg, devices=None):
     """The registered trainer ``cfg.TRAINER.NAME`` on ``devices`` (None:
     the card)."""
-    import mudpt_torch.trainers.mudpt  # noqa: F401  (registration)
+    import mudpt_torch.trainers  # noqa: F401  (registration of every trainer)
 
     cls = TRAINER_REGISTRY.get(cfg.TRAINER.NAME)
     return cls(cfg, devices=devices)

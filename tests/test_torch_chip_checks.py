@@ -20,7 +20,11 @@ one step, few of them differing) reject the attention output rounded to
 bf16 before the row quantizer, rounding half away from zero, and the LN1
 output quantized from bf16, and pass LayerNorm statistics summed in
 another order.  The engine's resume check rejects a loss or a leaf one ulp
-off, and the bench check a value 11% off its phase's images/s."""
+off, and the bench check a value 11% off its phase's images/s.  The zoo's
+leaf check (every trainable leaf's gradient finite and not zero) rejects a
+CoCoOp meta-net whose bias was detached and a prompt head whose LayerNorms
+ran the dx-only ``LayerNormFn``, and its launch check a chunked CoCoOp
+count without the checkpoint's recompute."""
 
 import importlib.util
 from pathlib import Path
@@ -581,3 +585,102 @@ def test_chain_bound_counts_the_layer():
     assert C.chain_bound(384, S, D, False, int8=True) == f"bound {q8 * 1e3:.4f} (operations)"
     causal = 2 * 1600 * 12 * 512 ** 2 + 4 * 1600 * 8.5 * 512
     assert C.chain_bound(100, 16, 512, True) == f"bound {causal / 989e12 * 1e3:.4f} (operations)"
+
+
+def _tiny_zoo():
+    """A tiny CLIP and its class buffers, on the CPU in fp32."""
+    from mudpt_torch.models.clip import CLIPConfig, init_clip_params
+    from mudpt_torch.trainers.prompt_utils import embed_classnames
+    from mudpt_torch.utils.rng import new_rng
+
+    cfg = CLIPConfig(embed_dim=64, image_resolution=32, vision_layers=2, vision_width=64,
+                     vision_patch_size=16, transformer_width=64, transformer_heads=2,
+                     transformer_layers=2)
+    g = new_rng(0)
+    params = init_clip_params(cfg, g)
+    aux = embed_classnames(params["text"], ["cat", "dog", "bird"], 2, "X X").as_device_tree()
+    images = torch.randn(2, 32, 32, 3, generator=g)
+    return cfg, g, params, aux, images
+
+
+def _leaf_grads(forward, trainable, params, aux, images, cfg):
+    from mudpt_torch.models.clip import leaves
+
+    for t in leaves(trainable):
+        t.requires_grad_(True)
+    logits = forward(trainable, params, aux, images, clip_cfg=cfg, compute_dtype=torch.float32)
+    loss = tf.cross_entropy(logits, torch.tensor([0, 2]))
+    return torch.autograd.grad(loss, leaves(trainable), allow_unused=True)
+
+
+def test_leaf_check_catches_detached_meta_net_bias(monkeypatch):
+    """A meta-net bias cut from the graph leaves both of its layers without
+    a gradient; the sound forward gives every leaf one."""
+    from mudpt_torch.models import layers
+    from mudpt_torch.trainers import cocoop
+    from mudpt_torch.trainers.prompt_utils import init_linear, random_ctx
+
+    C = _chip_smoke()
+    cfg, g, params, aux, images = _tiny_zoo()
+    trainable = {"ctx": random_ctx(g, (2, 64)),
+                 "meta_net": {"linear1": init_linear(g, 64, 4), "linear2": init_linear(g, 4, 64)}}
+    names = C.leaf_names(trainable)
+    C.check_leaf_grads(names, _leaf_grads(cocoop.cocoop_forward, trainable, params, aux,
+                                          images, cfg))
+
+    def detached_bias(p, x):
+        y = layers.linear(p, x)
+        return y.detach() if p is trainable["meta_net"]["linear2"] else y
+
+    monkeypatch.setattr(cocoop, "linear", detached_bias)
+    grads = _leaf_grads(cocoop.cocoop_forward, trainable, params, aux, images, cfg)
+    with pytest.raises(AssertionError, match="meta_net/linear1/w: none or all zero"):
+        C.check_leaf_grads(names, grads)
+
+
+def test_leaf_check_catches_head_on_dx_only_layernorm(monkeypatch):
+    """UMuDPT's t2v head with its LayerNorms on the towers' dx-only
+    ``LayerNormFn`` (scale and bias taken as constants, as that Function
+    needs): their leaves get no gradient."""
+    from mudpt_torch.models import layers
+    from mudpt_torch.trainers import prompt_utils, umudpt
+
+    C = _chip_smoke()
+    cfg, g, params, aux, images = _tiny_zoo()
+    trainable = {"ctx": prompt_utils.random_ctx(g, (2, 64)),
+                 "deep_prompts": prompt_utils.random_ctx(g, (1, 2, 64)),
+                 "t2v": prompt_utils.init_prompt_transform_head(g, 64, 64)}
+    names = C.leaf_names(trainable)
+    C.check_leaf_grads(names, _leaf_grads(umudpt.umudpt_forward, trainable, params, aux,
+                                          images, cfg))
+
+    def dx_only(p, x, eps=1e-5):
+        return layers.LayerNormFn.apply(x.contiguous(), p["scale"].detach(),
+                                        p["bias"].detach(), eps)
+
+    monkeypatch.setattr(prompt_utils, "layer_norm_trainable", dx_only)
+    monkeypatch.setattr(layers, "layer_norm_trainable", dx_only)
+    grads = _leaf_grads(umudpt.umudpt_forward, trainable, params, aux, images, cfg)
+    with pytest.raises(AssertionError, match="t2v/ln_pre/scale: none or all zero"):
+        C.check_leaf_grads(names, grads)
+
+
+def test_launch_check_catches_chunked_count_without_recompute():
+    """Chunked, each chunk's text forward runs twice (the checkpoint
+    recomputes it in the backward); a count without that forward fails."""
+    from mudpt_torch.models.clip import VIT_B32
+
+    C = _chip_smoke()
+    keys, cfg = F.LAUNCHES, VIT_B32
+    want = C.cocoop_launches(keys, cfg, 2)
+    without = C.expect(keys, (cfg.vision_layers, "full"), (1, C.tower_lns(2)),
+                       (2 * cfg.transformer_layers, "half_train_saves_off"),
+                       (2, C.tower_lns(1, 1)))
+    with pytest.raises(AssertionError, match="launches differ"):
+        C.check_launches("CoCoOp chunks of 2", without, want)
+    recompute = C.expect(keys, (2 * cfg.transformer_layers, "half"), (2, C.tower_lns(1)))
+    assert {k: want[k] - without[k] for k in keys} == recompute
+    assert C.cocoop_launches(keys, cfg, 1) == C.expect(
+        keys, (cfg.vision_layers, "full"), (1, C.tower_lns(2)),
+        (cfg.transformer_layers, "half_train_saves_off"), (1, C.tower_lns(1, 1)))
+    C.check_launches("CoCoOp chunks of 2", dict(want), want)

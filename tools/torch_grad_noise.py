@@ -4,6 +4,7 @@
     python3 tools/torch_grad_noise.py            # the depth and batch cases
     python3 tools/torch_grad_noise.py --ratio    # the fp32-ratio spread
     python3 tools/torch_grad_noise.py --ratio ViT-L/14   # of one model's checks
+    python3 tools/torch_grad_noise.py --zoo [CoCoOp ...]  # the [zoo] checks' spread
 
 For each case (model, batch, micro-batches, seed) it computes one step's
 gradients of the ten trainable leaves three ways from the same state: the
@@ -27,6 +28,16 @@ GRAD_FP32_RATIO for ViT-B/16).  Model names after ``--ratio`` keep only
 their cases.  Each case also names the leaf of its worst ratio with that
 leaf's two distances to fp32, and the smallest plain-vs-fp32 distance over
 the leaves.
+
+With ``--zoo`` it runs ``chip_smoke.py``'s ``[zoo]`` gradient check of
+each trainer that trains (the trainer built through the port's CLI from
+its YAML, its first batch) over eight seeds (``--seed``: the prompts'
+initialization and the batch; the backbone's random weights stay seed 0),
+and prints per trainer the spread of the worst ratio and of the worst
+kernels-vs-plain distance, each with its mean + 4 sd limit (the ratio's
+rounded up to a tenth, the distance's to a power of two): the source of
+``chip_smoke.ZOO_GRAD_LIMITS``.  Labels after
+``--zoo`` keep only their trainers.
 """
 
 import dataclasses
@@ -131,6 +142,45 @@ def ratio_spread(models: list) -> None:
               f"{limit:.1f}", flush=True)
 
 
+def zoo_spread(labels: list) -> None:
+    import shutil
+    import tempfile
+
+    import chip_smoke as C
+
+    root = Path(__file__).resolve().parent.parent
+    tmp = tempfile.mkdtemp(prefix="mudpt_grad_noise_")
+    try:
+        for label, trainer, yaml, more in C.ZOO:
+            if trainer.startswith("Zeroshot") or (labels and label not in labels):
+                continue
+            ratios, worsts = [], []
+            for seed in RATIO_SEEDS:
+                t0 = time.time()
+                tr = C.zoo_trainer(root, trainer, yaml, more + ("SEED", str(seed)),
+                                   f"{tmp}/{label}_{seed}")
+                st, _ = C.zoo_step_case(tr)
+                r = C.grad_readings(F, st)
+                ratios.append(r["worst_ratio"])
+                worsts.append(r["worst"])
+                print(f"{label} seed {seed}: worst ratio to fp32 {r['worst_ratio']:.4f}, worst "
+                      f"kernels vs plain {r['worst']:.4f}; " + ", ".join(r["parts"][:6])
+                      + f"; {time.time() - t0:.1f} s", flush=True)
+                del tr, st
+                torch.cuda.empty_cache()
+            for what, xs, rounded in (
+                    ("worst ratio to fp32", ratios,
+                     lambda v: f"rounded up to a tenth {math.ceil(v * 10) / 10:.1f}"),
+                    ("worst kernels vs plain", worsts,
+                     lambda v: f"rounded up to a power of two 2^{math.ceil(math.log2(v))}")):
+                mean, sd = statistics.mean(xs), statistics.stdev(xs)
+                print(f"{label}: {what} over {len(xs)} seeds: mean {mean:.4f}, sd {sd:.4f}, "
+                      f"largest {max(xs):.4f}; mean + 4 sd {mean + 4 * sd:.4f}, "
+                      f"{rounded(mean + 4 * sd)}", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("torch_grad_noise: CUDA is not available", file=sys.stderr)
@@ -142,6 +192,8 @@ def main() -> int:
     args = sys.argv[1:]
     if args[:1] == ["--ratio"]:
         ratio_spread(args[1:])
+    elif args[:1] == ["--zoo"]:
+        zoo_spread(args[1:])
     else:
         for case in CASES:
             run(*case)
