@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Run the PyTorch/CUDA port's MuDPT serving paths and train steps on one
 GPU, ViT-B/16, ViT-L/14 and ViT-L/14@336px, its training engine, CLI, trainer
-zoo and bench entry point, and its chunked MLP half-block.
+zoo, dataset pipelines and bench entry point, and its chunked MLP half-block.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --times-of ROOT   # only the kernel times of the
@@ -62,6 +62,23 @@ Phases, each printed with the card's name and power limit:
               against the plain route, chunked against unchunked, launches
               held (the recompute: one more text forward a chunk), peak
               memory lower chunked.
+  5d. datasets  MuDPT ViT-B/16 base-to-new on JPEGs: a Caltech101-layout
+              tree (100 classes + the reader's two ignored folders, 40
+              images a class at 300 x 240 px), 16 shots, through the CLI
+              on the MuDPT and Caltech101 YAMLs (one epoch, batch 64), under
+              DATALOADER.PIPELINE threads, grain and tfdata: the step's
+              median ms in the epoch loop, a traced step fed by the loader
+              (its launches held, the idle share), --eval_only on the new
+              classes (evaluate images/s), a run preempted after batch 3
+              and resumed bit-equal under grain and tfdata, grain's eval
+              batches bit-equal to threads'; then TRAIN.QUANT
+              int8_ste_static through the CLI (calibration seconds, the
+              first step's gradients against the plain route, the static
+              chain's launches a step, the loader's epoch kept) and
+              int8_static after --eval_only loads the checkpoint (the
+              recalibration; launches, logits against the plain route);
+              then python -m mudpt_torch.bench --input threads|grain|tfdata
+              at batch 384 (images/s, H2D MB/s beside [train]'s resident).
   6. kernels ViT-L/14   the same at the ViT-L/14 shapes (vision 1024 wide,
               259 tokens, 16 heads; text 768 wide, 12 heads), the two
               recompute epilogues, attention at 8 blocks of 384 rows, and
@@ -100,6 +117,9 @@ Phases, each printed with the card's name and power limit:
               forward and forward with backward, launches per call held, at
               ViT-L/14's vision MLP (K = 8 chunks), ViT-B/16's (K = 2) and
               D = 1280 (K = 10), timed beside mlp_halfblock at ViT-L/14.
+ 13. processes   the loaders' worker processes, their forkserver and
+              resource tracker stopped and waited for; any other process
+              the run started and left running is killed and fails it.
 
 The last three lines are one JSON object describing each kernel, the
 card's name and power limit, and {"ok": true, "device": {...}}.  Times in
@@ -116,7 +136,9 @@ counts the main path's run ("main_path": the ViT-B/16 train step, or the
 int8 request), "launches_by_path" each path's ("engine_train_step": one
 train step of the engine; "zoo_<trainer>_step" one of each zoo trainer,
 "zoo_<trainer>_evaluate" the zero-shot pair's evaluate, "cocoop_scale_*"
-CoCoOp at 1,000 classes).  Any failed
+CoCoOp at 1,000 classes, "datasets_<pipeline>_step" a loader-fed step,
+"datasets_int8_ste_static_step" and "datasets_int8_static_evaluate" the
+static tiers through the CLI).  Any failed
 check raises, and the script exits non-zero without a result; so it does
 without CUDA, and outside a checkout of the repository.
 """
@@ -125,6 +147,8 @@ from __future__ import annotations
 
 import json
 import math
+import os
+import signal
 import statistics
 import subprocess
 import sys
@@ -1376,9 +1400,10 @@ def phase_kernels_chunked(F, kc: dict) -> dict:
     return paths
 
 
-def traced(phase: str, fn, cats_of) -> None:
+def traced(phase: str, fn, cats_of):
     """Run ``fn`` once under the profiler and print where the device time
-    went: ``cats_of(prof)`` gives ({category: us}, {kernel: us}, {other: us})."""
+    went: ``cats_of(prof)`` gives ({category: us}, {kernel: us}, {other: us}).
+    Returns the device's idle share of the wall time (None: not measured)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1392,7 +1417,7 @@ def traced(phase: str, fn, cats_of) -> None:
     what = "request" if phase.startswith("serving") else "step"
     if busy <= 0:
         say(phase, f"traced {what}: the profiler recorded no device time (not measured)")
-        return
+        return None
     share = ", ".join(f"{k} {v / 1e3:.2f} ms ({v / busy:.1%})" for k, v in cats.items())
     say(phase, f"traced {what}: device busy {busy / 1e3:.2f} ms of {wall_us / 1e3:.2f} ms "
                f"wall ({1 - busy / wall_us:.1%} idle); {share}")
@@ -1401,6 +1426,7 @@ def traced(phase: str, fn, cats_of) -> None:
             f"{k} {v / 1e3:.3f} ms" for k, v in sorted(by_kernel.items(), key=lambda kv: -kv[1])))
     top = sorted(others.items(), key=lambda kv: -kv[1])[:8]
     say(phase, "largest other device time: " + "; ".join(f"{k} {v / 1e3:.3f} ms" for k, v in top))
+    return 1 - busy / wall_us
 
 
 def serving_time_by_kernel(prof) -> tuple:
@@ -1514,25 +1540,8 @@ def phase_serving(F, model: str, quant: str = "none") -> dict:
     # layers a one-ulp flip grows like any bf16 drift
     t_read = check_close("text features", txt, txt_ref, max_limit=TEXT_MAX_ERR,
                          norm_limit=TEXT_NORM_ERR, share_limit=None)
-    # random weights leave the logits of a row close together: the error is
-    # held against their spread around the row's mean, not their size
-    centred, centred_ref = (t - t.mean(-1, keepdim=True) for t in (logits, logits_ref))
-    l_read = check_close("logits, rows centred", centred, centred_ref, max_limit=LOGITS_MAX_ERR,
-                         norm_limit=LOGITS_NORM_ERR, share_limit=None)
-    drift = (logits - logits_ref).abs().max().item()
-    scale = logits_ref.abs().max().item()
-    top = logits_ref.topk(2, dim=-1).values
-    decisive = (top[:, 0] - top[:, 1]) > 2 * drift
-    agree = (logits.argmax(-1) == logits_ref.argmax(-1))
-    say(phase, f"vs plain path on the card: text features {t_read}; logits, rows centred "
-               f"{l_read}; logits max abs err {drift:.4g} of max {scale:.4g}; top-1 agreement "
-               f"{agree.float().mean().item():.4f}; {int(decisive.sum())} decisive rows, "
-               f"{int(agree[decisive].sum())} equal")
-    # and the bound of tests/test_precision_drift.py: 5% of the largest
-    # magnitude, every top-1 whose margin exceeds the drift equal, 75% agreement
-    if drift > 0.05 * scale or not agree[decisive].all() or agree.float().mean() < 0.75:
-        raise AssertionError(f"logits vs plain path: drift {drift} (scale {scale}), "
-                             f"agreement {agree.float().mean().item()}")
+    say(phase, f"vs plain path on the card: text features {t_read}; "
+               + hold_logits(logits, logits_ref))
     if quant != "none":
         # printed, not held: how often int8 serving picks the bf16 tier's class
         kw = dict(clip_cfg=cfg, compute_dtype=torch.bfloat16)
@@ -1543,6 +1552,29 @@ def phase_serving(F, model: str, quant: str = "none") -> dict:
         say(phase, f"top-1 agreement with the bf16 tier on the same weights: {same:.4f}; "
                    f"logits max abs difference {(logits - logits16).abs().max().item():.4g}")
     return counts
+
+
+def hold_logits(logits, logits_ref) -> str:
+    """Served logits against the plain path's on the card: rows centred
+    within ``LOGITS_MAX_ERR`` / ``LOGITS_NORM_ERR``, and the bound of
+    tests/test_precision_drift.py (drift within 5% of the largest magnitude,
+    every top-1 whose margin exceeds the drift equal, 75% agreement)."""
+    # random weights leave the logits of a row close together: the error is
+    # held against their spread around the row's mean, not their size
+    centred, centred_ref = (t - t.mean(-1, keepdim=True) for t in (logits, logits_ref))
+    l_read = check_close("logits, rows centred", centred, centred_ref, max_limit=LOGITS_MAX_ERR,
+                         norm_limit=LOGITS_NORM_ERR, share_limit=None)
+    drift = (logits - logits_ref).abs().max().item()
+    scale = logits_ref.abs().max().item()
+    top = logits_ref.topk(2, dim=-1).values
+    decisive = (top[:, 0] - top[:, 1]) > 2 * drift
+    agree = (logits.argmax(-1) == logits_ref.argmax(-1))
+    if drift > 0.05 * scale or not agree[decisive].all() or agree.float().mean() < 0.75:
+        raise AssertionError(f"logits vs plain path: drift {drift} (scale {scale}), "
+                             f"agreement {agree.float().mean().item()}")
+    return (f"logits, rows centred {l_read}; logits max abs err {drift:.4g} of max "
+            f"{scale:.4g}; top-1 agreement {agree.float().mean().item():.4f}; "
+            f"{int(decisive.sum())} decisive rows, {int(agree[decisive].sum())} equal")
 
 
 def to_float(tree):
@@ -2408,6 +2440,365 @@ def cocoop_at_scale(F, device: str = "cuda") -> dict:
     return out
 
 
+# [datasets]: MuDPT ViT-B/16 base-to-new on JPEGs: a Caltech101-layout tree
+# (the reader's 100 classes, its two ignored folders, 40 images a class of
+# 300 x 240 px: smooth images with noise), 16 shots, the MuDPT YAML and
+# the Caltech101 dataset YAML through the port's CLI, random weights; cut:
+# one epoch for five, training batches of 64 for 4, no test at the end of
+# training (the --eval_only run tests); the run preempted after batch 3
+DS_CLASSES, DS_PER_CLASS, DS_W, DS_H = 100, 40, 300, 240
+DS_TRAINER = "configs/trainers/MuDPT/vit_b16_bz4_ep5_nctx2_depth9.yaml"
+DS_DATA = "configs/datasets/caltech101.yaml"
+DS_BATCH, DS_PREEMPT_AFTER, DS_COMPARED = 64, 3, 2
+DS_OPTS = ("DATASET.NUM_SHOTS", "16", "OPTIM.MAX_EPOCH", "1",
+           "DATALOADER.TRAIN_X.BATCH_SIZE", str(DS_BATCH), "TRAIN.PRINT_FREQ", "1",
+           "TEST.NO_TEST", "True")
+PIPELINES = ("threads", "grain", "tfdata")
+# [datasets] (c): the bench fed by each loader, ViT-B/16 train at batch 384
+DS_BENCH = ("--mode", "train", "--model", "ViT-B/16", "--batch", str(BATCH), "--steps", "3",
+            "--warmup", "1", "--n-jpegs", str(BATCH))
+DS_RESULTS = {}
+
+
+def write_jpeg_tree(root: Path) -> int:
+    """The Caltech101 reader's layout under ``root``; returns the JPEG count."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    from PIL import Image
+
+    img_root = root / "caltech101" / "caltech-101" / "101_ObjectCategories"
+    folders = [(f"object_{k:03d}", k, DS_PER_CLASS) for k in range(DS_CLASSES)]
+    folders += [("BACKGROUND_Google", DS_CLASSES, 3), ("Faces_easy", DS_CLASSES + 1, 3)]
+    yy, xx = np.mgrid[0:DS_H, 0:DS_W].astype(np.float32)
+    ramp = np.stack([yy / DS_H, xx / DS_W, (yy + xx) / (DS_H + DS_W)], -1) * 160
+    noise = np.random.RandomState(0).normal(0, 16, (8, DS_H, DS_W, 3)).astype(np.float32)
+
+    def write(job):
+        name, k, n = job
+        (img_root / name).mkdir(parents=True, exist_ok=True)
+        tint = np.array([(37 * k) % 96, (91 * k) % 96, (53 * k) % 96], np.float32)
+        for i in range(n):
+            img = ramp[:, ::(-1) ** (k + i)] + tint + np.roll(noise[i % 8], 7 * i, axis=0)
+            Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(
+                img_root / name / f"image_{i:04d}.jpg", quality=90)
+        return n
+
+    with ThreadPoolExecutor(8) as pool:
+        return sum(pool.map(write, folders))
+
+
+def ds_cli(root: Path, tree: Path, out: str, *argv: str):
+    """``python -m mudpt_torch.train`` on the JPEG tree, in this process (the
+    CLI's tee of stdout into the run's log undone after)."""
+    from mudpt_torch import train as train_cli
+
+    args = ["--trainer", "MuDPT", "--trainer_config", str(root / DS_TRAINER),
+            "--dataset_config", str(root / DS_DATA), "--dataset_root", str(tree),
+            "--output_dir", out, "--backbone_path", "random", *argv]
+    streams = sys.stdout, sys.stderr
+    try:
+        return train_cli.main(train_cli.parse_args(args))
+    finally:
+        sys.stdout, sys.stderr = streams
+
+
+def timed_evaluate(fn):
+    """``fn()``'s result and the seconds and images of each
+    ``TrainerBase.evaluate`` it ran (synchronized)."""
+    import torch
+
+    from mudpt_torch.trainers.base import TrainerBase
+
+    runs, evaluate = [], TrainerBase.evaluate
+
+    def timed(self, loader, split="test"):
+        t0 = time.perf_counter()
+        results = evaluate(self, loader, split)
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t0, results["total"]))
+        return results
+
+    TrainerBase.evaluate = timed
+    try:
+        return fn(), runs
+    finally:
+        TrainerBase.evaluate = evaluate
+
+
+def check_batches_equal(what: str, batches, batches_ref) -> str:
+    """Host batches bit-equal, key by key."""
+    import numpy as np
+
+    n = 0
+    for a, b in zip(batches, batches_ref):
+        for k in ("image", "label", "valid"):
+            if a[k].shape != b[k].shape or not np.array_equal(a[k], b[k]):
+                raise AssertionError(f"{what}: batch {n} {k} differs")
+        n += 1
+    if n == 0:
+        raise AssertionError(f"{what}: no batch compared")
+    return f"{n} batches bit-equal"
+
+
+def check_epoch_kept(what: str, loader, epoch: int) -> None:
+    """The training loader's epoch where it was (a calibration's fetch must
+    not advance it: an exact resume replays epochs by number)."""
+    if loader._epoch != epoch:
+        raise AssertionError(f"{what}: the training loader's epoch moved {epoch} -> "
+                             f"{loader._epoch}")
+
+
+def ds_step_case(tr):
+    """``zoo_step_case`` with its fp32 reference forward unquantized (the
+    fp32 model, as ``[train*]``'s reference is)."""
+    import functools
+
+    import torch
+
+    from mudpt_torch.models import layers
+
+    st, batch = zoo_step_case(tr)
+    forward = functools.partial(tr.forward, compute_dtype=torch.float32)
+
+    def forward32(*args):
+        with layers.quantized("none"):
+            return forward(*args)
+
+    st.forward32 = forward32
+    return st, batch
+
+
+def phase_datasets(F, root: Path) -> dict:
+    """MuDPT ViT-B/16 base-to-new on JPEGs through the CLI under each
+    pipeline, the static int8 tiers through the CLI, and the bench fed by
+    each loader.  Returns each path's launches."""
+    import contextlib
+    import copy
+    import gc
+    import io
+    import itertools
+    import shutil
+    import tempfile
+
+    import torch
+
+    from mudpt_torch import bench
+    from mudpt_torch.models import layers
+    from mudpt_torch.models.clip import leaves
+    from mudpt_torch.models.layers import plain_blocks
+
+    phase = "datasets"
+    paths, eval_loaders = {}, {}
+    tmp = tempfile.mkdtemp(prefix="mudpt_datasets_")
+    try:
+        tree = Path(tmp) / "data"
+        t0 = time.perf_counter()
+        n_jpegs = write_jpeg_tree(tree)
+        say(phase, f"wrote {n_jpegs} JPEGs of {DS_W} x {DS_H} px in the Caltech101 layout "
+                   f"({DS_CLASSES} classes + 2 ignored folders) in "
+                   f"{time.perf_counter() - t0:.2f} s")
+        base = (*DS_OPTS, "DATASET.SUBSAMPLE_CLASSES", "base")
+        new = (*DS_OPTS, "DATASET.SUBSAMPLE_CLASSES", "new")
+        # ---- (a) base-to-new through the CLI under each pipeline
+        for pipe in PIPELINES:
+            out = f"{tmp}/{pipe}"
+            more = ("DATALOADER.PIPELINE", pipe)
+            t0 = time.perf_counter()
+            tr = ds_cli(root, tree, f"{out}/train", "--no_train", *base, *more)
+            cfg, loader = tr.clip_cfg, tr.dm.train_loader
+            say(phase, f"{pipe}: built MuDPT ViT-B/16 through mudpt_torch.train on "
+                       f"{len(tr.dm.dataset.train_x)} base training images of "
+                       f"{tr.num_classes} classes in {time.perf_counter() - t0:.2f} s; "
+                       f"{len(loader)} batches of {DS_BATCH}")
+            marks, step = [], tr._train_step
+
+            def marked(b, step=step, marks=marks):
+                marks.append(time.perf_counter())
+                return step(b)
+
+            tr._train_step = marked
+            t0 = time.perf_counter()
+            tr.train()
+            torch.cuda.synchronize()
+            t_train = time.perf_counter() - t0
+            tr._train_step = step
+            losses = _train_losses(f"{out}/train")
+            if len(losses) != len(loader) or not all(math.isfinite(v) for v in losses):
+                raise AssertionError(f"{pipe}: losses {losses}")
+            step_ms = statistics.median(1e3 * (b - a) for a, b in zip(marks, marks[1:]))
+            if pipe != "threads":
+                # ---- the same run preempted after batch 3, then resumed
+                part = ds_cli(root, tree, f"{out}/part", "--no_train", *base, *more)
+                pstep = part._train_step
+
+                def preempting(b, part=part, pstep=pstep):
+                    res = pstep(b)
+                    if part.global_step == DS_PREEMPT_AFTER - 1:
+                        part._preempt = True  # as the SIGTERM handler sets it
+                    return res
+
+                part._train_step = preempting
+                part.train()
+                del part
+                resumed = ds_cli(root, tree, f"{out}/part", "--no_train", *base, *more,
+                                 "RESUME", f"{out}/part")
+                resumed.train()
+                say(phase, f"{pipe}: preempted after batch {DS_PREEMPT_AFTER} and resumed: "
+                           + check_resumed(losses, _train_losses(f"{out}/part"),
+                                           leaves(tr.trainable), leaves(resumed.trainable)))
+                del resumed
+            # ---- a traced step fed by the loader: decode, copy and step
+            it = iter(copy.copy(loader))
+            F.reset_launches()
+            idle = traced(phase, lambda: tr._train_step(tr._device_batch(next(it))),
+                          device_time_by_kernel)
+            want = step_launches(F, cfg, "full_train", "full_train")
+            check_launches(f"{pipe} traced step", dict(F.LAUNCHES), want)
+            paths[f"datasets_{pipe}_step"] = dict(F.LAUNCHES)
+            del it, tr
+            # ---- the new classes, with the checkpoint (--eval_only)
+            ev, runs = timed_evaluate(lambda: ds_cli(
+                root, tree, f"{out}/eval", "--eval_only", "--model_dir", f"{out}/train",
+                "--load_epoch", "1", *new, *more))
+            (t_eval, n_eval), = runs
+            eval_loaders[pipe] = ev.dm.test_loader
+            DS_RESULTS[pipe] = dict(step_ms=step_ms, epoch_s=t_train, traced_idle=idle,
+                                    evaluate_images_per_s=n_eval / t_eval)
+            say(phase, f"{pipe}: one epoch of {len(losses)} steps in {t_train:.2f} s, step "
+                       f"{step_ms:.2f} ms median in the epoch loop (each loss fetched); "
+                       f"losses {losses[0]:.5f} .. {losses[-1]:.5f}; evaluate on "
+                       f"{ev.num_classes} new classes: {n_eval} images in {t_eval:.2f} s, "
+                       f"{n_eval / t_eval:.1f} images/s")
+            del ev
+            torch.cuda.empty_cache()
+        # grain and threads run the same EvalTransform on the new classes
+        say(phase, "grain vs threads eval batches: " + check_batches_equal(
+            "grain vs threads eval", itertools.islice(eval_loaders["grain"], DS_COMPARED),
+            itertools.islice(eval_loaders["threads"], DS_COMPARED)))
+
+        # ---- (b) the static int8 tiers through the CLI
+        qout = f"{tmp}/static"
+        stc = ds_cli(root, tree, f"{qout}/train", "--no_train", *base,
+                     "TRAIN.QUANT", "int8_ste_static")
+        cfg = stc.clip_cfg
+        check_epoch_kept("int8_ste_static build", stc.dm.train_loader, 0)
+        t0 = time.perf_counter()
+        stc._calibrate_static_quant()  # the build's work again, timed
+        torch.cuda.synchronize()
+        calib_s = time.perf_counter() - t0
+        check_epoch_kept("int8_ste_static calibration", stc.dm.train_loader, 0)
+        per_step = step_launches(F, cfg, "q8s_train", "q8s_train")
+        st, batch = ds_step_case(stc)
+        grad_check(F, st, phase, f"int8_ste_static: the trainer's first step, batch "
+                                 f"{DS_BATCH}", per_step, loss_limit=None)
+        F.reset_launches()
+        traced(phase, lambda: stc._train_step(batch), device_time_by_kernel)
+        check_launches("int8_ste_static traced step", dict(F.LAUNCHES), per_step)
+        paths["datasets_int8_ste_static_step"] = dict(F.LAUNCHES)
+        stc.train()
+        losses = _train_losses(f"{qout}/train")
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"int8_ste_static: losses {losses}")
+        del stc, st, batch
+        F.reset_launches()
+        ev, runs = timed_evaluate(lambda: ds_cli(
+            root, tree, f"{qout}/eval", "--eval_only", "--model_dir", f"{qout}/train",
+            "--load_epoch", "1", *new, "TRAIN.QUANT", "int8_static"))
+        (t_eval, n_eval), = runs
+        n_batches = len(ev.dm.test_loader)
+        want = expect(F.LAUNCHES, (cfg.transformer_layers, "q8s"), (1, tower_lns(1)),
+                      (n_batches * cfg.vision_layers, "q8s"), (n_batches, tower_lns(2)))
+        check_launches("int8_static evaluate", dict(F.LAUNCHES), want)
+        paths["datasets_int8_static_evaluate"] = dict(F.LAUNCHES)
+        check_epoch_kept("int8_static build and recalibration after load",
+                         ev.dm.train_loader, 0)
+        images = ev._device_batch(next(iter(ev.dm.test_loader)))["image"]
+        with torch.no_grad():
+            logits = ev.forward(ev.trainable, ev.frozen, ev.aux, images).float()
+            with plain_blocks():
+                logits_ref = ev.forward(ev.trainable, ev.frozen, ev.aux, images).float()
+        reading = hold_logits(logits[:, :ev.num_classes], logits_ref[:, :ev.num_classes])
+        DS_RESULTS["int8_static"] = dict(calibration_s=calib_s,
+                                         evaluate_images_per_s=n_eval / t_eval)
+        say(phase, f"int8_ste_static: one epoch, losses {losses[0]:.5f} .. {losses[-1]:.5f}; "
+                   f"calibration {calib_s:.3f} s; int8_static after --eval_only "
+                   f"(recalibrated on the loaded prompts): evaluate {n_eval} images, "
+                   f"{n_eval / t_eval:.1f} images/s, launches {n_batches} vision passes and "
+                   f"one text encode on the static chain; vs plain route on the card: {reading}")
+        del ev, images, logits, logits_ref
+        layers.set_quant_mode("none")
+        torch.cuda.empty_cache()
+
+        # ---- (c) the bench fed by each loader
+        for pipe in PIPELINES:
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                bench.main([*DS_BENCH, "--input", pipe])
+            rec = parse_bench_line(buf.getvalue())
+            if not (math.isfinite(rec["value"]) and rec["value"] > 0):
+                raise AssertionError(f"bench --input {pipe}: value {rec['value']}")
+            DS_RESULTS[f"bench_{pipe}"] = dict(images_per_s=rec["value"],
+                                               h2d_mb_per_sec=rec["h2d_mb_per_sec"])
+            say(phase, f"bench --input {pipe}: {rec['value']:.1f} images/s (resident "
+                       f"{THROUGHPUT['train']:.1f} in [train]), H2D "
+                       f"{rec['h2d_mb_per_sec']} MB/s; {json.dumps(rec)}")
+        say(phase, "summary: " + json.dumps(DS_RESULTS))
+        return paths
+    finally:
+        layers.set_quant_mode("none")  # the static trainers' builds set it
+        gc.collect()  # the phase's trainers (cycles) and their device memory
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def descendants(pid: int) -> list:
+    """The pids of the running processes descended from ``pid`` (/proc),
+    parents before their children."""
+    children = {}
+    for stat in Path("/proc").glob("[0-9]*/stat"):
+        try:
+            fields = stat.read_text().rsplit(")", 1)[1].split()
+        except (FileNotFoundError, ProcessLookupError):
+            continue  # exited meanwhile
+        if fields[0] != "Z":
+            children.setdefault(int(fields[1]), []).append(int(stat.parent.name))
+    out, todo = [], [pid]
+    while todo:
+        kids = children.get(todo.pop(), [])
+        out += kids
+        todo += kids
+    return out
+
+
+def check_no_process_left() -> str:
+    """Stop the loaders' worker processes, their forkserver and resource
+    tracker, waiting for each; then hold that no other process this one
+    started is still running.  One that is gets killed (and reaped, where
+    it is a child), then fails the run."""
+    import gc
+
+    from mudpt_torch.data.grain_pipeline import stop_workers
+
+    gc.collect()  # passes held open by cycles release their workers
+    stop_workers()
+    left = descendants(os.getpid())
+    if not left:
+        return "no process left running"
+    names = {}
+    for pid in left:
+        try:
+            names[pid] = Path(f"/proc/{pid}/cmdline").read_bytes().replace(b"\0", b" ").decode()
+            os.kill(pid, signal.SIGKILL)
+        except (FileNotFoundError, ProcessLookupError):
+            pass
+    for pid in left:
+        try:
+            os.waitpid(pid, 0)
+        except ChildProcessError:
+            pass  # not a child: its own parent reaps it
+    raise AssertionError(f"processes left running, killed: {names}")
+
+
 AB_ITERS = 40  # launches a kernel time of --times-of averages
 
 
@@ -2527,6 +2918,7 @@ def main() -> int:
     paths["engine_train_step"] = run("engine", phase_engine, F, root)
     run("bench", phase_bench, F)
     paths.update(run("zoo", phase_zoo, F, root))
+    paths.update(run("datasets", phase_datasets, F, root))
     run("kernels ViT-L/14", phase_kernels, F, kernels_l, "ViT-L/14")
     run("kernels ViT-L/14", phase_halfblock_chains, F)
     paths["serving_vit_l14"] = run("serving ViT-L/14", phase_serving, F, "ViT-L/14")
@@ -2543,6 +2935,7 @@ def main() -> int:
     for quant in ("int8_ste", "int8_ste_static"):
         paths[f"train_step_{quant}"] = run(f"train {quant}", phase_train, F, "ViT-B/16", quant)
     paths.update(run("kernels chunked", phase_kernels_chunked, F, kernels_c))
+    say("processes", check_no_process_left())
 
     def by_path(name: str) -> dict:
         return {path: counts[name] for path, counts in paths.items()}

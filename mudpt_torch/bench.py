@@ -1,15 +1,23 @@
 """Benchmark of the port: MuDPT prompt-tuning train throughput or cached-text
 serving throughput (images/s) on one device, one JSON line
-(counterpart of ``bench.py``, its resident input only).
+(counterpart of ``bench.py``).
 
     python -m mudpt_torch.bench [--mode train|eval] [--model ViT-B/16]
         [--batch 384] [--n-cls 100] [--n-ctx 2] [--depth 9] [--steps 20]
         [--warmup 3] [--quant none|int8|int8_static|int8_ste|int8_ste_static]
+        [--input resident|threads|tfdata|grain] [--n-jpegs 2048]
         [--device cuda|cpu]
 
-It drives ``utils/synth_step.build_synth_mudpt_step`` (``--mode train``: one
-device-resident batch, random weights from seed 0, each step's loss
-fetched to the host) or
+It drives ``utils/synth_step.build_synth_mudpt_step`` (``--mode train``:
+random weights from seed 0; ``--input resident`` trains on one
+device-resident batch, each step's loss fetched to the host; ``threads``,
+``tfdata`` or ``grain`` decode a JPEG set of ``--n-jpegs`` seed-0 noise
+images at 256 px, written once under the temporary directory, through that
+loader's training transforms, and copy each batch from pinned host memory to
+the device while the step before it runs, the last step's loss fetched; the
+line then adds ``h2d_mb_per_sec``, the rate of full-batch copies from pinned
+memory alone; the loader decodes with ``MUDPT_BENCH_WORKERS`` threads or
+processes, 16 by default, as ``bench.py:190-246``, ``:449-480``) or
 ``build_synth_mudpt_server`` (``--mode eval``: the class text encoded once,
 then one vision pass per batch, its predictions fetched to the host, against
 re-encoding the text every batch).
@@ -29,11 +37,19 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import subprocess
+import tempfile
 import time
 
+import numpy as np
 import torch
 
+from mudpt_torch.data.datum import Datum
+from mudpt_torch.data.grain_pipeline import GrainLoader
+from mudpt_torch.data.loader import DataLoader
+from mudpt_torch.data.tfdata import TFDataLoader
+from mudpt_torch.data.transforms import TrainTransform
 from mudpt_torch.models.layers import QUANT_MODES
 from mudpt_torch.models.text import _text_saves_off
 from mudpt_torch.ops import fused_block
@@ -41,6 +57,7 @@ from mudpt_torch.utils.device import resolve_device
 from mudpt_torch.utils.synth_step import (MODELS, build_synth_mudpt_server,
                                           build_synth_mudpt_step)
 
+INPUTS = ("resident", "threads", "tfdata", "grain")
 # H100 SXM published dense peaks (NVIDIA data sheet, at the 700 W limit)
 PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
@@ -58,10 +75,16 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--warmup", type=int, default=3)
     ap.add_argument("--quant", choices=QUANT_MODES, default="none")
+    ap.add_argument("--input", choices=INPUTS, default="resident",
+                    help="resident: one device-resident batch every step; threads, tfdata "
+                    "or grain: decode a synthetic JPEG set through that input pipeline")
+    ap.add_argument("--n-jpegs", type=int, default=2048)
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu (the kernels' plain versions)")
     args = ap.parse_args(argv)
-    # bench.py:141-147
+    # bench.py:139-155
+    if args.mode == "eval" and args.input != "resident":
+        ap.error("--mode eval supports --input resident only")
     if args.quant in ("int8", "int8_static") and args.mode != "eval":
         ap.error(f"--quant {args.quant} is inference-only; use with --mode eval (the "
                  "quantized blocks have no backward); for training, --quant int8_ste is "
@@ -71,6 +94,10 @@ def parse_args(argv=None) -> argparse.Namespace:
                  "int8 (identical forward, no save writes)")
     if args.steps < 1:
         ap.error("--steps must be at least 1")
+    if args.input != "resident" and args.batch > args.n_jpegs:
+        # a tfdata epoch would hold no batch, and the others a padded one
+        ap.error(f"--input {args.input}: --batch {args.batch} exceeds the synthetic set "
+                 f"(--n-jpegs {args.n_jpegs}) — raise --n-jpegs")
     return args
 
 
@@ -113,25 +140,112 @@ def train_flops(cfg, batch: int, n_cls: int, n_ctx: int, text_seq: int) -> tuple
     return model, model + recompute
 
 
+def synth_jpegs(n: int, n_cls: int, side: int = 256) -> list:
+    """``n`` seed-0 noise JPEGs (quality 85), written once under the
+    temporary directory and reused: noise decodes at the worst cost, through
+    the whole decode, crop, flip and normalize path (``bench.py:190-218``)."""
+    from PIL import Image
+
+    root = os.path.join(tempfile.gettempdir(), f"mudpt_bench_jpegs_{n}x{side}")
+    marker = os.path.join(root, ".complete")
+    if not os.path.exists(marker):
+        os.makedirs(root, exist_ok=True)
+        rng = np.random.RandomState(0)
+        for i in range(n):
+            arr = rng.randint(0, 256, (side, side, 3), np.uint8)
+            Image.fromarray(arr).save(os.path.join(root, f"{i}.jpg"), quality=85)
+        with open(marker, "w") as f:
+            f.write("ok")
+    return [Datum(impath=os.path.join(root, f"{i}.jpg"), label=i % n_cls,
+                  classname=f"object number {i % n_cls}") for i in range(n)]
+
+
+def build_pipeline_loader(pipeline: str, items, batch: int, size: int, *,
+                          workers: int = 16, seed: int = 0):
+    """The named input pipeline over ``items``, shuffled, training
+    transforms, whole batches (``bench.py:221-246``)."""
+    if pipeline == "tfdata":
+        return TFDataLoader(items, batch, size=size, is_train=True, shuffle=True,
+                            drop_last=True, seed=seed, num_workers=workers)
+    tf = TrainTransform(size=size)
+    if pipeline == "grain":
+        return GrainLoader(items, tf, batch, shuffle=True, drop_last=True, seed=seed)
+    return DataLoader(items, tf, batch, shuffle=True, drop_last=True, num_workers=workers)
+
+
+def _loader_batches(args, size: int, dev: torch.device):
+    """(images, labels) on the device from the input pipeline, endlessly,
+    each batch cast to bf16 on the host and copied from pinned memory on
+    torch's current stream; and the H2D rate of a full batch (None off the
+    card)."""
+    loader = build_pipeline_loader(args.input, synth_jpegs(args.n_jpegs, args.n_cls),
+                                   args.batch, size,
+                                   workers=int(os.environ.get("MUDPT_BENCH_WORKERS", "16")))
+
+    def host(b) -> tuple:
+        images = torch.from_numpy(b["image"]).to(torch.bfloat16)
+        labels = torch.from_numpy(b["label"]).long()
+        if dev.type == "cuda":
+            images, labels = images.pin_memory(), labels.pin_memory()
+        return images, labels
+
+    def batches():
+        while True:
+            for b in loader:
+                images, labels = host(b)
+                yield (images.to(dev, non_blocking=True), labels.to(dev, non_blocking=True))
+
+    h2d_mb_s = None
+    if dev.type == "cuda":
+        sample = host(next(iter(loader)))[0]
+        reps = 3
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            sample.to(dev, non_blocking=True)
+            torch.cuda.synchronize(dev)
+        h2d_mb_s = sample.numel() * sample.element_size() * reps / (time.perf_counter() - t0) / 1e6
+    return batches(), h2d_mb_s
+
+
 def run_train(args, dev: torch.device) -> dict:
     st = build_synth_mudpt_step(args.model, args.batch, args.n_cls, args.n_ctx, args.depth,
                                 device=dev, seed=0, quant=args.quant)
-    for _ in range(args.warmup):
-        float(st.train_step(st.images, st.labels))
-    t0 = time.perf_counter()
-    # each step's loss fetched to the host before the next, as a training
-    # loop that logs every step
-    losses = [float(st.train_step(st.images, st.labels)) for _ in range(args.steps)]
-    dt = time.perf_counter() - t0
+    h2d_mb_s = None
+    if args.input == "resident":
+        for _ in range(args.warmup):
+            float(st.train_step(st.images, st.labels))
+        t0 = time.perf_counter()
+        # each step's loss fetched to the host before the next, as a training
+        # loop that logs every step
+        losses = [float(st.train_step(st.images, st.labels)) for _ in range(args.steps)]
+        dt = time.perf_counter() - t0
+    else:
+        it, h2d_mb_s = _loader_batches(args, st.clip_cfg.image_resolution, dev)
+        for _ in range(args.warmup):
+            loss = st.train_step(*next(it))
+        float(loss)
+        # prefetch-1: the next batch decodes and starts its copy while this
+        # step's kernels run (as trainers/base._device_prefetch)
+        t0 = time.perf_counter()
+        nxt = next(it)
+        losses = []
+        for i in range(args.steps):
+            losses.append(st.train_step(*nxt))
+            if i + 1 < args.steps:
+                nxt = next(it)
+        losses = [float(v) for v in losses]
+        dt = time.perf_counter() - t0
     final_loss = losses[-1]
     if not all(map(math.isfinite, losses)):
         raise FloatingPointError(f"non-finite loss in the benchmark: {losses}")
     text_seq = int(st.aux["token_suffix"].shape[1]) + 1 + args.n_ctx
     model, executed = train_flops(st.clip_cfg, args.batch, args.n_cls, args.n_ctx, text_seq)
     qlabel = {"int8_ste": "int8-ste", "int8_ste_static": "int8-ste-static"}.get(args.quant, "bf16")
+    source = "" if args.input == "resident" else f", input {args.input}"
     return {
         "metric": (f"MuDPT {args.model} prompt-tuning train throughput ({qlabel}, batch "
-                   f"{args.batch}, n_cls {args.n_cls}, depth {args.depth})"),
+                   f"{args.batch}, n_cls {args.n_cls}, depth {args.depth}{source})"),
         "value": round(args.batch * args.steps / dt, 2),
         "unit": "images/sec/chip",
         "step_ms": round(dt / args.steps * 1e3, 3),
@@ -140,6 +254,9 @@ def run_train(args, dev: torch.device) -> dict:
                           model_mfu=(model * args.steps / dt / PEAK_BF16_FLOPS, 3),
                           exec_tflops_per_sec=(executed * args.steps / dt / 1e12, 2),
                           hw_utilization=(executed * args.steps / dt / PEAK_BF16_FLOPS, 3)),
+        **({} if args.input == "resident" else
+           {"input": args.input,
+            "h2d_mb_per_sec": None if h2d_mb_s is None else round(h2d_mb_s, 1)}),
     }
 
 

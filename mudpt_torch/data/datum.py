@@ -13,7 +13,8 @@ reference datasets/oxford_pets.py:7,37-57,107-153) with identical semantics:
   * per-(shots, seed) pickle caches under ``split_fewshot/`` and a
     whole-split ``preprocessed.pkl`` cache; reference-produced caches
     pickle dassl-classed ``Datum`` objects, which ``read_split_cache``
-    loads WITHOUT dassl installed via a custom Unpickler;
+    loads WITHOUT dassl installed via a custom Unpickler, as it loads
+    ``mudpt_tpu``-written caches without importing ``mudpt_tpu``;
   * ``subsample_classes``: sort labels, base = first ceil(n/2), new = rest,
     relabel from 0 (oxford_pets.py:107-153).
 """
@@ -55,18 +56,17 @@ class _ForeignDatum:
 
 
 class _CacheUnpickler(pickle.Unpickler):
-    """``pickle.Unpickler`` that loads reference split caches on hosts
-    WITHOUT dassl importable: any ``Datum`` class whose module cannot be
-    resolved maps to :class:`_ForeignDatum` (then normalized by
-    ``_revive``).  Everything else resolves normally."""
+    """``pickle.Unpickler`` that loads split caches written by other
+    packages: a ``Datum`` class of any module but this one (Dassl's, in
+    reference-produced caches, or ``mudpt_tpu``'s, whose readers share
+    ``DATASET.ROOT`` with the port's) maps to :class:`_ForeignDatum`
+    without importing that module, and ``_revive`` then normalizes it.
+    Everything else resolves normally."""
 
     def find_class(self, module, name):
-        try:
-            return super().find_class(module, name)
-        except (ModuleNotFoundError, ImportError, AttributeError):
-            if name == "Datum":
-                return _ForeignDatum
-            raise
+        if name == "Datum" and module != __name__:
+            return _ForeignDatum
+        return super().find_class(module, name)
 
 
 def read_split_cache(path: str):

@@ -3,15 +3,20 @@
 
 The Dassl equivalent is constructed inside every trainer's ``__init__``
 (reference call stack SURVEY.md §3.1): DATASET_REGISTRY lookup -> few-shot
-pipeline -> loaders with train/test transforms.  The port has the threaded
-loader (``DATALOADER.PIPELINE threads``); the grain and tf.data pipelines
-and the multi-host input split (``DATALOADER.HOST_SHARD``, which a single
-process never engages) wait (ROADMAP.md A, 'the dataset readers').
+pipeline -> loaders with train/test transforms.  ``DATALOADER.PIPELINE``
+selects the threaded PIL loader (``threads``), the grain pipeline's
+counterpart (``grain``) or tf.data's (``tfdata``), as ``manager.py:97-158``
+does: any other value runs the threaded loader there, and here.
+``DATALOADER.HOST_SHARD`` is parsed and validated as there; a single
+process never shards, so the multi-host split waits with the mesh
+(ROADMAP.md A, 'the mesh').
 """
 
 from __future__ import annotations
 
+from mudpt_torch.data.grain_pipeline import GrainLoader
 from mudpt_torch.data.loader import DataLoader
+from mudpt_torch.data.tfdata import TFDataLoader
 from mudpt_torch.data.transforms import build_transform
 from mudpt_torch.utils.registry import DATASET_REGISTRY
 
@@ -38,40 +43,66 @@ def _train_shuffle(cfg) -> bool:
     return canon[key]
 
 
+def _host_shard_mode(v) -> str:
+    """Normalize DATALOADER.HOST_SHARD to auto|on|off (accepts booleans and
+    their string spellings for reference-YAML compatibility;
+    ``manager.py:39-51``)."""
+    if isinstance(v, bool):
+        return "on" if v else "off"
+    s = str(v).strip().lower()
+    if s in ("true", "1", "yes", "on"):
+        return "on"
+    if s in ("false", "0", "no", "off", ""):
+        return "off"
+    if s == "auto":
+        return "auto"
+    raise ValueError(f"DATALOADER.HOST_SHARD={v!r}: expected auto|on|off")
+
+
 class DataManager:
     def __init__(self, cfg, dataset=None):
         self.cfg = cfg
-        if cfg.DATALOADER.PIPELINE != "threads":
-            raise NotImplementedError(
-                f"DATALOADER.PIPELINE={cfg.DATALOADER.PIPELINE!r}: the port has the "
-                "threaded loader only; grain and tf.data wait (ROADMAP.md A, 'the "
-                "dataset readers')"
-            )
         if dataset is None:
             _import_datasets()
             dataset_cls = DATASET_REGISTRY.get(cfg.DATASET.NAME)
             dataset = dataset_cls.build(cfg)
         self.dataset = dataset
-        train_tf = build_transform(cfg, is_train=True)
-        test_tf = build_transform(cfg, is_train=False)
-        self.train_loader = DataLoader(
-            dataset.train_x,
-            train_tf,
-            cfg.DATALOADER.TRAIN_X.BATCH_SIZE,
-            shuffle=_train_shuffle(cfg),
-            drop_last=True,
-            num_workers=cfg.DATALOADER.NUM_WORKERS,
-            seed=cfg.SEED,
-        )
+        # one process: nothing to split, whatever the mode
+        self._shard_mode = _host_shard_mode(cfg.DATALOADER.HOST_SHARD)
+        self.host_sharded = self.eval_host_sharded = False
+        pipeline = cfg.DATALOADER.PIPELINE
+        train_bs, test_bs = cfg.DATALOADER.TRAIN_X.BATCH_SIZE, cfg.DATALOADER.TEST.BATCH_SIZE
 
-        def eval_loader(items):
-            if not items:
-                return None
-            return DataLoader(items, test_tf, cfg.DATALOADER.TEST.BATCH_SIZE,
-                              num_workers=cfg.DATALOADER.NUM_WORKERS)
+        if pipeline == "grain":
+            train_tf = build_transform(cfg, is_train=True)
+            test_tf = build_transform(cfg, is_train=False)
+            self.train_loader = GrainLoader(
+                dataset.train_x, train_tf, train_bs,
+                shuffle=_train_shuffle(cfg), drop_last=True, seed=cfg.SEED,
+            )
+            mk_eval = lambda items: GrainLoader(items, test_tf, test_bs)  # noqa: E731
+        elif pipeline == "tfdata":
+            mk_tf = lambda items, bs, train: TFDataLoader(  # noqa: E731
+                items, bs, size=cfg.INPUT.SIZE[0], is_train=train,
+                shuffle=train and _train_shuffle(cfg), drop_last=train, seed=cfg.SEED,
+                mean=cfg.INPUT.PIXEL_MEAN, std=cfg.INPUT.PIXEL_STD,
+                num_workers=cfg.DATALOADER.NUM_WORKERS,
+            )
+            self.train_loader = mk_tf(dataset.train_x, train_bs, True)
+            mk_eval = lambda items: mk_tf(items, test_bs, False)  # noqa: E731
+        else:
+            train_tf = build_transform(cfg, is_train=True)
+            test_tf = build_transform(cfg, is_train=False)
+            self.train_loader = DataLoader(
+                dataset.train_x, train_tf, train_bs,
+                shuffle=_train_shuffle(cfg), drop_last=True,
+                num_workers=cfg.DATALOADER.NUM_WORKERS, seed=cfg.SEED,
+            )
+            mk_eval = lambda items: DataLoader(  # noqa: E731
+                items, test_tf, test_bs, num_workers=cfg.DATALOADER.NUM_WORKERS)
 
-        self.val_loader = eval_loader(dataset.val)
-        self.test_loader = eval_loader(dataset.test)
+        self.val_loader = mk_eval(dataset.val) if dataset.val else None
+        self.test_loader = mk_eval(dataset.test) if dataset.test else None
 
     @property
     def num_classes(self) -> int:

@@ -47,6 +47,8 @@ from mudpt_torch.utils.profiling import StepTimer, profile_trace
 from mudpt_torch.utils.registry import TRAINER_REGISTRY
 from mudpt_torch.utils.rng import new_rng, set_seed
 
+# the quant tiers whose activation scales are calibrated at build
+STATIC_QUANT = ("int8_static", "int8_ste_static")
 # the ViT entries of base.py:72-97; the RN presets wait (ROADMAP.md A,
 # 'the ResNet trunk')
 NAMED_CONFIGS = {
@@ -122,6 +124,9 @@ class TrainerBase:
     # PREC when the trainer has no PREC hparam (see __init__)
     prec_default = "fp32"
     forward: Callable = None
+    # the zero-shot trainers' forward, whose text features are encoded at
+    # build: static calibration reads the vision tower through it
+    model_inference: Optional[Callable] = None
 
     def __init__(self, cfg, dataset=None, devices=None):
         self.cfg = cfg
@@ -140,13 +145,6 @@ class TrainerBase:
                 f"(quantization-aware training), or 'int8_ste_static' "
                 f"(QAT against the calibrated static serving tier); got "
                 f"{cfg.TRAIN.QUANT!r}"
-            )
-        if cfg.TRAIN.QUANT in ("int8_static", "int8_ste_static"):
-            raise NotImplementedError(
-                f"TRAIN.QUANT={cfg.TRAIN.QUANT!r} calibrates at build "
-                "(base.py:312-367), which waits (ROADMAP.md A, 'static-quant "
-                "calibration at build'); the synthetic builders of "
-                "utils/synth_step.py calibrate"
             )
         # the mode is process-global: set on every build, so a 'none'
         # trainer clears a mode left by an earlier build in the process
@@ -190,6 +188,8 @@ class TrainerBase:
         if self.trainable is not None:
             self._build_train_state()
         self._bind_steps()
+        if cfg.TRAIN.QUANT in STATIC_QUANT:
+            self._calibrate_static_quant()
         self._cache_static_text()
 
     # ------------------------------------------------------------------
@@ -229,6 +229,49 @@ class TrainerBase:
             self.trainable = _to_device(trainable, self.device)
             for t in leaves(self.trainable):
                 t.requires_grad_(True)
+
+    def _calibrate_static_quant(self):
+        """TRAIN.QUANT 'int8_static' / 'int8_ste_static': calibrate per-tensor
+        activation scales on one training batch and attach them to the
+        frozen towers' blocks (``base.py:312-367``): the text tower's from
+        the class prompts' encode, the vision tower's from the batch against
+        those features, or, for the zero-shot trainers, whose text features
+        are encoded at build, the vision tower's alone."""
+        fwd_text = getattr(self, "forward_text", None)
+        inference = self.model_inference
+        if fwd_text is None and inference is None:
+            raise ValueError(
+                "TRAIN.QUANT 'int8_static'/'int8_ste_static' needs "
+                "image-independent text features to calibrate on (this "
+                "trainer re-encodes text per instance); use the dynamic "
+                "tiers instead: TRAIN.QUANT 'int8' (eval) or 'int8_ste' "
+                "(QAT — verified for CoCoOp, tests/test_quant_block.py)"
+            )
+        # the fetch must not advance the loader's epoch: every pipeline's
+        # __iter__ counts it, and an exact resume (set_epoch, then the
+        # preempted batches decoded and dropped) assumes only run_epoch
+        # iterated
+        loader = self.dm.train_loader
+        prev_epoch = getattr(loader, "_epoch", None)
+        batch = next(iter(loader))
+        if prev_epoch is not None:
+            loader._epoch = prev_epoch
+        images = self._device_batch(batch)["image"]
+        frozen = dict(self.frozen)
+        if inference is not None:
+            vscales = quant_block.calibrate(inference, self.trainable, self.frozen, self.aux,
+                                            images)
+        else:
+            tscales, txt = quant_block.calibrate(fwd_text, self.trainable, self.frozen, self.aux,
+                                                 with_output=True)
+            frozen["text"] = dict(frozen["text"], blocks=quant_block.attach_scales(
+                frozen["text"]["blocks"], tscales))
+            vscales = quant_block.calibrate(self.forward_image, self.trainable, self.frozen,
+                                            self.aux, images, txt)
+        frozen["visual"] = dict(frozen["visual"], blocks=quant_block.attach_scales(
+            frozen["visual"]["blocks"], vscales))
+        self._set_frozen(frozen)
+        self._static_calibrated = True
 
     def _set_frozen(self, frozen):
         """Every post-build change of the frozen tree goes through here: the
@@ -664,6 +707,11 @@ class TrainerBase:
         e = meta.get("epoch")
         print(f"Loading weights for {self.model_name} from {directory} "
               f"(epoch={int(e) if e is not None else -1})")
+        # static int8: activation ranges depend (mildly) on the prompts, so a
+        # post-build load (--eval_only, base-to-new) recalibrates; a warm
+        # start at build loads before the first calibration
+        if getattr(self, "_static_calibrated", False):
+            self._calibrate_static_quant()
 
     # -- abstract -------------------------------------------------------
     def build_model(self):  # pragma: no cover

@@ -23,7 +23,7 @@ from mudpt_torch.models.clip import encode_image
 from mudpt_torch.models.layers import linear
 from mudpt_torch.models.text import text_forward
 from mudpt_torch.ops.fused_block import saved_acts
-from mudpt_torch.trainers.base import TrainerBase
+from mudpt_torch.trainers.base import STATIC_QUANT, TrainerBase
 from mudpt_torch.trainers.prompt_utils import (compose_prompts, ctx_vectors_from_init,
                                                embed_classnames, init_linear, random_ctx)
 from mudpt_torch.utils.registry import TRAINER_REGISTRY
@@ -126,7 +126,10 @@ class CoCoOp(TrainerBase):
 
     def build_model(self):
         cfg = self.cfg
-        _refuse_quant(cfg.TRAIN.QUANT)
+        if cfg.TRAIN.QUANT not in STATIC_QUANT:
+            # the static tiers build, and calibration refuses them as the JAX
+            # package's does (no image-independent text features)
+            _refuse_quant(cfg.TRAIN.QUANT)
         hp = getattr(cfg.TRAINER, self.hparams_key)
         clip_cfg, params = self.load_clip()
         self.clip_cfg = clip_cfg

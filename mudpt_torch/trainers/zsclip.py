@@ -68,6 +68,7 @@ class ZeroshotCLIP(TrainerBase):
         self.place(frozen=params, aux_class_tree={"text_features": text_features},
                    aux_repl=None, trainable=None)
         self._set_forward(_zs_inference, clip_cfg=clip_cfg, compute_dtype=self.compute_dtype)
+        self.model_inference = self.forward
 
     def train(self):  # zero-shot has nothing to train
         self.test()

@@ -24,9 +24,14 @@ off, and the bench check a value 11% off its phase's images/s.  The zoo's
 leaf check (every trainable leaf's gradient finite and not zero) rejects a
 CoCoOp meta-net whose bias was detached and a prompt head whose LayerNorms
 ran the dx-only ``LayerNormFn``, and its launch check a chunked CoCoOp
-count without the checkpoint's recompute."""
+count without the checkpoint's recompute.  ``[datasets]`` rejects a grain
+eval batch one pixel off the threads loader's, a calibration that advanced
+the training loader's epoch, an int8_ste_static step counted without the
+static chain, and, under the grain pipeline, a resumed loss one ulp off.
+The end-of-run process check rejects a child process left running."""
 
 import importlib.util
+import os
 from pathlib import Path
 
 import numpy as np
@@ -684,3 +689,150 @@ def test_launch_check_catches_chunked_count_without_recompute():
         keys, (cfg.vision_layers, "full"), (1, C.tower_lns(2)),
         (cfg.transformer_layers, "half_train_saves_off"), (1, C.tower_lns(1, 1)))
     C.check_launches("CoCoOp chunks of 2", dict(want), want)
+
+
+# ---------------------------------------------------------------------------
+# [datasets]: its holds on the CPU (the loaders, the trainer and the CLI run
+# here; on the card only their numbers change)
+# ---------------------------------------------------------------------------
+
+def _jpeg_items(tmp_path, n=9):
+    from PIL import Image
+
+    from mudpt_torch.data.datum import Datum
+
+    rng = np.random.RandomState(4)
+    items = []
+    for i in range(n):
+        p = tmp_path / f"{i}.jpg"
+        Image.fromarray(rng.randint(0, 256, (24, 30, 3)).astype(np.uint8)).save(p)
+        items.append(Datum(impath=str(p), label=i % 3, classname=f"c{i % 3}"))
+    return items
+
+
+def test_batches_check_catches_a_pixel_off(tmp_path):
+    """grain's and the threads loader's eval batches (both EvalTransform)
+    pass bit-equal; one pixel of one grain batch one ulp off fails."""
+    from mudpt_torch.data.grain_pipeline import GrainLoader
+    from mudpt_torch.data.loader import DataLoader
+    from mudpt_torch.data.transforms import EvalTransform
+
+    C = _chip_smoke()
+    items = _jpeg_items(tmp_path)
+    grain = list(GrainLoader(items, EvalTransform(size=16), 4))
+    threads = list(DataLoader(items, EvalTransform(size=16), 4, num_workers=2))
+    assert C.check_batches_equal("eval", grain, threads) == "3 batches bit-equal"
+    grain[1]["image"] = grain[1]["image"].copy()
+    grain[1]["image"][2, 5, 7, 1] = np.nextafter(grain[1]["image"][2, 5, 7, 1], np.float32(9))
+    with pytest.raises(AssertionError, match="batch 1 image differs"):
+        C.check_batches_equal("eval", grain, threads)
+    with pytest.raises(AssertionError, match="no batch"):
+        C.check_batches_equal("eval", [], threads)
+
+
+def test_epoch_check_catches_calibration_that_advanced_the_loader(tmp_path):
+    """A static-int8 build leaves the training loader at epoch 0; a
+    calibration fetch that does not restore the epoch (the loader's
+    ``__iter__`` counts it) fails."""
+    from mudpt_torch.models import layers
+    from tests.test_torch_static_calib import port_cfg
+    from mudpt_torch.trainers import build_trainer
+
+    C = _chip_smoke()
+    try:
+        tr = build_trainer(port_cfg("MuDPT", tmp_path, "int8_static"), devices="cpu")
+    finally:
+        layers.set_quant_mode("none")
+    loader = tr.dm.train_loader
+    C.check_epoch_kept("build", loader, 0)
+    next(iter(loader))  # the fetch, without the restore
+    with pytest.raises(AssertionError, match="epoch moved 0 -> 1"):
+        C.check_epoch_kept("calibration", loader, 0)
+
+
+def test_launch_check_catches_step_without_static_chain():
+    """An int8_ste_static step runs the static chain (row 17) in both
+    towers; a count of the dynamic chain (quant_rows twice a layer, no
+    static Function) fails."""
+    from mudpt_torch.models.clip import VIT_B16
+
+    C = _chip_smoke()
+    keys = F.LAUNCHES
+    want = C.step_launches(F, VIT_B16, "q8s_train", "q8s_train")
+    dynamic = C.step_launches(F, VIT_B16, "q8_train", "q8_train")
+    with pytest.raises(AssertionError, match="launches differ"):
+        C.check_launches("int8_ste_static step", dynamic, want)
+    assert want["layer_fullblock_q8_ste_static"] == 24 and want["quant_rows"] == 24
+    assert want == C.expect(keys, (12, "q8s_train"), (12, "q8s_train"),
+                            (1, C.tower_lns(3, 3)))
+
+
+def test_resume_check_under_grain_catches_last_bit(tmp_path):
+    """Under DATALOADER.PIPELINE grain a run preempted after batch 2 and
+    resumed (the engine on the CPU, JPEGs in the Caltech101 layout) passes
+    [datasets]' resume check; a resumed loss one ulp off fails."""
+    from PIL import Image
+
+    from mudpt_torch.config import load_config
+    from mudpt_torch.models.clip import leaves
+    from mudpt_torch.trainers import build_trainer
+
+    C = _chip_smoke()
+    img_root = tmp_path / "data" / "caltech101" / "caltech-101" / "101_ObjectCategories"
+    rng = np.random.RandomState(5)
+    for c in range(4):
+        (img_root / f"object_{c}").mkdir(parents=True)
+        for i in range(10):
+            Image.fromarray(rng.randint(0, 256, (24, 30, 3)).astype(np.uint8)).save(
+                img_root / f"object_{c}" / f"{i}.jpg")
+
+    def trainer(out, *more):
+        cfg = load_config("configs/datasets/caltech101.yaml", "configs/trainers/test/tiny.yaml",
+                          opts=["TRAINER.NAME", "MuDPT", "DATASET.ROOT", str(tmp_path / "data"),
+                                "DATALOADER.PIPELINE", "grain", "DATALOADER.TRAIN_X.BATCH_SIZE",
+                                "4", "TRAIN.PRINT_FREQ", "1", "TEST.NO_TEST", "True",
+                                "OUTPUT_DIR", str(out), *more])
+        return build_trainer(cfg, devices="cpu")
+
+    full = trainer(tmp_path / "full")
+    full.train()
+    part = trainer(tmp_path / "part")
+    step = part._train_step
+
+    def preempting(b):
+        out = step(b)
+        if part.global_step == 1:
+            part._preempt = True
+        return out
+
+    part._train_step = preempting
+    part.train()
+    resumed = trainer(tmp_path / "part", "RESUME", str(tmp_path / "part"))
+    resumed.train()
+    losses = C._train_losses(str(tmp_path / "full"))
+    got = C._train_losses(str(tmp_path / "part"))
+    assert len(losses) == len(full.dm.train_loader) == 5
+    C.check_resumed(losses, got, leaves(full.trainable), leaves(resumed.trainable))
+    got[3] = float(np.nextafter(np.float32(got[3]), np.float32(0)))
+    with pytest.raises(AssertionError, match="losses"):
+        C.check_resumed(losses, got, leaves(full.trainable), leaves(resumed.trainable))
+
+
+def test_process_check_catches_a_process_left_running():
+    """The end-of-run check passes a process with nothing left running; a
+    child still running fails it, and is stopped by it."""
+    import subprocess
+    import sys
+
+    C = _chip_smoke()
+    assert C.check_no_process_left() == "no process left running"
+    child = subprocess.Popen([sys.executable, "-c", "import time; time.sleep(120)"])
+    try:
+        assert child.pid in C.descendants(os.getpid())
+        with pytest.raises(AssertionError, match="processes left running"):
+            C.check_no_process_left()
+        assert child.poll() is not None
+        assert C.descendants(os.getpid()) == []
+    finally:
+        child.kill()
+        child.wait()

@@ -156,8 +156,8 @@ def test_trainer_without_cuda_raises(tmp_path, monkeypatch):
 
 def test_train_quant_modes(tmp_path):
     """TRAIN.QUANT 'int8_ste' trains against the int8 chains, the towers'
-    weights quantized once at build; the static tiers, which calibrate at
-    build, raise until that is ported."""
+    weights quantized once at build; the static tiers calibrate at build
+    (tests/test_torch_static_calib.py holds them against the JAX package)."""
     from mudpt_torch.models import layers
 
     try:
@@ -171,9 +171,12 @@ def test_train_quant_modes(tmp_path):
         assert len(losses) == 4 and all(np.isfinite(losses))
         assert any(not torch.equal(a, b) for a, b in zip(before, leaves(tr.trainable)))
         for quant in ("int8_static", "int8_ste_static"):
-            with pytest.raises(NotImplementedError, match="static-quant calibration"):
-                build_trainer(load_config(*FILES, opts=_opts(tmp_path, "TRAIN.QUANT", quant)),
-                              devices="cpu")
+            tr = build_trainer(load_config(*FILES, opts=_opts(tmp_path / quant, "TRAIN.QUANT",
+                                                              quant)), devices="cpu")
+            assert layers.quant_mode() == quant and tr.dm.train_loader._epoch == 0
+            for t in ("visual", "text"):
+                blocks = tr.frozen[t]["blocks"]
+                assert "q8_weights" in blocks and blocks["q8_scales"].shape[1] == 4
     finally:
         layers.set_quant_mode("none")
 

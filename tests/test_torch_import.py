@@ -1,6 +1,6 @@
 """``mudpt_torch`` and ``chip_smoke.py`` stand alone: nothing of JAX, of the
-JAX package, of ``regex`` or of ``ml_dtypes`` is imported, and importing the
-port with those modules blocked succeeds."""
+JAX package, of ``regex``, ``ml_dtypes``, ``grain`` or TensorFlow is
+imported, and importing the port with those modules blocked succeeds."""
 
 import ast
 import os
@@ -11,7 +11,7 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
-BANNED = ("jax", "jaxlib", "optax", "ml_dtypes", "mudpt_tpu", "regex")
+BANNED = ("jax", "jaxlib", "optax", "ml_dtypes", "mudpt_tpu", "regex", "grain", "tensorflow")
 SOURCES = sorted((ROOT / "mudpt_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
