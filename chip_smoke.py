@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Run the PyTorch/CUDA port's MuDPT serving paths and train steps on one
 GPU, ViT-B/16, ViT-L/14 and ViT-L/14@336px, its training engine, CLI, trainer
-zoo, dataset pipelines and bench entry point, and its chunked MLP half-block.
+zoo, dataset pipelines and bench entry point, its chunked MLP half-block,
+its serving artifacts, REMAT and the XLA block route.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --times-of ROOT   # only the kernel times of the
@@ -117,7 +118,30 @@ Phases, each printed with the card's name and power limit:
               forward and forward with backward, launches per call held, at
               ViT-L/14's vision MLP (K = 8 chunks), ViT-B/16's (K = 2) and
               D = 1280 (K = 10), timed beside mlp_halfblock at ViT-L/14.
- 13. processes   the loaders' worker processes, their forkserver and
+ 13. export    MuDPT ViT-B/16 through build_trainer (its YAML on the
+              synthetic dataset at 100 classes), one training step at batch
+              64, then exported under the four serving tiers (xla: PyTorch
+              ops, a symbolic batch; pallas, pallas_int8, pallas_int8_static:
+              the kernel chains as custom ops, batch 384, the static tier
+              calibrated on 64 training images); each artifact loaded and
+              served on 384 test images in a fresh process (python3
+              chip_smoke.py --serve-artifact ART IMAGES OUT), its logits held
+              to the tier in this process (bit-equality printed) and the xla
+              tier's to the kernel route, its launches held, no model module
+              imported by the loader; each timed by python -m
+              mudpt_torch.tools.bench_artifact at 384, the pallas tier within
+              10% of [serving]'s images/s; then a zero-shot classifier in fp32
+              exported on the CPU under xla and served on the card against
+              api.zero_shot_classifier.
+ 14. remat, remat ViT-L/14@336px   the train step at batch 384 under REMAT
+              none and full: one step's loss and gradients bit-equal, launches
+              (one more forward of every layer), peak memory lower under full;
+              timed steps of each mode.
+ 15. block xla   the ViT-B/16 request under BLOCK xla (no kernel launched)
+              held to the kernel route, timed and traced; one block 1280 wide
+              (20 heads, 257 rows, batch 64), routed to XLA, in bf16 against
+              fp32 on the card, timed.
+ 16. processes   the loaders' worker processes, their forkserver and
               resource tracker stopped and waited for; any other process
               the run started and left running is killed and fails it.
 
@@ -138,7 +162,10 @@ train step of the engine; "zoo_<trainer>_step" one of each zoo trainer,
 "zoo_<trainer>_evaluate" the zero-shot pair's evaluate, "cocoop_scale_*"
 CoCoOp at 1,000 classes, "datasets_<pipeline>_step" a loader-fed step,
 "datasets_int8_ste_static_step" and "datasets_int8_static_evaluate" the
-static tiers through the CLI).  Any failed
+static tiers through the CLI; "export_<tier>_request" one request of each
+served artifact in its fresh process, "remat_full_step*" a train step under
+REMAT full, "block_xla_request" the text encode and request under BLOCK
+xla, where no kernel runs).  Any failed
 check raises, and the script exits non-zero without a result; so it does
 without CUDA, and outside a checkout of the repository.
 """
@@ -2751,6 +2778,362 @@ def phase_datasets(F, root: Path) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# [export]: MuDPT ViT-B/16 through build_trainer (its YAML, the synthetic
+# dataset at 100 classes: one training image a class, four test images),
+# one training step at batch 64, then an artifact of each tier served in a
+# fresh process on 384 test images and timed by the bench tool
+EXPORT_OPTS = ("TRAINER.NAME", "MuDPT", "MODEL.BACKBONE.PATH", "random",
+               "DATASET.SYNTHETIC_NUM_CLASSES", str(N_CLS), "DATASET.SYNTHETIC_PER_CLASS", "1",
+               "DATALOADER.TRAIN_X.BATCH_SIZE", "64", "DATALOADER.TEST.BATCH_SIZE", "64",
+               "OPTIM.MAX_EPOCH", "1")
+EXPORT_TIERS = ("xla", "pallas", "pallas_int8", "pallas_int8_static")
+EXPORT_ROUTES = {"xla": None, "pallas": "full", "pallas_int8": "q8",
+                 "pallas_int8_static": "q8s"}
+CALIB_IMAGES = 64
+# the pallas artifact's images/s within this share of [serving]'s, as
+# [bench] is held
+ARTIFACT_AGREE = 0.10
+
+
+def check_artifact_rate(value: float, reference: float) -> str:
+    """The pallas artifact's images/s within ``ARTIFACT_AGREE`` of
+    [serving]'s (the same kernels on the same request)."""
+    rel = value / reference - 1
+    if not abs(rel) <= ARTIFACT_AGREE:
+        raise AssertionError(f"pallas artifact: {value:.1f} images/s is {rel:+.1%} off "
+                             f"[serving]'s {reference:.1f} (limit {ARTIFACT_AGREE:.0%})")
+    return f"{value:.1f} images/s, {rel:+.2%} from [serving]'s {reference:.1f}"
+
+
+def serve_artifact(root: Path, art: str, images_npy: str, out_npy: str) -> int:
+    """``python3 chip_smoke.py --serve-artifact ART IMAGES OUT``: load the
+    artifact in this fresh process, serve the batch once with the launches
+    counted, write the logits to OUT and print one JSON line (launches,
+    load seconds, the model modules this process imported)."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(root))
+    from mudpt_torch import serving
+    from mudpt_torch.ops import fused_block as F
+
+    t0 = time.perf_counter()
+    clf = serving.load(art)
+    images = torch.from_numpy(np.load(images_npy)).cuda()
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    F.reset_launches()
+    logits = clf.forward(images)
+    torch.cuda.synchronize()
+    launches = dict(F.LAUNCHES)
+    np.save(out_npy, logits.float().cpu().numpy())
+    model_modules = sorted(m for m in sys.modules
+                           if m.startswith(("mudpt_torch.models", "mudpt_torch.trainers")))
+    print(json.dumps({"launches": launches, "load_s": load_s, "model_modules": model_modules,
+                      "card": smi()}), flush=True)
+    return 0
+
+
+def _json_line(out: str) -> dict:
+    return json.loads([ln for ln in out.splitlines() if ln.strip()][-1])
+
+
+def phase_export(F, root: Path) -> dict:
+    """MuDPT ViT-B/16 trained one step, exported under the four tiers; each
+    artifact served in a fresh process, its logits held to the tier in this
+    process (and the xla tier to the kernel route), its launches counted and
+    its images/s read by ``python -m mudpt_torch.tools.bench_artifact``;
+    then a zero-shot classifier exported on the CPU in fp32 and served on
+    the card (the program moved there) against ``api.zero_shot_classifier``."""
+    import gc
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from mudpt_torch import api, serving
+    from mudpt_torch.config import load_config
+    from mudpt_torch.models import layers
+    from mudpt_torch.models.clip import _map
+    from mudpt_torch.trainers.base import build_trainer
+
+    phase = "export"
+    tmp = tempfile.mkdtemp(prefix="mudpt_export_")
+    paths = {}
+    try:
+        t0 = time.perf_counter()
+        cfg = load_config(*(str(root / f) for f in ENGINE_FILES),
+                          opts=[*EXPORT_OPTS, "OUTPUT_DIR", f"{tmp}/out"])
+        tr = build_trainer(cfg)
+        b = tr._device_batch(next(iter(tr.dm.train_loader)))
+        calib = b["image"].float().cpu().numpy()[:CALIB_IMAGES]
+        loss = tr._train_step(b)[0]
+        torch.cuda.synchronize()
+        test = [np.asarray(x["image"], np.float32) for x in tr.dm.test_loader]
+        images_np = np.concatenate(test)[:BATCH]
+        if images_np.shape[0] != BATCH:
+            raise AssertionError(f"{images_np.shape[0]} test images, not {BATCH}")
+        np.save(f"{tmp}/images.npy", images_np)
+        images = torch.from_numpy(images_np).cuda()
+        say(phase, f"built MuDPT ViT-B/16 through build_trainer ({tr.num_classes} classes) "
+                   f"and took one step at batch {b['image'].shape[0]} (loss "
+                   f"{float(loss):.5f}) in {time.perf_counter() - t0:.2f} s; serving "
+                   f"{BATCH} test images, calibrating on {len(calib)} training images")
+        vision = tr.clip_cfg.vision_layers
+        refs, rates = {}, {}
+        for tier in EXPORT_TIERS:
+            art = f"{tmp}/{tier}"
+            kw = dict(calib_images=calib) if tier == "pallas_int8_static" else {}
+            t0 = time.perf_counter()
+            serving.export_trainer(art, tr, batch=None if tier == "xla" else BATCH,
+                                   block_impl=tier, **kw)
+            export_s = time.perf_counter() - t0
+            if layers.block_impl() != "auto" or layers.quant_mode() != "none":
+                raise AssertionError(f"export {tier} left {layers.block_impl()!r}, "
+                                     f"{layers.quant_mode()!r} set")
+            size = sum(f.stat().st_size for f in Path(art).iterdir()) / 1e6
+            # the same program in this process, on the same images
+            score, ops, _ = serving.trainer_program(tr, block_impl=tier, **kw)
+            with torch.no_grad(), serving._block_impl(tier):
+                refs[tier] = score(ops, images)
+            del score, ops
+            # served in a fresh process
+            t0 = time.perf_counter()
+            r = subprocess.run([sys.executable, str(root / "chip_smoke.py"), "--serve-artifact",
+                                art, f"{tmp}/images.npy", f"{tmp}/logits.npy"],
+                               cwd=root, capture_output=True, text=True, timeout=600)
+            if r.returncode != 0:
+                raise AssertionError(f"serving the {tier} artifact failed:\n{r.stderr[-4000:]}")
+            child = _json_line(r.stdout)
+            process_s = time.perf_counter() - t0
+            logits = torch.from_numpy(np.load(f"{tmp}/logits.npy")).cuda()
+            if child["model_modules"]:
+                raise AssertionError(f"the loader imported model code: {child['model_modules']}")
+            route = EXPORT_ROUTES[tier]
+            want = (dict.fromkeys(F.LAUNCHES, 0) if route is None else
+                    expect(F.LAUNCHES, (vision, route), (1, tower_lns(2))))
+            check_launches(f"the {tier} artifact's request", child["launches"], want)
+            paths[f"export_{tier}_request"] = child["launches"]
+            if logits.shape != (BATCH, tr.num_classes) or not torch.isfinite(logits).all():
+                raise AssertionError(f"{tier} artifact logits malformed: {tuple(logits.shape)}")
+            same = torch.equal(logits, refs[tier])
+            reading = hold_logits(logits, refs[tier])
+            say(phase, f"{tier}: exported in {export_s:.2f} s ({size:.1f} MB); fresh process "
+                       f"{process_s:.2f} s (load {child['load_s']:.2f} s); launches "
+                       f"{ {k: v for k, v in child['launches'].items() if v} }; vs the tier in "
+                       f"this process: bit-equal {same}; {reading}")
+            if tier == "xla":
+                xla_logits = logits
+            r = subprocess.run([sys.executable, "-m", "mudpt_torch.tools.bench_artifact",
+                                "--artifact", art, "--batch", str(BATCH),
+                                "--steps", str(REQUESTS), "--warmup", str(WARMUP_STEPS)],
+                               cwd=root, capture_output=True, text=True, timeout=600)
+            if r.returncode != 0:
+                raise AssertionError(f"bench_artifact {tier} failed:\n{r.stderr[-4000:]}")
+            rec = _json_line(r.stdout)
+            if not rec["finite"] or rec["card"] is None:
+                raise AssertionError(f"bench_artifact {tier}: {rec}")
+            rates[tier] = rec["value"]
+            say(phase, f"{tier}: bench_artifact {json.dumps(rec)}")
+        say(phase, "xla artifact vs the kernel route in this process: "
+                   + hold_logits(xla_logits, refs["pallas"]))
+        say(phase, "pallas artifact vs [serving]: "
+                   + check_artifact_rate(rates["pallas"], THROUGHPUT["serving"]))
+        say(phase, "images/s by tier: " + json.dumps(rates))
+        classnames, clip_cfg = list(tr.classnames), tr.clip_cfg
+        params32 = to_float(tr.frozen)
+        del tr, refs, b
+        gc.collect()
+
+        # ---- zero-shot, fp32 on the XLA route: exported on the CPU, served
+        # on the card, against api.zero_shot_classifier on the card
+        cpu = _map(params32, lambda t: t.cpu())
+        templates = ["a photo of a {}.", "a drawing of a {}."]
+        t0 = time.perf_counter()
+        serving.export_zero_shot(f"{tmp}/zs", clip_cfg, cpu, classnames, templates,
+                                 compute_dtype=torch.float32)
+        export_s = time.perf_counter() - t0
+        clf = serving.load(f"{tmp}/zs")
+        F.reset_launches()
+        got = clf.forward(images)
+        torch.cuda.synchronize()
+        if any(F.LAUNCHES.values()):
+            raise AssertionError(f"the xla zero-shot artifact launched kernels: {F.LAUNCHES}")
+        with serving._block_impl("xla"):
+            want = api.zero_shot_classifier(clip_cfg, params32, classnames, templates,
+                                            compute_dtype=torch.float32)(images)
+        reading = check_close("zero-shot logits, fp32", got, want, max_limit=F32_MAX_ERR,
+                              norm_limit=F32_NORM_ERR, share_limit=None)
+        say(phase, f"zero-shot, fp32, xla: exported on the CPU in {export_s:.2f} s, served on "
+                   f"the card (moved there at load), vs api.zero_shot_classifier on the card: "
+                   f"{reading}; no kernel launched")
+        return paths
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# [remat]: the train step at batch 384 with REMAT 'none' and 'full': loss
+# and every leaf's gradient bit-equal, peak memory lower under 'full'
+REMAT_TIMED = 5
+
+
+def check_remat(label: str, none: tuple, full: tuple, peaks: tuple) -> str:
+    """REMAT 'full' against 'none' from one starting state: the loss and
+    every gradient bit-equal (the recompute runs the same kernels on the
+    same inputs), and the peak device memory lower."""
+    import torch
+
+    (loss0, grads0), (loss1, grads1) = none, full
+    if not torch.equal(loss0, loss1):
+        raise AssertionError(f"{label}: REMAT full loss {loss1.item()} != none {loss0.item()}")
+    differ = [i for i, (a, b) in enumerate(zip(grads0, grads1)) if not torch.equal(a, b)]
+    if differ or len(grads0) != len(grads1):
+        raise AssertionError(f"{label}: REMAT full gradients of leaves {differ} not bit-equal")
+    if not peaks[1] < peaks[0]:
+        raise AssertionError(f"{label}: peak under REMAT full {peaks[1] / 2 ** 30:.2f} GiB "
+                             f"did not fall below none's {peaks[0] / 2 ** 30:.2f} GiB")
+    return (f"loss and {len(grads0)} leaves' gradients bit-equal; peak "
+            f"{peaks[0] / 2 ** 30:.2f} -> {peaks[1] / 2 ** 30:.2f} GiB")
+
+
+def phase_remat(F, model: str) -> dict:
+    """The synthetic train step of ``model`` at batch 384 under REMAT 'none'
+    and 'full': one step's loss and gradients from the same state, its peak
+    memory and launches (the recompute: one more forward of every layer),
+    then timed steps of each mode."""
+    import torch
+
+    from mudpt_torch.models import transformer
+    from mudpt_torch.utils.synth_step import build_synth_mudpt_step, leaves
+
+    phase = " ".join(["remat"] + ([model] if model != "ViT-B/16" else []))
+    st = build_synth_mudpt_step(model, BATCH, N_CLS, N_CTX, DEPTH, seed=0)
+    cfg, tr = st.clip_cfg, leaves(st.trainable)
+    if cfg.vision_width <= F.FULLBLOCK_MAX_WIDTH:
+        vision_route, vision_fwd = "full_train", "full"
+    elif F.wide_mlp_save(BATCH * cfg.vision_seq_len + BATCH * N_CTX):
+        vision_route, vision_fwd = "half_train", "half"
+    else:
+        vision_route, vision_fwd = "half_train_recompute_h", "half"
+    per_step = step_launches(F, cfg, "full_train", vision_route)
+    readings, peaks, paths = {}, {}, {}
+    try:
+        for mode in ("none", "full"):
+            transformer.set_remat_mode(mode)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            F.reset_launches()
+            loss = st.loss_fn(st.images, st.labels)
+            grads = torch.autograd.grad(loss, tr)
+            torch.cuda.synchronize()
+            peaks[mode] = torch.cuda.max_memory_allocated()
+            want = per_step if mode == "none" else expect(
+                F.LAUNCHES, (1, per_step), (cfg.transformer_layers, "full"),
+                (cfg.vision_layers, vision_fwd))
+            check_launches(f"{model} step under REMAT {mode}", dict(F.LAUNCHES), want)
+            paths[mode] = dict(F.LAUNCHES)
+            readings[mode] = (loss.detach(), grads)
+            del loss, grads
+        say(phase, f"one step at batch {BATCH} ({vision_route} vision layers), REMAT full vs "
+                   "none: " + check_remat(model, readings["none"], readings["full"],
+                                          (peaks["none"], peaks["full"])))
+        say(phase, f"launches a step: none {sum(paths['none'].values())}, full "
+                   f"{sum(paths['full'].values())} (one more forward of each of "
+                   f"{cfg.transformer_layers} text and {cfg.vision_layers} vision layers)")
+        del readings
+        for mode in ("none", "full"):
+            transformer.set_remat_mode(mode)
+            for _ in range(WARMUP_STEPS):
+                st.train_step(st.images, st.labels)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ms = [_synced_ms(lambda: st.train_step(st.images, st.labels))
+                  for _ in range(REMAT_TIMED)]
+            say(phase, f"REMAT {mode}: {REMAT_TIMED} steps of {BATCH} images, median "
+                       f"{statistics.median(ms):.2f} ms ({BATCH * 1e3 / statistics.median(ms):.1f} "
+                       f"images/s); peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    finally:
+        transformer.set_remat_mode("none")
+    return paths["full"]
+
+
+# [block xla]: the XLA route on the card: the ViT-B/16 request under
+# BLOCK xla against the kernel route, and one block 1280 wide (20 heads,
+# 257 rows, batch 64) in bf16 against the same block in fp32
+XLA_WIDE = (64, 257, 1280, 20)
+# bf16 against fp32 through one block: each intermediate rounded to bf16
+# (LN, qkv, probs, the attention output, h) and the output once
+XLA_BLOCK_MAX_ERR, XLA_BLOCK_NORM_ERR = 2.0 ** -5, 2.0 ** -6
+
+
+def phase_block_xla(F) -> dict:
+    """The ViT-B/16 server under block impl 'xla' (text and requests on
+    PyTorch ops, no kernel launched) held to the kernel route and timed;
+    then a D = 1280 block, which 'auto' routes to XLA."""
+    import torch
+
+    from mudpt_torch.models import layers
+    from mudpt_torch.utils.synth_step import build_synth_mudpt_server
+
+    phase = "block xla"
+    st = build_synth_mudpt_server("ViT-B/16", BATCH, N_CLS, N_CTX, DEPTH, seed=0)
+    tr, params, aux, images = st.trainable, st.params, st.aux, st.images
+    txt = st.text_features(tr, params, aux)
+    logits_k = st.image_logits(tr, params, aux, images, txt)
+    layers.set_block_impl("xla")
+    try:
+        F.reset_launches()
+        txt_x = st.text_features(tr, params, aux)
+        logits_x = st.image_logits(tr, params, aux, images, txt_x)
+        torch.cuda.synchronize()
+        launches = dict(F.LAUNCHES)
+        if any(launches.values()):
+            raise AssertionError(f"BLOCK xla launched kernels: {launches}")
+        say(phase, "ViT-B/16 under BLOCK xla vs the kernel route: "
+                   + hold_logits(logits_x, logits_k))
+        ms = time_ms(lambda: st.image_logits(tr, params, aux, images, txt_x), REQUESTS)
+        say(phase, f"ViT-B/16 request of {BATCH} under BLOCK xla: {ms:.2f} ms, "
+                   f"{BATCH * 1e3 / ms:.1f} images/s ([serving], the kernels: "
+                   f"{THROUGHPUT['serving']:.1f}); no kernel launched")
+        traced("serving block xla", lambda: st.image_logits(tr, params, aux, images, txt_x),
+               serving_time_by_kernel)
+    finally:
+        layers.set_block_impl("auto")
+    del st, params, aux, images, txt, txt_x
+
+    B, S, D, H = XLA_WIDE
+    rn = randn_fn(23)
+    p = {"ln_1": {"scale": rn(D, dtype=torch.float32, std=0.1) + 1.0,
+                  "bias": rn(D, dtype=torch.float32, std=0.1)},
+         "ln_2": {"scale": rn(D, dtype=torch.float32, std=0.1) + 1.0,
+                  "bias": rn(D, dtype=torch.float32, std=0.1)},
+         "attn": {"qkv_w": rn(D, 3 * D, std=D ** -0.5), "qkv_b": rn(3 * D, std=0.02),
+                  "out_w": rn(D, D, std=D ** -0.5), "out_b": rn(D, std=0.02)},
+         "mlp": {"fc_w": rn(D, 4 * D, std=D ** -0.5), "fc_b": rn(4 * D, std=0.02),
+                 "proj_w": rn(4 * D, D, std=(4 * D) ** -0.5), "proj_b": rn(D, std=0.02)}}
+    p32 = to_float(p)
+    x = rn(B, S, D)
+    F.reset_launches()
+    with torch.no_grad():
+        y = layers.residual_block(p, x, H)
+        y32 = layers.residual_block(p32, x.float(), H)
+        torch.cuda.synchronize()
+        if any(F.LAUNCHES.values()):
+            raise AssertionError(f"the D = {D} block launched kernels: {dict(F.LAUNCHES)}")
+        reading = check_close(f"D = {D} block, bf16 vs fp32", y.float(), y32,
+                              max_limit=XLA_BLOCK_MAX_ERR, norm_limit=XLA_BLOCK_NORM_ERR,
+                              share_limit=None)
+        ms = time_ms(lambda: layers.residual_block(p, x, H))
+        ms32 = time_ms(lambda: layers.residual_block(p32, x.float(), H))
+    M = B * S
+    flops = 2 * M * 12 * D * D + 4 * M * S * D
+    say(phase, f"a block {B} x {S} x {D} ({H} heads) routed to XLA: {reading}; bf16 {ms:.3f} "
+               f"ms ({flops / ms / 1e9:.1f} TFLOP/s), fp32 {ms32:.3f} ms; no kernel launched")
+    return launches
+
+
 def descendants(pid: int) -> list:
     """The pids of the running processes descended from ``pid`` (/proc),
     parents before their children."""
@@ -2869,6 +3252,8 @@ def main() -> int:
         return 3
     if sys.argv[1:2] == ["--times-of"]:
         return times_of(root)
+    if sys.argv[1:2] == ["--serve-artifact"]:
+        return serve_artifact(root, *sys.argv[2:5])
     sys.path.insert(0, str(root))
     from mudpt_torch.models import layers
     from mudpt_torch.ops import _build
@@ -2935,6 +3320,11 @@ def main() -> int:
     for quant in ("int8_ste", "int8_ste_static"):
         paths[f"train_step_{quant}"] = run(f"train {quant}", phase_train, F, "ViT-B/16", quant)
     paths.update(run("kernels chunked", phase_kernels_chunked, F, kernels_c))
+    paths.update(run("export", phase_export, F, root))
+    paths["remat_full_step"] = run("remat", phase_remat, F, "ViT-B/16")
+    paths["remat_full_step_vit_l14_336px"] = run("remat ViT-L/14@336px", phase_remat, F,
+                                                 "ViT-L/14@336px")
+    paths["block_xla_request"] = run("block xla", phase_block_xla, F)
     say("processes", check_no_process_left())
 
     def by_path(name: str) -> dict:

@@ -38,7 +38,6 @@ import argparse
 import json
 import math
 import os
-import subprocess
 import tempfile
 import time
 
@@ -53,7 +52,7 @@ from mudpt_torch.data.transforms import TrainTransform
 from mudpt_torch.models.layers import QUANT_MODES
 from mudpt_torch.models.text import _text_saves_off
 from mudpt_torch.ops import fused_block
-from mudpt_torch.utils.device import resolve_device
+from mudpt_torch.utils.device import card, resolve_device
 from mudpt_torch.utils.synth_step import (MODELS, build_synth_mudpt_server,
                                           build_synth_mudpt_step)
 
@@ -99,14 +98,6 @@ def parse_args(argv=None) -> argparse.Namespace:
         ap.error(f"--input {args.input}: --batch {args.batch} exceeds the synthetic set "
                  f"(--n-jpegs {args.n_jpegs}) — raise --n-jpegs")
     return args
-
-
-def card() -> str:
-    """``nvidia-smi``'s name and power limit of the first card."""
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
 
 
 def tower_fwd_flops(n_seq: int, n_layers: int, d: int, rows: int) -> float:

@@ -9,13 +9,12 @@ tests and tools that call the setters directly keep working; a field that
 a YAML file or an opt wrote, even at its default, calls the setter.  The
 port reads no ``MUDPT_TPU_<FIELD>`` environment variables.
 
-The port has the knobs of its models: SAVE_ACTS and SAVE_MLP_WIDE
-(``ops/fused_block``), and BLOCK at 'auto' or 'pallas' (its hand-written
-kernels are the Pallas route's port).  The text tower runs the JAX
-package's auto rules for packing, truncation and recompute
-(``models/text``), so TEXT_PACK, TEXT_TRUNC and TEXT_RECOMPUTE take their
-defaults only.  A value that needs a part the port does not have yet
-raises ``NotImplementedError`` naming its ROADMAP.md item.
+The port has the knobs of its models: BLOCK, LN (``models/layers``),
+SAVE_ACTS and SAVE_MLP_WIDE (``ops/fused_block``), SCAN_UNROLL and REMAT
+(``models/transformer``).  The text tower runs the JAX package's auto
+rules for packing, truncation and recompute (``models/text``), so
+TEXT_PACK, TEXT_TRUNC and TEXT_RECOMPUTE take their defaults only; another
+value raises ``NotImplementedError`` naming its ROADMAP.md item.
 ``perf_snapshot()`` reports the resolved live values.
 """
 
@@ -40,20 +39,20 @@ def _not_ported(knob: str, allowed: tuple, item: str):
 
 
 def _setters() -> dict:
+    from mudpt_torch.models import layers, transformer
     from mudpt_torch.ops import fused_block
 
     return {
-        "BLOCK": _not_ported("BLOCK", ("auto", "pallas"), "A, 'the XLA block route'"),
+        "BLOCK": lambda v: layers.set_block_impl(str(v)),
         "SAVE_ACTS": lambda v: fused_block.set_save_acts(_as_bool(v)),
         "SAVE_MLP_WIDE": lambda v: fused_block.set_save_mlp_wide(str(v)),
-        # the port's towers run a Python loop over layers: no scan to unroll
-        "SCAN_UNROLL": _not_ported("SCAN_UNROLL", ("auto",), "A, 'the XLA block route'"),
-        "REMAT": _not_ported("REMAT", ("none",), "A, 'REMAT full'"),
+        "SCAN_UNROLL": lambda v: transformer.set_scan_unroll(v),
+        "REMAT": lambda v: transformer.set_remat_mode(str(v)),
         "TEXT_PACK": _not_ported("TEXT_PACK", ("0",), "A, 'the text tower's switches'"),
         "TEXT_TRUNC": _not_ported("TEXT_TRUNC", ("auto",), "A, 'the text tower's switches'"),
         "TEXT_RECOMPUTE": _not_ported("TEXT_RECOMPUTE", ("auto",),
                                       "A, 'the text tower's switches'"),
-        "LN": _not_ported("LN", ("fp32",), "A, 'the XLA block route'"),
+        "LN": lambda v: layers.set_ln_dtype(str(v)),
     }
 
 
@@ -69,13 +68,21 @@ def apply_perf_config(perf) -> Dict[str, Any]:
 
 
 def perf_snapshot() -> Dict[str, Any]:
-    """The live, resolved policy state: what this process executes."""
-    from mudpt_torch.models import layers
+    """The live, resolved policy state: what this process executes
+    (``perf.py:87-107``; the text tower's switches at their auto rules)."""
+    from mudpt_torch.models import layers, transformer
     from mudpt_torch.ops import fused_block
 
     return {
-        "BLOCK": "pallas",
+        "BLOCK": layers.block_impl(),
+        "BLOCK_RESOLVED": layers.resolve_block_impl(),
         "QUANT": layers.quant_mode(),
         "SAVE_ACTS": fused_block.save_acts_enabled(),
         "SAVE_MLP_WIDE": fused_block._SAVE_MLP_WIDE,
+        "SCAN_UNROLL": transformer._SCAN_UNROLL,
+        "REMAT": transformer.remat_mode(),
+        "TEXT_PACK": 0,
+        "TEXT_TRUNC": "auto",
+        "TEXT_RECOMPUTE": "auto",
+        "LN": layers.ln_dtype(),
     }

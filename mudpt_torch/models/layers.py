@@ -1,8 +1,9 @@
 """Primitive layers as plain functions over parameter dicts (counterpart of
 ``mudpt_tpu/models/layers.py``).
 
-LayerNorm computes in float32 and casts back to the input dtype; QuickGELU
-is ``x * sigmoid(1.702 x)``; weights use the ``(in, out)`` layout.
+LayerNorm computes in float32 and casts back to the input dtype (in the
+input dtype under :func:`set_ln_dtype` ``'bf16'``); QuickGELU is
+``x * sigmoid(1.702 x)``; weights use the ``(in, out)`` layout.
 
 :func:`residual_block` is the dispatch of ``layers.py:209-285``: the whole
 layer (``layer_fullblock``) or its two halves (``attn_halfblock``,
@@ -13,11 +14,19 @@ tensor the kernels cannot take raises; it never quietly runs the plain
 body.  :func:`plain_blocks` lets a reference run ask for the plain versions
 on the card explicitly.
 
-Under a quant mode (:func:`set_quant_mode`, :func:`quantized`) every block
-runs an int8 tier of ``ops/quant_block.py`` instead (``layers.py:182-248``).
-:func:`calibration_capture` selects a plain unquantized route, ``x +
-attention(LN x) + mlp(LN x)`` with an additive mask, whose four quant sites
-record their absmax (``layers.py:28-53``, which forces the XLA blocks).
+The XLA route, ``x + attention(LN x)`` then ``+ mlp(LN x)`` with an
+additive mask, is the counterpart of the JAX package's XLA blocks, built
+from PyTorch ops on any device and dtype: under :func:`set_block_impl`
+``'xla'``, for towers wider than 1024 and for an additive mask that is not
+causal, as JAX routes (``layers.py:249``, :283-285).  Under a quant mode
+(:func:`set_quant_mode`, :func:`quantized`) every block runs an int8 tier
+of ``ops/quant_block.py`` instead (``layers.py:182-248``), and the XLA
+route raises as JAX's does.  :func:`calibration_capture` selects the XLA
+route, whose four quant sites record their absmax (``layers.py:28-53``).
+
+While :func:`exporting` is open (``serving.export_classifier``), the
+kernel route calls the chains as ``torch.library`` custom ops
+(``ops/library.py``), the form ``torch.export`` traces.
 """
 
 from __future__ import annotations
@@ -26,10 +35,27 @@ import contextlib
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from mudpt_torch.ops import fused_block, quant_block
 
 _PLAIN_ON_CUDA = False
+
+# 'auto' | 'pallas' | 'xla' (``layers.py:139-179``): 'auto' and 'pallas' are
+# the kernel route (kernels on CUDA tensors, their plain versions on CPU
+# tensors), 'xla' the XLA route on either device
+BLOCK_IMPLS = ("auto", "pallas", "xla")
+_BLOCK_IMPL = "auto"
+# 'fp32' (reference numerics) | 'bf16' (normalize in the input dtype): the
+# XLA route's and the towers' LayerNorms (``layers.py:56-80``); the kernel
+# chains normalize in fp32 whatever is set, as the Pallas kernels do
+LN_DTYPES = ("fp32", "bf16")
+_LN_DTYPE = "fp32"
+# set while torch.export traces a served function (:func:`exporting`)
+_EXPORTING = False
+# set by the towers under REMAT 'selective' (models/transformer.py): the XLA
+# route's attention recomputes its fp32 scores and probs in the backward
+_RECOMPUTE_PROBS = False
 
 # The activation-absmax sink of calibration_capture: while installed, the
 # plain route's attention and mlp record the absmax of their four quant
@@ -70,10 +96,46 @@ def quantized(name: str):
         set_quant_mode(prev)
 
 
+def set_block_impl(name: str) -> None:
+    """'xla', 'pallas' or 'auto' (``layers.py:163-172``).  'pallas' and 'auto'
+    run the hand-written kernel chains on CUDA tensors and their plain
+    versions on CPU tensors; 'xla' runs every block on the XLA route and
+    every LayerNorm on PyTorch ops, which take fp32 activations on the card
+    too."""
+    if name not in BLOCK_IMPLS:
+        raise ValueError(f"block impl {name!r}: expected one of {BLOCK_IMPLS}")
+    global _BLOCK_IMPL
+    _BLOCK_IMPL = name
+
+
+def block_impl() -> str:
+    return _BLOCK_IMPL
+
+
+def resolve_block_impl() -> str:
+    """'xla' or 'pallas' (``layers.py:175-178``): the port's 'auto' is the
+    kernel route on either device (its plain versions on CPU tensors), where
+    JAX's picks Pallas on a TPU only."""
+    return "xla" if _BLOCK_IMPL == "xla" else "pallas"
+
+
+def set_ln_dtype(name: str) -> None:
+    """'fp32' (reference numerics) or 'bf16' (normalize in the input dtype,
+    not reference numerics) (``layers.py:59-64``)."""
+    if name not in LN_DTYPES:
+        raise ValueError(f"LN dtype {name!r}: expected one of {LN_DTYPES}")
+    global _LN_DTYPE
+    _LN_DTYPE = name
+
+
+def ln_dtype() -> str:
+    return _LN_DTYPE
+
+
 @contextlib.contextmanager
 def calibration_capture(sink: list):
-    """Install an activation-absmax sink; every block takes the plain
-    unquantized route and every LayerNorm its plain version meanwhile, on
+    """Install an activation-absmax sink; every block takes the XLA route,
+    unquantized, and every LayerNorm its PyTorch version meanwhile, on
     either device (``layers.py:37-48``: the JAX capture forces XLA blocks)."""
     global _CALIB_SINK, _QUANT_MODE, _PLAIN_ON_CUDA
     prev = (_CALIB_SINK, _QUANT_MODE, _PLAIN_ON_CUDA)
@@ -82,6 +144,33 @@ def calibration_capture(sink: list):
         yield
     finally:
         _CALIB_SINK, _QUANT_MODE, _PLAIN_ON_CUDA = prev
+
+
+@contextlib.contextmanager
+def exporting():
+    """The kernel route as ``torch.library`` custom ops inside the context
+    (``serving.export_classifier``), the wrappers' direct calls after it."""
+    global _EXPORTING
+    from mudpt_torch.ops import library  # noqa: F401  (registers the ops)
+
+    prev, _EXPORTING = _EXPORTING, True
+    try:
+        yield
+    finally:
+        _EXPORTING = prev
+
+
+@contextlib.contextmanager
+def recomputing_probs(on: bool):
+    """REMAT 'selective' inside the context: the XLA route's attention keeps
+    q, k and v and recomputes its scores and probs in the backward
+    (``layers.py:120-124`` names them for JAX's policy)."""
+    global _RECOMPUTE_PROBS
+    prev, _RECOMPUTE_PROBS = _RECOMPUTE_PROBS, on
+    try:
+        yield
+    finally:
+        _RECOMPUTE_PROBS = prev
 
 
 def calibrating() -> bool:
@@ -114,6 +203,29 @@ def routed(state: tuple):
         _PLAIN_ON_CUDA, _QUANT_MODE = prev
 
 
+def routing_state() -> tuple:
+    """Everything the blocks read at forward time: :func:`routes`, the block
+    impl, the LN dtype and the save policy (``ops/fused_block
+    .save_acts_enabled``).  A layer recomputed in the backward under REMAT
+    'full' re-enters it with :func:`routing`."""
+    return routes(), _BLOCK_IMPL, _LN_DTYPE, fused_block.save_acts_enabled()
+
+
+@contextlib.contextmanager
+def routing(state: tuple):
+    """The state of :func:`routing_state` inside the context, the previous
+    one after it."""
+    global _BLOCK_IMPL, _LN_DTYPE
+    route, impl, ln, saves = state
+    prev = (_BLOCK_IMPL, _LN_DTYPE)
+    _BLOCK_IMPL, _LN_DTYPE = impl, ln
+    try:
+        with routed(route), fused_block.saved_acts(saves):
+            yield
+    finally:
+        _BLOCK_IMPL, _LN_DTYPE = prev
+
+
 @contextlib.contextmanager
 def plain_blocks():
     """Run every residual block and tower LayerNorm through the plain
@@ -133,7 +245,7 @@ def _require_bf16(x: torch.Tensor) -> None:
         raise NotImplementedError(
             f"{x.dtype} activations on CUDA need kernels of that type "
             "(ROADMAP.md B, 'fp32 activations'); the port's kernels take "
-            "bfloat16"
+            "bfloat16 (set_block_impl('xla') runs PyTorch ops instead)"
         )
 
 
@@ -157,12 +269,27 @@ class LayerNormFn(torch.autograd.Function):
         return fused_block.layer_norm_bwd(g.contiguous(), x, scale, None, ctx.eps), None, None, None
 
 
+def _xla_layer_norm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """JAX's ``layer_norm`` (``layers.py:67-80``) from PyTorch ops: fp32
+    statistics and affine cast back to x's dtype, or, under LN 'bf16', all
+    of it in x's dtype."""
+    if _LN_DTYPE == "bf16":
+        mean = x.mean(-1, keepdim=True)
+        var = (x - mean).square().mean(-1, keepdim=True)
+        y = (x - mean) * torch.rsqrt(var + eps)
+        return y * p["scale"].to(x.dtype) + p["bias"].to(x.dtype)
+    return fused_block.layer_norm_plain(x, p["scale"], p["bias"], eps)
+
+
 def layer_norm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """fp32 statistics, cast back to x's dtype; on the card through the
-    ``layernorm_fwd`` kernel and, when x needs a gradient, ``layernorm_bwd``
-    (bf16 activations only)."""
-    if _PLAIN_ON_CUDA:
-        return fused_block.layer_norm_plain(x, p["scale"], p["bias"], eps)
+    """A tower LayerNorm: fp32 statistics, cast back to x's dtype; on the
+    card through the ``layernorm_fwd`` kernel and, when x needs a gradient,
+    ``layernorm_bwd`` (bf16 activations only).  Under block impl 'xla' or
+    LN 'bf16' it is JAX's ``layer_norm`` on PyTorch ops, on any device."""
+    if _PLAIN_ON_CUDA or _BLOCK_IMPL == "xla" or _LN_DTYPE == "bf16":
+        return _xla_layer_norm(p, x, eps)
+    if _EXPORTING:
+        return torch.ops.mudpt.layernorm_fwd(x.contiguous(), p["scale"], p["bias"], eps)
     if x.is_cuda:
         _require_bf16(x)
     x = x.contiguous()
@@ -174,10 +301,13 @@ def layer_norm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
 def layer_norm_trainable(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """A LayerNorm whose scale and bias train: ``F.layer_norm`` on autograd
     with the fp32 statistics and affine of ``layers.py:67-80``, cast back to
-    x's dtype, on any device (JAX runs it on XLA's autodiff).  Only the
+    x's dtype (under LN 'bf16' in x's dtype), on any device (JAX runs it on
+    XLA's autodiff).  Only the
     trained prompt heads take it (:func:`residual_block_trainable`,
     ``trainers/prompt_utils.prompt_transform_head``); a frozen tower's
     LayerNorm is :func:`layer_norm`."""
+    if _LN_DTYPE == "bf16":
+        return _xla_layer_norm(p, x, eps)
     y = torch.nn.functional.layer_norm(x.float(), x.shape[-1:], p["scale"].float(),
                                        p["bias"].float(), eps)
     return y.to(x.dtype)
@@ -191,20 +321,31 @@ def linear(p: dict, x: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x, p["w"].to(x.dtype)) + p["b"].to(x.dtype)
 
 
+def _attend(q, k, v, mask):
+    """softmax(q k^T / sqrt(hd) + mask) v, the scores and their softmax in
+    fp32, the probs cast to v's dtype (``layers.py:115-126``)."""
+    scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * q.shape[-1] ** -0.5
+    if mask is not None:
+        scores = scores + mask.float()
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    return torch.matmul(probs, v)
+
+
 def attention(p: dict, x: torch.Tensor, n_head: int,
               mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain multi-head self-attention, (B, S, D) -> (B, S, D), with an
-    optional additive (S, S) mask (``layers.py:91-128``)."""
+    optional additive (S, S) mask (``layers.py:91-128``): explicit products
+    and an fp32 softmax, the probs cast to x's dtype, where JAX rounds."""
     B, S, D = x.shape
     hd = D // n_head
     _calib_record(x)  # site 1: the qkv product's input (LN1 output)
     qkv = torch.matmul(x, p["qkv_w"].to(x.dtype)) + p["qkv_b"].to(x.dtype)
     q, k, v = qkv.reshape(B, S, 3, n_head, hd).permute(2, 0, 3, 1, 4)  # (B, H, S, hd)
-    scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * hd ** -0.5
-    if mask is not None:
-        scores = scores + mask.float()
-    probs = torch.softmax(scores, dim=-1).to(x.dtype)
-    out = torch.matmul(probs, v).permute(0, 2, 1, 3).reshape(B, S, D)
+    if _RECOMPUTE_PROBS and torch.is_grad_enabled():
+        out = checkpoint(_attend, q, k, v, mask, use_reentrant=False)
+    else:
+        out = _attend(q, k, v, mask)
+    out = out.permute(0, 2, 1, 3).reshape(B, S, D)
     _calib_record(out)  # site 2: the out-projection's input (MHA output)
     return torch.matmul(out, p["out_w"].to(x.dtype)) + p["out_b"].to(x.dtype)
 
@@ -232,12 +373,14 @@ def _additive_mask(S: int, causal: fused_block.Causal, device) -> Optional[torch
     return torch.where(ok, 0.0, fused_block.NEG)
 
 
-def _plain_route(p: dict, x: torch.Tensor, n_head: int,
-                 causal: fused_block.Causal) -> torch.Tensor:
-    """``x + attention(LN x)``, then ``+ mlp(LN x)`` (``layers.py:283-285``)."""
-    mask = _additive_mask(x.shape[1], causal, x.device)
-    x = x + attention(p["attn"], layer_norm(p["ln_1"], x), n_head, mask)
-    return x + mlp(p["mlp"], layer_norm(p["ln_2"], x))
+def _xla_route(p: dict, x: torch.Tensor, n_head: int, causal: fused_block.Causal,
+               mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``x + attention(LN x)``, then ``+ mlp(LN x)`` (``layers.py:283-285``),
+    with ``mask``, or the additive form of the mask spec ``causal``."""
+    if mask is None:
+        mask = _additive_mask(x.shape[1], causal, x.device)
+    x = x + attention(p["attn"], _xla_layer_norm(p["ln_1"], x), n_head, mask)
+    return x + mlp(p["mlp"], _xla_layer_norm(p["ln_2"], x))
 
 
 def _valid_mask_spec(causal) -> bool:
@@ -247,51 +390,61 @@ def _valid_mask_spec(causal) -> bool:
             and all(isinstance(v, int) for v in causal))
 
 
-def _quant_block(p: dict, x: torch.Tensor, n_head: int, causal) -> torch.Tensor:
+def _quant_block(p: dict, x: torch.Tensor, n_head: int, causal,
+                 mask: Optional[torch.Tensor]) -> torch.Tensor:
     """The quant dispatch (``layers.py:218-248``): the int8 tiers exist only
-    as the q8 chains, so an unsupported mask or width raises rather than
-    serve an unquantized block the caller did not ask for."""
+    as the q8 chains, so block impl 'xla', an unsupported mask or a width
+    above 1024 raises rather than serve an unquantized block the caller did
+    not ask for."""
     D = x.shape[-1]
-    if not (_valid_mask_spec(causal) and D <= fused_block.MAX_WIDTH):
+    if not (resolve_block_impl() == "pallas" and _valid_mask_spec(causal)
+            and (mask is None or causal) and D <= fused_block.MAX_WIDTH):
         raise ValueError(
-            f"quant mode {_QUANT_MODE!r} requires the q8 layer chains (causal or "
-            f"unmasked attention, width <= {fused_block.MAX_WIDTH}; got mask spec "
-            f"{causal!r}, D={D}); set_quant_mode('none')"
+            f"quant mode {_QUANT_MODE!r} requires the q8 layer chains (block impl "
+            f"'pallas', causal or unmasked attention, width <= {fused_block.MAX_WIDTH}; "
+            f"got impl={resolve_block_impl()!r}, mask spec {causal!r}, D={D}); "
+            "set_quant_mode('none') or set_block_impl('pallas')"
         )
     if x.is_cuda and not _PLAIN_ON_CUDA:
         _require_bf16(x)
     plain = _PLAIN_ON_CUDA
     if _QUANT_MODE in ("int8_ste", "int8_ste_static"):
         return quant_block.residual_block_q8_ste(p, x, n_head, causal, plain)
-    if _QUANT_MODE == "int8_static" and "q8_scales" in p:
+    static = _QUANT_MODE == "int8_static" and "q8_scales" in p
+    if _EXPORTING:
+        from mudpt_torch.ops import library
+
+        return library.residual_block_q8(p, x, n_head, causal, static)
+    if static:
         return quant_block.residual_block_q8_static(p, x, n_head, causal, plain)
     # 'int8', or 'int8_static' on a tower without calibrated scales
     return quant_block.residual_block_q8(p, x, n_head, causal, plain)
 
 
 def residual_block(p: dict, x: torch.Tensor, n_head: int,
-                   causal: fused_block.Causal = False) -> torch.Tensor:
+                   causal: fused_block.Causal = False,
+                   mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One pre-LN residual block (mask spec ``causal``: False, True or
-    ``(period, valid)``), routed as ``layers.py:249-282`` routes it on
-    either device: ``layer_fullblock`` while saves are on and D <= 768,
-    else ``attn_halfblock`` then ``mlp_halfblock``.  Wider than 1024 the
-    JAX package falls back to XLA, which the port does not have: it raises.
-    Under a quant mode the int8 tiers run instead; under
-    :func:`calibration_capture` the plain route."""
+    ``(period, valid)``; ``mask`` an optional additive (S, S) mask), routed
+    as ``layers.py:209-285`` routes it on either device: the XLA route under
+    block impl 'xla', wider than 1024, or for a mask that is not causal;
+    else ``layer_fullblock`` while saves are on and D <= 768, else
+    ``attn_halfblock`` then ``mlp_halfblock``.  Under a quant mode the int8
+    tiers run instead; under :func:`calibration_capture` the XLA route."""
     if _CALIB_SINK is not None:
-        return _plain_route(p, x, n_head, causal)
+        return _xla_route(p, x, n_head, causal, mask)
     if _QUANT_MODE != "none":
-        return _quant_block(p, x, n_head, causal)
+        return _quant_block(p, x, n_head, causal, mask)
     D = x.shape[-1]
-    if D > fused_block.MAX_WIDTH:
-        raise NotImplementedError(
-            f"width {D} > {fused_block.MAX_WIDTH}: the JAX package runs its XLA layer "
-            "there (models/layers.py:283-284, no Pallas kernel); the port has no such "
-            "route yet (ROADMAP.md A, 'the XLA block route')"
-        )
+    if _BLOCK_IMPL == "xla" or (mask is not None and not causal) or D > fused_block.MAX_WIDTH:
+        return _xla_route(p, x, n_head, causal, mask)
     if x.is_cuda and not _PLAIN_ON_CUDA:
         _require_bf16(x)
     plain = _PLAIN_ON_CUDA
+    if _EXPORTING:
+        from mudpt_torch.ops import library
+
+        return library.residual_block(p, x, n_head, causal)
     ln_1, attn, ln_2, mlp_p = p["ln_1"], p["attn"], p["ln_2"], p["mlp"]
     if fused_block.save_acts_enabled() and D <= fused_block.FULLBLOCK_MAX_WIDTH:
         return fused_block.layer_fullblock(

@@ -24,8 +24,9 @@ from typing import Optional
 
 import torch
 
-from mudpt_torch.models.layers import calibrating, layer_norm
-from mudpt_torch.models.transformer import make_injection_schedule, num_layers_of, transformer_forward
+from mudpt_torch.models.layers import calibrating, layer_norm, resolve_block_impl
+from mudpt_torch.models.transformer import (make_injection_schedule, num_layers_of,
+                                            resolve_unroll, transformer_forward)
 from mudpt_torch.ops.fused_block import saved_acts
 
 _AUTO_PACK_TOKENS = 256
@@ -83,7 +84,8 @@ def text_forward(
     EOT position (:295-299).
 
     ``pack``: rows per kernel row; None picks it as the JAX package's auto
-    rule does, 1 runs the unpacked causal tower."""
+    rule does (packing on the kernel route only), 1 runs the unpacked causal
+    tower."""
     lead = prompt_embeddings.shape[:-2]
     S, D = prompt_embeddings.shape[-2:]
     x = prompt_embeddings + p["pos_embedding"][:S].to(prompt_embeddings.dtype)
@@ -99,10 +101,13 @@ def text_forward(
     prompts, pmask = make_injection_schedule(num_layers_of(p["blocks"]), deep_prompts)
     P = -(-S // 8) * 8
     if pack is None:
-        # the calibration capture runs the tower unpacked, as the JAX
-        # capture's XLA blocks do (text._resolve_pack :78-93): packed pad
-        # rows would enter the absmax
-        pack = 1 if calibrating() else _auto_pack_g(P, N)
+        # auto packing engages on the kernel route with the tower unrolled
+        # (text._resolve_pack :78-93); the calibration capture runs the tower
+        # unpacked, as the JAX capture's XLA blocks do: packed pad rows would
+        # enter the absmax
+        kernel_route = resolve_block_impl() == "pallas" and not calibrating()
+        unrolled = resolve_unroll() >= num_layers_of(p["blocks"])
+        pack = _auto_pack_g(P, N) if kernel_route and unrolled else 1
     G = pack
     kw = dict(n_head=n_head, prompts=prompts, prompt_mask=pmask, n_ctx=n_ctx, is_text=True)
     with saved_acts(False) if _text_saves_off(N, P) else contextlib.nullcontext():

@@ -2,6 +2,15 @@
 (counterpart of ``mudpt_tpu/models/transformer.py``, its fully-unrolled
 static path :167-203).
 
+The loop over layers is always unrolled: :func:`set_scan_unroll` takes
+every value the JAX package takes, and the one thing it changes here is
+JAX's refusal of packed text rows when the unroll does not cover the tower
+(:205-209).  :func:`set_remat_mode` is JAX's rematerialization (:37-81):
+'full' runs each layer under ``torch.utils.checkpoint``, so the backward
+recomputes it from its input; 'selective' recomputes only the XLA route's
+fp32 attention scores and probs, and on the kernel route, where nothing is
+named, saves what 'none' saves.
+
 Splicing semantics:
   * text layers replace positions ``1 .. 1+n_ctx`` (keeping the SOS prefix
     and the class-name suffix), at every ``splice_period`` offset when rows
@@ -17,8 +26,51 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from mudpt_torch.models import layers
 from mudpt_torch.models.layers import residual_block
+
+REMAT_MODES = ("none", "full", "selective")
+_REMAT_MODE = "none"
+# 'auto' (the whole tower unrolled) or an integer (``transformer.py:57``)
+_SCAN_UNROLL = "auto"
+
+
+def set_remat_mode(name: str) -> None:
+    """'none' (save what the layers save), 'full' (keep each layer's input,
+    recompute the layer in the backward) or 'selective' (recompute the XLA
+    route's attention scores and probs) (``transformer.py:62-81``)."""
+    if name not in REMAT_MODES:
+        raise ValueError(f"REMAT {name!r}: expected one of {REMAT_MODES}")
+    global _REMAT_MODE
+    _REMAT_MODE = name
+
+
+def remat_mode() -> str:
+    return _REMAT_MODE
+
+
+def set_scan_unroll(value) -> None:
+    """'auto' or an integer unroll factor (``transformer.py:74-82``)."""
+    v = str(value)
+    if not (v == "auto" or v.lstrip("-").isdigit()):
+        raise ValueError(f"SCAN_UNROLL {value!r}: expected 'auto' or an integer")
+    global _SCAN_UNROLL
+    _SCAN_UNROLL = v
+
+
+def resolve_unroll() -> int:
+    """The unroll factor JAX's scan would take: 64 for 'auto', enough to
+    unroll every CLIP tower (``transformer.py:57-61``)."""
+    return 64 if _SCAN_UNROLL == "auto" else int(_SCAN_UNROLL)
+
+
+def _remat_layer(state: tuple, p: dict, x: torch.Tensor, n_head: int, causal, mask):
+    # the recompute runs in the backward, after the caller's contexts have
+    # closed: it re-enters the forward's routing state to take its route
+    with layers.routing(state):
+        return residual_block(p, x, n_head, causal, mask)
 
 
 def make_injection_schedule(
@@ -56,6 +108,7 @@ def transformer_forward(
     x: torch.Tensor,
     *,
     n_head: int,
+    mask: Optional[torch.Tensor] = None,
     prompts: Optional[torch.Tensor] = None,
     prompt_mask: Optional[np.ndarray] = None,
     n_ctx: int = 0,
@@ -68,16 +121,35 @@ def transformer_forward(
     holds; ``x`` itself is written only if layer 0 splices, which the
     towers' schedules never ask for.  Autograd accepts the write: the
     layer's forward saves its input, not its output, and returns a tensor
-    of its own (not a view)."""
-    B, S, D = x.shape
-    for l in range(num_layers_of(stacked_params)):
-        if prompts is not None and prompt_mask[l]:
-            rows = prompts[l].to(x.dtype)
-            if not is_text:
-                x[:, S - n_ctx:] = rows
-            elif splice_period:
-                x.view(B, S // splice_period, splice_period, D)[:, :, 1:1 + n_ctx] = rows
+    of its own (not a view).  Under REMAT 'full' the splice stays outside
+    the checkpointed layer, so the layer's kept input is the spliced one and
+    is not written after.  ``mask``, an additive (S, S) mask, goes to
+    :func:`layers.residual_block` (a mask that is not causal takes the XLA
+    route, as in the JAX package)."""
+    L = num_layers_of(stacked_params)
+    if splice_period and resolve_unroll() < L:
+        raise NotImplementedError(
+            "packed text rows require the fully-unrolled static path "
+            "(SCAN_UNROLL must cover the tower)"
+        )
+    grad = torch.is_grad_enabled()
+    full = _REMAT_MODE == "full" and grad
+    with layers.recomputing_probs(_REMAT_MODE == "selective" and grad):
+        state = layers.routing_state() if full else None
+        B, S, D = x.shape
+        for l in range(L):
+            if prompts is not None and prompt_mask[l]:
+                rows = prompts[l].to(x.dtype)
+                if not is_text:
+                    x[:, S - n_ctx:] = rows
+                elif splice_period:
+                    x.view(B, S // splice_period, splice_period, D)[:, :, 1:1 + n_ctx] = rows
+                else:
+                    x[:, 1:1 + n_ctx] = rows
+            p = layer_params(stacked_params, l)
+            if full:
+                x = checkpoint(_remat_layer, state, p, x, n_head, causal, mask,
+                               use_reentrant=False)
             else:
-                x[:, 1:1 + n_ctx] = rows
-        x = residual_block(layer_params(stacked_params, l), x, n_head, causal)
+                x = residual_block(p, x, n_head, causal, mask)
     return x

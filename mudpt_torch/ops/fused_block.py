@@ -923,9 +923,12 @@ class LayerFullblockFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        x = ctx.saved_tensors[0]
-        dx = _layer_bwd_chain(_PLAIN if ctx.plain else _KERNELS, *ctx.saved_tensors[:4],
-                              g.contiguous(), *ctx.saved_tensors[4:], ctx.n_head, ctx.causal)
+        # read once: a checkpointed layer (REMAT 'full') unpacks each saved
+        # tensor only once
+        saved = ctx.saved_tensors
+        x = saved[0]
+        dx = _layer_bwd_chain(_PLAIN if ctx.plain else _KERNELS, *saved[:4],
+                              g.contiguous(), *saved[4:], ctx.n_head, ctx.causal)
         if x.is_cuda and not ctx.plain:
             LAUNCHES["layer_fullblock_bwd"] += 1
         return (dx,) + (None,) * 15

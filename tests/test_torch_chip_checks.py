@@ -28,7 +28,11 @@ count without the checkpoint's recompute.  ``[datasets]`` rejects a grain
 eval batch one pixel off the threads loader's, a calibration that advanced
 the training loader's epoch, an int8_ste_static step counted without the
 static chain, and, under the grain pipeline, a resumed loss one ulp off.
-The end-of-run process check rejects a child process left running."""
+``[remat]`` rejects a loss or a gradient one ulp off and a peak that did
+not fall; ``[export]`` rejects an artifact's logits with the classes
+shifted or the scale 10% off, and a ``pallas`` artifact rate 11% under
+``[serving]``'s.  The end-of-run process check rejects a child process left
+running."""
 
 import importlib.util
 import os
@@ -836,3 +840,58 @@ def test_process_check_catches_a_process_left_running():
     finally:
         child.kill()
         child.wait()
+
+
+def _remat_readings(seed):
+    g = torch.Generator().manual_seed(seed)
+    loss = torch.tensor(2.7725887, dtype=torch.float32)
+    return loss, [torch.randn(2, 512, generator=g), torch.randn(8, 2, 768, generator=g)]
+
+
+def test_remat_check_catches_one_ulp_and_a_peak_that_did_not_fall():
+    """[remat]: REMAT 'full' against 'none' passes bit-equal readings and a
+    lower peak; a gradient or the loss one ulp off fails, and so does a
+    peak that did not fall."""
+    C = _chip_smoke()
+    none = _remat_readings(5)
+    same = (none[0].clone(), [t.clone() for t in none[1]])
+    peaks = (58.9 * 2 ** 30, 17.2 * 2 ** 30)
+    assert "bit-equal" in C.check_remat("336px", none, same, peaks)
+    grads = [t.clone() for t in none[1]]
+    grads[1][7, 1, 300] = torch.nextafter(grads[1][7, 1, 300], torch.tensor(0.0))
+    with pytest.raises(AssertionError, match=r"gradients of leaves \[1\]"):
+        C.check_remat("336px", none, (none[0], grads), peaks)
+    loss = torch.nextafter(none[0], torch.tensor(0.0))
+    with pytest.raises(AssertionError, match="loss"):
+        C.check_remat("336px", none, (loss, none[1]), peaks)
+    with pytest.raises(AssertionError, match="did not fall"):
+        C.check_remat("336px", none, same, (peaks[0], peaks[0]))
+
+
+def test_hold_logits_catches_shifted_classes_and_a_scale_off():
+    """[export]: an artifact's logits against the tier in process.  A
+    one-ulp rounding passes; the classes shifted by one (a classname order
+    the program does not serve) and the logit scale 10% off fail."""
+    C = _chip_smoke()
+    g = torch.Generator().manual_seed(9)
+    img = tf.normalize(torch.randn(384, 512, generator=g), dim=-1)
+    txt = tf.normalize(torch.randn(100, 512, generator=g), dim=-1)
+    ref = 100.0 * img @ txt.T
+    C.hold_logits(torch.nextafter(ref, torch.zeros(())), ref)
+    with pytest.raises(AssertionError):
+        C.hold_logits(ref.roll(1, dims=-1), ref)
+    with pytest.raises(AssertionError, match="drift"):
+        C.hold_logits(ref * 0.9, ref)
+
+
+@pytest.mark.parametrize("factor,ok", [(0.89, False), (1.11, False), (0.91, True),
+                                       (1.09, True)])
+def test_artifact_rate_holds_ten_percent(factor, ok):
+    """[export]: the pallas artifact's images/s 11% under (or over)
+    [serving]'s fails, 9% passes."""
+    C = _chip_smoke()
+    if ok:
+        C.check_artifact_rate(11868.3 * factor, 11868.3)
+    else:
+        with pytest.raises(AssertionError, match="limit 10%"):
+            C.check_artifact_rate(11868.3 * factor, 11868.3)

@@ -67,9 +67,11 @@ def test_bad_opts_raise_alike(opts):
 
 
 def test_perf_knobs_apply_and_the_rest_raise():
-    """A PERF knob the port has reaches its module; one it lacks raises,
-    naming its ROADMAP.md item; an unset knob leaves the module alone; the
-    text tower's switches take their defaults (the auto rules) only."""
+    """A PERF knob the port has reaches its module (BLOCK, LN, SCAN_UNROLL
+    and REMAT too) and the snapshot reports its live value; one it lacks
+    raises, naming its ROADMAP.md item; an unset knob leaves the module
+    alone; the text tower's switches take their defaults (the auto rules)
+    only."""
     from mudpt_torch.ops import fused_block
 
     cfg = T.load_config(opts=["PERF.TEXT_PACK", "0", "PERF.TEXT_TRUNC", "auto",
@@ -84,11 +86,22 @@ def test_perf_knobs_apply_and_the_rest_raise():
     finally:
         fused_block.set_save_mlp_wide("auto")
         fused_block.set_save_acts(True)
-    for knob, value, item in (("REMAT", "full", "REMAT full"),
-                              ("BLOCK", "xla", "the XLA block route"),
-                              ("LN", "bf16", "the XLA block route"),
-                              ("SCAN_UNROLL", "2", "the XLA block route"),
-                              ("TEXT_PACK", "1", "the text tower's switches"),
+    from mudpt_torch.models import layers, transformer
+
+    try:
+        snap = T.apply_perf_config(T.load_config(opts=[
+            "PERF.REMAT", "full", "PERF.BLOCK", "xla", "PERF.LN", "bf16",
+            "PERF.SCAN_UNROLL", "2"]).PERF)
+        assert (snap["REMAT"], snap["BLOCK"], snap["BLOCK_RESOLVED"], snap["LN"],
+                snap["SCAN_UNROLL"]) == ("full", "xla", "xla", "bf16", "2")
+        assert (transformer.remat_mode(), layers.block_impl(), layers.ln_dtype(),
+                transformer.resolve_unroll()) == ("full", "xla", "bf16", 2)
+    finally:
+        T.apply_perf_config(T.load_config(opts=[
+            "PERF.REMAT", "none", "PERF.BLOCK", "auto", "PERF.LN", "fp32",
+            "PERF.SCAN_UNROLL", "auto"]).PERF)
+    assert T.perf_snapshot()["BLOCK"] == "auto" and transformer.remat_mode() == "none"
+    for knob, value, item in (("TEXT_PACK", "1", "the text tower's switches"),
                               ("TEXT_TRUNC", "0", "the text tower's switches"),
                               ("TEXT_RECOMPUTE", "1", "the text tower's switches")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP.md A, '{item}'"):

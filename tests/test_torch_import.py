@@ -45,3 +45,12 @@ def test_no_banned_import(path):
             continue
         for name in names:
             assert name.split(".")[0] not in BANNED, f"{path}:{node.lineno} imports {name}"
+
+
+def test_tools_are_scanned():
+    """The serving tools are among the scanned sources, beside the modules
+    they drive."""
+    names = {str(p.relative_to(ROOT)) for p in SOURCES}
+    assert {"mudpt_torch/tools/export_serving.py", "mudpt_torch/tools/predict.py",
+            "mudpt_torch/tools/bench_artifact.py", "mudpt_torch/serving.py",
+            "mudpt_torch/api.py", "mudpt_torch/ops/library.py"} <= names
