@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Run the PyTorch/CUDA port's MuDPT serving paths and train steps on one
 GPU, ViT-B/16, ViT-L/14 and ViT-L/14@336px, its training engine, CLI, trainer
-zoo, dataset pipelines and bench entry point, its chunked MLP half-block,
-its serving artifacts, REMAT and the XLA block route.
+zoo, dataset pipelines and bench entry point, the int8 tiers at ViT-B/16 and
+ViT-L/14, over the zoo and in CoCoOp, the RN presets, its chunked MLP
+half-block, its serving artifacts, REMAT and the XLA block route.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --times-of ROOT   # only the kernel times of the
@@ -110,6 +111,34 @@ Phases, each printed with the card's name and power limit:
               "int8_static" (calibrated at build), and the top-1 agreement
               with the bf16 tier on the same weights printed.
  11. train int8_ste, train int8_ste_static   as 5, quantization-aware.
+ 11a. kernels int8 ViT-L/14   as 9 at ViT-L/14's shapes (LayerNorm-quant at
+              99,456 x 1024, the row quantizer at 1024 and 4096 columns, the
+              s8 GEMM at 1024 -> 3072, 1024 -> 1024, 1024 -> 4096 with h
+              saved or not, 4096 -> 1024, attention_fwd's fp32 output at 259
+              rows and 16 heads), and the int8 chains there, the
+              quantization-aware layer saving at batch 32 and recomputing at
+              384 (the wide-MLP row-token budget); then serving ViT-L/14 int8
+              and int8_static as 10, and train ViT-L/14 int8_ste as 8: the
+              gradient check at batch 32 (h saved), the timed steps at 384
+              (the q8 forward recomputed in the backward), launches of each.
+ 11b. zoo int8   every zoo trainer through the CLI under TRAIN.QUANT int8_ste
+              at batch 64: the first step against the plain route, its
+              launches by route; one evaluate of 64 images under int8 and,
+              where the JAX package calibrates at build, int8_static.
+ 11c. cocoop int8   cocoop_forward at 1,000 classes under int8 (logits) and
+              int8_ste (gradients), unchunked and chunked, each against the
+              plain route, chunked bit-equal to unchunked; then a CoCoOp
+              trainer's pallas_int8 artifact at a pinned batch of 64 served
+              in a fresh process, bit-equal to the tier in this process, and
+              timed.
+ 11d. rn       the RN presets: CoOp on RN50 through the CLI (the first step
+              against the plain route, a traced step, step ms, evaluate
+              images/s), one step of CoOp on RN50x4 (text 640 wide, 10 heads)
+              and of CoCoOp on RN50; ZeroshotCLIP on RN50, RN101, RN50x4,
+              RN50x16 and RN50x64 (its text encode's launches, an evaluate of
+              64 images, images/s, peak memory, bf16 features against fp32
+              with BatchNorm statistics drawn far from unit); the CoOp RN50
+              pallas artifact served in a fresh process, bit-equal.
  12. kernels chunked   mlp_halfblock_chunked, the MLP half streamed over
               hidden-dim chunks: LayerNorm forward and dx at D = 1024 and
               1280; each GEMM of its chain at ViT-L/14's chunk (the fc
@@ -153,7 +182,8 @@ each way), under "vit_l14" and "vit_l14_336px" in the ViT-L/14 and
 ViT-L/14@336px train steps (LayerNorm three times, nine projections),
 under "int8" attention_fwd's fp32
 output in the int8 request; the int8 kernels' totals are over one vision
-layer of the int8 request, under "int8_static" of the int8_static request;
+layer of the int8 request, under "int8_static" of the int8_static request,
+under "int8_vit_l14" and "int8_static_vit_l14" the same at ViT-L/14;
 under "chunked" one call of the chunked MLP half's forward and backward at
 ViT-L/14 (LayerNorm twice, 40 products, LayerNorm dx once).  "launches"
 counts the main path's run ("main_path": the ViT-B/16 train step, or the
@@ -162,7 +192,11 @@ train step of the engine; "zoo_<trainer>_step" one of each zoo trainer,
 "zoo_<trainer>_evaluate" the zero-shot pair's evaluate, "cocoop_scale_*"
 CoCoOp at 1,000 classes, "datasets_<pipeline>_step" a loader-fed step,
 "datasets_int8_ste_static_step" and "datasets_int8_static_evaluate" the
-static tiers through the CLI; "export_<tier>_request" one request of each
+static tiers through the CLI; "serving_vit_l14_<tier>" and
+"train_step_vit_l14_int8_ste" ViT-L/14's int8 paths; "zoo_<tier>_<trainer>_*"
+the zoo under the int8 tiers; "cocoop_scale_<tier>_*" and
+"cocoop_pallas_int8_artifact_request" CoCoOp's int8 paths; "rn_*" the RN
+presets' steps and text encodes; "export_<tier>_request" one request of each
 served artifact in its fresh process, "remat_full_step*" a train step under
 REMAT full, "block_xla_request" the text encode and request under BLOCK
 xla, where no kernel runs).  Any failed
@@ -205,6 +239,22 @@ DIFFER_SHARE = 2.0 ** -8
 # layers deep, where one-ulp flips propagate
 TEXT_MAX_ERR, TEXT_NORM_ERR = 2.0 ** -4, 2.0 ** -5      # text features
 LOGITS_MAX_ERR, LOGITS_NORM_ERR = 2.0 ** -3, 2.0 ** -3  # logits, rows centred
+# and the served logits' drift, within this share of their largest magnitude
+LOGITS_DRIFT = 0.05
+# the int8 tiers end to end.  Where the kernels' and the plain version's
+# fp32 sums put a value on either side of a rounding boundary of an int8
+# site, its code moves by a step of 1/127 of its row's (or the tensor's)
+# absmax: twice a bf16 ulp of a value near that absmax.  The int8 checks of
+# CoCoOp's logits and of the zoo's evaluates double the logits' limits, max
+# and norm, and CoCoOp at 1,000 classes takes its [zoo] gradient limit
+# (ZOO_GRAD_LIMITS, the spread over eight seeds: its logits over many
+# near-equal classes pass flips on to the gradients).  A served ViT-L/14
+# tower is 24 layers deep: its drift limit grows with the square root of
+# the depth, as the gradient limit does (GRAD_DEPTH), and a loss over
+# GRAD_BATCH images averages fewer samples than one over BATCH: its limit
+# grows with the square root of their ratio (readings under PERF.md
+# Findings)
+Q8_STEP = 2.0
 
 # fp32 outputs (the GEMM's store_f32): the sum order alone moves the last
 # bits of nearly every element, so no bit-equal share is held; the error is
@@ -323,10 +373,30 @@ ROUTES = {
                      layer_fullblock_q8_ste=1, **_Q8_BWD),
     "q8s_train": dict(layernorm_q8=2, gemm_s8_epilogue=4, attention_fwd=1, quant_rows=1,
                       layer_fullblock_q8_ste_static=1, **_Q8_BWD),
+    # the same where the layer saves nothing (saves off, or D > 768 over the
+    # wide-MLP row-token budget): the backward runs the saving q8 forward again
+    "q8_train_recompute": dict(layernorm_q8=4, gemm_s8_epilogue=8, attention_fwd=2,
+                               quant_rows=4, layer_fullblock_q8_ste=1, **_Q8_BWD),
+    "q8s_train_recompute": dict(layernorm_q8=4, gemm_s8_epilogue=8, attention_fwd=2,
+                                quant_rows=2, layer_fullblock_q8_ste_static=1, **_Q8_BWD),
+    # a quantization-aware layer's forward alone, where its input needs a
+    # gradient: the recompute a checkpointed CoCoOp chunk makes
+    "q8_train_fwd": dict(layernorm_q8=2, gemm_s8_epilogue=4, attention_fwd=1, quant_rows=2,
+                         layer_fullblock_q8_ste=1),
 }
 # each tier's layer route, serving and training
 Q8_ROUTES = {"int8": "q8", "int8_static": "q8s", "int8_ste": "q8_train",
              "int8_ste_static": "q8s_train"}
+
+
+def qat_route(F, width: int, row_tokens: int, quant: str) -> str:
+    """A quantization-aware layer's route: it saves y1, qkv and h while
+    saves are on and D <= 768, or D <= 1024 within the wide-MLP row-token
+    budget (``quant_block._ste_forward``, JAX ``quant_block.py:298-299``),
+    else its backward recomputes the q8 forward."""
+    saves = F.save_acts_enabled() and (width <= F.FULLBLOCK_MAX_WIDTH
+                                       or F.wide_mlp_save(row_tokens))
+    return Q8_ROUTES[quant] + ("" if saves else "_recompute")
 
 
 def expect(keys, *parts) -> dict:
@@ -1044,6 +1114,26 @@ S8_RAGGED = tuple((f"{kind}_{ep}", save) for kind in ("q8", "q8s")
                   for ep, save in (("qkv", False), ("residual", False), ("fc_gelu", False),
                                    ("fc_gelu", True)))
 S8_RAGGED_MKN = (1000, 80, 784)
+# the same at ViT-L/14's shapes (vision 1024 wide, 257 + n_ctx rows, 16
+# heads; text 768 wide, 12 heads): LayerNorm-quant at its D <= 1024 limit,
+# the row quantizer at 1024 columns and at QUANT_ROWS_MAX = 4096, the s8
+# GEMM at 1024 -> 3072, 1024 -> 1024, 1024 -> 4096 (h saved or not) and
+# 4096 -> 1024
+Q8_LN_L14 = ((M_L, 1024, False, 2, 0), (M_L, 1024, True, 0, 2), (13 * 128, 768, False, 0, 0))
+Q8_ROWS_L14 = ((M_L, 1024, False, 1, 0), (M_L, 4096, False, 1, 0), (M_L, 1024, True, 0, 1))
+Q8_GEMM_L14 = tuple((f"{kind}_{ep}", M_L, K, N, save, *((n, 0) if kind == "q8" else (0, n)))
+                    for kind in ("q8", "q8s")
+                    for ep, K, N, save, n in (("qkv", 1024, 3072, False, 1),
+                                              ("residual", 1024, 1024, False, 1),
+                                              ("fc_gelu", 1024, 4096, False, 1),
+                                              ("fc_gelu", 1024, 4096, True, 0),
+                                              ("residual", 4096, 1024, False, 1)))
+# attention's fp32 output: label, B, S, heads, mask, launches in a vision layer
+Q8_ATTN = (("vision", BATCH, 199, 12, False, 1), ("text packed (16,16)", 13, 128, 8, (16, 16), 0))
+Q8_ATTN_L14 = (("vision", BATCH, 259, 16, False, 1),
+               ("text packed (16,16)", 13, 128, 12, (16, 16), 0))
+Q8_SHAPES = {"ViT-B/16": (Q8_LN, Q8_ROWS, Q8_GEMM, Q8_ATTN),
+             "ViT-L/14": (Q8_LN_L14, Q8_ROWS_L14, Q8_GEMM_L14, Q8_ATTN_L14)}
 
 
 def _per_layer(kernels: tuple, counts: tuple, *times) -> None:
@@ -1098,18 +1188,19 @@ def s8_case(Q, rn, ep: str, M: int, K: int, N: int, save: bool, kern: Kernel = N
     return args, reading
 
 
-def phase_kernels_int8(F, Q, kq: dict, kqs: dict) -> None:
-    """Every int8 kernel against its plain version at the ViT-B/16 shapes:
-    LayerNorm-quant, the row quantizer (with a probe of exact ties), each
-    s8 GEMM epilogue, and attention_fwd's fp32 output."""
+def phase_kernels_int8(F, Q, kq: dict, kqs: dict, model: str = "ViT-B/16") -> None:
+    """Every int8 kernel against its plain version at the model's shapes
+    (``Q8_SHAPES``): LayerNorm-quant, the row quantizer, each s8 GEMM
+    epilogue, and attention_fwd's fp32 output; at ViT-B/16 also a probe of
+    exact ties and the GEMM's ragged tile edges."""
     import torch
-    import torch.nn.functional as tf
 
-    tag = "kernels int8"
+    tag = phase_name("kernels int8", model, "none")
     rn = randn_fn(4)
     one = lambda v: torch.full((), v, dtype=torch.float32, device="cuda")  # noqa: E731
+    q8_ln, q8_rows, q8_gemm, q8_attn = Q8_SHAPES[model]
 
-    for rows, D, static, n_dyn, n_st in Q8_LN:
+    for rows, D, static, n_dyn, n_st in q8_ln:
         x = rn(rows, D, std=2.0)
         s = rn(D, dtype=torch.float32) * 0.1 + 1
         b = rn(D, dtype=torch.float32) * 0.1
@@ -1129,7 +1220,7 @@ def phase_kernels_int8(F, Q, kq: dict, kqs: dict) -> None:
                    bms, by)
         del x, q, q_ref
 
-    for rows, X, static, n_dyn, n_st in Q8_ROWS:
+    for rows, X, static, n_dyn, n_st in q8_rows:
         x = rn(rows, X, dtype=torch.float32)
         r = one(127.0) / x.abs().amax() if static else None
         (q, sc), (q_ref, sc_ref) = Q.quantize_rows(x, r), Q.quantize_rows_plain(x, r)
@@ -1143,19 +1234,7 @@ def phase_kernels_int8(F, Q, kq: dict, kqs: dict) -> None:
                  f"ms {ms:.4f} plain {plain:.4f} library none bound {bms:.4f} ({by})")
         _per_layer((kq["quant_rows"], kqs["quant_rows"]), (n_dyn, n_st), ms, plain, None, bms, by)
         del x, q, q_ref
-    # exact ties, rint's half-to-even: rows of k + 1/2 whose largest value is
-    # 127, so the dynamic scale is 1 and x / s lands on the tie; static r = 1
-    k = torch.randint(-127, 127, (64, 768), device="cuda", generator=torch.Generator(
-        device="cuda").manual_seed(5))
-    ties = k.float() + 0.5
-    ties[:, 0] = 127.0
-    for r in (None, one(1.0)):
-        reading = check_equal("quant_rows ties", Q.quantize_rows(ties, r)[0],
-                              Q.quantize_rows_plain(ties, r)[0], kq["quant_rows"])
-        say(tag, f"quant_rows 64x768 of exact ties, {'static' if r is not None else 'dynamic'}: "
-                 f"{reading}")
-
-    for ep, M, K, N, save, n_dyn, n_st in Q8_GEMM:
+    for ep, M, K, N, save, n_dyn, n_st in q8_gemm:
         static = ep.startswith("q8s_")
         kern = kq["gemm_s8_epilogue"] if not static else kqs["gemm_s8_epilogue"]
         args, reading = s8_case(Q, rn, ep, M, K, N, save, kern)
@@ -1175,6 +1254,29 @@ def phase_kernels_int8(F, Q, kq: dict, kqs: dict) -> None:
         _per_layer((kq["gemm_s8_epilogue"], kqs["gemm_s8_epilogue"]), (n_dyn, n_st), ms, plain,
                    lib, bms, by)
         del a, wq, extra, args
+    if model == "ViT-B/16":
+        q8_ties_and_edges(F, Q, kq, rn, tag)
+    q8_attention_f32(F, Q, kq, rn, tag, q8_attn)
+
+
+def q8_ties_and_edges(F, Q, kq: dict, rn, tag: str) -> None:
+    """The row quantizer on exact ties and every s8 epilogue at ragged tile
+    edges, each against its plain version."""
+    import torch
+
+    one = lambda v: torch.full((), v, dtype=torch.float32, device="cuda")  # noqa: E731
+    # exact ties, rint's half-to-even: rows of k + 1/2 whose largest value is
+    # 127, so the dynamic scale is 1 and x / s lands on the tie; static r = 1
+    k = torch.randint(-127, 127, (64, 768), device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(5))
+    ties = k.float() + 0.5
+    ties[:, 0] = 127.0
+    for r in (None, one(1.0)):
+        reading = check_equal("quant_rows ties", Q.quantize_rows(ties, r)[0],
+                              Q.quantize_rows_plain(ties, r)[0], kq["quant_rows"])
+        say(tag, f"quant_rows 64x768 of exact ties, {'static' if r is not None else 'dynamic'}: "
+                 f"{reading}")
+
     # the ragged tile edges (tiles of 128 rows, 256 columns, 128 of K): the
     # product's K tail and the rows past M arrive as TMA's zeros, the
     # columns past N are cut from the ws and bias loads and the stores
@@ -1183,9 +1285,14 @@ def phase_kernels_int8(F, Q, kq: dict, kqs: dict) -> None:
         _, reading = s8_case(Q, rn, ep, M, K, N, save)
         say(tag, f"gemm_s8_epilogue {ep}{' save h' if save else ''} {M}x{K}->{N}: {reading}")
 
-    # attention's fp32 output, the int8 layers' accumulator, and its codes
-    for label, B, S, H, causal, per_layer in (("vision", BATCH, 199, 12, False, 1),
-                                              ("text packed (16,16)", 13, 128, 8, (16, 16), 0)):
+
+def q8_attention_f32(F, Q, kq: dict, rn, tag: str, cases: tuple) -> None:
+    """attention_fwd's fp32 output, the int8 layers' accumulator, and its
+    codes, against the plain version, beside SDPA."""
+    import torch
+    import torch.nn.functional as tf
+
+    for label, B, S, H, causal, per_layer in cases:
         D = 64 * H
         qkv = rn(B, S, 3 * D)
         got, ref = F.attention_fwd(qkv, H, causal, True), F.attention_plain(qkv, H, causal, True)
@@ -1226,17 +1333,27 @@ def q8_block(ps: list) -> dict:
     return blk
 
 
-def phase_q8_chains(F, Q, layers) -> None:
+# the int8 layer chains' cases: label, B, S, D, heads, mask.  At ViT-L/14
+# the quantization-aware layer saves at batch 32 and, over the wide-MLP
+# row-token budget, recomputes at 384
+Q8_CHAINS = {"ViT-B/16": (("vision", BATCH, 199, 768, 12, False),
+                          ("text packed", 13, 128, 512, 8, (16, 16))),
+             "ViT-L/14": (("vision", BATCH, 259, 1024, 16, False),
+                          (f"vision batch {GRAD_BATCH}", GRAD_BATCH, 259, 1024, 16, False),
+                          ("text packed", 13, 128, 768, 12, (16, 16)))}
+
+
+def phase_q8_chains(F, Q, layers, model: str = "ViT-B/16") -> None:
     """The four int8 layer chains against their plain versions at the
-    ViT-B/16 vision shape and the packed text rows: the dynamic and the
-    static serving forward, the saving forwards, and the quantization-aware
-    forward with its backward, h and qkv saved and recomputed."""
+    model's vision shape and packed text rows (``Q8_CHAINS``): the dynamic
+    and the static serving forward, the saving forwards, and the
+    quantization-aware forward with its backward, saves on and off (the
+    layer saves where ``qat_route`` says it does)."""
     import torch
 
-    tag = "kernels int8"
+    tag = phase_name("kernels int8", model, "none")
     rn = randn_fn(6)
-    for label, B, S, D, H, causal in (("vision", BATCH, 199, 768, 12, False),
-                                      ("text packed", 13, 128, 512, 8, (16, 16))):
+    for label, B, S, D, H, causal in Q8_CHAINS[model]:
         x = rn(B, S, D)
         ps = layer_params(rn, D)
         blk = q8_block(ps)
@@ -1268,6 +1385,9 @@ def phase_q8_chains(F, Q, layers) -> None:
         gy = rn(B, S, D)
         for tier in ("int8_ste", "int8_ste_static"):
             for save in (True, False):
+                with F.saved_acts(save):
+                    saves = not qat_route(F, D, B * S, tier).endswith("_recompute")
+
                 def step(plain_fns):
                     with F.saved_acts(save):
                         if tier == "int8_ste":
@@ -1275,12 +1395,13 @@ def phase_q8_chains(F, Q, layers) -> None:
                         else:
                             y = Q.layer_fullblock_q8_ste_static(xg, amax, *ps, H, causal,
                                                                 plain_fns, qw)
-                    if (y.grad_fn.saved_tensors[1] is not None) != save:
-                        raise AssertionError(f"{tier} save={save}: wrong route")
+                    if (y.grad_fn.saved_tensors[1] is not None) != saves:
+                        raise AssertionError(f"{tier} {label} save={save}: wrong route")
                     return y, torch.autograd.grad(y, xg, gy)[0]
 
                 (y, dx), (y_ref, dx_ref) = step(False), step(True)
-                what = f"{tier} {label} {'saved' if save else 'recomputed'}"
+                what = (f"{tier} {label} saves {'on' if save else 'off'}: "
+                        f"{'saved' if saves else 'recomputed'}")
                 served = serve["int8" if tier == "int8_ste" else "int8_static"]
                 check_equal(f"{what}: y vs the serving forward", y.detach(), served)
                 r_y = check_close(f"{what} y", y, y_ref, share_limit=None)
@@ -1567,8 +1688,10 @@ def phase_serving(F, model: str, quant: str = "none") -> dict:
     # layers a one-ulp flip grows like any bf16 drift
     t_read = check_close("text features", txt, txt_ref, max_limit=TEXT_MAX_ERR,
                          norm_limit=TEXT_NORM_ERR, share_limit=None)
+    # an int8 tower deeper than GRAD_DEPTH: the drift limit at its depth
+    depth = max(cfg.vision_layers, GRAD_DEPTH) if quant != "none" else GRAD_DEPTH
     say(phase, f"vs plain path on the card: text features {t_read}; "
-               + hold_logits(logits, logits_ref))
+               + hold_logits(logits, logits_ref, LOGITS_DRIFT * math.sqrt(depth / GRAD_DEPTH)))
     if quant != "none":
         # printed, not held: how often int8 serving picks the bf16 tier's class
         kw = dict(clip_cfg=cfg, compute_dtype=torch.bfloat16)
@@ -1581,11 +1704,12 @@ def phase_serving(F, model: str, quant: str = "none") -> dict:
     return counts
 
 
-def hold_logits(logits, logits_ref) -> str:
+def hold_logits(logits, logits_ref, drift_limit: float = LOGITS_DRIFT) -> str:
     """Served logits against the plain path's on the card: rows centred
     within ``LOGITS_MAX_ERR`` / ``LOGITS_NORM_ERR``, and the bound of
-    tests/test_precision_drift.py (drift within 5% of the largest magnitude,
-    every top-1 whose margin exceeds the drift equal, 75% agreement)."""
+    tests/test_precision_drift.py (drift within ``drift_limit``, 5%, of the
+    largest magnitude, every top-1 whose margin exceeds the drift equal, 75%
+    agreement)."""
     # random weights leave the logits of a row close together: the error is
     # held against their spread around the row's mean, not their size
     centred, centred_ref = (t - t.mean(-1, keepdim=True) for t in (logits, logits_ref))
@@ -1596,9 +1720,9 @@ def hold_logits(logits, logits_ref) -> str:
     top = logits_ref.topk(2, dim=-1).values
     decisive = (top[:, 0] - top[:, 1]) > 2 * drift
     agree = (logits.argmax(-1) == logits_ref.argmax(-1))
-    if drift > 0.05 * scale or not agree[decisive].all() or agree.float().mean() < 0.75:
-        raise AssertionError(f"logits vs plain path: drift {drift} (scale {scale}), "
-                             f"agreement {agree.float().mean().item()}")
+    if drift > drift_limit * scale or not agree[decisive].all() or agree.float().mean() < 0.75:
+        raise AssertionError(f"logits vs plain path: drift {drift} (scale {scale}, limit "
+                             f"{drift_limit:.4g}), agreement {agree.float().mean().item()}")
     return (f"logits, rows centred {l_read}; logits max abs err {drift:.4g} of max "
             f"{scale:.4g}; top-1 agreement {agree.float().mean().item():.4f}; "
             f"{int(decisive.sum())} decisive rows, {int(agree[decisive].sum())} equal")
@@ -1771,7 +1895,22 @@ def phase_train(F, model: str, quant: str = "none") -> dict:
     from mudpt_torch.utils.synth_step import build_synth_mudpt_step, leaves
 
     phase = phase_name("train", model, quant)
-    if model in ("ViT-L/14", "ViT-L/14@336px"):
+    if model == "ViT-L/14" and quant != "none":
+        # ---- gradients at batch 32, where an fp32 plain step fits and the
+        # vision layers' quantization-aware forward saves h (D = 1024 within
+        # the wide-MLP row-token budget); the timed steps at batch 384 take
+        # the recompute branch
+        st = build_synth_mudpt_step(model, GRAD_BATCH, N_CLS, N_CTX, DEPTH, seed=0, quant=quant)
+        cfg = st.clip_cfg
+        vision = qat_route(F, cfg.vision_width, GRAD_BATCH * (cfg.vision_seq_len + N_CTX), quant)
+        if vision != Q8_ROUTES[quant]:
+            raise AssertionError(f"{quant} at batch {GRAD_BATCH}: vision route {vision}")
+        grad_check(F, st, phase, f"one step at batch {GRAD_BATCH}, {quant}, h saved",
+                   step_launches(F, cfg, Q8_ROUTES[quant], vision),
+                   loss_limit=LOSS_REL_ERR * math.sqrt(BATCH / GRAD_BATCH))
+        del st
+        torch.cuda.empty_cache()
+    elif model in ("ViT-L/14", "ViT-L/14@336px"):
         # ---- gradients at batch 32, where an fp32 plain step fits: the
         # vision MLP recomputing h (its "0" mode), as at batch 384; then, at
         # ViT-L/14, 2,560 classes, whose text tower trains with saves off
@@ -1811,7 +1950,9 @@ def phase_train(F, model: str, quant: str = "none") -> dict:
     # quantization-aware tier every layer saves and runs its int8 chain
     text_route = "full_train"
     if quant != "none":
-        vision_route = text_route = Q8_ROUTES[quant]
+        text_route = Q8_ROUTES[quant]
+        vision_route = qat_route(F, cfg.vision_width, BATCH * (cfg.vision_seq_len + N_CTX),
+                                 quant)
     elif cfg.vision_width <= F.FULLBLOCK_MAX_WIDTH:
         vision_route = "full_train"
     elif F.wide_mlp_save(BATCH * cfg.vision_seq_len + BATCH * N_CTX):
@@ -1821,6 +1962,9 @@ def phase_train(F, model: str, quant: str = "none") -> dict:
     per_step = step_launches(F, cfg, text_route, vision_route)
     if model == "ViT-B/16":
         grad_check(F, st, phase, "one step", per_step)
+    if vision_route.endswith("_recompute"):
+        say(phase, f"vision layers over the wide-MLP row-token budget at batch {BATCH}: the "
+                   f"quantization-aware forward saves nothing, its backward recomputes it")
     if vision_route.startswith("half_train"):
         # what the vision tower saves for its backward, reckoned: per layer
         # x (the attention half's input), qkv and y1 (the MLP half's input)
@@ -2157,42 +2301,71 @@ COCOOP_B, COCOOP_N_CLS, COCOOP_CHUNK = 4, 1000, 2
 COCOOP_PACK = (8, 24)
 
 
-def zoo_step_launches(keys, cfg, text_trains: bool, vision_trains: bool) -> dict:
+# under a quantization-aware tier, a layer whose input needs no gradient
+# runs the serving forward of its tier
+Q8_SERVES = {"int8_ste": "int8", "int8_ste_static": "int8_static"}
+
+
+def _routes(quant: str) -> tuple:
+    """(a trained layer's route, a served layer's route) under ``quant``
+    (a quantization-aware layer that saves; D <= 768 on the zoo's paths)."""
+    if quant == "none":
+        return "full_train", "full"
+    return Q8_ROUTES[quant], Q8_ROUTES[Q8_SERVES.get(quant, quant)]
+
+
+def zoo_step_launches(keys, cfg, text_trains: bool, vision_trains: bool,
+                      quant: str = "none") -> dict:
     """A zoo train step's launches: the text tower's saving forward and
     backward where text prompts train (none where its features are cached
     at build), and the vision tower's, or its no-save forward where nothing
-    visual trains; the towers' LayerNorms likewise."""
-    parts = [(cfg.vision_layers, "full_train" if vision_trains else "full"),
-             (1, tower_lns(2, 2 if vision_trains else 0))]
+    visual trains; the towers' LayerNorms likewise.  An RN vision tower runs
+    no kernel of the port (cuDNN convolutions and torch.matmul)."""
+    train, serve = _routes(quant)
+    parts = []
+    if cfg.vision_arch == "vit":
+        parts += [(cfg.vision_layers, train if vision_trains else serve),
+                  (1, tower_lns(2, 2 if vision_trains else 0))]
     if text_trains:
-        parts += [(cfg.transformer_layers, "full_train"), (1, tower_lns(1, 1))]
+        parts += [(cfg.transformer_layers, train), (1, tower_lns(1, 1))]
     return expect(keys, *parts)
 
 
 def zoo_eval_launches(keys, cfg, n_batches: int, text_encodes: int,
-                      text_per_batch: bool) -> dict:
+                      text_per_batch: bool, quant: str = "none") -> dict:
     """An evaluate pass's launches: ``text_encodes`` class-text encodes (one
     for the trainers with a text/image split, none where the features are
-    cached at build), a vision pass a batch, and with ``text_per_batch``
-    (CoCoOp) the text tower a batch too."""
-    per_batch = [(cfg.vision_layers, "full"), (1, tower_lns(2))]
-    text = [(cfg.transformer_layers, "full"), (1, tower_lns(1))]
+    cached at build), a vision pass a batch (none for an RN tower), and with
+    ``text_per_batch`` (CoCoOp) the text tower a batch too."""
+    serve = _routes(quant)[1]
+    per_batch = ([(cfg.vision_layers, serve), (1, tower_lns(2))]
+                 if cfg.vision_arch == "vit" else [])
+    text = [(cfg.transformer_layers, serve), (1, tower_lns(1))]
     if text_per_batch:
         per_batch += text
     return expect(keys, (n_batches, expect(keys, *per_batch)),
                   (text_encodes, expect(keys, *text)))
 
 
-def cocoop_launches(keys, cfg, n_chunks: int) -> dict:
+def cocoop_launches(keys, cfg, n_chunks: int, quant: str = "none") -> dict:
     """Launches of one cocoop_forward and its backward at the scale case:
     the vision tower's no-save forward, then a chunk at a time the text
     tower's training forward and backward on the half-blocks with saves
     off, and, chunked, the recompute torch.utils.checkpoint makes in the
-    backward: one more text forward a chunk."""
-    chunk = [(cfg.transformer_layers, "half_train_saves_off"), (1, tower_lns(1, 1))]
+    backward: one more text forward a chunk.  Under ``int8`` the forward
+    alone (inference), every layer on the dynamic chain; under ``int8_ste``
+    the text layers' quantization-aware chain, saves off (its backward
+    recomputes the q8 forward), and chunked the checkpoint's forward again."""
+    if quant == "int8":
+        return expect(keys, (cfg.vision_layers, "q8"), (1, tower_lns(2)),
+                      (n_chunks, expect(keys, (cfg.transformer_layers, "q8"),
+                                        (1, tower_lns(1)))))
+    train, again, serve = (("half_train_saves_off", "half", "full") if quant == "none" else
+                           ("q8_train_recompute", "q8_train_fwd", "q8"))
+    chunk = [(cfg.transformer_layers, train), (1, tower_lns(1, 1))]
     if n_chunks > 1:
-        chunk += [(cfg.transformer_layers, "half"), (1, tower_lns(1))]
-    return expect(keys, (cfg.vision_layers, "full"), (1, tower_lns(2)),
+        chunk += [(cfg.transformer_layers, again), (1, tower_lns(1))]
+    return expect(keys, (cfg.vision_layers, serve), (1, tower_lns(2)),
                   (n_chunks, expect(keys, *chunk)))
 
 
@@ -2370,29 +2543,48 @@ def cocoop_names(n: int) -> list:
     return [" ".join(["synthetic", "class", str(i)] + ["variant"] * (i % 10)) for i in range(n)]
 
 
-def cocoop_at_scale(F, device: str = "cuda") -> dict:
+def check_bit_equal(what: str, a: tuple, b: tuple) -> str:
+    """Two runs' outputs (logits, then each gradient) bit-equal."""
+    import torch
+
+    differ = [i for i, (x, y) in enumerate(zip(a, b))
+              if x.shape != y.shape or not torch.equal(x, y)]
+    if differ or len(a) != len(b):
+        raise AssertionError(f"{what}: outputs {differ} not bit-equal")
+    return f"{len(a)} outputs bit-equal"
+
+
+def cocoop_at_scale(F, device: str = "cuda", quant: str = "none") -> dict:
     """cocoop_forward at 1,000 classes, 4 images, ViT-B/32 (seeded random
     weights, CTX_INIT "a photo of a" as CoCoOp's YAML): its text rows take
     the half-block route with saves off at D = 512.  Unchunked and chunked,
     each against the plain route on the card, chunked against unchunked;
-    launches held, the step ms and peak memory of each, chunked lower."""
+    launches held, the step ms and peak memory of each, chunked lower.
+    Under ``int8`` (the logits, inference) and ``int8_ste`` (logits and
+    gradients) the towers' weights are quantized once as a trainer's build
+    does, and chunked is held bit-equal to unchunked."""
     import contextlib
 
     import torch
 
+    from mudpt_torch.models import layers
     from mudpt_torch.models.clip import VIT_B32, cast_matmul_weights, init_clip_params, leaves
     from mudpt_torch.models.layers import plain_blocks
     from mudpt_torch.models.text import _auto_pack_g, _text_saves_off
+    from mudpt_torch.ops.quant_block import quantize_blocks
     from mudpt_torch.trainers.cocoop import cocoop_forward
     from mudpt_torch.trainers.prompt_utils import (ctx_vectors_from_init, embed_classnames,
                                                    init_linear)
     from mudpt_torch.utils.rng import new_rng
     from mudpt_torch.utils.synth_step import nll_loss
 
-    phase = "zoo"
+    phase = "zoo" if quant == "none" else "cocoop int8"
     cfg, dev = VIT_B32, torch.device(device)
     g = new_rng(0, dev)
     params = cast_matmul_weights(init_clip_params(cfg, g), torch.bfloat16)
+    if quant != "none":
+        params = {k: dict(v, blocks=quantize_blocks(v["blocks"])) if isinstance(v, dict) else v
+                  for k, v in params.items()}
     aux = embed_classnames(params["text"], cocoop_names(COCOOP_N_CLS), 4,
                            "a photo of a").as_device_tree()
     trainable = {"ctx": ctx_vectors_from_init(params["text"], "a photo of a", 4),
@@ -2411,29 +2603,35 @@ def cocoop_at_scale(F, device: str = "cuda") -> dict:
         raise AssertionError(f"CoCoOp text rows: G {G}, P {P}, S {S}; the half-block chain "
                              f"case was {COCOOP_PACK}, saves off")
     names = leaf_names(trainable)
+    inference = quant == "int8"
 
     def run(chunk: int, plain: bool):
         F.reset_launches()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
-        with plain_blocks() if plain else contextlib.nullcontext():
+        with (plain_blocks() if plain else contextlib.nullcontext()), layers.quantized(quant), \
+                (torch.no_grad() if inference else contextlib.nullcontext()):
             logits = cocoop_forward(trainable, params, aux, images, clip_cfg=cfg,
                                     compute_dtype=torch.bfloat16, encode_chunk=chunk)
-            grads = torch.autograd.grad(nll_loss(logits, labels), leaves(trainable),
-                                        allow_unused=True)
+            grads = () if inference else torch.autograd.grad(
+                nll_loss(logits, labels), leaves(trainable), allow_unused=True)
         torch.cuda.synchronize()
         peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
-        check_leaf_grads(names, grads)
+        if not inference:
+            check_leaf_grads(names, grads)
         return logits.detach(), grads, dict(F.LAUNCHES), peak
 
     def compare(what, a, b):
         (la, ga), (lb, gb) = a, b
         centred = [t - t.mean(-1, keepdim=True) for t in (la, lb)]
+        step = 1 if quant == "none" else Q8_STEP
         reading = check_close(f"{what} logits, rows centred", *centred,
-                              max_limit=LOGITS_MAX_ERR, norm_limit=LOGITS_NORM_ERR,
+                              max_limit=LOGITS_MAX_ERR * step, norm_limit=LOGITS_NORM_ERR * step,
                               share_limit=None)
-        limit = grad_limit(cfg)
+        if inference:
+            return f"logits {reading}"
+        limit = grad_limit(cfg) if quant == "none" else ZOO_GRAD_LIMITS["CoCoOp"][0]
         errs = [((x - y).norm() / y.norm()).item() for x, y in zip(ga, gb)]
         if not max(errs) <= limit:
             raise AssertionError(f"{what}: gradient relative norm errors {errs} over {limit}")
@@ -2441,30 +2639,388 @@ def cocoop_at_scale(F, device: str = "cuda") -> dict:
             f"{n} {e:.3g}" for n, e in zip(names, errs)) + f" (limit {limit:.4g})"
 
     out, runs = {}, {}
+    key_of = f"cocoop_scale_{'' if quant == 'none' else quant + '_'}"
     for chunk in (-1, COCOOP_CHUNK):
         key = "unchunked" if chunk == -1 else f"chunks of {chunk}"
         n_chunks = 1 if chunk == -1 else -(-COCOOP_B // chunk)
         logits, grads, launches, peak = run(chunk, False)
-        check_launches(f"CoCoOp {key}", launches, cocoop_launches(F.LAUNCHES, cfg, n_chunks))
-        out[f"cocoop_scale_{'unchunked' if chunk == -1 else 'chunked'}"] = launches
+        check_launches(f"CoCoOp {key}", launches,
+                       cocoop_launches(F.LAUNCHES, cfg, n_chunks, quant))
+        out[key_of + ("unchunked" if chunk == -1 else "chunked")] = launches
         ref = run(chunk, True)
         reading = compare(f"CoCoOp {key} vs plain route", (logits, grads), ref[:2])
         run(chunk, False)  # warm
         ms = statistics.median(_synced_ms(lambda: run(chunk, False)) for _ in range(3))
         runs[chunk] = (logits, grads, peak, ms)
         say(phase, f"CoCoOp {COCOOP_B} images x {COCOOP_N_CLS} classes ({G} sequences of {P} "
-                   f"tokens a packed row, D = 512, saves off), {key}: forward + backward "
-                   f"{ms:.2f} ms, peak {peak:.3f} GiB over the inputs; launches "
+                   f"tokens a packed row, D = 512, saves off, quant {quant}), {key}: "
+                   f"{'forward' if inference else 'forward + backward'} {ms:.2f} ms, peak "
+                   f"{peak:.3f} GiB over the inputs; launches "
                    f"{ {k: v for k, v in launches.items() if v} }; vs plain route: {reading}")
     (lu, gu, pu, mu), (lc, gcs, pc, mc) = runs[-1], runs[COCOOP_CHUNK]
-    reading = compare("CoCoOp chunked vs unchunked", (lc, gcs), (lu, gu))
+    if quant == "none":
+        reading = compare("CoCoOp chunked vs unchunked", (lc, gcs), (lu, gu))
+    else:
+        reading = check_bit_equal(f"CoCoOp {quant} chunked vs unchunked", (lc, *gcs),
+                                  (lu, *gu))
     if not pc < pu:
         raise AssertionError(f"CoCoOp chunked peak {pc:.3f} GiB not below unchunked {pu:.3f}")
     say(phase, f"CoCoOp chunked vs unchunked: {reading}; peak {pc:.3f} vs {pu:.3f} GiB, "
                f"step {mc:.2f} vs {mu:.2f} ms")
-    ZOO_RESULTS["CoCoOp_scale"] = dict(unchunked_ms=mu, chunked_ms=mc, unchunked_peak_gib=pu,
-                                       chunked_peak_gib=pc)
+    ZOO_RESULTS["CoCoOp_scale" + ("" if quant == "none" else f"_{quant}")] = dict(
+        unchunked_ms=mu, chunked_ms=mc, unchunked_peak_gib=pu, chunked_peak_gib=pc)
     return out
+
+
+# [zoo int8]: the zoo under the int8 tiers: one step of each trainer at
+# ZOO_BATCH under int8_ste, and an evaluate of one batch under int8 and,
+# for the trainers the JAX package calibrates at build (its UMuDPT and
+# UUMuDPT raise: their prompt heads' blocks enter the text capture; CoCoOp
+# raises: no image-independent text), under int8_static
+ZOO_Q8_STATIC = ("CoOp", "CoOp_csc_middle", "VPT", "MPT", "ZeroshotCLIP", "ZeroshotCLIP2")
+
+
+def zoo_eval_one_batch(F, tr, label: str, loader, quant: str, phase: str) -> dict:
+    """One evaluate of ``loader``'s batch under ``quant``: its launches held,
+    its images/s, and the forward's logits against the plain route."""
+    import torch
+
+    from mudpt_torch.models.layers import plain_blocks
+
+    cfg = tr.clip_cfg
+    split = getattr(tr, "forward_text", None) is not None
+    static = getattr(tr, "static_text", False)
+    cocoop = type(tr).__name__ == "CoCoOp"
+    images = tr._device_batch(next(iter(loader)))["image"]
+    F.reset_launches()
+    t0 = time.perf_counter()
+    results = tr.evaluate(loader, split=f"one batch, {quant}")
+    t_eval = time.perf_counter() - t0
+    launches = dict(F.LAUNCHES)
+    check_launches(f"{label} evaluate under {quant}", launches,
+                   zoo_eval_launches(F.LAUNCHES, cfg, 1, int(split and not static), cocoop,
+                                     quant))
+    with torch.no_grad():
+        logits = tr.forward(tr.trainable, tr.frozen, tr.aux, images)
+        with plain_blocks():
+            logits_ref = tr.forward(tr.trainable, tr.frozen, tr.aux, images)
+    centred, centred_ref = (t[:, :tr.num_classes].float() - t[:, :tr.num_classes].float().mean(
+        -1, keepdim=True) for t in (logits, logits_ref))
+    reading = check_close(f"{label} logits under {quant}, rows centred", centred, centred_ref,
+                          max_limit=LOGITS_MAX_ERR * Q8_STEP,
+                          norm_limit=LOGITS_NORM_ERR * Q8_STEP, share_limit=None)
+    say(phase, f"{label} evaluate of {results['total']} images under {quant}: "
+               f"{results['total'] / t_eval:.1f} images/s; launches "
+               f"{ {k: v for k, v in launches.items() if v} }; vs plain route, logits rows "
+               f"centred: {reading}")
+    return launches
+
+
+def phase_zoo_int8(F, root: Path) -> dict:
+    """Each zoo trainer through the port's CLI under TRAIN.QUANT int8_ste at
+    batch ZOO_BATCH: the first step against the plain route (every leaf's
+    gradient finite and not zero, the worst leaf and the ratio of distances
+    to fp32 printed and held as [zoo] holds them) and its launches; then
+    one evaluate under int8 and, where the JAX package calibrates, under
+    int8_static, calibrated as the build does.  Returns each path's
+    launches."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from mudpt_torch.data.loader import DataLoader
+    from mudpt_torch.models import layers
+
+    phase = "zoo int8"
+    paths = {}
+    tmp = tempfile.mkdtemp(prefix="mudpt_zoo_int8_")
+    try:
+        for label, trainer, yaml, more in ZOO:
+            t0 = time.perf_counter()
+            tr = zoo_trainer(root, trainer, yaml, more + (
+                "TRAIN.QUANT", "int8_ste", "DATALOADER.TRAIN_X.BATCH_SIZE", str(ZOO_BATCH)),
+                f"{tmp}/{label}")
+            torch.cuda.synchronize()
+            say(phase, f"{label}: built {trainer} ({tr.cfg.MODEL.BACKBONE.NAME}) under "
+                       f"int8_ste through mudpt_torch.train in {time.perf_counter() - t0:.2f} s")
+            loader = DataLoader(tr.dm.dataset.train_x[:ZOO_BATCH], tr.dm.test_loader.transform,
+                                ZOO_BATCH, num_workers=tr.cfg.DATALOADER.NUM_WORKERS)
+            if tr.trainable is not None:
+                st, batch = zoo_step_case(tr)
+                per_step = zoo_step_launches(F.LAUNCHES, tr.clip_cfg,
+                                             not getattr(tr, "static_text", False),
+                                             trainer not in ("CoOp", "CoCoOp"), "int8_ste")
+                grad_check(F, st, phase, f"{label}: the first step under int8_ste, batch "
+                                         f"{ZOO_BATCH}", per_step, loss_limit=None,
+                           limits=ZOO_GRAD_LIMITS.get(label))
+                F.reset_launches()
+                ms = _synced_ms(lambda: tr._train_step(batch))
+                check_launches(f"{label} int8_ste step", dict(F.LAUNCHES), per_step)
+                paths[f"zoo_int8_ste_{label}_step"] = dict(F.LAUNCHES)
+                say(phase, f"{label}: an int8_ste step at batch {ZOO_BATCH} {ms:.2f} ms; "
+                           f"launches {json.dumps({k: v for k, v in per_step.items() if v})}")
+            else:
+                paths[f"zoo_int8_ste_{label}_evaluate"] = zoo_eval_one_batch(
+                    F, tr, label, loader, "int8_ste", phase)
+            layers.set_quant_mode("int8")
+            paths[f"zoo_int8_{label}_evaluate"] = zoo_eval_one_batch(F, tr, label, loader,
+                                                                     "int8", phase)
+            if label in ZOO_Q8_STATIC:
+                layers.set_quant_mode("int8_static")
+                t0 = time.perf_counter()
+                tr._calibrate_static_quant()
+                say(phase, f"{label}: calibrated for int8_static in "
+                           f"{time.perf_counter() - t0:.3f} s")
+                paths[f"zoo_int8_static_{label}_evaluate"] = zoo_eval_one_batch(
+                    F, tr, label, loader, "int8_static", phase)
+            layers.set_quant_mode("none")
+            del tr, loader
+            torch.cuda.empty_cache()
+        return paths
+    finally:
+        layers.set_quant_mode("none")
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_cocoop_int8(F, root: Path) -> dict:
+    """cocoop_at_scale under int8 and int8_ste; then a CoCoOp trainer built
+    under TRAIN.QUANT int8 through the CLI, exported under pallas_int8 at a
+    pinned batch of ZOO_BATCH, served in a fresh process (bit-equal to the
+    tier in this process, its launches held) and timed."""
+    import shutil
+    import tempfile
+
+    from mudpt_torch.models import layers
+
+    phase = "cocoop int8"
+    paths = {}
+    for quant in ("int8", "int8_ste"):
+        paths.update(cocoop_at_scale(F, quant=quant))
+    tmp = tempfile.mkdtemp(prefix="mudpt_cocoop_int8_")
+    try:
+        _, trainer, yaml, more = next(z for z in ZOO if z[0] == "CoCoOp")
+        tr = zoo_trainer(root, trainer, yaml, more + ("TRAIN.QUANT", "int8"), f"{tmp}/out")
+        layers.set_quant_mode("none")
+        paths["cocoop_pallas_int8_artifact_request"] = export_and_serve(
+            F, root, tmp, tr, "pallas_int8", phase,
+            zoo_eval_launches(F.LAUNCHES, tr.clip_cfg, 1, 0, True, "int8"))
+        return paths
+    finally:
+        layers.set_quant_mode("none")
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def export_and_serve(F, root: Path, tmp: str, tr, tier: str, phase: str, want: dict) -> dict:
+    """The trainer exported under ``tier`` at a pinned batch of ZOO_BATCH
+    training images, served in a fresh process: its logits bit-equal to the
+    tier in this process, its launches ``want``, its request timed there.
+    Returns the request's launches."""
+    import numpy as np
+    import torch
+
+    from mudpt_torch import serving
+    from mudpt_torch.data.loader import DataLoader
+
+    loader = DataLoader(tr.dm.dataset.train_x[:ZOO_BATCH], tr.dm.test_loader.transform,
+                        ZOO_BATCH)
+    images_np = np.asarray(next(iter(loader))["image"], np.float32)
+    np.save(f"{tmp}/images.npy", images_np)
+    art = f"{tmp}/{tier}"
+    t0 = time.perf_counter()
+    serving.export_trainer(art, tr, batch=ZOO_BATCH, block_impl=tier)
+    export_s = time.perf_counter() - t0
+    score, ops, _ = serving.trainer_program(tr, block_impl=tier)
+    with torch.no_grad(), serving._block_impl(tier):
+        ref = score(ops, torch.from_numpy(images_np).cuda())
+    del score, ops
+    logits, child, process_s = served_fresh(root, art, f"{tmp}/images.npy", tier)
+    check_launches(f"the {tier} artifact's request", child["launches"], want)
+    reading = check_bit_equal(f"the {tier} artifact vs the tier in this process", (logits,),
+                              (ref,))
+    say(phase, f"{type(tr).__name__} {tr.cfg.MODEL.BACKBONE.NAME} {tier} artifact at batch "
+               f"{ZOO_BATCH}: exported in {export_s:.2f} s; fresh process {process_s:.2f} s "
+               f"(load {child['load_s']:.2f} s); launches "
+               f"{ {k: v for k, v in child['launches'].items() if v} }; vs the tier in this "
+               f"process: {reading}; a request there {child['request_ms']:.2f} ms, "
+               f"{child['images_per_s']:.1f} images/s")
+    return child["launches"]
+
+
+# [rn]: the RN presets at full width on the zoo's synthetic cut.  CoOp's
+# and CoCoOp's YAMLs with MODEL.BACKBONE.NAME set (RN50x4 at its 288 px);
+# the zero-shot trainer on each preset at its resolution
+RN_COOP = ("configs/trainers/CoOp/vit_b16_ep50.yaml",
+           ("MODEL.BACKBONE.NAME", "RN50", "DATALOADER.TRAIN_X.BATCH_SIZE", str(ZOO_BATCH)))
+RN_ZS = (("RN50", 224), ("RN101", 224), ("RN50x4", 288), ("RN50x16", 384), ("RN50x64", 448))
+# the bf16 image features against an fp32 run of the same tower on the card
+# (TF32 off), over RN_FEATURE_IMAGES images, with BatchNorm statistics drawn
+# by rn_bn_stats: relative norm error
+RN_FEATURE_IMAGES = 16
+# readings 0.0260-0.0310 over the five presets on the H100 (PERF.md): the
+# limit 1.45 times the largest; a BatchNorm folded in bf16 reads 2.3 times
+# the sound tower's (tests/test_torch_chip_checks.py)
+RN_FEATURE_NORM_ERR = 0.045
+
+
+def rn_bn_stats(tree: dict, seed: int) -> dict:
+    """A copy of an RN tower with every BatchNorm's statistics drawn from
+    ``seed``: running means far from zero (sd 4) that the fold cancels
+    (bias = mean x scale / sqrt(var + eps) plus a small offset), as in a
+    tower whose convolutions' outputs sit far from zero.  Folded in fp32 and
+    rounded once, the bias keeps its small offset; folded in bf16, each
+    operand's rounding (4 x 2^-9) swamps it."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+
+    def draw(node):
+        if set(node) == {"scale", "bias", "mean", "var"}:
+            n, dev = node["scale"].shape[0], node["scale"].device
+            mean = 4.0 * torch.randn(n, generator=g)
+            var = torch.exp(0.5 * torch.randn(n, generator=g))
+            scale = 1 + 0.1 * torch.randn(n, generator=g)
+            bias = mean * scale * torch.rsqrt(var + 1e-5) + 0.2 * torch.randn(n, generator=g)
+            return {k: v.to(dev) for k, v in
+                    dict(scale=scale, bias=bias, mean=mean, var=var).items()}
+        return {k: draw(v) if isinstance(v, dict) else v for k, v in node.items()}
+
+    return draw(tree)
+
+
+def rn_feature_check(visual: dict, cfg, images, label: str, limit: float) -> str:
+    """The RN tower's bf16 image features (its bf16 cast, ``_cast_rn_visual``)
+    against the same tower in fp32, both with ``rn_bn_stats``' statistics:
+    relative norm error within ``limit``."""
+    import torch
+
+    from mudpt_torch.models.clip import _cast_rn_visual
+    from mudpt_torch.models.resnet import resnet_forward
+
+    p = rn_bn_stats(to_float(visual), 7)
+    kw = dict(layers=cfg.vision_layers_per_stage, heads=cfg.vision_heads)
+    with torch.no_grad():
+        f32 = resnet_forward(p, images.float(), compute_dtype=torch.float32, **kw)
+        f16 = resnet_forward(_cast_rn_visual(p, torch.bfloat16), images.to(torch.bfloat16),
+                             compute_dtype=torch.bfloat16, **kw).float()
+    if not bool(torch.isfinite(f16).all()) or f16.shape != f32.shape:
+        raise AssertionError(f"{label}: bf16 features malformed {tuple(f16.shape)}")
+    err = ((f16 - f32).norm() / f32.norm()).item()
+    if not err <= limit:
+        raise AssertionError(f"{label}: bf16 features vs fp32, relative norm error {err:.4g} "
+                             f"over {limit:.4g}")
+    return f"bf16 features vs fp32 relative norm error {err:.4g} (limit {limit:.4g})"
+
+
+def phase_rn(F, root: Path) -> dict:
+    """The RN presets: CoOp on RN50 through the CLI (the first step against
+    the plain route, a traced step's idle share and launches, step ms,
+    evaluate images/s), one step of CoOp on RN50x4 (its text tower's rows
+    1-3 at D = 640, 10 heads) and of CoCoOp on RN50; the zero-shot trainer
+    on each of the five presets (its text encode's launches, one evaluate of
+    ZOO_BATCH images, images/s, peak memory, the bf16 features against
+    fp32); the CoOp RN50 pallas artifact served in a fresh process."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from mudpt_torch.data.loader import DataLoader
+
+    phase = "rn"
+    paths = {}
+    tmp = tempfile.mkdtemp(prefix="mudpt_rn_")
+    try:
+        cases = (("CoOp_RN50", "CoOp", *RN_COOP),
+                 ("CoOp_RN50x4", "CoOp", RN_COOP[0],
+                  ("MODEL.BACKBONE.NAME", "RN50x4", "INPUT.SIZE", "(288, 288)",
+                   "DATALOADER.TRAIN_X.BATCH_SIZE", str(ZOO_BATCH))),
+                 ("CoCoOp_RN50", "CoCoOp", "configs/trainers/CoCoOp/vit_b32_bz1_ep10_ctxv1.yaml",
+                  ("MODEL.BACKBONE.NAME", "RN50", "INPUT.SIZE", "(224, 224)")))
+        for label, trainer, yaml, more in cases:
+            t0 = time.perf_counter()
+            tr = zoo_trainer(root, trainer, yaml, more, f"{tmp}/{label}")
+            cfg = tr.clip_cfg
+            bsz = tr.cfg.DATALOADER.TRAIN_X.BATCH_SIZE
+            say(phase, f"{label}: built {trainer} on {tr.cfg.MODEL.BACKBONE.NAME} (text "
+                       f"{cfg.transformer_width} x {cfg.transformer_layers} x "
+                       f"{cfg.transformer_heads} heads; stages {cfg.vision_layers_per_stage}, "
+                       f"{cfg.image_resolution} px) through mudpt_torch.train in "
+                       f"{time.perf_counter() - t0:.2f} s")
+            st, batch = zoo_step_case(tr)
+            per_step = zoo_step_launches(F.LAUNCHES, cfg, True, False)
+            grad_check(F, st, phase, f"{label}: the first step, batch {bsz}", per_step,
+                       loss_limit=None, limits=ZOO_GRAD_LIMITS.get(trainer))
+            paths[f"rn_{label}_step"] = per_step
+            if label != "CoOp_RN50":
+                del tr, st, batch
+                torch.cuda.empty_cache()
+                continue
+            F.reset_launches()
+            idle = traced(phase, lambda: tr._train_step(batch), device_time_by_kernel)
+            check_launches(f"{label} traced step", dict(F.LAUNCHES), per_step)
+            for _ in range(WARMUP_STEPS):
+                tr._train_step(batch)
+            step_ms = statistics.median(_synced_ms(lambda: tr._train_step(batch))
+                                        for _ in range(TIMED_STEPS))
+            loader = DataLoader(tr.dm.dataset.train_x, tr.dm.test_loader.transform, ZOO_BATCH,
+                                num_workers=tr.cfg.DATALOADER.NUM_WORKERS)
+            F.reset_launches()
+            t0 = time.perf_counter()
+            results = tr.evaluate(loader, split="train images, eval transform")
+            ips = results["total"] / (time.perf_counter() - t0)
+            check_launches(f"{label} evaluate", dict(F.LAUNCHES),
+                           zoo_eval_launches(F.LAUNCHES, cfg, len(loader), 1, False))
+            say(phase, f"{label}: step at batch {bsz} median {step_ms:.2f} ms (traced: "
+                       f"{'not measured' if idle is None else f'{idle:.1%} idle'}); launches "
+                       f"{ {k: v for k, v in per_step.items() if v} } a step (the RN tower "
+                       f"none: cuDNN); evaluate over {results['total']} images "
+                       f"{ips:.1f} images/s with the host loader")
+            # the class text is encoded at export: a request runs the RN
+            # tower alone, on no kernel of the port
+            paths["rn_CoOp_RN50_pallas_artifact_request"] = export_and_serve(
+                F, root, tmp, tr, "pallas", phase, dict.fromkeys(F.LAUNCHES, 0))
+            del tr, st, batch, loader
+            torch.cuda.empty_cache()
+
+        for name, res in RN_ZS:
+            t0 = time.perf_counter()
+            F.reset_launches()
+            tr = zoo_trainer(root, "ZeroshotCLIP", "configs/trainers/vit_b16.yaml",
+                             ("MODEL.BACKBONE.NAME", name, "INPUT.SIZE", f"({res}, {res})"),
+                             f"{tmp}/zs_{name}")
+            build_s = time.perf_counter() - t0
+            cfg = tr.clip_cfg
+            route = "full" if cfg.transformer_width <= F.FULLBLOCK_MAX_WIDTH else "half"
+            check_launches(f"ZeroshotCLIP {name} text encode", dict(F.LAUNCHES),
+                           expect(F.LAUNCHES, (cfg.transformer_layers, route),
+                                  (1, tower_lns(1))))
+            paths[f"rn_zs_{name}_text_encode"] = dict(F.LAUNCHES)
+            loader = DataLoader(tr.dm.dataset.train_x[:ZOO_BATCH], tr.dm.test_loader.transform,
+                                ZOO_BATCH)
+            images = tr._device_batch(next(iter(loader)))["image"]
+            if tuple(images.shape) != (ZOO_BATCH, res, res, 3):
+                raise AssertionError(f"{name}: images {tuple(images.shape)}")
+            tr.evaluate(loader, split="one batch")  # warm
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            results = tr.evaluate(loader, split="one batch")
+            ips = results["total"] / (time.perf_counter() - t0)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            reading = rn_feature_check(tr.frozen["visual"], cfg, images[:RN_FEATURE_IMAGES],
+                                       name, RN_FEATURE_NORM_ERR)
+            say(phase, f"ZeroshotCLIP {name} ({cfg.image_resolution} px, stages "
+                       f"{cfg.vision_layers_per_stage}, width {cfg.vision_width}, "
+                       f"{cfg.vision_heads} pool heads; text {cfg.transformer_width} wide on "
+                       f"the {route} route): built in {build_s:.2f} s; evaluate of "
+                       f"{results['total']} images {ips:.1f} images/s, peak "
+                       f"{peak:.2f} GiB; {reading}")
+            del tr, loader, images
+            torch.cuda.empty_cache()
+        return paths
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 # [datasets]: MuDPT ViT-B/16 base-to-new on JPEGs: a Caltech101-layout tree
@@ -2808,8 +3364,9 @@ def check_artifact_rate(value: float, reference: float) -> str:
 def serve_artifact(root: Path, art: str, images_npy: str, out_npy: str) -> int:
     """``python3 chip_smoke.py --serve-artifact ART IMAGES OUT``: load the
     artifact in this fresh process, serve the batch once with the launches
-    counted, write the logits to OUT and print one JSON line (launches,
-    load seconds, the model modules this process imported)."""
+    counted, write the logits to OUT, time the request, and print one JSON
+    line (launches, load seconds, the model modules this process imported,
+    request ms and images/s)."""
     import numpy as np
     import torch
 
@@ -2829,13 +3386,54 @@ def serve_artifact(root: Path, art: str, images_npy: str, out_npy: str) -> int:
     np.save(out_npy, logits.float().cpu().numpy())
     model_modules = sorted(m for m in sys.modules
                            if m.startswith(("mudpt_torch.models", "mudpt_torch.trainers")))
+    # then the same request timed, as bench_artifact times it
+    for _ in range(WARMUP_STEPS):
+        clf.forward(images)
+    ms = time_ms(lambda: clf.forward(images), REQUESTS)
     print(json.dumps({"launches": launches, "load_s": load_s, "model_modules": model_modules,
+                      "request_ms": ms, "images_per_s": images.shape[0] / ms * 1e3,
                       "card": smi()}), flush=True)
     return 0
 
 
 def _json_line(out: str) -> dict:
     return json.loads([ln for ln in out.splitlines() if ln.strip()][-1])
+
+
+def served_fresh(root: Path, art: str, images_npy: str, what: str) -> tuple:
+    """(logits on the card, the child's JSON line, seconds): the artifact
+    served by ``--serve-artifact`` in a fresh process, which must import no
+    model module."""
+    import numpy as np
+    import torch
+
+    out_npy = images_npy[:-len(".npy")] + ".logits.npy"
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, str(root / "chip_smoke.py"), "--serve-artifact",
+                        art, images_npy, out_npy],
+                       cwd=root, capture_output=True, text=True, timeout=600)
+    if r.returncode != 0:
+        raise AssertionError(f"serving the {what} artifact failed:\n{r.stderr[-4000:]}")
+    child = _json_line(r.stdout)
+    process_s = time.perf_counter() - t0
+    if child["model_modules"]:
+        raise AssertionError(f"the loader imported model code: {child['model_modules']}")
+    return torch.from_numpy(np.load(out_npy)).cuda(), child, process_s
+
+
+def bench_artifact(root: Path, art: str, batch: int, what: str) -> dict:
+    """``python -m mudpt_torch.tools.bench_artifact``'s JSON line at ``batch``,
+    its values finite and the card named."""
+    r = subprocess.run([sys.executable, "-m", "mudpt_torch.tools.bench_artifact",
+                        "--artifact", art, "--batch", str(batch),
+                        "--steps", str(REQUESTS), "--warmup", str(WARMUP_STEPS)],
+                       cwd=root, capture_output=True, text=True, timeout=600)
+    if r.returncode != 0:
+        raise AssertionError(f"bench_artifact {what} failed:\n{r.stderr[-4000:]}")
+    rec = _json_line(r.stdout)
+    if not rec["finite"] or rec["card"] is None:
+        raise AssertionError(f"bench_artifact {what}: {rec}")
+    return rec
 
 
 def phase_export(F, root: Path) -> dict:
@@ -2898,18 +3496,7 @@ def phase_export(F, root: Path) -> dict:
             with torch.no_grad(), serving._block_impl(tier):
                 refs[tier] = score(ops, images)
             del score, ops
-            # served in a fresh process
-            t0 = time.perf_counter()
-            r = subprocess.run([sys.executable, str(root / "chip_smoke.py"), "--serve-artifact",
-                                art, f"{tmp}/images.npy", f"{tmp}/logits.npy"],
-                               cwd=root, capture_output=True, text=True, timeout=600)
-            if r.returncode != 0:
-                raise AssertionError(f"serving the {tier} artifact failed:\n{r.stderr[-4000:]}")
-            child = _json_line(r.stdout)
-            process_s = time.perf_counter() - t0
-            logits = torch.from_numpy(np.load(f"{tmp}/logits.npy")).cuda()
-            if child["model_modules"]:
-                raise AssertionError(f"the loader imported model code: {child['model_modules']}")
+            logits, child, process_s = served_fresh(root, art, f"{tmp}/images.npy", tier)
             route = EXPORT_ROUTES[tier]
             want = (dict.fromkeys(F.LAUNCHES, 0) if route is None else
                     expect(F.LAUNCHES, (vision, route), (1, tower_lns(2))))
@@ -2925,15 +3512,7 @@ def phase_export(F, root: Path) -> dict:
                        f"this process: bit-equal {same}; {reading}")
             if tier == "xla":
                 xla_logits = logits
-            r = subprocess.run([sys.executable, "-m", "mudpt_torch.tools.bench_artifact",
-                                "--artifact", art, "--batch", str(BATCH),
-                                "--steps", str(REQUESTS), "--warmup", str(WARMUP_STEPS)],
-                               cwd=root, capture_output=True, text=True, timeout=600)
-            if r.returncode != 0:
-                raise AssertionError(f"bench_artifact {tier} failed:\n{r.stderr[-4000:]}")
-            rec = _json_line(r.stdout)
-            if not rec["finite"] or rec["card"] is None:
-                raise AssertionError(f"bench_artifact {tier}: {rec}")
+            rec = bench_artifact(root, art, BATCH, tier)
             rates[tier] = rec["value"]
             say(phase, f"{tier}: bench_artifact {json.dumps(rec)}")
         say(phase, "xla artifact vs the kernel route in this process: "
@@ -3280,6 +3859,9 @@ def main() -> int:
     # mode with them) and of the int8_static request
     kernels_q = {name: Kernel(name) for name in (*Q8_KERNELS, "attention_fwd")}
     kernels_qs = {name: Kernel(name) for name in Q8_KERNELS}
+    # the same at ViT-L/14's int8 request
+    kernels_ql = {name: Kernel(name) for name in (*Q8_KERNELS, "attention_fwd")}
+    kernels_qls = {name: Kernel(name) for name in Q8_KERNELS}
     # one call of the chunked MLP half's forward and backward at ViT-L/14
     kernels_c = {name: Kernel(name) for name in CHUNKED_KERNELS}
     # one vision layer of the ViT-L/14@336px train step
@@ -3319,6 +3901,16 @@ def main() -> int:
         paths[f"serving_{quant}"] = run(f"serving {quant}", phase_serving, F, "ViT-B/16", quant)
     for quant in ("int8_ste", "int8_ste_static"):
         paths[f"train_step_{quant}"] = run(f"train {quant}", phase_train, F, "ViT-B/16", quant)
+    run("kernels int8 ViT-L/14", phase_kernels_int8, F, Q, kernels_ql, kernels_qls, "ViT-L/14")
+    run("kernels int8 ViT-L/14", phase_q8_chains, F, Q, layers, "ViT-L/14")
+    for quant in ("int8", "int8_static"):
+        paths[f"serving_vit_l14_{quant}"] = run(f"serving ViT-L/14 {quant}", phase_serving, F,
+                                                "ViT-L/14", quant)
+    paths["train_step_vit_l14_int8_ste"] = run("train ViT-L/14 int8_ste", phase_train, F,
+                                               "ViT-L/14", "int8_ste")
+    paths.update(run("zoo int8", phase_zoo_int8, F, root))
+    paths.update(run("cocoop int8", phase_cocoop_int8, F, root))
+    paths.update(run("rn", phase_rn, F, root))
     paths.update(run("kernels chunked", phase_kernels_chunked, F, kernels_c))
     paths.update(run("export", phase_export, F, root))
     paths["remat_full_step"] = run("remat", phase_remat, F, "ViT-B/16")
@@ -3332,10 +3924,13 @@ def main() -> int:
 
     records = [k.record(by_path(name), "train_step", vit_l14=kernels_l[name],
                         vit_l14_336px=kernels_336[name],
-                        **({"int8": kernels_q[name]} if name in kernels_q else {}),
+                        **({"int8": kernels_q[name], "int8_vit_l14": kernels_ql[name]}
+                           if name in kernels_q else {}),
                         **({"chunked": kernels_c[name]} if name in kernels_c else {}))
                for name, k in kernels.items()]
-    records += [kernels_q[name].record(by_path(name), "serving_int8", int8_static=kernels_qs[name])
+    records += [kernels_q[name].record(by_path(name), "serving_int8", int8_static=kernels_qs[name],
+                                       int8_vit_l14=kernels_ql[name],
+                                       int8_static_vit_l14=kernels_qls[name])
                 for name in Q8_KERNELS]
     print(json.dumps({"kernels": records}))
     print(smi())

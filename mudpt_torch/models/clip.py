@@ -6,13 +6,14 @@ and ``(in, out)`` weight layout, blocks stacked on a leading layer axis:
 
   params = {
     "visual": {patch_w, class_embedding, pos_embedding, ln_pre, blocks,
-               ln_post, proj},
+               ln_post, proj},      (a ViT; an RN tower: models/resnet.py)
     "text":   {token_embedding, pos_embedding, blocks, ln_final, projection},
     "logit_scale": scalar,
   }
 
 :func:`cast_matmul_weights` changes only the matmul weights and their
-biases; LayerNorm parameters and embeddings stay float32.
+biases (an RN tower's convs and attention-pool linears); LayerNorm
+parameters, embeddings and BatchNorm statistics stay float32.
 """
 
 from __future__ import annotations
@@ -37,9 +38,13 @@ class CLIPConfig:
     transformer_heads: int = 8
     transformer_layers: int = 12
     vision_arch: str = "vit"
+    # "resnet": blocks per stage (reference clip/model.py:892-898)
+    vision_layers_per_stage: tuple = ()
 
     @property
     def vision_heads(self) -> int:
+        if self.vision_arch == "resnet":
+            return self.vision_width * 32 // 64
         return self.vision_width // 64
 
     @property
@@ -62,6 +67,31 @@ VIT_L14 = CLIPConfig(
 # the 336px fine-tune (mudpt_tpu/trainers/base.py:76-79): the same towers,
 # a 24 x 24 patch grid, 577 tokens
 VIT_L14_336 = dataclasses.replace(VIT_L14, image_resolution=336)
+# the RN family (mudpt_tpu/models/clip.py:80-109): the OpenAI checkpoints'
+# dims, for PATH='random' runs; a real checkpoint infers its own
+RN50 = CLIPConfig(
+    embed_dim=1024, vision_layers=16, vision_width=64, vision_patch_size=0,
+    vision_arch="resnet", vision_layers_per_stage=(3, 4, 6, 3),
+)
+RN101 = CLIPConfig(
+    embed_dim=512, vision_layers=33, vision_width=64, vision_patch_size=0,
+    vision_arch="resnet", vision_layers_per_stage=(3, 4, 23, 3),
+)
+RN50X4 = CLIPConfig(
+    embed_dim=640, image_resolution=288, vision_layers=26, vision_width=80,
+    vision_patch_size=0, vision_arch="resnet", vision_layers_per_stage=(4, 6, 10, 6),
+    transformer_width=640, transformer_heads=10,
+)
+RN50X16 = CLIPConfig(
+    embed_dim=768, image_resolution=384, vision_layers=40, vision_width=96,
+    vision_patch_size=0, vision_arch="resnet", vision_layers_per_stage=(6, 8, 18, 8),
+    transformer_width=768, transformer_heads=12,
+)
+RN50X64 = CLIPConfig(
+    embed_dim=1024, image_resolution=448, vision_layers=64, vision_width=128,
+    vision_patch_size=0, vision_arch="resnet", vision_layers_per_stage=(3, 15, 36, 10),
+    transformer_width=1024, transformer_heads=16,
+)
 # CPU smoke size (mudpt_tpu/trainers/base.py TINY_TEST)
 TINY_TEST = CLIPConfig(
     embed_dim=64, image_resolution=32, vision_layers=2, vision_width=64,
@@ -101,27 +131,72 @@ def _init_block_stack(g: torch.Generator, layers: int, width: int) -> dict:
     }
 
 
+def _uniform(g: torch.Generator, shape, bound: float) -> torch.Tensor:
+    return (torch.rand(shape, generator=g, device=g.device) * 2 - 1) * bound
+
+
+def _init_resnet_visual(g: torch.Generator, cfg: CLIPConfig) -> dict:
+    """Random ModifiedResNet parameters in the converter's layout
+    (``_init_resnet_visual`` :145): HWIO convs and linears within torch's
+    default bounds, unit BatchNorm statistics."""
+    w = cfg.vision_width
+    C = w * 32  # the attention pool's width
+
+    def conv(kk, cin, cout):
+        return _uniform(g, (kk, kk, cin, cout), (kk * kk * cin) ** -0.5)
+
+    def bn(ch):
+        return {"scale": torch.ones(ch, device=g.device), "bias": torch.zeros(ch, device=g.device),
+                "mean": torch.zeros(ch, device=g.device), "var": torch.ones(ch, device=g.device)}
+
+    def lin(din, dout):
+        return {"w": _uniform(g, (din, dout), din ** -0.5), "b": _uniform(g, (dout,), din ** -0.5)}
+
+    p = {"conv1": conv(3, 3, w // 2), "bn1": bn(w // 2),
+         "conv2": conv(3, w // 2, w // 2), "bn2": bn(w // 2),
+         "conv3": conv(3, w // 2, w), "bn3": bn(w)}
+    inplanes = w
+    for s, blocks in enumerate(cfg.vision_layers_per_stage, start=1):
+        planes = w * (2 ** (s - 1))
+        stage = {}
+        for b in range(blocks):
+            bp = {"conv1": conv(1, inplanes, planes), "bn1": bn(planes),
+                  "conv2": conv(3, planes, planes), "bn2": bn(planes),
+                  "conv3": conv(1, planes, planes * 4), "bn3": bn(planes * 4)}
+            stride = 2 if (s > 1 and b == 0) else 1
+            # the reference Bottleneck's downsample rule (clip/model.py:31-39)
+            if stride > 1 or inplanes != planes * 4:
+                bp["downsample"] = {"conv": conv(1, inplanes, planes * 4), "bn": bn(planes * 4)}
+            stage[str(b)] = bp
+            inplanes = planes * 4
+        p[f"layer{s}"] = stage
+    spacial = cfg.image_resolution // 32
+    p["attnpool"] = {"pos_embedding": _normal(g, (spacial * spacial + 1, C), C ** -0.5),
+                     "q": lin(C, C), "k": lin(C, C), "v": lin(C, C), "c": lin(C, cfg.embed_dim)}
+    return p
+
+
 def init_clip_params(cfg: CLIPConfig, generator: torch.Generator) -> dict:
     """Random float32 parameters on the generator's device, with the init
     scheme of ``mudpt_tpu/models/clip.py:112-237`` (the draws differ: a
     torch generator is not a JAX key)."""
-    if cfg.vision_arch != "vit":
-        raise NotImplementedError(
-            "the ResNet towers are not ported yet (ROADMAP.md A, 'the ResNet trunk')")
     g = generator
     vw, tw = cfg.vision_width, cfg.transformer_width
     vscale = vw ** -0.5
     ones = lambda n: torch.ones(n, device=g.device)  # noqa: E731
     zeros = lambda n: torch.zeros(n, device=g.device)  # noqa: E731
-    visual = {
-        "patch_w": _normal(g, (cfg.vision_patch_size ** 2 * 3, vw), vscale),
-        "class_embedding": _normal(g, (vw,), vscale),
-        "pos_embedding": _normal(g, (cfg.vision_seq_len, vw), vscale),
-        "ln_pre": {"scale": ones(vw), "bias": zeros(vw)},
-        "blocks": _init_block_stack(g, cfg.vision_layers, vw),
-        "ln_post": {"scale": ones(vw), "bias": zeros(vw)},
-        "proj": _normal(g, (vw, cfg.embed_dim), vscale),
-    }
+    if cfg.vision_arch == "resnet":
+        visual = _init_resnet_visual(g, cfg)
+    else:
+        visual = {
+            "patch_w": _normal(g, (cfg.vision_patch_size ** 2 * 3, vw), vscale),
+            "class_embedding": _normal(g, (vw,), vscale),
+            "pos_embedding": _normal(g, (cfg.vision_seq_len, vw), vscale),
+            "ln_pre": {"scale": ones(vw), "bias": zeros(vw)},
+            "blocks": _init_block_stack(g, cfg.vision_layers, vw),
+            "ln_post": {"scale": ones(vw), "bias": zeros(vw)},
+            "proj": _normal(g, (vw, cfg.embed_dim), vscale),
+        }
     text = {
         "token_embedding": _normal(g, (cfg.vocab_size, tw), 0.02),
         "pos_embedding": _normal(g, (cfg.context_length, tw), 0.01),
@@ -161,12 +236,37 @@ def leaves(tree: dict) -> list:
     return out
 
 
+def _cast_rn_visual(tree: dict, dtype: torch.dtype) -> dict:
+    """The RN tower's cast rules (``_cast_rn_visual`` :252-270): conv kernels
+    and the attention pool's q/k/v/c linears to ``dtype``; BatchNorm
+    statistics and the positional embedding stay float32 (``batch_norm``
+    folds them in fp32)."""
+    out = {}
+    for k, val in tree.items():
+        if isinstance(val, dict):
+            if k.startswith("bn"):
+                out[k] = val
+            elif k in ("q", "k", "v", "c"):
+                out[k] = _map(val, lambda t: t.to(dtype))
+            else:
+                out[k] = _cast_rn_visual(val, dtype)
+        else:
+            out[k] = val.to(dtype) if k.startswith("conv") else val
+    return out
+
+
 def cast_matmul_weights(params: dict, dtype: torch.dtype) -> dict:
-    """Cast the matmul weights and their biases (the ViT paths of
-    ``mudpt_tpu/models/clip.py:240-302``); embeddings and LayerNorms stay
-    float32.  Returns a new tree; untouched leaves are shared."""
+    """Cast the matmul weights and their biases (``mudpt_tpu/models/clip.py
+    :273-302``), an RN tower's by :func:`_cast_rn_visual`; embeddings and
+    LayerNorms stay float32.  Returns a new tree; untouched leaves are
+    shared."""
     out = _map(params, lambda t: t)
+    is_rn = isinstance(out.get("visual"), dict) and "attnpool" in out["visual"]
+    if is_rn:
+        out["visual"] = _cast_rn_visual(out["visual"], dtype)
     for path in _CAST_PATHS:
+        if is_rn and path[0] == "visual":
+            continue
         node = out
         for k in path[:-1]:
             node = node.get(k) if isinstance(node, dict) else None
@@ -190,9 +290,15 @@ def encode_image(
     layer0_prompt: Optional[torch.Tensor] = None,
     deep_prompts: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    if cfg.vision_arch != "vit":
-        raise NotImplementedError(
-            "the ResNet towers are not ported yet (ROADMAP.md A, 'the ResNet trunk')")
+    if cfg.vision_arch == "resnet":
+        from mudpt_torch.models.resnet import resnet_forward
+
+        assert layer0_prompt is None and deep_prompts is None, (
+            "prompt injection is defined for the ViT towers only (as in the "
+            "reference, whose prompt block variants are transformer-only)"
+        )
+        return resnet_forward(params["visual"], images, layers=cfg.vision_layers_per_stage,
+                              heads=cfg.vision_heads, compute_dtype=compute_dtype)
     from mudpt_torch.models.vit import vit_forward
 
     return vit_forward(

@@ -18,8 +18,8 @@ weight ordered (ph, pw, channel), per-block tensors stacked on a leading
 layer axis.  The ``.npz`` format (flat '/'-joined keys plus a ``__cfg__``
 JSON of the config) and the conversion cache beside a ``.pt``
 (``<path>.mudpt_tpu.npz``) are the JAX package's, so one conversion
-serves both packages.  The ResNet trunk waits (ROADMAP.md A, 'the ResNet
-trunk').
+serves both packages.  An RN checkpoint's ``visual.*`` entries convert
+through ``models/resnet.convert_resnet_visual``.
 """
 
 from __future__ import annotations
@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from mudpt_torch.models.clip import CLIPConfig, _map
+from mudpt_torch.models.resnet import convert_resnet_visual, stage_counts
 
 
 def _leaf(a, device) -> torch.Tensor:
@@ -59,22 +60,9 @@ def _to_numpy(t) -> np.ndarray:
     return t.detach().cpu().float().numpy()
 
 
-def infer_config(sd: Dict[str, np.ndarray]) -> CLIPConfig:
-    """The ViT config of a CLIP state dict (``convert.py:34-83``)."""
-    if "visual.proj" not in sd:
-        raise NotImplementedError("a ResNet CLIP checkpoint: the port's RN trunk waits "
-                                  "(ROADMAP.md A, 'the ResNet trunk')")
-    conv1 = sd["visual.conv1.weight"]
-    vision_patch_size = conv1.shape[-1]
-    grid = round((sd["visual.positional_embedding"].shape[0] - 1) ** 0.5)
-    return CLIPConfig(
+def _text_dims(sd: Dict[str, np.ndarray]) -> dict:
+    return dict(
         embed_dim=sd["text_projection"].shape[1],
-        image_resolution=vision_patch_size * grid,
-        vision_layers=len(
-            {k.split(".")[3] for k in sd if k.startswith("visual.transformer.resblocks.")}
-        ),
-        vision_width=conv1.shape[0],
-        vision_patch_size=vision_patch_size,
         context_length=sd["positional_embedding"].shape[0],
         vocab_size=sd["token_embedding.weight"].shape[0],
         transformer_width=sd["ln_final.weight"].shape[0],
@@ -82,6 +70,31 @@ def infer_config(sd: Dict[str, np.ndarray]) -> CLIPConfig:
         transformer_layers=len(
             {k.split(".")[2] for k in sd if k.startswith("transformer.resblocks")}
         ),
+    )
+
+
+def infer_config(sd: Dict[str, np.ndarray]) -> CLIPConfig:
+    """The config of a CLIP state dict (``convert.py:34-83``): an RN tower
+    when it has no ``visual.proj`` (:45-60)."""
+    if "visual.proj" not in sd:
+        counts = stage_counts(sd)
+        output_width = round((sd["visual.attnpool.positional_embedding"].shape[0] - 1) ** 0.5)
+        return CLIPConfig(
+            image_resolution=output_width * 32, vision_layers=sum(counts),
+            vision_width=sd["visual.layer1.0.conv1.weight"].shape[0], vision_patch_size=0,
+            vision_arch="resnet", vision_layers_per_stage=counts, **_text_dims(sd),
+        )
+    conv1 = sd["visual.conv1.weight"]
+    vision_patch_size = conv1.shape[-1]
+    grid = round((sd["visual.positional_embedding"].shape[0] - 1) ** 0.5)
+    return CLIPConfig(
+        image_resolution=vision_patch_size * grid,
+        vision_layers=len(
+            {k.split(".")[3] for k in sd if k.startswith("visual.transformer.resblocks.")}
+        ),
+        vision_width=conv1.shape[0],
+        vision_patch_size=vision_patch_size,
+        **_text_dims(sd),
     )
 
 
@@ -114,9 +127,11 @@ def state_dict_to_params(state_dict) -> Tuple[CLIPConfig, dict]:
     sd = {k: _to_numpy(v) for k, v in state_dict.items()
           if k not in ("input_resolution", "context_length", "vocab_size")}
     cfg = infer_config(sd)
-    conv1 = sd["visual.conv1.weight"]  # (width, 3, P, P)
-    params = {
-        "visual": {
+    if cfg.vision_arch == "resnet":
+        visual, _ = convert_resnet_visual(sd)
+    else:
+        conv1 = sd["visual.conv1.weight"]  # (width, 3, P, P)
+        visual = {
             "patch_w": conv1.transpose(2, 3, 1, 0).reshape(-1, cfg.vision_width),
             "class_embedding": sd["visual.class_embedding"],
             "pos_embedding": sd["visual.positional_embedding"],
@@ -124,7 +139,9 @@ def state_dict_to_params(state_dict) -> Tuple[CLIPConfig, dict]:
             "blocks": _stack_blocks(sd, "visual.transformer.resblocks", cfg.vision_layers),
             "ln_post": {"scale": sd["visual.ln_post.weight"], "bias": sd["visual.ln_post.bias"]},
             "proj": sd["visual.proj"],
-        },
+        }
+    params = {
+        "visual": visual,
         "text": {
             "token_embedding": sd["token_embedding.weight"],
             "pos_embedding": sd["positional_embedding"],
@@ -192,8 +209,6 @@ def save_npz_params(path: str, cfg: CLIPConfig, params: dict) -> None:
 def load_npz_params(path: str) -> Tuple[CLIPConfig, dict]:
     data = dict(np.load(path))
     cfg_kwargs = json.loads(bytes(data.pop("__cfg__")).decode())
-    # the ResNet trunk's field of the JAX config: empty for a ViT
-    if cfg_kwargs.pop("vision_layers_per_stage", ()) or cfg_kwargs["vision_arch"] != "vit":
-        raise NotImplementedError(f"{path}: a ResNet CLIP: the port's RN trunk waits "
-                                  "(ROADMAP.md A, 'the ResNet trunk')")
+    # JSON keeps a tuple as a list; a file written before the RN trunk has none
+    cfg_kwargs["vision_layers_per_stage"] = tuple(cfg_kwargs.get("vision_layers_per_stage", ()))
     return CLIPConfig(**cfg_kwargs), params_from_numpy(_unflatten(data), "cpu")

@@ -274,11 +274,6 @@ def trainer_program(trainer, *, block_impl: str = "xla", calib_images=None):
             return img_fn(o["trainable"], o["frozen"], o["aux"], images, o["txt"])[:, :n_cls]
 
     else:  # CoCoOp: instance-conditional prompts, the full forward
-        if block_impl == "pallas_int8":
-            raise NotImplementedError(
-                "CoCoOp's per-instance text encode under int8 waits (ROADMAP.md A, "
-                "'CoCoOp's int8 text encode'); export it with block_impl 'pallas' or 'xla'"
-            )
         fwd = trainer.forward
 
         def score(o, images):

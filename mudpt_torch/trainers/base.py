@@ -19,6 +19,7 @@ a mesh (``PARALLEL``) waits (ROADMAP.md A, 'the mesh').
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import glob
 import os
@@ -33,8 +34,9 @@ import torch
 from mudpt_torch.config.perf import apply_perf_config
 from mudpt_torch.data import DataManager
 from mudpt_torch.models import layers
-from mudpt_torch.models.clip import (TINY_TEST, VIT_B16, VIT_B32, VIT_L14, VIT_L14_336, _map,
-                                     cast_matmul_weights, init_clip_params, leaves)
+from mudpt_torch.models.clip import (RN50, RN50X4, RN50X16, RN50X64, RN101, TINY_TEST, VIT_B16,
+                                     VIT_B32, VIT_L14, VIT_L14_336, _map, cast_matmul_weights,
+                                     init_clip_params, leaves)
 from mudpt_torch.models.convert import load_clip_checkpoint
 from mudpt_torch.ops import quant_block
 from mudpt_torch.trainers.optim import build_optimizer, make_lr_schedule
@@ -49,16 +51,24 @@ from mudpt_torch.utils.rng import new_rng, set_seed
 
 # the quant tiers whose activation scales are calibrated at build
 STATIC_QUANT = ("int8_static", "int8_ste_static")
-# the ViT entries of base.py:72-97; the RN presets wait (ROADMAP.md A,
-# 'the ResNet trunk')
+# base.py:72-97.  The RN presets serve the text-prompt trainers:
+# ZeroshotCLIP(2), CoOp, CoCoOp
 NAMED_CONFIGS = {
     "ViT-B/16": VIT_B16,
     "ViT-B/32": VIT_B32,
     "ViT-L/14": VIT_L14,
     "ViT-L/14@336px": VIT_L14_336,
+    "RN50": RN50,
+    "RN101": RN101,
+    "RN50x4": RN50X4,
+    "RN50x16": RN50X16,
+    "RN50x64": RN50X64,
+    "test-tiny-rn": dataclasses.replace(
+        TINY_TEST, vision_width=8, vision_patch_size=0, vision_arch="resnet",
+        vision_layers_per_stage=(1, 1, 1, 1), vision_layers=4,
+    ),
     "test-tiny": TINY_TEST,
 }
-_RN_NAMES = ("RN50", "RN101", "RN50x4", "RN50x16", "RN50x64", "test-tiny-rn")
 # the basenames of the OpenAI download cache (mudpt_tpu/models/download.py)
 _CACHE_NAMES = {"ViT-L/14@336px": "ViT-L-14-336px.pt"}
 
@@ -80,11 +90,6 @@ def load_backbone(cfg, device):
             )
         clip_cfg, params = load_clip_checkpoint(path)
         return clip_cfg, _to_device(params, device)
-    if name in _RN_NAMES:
-        raise NotImplementedError(
-            f"backbone {name!r}: the port's ResNet trunk waits (ROADMAP.md A, 'the "
-            "ResNet trunk')"
-        )
     if path == "random":
         if name not in NAMED_CONFIGS:
             raise KeyError(f"Unknown backbone {name!r}; known: {list(NAMED_CONFIGS)}")
@@ -199,8 +204,10 @@ class TrainerBase:
         clip_cfg, params = load_backbone(self.cfg, self.device)
         if self.requires_vit and clip_cfg.vision_arch != "vit":
             raise ValueError(
-                f"{type(self).__name__} injects visual prompts and needs a ViT "
-                f"backbone; got vision_arch={clip_cfg.vision_arch!r}"
+                f"{type(self).__name__} injects visual prompts and needs a "
+                f"ViT backbone; got vision_arch={clip_cfg.vision_arch!r} "
+                f"(RN-family backbones work with the text-prompt trainers: "
+                f"ZeroshotCLIP, CoOp, CoCoOp)"
             )
         if self.compute_dtype == torch.bfloat16:
             params = cast_matmul_weights(params, torch.bfloat16)

@@ -23,20 +23,11 @@ from mudpt_torch.models.clip import encode_image
 from mudpt_torch.models.layers import linear
 from mudpt_torch.models.text import text_forward
 from mudpt_torch.ops.fused_block import saved_acts
-from mudpt_torch.trainers.base import STATIC_QUANT, TrainerBase
+from mudpt_torch.trainers.base import TrainerBase
 from mudpt_torch.trainers.prompt_utils import (compose_prompts, ctx_vectors_from_init,
                                                embed_classnames, init_linear, random_ctx)
 from mudpt_torch.utils.registry import TRAINER_REGISTRY
 from mudpt_torch.utils.rng import new_rng
-
-
-def _refuse_quant(mode: str) -> None:
-    if mode != "none":
-        raise NotImplementedError(
-            f"CoCoOp under quant mode {mode!r}: its per-instance text encode runs the "
-            "dynamic int8 chain (mudpt_tpu/models/layers.py:244-248), which waits "
-            "(ROADMAP.md A, 'CoCoOp's int8 text encode')"
-        )
 
 
 def _resolve_chunk(chunk: int, batch: int, n_cls: int, padded_seq: int = 80,
@@ -73,8 +64,9 @@ def _resolve_chunk(chunk: int, batch: int, n_cls: int, padded_seq: int = 80,
 def cocoop_forward(trainable, frozen, aux, images, *, clip_cfg, compute_dtype,
                    encode_chunk: int = -1):
     """fp32 logits (B, n_cls): the frozen image tower, the meta-net bias in
-    fp32, then each instance's class prompts through the text tower."""
-    _refuse_quant(layers.quant_mode())
+    fp32, then each instance's class prompts through the text tower.  Under
+    an int8 tier the text tower, which has no calibrated scales, runs the
+    dynamic chain (``layers.py:240-248``)."""
     img = encode_image(frozen, images, clip_cfg, compute_dtype=compute_dtype).float()
     img = img / img.norm(dim=-1, keepdim=True)  # (B, E)
     # meta-net (cocoop.py:99-103, :148-155): Linear -> ReLU -> Linear
@@ -102,11 +94,12 @@ def cocoop_forward(trainable, frozen, aux, images, *, clip_cfg, compute_dtype,
 
     # chunked: the tail padded with the last instance (cocoop.py:162-182).
     # The recompute runs in the backward, after this call's contexts have
-    # closed, so the chunk takes its routing state and saves off inside
-    route = layers.routes()
+    # closed, so the chunk takes the forward's routing state (routes, quant
+    # mode, block impl, LN dtype) and saves off inside
+    state = layers.routing_state()
 
     def encode_chunk_fn(ctx_c, img_c):
-        with layers.routed(route), saved_acts(False):
+        with layers.routing(state), saved_acts(False):
             return encode_instances(ctx_c, img_c)
 
     pad = (-B) % chunk
@@ -126,10 +119,8 @@ class CoCoOp(TrainerBase):
 
     def build_model(self):
         cfg = self.cfg
-        if cfg.TRAIN.QUANT not in STATIC_QUANT:
-            # the static tiers build, and calibration refuses them as the JAX
-            # package's does (no image-independent text features)
-            _refuse_quant(cfg.TRAIN.QUANT)
+        # the static tiers build, and calibration refuses them as the JAX
+        # package's does (no image-independent text features)
         hp = getattr(cfg.TRAINER, self.hparams_key)
         clip_cfg, params = self.load_clip()
         self.clip_cfg = clip_cfg

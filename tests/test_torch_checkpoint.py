@@ -106,10 +106,9 @@ def _state_dict(rs, width=64, layers=2, patch=16, grid=2, tw=64, vocab=300, embe
 
 def _same_clip(jres, tres):
     (jcfg, jparams), (tcfg, tparams) = jres, tres
-    # the JAX config's ResNet field, empty for a ViT, is not the port's
-    assert dataclasses.asdict(tcfg) == {k: v for k, v in dataclasses.asdict(jcfg).items()
-                                        if k != "vision_layers_per_stage"}
-    assert getattr(jcfg, "vision_layers_per_stage", ()) == ()
+    # both configs carry the ResNet field, empty for a ViT
+    assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
+    assert jcfg.vision_layers_per_stage == tcfg.vision_layers_per_stage == ()
     want, got = _flat(jparams), _flat(tparams)
     assert want.keys() == got.keys()
     for k in want:

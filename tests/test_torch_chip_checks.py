@@ -895,3 +895,102 @@ def test_artifact_rate_holds_ten_percent(factor, ok):
     else:
         with pytest.raises(AssertionError, match="limit 10%"):
             C.check_artifact_rate(11868.3 * factor, 11868.3)
+
+
+# ---------------------------------------------------------------------------
+# the int8 surface at ViT-L/14, over the zoo and in CoCoOp; the RN trunk
+# ---------------------------------------------------------------------------
+
+def test_qat_route_and_launch_check_catch_the_saving_branch_at_384():
+    """[train ViT-L/14 int8_ste]: at D = 1024 the quantization-aware layer
+    saves within the wide-MLP row-token budget (batch 32) and recomputes
+    over it (batch 384); a step counted on the saving branch at 384 fails
+    the launch check."""
+    from mudpt_torch.models.clip import VIT_L14
+
+    C = _chip_smoke()
+    rows = VIT_L14.vision_seq_len + 2
+    assert C.qat_route(F, 1024, 384 * rows, "int8_ste") == "q8_train_recompute"
+    assert C.qat_route(F, 1024, 32 * rows, "int8_ste") == "q8_train"
+    assert C.qat_route(F, 768, 384 * rows, "int8_ste_static") == "q8s_train"
+    with F.saved_acts(False):
+        assert C.qat_route(F, 768, 32 * rows, "int8_ste") == "q8_train_recompute"
+    want = C.step_launches(F, VIT_L14, "q8_train", "q8_train_recompute")
+    saving = C.step_launches(F, VIT_L14, "q8_train", "q8_train")
+    with pytest.raises(AssertionError, match="launches differ"):
+        C.check_launches("train ViT-L/14 int8_ste at 384", saving, want)
+    # the recompute is the q8 forward once more in each vision layer's backward
+    again = C.expect(F.LAUNCHES, (VIT_L14.vision_layers, dict(
+        layernorm_q8=2, gemm_s8_epilogue=4, attention_fwd=1, quant_rows=2)))
+    assert {k: want[k] - saving[k] for k in want} == again
+
+
+def test_launch_check_catches_cocoop_int8_on_the_unquantized_chain():
+    """[cocoop int8]: a CoCoOp logit computed on the bf16 chains (the quant
+    mode lost, or a chunk's recompute routed without it) launches
+    layer_fullblock and the half-blocks instead of the q8 chain: the launch
+    check fails; under int8_ste chunked, a count without the checkpoint's
+    quantization-aware forward fails too."""
+    from mudpt_torch.models.clip import VIT_B32
+
+    C = _chip_smoke()
+    keys, cfg = F.LAUNCHES, VIT_B32
+    want = C.cocoop_launches(keys, cfg, 2, "int8")
+    unquantized = C.expect(keys, (cfg.vision_layers, "full"), (1, C.tower_lns(2)),
+                           (2 * cfg.transformer_layers, "half"), (2, C.tower_lns(1)))
+    with pytest.raises(AssertionError, match="launches differ"):
+        C.check_launches("CoCoOp int8", unquantized, want)
+    C.check_launches("CoCoOp int8", dict(want), want)
+    ste = C.cocoop_launches(keys, cfg, 2, "int8_ste")
+    without = C.expect(keys, (cfg.vision_layers, "q8"), (1, C.tower_lns(2)),
+                       (2 * cfg.transformer_layers, "q8_train_recompute"),
+                       (2, C.tower_lns(1, 1)))
+    with pytest.raises(AssertionError, match="launches differ"):
+        C.check_launches("CoCoOp int8_ste chunks of 2", without, ste)
+    assert ste["layer_fullblock_q8_ste"] == 4 * cfg.transformer_layers
+
+
+def test_bit_equal_check_catches_a_chunked_qat_loss_one_ulp_off():
+    """[cocoop int8]: chunked against unchunked under int8_ste passes
+    bit-equal outputs; a loss (or a gradient) one ulp off fails."""
+    C = _chip_smoke()
+    g = torch.Generator().manual_seed(3)
+    out = (torch.randn(4, 1000, generator=g), torch.randn(4, 512, generator=g))
+    same = tuple(t.clone() for t in out)
+    assert "2 outputs bit-equal" in C.check_bit_equal("CoCoOp int8_ste", same, out)
+    loss = torch.tensor(6.9077, dtype=torch.float32)
+    with pytest.raises(AssertionError, match=r"outputs \[0\]"):
+        C.check_bit_equal("chunked QAT loss", (torch.nextafter(loss, torch.zeros(())),),
+                          (loss,))
+    grad = out[1].clone()
+    grad[2, 100] = torch.nextafter(grad[2, 100], torch.zeros(()))
+    with pytest.raises(AssertionError, match=r"outputs \[1\]"):
+        C.check_bit_equal("CoCoOp int8_ste", (out[0], grad), out)
+
+
+def test_rn_feature_check_catches_batch_norm_folded_in_bf16(monkeypatch):
+    """[rn]: the bf16 RN tower's features against its fp32 run, with
+    ``rn_bn_stats``' statistics, at RN50's stages (64 px, 4 images): the
+    tower as written passes RN50's limit; BatchNorm folded in the compute
+    dtype (scale and bias from bf16 statistics) fails it."""
+    import dataclasses
+
+    from mudpt_torch.models import resnet
+    from mudpt_torch.models.clip import RN50, _init_resnet_visual
+
+    C = _chip_smoke()
+    cfg = dataclasses.replace(RN50, image_resolution=64)
+    g = torch.Generator().manual_seed(0)
+    visual = _init_resnet_visual(g, cfg)
+    images = torch.randn(4, 64, 64, 3, generator=g)
+    limit = C.RN_FEATURE_NORM_ERR
+    assert "relative norm error" in C.rn_feature_check(visual, cfg, images, "RN50", limit)
+
+    def folded_in_compute_dtype(p, x, eps=1e-5):
+        scale = p["scale"].to(x.dtype) * torch.rsqrt(p["var"].to(x.dtype) + eps)
+        bias = p["bias"].to(x.dtype) - p["mean"].to(x.dtype) * scale
+        return x * scale[:, None, None] + bias[:, None, None]
+
+    monkeypatch.setattr(resnet, "batch_norm", folded_in_compute_dtype)
+    with pytest.raises(AssertionError, match="bf16 features vs fp32"):
+        C.rn_feature_check(visual, cfg, images, "RN50", limit)

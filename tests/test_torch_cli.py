@@ -130,23 +130,24 @@ def test_cli_accepts_dead_reference_flags(tmp_path):
 
 
 def test_cli_without_device_takes_the_card(tmp_path, monkeypatch):
-    """No ``--device``: CUDA, and a RuntimeError where it is absent; CoCoOp
-    under an int8 tier and a multi-process launch raise, naming their
-    ROADMAP items."""
+    """No ``--device``: CUDA, and a RuntimeError where it is absent; a
+    multi-process launch raises, naming its ROADMAP item.  CoCoOp builds
+    under an int8 tier, as in the JAX package (its per-instance text encode
+    on the dynamic chain), on the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     args = train_cli.parse_args(_argv(tmp_path, "CoOp", device=()))
     assert args.device is None
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_cli.main(args)
-    # CoCoOp's per-instance int8 text encode is not ported: it refuses at build
     from mudpt_torch.models import layers
 
     try:
-        with pytest.raises(NotImplementedError, match="CoCoOp's int8 text encode"):
-            train_cli.main(train_cli.parse_args(
-                _argv(tmp_path, "CoCoOp") + ["TRAIN.QUANT", "int8"]))
+        tr = train_cli.main(train_cli.parse_args(
+            _argv(tmp_path, "CoCoOp", extra=("--no_train",)) + ["TRAIN.QUANT", "int8"]))
+        assert type(tr).__name__ == "CoCoOp" and layers.quant_mode() == "int8"
+        assert "q8_weights" in tr.frozen["text"]["blocks"]
     finally:
-        layers.set_quant_mode("none")  # the build set it before refusing
+        layers.set_quant_mode("none")  # the build set it
     monkeypatch.setenv("WORLD_SIZE", "2")
     with pytest.raises(NotImplementedError, match="'the mesh'"):
         train_cli.main(train_cli.parse_args(_argv(tmp_path)))

@@ -126,8 +126,16 @@ def test_export_cocoop_requires_pinned_batch(tmp_path):
     np.testing.assert_allclose(clf.predict(imgs), _forward(tr, imgs), **FP32)
     with pytest.raises(ValueError, match="pinned to batch 2"):
         clf.predict(_images(3))
-    with pytest.raises(NotImplementedError, match="CoCoOp's int8 text encode"):
-        serving.export_trainer(art, tr, batch=2, block_impl="pallas_int8")
+    # the int8 tier exports the full forward too, its per-instance text
+    # encode on the dynamic chain (the JAX package's serving.py:273-281);
+    # the static tier refuses, naming the dynamic one
+    q8 = str(tmp_path / "artifact_q8")
+    serving.export_trainer(q8, tr, batch=2, block_impl="pallas_int8")
+    assert _ops_in(q8) == {"mudpt.layer_fullblock_q8.default", "mudpt.layernorm_fwd.default"}
+    np.testing.assert_array_equal(serving.load(q8, device="cpu").predict(imgs),
+                                  _in_process(tr, "pallas_int8", imgs))
+    with pytest.raises(ValueError, match="block_impl='pallas_int8'"):
+        serving.export_trainer(art, tr, batch=2, block_impl="pallas_int8_static")
 
 
 def test_export_trained_weights_are_live(tmp_path):

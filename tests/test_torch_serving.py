@@ -81,9 +81,7 @@ def _serve_port(frozen, trainable, aux, images, dtype):
 
 
 def test_tiny_config_is_the_jax_one():
-    assert dataclasses.asdict(TINY_TEST) == {
-        k: v for k, v in dataclasses.asdict(JTINY).items() if k != "vision_layers_per_stage"
-    }
+    assert dataclasses.asdict(TINY_TEST) == dataclasses.asdict(JTINY)
 
 
 def test_serving_fp32_matches_jax(trees):

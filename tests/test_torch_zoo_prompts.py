@@ -1,7 +1,7 @@
 """The port's prompt trainers against the JAX package's forwards, in fp32
 at a tiny size, as ``test_torch_zoo.py`` holds CoOp: ``cocoop_forward``
 unchunked and chunked (the tail padded), chunked against unchunked, its
-chunk rule and its refusal of the int8 tiers; ``vpt_forward`` for VPT and
+chunk rule and its run under 'int8_ste'; ``vpt_forward`` for VPT and
 MPT; ``umudpt_forward`` and ``uumudpt_forward``, whose prompt heads train
 their own weights.  Logits and the gradient of every trainable leaf within
 1e-4 of the largest value."""
@@ -75,14 +75,27 @@ def test_cocoop_resolves_chunks_as_jax():
 
 
 def test_cocoop_refuses_quant_modes(frozen, batch):
-    from mudpt_torch.models import layers
+    """Under 'int8_ste' ``cocoop_forward`` runs, as the JAX package's does:
+    its per-instance text encode on the dynamic q8 chain, a straight-through
+    backward.  Logits and gradients against JAX's within this file's 1e-4
+    (a reading of 1e-6: no code lands across a rounding boundary here; see
+    ``test_torch_cocoop_quant.py`` for the bounds that admit one)."""
+    from mudpt_tpu.models import layers as JL
 
-    aux = params_from_numpy(_class_aux(frozen[0], 4, "X X X X"), "cpu")
-    with layers.quantized("int8_ste"), pytest.raises(NotImplementedError,
-                                                     match="CoCoOp's int8 text encode"):
-        TCC.cocoop_forward(params_from_numpy(_cocoop_trainable(), "cpu"), frozen[1], aux,
-                           torch.from_numpy(batch[0]), clip_cfg=TCFG,
-                           compute_dtype=torch.float32)
+    from mudpt_torch.models import layers as TL
+
+    aux = _class_aux(frozen[0], 4, "X X X X")
+    prev = JL._BLOCK_IMPL, JL.quant_mode(), TL.quant_mode()
+    JL.set_block_impl("pallas")
+    JL.set_quant_mode("int8_ste")
+    TL.set_quant_mode("int8_ste")
+    try:
+        _against_jax(JCC.cocoop_forward, TCC.cocoop_forward, frozen, batch, _cocoop_trainable(),
+                     aux)
+    finally:
+        JL._BLOCK_IMPL = prev[0]
+        JL.set_quant_mode(prev[1])
+        TL.set_quant_mode(prev[2])
 
 
 @pytest.mark.parametrize("trainer", ["VPT", "MPT"])
