@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """Run the PyTorch/CUDA port's MuDPT serving paths and train steps on one
 GPU, ViT-B/16, ViT-L/14 and ViT-L/14@336px, its training engine, CLI, trainer
-zoo, dataset pipelines and bench entry point, the int8 tiers at ViT-B/16 and
+zoo, dataset pipelines, mesh and bench entry point, the int8 tiers at ViT-B/16 and
 ViT-L/14, over the zoo and in CoCoOp, the RN presets, its chunked MLP
 half-block, its serving artifacts, REMAT and the XLA block route.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --times-of ROOT   # only the kernel times of the
                                             # checkout at ROOT (A/B of two trees)
+    python3 chip_smoke.py --mesh-rank RANK WORLD PORT JOB   # one gloo rank of
+                                            # [mesh], started by the phase
 
 Phases, each printed with the card's name and power limit:
 
@@ -81,6 +83,23 @@ Phases, each printed with the card's name and power limit:
               recalibration; launches, logits against the plain route);
               then python -m mudpt_torch.bench --input threads|grain|tfdata
               at batch 384 (images/s, H2D MB/s beside [train]'s resident).
+  5e. mesh    the mesh on torch.distributed (mudpt_torch/parallel).  NCCL
+              takes one rank a card: MuDPT ViT-B/16 through the CLI at
+              [engine]'s configuration under torchrun --nproc_per_node 1
+              (NCCL) against the same run without a process group, losses,
+              final prompts and test accuracy bit-equal; then two gloo
+              ranks sharing the card (python3 chip_smoke.py --mesh-rank,
+              the kernels built by this process first; all_reduce,
+              broadcast and all_gather of CUDA tensors probed) run MuDPT
+              on meshes (2,1) and (1,2) and CoCoOp on (1,2), ViT-B/16,
+              global batch 64, MESH_STEPS steps through the CLI's trainer,
+              each held against one process on the same global batches
+              (MESH_* limits: every step's loss, the first step's
+              gradients, against one process's two halves where the data
+              axis splits the batch, the prompts after the last step, the
+              test confusion matrix's total and accuracy), the replicas
+              bit-equal after every step, a checkpoint saved by rank 0
+              and loaded on every rank; a rank's launches a step.
   6. kernels ViT-L/14   the same at the ViT-L/14 shapes (vision 1024 wide,
               259 tokens, 16 heads; text 768 wide, 12 heads), the two
               recompute epilogues, attention at 8 blocks of 384 rows, and
@@ -3334,6 +3353,423 @@ def phase_datasets(F, root: Path) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# [mesh]: the mesh on torch.distributed.  NCCL takes one rank a card, so
+# on the one card NCCL runs at world size 1 (MuDPT ViT-B/16 through the CLI
+# at [engine]'s configuration under torchrun, bit-equal to the same run
+# without a process group), and two gloo ranks share cuda:0 for the
+# multi-rank cases, each held against one process on the same global batch
+# (DATALOADER.HOST_SHARD off: every rank decodes it and takes its rows)
+MESH_STEPS = 3
+MESH_DEVICE = "cuda:0"
+MESH_OPTS = ("MODEL.BACKBONE.PATH", "random", "DATASET.SYNTHETIC_NUM_CLASSES", "16",
+             "DATASET.SYNTHETIC_PER_CLASS", "24", "DATALOADER.TRAIN_X.BATCH_SIZE", "64",
+             "DATALOADER.TEST.BATCH_SIZE", "64", "DATALOADER.HOST_SHARD", "off",
+             "OPTIM.MAX_EPOCH", "1", "TRAIN.PRINT_FREQ", "1000")
+# (label, trainer, its YAML, the mesh, the case's other options)
+MESH_CASES = (
+    ("MuDPT (2,1)", "MuDPT", ENGINE_FILES[1], ("PARALLEL.DATA", "2"), ()),
+    ("MuDPT (1,2)", "MuDPT", ENGINE_FILES[1], ("PARALLEL.MODEL", "2"), ()),
+    ("CoCoOp (1,2)", "CoCoOp", "configs/trainers/CoCoOp/vit_b32_bz1_ep10_ctxv1.yaml",
+     ("PARALLEL.MODEL", "2"), ("MODEL.BACKBONE.NAME", "ViT-B/16")),
+)
+# the limits (PERF.md: the first ones held the gradients to fp32 sums and
+# failed on the card; these follow the readings that showed why).
+# A rank's rows give one process's per-row results (measured bit-equal at
+# another M), so the first step's loss differs in the order of fp32 sums
+# alone (MESH_LOSS_REL, relative); later steps start from prompts apart by
+# a bf16 share of the update (MESH_LATER_LOSS_REL).  The prompts'
+# gradients are bf16 sums: the splice's backward sums rows in bf16 and the
+# text tower's backward runs per half of the images, so a split rounds
+# partial sums; the first step's gradients are held to one process's by
+# the bound the port holds such bf16 roundings to (GRAD_NORM_ERR, relative
+# norm, worst leaf), and where the data axis splits the batch to one
+# process's two halves summed in fp32, the same bf16 sums
+# (MESH_HALVES_REL).  The prompts after the last step within
+# MESH_PROMPT_REL of the update one process made (three steps of the
+# gradient limit); the test accuracy within MESH_ACC_POINTS, the
+# confusion total the test set's size
+MESH_LOSS_REL = 2.0 ** -12
+MESH_LATER_LOSS_REL = 2.0 ** -8
+MESH_GRAD_REL = GRAD_NORM_ERR
+MESH_HALVES_REL = 2.0 ** -10
+MESH_PROMPT_REL = 2.0 ** -2
+MESH_ACC_POINTS = 0.5
+
+
+def mesh_digest(tr) -> str:
+    """The trainable leaves' bytes, hashed: equal across ranks iff the
+    replicas are bit-equal."""
+    import hashlib
+
+    from mudpt_torch.models.clip import leaves
+
+    h = hashlib.sha256()
+    for t in leaves(tr.trainable):
+        h.update(t.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def mesh_trainer(root: Path, trainer: str, yaml: str, more: tuple, out: str):
+    """The trainer as ``python -m mudpt_torch.train ... --no_train`` builds
+    it on MESH_DEVICE, in this process (the CLI's tee of stdout undone)."""
+    from mudpt_torch import train as train_cli
+
+    argv = ["--trainer", trainer, "--trainer_config", str(root / yaml), "--dataset_config",
+            str(root / ENGINE_FILES[0]), "--output_dir", out, "--device", MESH_DEVICE,
+            "--no_train", *MESH_OPTS, *more]
+    streams = sys.stdout, sys.stderr
+    try:
+        return train_cli.main(train_cli.parse_args(argv))
+    finally:
+        sys.stdout, sys.stderr = streams
+
+
+def batch_halves(tr, b: dict) -> dict:
+    """What splitting the batch does in one process: the first half's
+    logits alone against inside the whole batch (per-row results at
+    another M, relative norm), and the sum of the two halves' gradients,
+    each half's loss over the global count of valid rows, in fp32."""
+    import torch
+
+    n = b["image"].shape[0]
+    half = n // 2
+    with torch.no_grad():
+        whole = tr.forward(tr.trainable, tr.frozen, tr.aux, b["image"])[:half].float()
+        alone = tr.forward(tr.trainable, tr.frozen, tr.aux, b["image"][:half]).float()
+    grads = None
+    for rows in (slice(0, half), slice(half, n)):
+        part = {k: v[rows] for k, v in b.items()}
+        # loss_fn divides by the part's valid rows: scale back to the batch's
+        loss = tr.loss_fn(part)[0] * (part["valid"].sum() / b["valid"].sum())
+        g = torch.autograd.grad(loss, tr._params, allow_unused=True)
+        g = [torch.zeros_like(p) if x is None else x.float() for x, p in zip(g, tr._params)]
+        grads = g if grads is None else [a + c for a, c in zip(grads, g)]
+    out = {f"halfgrad/{k}": g.cpu().numpy().copy()
+           for k, g in zip(leaf_names(tr.trainable), grads)}
+    out["rows_rel"] = ((alone - whole).norm() / whole.norm()).item()
+    return out
+
+
+def mesh_record(root: Path, trainer: str, yaml: str, more: tuple, out: str,
+                halves: bool = False) -> dict:
+    """One case as a rank (or one process) runs it: the trainer through the
+    CLI on cuda:0, MESH_STEPS steps fed by its loader (each rank its rows
+    of the global batch), the global losses, the first step's gradients
+    (summed over the mesh), a step's launches, the prompts before and
+    after, their digest after each step, the test confusion matrix, and a
+    checkpoint saved by the primary and loaded on every rank.  ``halves``:
+    before the first step, ``batch_halves`` of its batch."""
+    import numpy as np
+    import torch
+
+    from mudpt_torch.models.clip import leaves
+    from mudpt_torch.ops import fused_block as F
+    from mudpt_torch.trainers import base
+
+    tr = mesh_trainer(root, trainer, yaml, more, out)
+    names = leaf_names(tr.trainable)
+    rec = {f"prompt0/{k}": t.detach().float().cpu().numpy().copy()
+           for k, t in zip(names, leaves(tr.trainable))}
+    rec.update(losses=[], digests=[], n_test=len(tr.dm.dataset.test))
+    for i, batch in enumerate(tr._device_prefetch(tr.dm.train_loader)):
+        if i == MESH_STEPS:
+            break
+        if i == 0 and halves:
+            rec.update(batch_halves(tr, batch))
+        if i == 1:
+            F.reset_launches()
+        loss, _ = tr._train_step(batch)
+        torch.cuda.synchronize()
+        if i == 0:
+            rec.update({f"grad/{k}": p.grad.float().cpu().numpy().copy()
+                        for k, p in zip(names, tr._params)})
+        if i == 1:
+            rec["launches"] = json.dumps(F.LAUNCHES)
+        rec["losses"].append(float(loss))
+        rec["digests"].append(mesh_digest(tr))
+    rec.update({f"prompt/{k}": t.detach().float().cpu().numpy().copy()
+                for k, t in zip(names, leaves(tr.trainable))})
+    kept, build = [], base.build_evaluator
+    base.build_evaluator = lambda *a, **k: kept.append(build(*a, **k)) or kept[-1]
+    try:
+        tr.evaluate(tr.dm.test_loader)
+    finally:
+        base.build_evaluator = build
+    rec["conf"] = kept[0]._conf
+    tr.save_model()
+    with torch.no_grad():
+        for t in leaves(tr.trainable):
+            t.zero_()
+    tr.load_model(out, epoch=1)
+    rec["ckpt_sum"] = float(sum(t.detach().double().sum().item() for t in leaves(tr.trainable)))
+    rec["ckpt_digest"] = mesh_digest(tr)
+    del tr
+    torch.cuda.empty_cache()
+    return {k: np.asarray(v) for k, v in rec.items()}
+
+
+def gloo_cuda_probe(rank: int, world: int) -> str:
+    """What the mesh sends through gloo, on CUDA tensors, each result held
+    exactly: all_reduce of fp32 (gradients, counts) and int64 (confusion
+    matrices), broadcast of bytes, all_gather of bytes (bf16 features) and
+    fp32."""
+    import torch
+    import torch.distributed as dist
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    ok = True
+    for dtype in (torch.float32, torch.int64):
+        x = torch.arange(4, dtype=dtype, device=dev) + rank
+        dist.all_reduce(x)
+        ok &= torch.equal(x, torch.arange(4, dtype=dtype, device=dev) * world
+                          + sum(range(world)))
+    b = torch.full((3,), rank, dtype=torch.uint8, device=dev)
+    dist.broadcast(b, src=0)
+    ok &= torch.equal(b, torch.zeros_like(b))
+    for dtype in (torch.uint8, torch.float32):
+        parts = [torch.empty(2, dtype=dtype, device=dev) for _ in range(world)]
+        dist.all_gather(parts, torch.full((2,), rank, dtype=dtype, device=dev))
+        ok &= all(torch.equal(p, torch.full((2,), r, dtype=dtype, device=dev))
+                  for r, p in enumerate(parts))
+    if not ok:
+        raise AssertionError("gloo on CUDA tensors: a collective's result is not exact")
+    return ("all_reduce (fp32, int64), broadcast (uint8), all_gather (uint8, fp32) of CUDA "
+            "tensors exact")
+
+
+def mesh_rank(root: Path, rank: str, world: str, port: str, job: str) -> int:
+    """``python3 chip_smoke.py --mesh-rank RANK WORLD PORT JOB``: one gloo
+    rank on cuda:0, running the job's cases (kernels built by the parent)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(root))
+    os.environ.update(RANK=rank, WORLD_SIZE=world, LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=port)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    from mudpt_torch.parallel.multihost import maybe_initialize_distributed
+
+    maybe_initialize_distributed("gloo")  # the ranks share one card: NCCL refuses that
+    spec = json.loads(Path(job).read_text())
+    try:
+        print(f"rank {rank}: {gloo_cuda_probe(int(rank), int(world))}", flush=True)
+        for i, (_, trainer, yaml, mesh, more) in enumerate(MESH_CASES):
+            rec = mesh_record(root, trainer, yaml, mesh + more, f"{spec['out']}/case{i}")
+            np.savez(f"{spec['out']}/case{i}-rank{rank}.npz", **rec)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _rel_norm(a, b) -> float:
+    import numpy as np
+
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+
+def check_mesh_run(what: str, ranks: list, ref: dict) -> str:
+    """Hold each rank's record to one process's (the MESH_* limits; its
+    gradients to the two halves too, where ``ref`` has them: the data axis
+    splits the batch) and the ranks to each other (the replicas bit-equal
+    after every step, one confusion matrix, one checkpoint).  Returns the
+    readings as text."""
+    import numpy as np
+
+    n_test = int(ref["n_test"])
+    acc_ref = 100.0 * np.trace(ref["conf"]) / n_test
+    split = "rows_rel" in ref
+    worst = dict(loss=0.0, later=0.0, grad=0.0, halves=0.0, prompt=0.0, acc=0.0)
+    for r, rec in enumerate(ranks):
+        losses = [abs(a - b) / abs(b) for a, b in zip(rec["losses"], ref["losses"])]
+        reading = dict(
+            loss=losses[0], later=max(losses[1:], default=0.0),
+            grad=max(_rel_norm(rec[k], ref[k]) for k in ref if k.startswith("grad/")),
+            halves=max((_rel_norm(rec[k], ref["half" + k]) for k in ref
+                        if k.startswith("grad/")), default=0.0) if split else 0.0,
+            prompt=max(np.linalg.norm(rec[k] - ref[k])
+                       / max(np.linalg.norm(ref[k] - ref["prompt0/" + k[7:]]), 1e-30)
+                       for k in ref if k.startswith("prompt/")))
+        total = int(rec["conf"].sum())
+        reading["acc"] = abs(100.0 * np.trace(rec["conf"]) / max(total, 1) - acc_ref)
+        limits = dict(loss=MESH_LOSS_REL, later=MESH_LATER_LOSS_REL, grad=MESH_GRAD_REL,
+                      halves=MESH_HALVES_REL, prompt=MESH_PROMPT_REL, acc=MESH_ACC_POINTS)
+        names = dict(loss="first loss", later="later losses", grad="gradients",
+                     halves="gradients vs the halves", prompt="prompts",
+                     acc="accuracy points")
+        over = [f"{names[k]} {v:.3e} over {limits[k]:.3e}" for k, v in reading.items()
+                if not v <= limits[k]]
+        if len(rec["losses"]) != len(ref["losses"]):
+            over.append(f"{len(rec['losses'])} steps, not {len(ref['losses'])}")
+        if not total == n_test == int(ref["conf"].sum()):
+            over.append(f"{total} test images scored, not {n_test}")
+        if over:
+            leaf = max((k for k in ref if k.startswith("grad/")),
+                       key=lambda k: _rel_norm(rec[k], ref[k]))
+            raise AssertionError(
+                f"{what}, rank {r} vs one process: " + "; ".join(over)
+                + f" (losses {list(map(float, rec['losses']))} vs "
+                f"{list(map(float, ref['losses']))}; worst gradient {leaf})")
+        if (list(rec["digests"]) != list(ranks[0]["digests"])
+                or not np.array_equal(rec["conf"], ranks[0]["conf"])
+                or str(rec["ckpt_digest"]) != str(ranks[0]["ckpt_digest"])):
+            raise AssertionError(f"{what}: rank {r}'s replica, confusion matrix or loaded "
+                                 "checkpoint differs from rank 0's")
+        worst = {k: max(worst[k], v) for k, v in reading.items()}
+    halves = (f", vs one process's halves {worst['halves']:.3e} ({MESH_HALVES_REL:.3e}; "
+              f"the halves vs the whole "
+              f"{max(_rel_norm(ref['half' + k], ref[k]) for k in ref if k.startswith('grad/')):.3e}"
+              f", the first half's logits alone {float(ref['rows_rel']):.3e})") if split else ""
+    return (f"first loss within {worst['loss']:.3e} (limit {MESH_LOSS_REL:.3e}), later "
+            f"{worst['later']:.3e} ({MESH_LATER_LOSS_REL:.3e}); first-step gradients "
+            f"{worst['grad']:.3e} ({MESH_GRAD_REL:.3e}){halves}; prompts {worst['prompt']:.3e} "
+            f"of the update ({MESH_PROMPT_REL:.3e}); test accuracy {acc_ref:.2f} within "
+            f"{worst['acc']:.2f} points over {n_test} images counted once; replicas bit-equal "
+            f"after every step; checkpoint checksum {float(ranks[0]['ckpt_sum']):.6f} on "
+            f"every rank")
+
+
+def check_bit_equal_runs(what: str, a: dict, b: dict) -> str:
+    """Two CLI runs' losses, final prompts (the last checkpoint) and test
+    accuracy, bit-equal."""
+    import numpy as np
+
+    if a["losses"] != b["losses"] or a["accuracy"] != b["accuracy"]:
+        raise AssertionError(f"{what}: losses {a['losses']} vs {b['losses']}, accuracy "
+                             f"{a['accuracy']} vs {b['accuracy']}")
+    if a["prompts"].keys() != b["prompts"].keys() or not all(
+            np.array_equal(a["prompts"][k], b["prompts"][k]) for k in a["prompts"]):
+        raise AssertionError(f"{what}: final prompts not bit-equal")
+    return (f"{len(a['losses'])} losses, {len(a['prompts'])} prompt leaves and test accuracy "
+            f"{a['accuracy']:.2f} bit-equal")
+
+
+def cli_run(out: str) -> dict:
+    """A finished CLI run's train losses, final checkpoint and test accuracy."""
+    import numpy as np
+
+    with open(Path(out) / "metrics.jsonl") as f:
+        rows = [json.loads(x) for x in f]
+    ckpts = sorted((p for p in Path(out).glob("*/model.pth.tar-*") if p.suffix != ".json"),
+                   key=lambda p: int(p.name.split("-")[-1]))
+    with np.load(ckpts[-1]) as z:
+        prompts = {k: z[k] for k in z.files if k.startswith("trainable/")}
+    return {"losses": [r["loss"] for r in rows if r["kind"] == "train"],
+            "accuracy": [r["accuracy"] for r in rows if r["kind"] == "eval"][-1],
+            "prompts": prompts}
+
+
+def _spawn(cmd: list, root: Path, log: Path):
+    env = dict(os.environ, PYTHONPATH=str(root))
+    fh = open(log, "w")
+    return subprocess.Popen(cmd, cwd=root, env=env, stdout=fh, stderr=subprocess.STDOUT), fh
+
+
+def _finish(procs: list, timeout: float) -> None:
+    """Wait for every process; kill what outlives ``timeout``; raise with
+    the log's end of any that failed."""
+    deadline = time.perf_counter() + timeout
+    failed = []
+    for proc, fh, log in procs:
+        try:
+            proc.wait(timeout=max(1.0, deadline - time.perf_counter()))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        fh.close()
+        if proc.returncode != 0:
+            failed.append(f"--- {' '.join(map(str, proc.args[:6]))} ... exit {proc.returncode}\n"
+                          + Path(log).read_text()[-3000:])
+    if failed:
+        raise AssertionError("mesh processes failed:\n" + "\n".join(failed))
+
+
+MESH_TIMEOUT = 400
+
+
+def phase_mesh(F, root: Path) -> dict:
+    """NCCL at world size 1 against no process group, bit-equal; then two
+    gloo ranks sharing cuda:0 on MESH_CASES, each held against one process
+    on the same global batches, whose references this process computes
+    while the ranks run.  Returns rank 0's launches of a step by case."""
+    import shutil
+    import socket
+    import tempfile
+
+    import numpy as np
+
+    phase = "mesh"
+    tmp = Path(tempfile.mkdtemp(prefix="mudpt_mesh_"))
+
+    def argv(out: str) -> list:
+        return ["--trainer", "MuDPT", "--trainer_config", str(root / ENGINE_FILES[1]),
+                "--dataset_config", str(root / ENGINE_FILES[0]), "--output_dir", out,
+                *ENGINE_OPTS]
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    (tmp / "job.json").write_text(json.dumps({"out": str(tmp)}))
+    procs = []
+    try:
+        t0 = time.perf_counter()
+        for name, cmd in (
+                ("plain", [sys.executable, "-m", "mudpt_torch.train", *argv(str(tmp / "plain"))]),
+                ("nccl", [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                          "--nproc_per_node", "1", "-m", "mudpt_torch.train",
+                          *argv(str(tmp / "nccl"))]),
+                *((f"rank{r}", [sys.executable, str(root / "chip_smoke.py"), "--mesh-rank",
+                                str(r), "2", str(port), str(tmp / "job.json")])
+                  for r in range(2))):
+            proc, fh = _spawn(cmd, root, tmp / f"{name}.log")
+            procs.append((proc, fh, tmp / f"{name}.log"))
+        refs = [mesh_record(root, trainer, yaml, more, str(tmp / f"ref{i}"),
+                            halves="PARALLEL.DATA" in mesh)
+                for i, (_, trainer, yaml, mesh, more) in enumerate(MESH_CASES)]
+        t_refs = time.perf_counter() - t0
+        _finish(procs, MESH_TIMEOUT)
+        say(phase, f"4 processes (2 CLI runs, 2 gloo ranks) and the one-process references "
+                   f"({t_refs:.1f} s) in {time.perf_counter() - t0:.1f} s")
+        nccl_log = (tmp / "nccl.log").read_text()
+        if "process group: backend nccl, rank 0 of 1" not in nccl_log:
+            raise AssertionError("the torchrun run joined no NCCL process group:\n"
+                                 + nccl_log[-2000:])
+        say(phase, "NCCL at world size 1 (torchrun --nproc_per_node 1, MuDPT ViT-B/16 at "
+                   "[engine]'s configuration) vs no process group: "
+                   + check_bit_equal_runs("NCCL world 1", cli_run(str(tmp / "nccl")),
+                                          cli_run(str(tmp / "plain"))))
+        for r in range(2):
+            probe = [ln for ln in (tmp / f"rank{r}.log").read_text().splitlines()
+                     if ln.startswith(f"rank {r}: ")]
+            say(phase, f"gloo on cuda:0, {probe[0] if probe else 'no probe line'}")
+        paths, failed = {}, []
+        for i, (label, *_) in enumerate(MESH_CASES):
+            ranks = [dict(np.load(tmp / f"case{i}-rank{r}.npz")) for r in range(2)]
+            try:
+                reading = check_mesh_run(label, ranks, refs[i])
+            except AssertionError as e:
+                failed.append(str(e))
+                reading = f"FAILED: {e}"
+            say(phase, f"{label} ViT-B/16 on 2 gloo ranks, global batch 64, "
+                       f"{MESH_STEPS} steps, vs one process: {reading}")
+            launches = json.loads(str(ranks[0]["launches"]))
+            paths[f"mesh_rank_step {label}"] = launches
+            say(phase, f"{label}: a rank's launches a step: "
+                       f"{ {k: v for k, v in launches.items() if v} }")
+        if failed:
+            raise AssertionError("[mesh] cases failed:\n" + "\n".join(failed))
+        return paths
+    finally:
+        for proc, fh, _ in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            fh.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 # [export]: MuDPT ViT-B/16 through build_trainer (its YAML, the synthetic
 # dataset at 100 classes: one training image a class, four test images),
 # one training step at batch 64, then an artifact of each tier served in a
@@ -3833,6 +4269,8 @@ def main() -> int:
         return times_of(root)
     if sys.argv[1:2] == ["--serve-artifact"]:
         return serve_artifact(root, *sys.argv[2:5])
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        return mesh_rank(root, *sys.argv[2:6])
     sys.path.insert(0, str(root))
     from mudpt_torch.models import layers
     from mudpt_torch.ops import _build
@@ -3886,6 +4324,7 @@ def main() -> int:
     run("bench", phase_bench, F)
     paths.update(run("zoo", phase_zoo, F, root))
     paths.update(run("datasets", phase_datasets, F, root))
+    paths.update(run("mesh", phase_mesh, F, root))
     run("kernels ViT-L/14", phase_kernels, F, kernels_l, "ViT-L/14")
     run("kernels ViT-L/14", phase_halfblock_chains, F)
     paths["serving_vit_l14"] = run("serving ViT-L/14", phase_serving, F, "ViT-L/14")

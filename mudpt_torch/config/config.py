@@ -78,15 +78,16 @@ class DataLoaderCfg:
     TEST: LoaderSplitCfg = field(default_factory=lambda: LoaderSplitCfg(BATCH_SIZE=100, SAMPLER="sequential"))
     NUM_WORKERS: int = 8
     PIPELINE: str = "threads"  # threads (PIL) | tfdata (tf.data) | grain
-    # multi-host input strategy for TRAINING and EVAL:
-    #   "auto" (default) — in multi-process runs, hosts decode disjoint item
-    #     shards and contribute their slice of the global batch (decode work
-    #     scales 1/n_hosts) whenever the batch size and the mesh data axis
-    #     divide evenly by the process count; falls back to replicated
-    #     decode otherwise.  Single-process runs are unaffected.
+    # multi-rank input strategy for TRAINING and EVAL (the JAX package's
+    # hosts are the port's data indices; ranks that share one decode the
+    # same items):
+    #   "auto" (default) — each data index decodes a disjoint item shard and
+    #     its slice of the global batch (decode work scales 1/n_data)
+    #     whenever the batch size divides by the data axis; falls back to
+    #     replicated decode otherwise.  Single-process runs are unaffected.
     #   True/"on" — require sharding (error if the batch is indivisible);
-    #   False/"off" — every host decodes the same seed-deterministic global
-    #     batch (bit-identical to the single-process run; the v1 strategy).
+    #   False/"off" — every rank decodes the same seed-deterministic global
+    #     batch and takes its rows (the one process's batches).
     HOST_SHARD: str = "auto"
 
 
@@ -267,9 +268,10 @@ class PerfCfg:
 
 @_node
 class ParallelCfg:
-    """Device mesh layout (the JAX package's; the port runs on one device,
-    so DATA and MODEL other than 0/1 raise at trainer build).  DATA shards
-    the batch, MODEL shards the class axis of the text tower.  0 = auto."""
+    """Device mesh layout (the JAX package's), one rank a device under
+    ``torch.distributed`` (``parallel/mesh.py``).  DATA shards the batch,
+    MODEL shards the class axis of the text tower.  DATA 0 = the ranks
+    divided by MODEL."""
     DATA: int = 0
     MODEL: int = 1
 

@@ -1,5 +1,5 @@
 """DataManager: dataset construction + train/val/test loaders from a Config
-(counterpart of ``mudpt_tpu/data/manager.py:55``, one process).
+(counterpart of ``mudpt_tpu/data/manager.py:55``).
 
 The Dassl equivalent is constructed inside every trainer's ``__init__``
 (reference call stack SURVEY.md §3.1): DATASET_REGISTRY lookup -> few-shot
@@ -7,9 +7,10 @@ pipeline -> loaders with train/test transforms.  ``DATALOADER.PIPELINE``
 selects the threaded PIL loader (``threads``), the grain pipeline's
 counterpart (``grain``) or tf.data's (``tfdata``), as ``manager.py:97-158``
 does: any other value runs the threaded loader there, and here.
-``DATALOADER.HOST_SHARD`` is parsed and validated as there; a single
-process never shards, so the multi-host split waits with the mesh
-(ROADMAP.md A, 'the mesh').
+``DATALOADER.HOST_SHARD`` splits the items across the mesh's data axis as
+``manager.py:64-95`` and ``:176-210`` split them across hosts: the JAX
+package's process is the rank's data index (ranks that share it decode the
+same items), its process count the data axis's width.
 """
 
 from __future__ import annotations
@@ -60,49 +61,112 @@ def _host_shard_mode(v) -> str:
 
 
 class DataManager:
-    def __init__(self, cfg, dataset=None):
+    def __init__(self, cfg, dataset=None, n_data: int = 1, data_index: int = 0):
         self.cfg = cfg
         if dataset is None:
             _import_datasets()
             dataset_cls = DATASET_REGISTRY.get(cfg.DATASET.NAME)
             dataset = dataset_cls.build(cfg)
         self.dataset = dataset
-        # one process: nothing to split, whatever the mode
-        self._shard_mode = _host_shard_mode(cfg.DATALOADER.HOST_SHARD)
+        self._n_data, self._data_index = n_data, data_index
+
+        # DATALOADER.HOST_SHARD: each data index decodes a DISJOINT shard of
+        # the train items in batches of its rows; the items are cut to equal
+        # lengths so that every rank runs the same number of steps (lockstep
+        # collectives).  "auto" (the default) shards whenever the batch
+        # divides by the data axis, else every rank decodes the global batch
+        # and takes its rows (parallel/mesh.shard_batch)
         self.host_sharded = self.eval_host_sharded = False
-        pipeline = cfg.DATALOADER.PIPELINE
+        self._shard_mode = _host_shard_mode(cfg.DATALOADER.HOST_SHARD)
+        train_items = dataset.train_x
         train_bs, test_bs = cfg.DATALOADER.TRAIN_X.BATCH_SIZE, cfg.DATALOADER.TEST.BATCH_SIZE
+        if self._shard_mode != "off" and n_data > 1:
+            if self._shard_mode == "on" and train_bs % n_data:
+                raise ValueError(
+                    f"DATALOADER.HOST_SHARD: global train batch "
+                    f"{train_bs} must divide by process count {n_data}"
+                )
+            if train_bs % n_data == 0:
+                n = (len(train_items) // n_data) * n_data
+                train_items = train_items[data_index:n:n_data]
+                train_bs = train_bs // n_data
+                self.host_sharded = True
+        pipeline = cfg.DATALOADER.PIPELINE
 
         if pipeline == "grain":
             train_tf = build_transform(cfg, is_train=True)
             test_tf = build_transform(cfg, is_train=False)
             self.train_loader = GrainLoader(
-                dataset.train_x, train_tf, train_bs,
+                train_items, train_tf, train_bs,
                 shuffle=_train_shuffle(cfg), drop_last=True, seed=cfg.SEED,
             )
-            mk_eval = lambda items: GrainLoader(items, test_tf, test_bs)  # noqa: E731
+            mk_eval = lambda items, bs, pad: GrainLoader(  # noqa: E731
+                items, test_tf, bs, pad_to_batches=pad)
         elif pipeline == "tfdata":
-            mk_tf = lambda items, bs, train: TFDataLoader(  # noqa: E731
+            mk_tf = lambda items, bs, train, pad=0: TFDataLoader(  # noqa: E731
                 items, bs, size=cfg.INPUT.SIZE[0], is_train=train,
                 shuffle=train and _train_shuffle(cfg), drop_last=train, seed=cfg.SEED,
                 mean=cfg.INPUT.PIXEL_MEAN, std=cfg.INPUT.PIXEL_STD,
-                num_workers=cfg.DATALOADER.NUM_WORKERS,
+                num_workers=cfg.DATALOADER.NUM_WORKERS, pad_to_batches=pad,
             )
-            self.train_loader = mk_tf(dataset.train_x, train_bs, True)
-            mk_eval = lambda items: mk_tf(items, test_bs, False)  # noqa: E731
+            self.train_loader = mk_tf(train_items, train_bs, True)
+            mk_eval = lambda items, bs, pad: mk_tf(items, bs, False, pad)  # noqa: E731
         else:
             train_tf = build_transform(cfg, is_train=True)
             test_tf = build_transform(cfg, is_train=False)
             self.train_loader = DataLoader(
-                dataset.train_x, train_tf, train_bs,
+                train_items, train_tf, train_bs,
                 shuffle=_train_shuffle(cfg), drop_last=True,
                 num_workers=cfg.DATALOADER.NUM_WORKERS, seed=cfg.SEED,
             )
-            mk_eval = lambda items: DataLoader(  # noqa: E731
-                items, test_tf, test_bs, num_workers=cfg.DATALOADER.NUM_WORKERS)
+            mk_eval = lambda items, bs, pad: DataLoader(  # noqa: E731
+                items, test_tf, bs, num_workers=cfg.DATALOADER.NUM_WORKERS,
+                pad_to_batches=pad)
 
-        self.val_loader = mk_eval(dataset.val) if dataset.val else None
-        self.test_loader = mk_eval(dataset.test) if dataset.test else None
+        def eval_loader(items):
+            # the eval split applies to every pipeline: a data index decodes
+            # only its block of every global batch (see _eval_shard)
+            if not items:
+                return None
+            shard = self._eval_shard(items, test_bs)
+            if shard is None:
+                return mk_eval(items, test_bs, 0)
+            host_items, bs_h, steps = shard
+            self.eval_host_sharded = True
+            loader = mk_eval(host_items, bs_h, steps)
+            # evaluate() keys the rank-local path off the LOADER, so a
+            # custom loader passed to evaluate() is never mis-sliced
+            loader.host_sharded_eval = True
+            return loader
+
+        self.val_loader = eval_loader(dataset.val)
+        self.test_loader = eval_loader(dataset.test)
+
+    def _eval_shard(self, items, test_bs):
+        """Split every global eval batch into contiguous blocks, one per
+        data index (``manager.py:176-210``): index d decodes ONLY rows
+        [d*bs_h, (d+1)*bs_h) of each global batch of ``test_bs`` (the block
+        ``shard_batch`` would give it), so the union over the data axis
+        covers every item once.  Returns (items, bs_h, pad_to_batches), or
+        None when not splitting (one data index, HOST_SHARD off, or a batch
+        that does not divide)."""
+        n_data = self._n_data
+        if self._shard_mode == "off" or n_data == 1 or not items:
+            return None
+        if test_bs % n_data:
+            if self._shard_mode == "on":
+                raise ValueError(
+                    f"DATALOADER.HOST_SHARD: global eval batch {test_bs} "
+                    f"must divide by process count {n_data}"
+                )
+            return None
+        bs_h = test_bs // n_data
+        d = self._data_index
+        host_items = []
+        for start in range(0, len(items), test_bs):
+            host_items.extend(items[start + d * bs_h:start + (d + 1) * bs_h])
+        steps = -(-len(items) // test_bs)
+        return host_items, bs_h, steps
 
     @property
     def num_classes(self) -> int:

@@ -289,6 +289,7 @@ def encode_image(
     compute_dtype: torch.dtype = torch.float32,
     layer0_prompt: Optional[torch.Tensor] = None,
     deep_prompts: Optional[torch.Tensor] = None,
+    mesh_ctx=None,
 ) -> torch.Tensor:
     if cfg.vision_arch == "resnet":
         from mudpt_torch.models.resnet import resnet_forward
@@ -309,6 +310,7 @@ def encode_image(
         compute_dtype=compute_dtype,
         layer0_prompt=layer0_prompt,
         deep_prompts=deep_prompts,
+        mesh_ctx=mesh_ctx,
     )
 
 
@@ -319,6 +321,7 @@ def encode_text(
     *,
     compute_dtype: torch.dtype = torch.float32,
     deep_prompts: Optional[torch.Tensor] = None,
+    mesh_ctx=None,
 ) -> torch.Tensor:
     """Zero-shot text encoding from raw token ids (N, S) -> (N, embed_dim)
     (``clip.py:347-368``); the EOT position is the token row's argmax."""
@@ -326,7 +329,7 @@ def encode_text(
 
     x = embed_tokens(params["text"], tokens, compute_dtype)
     return text_forward(params["text"], x, tokens.argmax(-1), n_head=cfg.transformer_heads,
-                        deep_prompts=deep_prompts)
+                        deep_prompts=deep_prompts, mesh_ctx=mesh_ctx)
 
 
 def cosine_logits(image_features, text_features, logit_scale) -> torch.Tensor:

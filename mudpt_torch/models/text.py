@@ -28,6 +28,7 @@ from mudpt_torch.models.layers import calibrating, layer_norm, resolve_block_imp
 from mudpt_torch.models.transformer import (make_injection_schedule, num_layers_of,
                                             resolve_unroll, transformer_forward)
 from mudpt_torch.ops.fused_block import saved_acts
+from mudpt_torch.parallel.mesh import shard_rows, shard_rows_2d
 
 _AUTO_PACK_TOKENS = 256
 _AUTO_PACK_MAX_G = 8
@@ -74,6 +75,7 @@ def text_forward(
     n_head: int,
     deep_prompts: Optional[torch.Tensor] = None,
     pack: Optional[int] = None,
+    mesh_ctx=None,
 ) -> torch.Tensor:
     """Encode pre-embedded prompts (N, S, width) -> (N, embed_dim).
 
@@ -83,16 +85,22 @@ def text_forward(
     row count (``text.py:225``, :274-287), and each copy reads its class's
     EOT position (:295-299).
 
+    Under a mesh (``mesh_ctx``) the class rows split over the 'model' axis
+    and, for a 4-D input, the instances are this rank's rows of the 'data'
+    axis (``text.py:273-290``, ``parallel/mesh.shard_rows``).  The packing
+    G and the saves-off rule are resolved from the GLOBAL row count, as the
+    JAX package resolves them before its tower runs per shard (:222-243),
+    and each rank packs its own block of rows.
+
     ``pack``: rows per kernel row; None picks it as the JAX package's auto
     rule does (packing on the kernel route only), 1 runs the unpacked causal
     tower."""
     lead = prompt_embeddings.shape[:-2]
     S, D = prompt_embeddings.shape[-2:]
     x = prompt_embeddings + p["pos_embedding"][:S].to(prompt_embeddings.dtype)
-    x = x.reshape(-1, S, D)
-    N = x.shape[0]
-    if len(lead) == 2:
-        eot_idx = eot_idx.repeat(lead[0])
+    N = math.prod(lead)
+    if len(lead) == 2 and mesh_ctx is not None:
+        N *= mesh_ctx.n_data  # the global batch's instances
     n_ctx = deep_prompts.shape[-2] if deep_prompts is not None else 0
     if 1 + n_ctx > S:
         raise ValueError(
@@ -110,20 +118,33 @@ def text_forward(
         pack = _auto_pack_g(P, N) if kernel_route and unrolled else 1
     G = pack
     kw = dict(n_head=n_head, prompts=prompts, prompt_mask=pmask, n_ctx=n_ctx, is_text=True)
+
+    def tower(xx):
+        # (n, S, D) rows -> (n, S, D); the rows this rank encodes
+        n = xx.shape[0]
+        if G == 1:
+            return transformer_forward(p["blocks"], xx, causal=True, **kw)
+        # (n, S, D) -> (npad/G, G*P, D): sequences at offsets g*P, pad rows
+        # and pad positions zero; their outputs are dropped at unpack
+        npad = -(-n // G) * G
+        xp = xx.new_zeros((npad, P, D))
+        xp[:n, :S] = xx
+        xp = transformer_forward(
+            p["blocks"], xp.reshape(npad // G, G * P, D),
+            causal=(P, S), splice_period=P, **kw,
+        )
+        return xp.reshape(npad, P, D)[:n, :S]
+
     with saved_acts(False) if _text_saves_off(N, P) else contextlib.nullcontext():
-        if G > 1:
-            # (N, S, D) -> (Npad/G, G*P, D): sequences at offsets g*P, pad rows
-            # and pad positions zero; their outputs are dropped at unpack
-            Npad = -(-N // G) * G
-            xp = x.new_zeros((Npad, P, D))
-            xp[:N, :S] = x
-            xp = transformer_forward(
-                p["blocks"], xp.reshape(Npad // G, G * P, D),
-                causal=(P, S), splice_period=P, **kw,
-            )
-            x = xp.reshape(Npad, P, D)[:N, :S]
+        if len(lead) == 2:
+            x = shard_rows_2d(mesh_ctx, ("data", "model"),
+                              lambda xx: tower(xx.reshape(-1, S, D)).reshape(xx.shape), x)
         else:
-            x = transformer_forward(p["blocks"], x, causal=True, **kw)
-    pooled = layer_norm(p["ln_final"], x[torch.arange(N, device=x.device), eot_idx.long()])
+            x = shard_rows(mesh_ctx, "model", tower, x.reshape(-1, S, D))
+    x = x.reshape(-1, S, D)
+    if len(lead) == 2:
+        eot_idx = eot_idx.repeat(lead[0])
+    pooled = layer_norm(p["ln_final"], x[torch.arange(x.shape[0], device=x.device),
+                                         eot_idx.long()])
     out = torch.matmul(pooled, p["projection"].to(pooled.dtype))
     return out.reshape(*lead, out.shape[-1])

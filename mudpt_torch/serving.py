@@ -34,6 +34,7 @@ import ``mudpt_torch.ops.library`` to register the custom ops.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import os
 from typing import Optional, Sequence
@@ -232,6 +233,15 @@ def export_classifier(
         json.dump(meta, f, indent=1)
 
 
+def _unmeshed(fn):
+    """Rebind a trainer-bound forward's ``mesh_ctx`` to None
+    (``serving.py:79-85``): an artifact is a one-device program (replicate
+    it to serve a fleet), and a process group would not serialize."""
+    if isinstance(fn, functools.partial) and "mesh_ctx" in fn.keywords:
+        return functools.partial(fn.func, *fn.args, **dict(fn.keywords, mesh_ctx=None))
+    return fn
+
+
 def trainer_program(trainer, *, block_impl: str = "xla", calib_images=None):
     """``(score, operands, extra_meta)`` of a built trainer's inference path,
     what :func:`export_trainer` exports (``serving.py:203-378``); calling
@@ -253,7 +263,7 @@ def trainer_program(trainer, *, block_impl: str = "xla", calib_images=None):
     # its own (ops["txt"]), so the aux copy would be dead weight
     aux = {k: v for k, v in trainer.aux.items() if k != "static_text_features"}
     ops = {"trainable": trainer.trainable, "frozen": trainer.frozen, "aux": aux}
-    inference = trainer.model_inference
+    inference = _unmeshed(trainer.model_inference)
     text_fn = getattr(trainer, "forward_text", None)
     if inference is not None:  # the zero-shot pair: text features cached in aux
         ops["frozen"] = _strip(trainer.frozen, ("text",))
@@ -268,13 +278,13 @@ def trainer_program(trainer, *, block_impl: str = "xla", calib_images=None):
         with torch.no_grad(), layers.quantized("none"):
             ops["txt"] = text_fn(trainer.trainable, trainer.frozen, trainer.aux)
         ops["frozen"] = _strip(trainer.frozen, ("text",))
-        img_fn = trainer.forward_image
+        img_fn = _unmeshed(trainer.forward_image)
 
         def score(o, images):
             return img_fn(o["trainable"], o["frozen"], o["aux"], images, o["txt"])[:, :n_cls]
 
     else:  # CoCoOp: instance-conditional prompts, the full forward
-        fwd = trainer.forward
+        fwd = _unmeshed(trainer.forward)
 
         def score(o, images):
             return fwd(o["trainable"], o["frozen"], o["aux"], images)[:, :n_cls]

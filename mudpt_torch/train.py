@@ -10,22 +10,28 @@
 Without ``--device`` the run takes the card and raises when CUDA is absent;
 ``--device cpu`` runs the kernels' plain versions.  The config cascade is
 ``train.py``'s (reference train.py:136-150): code defaults -> dataset yaml
--> trainer yaml -> CLI flags -> trailing KEY VALUE opts.  The port runs on
-one device: a multi-process launch raises (ROADMAP.md A, 'the mesh').
+-> trainer yaml -> CLI flags -> trailing KEY VALUE opts.
+
+Across devices, one process a device (the mesh of ``PARALLEL.DATA`` x
+``PARALLEL.MODEL``, ``parallel/mesh.py``):
+
+  torchrun --nproc_per_node N -m mudpt_torch.train ... PARALLEL.MODEL 2
+
+Each rank joins the process group first (NCCL; gloo with ``--device
+cpu``) and takes the card ``cuda:LOCAL_RANK`` unless ``--device`` names one.
 """
 
 from __future__ import annotations
 
 import argparse
-import os
+
+import torch
 
 from mudpt_torch.config import default_config, merge_from_file, merge_from_list
+from mudpt_torch.parallel.multihost import (default_backend, local_rank,
+                                            maybe_initialize_distributed)
 from mudpt_torch.utils.logging import setup_logger
 from mudpt_torch.utils.rng import set_seed
-
-# the launchers' process counts: torchrun's, and the JAX package's
-# multi-process launch (COORDINATOR_ADDRESS / NUM_PROCESSES, multihost.py:31-37)
-_MULTI_PROCESS_ENV = ("WORLD_SIZE", "NUM_PROCESSES")
 
 
 def print_args(args, cfg) -> None:
@@ -63,29 +69,37 @@ def setup_config(args):
     return cfg
 
 
-def _refuse_multi_process() -> None:
-    for name in _MULTI_PROCESS_ENV:
-        if int(os.environ.get(name, "1") or "1") > 1:
-            raise NotImplementedError(
-                f"{name}={os.environ[name]}: the port runs one process on one device; "
-                "multi-process training waits (ROADMAP.md A, 'the mesh')"
-            )
+def rank_device(device):
+    """The rank's device: ``device`` when named, else under a process group
+    the card ``cuda:LOCAL_RANK`` (made current: the kernels launch on the
+    current device's stream), else None, the card."""
+    if device is None and torch.distributed.is_initialized():
+        device = f"cuda:{local_rank()}"
+    if device is not None and torch.device(device).type == "cuda" and torch.cuda.is_available():
+        torch.cuda.set_device(torch.device(device))
+    return device
 
 
 def main(args):
-    """Build the trainer, then train it (or with ``--eval_only`` load and
-    test it); returns the trainer."""
-    _refuse_multi_process()
+    """Join the launcher's process group, if any (before anything else, as
+    ``train.py:87-89``), build the trainer, then train it (or with
+    ``--eval_only`` load and test it); returns the trainer."""
+    maybe_initialize_distributed(default_backend(args.device))
+    device = rank_device(args.device)
     cfg = setup_config(args)
     if cfg.SEED >= 0:
         print(f"Setting fixed seed: {cfg.SEED}")
         set_seed(cfg.SEED)
     setup_logger(cfg.OUTPUT_DIR)
+    if torch.distributed.is_initialized():
+        print(f"process group: backend {torch.distributed.get_backend()}, rank "
+              f"{torch.distributed.get_rank()} of {torch.distributed.get_world_size()}, "
+              f"device {device}")
     print_args(args, cfg)
 
     from mudpt_torch.trainers import build_trainer
 
-    trainer = build_trainer(cfg, devices=args.device)
+    trainer = build_trainer(cfg, devices=device)
     if args.eval_only:
         trainer.load_model(args.model_dir, epoch=args.load_epoch)
         trainer.test()
@@ -128,4 +142,8 @@ def parse_args(argv=None):
 
 
 if __name__ == "__main__":
-    main(parse_args())
+    try:
+        main(parse_args())
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()

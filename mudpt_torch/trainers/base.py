@@ -1,5 +1,5 @@
 """Trainer engine (counterpart of ``mudpt_tpu/trainers/base.py``), the
-Dassl ``TrainerX`` equivalent on one device.
+Dassl ``TrainerX`` equivalent, on one device or across the ranks of a mesh.
 
 Responsibilities (reference call stack SURVEY.md §3.1): data manager, model
 build, optimizer and schedule, the train step (forward, ``loss.backward()``
@@ -13,8 +13,13 @@ restored; reference trainers/mudpt.py:270-303).
 
 The JAX package's ``devices`` argument becomes the port's device: ``None``
 means the card and raises without CUDA (``utils/device.resolve_device``);
-``"cpu"`` runs the kernels' plain versions.  The port runs on one device:
-a mesh (``PARALLEL``) waits (ROADMAP.md A, 'the mesh').
+``"cpu"`` runs the kernels' plain versions.  Under ``torch.distributed``
+each rank drives one device of the ``PARALLEL.DATA x PARALLEL.MODEL`` mesh
+(``parallel/mesh.py``): its rows of the batch, its block of the text
+tower's class rows, and the gradients summed over the mesh before each
+optimizer step, so every rank takes the step of one process on the global
+batch.  The primary rank writes the checkpoints and makes the decisions
+that read them.
 """
 
 from __future__ import annotations
@@ -39,6 +44,10 @@ from mudpt_torch.models.clip import (RN50, RN50X4, RN50X16, RN50X64, RN101, TINY
                                      init_clip_params, leaves)
 from mudpt_torch.models.convert import load_clip_checkpoint
 from mudpt_torch.ops import quant_block
+from mudpt_torch.parallel.mesh import (build_mesh, data_sum, reduce_grads, replicate,
+                                       shard_batch, shard_class_tree)
+from mudpt_torch.parallel.multihost import (broadcast_from_primary, host_local_batch_to_global,
+                                            is_primary)
 from mudpt_torch.trainers.optim import build_optimizer, make_lr_schedule
 from mudpt_torch.utils.checkpoint import (load_checkpoint, restore_into, save_checkpoint,
                                           to_numpy)
@@ -119,7 +128,7 @@ class TrainerBase:
       self.frozen     backbone tree (device)
       self.aux        static buffers tree (device)
       self.trainable  prompt tree (device, fp32 leaves that require grad)
-      self.forward    fn(trainable, frozen, aux, images) -> (B, n_cls) logits
+      self.forward    fn(trainable, frozen, aux, images) -> (B, n_cls_padded) logits
       self.model_name checkpoint subdirectory name
     """
 
@@ -137,10 +146,14 @@ class TrainerBase:
         self.cfg = cfg
         self.device = resolve_device(devices)
         set_seed(cfg.SEED)
-        if cfg.PARALLEL.DATA not in (0, 1) or cfg.PARALLEL.MODEL != 1:
-            raise NotImplementedError(
-                f"PARALLEL.DATA={cfg.PARALLEL.DATA}, MODEL={cfg.PARALLEL.MODEL}: the "
-                "port runs on one device; the mesh waits (ROADMAP.md A, 'the mesh')"
+        self.mesh = build_mesh(cfg, device=self.device)
+        if not self.mesh.in_mesh:
+            # a JAX device past the mesh idles; a rank is a process that
+            # would wait for collectives it is not part of
+            raise ValueError(
+                f"rank {self.mesh.rank} lies outside the PARALLEL mesh "
+                f"(data={self.mesh.n_data}, model={self.mesh.n_model}): launch "
+                f"{self.mesh.n_data * self.mesh.n_model} ranks"
             )
         if cfg.TRAIN.QUANT not in layers.QUANT_MODES:
             raise ValueError(
@@ -155,12 +168,15 @@ class TrainerBase:
         # trainer clears a mode left by an earlier build in the process
         layers.set_quant_mode(cfg.TRAIN.QUANT)
         self.perf_resolved = apply_perf_config(cfg.PERF)
-        self.dm = DataManager(cfg, dataset)
+        self.dm = DataManager(cfg, dataset, n_data=self.mesh.n_data,
+                              data_index=self.mesh.data_index)
         self.num_classes = self.dm.num_classes
         self.classnames = self.dm.classnames
         self.metrics = MetricsLogger(cfg.OUTPUT_DIR)
         self.metrics.log({"kind": "perf_config", **self.perf_resolved})
-        self.n_cls_padded = self.num_classes  # one device: no class-axis padding
+        # the class axis padded to a multiple of the model axis; the loss and
+        # evaluation slice back to num_classes (base.py:218-221)
+        self.n_cls_padded = -(-self.num_classes // self.mesh.n_model) * self.mesh.n_model
         self.epoch = 0
         self._best_val = -1.0
         self._preempt = False        # set by the SIGTERM handler
@@ -218,22 +234,26 @@ class TrainerBase:
         depend on the image, the text/image split that lets evaluate()
         encode the class prompts once per pass (``base.py:280-297``).
         Contract: forward(tr, fz, aux, img) == image_fn(tr, fz, aux, img,
-        text_fn(tr, fz, aux))."""
+        text_fn(tr, fz, aux)).  The mesh is threaded through, so that the
+        towers split their rows over it (``base.py:288-293``)."""
+        kw.setdefault("mesh_ctx", self.mesh)
         self.forward = functools.partial(forward_fn, **kw)
         if text_fn is not None:
             self.forward_text = functools.partial(text_fn, **kw)
             self.forward_image = functools.partial(image_fn, **kw)
 
     def place(self, frozen, aux_class_tree, aux_repl, trainable):
-        """Device placement: every tree on the trainer's device, the
-        trainable leaves fp32 leaf tensors that require grad."""
-        self.frozen = _to_device(frozen, self.device)
-        aux = dict(aux_repl or {})
-        aux.update(aux_class_tree)
-        self.aux = _to_device(aux, self.device)
+        """Placement through the mesh (``base.py:298-308``): the frozen and
+        trainable trees whole on every rank, the class buffers padded to
+        ``n_cls_padded``; the trainable leaves fp32 leaf tensors that
+        require grad."""
+        self.frozen = replicate(self.mesh, frozen)
+        aux = replicate(self.mesh, dict(aux_repl or {}))
+        aux.update(shard_class_tree(self.mesh, aux_class_tree, pad_to=self.n_cls_padded))
+        self.aux = aux
         self.trainable = None
         if trainable is not None:
-            self.trainable = _to_device(trainable, self.device)
+            self.trainable = replicate(self.mesh, trainable)
             for t in leaves(self.trainable):
                 t.requires_grad_(True)
 
@@ -263,6 +283,9 @@ class TrainerBase:
         batch = next(iter(loader))
         if prev_epoch is not None:
             loader._epoch = prev_epoch
+        if self.dm.host_sharded:
+            # every rank calibrates on the global batch: one set of scales
+            batch = host_local_batch_to_global(self.mesh, batch)
         images = self._device_batch(batch)["image"]
         frozen = dict(self.frozen)
         if inference is not None:
@@ -334,7 +357,9 @@ class TrainerBase:
 
     def loss_fn(self, batch):
         """(loss, accuracy) of a device batch: the NLL and top-1 over the
-        rows ``valid`` marks (``base.py:422-438``)."""
+        rows ``valid`` marks (``base.py:422-438``).  Under a mesh the batch
+        is this rank's rows, and both divide by the GLOBAL count of valid
+        rows: the data group's values sum to the global batch's."""
         fwd_image = getattr(self, "forward_image", None)
         if getattr(self, "static_text", False) and "static_text_features" in self.aux:
             logits = fwd_image(self.trainable, self.frozen, self.aux, batch["image"],
@@ -345,20 +370,25 @@ class TrainerBase:
         labels = batch["label"]
         valid = batch["valid"].float()
         nll = -torch.log_softmax(logits, dim=-1).gather(1, labels[:, None])[:, 0]
-        denom = valid.sum().clamp_min(1.0)
+        denom = data_sum(self.mesh, valid.sum()).clamp_min(1.0)
         loss = (nll * valid).sum() / denom
         acc = ((logits.argmax(-1) == labels).float() * valid).sum() / denom
         return loss, acc
 
     def _train_step(self, batch):
-        """One step: forward, ``loss.backward()``, the optimizer and the
-        schedule stepped; returns the detached (loss, accuracy)."""
+        """One step: forward, ``loss.backward()``, the gradients summed over
+        the mesh, the optimizer and the schedule stepped; returns the
+        detached (loss, accuracy) of the global batch.  The ranks of a model
+        group hold the same images, so each backpropagates 1/n_model of its
+        loss: the model group's share of the text tower's gradient meets in
+        the gather's backward, and the mesh's sum counts every image once."""
         self.optimizer.zero_grad(set_to_none=True)
         loss, acc = self.loss_fn(batch)
-        loss.backward()
+        (loss / self.mesh.n_model).backward()
+        reduce_grads(self.mesh, self._params)
         self.optimizer.step()
         self.scheduler.step()
-        return loss.detach(), acc.detach()
+        return data_sum(self.mesh, loss.detach()), data_sum(self.mesh, acc.detach())
 
     # ------------------------------------------------------------------
     # training loop
@@ -428,7 +458,9 @@ class TrainerBase:
         the exact position (0-based epoch, batches_done, global_step)."""
         if self.trainable is None:
             return
-        self._preempt_saved = True
+        self._preempt_saved = True  # every rank takes the same train() branch
+        if not is_primary():
+            return
         path = save_checkpoint(
             self.cfg.OUTPUT_DIR, self.model_name, self.epoch, self.trainable,
             opt_state=self._opt_leaves(),
@@ -481,9 +513,32 @@ class TrainerBase:
         print(f"Resumed from epoch {last}")
         return last
 
+    def _on_primary(self, fn):
+        """``fn()`` as the primary rank computes it, on every rank
+        (``broadcast_from_primary``): each decision that reads the
+        filesystem is made once, since the ranks' disks may differ.  An
+        error on the primary is raised on every rank (not on the primary
+        alone, which would leave the others waiting in the broadcast)."""
+        if not self.mesh.distributed:
+            return fn()
+        out = (None, None)
+        if is_primary():
+            try:
+                out = (fn(), None)
+            except Exception as e:  # noqa: BLE001 -- raised on every rank below
+                out = (None, e)
+        value, err = broadcast_from_primary(out, group=self.mesh.group)
+        if err is not None:
+            raise err
+        return value
+
     def _ckpt_meta(self, directory: str, epoch=None, tag=None):
-        """Position and score metadata of a checkpoint, from the npz itself;
-        None when absent.  A torn file is reported and treated as absent."""
+        """Position and score metadata of a checkpoint, from the npz itself,
+        as the primary reads it; None when absent.  A torn file is reported
+        and treated as absent."""
+        return self._on_primary(lambda: self._read_ckpt_meta(directory, epoch, tag))
+
+    def _read_ckpt_meta(self, directory: str, epoch=None, tag=None):
         fname = f"model-{tag}.pth.tar" if tag else f"model.pth.tar-{epoch}"
         p = os.path.join(directory, self.model_name, fname)
         if not os.path.exists(p):
@@ -506,7 +561,8 @@ class TrainerBase:
         """Put the checkpoint's optimizer state into the live optimizer and
         schedule; a checkpoint without matching state resumes with a fresh
         optimizer, loudly."""
-        _, leaves, _ = load_checkpoint(directory, self.model_name, epoch, tag=tag)
+        _, leaves, _ = self._on_primary(
+            lambda: load_checkpoint(directory, self.model_name, epoch, tag=tag))
         keys = self._opt_state_keys()
         if leaves is None or len(leaves) != 1 + len(keys) * len(self._params):
             print("WARNING: checkpoint has no matching optimizer state — "
@@ -538,10 +594,11 @@ class TrainerBase:
         return {"image": image, "label": label, "valid": valid}
 
     def _device_prefetch(self, loader):
-        """Move the next batch to the device while the current step runs."""
+        """This rank's rows of the next batch to the device while the current
+        step runs."""
         prev = None
         for batch in loader:
-            cur = self._device_batch(batch)
+            cur = self._device_batch(shard_batch(self.mesh, batch, self.dm.host_sharded))
             if prev is not None:
                 yield prev
             prev = cur
@@ -611,8 +668,8 @@ class TrainerBase:
 
     def after_train(self):
         if not self.cfg.TEST.NO_TEST:
-            has_best = os.path.exists(
-                os.path.join(self.cfg.OUTPUT_DIR, self.model_name, "model-best.pth.tar"))
+            best = os.path.join(self.cfg.OUTPUT_DIR, self.model_name, "model-best.pth.tar")
+            has_best = self._on_primary(lambda: os.path.exists(best))
             if self.cfg.TEST.FINAL_MODEL == "best_val" and self.trainable is not None and has_best:
                 print("Testing with the best-on-val checkpoint")
                 self.load_model(self.cfg.OUTPUT_DIR, epoch=None)
@@ -624,8 +681,12 @@ class TrainerBase:
     # ------------------------------------------------------------------
     def evaluate(self, loader, split: str = "test") -> Dict[str, float]:
         """Accuracy and F1 over ``loader``; the class text is encoded once
-        per pass, lazily on the first batch (``base.py:859-921``)."""
+        per pass, lazily on the first batch (``base.py:859-921``).  Each rank
+        scores its rows of every batch (the loader's own rows where
+        DataManager split the split, ``host_sharded_eval``), and the
+        confusion matrices are summed over the data group."""
         evaluator = build_evaluator(self.cfg, self.num_classes, self.classnames)
+        eval_sharded = getattr(loader, "host_sharded_eval", False)
         if loader is None:  # an empty split reports zero samples
             loader = ()
         text_fn = getattr(self, "_text_features", None)
@@ -635,12 +696,15 @@ class TrainerBase:
         for batch in loader:
             if text_fn is not None and txt is None:
                 txt = text_fn(self.trainable, self.frozen, self.aux)
-            images = self._device_batch(batch)["image"]
+            rows = shard_batch(self.mesh, batch, eval_sharded)
+            images = self._device_batch(rows)["image"]
             preds = (self._eval_step(self.trainable, self.frozen, self.aux, images)
                      if txt is None else
                      self._eval_step_cached(self.trainable, self.frozen, eval_aux, images, txt))
-            preds = preds.cpu().numpy()[:len(batch["label"])]
-            evaluator.process_preds(preds, batch["label"], batch["valid"])
+            preds = preds.cpu().numpy()[:len(rows["label"])]
+            evaluator.process_preds(preds, rows["label"], rows["valid"])
+        if self.mesh.distributed:
+            evaluator.all_reduce(self.mesh.data_group, self.mesh.device)
         results = evaluator.evaluate()
         print(f"=> result on {split}: " + " ".join(
             f"{k}: {v:.2f}" if isinstance(v, float) else f"{k}: {v}"
@@ -658,8 +722,8 @@ class TrainerBase:
     # checkpointing
     # ------------------------------------------------------------------
     def save_model(self, is_best: bool = False):
-        if self.trainable is None:
-            return
+        if self.trainable is None or not is_primary():
+            return  # the primary rank owns the checkpoint files
         path = save_checkpoint(
             self.cfg.OUTPUT_DIR, self.model_name, self.epoch + 1, self.trainable,
             opt_state=self._opt_leaves() if hasattr(self, "optimizer") else None,
@@ -675,19 +739,23 @@ class TrainerBase:
                 os.remove(p)
 
     def _latest_epoch(self, directory: str) -> int:
-        """Highest saved epoch under <directory>/<model_name> (0 if none)."""
-        eps = [0]
-        for path in glob.glob(os.path.join(directory, self.model_name, "model.pth.tar-*")):
-            m = re.search(r"model\.pth\.tar-(\d+)$", path)
-            if m:
-                eps.append(int(m.group(1)))
-        return max(eps)
+        """Highest saved epoch under <directory>/<model_name> (0 if none), as
+        the primary sees it."""
+        def latest():
+            eps = [0]
+            for path in glob.glob(os.path.join(directory, self.model_name, "model.pth.tar-*")):
+                m = re.search(r"model\.pth\.tar-(\d+)$", path)
+                if m:
+                    eps.append(int(m.group(1)))
+            return max(eps)
+
+        return self._on_primary(latest)
 
     def _resolve_checkpoint_epoch(self, directory: str) -> Optional[int]:
         """None (= model-best.pth.tar) when a best checkpoint exists, else
         the highest saved epoch."""
         sub = os.path.join(directory, self.model_name)
-        if os.path.exists(os.path.join(sub, "model-best.pth.tar")):
+        if self._on_primary(lambda: os.path.exists(os.path.join(sub, "model-best.pth.tar"))):
             return None
         latest = self._latest_epoch(directory)
         if latest == 0:
@@ -701,11 +769,13 @@ class TrainerBase:
                    tag: Optional[str] = None):
         """Load learned prompt weights into the live trainable leaves (the
         optimizer keeps them); class-dependent buffers stay as built
-        (``base.py:1000-1057``)."""
+        (``base.py:1000-1057``).  The primary reads the file and every rank
+        takes its weights."""
         if not directory:
             print("load_model() skipped: no pretrained model given")
             return
-        loaded, _, meta = load_checkpoint(directory, self.model_name, epoch, tag=tag)
+        loaded, _, meta = self._on_primary(
+            lambda: load_checkpoint(directory, self.model_name, epoch, tag=tag))
         tree = restore_into(self.trainable, loaded)
         with torch.no_grad():
             for dst, src in zip(leaves(self.trainable), leaves(tree)):

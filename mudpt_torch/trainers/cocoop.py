@@ -38,9 +38,9 @@ def _resolve_chunk(chunk: int, batch: int, n_cls: int, padded_seq: int = 80,
     chunk x padded_seq), the JAX package's measured budget; unchunked when
     the whole batch fits, else the largest divisor of the batch under the
     cap (a non-dividing chunk pads its last chunk with repeated instances).
-    ``n_shards`` scales the budget by the devices the rows shard over, in
-    chunks that are multiples of ``shard_quantum``; the port runs on one
-    device, so both stay 1.  -1 = never chunk."""
+    ``n_shards`` scales the budget by the ranks the rows shard over, in
+    chunks that are multiples of ``shard_quantum`` (the data axis: each
+    chunk's instances split over it).  -1 = never chunk."""
     if chunk == -1:
         return batch
     if chunk == 0:
@@ -62,12 +62,15 @@ def _resolve_chunk(chunk: int, batch: int, n_cls: int, padded_seq: int = 80,
 
 
 def cocoop_forward(trainable, frozen, aux, images, *, clip_cfg, compute_dtype,
-                   encode_chunk: int = -1):
+                   encode_chunk: int = -1, mesh_ctx=None):
     """fp32 logits (B, n_cls): the frozen image tower, the meta-net bias in
     fp32, then each instance's class prompts through the text tower.  Under
     an int8 tier the text tower, which has no calibrated scales, runs the
-    dynamic chain (``layers.py:240-248``)."""
-    img = encode_image(frozen, images, clip_cfg, compute_dtype=compute_dtype).float()
+    dynamic chain (``layers.py:240-248``).  Under a mesh the images are this
+    rank's rows of the 'data' axis and the 4-D text encode splits its
+    (instances, classes) blocks over ('data', 'model')."""
+    img = encode_image(frozen, images, clip_cfg, compute_dtype=compute_dtype,
+                       mesh_ctx=mesh_ctx).float()
     img = img / img.norm(dim=-1, keepdim=True)  # (B, E)
     # meta-net (cocoop.py:99-103, :148-155): Linear -> ReLU -> Linear
     h = torch.relu(linear(trainable["meta_net"]["linear1"], img))
@@ -82,13 +85,25 @@ def cocoop_forward(trainable, frozen, aux, images, *, clip_cfg, compute_dtype,
         ctx4 = ctx_c[:, None].expand(-1, n_cls, -1, -1)
         prompts = compose_prompts(ctx4, prefix, suffix, aux.get("index_map"))
         txt = text_forward(frozen["text"], prompts.to(compute_dtype), aux["eot_idx"],
-                           n_head=clip_cfg.transformer_heads).float()  # (C, n_cls, E)
+                           n_head=clip_cfg.transformer_heads,
+                           mesh_ctx=mesh_ctx).float()  # (C, n_cls, E)
         txt = txt / txt.norm(dim=-1, keepdim=True)
         return scale * torch.einsum("cnd,cd->cn", txt, img_c)
 
     B = img.shape[0]
     seq = prefix.shape[1] + trainable["ctx"].shape[-2] + suffix.shape[1]
-    chunk = _resolve_chunk(encode_chunk, B, n_cls, -(-seq // 8) * 8)
+    # the rows shard over the whole mesh when the class axis divides it: the
+    # per-device budget scales with the shard count (cocoop.py:133-145).
+    # The chunk counts the global batch's instances, a multiple of n_data
+    # where it can; this rank encodes its share of each chunk
+    n_data, n_shards, shard_quantum = 1, 1, 1
+    if mesh_ctx is not None:
+        n_data = mesh_ctx.n_data
+        if n_cls % mesh_ctx.n_model == 0:
+            n_shards, shard_quantum = n_data * mesh_ctx.n_model, n_data
+    chunk = _resolve_chunk(encode_chunk, B * n_data, n_cls, -(-seq // 8) * 8, n_shards,
+                           shard_quantum)
+    chunk = -(-chunk // n_data)
     if chunk >= B:
         return encode_instances(ctx_shifted, img)
 
@@ -150,4 +165,4 @@ class CoCoOp(TrainerBase):
         # evaluate() runs the whole forward a batch
         self.forward = functools.partial(cocoop_forward, clip_cfg=clip_cfg,
                                          compute_dtype=self.compute_dtype,
-                                         encode_chunk=hp.ENCODE_CHUNK)
+                                         encode_chunk=hp.ENCODE_CHUNK, mesh_ctx=self.mesh)

@@ -21,20 +21,23 @@ from mudpt_torch.utils.registry import TRAINER_REGISTRY
 from mudpt_torch.utils.rng import new_rng
 
 
-def coop_text_features(trainable, frozen, aux, *, clip_cfg, compute_dtype):
+def coop_text_features(trainable, frozen, aux, *, clip_cfg, compute_dtype,
+                       mesh_ctx=None):
     prompts = compose_prompts(trainable["ctx"], aux["token_prefix"], aux["token_suffix"],
                               aux.get("index_map"))
     return text_forward(frozen["text"], prompts.to(compute_dtype), aux["eot_idx"],
-                        n_head=clip_cfg.transformer_heads)
+                        n_head=clip_cfg.transformer_heads, mesh_ctx=mesh_ctx)
 
 
-def coop_image_logits(trainable, frozen, aux, images, txt, *, clip_cfg, compute_dtype):
-    img = encode_image(frozen, images, clip_cfg, compute_dtype=compute_dtype)
+def coop_image_logits(trainable, frozen, aux, images, txt, *, clip_cfg, compute_dtype,
+                      mesh_ctx=None):
+    img = encode_image(frozen, images, clip_cfg, compute_dtype=compute_dtype, mesh_ctx=mesh_ctx)
     return cosine_logits(img.float(), txt.float(), frozen["logit_scale"])
 
 
-def coop_forward(trainable, frozen, aux, images, *, clip_cfg, compute_dtype):
-    kw = dict(clip_cfg=clip_cfg, compute_dtype=compute_dtype)
+def coop_forward(trainable, frozen, aux, images, *, clip_cfg, compute_dtype,
+                 mesh_ctx=None):
+    kw = dict(clip_cfg=clip_cfg, compute_dtype=compute_dtype, mesh_ctx=mesh_ctx)
     txt = coop_text_features(trainable, frozen, aux, **kw)
     return coop_image_logits(trainable, frozen, aux, images, txt, **kw)
 

@@ -26,7 +26,8 @@ from mudpt_torch.utils.registry import TRAINER_REGISTRY
 from mudpt_torch.utils.rng import new_rng
 
 
-def mudpt_text_features(trainable, frozen, aux, *, clip_cfg, compute_dtype):
+def mudpt_text_features(trainable, frozen, aux, *, clip_cfg, compute_dtype,
+                        mesh_ctx=None):
     """Class text features (n_cls, embed_dim), encoded once per prompt set."""
     v2t = linear(trainable["visual_ctx_deep_projections"], trainable["visual_ctx_deep_prompts"])
     text_deep = trainable["deep_prompts"] + v2t
@@ -37,10 +38,12 @@ def mudpt_text_features(trainable, frozen, aux, *, clip_cfg, compute_dtype):
         aux["eot_idx"],
         n_head=clip_cfg.transformer_heads,
         deep_prompts=text_deep,
+        mesh_ctx=mesh_ctx,
     )
 
 
-def mudpt_image_logits(trainable, frozen, aux, images, txt, *, clip_cfg, compute_dtype):
+def mudpt_image_logits(trainable, frozen, aux, images, txt, *, clip_cfg, compute_dtype,
+                       mesh_ctx=None):
     """fp32 logits (B, n_cls) of an image batch against cached text features."""
     shared_ctx = linear(trainable["embed_projection"], trainable["ctx"])
     layer0_visual = trainable["visual_ctx"] + shared_ctx
@@ -49,15 +52,16 @@ def mudpt_image_logits(trainable, frozen, aux, images, txt, *, clip_cfg, compute
         + trainable["visual_ctx_deep_prompts"]
     )
     img = encode_image(
-        frozen, images, clip_cfg, compute_dtype=compute_dtype,
+        frozen, images, clip_cfg, compute_dtype=compute_dtype, mesh_ctx=mesh_ctx,
         layer0_prompt=layer0_visual, deep_prompts=visual_deep,
     )
     return cosine_logits(img.float(), txt.float(), frozen["logit_scale"])
 
 
-def mudpt_forward(trainable, frozen, aux, images, *, clip_cfg, compute_dtype):
+def mudpt_forward(trainable, frozen, aux, images, *, clip_cfg, compute_dtype,
+                  mesh_ctx=None):
     """Training forward: text features, then image logits (``mudpt.py:84-87``)."""
-    kw = dict(clip_cfg=clip_cfg, compute_dtype=compute_dtype)
+    kw = dict(clip_cfg=clip_cfg, compute_dtype=compute_dtype, mesh_ctx=mesh_ctx)
     txt = mudpt_text_features(trainable, frozen, aux, **kw)
     return mudpt_image_logits(trainable, frozen, aux, images, txt, **kw)
 

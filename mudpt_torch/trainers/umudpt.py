@@ -29,24 +29,27 @@ def head_count(width: int) -> int:
     return width // 64 or 1
 
 
-def umudpt_text_features(trainable, frozen, aux, *, clip_cfg, compute_dtype):
+def umudpt_text_features(trainable, frozen, aux, *, clip_cfg, compute_dtype,
+                         mesh_ctx=None):
     prompts = compose_prompts(trainable["ctx"], aux["token_prefix"], aux["token_suffix"])
     return text_forward(frozen["text"], prompts.to(compute_dtype), aux["eot_idx"],
                         n_head=clip_cfg.transformer_heads,
-                        deep_prompts=trainable["deep_prompts"])
+                        deep_prompts=trainable["deep_prompts"], mesh_ctx=mesh_ctx)
 
 
-def umudpt_image_logits(trainable, frozen, aux, images, txt, *, clip_cfg, compute_dtype):
+def umudpt_image_logits(trainable, frozen, aux, images, txt, *, clip_cfg, compute_dtype,
+                        mesh_ctx=None):
     ctx = trainable["ctx"]
     rows = torch.cat([ctx[None], trainable["deep_prompts"]], dim=0)  # (d, n_ctx, 512)
     visual = prompt_transform_head(trainable["t2v"], rows, head_count(ctx.shape[-1]))
-    img = encode_image(frozen, images, clip_cfg, compute_dtype=compute_dtype,
+    img = encode_image(frozen, images, clip_cfg, compute_dtype=compute_dtype, mesh_ctx=mesh_ctx,
                        layer0_prompt=visual[0], deep_prompts=visual[1:])
     return cosine_logits(img.float(), txt.float(), frozen["logit_scale"])
 
 
-def umudpt_forward(trainable, frozen, aux, images, *, clip_cfg, compute_dtype):
-    kw = dict(clip_cfg=clip_cfg, compute_dtype=compute_dtype)
+def umudpt_forward(trainable, frozen, aux, images, *, clip_cfg, compute_dtype,
+                   mesh_ctx=None):
+    kw = dict(clip_cfg=clip_cfg, compute_dtype=compute_dtype, mesh_ctx=mesh_ctx)
     txt = umudpt_text_features(trainable, frozen, aux, **kw)
     return umudpt_image_logits(trainable, frozen, aux, images, txt, **kw)
 

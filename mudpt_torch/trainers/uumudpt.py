@@ -22,27 +22,30 @@ from mudpt_torch.trainers.umudpt import UMuDPT, head_count
 from mudpt_torch.utils.registry import TRAINER_REGISTRY
 
 
-def uumudpt_text_features(trainable, frozen, aux, *, clip_cfg, compute_dtype):
+def uumudpt_text_features(trainable, frozen, aux, *, clip_cfg, compute_dtype,
+                          mesh_ctx=None):
     v_deep = trainable["visual_ctx_deep_prompts"]  # (d-1, n_ctx, 768)
     v2t = prompt_transform_head(trainable["v2t"], v_deep, head_count(v_deep.shape[-1]))
     prompts = compose_prompts(trainable["ctx"], aux["token_prefix"], aux["token_suffix"])
     return text_forward(frozen["text"], prompts.to(compute_dtype), aux["eot_idx"],
                         n_head=clip_cfg.transformer_heads,
-                        deep_prompts=trainable["deep_prompts"] + v2t)
+                        deep_prompts=trainable["deep_prompts"] + v2t, mesh_ctx=mesh_ctx)
 
 
-def uumudpt_image_logits(trainable, frozen, aux, images, txt, *, clip_cfg, compute_dtype):
+def uumudpt_image_logits(trainable, frozen, aux, images, txt, *, clip_cfg, compute_dtype,
+                         mesh_ctx=None):
     ctx = trainable["ctx"]
     rows = torch.cat([ctx[None], trainable["deep_prompts"]], dim=0)
     t2v = prompt_transform_head(trainable["t2v"], rows, head_count(ctx.shape[-1]))
-    img = encode_image(frozen, images, clip_cfg, compute_dtype=compute_dtype,
+    img = encode_image(frozen, images, clip_cfg, compute_dtype=compute_dtype, mesh_ctx=mesh_ctx,
                        layer0_prompt=t2v[0] + trainable["visual_ctx"],
                        deep_prompts=t2v[1:] + trainable["visual_ctx_deep_prompts"])
     return cosine_logits(img.float(), txt.float(), frozen["logit_scale"])
 
 
-def uumudpt_forward(trainable, frozen, aux, images, *, clip_cfg, compute_dtype):
-    kw = dict(clip_cfg=clip_cfg, compute_dtype=compute_dtype)
+def uumudpt_forward(trainable, frozen, aux, images, *, clip_cfg, compute_dtype,
+                    mesh_ctx=None):
+    kw = dict(clip_cfg=clip_cfg, compute_dtype=compute_dtype, mesh_ctx=mesh_ctx)
     txt = uumudpt_text_features(trainable, frozen, aux, **kw)
     return uumudpt_image_logits(trainable, frozen, aux, images, txt, **kw)
 

@@ -28,7 +28,8 @@ from mudpt_torch.utils.registry import TRAINER_REGISTRY
 from mudpt_torch.utils.rng import new_rng
 
 
-def vpt_text_features(trainable, frozen, aux, *, clip_cfg, compute_dtype):
+def vpt_text_features(trainable, frozen, aux, *, clip_cfg, compute_dtype,
+                      mesh_ctx=None):
     ctx = trainable.get("ctx")
     if ctx is not None:  # MPT: the learnable layer-0 text ctx
         prompts = compose_prompts(ctx, aux["token_prefix"], aux["token_suffix"])
@@ -36,18 +37,20 @@ def vpt_text_features(trainable, frozen, aux, *, clip_cfg, compute_dtype):
         prompts = torch.cat([aux["token_prefix"], aux["token_suffix"]], dim=1)
     return text_forward(frozen["text"], prompts.to(compute_dtype), aux["eot_idx"],
                         n_head=clip_cfg.transformer_heads,
-                        deep_prompts=trainable.get("text_deep_prompts"))
+                        deep_prompts=trainable.get("text_deep_prompts"), mesh_ctx=mesh_ctx)
 
 
-def vpt_image_logits(trainable, frozen, aux, images, txt, *, clip_cfg, compute_dtype):
-    img = encode_image(frozen, images, clip_cfg, compute_dtype=compute_dtype,
+def vpt_image_logits(trainable, frozen, aux, images, txt, *, clip_cfg, compute_dtype,
+                     mesh_ctx=None):
+    img = encode_image(frozen, images, clip_cfg, compute_dtype=compute_dtype, mesh_ctx=mesh_ctx,
                        layer0_prompt=trainable.get("visual_ctx"),
                        deep_prompts=trainable.get("visual_deep_prompts"))
     return cosine_logits(img.float(), txt.float(), frozen["logit_scale"])
 
 
-def vpt_forward(trainable, frozen, aux, images, *, clip_cfg, compute_dtype):
-    kw = dict(clip_cfg=clip_cfg, compute_dtype=compute_dtype)
+def vpt_forward(trainable, frozen, aux, images, *, clip_cfg, compute_dtype,
+                mesh_ctx=None):
+    kw = dict(clip_cfg=clip_cfg, compute_dtype=compute_dtype, mesh_ctx=mesh_ctx)
     txt = vpt_text_features(trainable, frozen, aux, **kw)
     return vpt_image_logits(trainable, frozen, aux, images, txt, **kw)
 

@@ -36,10 +36,11 @@ def _encode_templates(params, clip_cfg, classnames, templates, compute_dtype, de
     return mean / mean.norm(dim=-1, keepdim=True)
 
 
-def _zs_inference(trainable, frozen, aux, images, *, clip_cfg, compute_dtype):
+def _zs_inference(trainable, frozen, aux, images, *, clip_cfg, compute_dtype, mesh_ctx=None):
     """fp32 logits of an image batch against the cached, normalized text
     features (``zsclip.py:53-62``)."""
-    img = encode_image(frozen, images, clip_cfg, compute_dtype=compute_dtype).float()
+    img = encode_image(frozen, images, clip_cfg, compute_dtype=compute_dtype,
+                       mesh_ctx=mesh_ctx).float()
     img = img / img.norm(dim=-1, keepdim=True)
     return frozen["logit_scale"].float().exp() * (img @ aux["text_features"].T)
 

@@ -5,7 +5,9 @@ which tees stdout into ``log.txt``; offline aggregation then greps the text
 logs.  We keep the text tee for compatibility with the sweep scripts and the
 log parser, and additionally emit machine-readable JSONL metrics
 (``metrics.jsonl``) so aggregation doesn't need to parse prose.  A copy of
-``mudpt_tpu/utils/logging.py`` for one process.
+``mudpt_tpu/utils/logging.py``; a rank other than the primary writes its
+files with a ``-host<rank>`` suffix, so that ranks sharing an OUTPUT_DIR
+never interleave on one file.
 """
 
 from __future__ import annotations
@@ -15,6 +17,8 @@ import os
 import sys
 import time
 from typing import Any, Dict, Optional
+
+from mudpt_torch.parallel.multihost import process_index
 
 
 class _Tee:
@@ -43,17 +47,24 @@ class _Tee:
         return self._stream.fileno()
 
 
+def _rank_suffix() -> str:
+    """'' on the primary rank (and without a process group), else
+    ``-host<rank>`` (``logging.py:55-60``)."""
+    return f"-host{process_index()}" if process_index() > 0 else ""
+
+
 def setup_logger(output_dir: Optional[str]) -> None:
     """Tee stdout/stderr to ``<output_dir>/log.txt`` (append); an earlier
     log is renamed with a timestamp, as Dassl rotates it."""
     if not output_dir:
         return
     os.makedirs(output_dir, exist_ok=True)
-    path = os.path.join(output_dir, "log.txt")
+    suffix = _rank_suffix()
+    path = os.path.join(output_dir, f"log.txt{suffix}")
     if os.path.exists(path):
         stamp = time.strftime("%Y-%m-%d-%H-%M-%S")
         try:
-            os.rename(path, os.path.join(output_dir, f"log.txt-{stamp}"))
+            os.rename(path, os.path.join(output_dir, f"log.txt{suffix}-{stamp}"))
         except OSError:
             pass
     fh = open(path, "a", buffering=1)
@@ -68,7 +79,8 @@ class MetricsLogger:
         self._fh = None
         if output_dir:
             os.makedirs(output_dir, exist_ok=True)
-            self._fh = open(os.path.join(output_dir, filename), "a", buffering=1)
+            self._fh = open(os.path.join(output_dir, filename + _rank_suffix()), "a",
+                            buffering=1)
 
     def log(self, record: Dict[str, Any]) -> None:
         record = dict(record)

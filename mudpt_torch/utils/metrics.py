@@ -1,5 +1,6 @@
 """Evaluators: accuracy + macro/micro F1 (+ optional per-class report); a
-copy of ``mudpt_tpu/utils/metrics.py`` for one process (no all-reduce).
+copy of ``mudpt_tpu/utils/metrics.py``, its all-reduce on
+``torch.distributed``.
 
 The reference delegates to Dassl's ``Classification`` evaluator (accuracy /
 macro_f1 printed at test time) and its scripts reference a
@@ -13,6 +14,8 @@ from __future__ import annotations
 from typing import Dict, List, Optional
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
 from mudpt_torch.utils.registry import EVALUATOR_REGISTRY
 
@@ -66,6 +69,18 @@ class Classification:
             mask = np.asarray(valid)
             preds, labels = preds[mask], labels[mask]
         np.add.at(self._conf, (labels, preds), 1)
+
+    def all_reduce(self, group=None, device="cpu") -> None:
+        """Sum the confusion matrices over ``group`` (``metrics.py:69-81``),
+        so that every rank computes the same global metrics.  Under a mesh
+        the group is the data group: the ranks of a model group scored the
+        same images, and each test image counts once.  The sum runs on
+        ``device``'s tensors (NCCL takes no CPU tensor)."""
+        if not dist.is_initialized():
+            return
+        conf = torch.from_numpy(self._conf).to(device)
+        dist.all_reduce(conf, group=group)
+        self._conf = conf.cpu().numpy()
 
     def evaluate(self) -> Dict[str, float]:
         total = int(self._conf.sum())

@@ -31,8 +31,10 @@ static chain, and, under the grain pipeline, a resumed loss one ulp off.
 ``[remat]`` rejects a loss or a gradient one ulp off and a peak that did
 not fall; ``[export]`` rejects an artifact's logits with the classes
 shifted or the scale 10% off, and a ``pallas`` artifact rate 11% under
-``[serving]``'s.  The end-of-run process check rejects a child process left
-running."""
+``[serving]``'s.  ``[mesh]`` passes one process's record against itself
+and rejects the vision prompts' gradient counted once per model rank and a
+loss over the local count of valid rows.  The end-of-run process check
+rejects a child process left running."""
 
 import importlib.util
 import os
@@ -994,3 +996,86 @@ def test_rn_feature_check_catches_batch_norm_folded_in_bf16(monkeypatch):
     monkeypatch.setattr(resnet, "batch_norm", folded_in_compute_dtype)
     with pytest.raises(AssertionError, match="bf16 features vs fp32"):
         C.rn_feature_check(visual, cfg, images, "RN50", limit)
+
+
+# the [mesh] phase's check at test-tiny on the CPU: one process's record of
+# MuDPT's steps (chip_smoke.mesh_record) passes against itself; a record
+# whose first step counted the vision prompts' gradient twice (a plain
+# all-reduce over a model axis of 2, whose ranks hold the same images) and
+# one whose loss divided by the local count of valid rows (a data axis of
+# 2) fail
+MESH_TINY = ("MODEL.BACKBONE.NAME", "test-tiny", "INPUT.SIZE", "(32, 32)",
+             "TRAINER.MUDPT.PREC", "fp32", "DATALOADER.TRAIN_X.BATCH_SIZE", "16",
+             "DATALOADER.TEST.BATCH_SIZE", "16", "DATASET.SYNTHETIC_PER_CLASS", "8")
+
+
+@pytest.fixture(scope="module")
+def mesh_record(tmp_path_factory):
+    """chip_smoke.mesh_record of MuDPT at test-tiny on the CPU, and the
+    trainer's first global batch with its vision and text gradient parts."""
+    import torch.nn.functional as F_
+
+    from mudpt_torch.config import load_config
+    from mudpt_torch.trainers.base import build_trainer
+
+    C = _chip_smoke()
+    C.MESH_DEVICE = "cpu"
+    C.MESH_OPTS = C.MESH_OPTS + MESH_TINY
+    tmp = tmp_path_factory.mktemp("mesh_check")
+    prev_threads, sync = torch.get_num_threads(), torch.cuda.synchronize
+    torch.set_num_threads(2)
+    torch.cuda.synchronize = lambda *a: None
+    try:
+        ref = C.mesh_record(ROOT, "MuDPT", C.ENGINE_FILES[1], (), str(tmp / "ref"))
+        cfg = load_config(*(str(ROOT / f) for f in C.ENGINE_FILES), opts=[
+            *C.ENGINE_OPTS, *C.MESH_OPTS, "OUTPUT_DIR", str(tmp / "parts")])
+        tr = build_trainer(cfg, devices="cpu")
+        batch = next(iter(tr.dm.train_loader))
+        b = tr._device_batch(batch)
+        n = tr.num_classes
+
+        def grads(logits_fn, denom_of):
+            nll = F_.cross_entropy(logits_fn()[:, :n], b["label"], reduction="none")
+            loss = sum(nll[rows].sum() / denom_of(rows) for rows in (slice(0, 8), slice(8, 16)))
+            gs = torch.autograd.grad(loss, tr._params, allow_unused=True)
+            return float(loss.detach()), [np.zeros(tuple(p.shape), np.float32) if g is None
+                                          else g.numpy() for g, p in zip(gs, tr._params)]
+
+        full = lambda: tr.forward(tr.trainable, tr.frozen, tr.aux, b["image"])  # noqa: E731
+        txt = tr.forward_text(tr.trainable, tr.frozen, tr.aux).detach()
+        vision = lambda: tr.forward_image(tr.trainable, tr.frozen, tr.aux, b["image"], txt)  # noqa: E731
+        parts = {"vision": grads(vision, lambda rows: 16)[1],
+                 "local": grads(full, lambda rows: 8)}
+    finally:
+        torch.set_num_threads(prev_threads)
+        torch.cuda.synchronize = sync
+    return C, ref, C.leaf_names(tr.trainable), parts
+
+
+def test_mesh_check_passes_one_process_against_itself(mesh_record):
+    C, ref, _, _ = mesh_record
+    reading = C.check_mesh_run("MuDPT (1,2)", [dict(ref), dict(ref)], ref)
+    assert "replicas bit-equal" in reading
+
+
+def test_mesh_check_catches_vision_gradient_counted_per_model_rank(mesh_record):
+    """A world all-reduce without the 1/n_model share: the text part of
+    each gradient is right (each rank sent its class block), the vision
+    part counted twice.  Mixed leaves (ctx feeds both towers) shift too."""
+    C, ref, names, parts = mesh_record
+    fault = dict(ref)
+    for k, g in zip(names, parts["vision"]):
+        fault[f"grad/{k}"] = ref[f"grad/{k}"] + g
+    with pytest.raises(AssertionError, match="rank 0 vs one process: gradients"):
+        C.check_mesh_run("MuDPT (1,2)", [fault, fault], ref)
+
+
+def test_mesh_check_catches_loss_over_local_valid_rows(mesh_record):
+    """Each of two data ranks divides by its own 8 valid rows: the data
+    group's sum is twice the global batch's mean."""
+    C, ref, names, parts = mesh_record
+    loss, grads = parts["local"]
+    fault = dict(ref, losses=np.asarray([loss] + list(ref["losses"][1:])))
+    fault.update({f"grad/{k}": g for k, g in zip(names, grads)})
+    with pytest.raises(AssertionError, match="rank 0 vs one process: first loss .*; gradients"):
+        C.check_mesh_run("MuDPT (2,1)", [fault, fault], ref)

@@ -131,7 +131,7 @@ def test_cli_accepts_dead_reference_flags(tmp_path):
 
 def test_cli_without_device_takes_the_card(tmp_path, monkeypatch):
     """No ``--device``: CUDA, and a RuntimeError where it is absent; a
-    multi-process launch raises, naming its ROADMAP item.  CoCoOp builds
+    multi-process launch without CUDA raises too, as NCCL needs it.  CoCoOp builds
     under an int8 tier, as in the JAX package (its per-instance text encode
     on the dynamic chain), on the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -148,9 +148,15 @@ def test_cli_without_device_takes_the_card(tmp_path, monkeypatch):
         assert "q8_weights" in tr.frozen["text"]["blocks"]
     finally:
         layers.set_quant_mode("none")  # the build set it
+    # a multi-process launch joins the process group first: an incomplete
+    # torchrun environment, or NCCL without CUDA, raises (no other backend)
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="'the mesh'"):
-        train_cli.main(train_cli.parse_args(_argv(tmp_path)))
+    with pytest.raises(ValueError, match="RANK, MASTER_ADDR, MASTER_PORT missing"):
+        train_cli.main(train_cli.parse_args(_argv(tmp_path, device=())))
+    for k, v in (("RANK", "1"), ("MASTER_ADDR", "127.0.0.1"), ("MASTER_PORT", "1")):
+        monkeypatch.setenv(k, v)
+    with pytest.raises(RuntimeError, match="backend 'nccl' needs CUDA"):
+        train_cli.main(train_cli.parse_args(_argv(tmp_path, device=())))
 
 
 def test_sigterm_writes_preemption_checkpoint(tmp_path):

@@ -47,6 +47,13 @@ def test_no_banned_import(path):
             assert name.split(".")[0] not in BANNED, f"{path}:{node.lineno} imports {name}"
 
 
+def test_parallel_is_scanned():
+    """The mesh's modules are among the scanned sources."""
+    names = {str(p.relative_to(ROOT)) for p in SOURCES}
+    assert {"mudpt_torch/parallel/__init__.py", "mudpt_torch/parallel/mesh.py",
+            "mudpt_torch/parallel/multihost.py"} <= names
+
+
 def test_tools_are_scanned():
     """The serving tools are among the scanned sources, beside the modules
     they drive."""
