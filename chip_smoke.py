@@ -3,13 +3,17 @@
 GPU, ViT-B/16, ViT-L/14 and ViT-L/14@336px, its training engine, CLI, trainer
 zoo, dataset pipelines, mesh and bench entry point, the int8 tiers at ViT-B/16 and
 ViT-L/14, over the zoo and in CoCoOp, the RN presets, its chunked MLP
-half-block, its serving artifacts, REMAT and the XLA block route.
+half-block, the kernel chains on fp32 activations (PREC fp32), its serving
+artifacts, REMAT and the XLA block route.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --times-of ROOT   # only the kernel times of the
-                                            # checkout at ROOT (A/B of two trees)
+                                            # checkout at ROOT and its bf16
+                                            # LayerNorms' digests (A/B of two trees)
     python3 chip_smoke.py --mesh-rank RANK WORLD PORT JOB   # one gloo rank of
                                             # [mesh], started by the phase
+    python3 chip_smoke.py --cli-launches ARGS   # python -m mudpt_torch.train
+                                            # ARGS, then its launches (for [fp32])
 
 Phases, each printed with the card's name and power limit:
 
@@ -166,6 +170,22 @@ Phases, each printed with the card's name and power limit:
               forward and forward with backward, launches per call held, at
               ViT-L/14's vision MLP (K = 8 chunks), ViT-B/16's (K = 2) and
               D = 1280 (K = 10), timed beside mlp_halfblock at ViT-L/14.
+ 12a. fp32     the kernel chains on fp32 activations, held to plain fp32
+              torch ops with TF32 off: each fp32 kernel (layernorm_fwd and
+              layernorm_bwd on fp32 rows, gemm_f32_epilogue in every mode,
+              attention_fwd_f32 and attention_bwd_f32 with the vision and
+              text masks) at the ViT-B/16 step's shapes, relaunched
+              bit-equal, timed beside its plain version and a library call
+              (F.layer_norm, torch.addmm, SDPA, in fp32); the half-blocks at
+              D = 1024 (batch 32 x 259 tokens, 16 heads), qkv and h saved
+              and recomputed, forward and dx, and the chunked MLP half at D
+              = 1280; then MuDPT ViT-B/16 under TRAINER.MUDPT.PREC fp32:
+              the CLI in a fresh process ([engine]'s configuration, one
+              epoch and the test evaluate), fp32 kernels only; the
+              trainer's first step (loss and every leaf's gradient) and the
+              evaluate's logits against plain_blocks(); CoCoOp ViT-B/16 at
+              1,000 classes x 4 images, one step; the step at 64 and at
+              384 and the image encode at 384, beside bf16, peak memory.
  13. export    MuDPT ViT-B/16 through build_trainer (its YAML on the
               synthetic dataset at 100 classes), one training step at batch
               64, then exported under the four serving tiers (xla: PyTorch
@@ -204,7 +224,11 @@ output in the int8 request; the int8 kernels' totals are over one vision
 layer of the int8 request, under "int8_static" of the int8_static request,
 under "int8_vit_l14" and "int8_static_vit_l14" the same at ViT-L/14;
 under "chunked" one call of the chunked MLP half's forward and backward at
-ViT-L/14 (LayerNorm twice, 40 products, LayerNorm dx once).  "launches"
+ViT-L/14 (LayerNorm twice, 40 products, LayerNorm dx once).  The fp32
+kernels (names ending in _f32, and gemm_f32_epilogue) have entries of
+their own: totals over one vision layer of the fp32 ViT-B/16 step at batch
+384, their launches those of the fp32 trainer's first step
+("fp32_train_step").  "launches"
 counts the main path's run ("main_path": the ViT-B/16 train step, or the
 int8 request), "launches_by_path" each path's ("engine_train_step": one
 train step of the engine; "zoo_<trainer>_step" one of each zoo trainer,
@@ -215,7 +239,9 @@ static tiers through the CLI; "serving_vit_l14_<tier>" and
 "train_step_vit_l14_int8_ste" ViT-L/14's int8 paths; "zoo_<tier>_<trainer>_*"
 the zoo under the int8 tiers; "cocoop_scale_<tier>_*" and
 "cocoop_pallas_int8_artifact_request" CoCoOp's int8 paths; "rn_*" the RN
-presets' steps and text encodes; "export_<tier>_request" one request of each
+presets' steps and text encodes; "fp32_*" the fp32 paths (the half-block
+chains, the CLI run, the trainer's step, the evaluate's batch, CoCoOp's
+step); "export_<tier>_request" one request of each
 served artifact in its fresh process, "remat_full_step*" a train step under
 REMAT full, "block_xla_request" the text encode and request under BLOCK
 xla, where no kernel runs).  Any failed
@@ -354,6 +380,15 @@ REPLACES = {
     "gemm_s8_epilogue": Q8,
     "quant_rows": Q8,
 }
+# the fp32 kernels replace the same Pallas functions on fp32 activations
+# (rows 1-13 of PERF.md's table; the q8 layers' fp32 forms are rows 14-17)
+REPLACES.update({
+    "layernorm_fwd_f32": REPLACES["layernorm_fwd"] + " (fp32 x)",
+    "gemm_f32_epilogue": REPLACES["gemm_bf16_epilogue"] + " (fp32 x)",
+    "attention_fwd_f32": f"{FWD}, {ATTN_FWD}, :358 _attn_bwd_kernel (fp32 x)",
+    "layernorm_bwd_f32": REPLACES["layernorm_bwd"] + " (fp32 x)",
+    "attention_bwd_f32": REPLACES["attention_bwd"] + " (fp32 x)",
+})
 # the int8 kernels, whose times in the kernel object are those of one
 # vision layer of the ViT-B/16 int8 request, and whose launches are that path's
 Q8_KERNELS = ("layernorm_q8", "gemm_s8_epilogue", "quant_rows")
@@ -524,10 +559,12 @@ def chain_bound(B: int, S: int, D: int, causal, halves=("attn", "mlp"), bwd: boo
 
 class Kernel:
     """Totals of one kernel over the launches of one vision layer of a path
-    (the train step's forward and backward, or an int8 request)."""
+    (the train step's forward and backward, or an int8 request); its source
+    is mudpt_torch/csrc/<source or name>.cu."""
 
-    def __init__(self, name: str):
+    def __init__(self, name: str, source: str = None):
         self.name = name
+        self.source = source or name
         self.ms = self.plain_ms = self.bound_ms = 0.0
         self.library_ms = None  # None while no launch has a library yardstick
         self.t_bytes = self.t_ops = 0.0
@@ -554,7 +591,7 @@ class Kernel:
         keys, and its launches on ``main_path``."""
         return {
             "name": self.name, "route": "cuda",
-            "source": f"mudpt_torch/csrc/{self.name}.cu",
+            "source": f"mudpt_torch/csrc/{self.source}.cu",
             "replaces": REPLACES[self.name],
             "launches": launches[main_path], "main_path": main_path,
             "launches_by_path": launches,
@@ -827,20 +864,22 @@ def launch_profile(fn, symbol: str = None) -> str:
             f"{blocks * threads // 32} warps an SM")
 
 
-def gemm_operands(F, rn, ep: str, M: int, K: int, N: int) -> tuple:
-    """Seeded (a, W, bias, second operand) of a GEMM epilogue: the forward
-    epilogues take W (K, N), the backward ones W (N, K), read transposed."""
+def gemm_operands(F, rn, ep: str, M: int, K: int, N: int, dtype=None) -> tuple:
+    """Seeded (a, W, bias, second operand) of a GEMM epilogue in the
+    activation dtype (bf16 where None): the forward epilogues take W (K, N),
+    the backward ones W (N, K), read transposed."""
     import torch
 
+    dt = dtype or torch.bfloat16
     w_nk = F.EPILOGUES[ep][1]
-    a = rn(M, K)
-    w = rn(N, K, std=K ** -0.5) if w_nk else rn(K, N, std=K ** -0.5)
-    bias = rn(N, std=0.1) if ep in F._BIASED else None
+    a = rn(M, K, dtype=dt)
+    w = rn(N, K, std=K ** -0.5, dtype=dt) if w_nk else rn(K, N, std=K ** -0.5, dtype=dt)
+    bias = rn(N, std=0.1, dtype=dt) if ep in F._BIASED else None
     extra = None
     if ep == "residual":
-        extra = rn(M, N)
+        extra = rn(M, N, dtype=dt)
     elif ep == "gelu_bwd":
-        extra = rn(M, N, std=2.0)  # a saved pre-activation
+        extra = rn(M, N, std=2.0, dtype=dt)  # a saved pre-activation
     elif ep == "mul_f32":  # QuickGELU' of an fp32 pre-activation
         extra = F.quick_gelu_grad(rn(M, N, std=2.0, dtype=torch.float32))
     return a, w, bias, extra
@@ -980,22 +1019,27 @@ def phase_attention_sweep(F) -> None:
         say("kernels", f"attention S={S}: within limits for {', '.join(readings)}")
 
 
-def layer_params(rn, D: int) -> list:
-    """The twelve weights of a layer at width D, seeded."""
+def layer_params(rn, D: int, dtype=None) -> list:
+    """The twelve weights of a layer at width D, seeded, the projections in
+    ``dtype`` (bf16 where None), the LayerNorms' in fp32."""
     import torch
 
+    dt = dtype or torch.bfloat16
     return [rn(D, dtype=torch.float32) * 0.1 + 1, rn(D, dtype=torch.float32) * 0.1,
-            rn(D, 3 * D, std=D ** -0.5), rn(3 * D, std=0.1), rn(D, D, std=D ** -0.5),
-            rn(D, std=0.1), *mlp_params(rn, D)]
+            rn(D, 3 * D, std=D ** -0.5, dtype=dt), rn(3 * D, std=0.1, dtype=dt),
+            rn(D, D, std=D ** -0.5, dtype=dt), rn(D, std=0.1, dtype=dt),
+            *mlp_params(rn, D, dtype)]
 
 
-def mlp_params(rn, D: int) -> list:
-    """The six weights of an MLP half at width D (hidden 4D), seeded."""
+def mlp_params(rn, D: int, dtype=None) -> list:
+    """The six weights of an MLP half at width D (hidden 4D), seeded, as
+    ``layer_params``."""
     import torch
 
+    dt = dtype or torch.bfloat16
     return [rn(D, dtype=torch.float32) * 0.1 + 1, rn(D, dtype=torch.float32) * 0.1,
-            rn(D, 4 * D, std=D ** -0.5), rn(4 * D, std=0.1), rn(4 * D, D, std=(4 * D) ** -0.5),
-            rn(D, std=0.1)]
+            rn(D, 4 * D, std=D ** -0.5, dtype=dt), rn(4 * D, std=0.1, dtype=dt),
+            rn(4 * D, D, std=(4 * D) ** -0.5, dtype=dt), rn(D, std=0.1, dtype=dt)]
 
 
 def phase_layer_chains(F, rn) -> None:
@@ -2386,6 +2430,16 @@ def cocoop_launches(keys, cfg, n_chunks: int, quant: str = "none") -> dict:
         chunk += [(cfg.transformer_layers, again), (1, tower_lns(1))]
     return expect(keys, (cfg.vision_layers, serve), (1, tower_lns(2)),
                   (n_chunks, expect(keys, *chunk)))
+
+
+def kernel_groups(F) -> tuple:
+    """The kernel object's entries, every launch count of ``F.KERNELS``
+    once: (the bf16 chains' kernels, the int8 tiers', the fp32 chains')."""
+    import torch
+
+    fp32 = [by[torch.float32] for by in F.DTYPE_KERNELS.values()]
+    bf16 = [k for k in F.KERNELS if k not in fp32 and k not in Q8_KERNELS]
+    return bf16, list(Q8_KERNELS), fp32
 
 
 def check_launches(what: str, got: dict, want: dict) -> None:
@@ -4149,6 +4203,580 @@ def phase_block_xla(F) -> dict:
     return launches
 
 
+# [fp32]: the kernel chains on fp32 activations, as a trainer under PREC
+# fp32 runs them.  The Pallas functions take an fp32 x and round to x.dtype,
+# so in fp32 their rounding points are no-ops; the plain versions are fp32
+# torch ops with TF32 off (phase 1), and a kernel and its plain version
+# differ only in the order of fp32 sums and the last ulp of exp, rsqrt and
+# division.  The limits, stated before the phase's first run (PERF.md,
+# the fp32 findings): LayerNorm's sums only change order (readings near
+# 2^-20 expected); an epilogue GEMM's K = 768-3072 fp32 terms summed in another
+# order than the library's, and attention's, read 2^-16 or better.  One
+# bf16 rounding anywhere reads about 2^-9 and a single-pass TF32 product
+# (10-bit mantissa) about 2^-11 (tests/test_torch_chip_checks.py), so:
+F32_LN_NORM_ERR = 2.0 ** -16      # each LayerNorm, forward and dx: relative norm error
+F32_KERNEL_NORM_ERR = 2.0 ** -14  # each GEMM epilogue and attention, each way
+F32_KERNEL_MAX_ERR = 2.0 ** -12   # any kernel: max abs error over the largest value
+# a chain (the half-blocks at D = 1024, the chunked half at 1280, forward
+# and dx), the step's gradients, the evaluate's and CoCoOp's logits: several
+# kernels deep, where the sum-order differences propagate; never looser
+# than 2^-12, which one bf16 rounding anywhere in an fp32 chain exceeds
+F32_CHAIN_NORM_ERR = 2.0 ** -12
+F32_CHAIN_MAX_ERR = 2.0 ** -10
+# the step's loss: a mean over the batch, which one bf16 rounding moves by
+# ~2^-10 of itself at these sizes
+F32_LOSS_REL_ERR = 2.0 ** -14
+# TF32 tensor cores, dense (NVIDIA data sheet, at 700 W): three TF32
+# products (3xTF32) a product are the fastest fp32-accurate product the
+# card has, the bound of an fp32 product's operations
+PEAK_TF32_FLOPS = 494.7e12
+FP32_OPTS = ("TRAINER.MUDPT.PREC", "fp32")
+# the step at 384 runs about 3x the request's products on the SIMT kernels
+FP32_TIMED_STEPS = 2
+FP32_CHAIN = (32, 259, 1024, 16)   # rows 4-11: batch, tokens, width, heads
+FP32_CHUNKED = (8, 197, 1280)      # rows 12-13: batch, tokens, width (10 chunks)
+
+
+def bound32(bytes_moved: float, product_ops: float, fp32_ops: float = 0.0):
+    """(ms, 'bytes' | 'operations'): the least time for fp32 work whose
+    products must be fp32-accurate, at best three TF32 products each
+    (3 x ops / 494.7 TFLOP/s), the rest on the FMA pipes."""
+    t_bytes = bytes_moved / PEAK_BYTES_PER_S
+    t_ops = 3 * product_ops / PEAK_TF32_FLOPS + fp32_ops / PEAK_FP32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def fp32_kernels(F) -> dict:
+    """{a bf16 kernel's launch count: its fp32 counterpart's}."""
+    import torch
+
+    return {by[torch.bfloat16]: by[torch.float32] for by in F.DTYPE_KERNELS.values()}
+
+
+def in_fp32(F, want: dict) -> dict:
+    """A path's launches on fp32 activations: each bf16 kernel's count
+    moved to its fp32 counterpart, the chains' counts as they are."""
+    names = fp32_kernels(F)
+    out = dict.fromkeys(want, 0)
+    for k, v in want.items():
+        out[names.get(k, k)] += v
+    return out
+
+
+def check_fp32_launches(F, what: str, got: dict, backward: bool = True) -> str:
+    """An fp32 run went through the fp32 kernels and no other: each fp32
+    kernel launched (the backward ones only where it trains), no bf16 or
+    int8 kernel, and the chains counted (the XLA route counts none)."""
+    f32 = [k for k in fp32_kernels(F).values() if backward or "bwd" not in k]
+    wrong = {k: got.get(k, 0) for k in F.KERNELS if k not in fp32_kernels(F).values()
+             and got.get(k, 0)}
+    idle = [k for k in f32 if not got.get(k, 0)]
+    chains = {k: got[k] for k in F.CHAINS if got.get(k, 0)}
+    if wrong or idle or not chains:
+        raise AssertionError(f"{what}: launched {wrong or 'no other kernel'}, fp32 kernels "
+                             f"not launched {idle or 'none'}, chains {chains or 'none'}")
+    return "fp32 kernels only: " + ", ".join(f"{k} {got[k]}" for k in f32) + f"; chains {chains}"
+
+
+def check_f32(what: str, got, ref, kernel: Kernel = None, norm_limit=F32_KERNEL_NORM_ERR,
+              max_limit=F32_KERNEL_MAX_ERR) -> str:
+    """An fp32 result against its plain version: relative norm error and
+    max error (every element may differ: the sums run in another order);
+    the reading with log2 of the norm error."""
+    reading = check_close(what, got, ref, kernel, max_limit=max_limit, norm_limit=norm_limit,
+                          share_limit=None)
+    norm = float(reading.split(" norm ")[1].split()[0])
+    return f"{reading} (2^{math.log2(norm) if norm > 0 else float('-inf'):.1f})"
+
+
+def check_relaunch(what: str, fn) -> None:
+    """Two launches on the same inputs give the same bits."""
+    a, b = fn(), fn()
+    for x, y in zip(a if isinstance(a, tuple) else (a,), b if isinstance(b, tuple) else (b,)):
+        check_equal(f"{what}, launched again", x, y)
+
+
+def phase_kernels_fp32(F, kernels: dict) -> None:
+    """Every fp32 kernel against its plain version at the ViT-B/16 step's
+    shapes (SHAPES, and the MLP's recompute epilogues), relaunched
+    bit-equal, timed beside its plain version and one library call
+    (F.layer_norm, torch.addmm or torch.matmul, SDPA, all in fp32 with TF32
+    off), added to ``kernels`` per vision layer of the step."""
+    import torch
+    import torch.nn.functional as tf
+
+    tag, f32 = "fp32", torch.float32
+    spec = SHAPES["ViT-B/16"]
+    rn = randn_fn(14)
+
+    for rows, D, per_layer in spec["ln"]:
+        x = rn(rows, D, std=2.0, dtype=f32)
+        s = rn(D, dtype=f32) * 0.1 + 1
+        b = rn(D, dtype=f32) * 0.1
+        kern = kernels["layernorm_fwd_f32"]
+        reading = check_f32(f"layernorm_fwd_f32 {rows}x{D}", F.layer_norm_fwd(x, s, b),
+                            F.layer_norm_plain(x, s, b), kern, F32_LN_NORM_ERR)
+        check_relaunch(f"layernorm_fwd_f32 {rows}x{D}", lambda: F.layer_norm_fwd(x, s, b))
+        ms = time_ms(lambda: F.layer_norm_fwd(x, s, b))
+        plain = time_ms(lambda: F.layer_norm_plain(x, s, b))
+        lib = time_ms(lambda: tf.layer_norm(x, (D,), s, b, 1e-5))
+        bms, by = bound32(2 * rows * D * 4 + 2 * D * 4, 0, 8 * rows * D)
+        say(tag, f"layernorm_fwd_f32 {rows}x{D}: {reading} ms {ms:.4f} plain {plain:.4f} "
+                 f"library(F.layer_norm) {lib:.4f} bound {bms:.4f} ({by})")
+        for _ in range(per_layer):
+            kern.add(ms, plain, lib, bms, by)
+        del x
+
+    gemms = spec["gemm"] + (("fc_gelu_grad", M_B, 768, 3072, 0), ("mul_f32", M_B, 768, 3072, 0))
+    for ep, M, K, N, per_layer in gemms:
+        a, w, bias, extra = gemm_operands(F, rn, ep, M, K, N, f32)
+        kern = kernels["gemm_f32_epilogue"]
+        got, ref = (F.gemm_epilogue(a, w, bias, ep, extra),
+                    F.gemm_epilogue_plain(a, w, bias, ep, extra))
+        if ep == "fc_gelu_save":
+            reading = "h " + check_f32(f"gemm_f32 {ep} h", got[0], ref[0], kern)
+            reading += "; a " + check_f32(f"gemm_f32 {ep} a", got[1], ref[1], kern)
+        else:
+            reading = check_f32(f"gemm_f32 {K}->{N} {ep}", got, ref, kern)
+        del got, ref
+        check_relaunch(f"gemm_f32 {K}->{N} {ep}", lambda: F.gemm_epilogue(a, w, bias, ep, extra))
+        w_nk = F.EPILOGUES[ep][1]
+        ms = time_ms(lambda: F.gemm_epilogue(a, w, bias, ep, extra))
+        plain = time_ms(lambda: F.gemm_epilogue_plain(a, w, bias, ep, extra), 3)
+        if w_nk:
+            lib, lib_name = time_ms(lambda: torch.matmul(a, w.t())), "torch.matmul(a, W.t())"
+        elif bias is None:
+            lib, lib_name = time_ms(lambda: torch.matmul(a, w)), "torch.matmul"
+        else:
+            lib, lib_name = time_ms(lambda: torch.addmm(bias, a, w)), "torch.addmm"
+        outputs = 2 if ep == "fc_gelu_save" else 1
+        nbytes = (M * K + K * N + M * N * (outputs + (extra is not None))
+                  + (N if bias is not None else 0)) * 4
+        flops = 2 * M * N * K
+        bms, by = bound32(nbytes, flops)
+        say(tag, f"gemm_f32_epilogue {ep} {M}x{K}->{N}: {reading} ms {ms:.4f} "
+                 f"({flops / ms / 1e9:.1f} TFLOP/s; the FMA pipes' 67 TFLOP/s take "
+                 f"{flops / PEAK_FP32_FLOPS * 1e3:.4f} ms) plain {plain:.4f} "
+                 f"library({lib_name}, fp32) {lib:.4f} bound {bms:.4f} ({by}, 3xTF32)")
+        for _ in range(per_layer):
+            kern.add(ms, plain, lib, bms, by)
+        del a, w, bias, extra
+
+    for rows, D, _, with_r, per_layer in spec["ln_bwd"]:
+        x = rn(rows, D, std=2.0, dtype=f32)
+        dxn = rn(rows, D, dtype=f32)
+        s = rn(D, dtype=f32) * 0.1 + 1
+        r = rn(rows, D, dtype=f32) if with_r else None
+        kern = kernels["layernorm_bwd_f32"]
+        reading = check_f32(f"layernorm_bwd_f32 {rows}x{D}", F.layer_norm_bwd(dxn, x, s, r),
+                            F.layer_norm_bwd_plain(dxn, x, s, r), kern, F32_LN_NORM_ERR)
+        check_relaunch(f"layernorm_bwd_f32 {rows}x{D}", lambda: F.layer_norm_bwd(dxn, x, s, r))
+        ms = time_ms(lambda: F.layer_norm_bwd(dxn, x, s, r))
+        plain = time_ms(lambda: F.layer_norm_bwd_plain(dxn, x, s, r))
+        xr = x.detach().requires_grad_(True)
+        y = tf.layer_norm(xr, (D,), s, s, 1e-5)
+        lib = time_ms(lambda: torch.autograd.grad(y, xr, dxn, retain_graph=True))
+        bms, by = bound32(rows * D * 4 * (3 + with_r) + D * 4, 0, 15 * rows * D)
+        say(tag, f"layernorm_bwd_f32 {rows}x{D} residual {with_r}: {reading} ms {ms:.4f} "
+                 f"plain {plain:.4f} library(F.layer_norm backward) {lib:.4f} bound "
+                 f"{bms:.4f} ({by})")
+        for _ in range(per_layer):
+            kern.add(ms, plain, lib, bms, by)
+        del x, dxn, r, xr, y
+
+    for label, B, S, H, causal, per_layer in spec["attn"]:
+        D = 64 * H
+        qkv = rn(B, S, 3 * D, dtype=f32)
+        do = rn(B, S, D, std=0.1, dtype=f32)
+        L, is_causal, valid = F._block_spec(S, causal)
+        n = B * (S // L)
+        pairs = sum(min(r + 1, valid) if is_causal else valid for r in range(L))
+        q, k, v = (t.detach().requires_grad_(True)
+                   for t in qkv.view(n, L, 3, H, 64).permute(2, 0, 3, 1, 4))
+        if isinstance(causal, tuple):
+            i = torch.arange(L, device=qkv.device)
+            allowed = (i[None, :] <= i[:, None]) & (i[None, :] < valid)
+            sdpa = lambda: tf.scaled_dot_product_attention(q, k, v, attn_mask=allowed)  # noqa: E731
+        else:
+            sdpa = lambda: tf.scaled_dot_product_attention(q, k, v, is_causal=is_causal)  # noqa: E731
+        for name, fn, plain_fn, nbytes, prods, lib_fn in (
+                ("attention_fwd_f32", lambda: F.attention_fwd(qkv, H, causal),
+                 lambda: F.attention_plain(qkv, H, causal), 4 * B * S * D * 4,
+                 2 * 2 * 64 * pairs * n * H, None),
+                ("attention_bwd_f32", lambda: F.attention_bwd(qkv, do, H, causal),
+                 lambda: F.attention_bwd_plain(qkv, do, H, causal), 7 * B * S * D * 4,
+                 5 * 2 * 64 * pairs * n * H, "bwd")):
+            kern = kernels[name]
+            reading = check_f32(f"{name} {label}", fn(), plain_fn(), kern)
+            check_relaunch(f"{name} {label}", fn)
+            ms = time_ms(fn)
+            plain = time_ms(plain_fn, 3)
+            if lib_fn is None:
+                with torch.no_grad():
+                    lib = time_ms(sdpa)
+            else:
+                out = sdpa()
+                do4 = do.view(n, L, H, 64).permute(0, 2, 1, 3)
+                lib = time_ms(lambda: torch.autograd.grad(out, (q, k, v), do4, retain_graph=True))
+                del out, do4
+            bms, by = bound32(nbytes, prods, (5 if lib_fn is None else 8) * pairs * n * H)
+            say(tag, f"{name} {label} B={B} S={S} H={H}: {reading} ms {ms:.4f} plain "
+                     f"{plain:.4f} library(sdpa{' backward' if lib_fn else ''}, fp32) {lib:.4f} "
+                     f"bound {bms:.4f} ({by})")
+            if per_layer:
+                kern.add(ms, plain, lib, bms, by)
+        del qkv, do, q, k, v
+    torch.cuda.empty_cache()
+
+
+def fp32_chain_case(F, what: str, fn, ref_fn, want: dict) -> str:
+    """A chain's output (and, where it trains, its dx) against the plain
+    chain's, its launches held to ``want`` (fp32 kernels only)."""
+    F.reset_launches()
+    got = fn()
+    check_launches(what, dict(F.LAUNCHES), want)
+    return check_f32(what, got, ref_fn(), norm_limit=F32_CHAIN_NORM_ERR,
+                     max_limit=F32_CHAIN_MAX_ERR)
+
+
+def phase_fp32_chains(F) -> dict:
+    """Rows 4-11 of PERF.md's table: the attention and MLP halves at D =
+    1024 (16 heads, 259 tokens, batch 32) in fp32, forward alone and forward
+    with dx, qkv and h saved (saves on) and recomputed (saves off), each
+    against the plain chain; then rows 12-13: the chunked MLP half at D =
+    1280 (10 chunks of 512), forward and dx.  Returns the launches of one
+    forward and backward of each half, saving."""
+    import torch
+
+    B, S, D, H = FP32_CHAIN
+    rn = randn_fn(15)
+    f32 = torch.float32
+    ps = layer_params(rn, D, f32)
+    x = rn(B, S, D, dtype=f32)
+    g = rn(B, S, D, std=0.1, dtype=f32)
+    halves = (("attn_halfblock", F.attn_halfblock, ps[:6], (H,), "attn"),
+              ("mlp_halfblock", F.mlp_halfblock, ps[6:], (), "mlp"))
+    out = {}
+    for name, fn, p, more, half in halves:
+        readings = []
+        with torch.no_grad():
+            want = {k: 0 for k in F.LAUNCHES}
+            want.update({name: 1, "layernorm_fwd_f32": 1, "gemm_f32_epilogue": 2,
+                         "attention_fwd_f32": int(half == "attn")})
+            readings.append("forward " + fp32_chain_case(
+                F, f"{name} fp32 forward", lambda: fn(x, *p, *more),
+                lambda: fn(x, *p, *more, plain=True), want))
+        for saves in (True, False):
+            def fwd_bwd(plain=False):
+                xr = x.detach().requires_grad_(True)
+                with F.saved_acts(saves):
+                    y = fn(xr, *p, *more, plain=plain)
+                    return torch.autograd.grad(y, xr, g)[0]
+            recompute = not saves
+            # the forward's LayerNorm and two products, the backward's two
+            # products and LayerNorm dx (the attention half: attention each
+            # way); recomputing, the LayerNorm and the qkv product (or the
+            # fc product, its epilogue storing QuickGELU') again
+            want = {k: 0 for k in F.LAUNCHES}
+            want.update({name: 1, f"{name}_bwd": 1, "layernorm_fwd_f32": 1 + recompute,
+                         "gemm_f32_epilogue": 4 + recompute, "layernorm_bwd_f32": 1})
+            if half == "attn":
+                want.update(attention_fwd_f32=1, attention_bwd_f32=1)
+            what = f"{name} fp32 forward + dx, {'saved' if saves else 'recomputed'}"
+            readings.append(("saved " if saves else "recomputed ") + fp32_chain_case(
+                F, what, fwd_bwd, lambda: fwd_bwd(plain=True), want))
+            if saves:
+                out[f"fp32_{name}_train"] = dict(F.LAUNCHES)
+        say("fp32", f"{name} D={D} B={B} S={S}: " + "; ".join(readings))
+
+    B, S, D = FP32_CHUNKED
+    p = mlp_params(rn, D, f32)
+    x = rn(B, S, D, dtype=f32)
+    g = rn(B, S, D, std=0.1, dtype=f32)
+    n_chunks = 4 * D // F._pick_chunk(4 * D, D)
+    with torch.no_grad():
+        want = {k: 0 for k in F.LAUNCHES}
+        want.update(mlp_halfblock_chunked=1, layernorm_fwd_f32=1,
+                    gemm_f32_epilogue=2 * n_chunks)
+        fwd = fp32_chain_case(F, "mlp_halfblock_chunked fp32 forward",
+                              lambda: F.mlp_halfblock_chunked(x, *p),
+                              lambda: F.mlp_halfblock_chunked(x, *p, plain=True), want)
+
+    def fwd_bwd(plain=False):
+        xr = x.detach().requires_grad_(True)
+        y = F.mlp_halfblock_chunked(xr, *p, plain=plain)
+        return torch.autograd.grad(y, xr, g)[0]
+
+    want = {k: 0 for k in F.LAUNCHES}
+    want.update(mlp_halfblock_chunked=1, mlp_halfblock_chunked_bwd=1, layernorm_fwd_f32=2,
+                gemm_f32_epilogue=5 * n_chunks, layernorm_bwd_f32=1)
+    bwd = fp32_chain_case(F, "mlp_halfblock_chunked fp32 forward + dx", fwd_bwd,
+                          lambda: fwd_bwd(plain=True), want)
+    out["fp32_mlp_halfblock_chunked_train"] = dict(F.LAUNCHES)
+    say("fp32", f"mlp_halfblock_chunked D={D} B={B} S={S} ({n_chunks} chunks): forward {fwd}; "
+                f"forward + dx {bwd}")
+    return out
+
+
+def cli_launches(root: Path, argv: list) -> int:
+    """``python3 chip_smoke.py --cli-launches ARGS``: the port's CLI
+    (``mudpt_torch.train``'s main on ARGS, as ``python -m mudpt_torch.train
+    ARGS`` runs it) in this fresh process, then one JSON line of the
+    kernels it launched, counted from its start."""
+    sys.path.insert(0, str(root))
+    from mudpt_torch import train as train_cli
+    from mudpt_torch.ops import fused_block as F
+
+    streams = sys.stdout, sys.stderr
+    F.reset_launches()
+    t0 = time.perf_counter()
+    trainer = train_cli.main(train_cli.parse_args(argv))
+    seconds = time.perf_counter() - t0
+    sys.stdout, sys.stderr = streams  # the CLI tees stdout into its log
+    print(json.dumps({"launches": dict(F.LAUNCHES), "seconds": seconds,
+                      "compute_dtype": str(trainer.compute_dtype)}), flush=True)
+    return 0
+
+
+def fp32_grads(F, tr, batch) -> dict:
+    """The trainer's loss and every trainable leaf's gradient on ``batch``,
+    through the kernels (their launches counted) and under plain_blocks()
+    (fp32 torch ops, TF32 off), each leaf's finite and not zero."""
+    import torch
+
+    from mudpt_torch.models.clip import leaves
+    from mudpt_torch.models.layers import plain_blocks
+
+    params, names = leaves(tr.trainable), leaf_names(tr.trainable)
+
+    def one():
+        loss = tr.loss_fn(batch)[0]
+        grads = torch.autograd.grad(loss, params)
+        check_leaf_grads(names, grads)
+        return loss.item(), grads
+
+    F.reset_launches()
+    loss, grads = one()
+    launches = dict(F.LAUNCHES)
+    with plain_blocks():
+        loss_ref, grads_ref = one()
+    errs = {n: ((a - b).norm() / b.norm()).item() for n, a, b in zip(names, grads, grads_ref)}
+    return dict(launches=launches, loss=loss, loss_ref=loss_ref,
+                rel=abs(loss - loss_ref) / abs(loss_ref), errs=errs)
+
+
+def hold_fp32_grads(what: str, r: dict) -> str:
+    worst = max(r["errs"].values())
+    reading = (f"loss {r['loss']:.7f} vs {r['loss_ref']:.7f} (rel {r['rel']:.3g}, limit "
+               f"{F32_LOSS_REL_ERR:.3g}); gradient relative norm errors, limit "
+               f"{F32_CHAIN_NORM_ERR:.3g}: " + ", ".join(
+                   f"{n} {e:.3g}" for n, e in r["errs"].items())
+               + f" (worst 2^{math.log2(worst) if worst > 0 else float('-inf'):.1f})")
+    if not (r["rel"] <= F32_LOSS_REL_ERR and worst <= F32_CHAIN_NORM_ERR):
+        raise AssertionError(f"{what}: {reading}")
+    return reading
+
+
+def fp32_cocoop_step(F, device: str = "cuda") -> dict:
+    """CoCoOp ViT-B/16 in fp32 at [zoo]'s cut (1,000 classes, 4 images,
+    seeded random weights, CTX_INIT "a photo of a"): one step, unchunked,
+    its text rows on the half-blocks with saves off at D = 512 (rows 4, 6,
+    8 and 10), its logits and gradients against the plain route."""
+    import torch
+
+    from mudpt_torch.models.clip import VIT_B16, init_clip_params, leaves
+    from mudpt_torch.models.layers import plain_blocks
+    from mudpt_torch.models.text import _auto_pack_g, _text_saves_off
+    from mudpt_torch.trainers.cocoop import cocoop_forward
+    from mudpt_torch.trainers.prompt_utils import (ctx_vectors_from_init, embed_classnames,
+                                                   init_linear)
+    from mudpt_torch.utils.rng import new_rng
+    from mudpt_torch.utils.synth_step import nll_loss
+
+    cfg, dev = VIT_B16, torch.device(device)
+    g = new_rng(0, dev)
+    params = init_clip_params(cfg, g)
+    aux = embed_classnames(params["text"], cocoop_names(COCOOP_N_CLS), 4,
+                           "a photo of a").as_device_tree()
+    trainable = {"ctx": ctx_vectors_from_init(params["text"], "a photo of a", 4),
+                 "meta_net": {"linear1": init_linear(g, cfg.embed_dim, cfg.embed_dim // 16),
+                              "linear2": init_linear(g, cfg.embed_dim // 16,
+                                                     cfg.transformer_width)}}
+    for t in leaves(trainable):
+        t.requires_grad_(True)
+    res = cfg.image_resolution
+    images = torch.randn(COCOOP_B, res, res, 3, generator=g, device=dev)
+    labels = torch.randint(0, COCOOP_N_CLS, (COCOOP_B,), generator=g, device=dev)
+    S = aux["token_prefix"].shape[1] + 4 + aux["token_suffix"].shape[1]
+    P = -(-S // 8) * 8
+    if (_auto_pack_g(P, COCOOP_B * COCOOP_N_CLS), P) != COCOOP_PACK or not _text_saves_off(
+            COCOOP_B * COCOOP_N_CLS, P):
+        raise AssertionError(f"CoCoOp fp32 text rows: P {P}; expected {COCOOP_PACK}, saves off")
+    names = leaf_names(trainable)
+
+    def run():
+        logits = cocoop_forward(trainable, params, aux, images, clip_cfg=cfg,
+                                compute_dtype=torch.float32, encode_chunk=-1)
+        grads = torch.autograd.grad(nll_loss(logits, labels), leaves(trainable))
+        check_leaf_grads(names, grads)
+        return logits.detach(), grads
+
+    F.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    logits, grads = run()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(F.LAUNCHES)
+    check_launches("CoCoOp fp32 step", launches,
+                   in_fp32(F, cocoop_launches(F.LAUNCHES, cfg, 1)))
+    only = check_fp32_launches(F, "CoCoOp fp32 step", launches)
+    with plain_blocks():
+        logits_ref, grads_ref = run()
+    centred = [t - t.mean(-1, keepdim=True) for t in (logits, logits_ref)]
+    reading = check_f32("CoCoOp fp32 logits, rows centred", *centred,
+                        norm_limit=F32_CHAIN_NORM_ERR, max_limit=F32_CHAIN_MAX_ERR)
+    errs = [((a - b).norm() / b.norm()).item() for a, b in zip(grads, grads_ref)]
+    if not max(errs) <= F32_CHAIN_NORM_ERR:
+        raise AssertionError(f"CoCoOp fp32 gradients: relative norm errors {errs} over "
+                             f"{F32_CHAIN_NORM_ERR}")
+    say("fp32", f"CoCoOp ViT-B/16 fp32, {COCOOP_B} images x {COCOOP_N_CLS} classes (text rows "
+                f"packed {COCOOP_PACK}, D = 512, saves off): one step {ms:.1f} ms (first "
+                f"call), peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
+                f"{only}; vs plain route: logits "
+                f"{reading}; gradients " + ", ".join(f"{n} {e:.3g}" for n, e in zip(names, errs))
+                + f" (limit {F32_CHAIN_NORM_ERR:.3g})")
+    return launches
+
+
+def fp32_timed(tr, batch, n: int) -> tuple:
+    """(median step ms over ``n`` steps after one warm-up, peak GiB) of the
+    trainer's step on a resident batch."""
+    import torch
+
+    tr._train_step(batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = [_synced_ms(lambda: tr._train_step(batch)) for _ in range(n)]
+    return statistics.median(ms), torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def phase_fp32(F, root: Path) -> dict:
+    """MuDPT ViT-B/16 under PREC fp32: the CLI as a subprocess (one epoch and
+    its evaluate, [engine]'s configuration) with its launches by route;
+    build_trainer's first step (loss and every trainable leaf's gradient)
+    and the evaluate's logits against plain_blocks(); CoCoOp's step; then
+    the step at 64 and 384 and the image encode at 384, timed beside the
+    same trainer's in bf16 (PREC fp16), with peak memory.  Returns each
+    path's launches."""
+    import copy
+    import shutil
+    import tempfile
+
+    import torch
+
+    from mudpt_torch.models.layers import plain_blocks
+
+    phase, paths = "fp32", {}
+    tmp = tempfile.mkdtemp(prefix="mudpt_fp32_")
+    try:
+        # ---- the CLI, a fresh process
+        argv = ["--trainer", "MuDPT", "--trainer_config", str(root / ENGINE_FILES[1]),
+                "--dataset_config", str(root / ENGINE_FILES[0]), "--output_dir",
+                f"{tmp}/cli", "--backbone_path", "random", *ENGINE_OPTS,
+                "OPTIM.MAX_EPOCH", "1", *FP32_OPTS]
+        proc = subprocess.run([sys.executable, str(root / "chip_smoke.py"), "--cli-launches",
+                               *argv], cwd=root, capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0 or "=> result on test" not in proc.stdout:
+            raise AssertionError(f"fp32 CLI run: exit {proc.returncode}, no test result\n"
+                                 f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        rec = _json_line(proc.stdout)
+        if rec["compute_dtype"] != "torch.float32":
+            raise AssertionError(f"fp32 CLI run computed in {rec['compute_dtype']}")
+        paths["fp32_cli_run"] = rec["launches"]
+        result = next(ln for ln in proc.stdout.splitlines() if "=> result on test" in ln)
+        say(phase, f"python -m mudpt_torch.train --trainer MuDPT ... TRAINER.MUDPT.PREC fp32 "
+                   f"(one epoch of 384 images, batch 64, and the test evaluate) in a fresh "
+                   f"process: exit 0, {rec['seconds']:.1f} s; {result.strip()}; "
+                   + check_fp32_launches(F, "fp32 CLI run", rec["launches"]))
+
+        # ---- build_trainer in this process: the first step and the evaluate
+        tr = _engine_trainer(root, f"{tmp}/fp32", "OPTIM.MAX_EPOCH", "1", *FP32_OPTS)
+        if tr.compute_dtype != torch.float32:
+            raise AssertionError(f"PREC fp32 trainer computes in {tr.compute_dtype}")
+        cfg = tr.clip_cfg
+        batches = [tr._device_batch(b) for b in list(copy.copy(tr.dm.train_loader))]
+        r = fp32_grads(F, tr, batches[0])
+        want = in_fp32(F, step_launches(F, cfg, "full_train", "full_train"))
+        check_launches("fp32 train step", r["launches"], want)
+        paths["fp32_train_step"] = r["launches"]
+        say(phase, f"the trainer's first step, batch of {ENGINE_BATCH}, vs plain_blocks() in "
+                   f"fp32: {hold_fp32_grads('fp32 first step', r)}; "
+                   + check_fp32_launches(F, "fp32 train step", r["launches"]))
+        images = batches[0]["image"]
+        F.reset_launches()
+        with torch.no_grad():
+            txt = tr._text_features(tr.trainable, tr.frozen, tr.aux)
+            logits = tr.forward_image(tr.trainable, tr.frozen, tr.aux, images, txt)
+            paths["fp32_evaluate_batch"] = dict(F.LAUNCHES)
+            with plain_blocks():
+                txt_ref = tr._text_features(tr.trainable, tr.frozen, tr.aux)
+                logits_ref = tr.forward_image(tr.trainable, tr.frozen, tr.aux, images, txt_ref)
+        want = in_fp32(F, expect(F.LAUNCHES, (cfg.transformer_layers, "full"), (1, tower_lns(1)),
+                                 (cfg.vision_layers, "full"), (1, tower_lns(2))))
+        check_launches("fp32 evaluate", paths["fp32_evaluate_batch"], want)
+        centred = [t[:, :tr.num_classes] - t[:, :tr.num_classes].mean(-1, keepdim=True)
+                   for t in (logits, logits_ref)]
+        say(phase, "the evaluate's text encode and a batch of 64, logits rows centred vs "
+                   "plain_blocks(): " + check_f32("fp32 evaluate logits", *centred,
+                                                  norm_limit=F32_CHAIN_NORM_ERR,
+                                                  max_limit=F32_CHAIN_MAX_ERR)
+                   + "; " + check_fp32_launches(F, "fp32 evaluate",
+                                                paths["fp32_evaluate_batch"], backward=False))
+        del logits, logits_ref, txt_ref
+
+        # ---- CoCoOp at 1,000 classes in fp32
+        paths["fp32_cocoop_step"] = fp32_cocoop_step(F)
+        torch.cuda.empty_cache()
+
+        # ---- timed: the step at 64 and on epoch 1's 384 images as one
+        # batch, the image encode at 384, fp32 beside the same trainer in
+        # bf16 (the YAML's PREC fp16)
+        del batches
+        rows = {}
+        for prec in ("fp32", "fp16"):
+            t = tr if prec == "fp32" else _engine_trainer(root, f"{tmp}/{prec}",
+                                                           "OPTIM.MAX_EPOCH", "1")
+            bs = [t._device_batch(b) for b in list(copy.copy(t.dm.train_loader))]
+            whole = {k: torch.cat([b[k] for b in bs]) for k in bs[0]}
+            n_img = whole["image"].shape[0]
+            step64 = fp32_timed(t, bs[0], TIMED_STEPS)
+            step384 = fp32_timed(t, whole, FP32_TIMED_STEPS if prec == "fp32" else TIMED_STEPS)
+            with torch.no_grad():
+                txt = t._text_features(t.trainable, t.frozen, t.aux)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                enc = [_synced_ms(lambda: t._eval_step_cached(t.trainable, t.frozen, t.aux,
+                                                              whole["image"], txt))
+                       for _ in range(1 + FP32_TIMED_STEPS)][1:]
+                enc_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            rows[prec] = (step64, step384, (statistics.median(enc), enc_peak))
+            del t, bs, whole, txt
+            torch.cuda.empty_cache()
+        (s64, s384, enc), (h64, h384, henc) = rows["fp32"], rows["fp16"]
+        say(phase, f"timed (median ms, peak GiB), fp32 vs bf16: trainer step at "
+                   f"{ENGINE_BATCH} {s64[0]:.2f} ({s64[1]:.2f} GiB) vs {h64[0]:.2f} "
+                   f"({h64[1]:.2f}); step at {n_img} {s384[0]:.2f} ({s384[1]:.2f} GiB, "
+                   f"{FP32_TIMED_STEPS} steps) vs {h384[0]:.2f} ({h384[1]:.2f}); image encode "
+                   f"and logits at {n_img} {enc[0]:.2f} ({enc[1]:.2f} GiB), "
+                   f"{n_img / enc[0] * 1e3:.1f} images/s, vs {henc[0]:.2f} ({henc[1]:.2f}), "
+                   f"{n_img / henc[0] * 1e3:.1f} images/s; fp32 / bf16: step "
+                   f"{s384[0] / h384[0]:.1f}x, encode {enc[0] / henc[0]:.1f}x")
+        return paths
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def descendants(pid: int) -> list:
     """The pids of the running processes descended from ``pid`` (/proc),
     parents before their children."""
@@ -4234,11 +4862,38 @@ def kernel_times(F) -> dict:
     return times
 
 
+def kernel_digests(F) -> dict:
+    """A digest of the bits of each bf16 LayerNorm output, forward and dx
+    (fp32 and bf16 dxn, with and without a residual), at the vision towers'
+    rows and at D = 1280, on seeded inputs: two trees whose digests agree
+    compute the same bits (``--times-of``)."""
+    import hashlib
+
+    import torch
+
+    rn = randn_fn(12)
+    out = {}
+    for rows, D in ((M_B, 768), (M_L, 1024), (2048, 1280)):
+        x, g16, g32, r = rn(rows, D, std=2.0), rn(rows, D), rn(rows, D, dtype=torch.float32), \
+            rn(rows, D)
+        s, b = rn(D, dtype=torch.float32) * 0.1 + 1, rn(D, dtype=torch.float32) * 0.1
+        for key, fn in ((f"layernorm_fwd {rows}x{D}", lambda: F.layer_norm_fwd(x, s, b)),
+                        (f"layernorm_bwd {rows}x{D} fp32 dxn + r",
+                         lambda: F.layer_norm_bwd(g32, x, s, r)),
+                        (f"layernorm_bwd {rows}x{D} bf16 dxn",
+                         lambda: F.layer_norm_bwd(g16, x, s))):
+            bits = fn().view(torch.int16).cpu().numpy().tobytes()
+            out[key] = hashlib.sha256(bits).hexdigest()[:16]
+        del x, g16, g32, r
+    return out
+
+
 def times_of(root: Path) -> int:
     """``python3 chip_smoke.py --times-of ROOT``: the kernel times of the
-    mudpt_torch package of the checkout at ROOT (its kernels built there),
-    one JSON line.  Run on two trees in turns (parent, change, change,
-    parent) in one call to compare their kernels on one card."""
+    mudpt_torch package of the checkout at ROOT (its kernels built there)
+    and the digests of its bf16 LayerNorms' bits, one JSON line.  Run on two
+    trees in turns (parent, change, change, parent) in one call to compare
+    their kernels on one card."""
     import torch
 
     sys.path.insert(0, str(root))
@@ -4249,7 +4904,8 @@ def times_of(root: Path) -> int:
         raise AssertionError(f"imported {F.__file__}, not the package under {root}")
     torch.backends.cuda.matmul.allow_tf32 = False
     _build.load()
-    print(json.dumps({"times_of": str(root), "card": smi(), "ms": kernel_times(F)}), flush=True)
+    print(json.dumps({"times_of": str(root), "card": smi(), "ms": kernel_times(F),
+                      "digests": kernel_digests(F)}), flush=True)
     return 0
 
 
@@ -4271,6 +4927,8 @@ def main() -> int:
         return serve_artifact(root, *sys.argv[2:5])
     if sys.argv[1:2] == ["--mesh-rank"]:
         return mesh_rank(root, *sys.argv[2:6])
+    if sys.argv[1:2] == ["--cli-launches"]:
+        return cli_launches(root, sys.argv[2:])
     sys.path.insert(0, str(root))
     from mudpt_torch.models import layers
     from mudpt_torch.ops import _build
@@ -4290,7 +4948,7 @@ def main() -> int:
     say("build", f"{len(_build.SIGNATURES)} kernel sources built in "
                  f"{_build.build_seconds:.2f} s; ptxas: {json.dumps(regs)}")
 
-    bf16_names = [name for name in _build.SIGNATURES if name not in Q8_KERNELS]
+    bf16_names, _, fp32_names = kernel_groups(F)
     kernels = {name: Kernel(name) for name in bf16_names}
     kernels_l = {name: Kernel(name) for name in bf16_names}
     # one vision layer of the int8 request (attention_fwd's fp32 output
@@ -4304,6 +4962,8 @@ def main() -> int:
     kernels_c = {name: Kernel(name) for name in CHUNKED_KERNELS}
     # one vision layer of the ViT-L/14@336px train step
     kernels_336 = {name: Kernel(name) for name in bf16_names}
+    # one vision layer of the fp32 ViT-B/16 train step
+    kernels_32 = {name: Kernel(name, F.KERNELS[name][0]) for name in fp32_names}
     paths = {}
 
     def run(phase: str, fn, *args):
@@ -4351,6 +5011,9 @@ def main() -> int:
     paths.update(run("cocoop int8", phase_cocoop_int8, F, root))
     paths.update(run("rn", phase_rn, F, root))
     paths.update(run("kernels chunked", phase_kernels_chunked, F, kernels_c))
+    run("fp32", phase_kernels_fp32, F, kernels_32)
+    paths.update(run("fp32", phase_fp32_chains, F))
+    paths.update(run("fp32", phase_fp32, F, root))
     paths.update(run("export", phase_export, F, root))
     paths["remat_full_step"] = run("remat", phase_remat, F, "ViT-B/16")
     paths["remat_full_step_vit_l14_336px"] = run("remat ViT-L/14@336px", phase_remat, F,
@@ -4371,6 +5034,7 @@ def main() -> int:
                                        int8_vit_l14=kernels_ql[name],
                                        int8_static_vit_l14=kernels_qls[name])
                 for name in Q8_KERNELS]
+    records += [kernels_32[name].record(by_path(name), "fp32_train_step") for name in fp32_names]
     print(json.dumps({"kernels": records}))
     print(smi())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,27 +1,32 @@
-// layernorm_fwd: y = bf16(LN_fp32(x) * scale + bias), one warp per row.
+// layernorm_fwd: y = T(LN_fp32(x) * scale + bias), one warp per row, for
+// rows of T = bf16 or fp32 (the activation dtype).
 //
 // Replaces: the LayerNorm of the TPU layer kernel,
-//   mudpt_tpu/ops/fused_block.py:150 (_ln_fp32) with its bf16 casts at
+//   mudpt_tpu/ops/fused_block.py:150 (_ln_fp32) with its casts to x.dtype at
 //   :303 (_attn_project) and :394 (_mlp_pre), inside
 //   _layer_fwd_nosave_kernel (:851), _layer_fwd_kernel (:831), the
 //   half-blocks' forwards (:318, :326, :403, :415), the recompute
 //   backwards (_attn_bwd_kernel :358, _mlp_bwd_kernel :444) and the
 //   chunked MLP half's (_mlp_chunk_fwd_kernel :484, _mlp_chunk_bwd_kernel
-//   :509).
+//   :509).  The Pallas kernels take x in bf16 or fp32; so does this one.
 // Bound on the H100: device-memory bytes.  Each row is read once and
-//   written once (2 * D * 2 bytes) for ~8 fp32 operations per element, far
-//   below the ~295 operations per byte where the tensor cores would bind.
+//   written once (2 * D * sizeof(T) bytes) for ~8 fp32 operations per
+//   element, far below the ~295 operations per byte where the tensor cores
+//   would bind.
 // Design: one warp owns one row, so the mean and variance are two warp
 //   shuffle reductions with no shared memory and no block barrier.  Each lane
-//   loads 16-byte vectors (8 bf16) with neighbouring lanes on neighbouring
-//   addresses and keeps its slice of the row in registers between the two
-//   statistics passes and the affine, so x is read from device memory once.
-//   Statistics are fp32 (mean, then the mean of squared deviations, then
-//   rsqrt(var + eps)) as in the TPU kernel; the output is rounded to bf16
-//   once.  Supports D % 8 == 0 and D <= 1024 (four vectors a lane), and,
-//   compiled as a case of its own so that the narrower rows keep their
-//   code, D % 64 == 0 and D <= 2048 (eight vectors a lane: the chunked MLP
-//   half's towers wider than 1024).
+//   loads 16-byte vectors (8 bf16 or 4 fp32) with neighbouring lanes on
+//   neighbouring addresses and keeps its slice of the row in registers
+//   between the two statistics passes and the affine, so x is read from
+//   device memory once.  Statistics are fp32 (mean, then the mean of squared
+//   deviations, then rsqrt(var + eps)) as in the TPU kernel; the output is
+//   rounded to T once (a no-op for fp32).  Supports D % 8 == 0 and
+//   D <= 1024 (four bf16 or eight fp32 vectors a lane), and, compiled as a
+//   case of its own so that the narrower rows keep their code, D % 64 == 0
+//   and D <= 2048 (eight or sixteen vectors a lane: the chunked MLP half's
+//   towers wider than 1024).  Both element types are instances of one
+//   template: the bf16 instances compute what they did before fp32 rows
+//   were added, in the same order.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -37,30 +42,52 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// kMaxVecPerLane: 4 (32 lanes * 4 vectors * 8 = 1024 columns) or 8 (2048)
-template <int kMaxVecPerLane>
+// a 16-byte vector of T: kN elements, 2^kShift of them
+template <typename T> struct Vec;
+
+template <> struct Vec<__nv_bfloat16> {
+  static constexpr int kN = 8, kShift = 3;
+  __device__ __forceinline__ static float get(const uint4& u, int j) {
+    return __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(&u)[j]);
+  }
+  __device__ __forceinline__ static void put(uint4& u, int j, float v) {
+    reinterpret_cast<__nv_bfloat16*>(&u)[j] = __float2bfloat16(v);
+  }
+};
+
+template <> struct Vec<float> {
+  static constexpr int kN = 4, kShift = 2;
+  __device__ __forceinline__ static float get(const uint4& u, int j) {
+    return reinterpret_cast<const float*>(&u)[j];
+  }
+  __device__ __forceinline__ static void put(uint4& u, int j, float v) {
+    reinterpret_cast<float*>(&u)[j] = v;
+  }
+};
+
+// kMaxVecPerLane: 1024 (or 2048) columns over 32 lanes of 16-byte vectors
+template <typename T, int kMaxVecPerLane>
 __global__ void __launch_bounds__(kRowsPerBlock * 32)
-layernorm_fwd_kernel(const __nv_bfloat16* __restrict__ x,
-                     const float* __restrict__ scale,
-                     const float* __restrict__ bias,
-                     __nv_bfloat16* __restrict__ y, int rows, int D, float eps) {
+layernorm_fwd_kernel(const T* __restrict__ x, const float* __restrict__ scale,
+                     const float* __restrict__ bias, T* __restrict__ y, int rows, int D,
+                     float eps) {
+  constexpr int kN = Vec<T>::kN;
   const int row = blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (row >= rows) return;  // warp-uniform
-  const int nvec = D >> 3;
+  const int nvec = D >> Vec<T>::kShift;
   const uint4* xr = reinterpret_cast<const uint4*>(x + (size_t)row * D);
 
-  float v[kMaxVecPerLane][8];
+  float v[kMaxVecPerLane][kN];
   float sum = 0.f;
 #pragma unroll
   for (int i = 0; i < kMaxVecPerLane; ++i) {
     const int c = lane + i * 32;
     if (c < nvec) {
       uint4 u = xr[c];
-      const __nv_bfloat16* b = reinterpret_cast<const __nv_bfloat16*>(&u);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        v[i][j] = __bfloat162float(b[j]);
+      for (int j = 0; j < kN; ++j) {
+        v[i][j] = Vec<T>::get(u, j);
         sum += v[i][j];
       }
     }
@@ -71,7 +98,7 @@ layernorm_fwd_kernel(const __nv_bfloat16* __restrict__ x,
   for (int i = 0; i < kMaxVecPerLane; ++i) {
     if (lane + i * 32 < nvec) {
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < kN; ++j) {
         const float d = v[i][j] - mean;
         sq += d * d;
       }
@@ -82,40 +109,53 @@ layernorm_fwd_kernel(const __nv_bfloat16* __restrict__ x,
   uint4* yr = reinterpret_cast<uint4*>(y + (size_t)row * D);
   const float4* s4 = reinterpret_cast<const float4*>(scale);
   const float4* b4 = reinterpret_cast<const float4*>(bias);
+  constexpr int kQ = kN / 4;  // float4s of parameters a vector
 #pragma unroll
   for (int i = 0; i < kMaxVecPerLane; ++i) {
     const int c = lane + i * 32;
     if (c < nvec) {
-      const float4 sa = s4[2 * c], sb = s4[2 * c + 1];
-      const float4 ba = b4[2 * c], bb = b4[2 * c + 1];
-      const float sc[8] = {sa.x, sa.y, sa.z, sa.w, sb.x, sb.y, sb.z, sb.w};
-      const float bi[8] = {ba.x, ba.y, ba.z, ba.w, bb.x, bb.y, bb.z, bb.w};
-      uint4 u;
-      __nv_bfloat16* o = reinterpret_cast<__nv_bfloat16*>(&u);
+      float4 sq4[kQ], bq4[kQ];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        o[j] = __float2bfloat16((v[i][j] - mean) * inv * sc[j] + bi[j]);
-      }
+      for (int q = 0; q < kQ; ++q) sq4[q] = s4[kQ * c + q];
+#pragma unroll
+      for (int q = 0; q < kQ; ++q) bq4[q] = b4[kQ * c + q];
+      const float* sc = reinterpret_cast<const float*>(sq4);
+      const float* bi = reinterpret_cast<const float*>(bq4);
+      uint4 u;
+#pragma unroll
+      for (int j = 0; j < kN; ++j) Vec<T>::put(u, j, (v[i][j] - mean) * inv * sc[j] + bi[j]);
       yr[c] = u;
     }
   }
 }
 
-}  // namespace
-
-extern "C" int layernorm_fwd(const void* x, const void* scale, const void* bias,
-                             void* y, int rows, int D, float eps, void* stream) {
-  if (D % 8 || D > 2048 || (D > 1024 && D % 64)) return (int)cudaErrorInvalidValue;
+template <typename T>
+int launch(const void* x, const void* scale, const void* bias, void* y, int rows, int D,
+           float eps, cudaStream_t s) {
+  // vectors a lane at D <= 1024 (4 bf16, 8 fp32), twice that up to 2048
+  constexpr int kNarrow = 1024 / 32 / Vec<T>::kN;
   const int blocks = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
-  const auto* xb = static_cast<const __nv_bfloat16*>(x);
+  const auto* xt = static_cast<const T*>(x);
   const auto* sc = static_cast<const float*>(scale);
   const auto* bi = static_cast<const float*>(bias);
-  auto* out = static_cast<__nv_bfloat16*>(y);
-  const cudaStream_t s = (cudaStream_t)stream;
+  auto* out = static_cast<T*>(y);
   if (D <= 1024) {
-    layernorm_fwd_kernel<4><<<blocks, kRowsPerBlock * 32, 0, s>>>(xb, sc, bi, out, rows, D, eps);
+    layernorm_fwd_kernel<T, kNarrow><<<blocks, kRowsPerBlock * 32, 0, s>>>(xt, sc, bi, out,
+                                                                           rows, D, eps);
   } else {
-    layernorm_fwd_kernel<8><<<blocks, kRowsPerBlock * 32, 0, s>>>(xb, sc, bi, out, rows, D, eps);
+    layernorm_fwd_kernel<T, 2 * kNarrow><<<blocks, kRowsPerBlock * 32, 0, s>>>(xt, sc, bi, out,
+                                                                               rows, D, eps);
   }
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// x, y: (rows, D), bf16, or fp32 when x_f32 != 0.  scale, bias: (D) fp32.
+extern "C" int layernorm_fwd(const void* x, const void* scale, const void* bias, void* y,
+                             int rows, int D, float eps, int x_f32, void* stream) {
+  if (D % 8 || D > 2048 || (D > 1024 && D % 64)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  return x_f32 ? launch<float>(x, scale, bias, y, rows, D, eps, s)
+               : launch<__nv_bfloat16>(x, scale, bias, y, rows, D, eps, s);
 }

@@ -241,18 +241,22 @@ def plain_blocks():
 
 
 def _require_bf16(x: torch.Tensor) -> None:
+    """The int8 tiers' kernels take bf16 activations only: the fp32 forms
+    of the JAX q8 layer kernels (``quant_block.py:89``, :178, :377, :563,
+    rows 14-17 of PERF.md's kernel table) are still to be ported."""
     if x.dtype != torch.bfloat16:
         raise NotImplementedError(
-            f"{x.dtype} activations on CUDA need kernels of that type "
-            "(ROADMAP.md B, 'fp32 activations'); the port's kernels take "
-            "bfloat16 (set_block_impl('xla') runs PyTorch ops instead)"
+            f"{x.dtype} activations under an int8 tier need the q8 layer chains "
+            "in that type (ROADMAP.md B, 'fp32 activations', rows 14-17: "
+            "layernorm_q8 and quant_rows on fp32 rows, an s8 GEMM with fp32 "
+            "outputs); the int8 kernels take bfloat16"
         )
 
 
 class LayerNormFn(torch.autograd.Function):
     """A tower LayerNorm whose input needs a gradient: ``layernorm_fwd``
-    forward, ``layernorm_bwd`` backward (no residual, the bf16 upstream
-    gradient as dxn), dx only (JAX: XLA's autodiff of ``layer_norm``
+    forward, ``layernorm_bwd`` backward (no residual, the upstream gradient
+    in x's dtype as dxn), dx only (JAX: XLA's autodiff of ``layer_norm``
     :67-80, with scale and bias frozen)."""
 
     @staticmethod
@@ -283,15 +287,13 @@ def _xla_layer_norm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor
 
 def layer_norm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """A tower LayerNorm: fp32 statistics, cast back to x's dtype; on the
-    card through the ``layernorm_fwd`` kernel and, when x needs a gradient,
-    ``layernorm_bwd`` (bf16 activations only).  Under block impl 'xla' or
-    LN 'bf16' it is JAX's ``layer_norm`` on PyTorch ops, on any device."""
+    card through the ``layernorm_fwd`` kernel of x's dtype (bf16 or fp32)
+    and, when x needs a gradient, ``layernorm_bwd``.  Under block impl 'xla'
+    or LN 'bf16' it is JAX's ``layer_norm`` on PyTorch ops, on any device."""
     if _PLAIN_ON_CUDA or _BLOCK_IMPL == "xla" or _LN_DTYPE == "bf16":
         return _xla_layer_norm(p, x, eps)
     if _EXPORTING:
         return torch.ops.mudpt.layernorm_fwd(x.contiguous(), p["scale"], p["bias"], eps)
-    if x.is_cuda:
-        _require_bf16(x)
     x = x.contiguous()
     if torch.is_grad_enabled() and x.requires_grad:
         return LayerNormFn.apply(x, p["scale"], p["bias"], eps)
@@ -429,8 +431,10 @@ def residual_block(p: dict, x: torch.Tensor, n_head: int,
     as ``layers.py:209-285`` routes it on either device: the XLA route under
     block impl 'xla', wider than 1024, or for a mask that is not causal;
     else ``layer_fullblock`` while saves are on and D <= 768, else
-    ``attn_halfblock`` then ``mlp_halfblock``.  Under a quant mode the int8
-    tiers run instead; under :func:`calibration_capture` the XLA route."""
+    ``attn_halfblock`` then ``mlp_halfblock``, on bf16 or fp32 activations
+    alike (the gates do not look at the dtype, as JAX's do not).  Under a
+    quant mode the int8 tiers run instead (bf16 only); under
+    :func:`calibration_capture` the XLA route."""
     if _CALIB_SINK is not None:
         return _xla_route(p, x, n_head, causal, mask)
     if _QUANT_MODE != "none":
@@ -438,8 +442,6 @@ def residual_block(p: dict, x: torch.Tensor, n_head: int,
     D = x.shape[-1]
     if _BLOCK_IMPL == "xla" or (mask is not None and not causal) or D > fused_block.MAX_WIDTH:
         return _xla_route(p, x, n_head, causal, mask)
-    if x.is_cuda and not _PLAIN_ON_CUDA:
-        _require_bf16(x)
     plain = _PLAIN_ON_CUDA
     if _EXPORTING:
         from mudpt_torch.ops import library

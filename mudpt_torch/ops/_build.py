@@ -39,7 +39,7 @@ _F = ctypes.c_float
 # C signature of every entry point: (argtypes, restype)
 SIGNATURES = {
     "layernorm_fwd": {
-        "layernorm_fwd": ([_P, _P, _P, _P, _I, _I, _F, _P], _I),
+        "layernorm_fwd": ([_P, _P, _P, _P, _I, _I, _F, _I, _P], _I),
     },
     "gemm_bf16_epilogue": {
         "gemm_bf16_epilogue": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P], _I),
@@ -48,7 +48,7 @@ SIGNATURES = {
         "attention_fwd": ([_P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P], _I),
     },
     "layernorm_bwd": {
-        "layernorm_bwd": ([_P, _I, _P, _P, _P, _P, _I, _I, _F, _P], _I),
+        "layernorm_bwd": ([_P, _I, _P, _P, _P, _P, _I, _I, _F, _I, _P], _I),
     },
     "attention_bwd": {
         "attention_bwd": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P], _I),
@@ -61,6 +61,14 @@ SIGNATURES = {
     },
     "quant_rows": {
         "quant_rows": ([_P, _P, _P, _P, _I, _I, _P], _I),
+    },
+    # fp32 activations (the LayerNorms take them through the sources above)
+    "gemm_f32_epilogue": {
+        "gemm_f32_epilogue": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
+    },
+    "attention_f32": {
+        "attention_fwd_f32": ([_P, _P, _I, _I, _I, _I, _I, _I, _F, _P], _I),
+        "attention_bwd_f32": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P], _I),
     },
 }
 

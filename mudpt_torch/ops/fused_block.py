@@ -18,7 +18,7 @@ shared memory cannot, so each becomes a chain of tiled kernels (``csrc/``):
                        -> GEMM g.out_w^T -> attention dq/dk/dv
                        -> GEMM dqkv.qkv_w^T -> LN dx + g
   MLP        forward   LN -> fc GEMM + QuickGELU -> proj GEMM + residual
-             backward  GEMM g.proj_w^T * QuickGELU'(h), h the saved bf16 h;
+             backward  GEMM g.proj_w^T * QuickGELU'(h), h the saved h;
                        or LN -> fc GEMM storing QuickGELU'(h32) in fp32, then
                        GEMM g.proj_w^T * that (h32 unrounded, when h was not
                        saved) -> GEMM dh.fc_w^T -> LN dx + g
@@ -34,17 +34,21 @@ after every chunk:
                        GEMM g.proj_w^T * that -> GEMM dh.fc_w^T adding into
                        the fp32 dxn -> LN dx + g
 
-with bf16 activations and weights, fp32 LayerNorm parameters and statistics,
-fp32 accumulation, and bf16 rounding at the same points as the Pallas code.
-A saving forward also writes qkv (attention) or h (MLP) in bf16; a backward
-returns dx only, as the Pallas VJPs do (the weights are frozen).  Which half
-saves what is the JAX package's policy (:69-136), copied here without its
-environment variables.
+with activations and weights in one dtype dt, bf16 or fp32 as the Pallas
+functions take either (they cast their operands to x.dtype and round to it),
+fp32 LayerNorm parameters and statistics, fp32 accumulation, and rounding to
+dt at the same points as the Pallas code (no-ops in fp32).  A saving forward
+also writes qkv (attention) or h (MLP) in dt; a backward returns dx only, as
+the Pallas VJPs do (the weights are frozen).  Which half saves what is the
+JAX package's policy (:69-136), copied here without its environment
+variables; like JAX's, it does not look at the dtype.
 
 Every kernel has a wrapper and a plain PyTorch version beside it.  A wrapper
 given CPU tensors runs the plain version (the CPU tests); given CUDA tensors
-it launches the kernel or raises -- it never falls back.  Each launch adds
-one to :data:`LAUNCHES`, so a run can show which kernels it went through.
+it launches the kernel of their dtype (:func:`kernel_for`: bf16 and fp32
+each have their own) or raises -- it never falls back, and never casts.
+Each launch adds one to that kernel's count in :data:`LAUNCHES`, so a run
+can show which kernels it went through.
 
 Mask spec (``causal``), as in the Pallas wrapper: ``False`` (none), ``True``
 (causal), or ``(period, valid)`` (packed rows: attention within each block
@@ -78,7 +82,7 @@ EPILOGUES = {
     "fc_gelu": (2, False),
     "fc_gelu_save": (3, False),
     "gelu_bwd": (4, True),
-    "store_bf16": (5, True),
+    "store_bf16": (5, True),  # to the activation dtype (bf16 or fp32)
     "store_f32": (6, True),
     "fc_gelu_grad": (7, False),
     "mul_f32": (8, True),
@@ -86,8 +90,8 @@ EPILOGUES = {
     "add_f32": (10, True),
 }
 _BIASED = ("qkv", "residual", "fc_gelu", "fc_gelu_save", "fc_gelu_grad")
-_EXTRA = {"residual": torch.bfloat16, "gelu_bwd": torch.bfloat16,  # a second (M, N)
-          "mul_f32": torch.float32, "chunk_residual": torch.bfloat16}  # operand, its type
+# a second (M, N) operand, in the activation dtype but mul_f32's (fp32)
+_EXTRA = ("residual", "gelu_bwd", "mul_f32", "chunk_residual")
 _F32_OUT = ("store_f32", "fc_gelu_grad", "add_f32")
 _IN_PLACE = ("chunk_residual", "add_f32")  # may write (add_f32: must) into ``out``
 # the GEMM kernel's schedules (csrc/gemm_bf16_epilogue.cu): chosen by the
@@ -95,30 +99,43 @@ _IN_PLACE = ("chunk_residual", "add_f32")  # may write (add_f32: must) into ``ou
 # cooperating on one 128 x 256 tile
 _GEMM_SCHEDULES = ("auto", "pingpong", "cooperative")
 
-LAUNCHES = {
-    "layernorm_fwd": 0,
-    "gemm_bf16_epilogue": 0,
-    "attention_fwd": 0,
-    "layernorm_bwd": 0,
-    "attention_bwd": 0,
-    "layer_fullblock": 0,
-    "layer_fullblock_bwd": 0,
-    "attn_halfblock": 0,
-    "attn_halfblock_bwd": 0,
-    "mlp_halfblock": 0,
-    "mlp_halfblock_bwd": 0,
-    "mlp_halfblock_chunked": 0,
-    "mlp_halfblock_chunked_bwd": 0,
-    # the int8 tiers (ops/quant_block.py): its kernels and its layer chains
-    "layernorm_q8": 0,
-    "gemm_s8_epilogue": 0,
-    "quant_rows": 0,
-    "layer_fullblock_q8": 0,
-    "layer_fullblock_q8_static": 0,
-    "layer_fullblock_q8_ste": 0,
-    "layer_fullblock_q8_ste_static": 0,
-    "layer_fullblock_q8_ste_bwd": 0,
+# the activation dtypes the kernel chains take
+ACT_DTYPES = (torch.bfloat16, torch.float32)
+# every kernel, by its launch count: (csrc source, C entry point).  The fp32
+# LayerNorms are instances of the bf16 sources' templates, chosen by a flag
+KERNELS = {
+    "layernorm_fwd": ("layernorm_fwd", "layernorm_fwd"),
+    "gemm_bf16_epilogue": ("gemm_bf16_epilogue", "gemm_bf16_epilogue"),
+    "attention_fwd": ("attention_fwd", "attention_fwd"),
+    "layernorm_bwd": ("layernorm_bwd", "layernorm_bwd"),
+    "attention_bwd": ("attention_bwd", "attention_bwd"),
+    "layernorm_fwd_f32": ("layernorm_fwd", "layernorm_fwd"),
+    "gemm_f32_epilogue": ("gemm_f32_epilogue", "gemm_f32_epilogue"),
+    "attention_fwd_f32": ("attention_f32", "attention_fwd_f32"),
+    "layernorm_bwd_f32": ("layernorm_bwd", "layernorm_bwd"),
+    "attention_bwd_f32": ("attention_f32", "attention_bwd_f32"),
+    # the int8 tiers (ops/quant_block.py), bf16 activations only
+    "layernorm_q8": ("layernorm_q8", "layernorm_q8"),
+    "gemm_s8_epilogue": ("gemm_s8_epilogue", "gemm_s8_epilogue"),
+    "quant_rows": ("quant_rows", "quant_rows"),
 }
+# the kernel that each dtype-generic wrapper launches, by activation dtype
+DTYPE_KERNELS = {
+    "layernorm_fwd": {torch.bfloat16: "layernorm_fwd", torch.float32: "layernorm_fwd_f32"},
+    "layernorm_bwd": {torch.bfloat16: "layernorm_bwd", torch.float32: "layernorm_bwd_f32"},
+    "gemm_epilogue": {torch.bfloat16: "gemm_bf16_epilogue",
+                      torch.float32: "gemm_f32_epilogue"},
+    "attention_fwd": {torch.bfloat16: "attention_fwd", torch.float32: "attention_fwd_f32"},
+    "attention_bwd": {torch.bfloat16: "attention_bwd", torch.float32: "attention_bwd_f32"},
+}
+# the chains' counts: one a call of a half-block, layer or int8 layer
+CHAINS = (
+    "layer_fullblock", "layer_fullblock_bwd", "attn_halfblock", "attn_halfblock_bwd",
+    "mlp_halfblock", "mlp_halfblock_bwd", "mlp_halfblock_chunked", "mlp_halfblock_chunked_bwd",
+    "layer_fullblock_q8", "layer_fullblock_q8_static", "layer_fullblock_q8_ste",
+    "layer_fullblock_q8_ste_static", "layer_fullblock_q8_ste_bwd",
+)
+LAUNCHES = dict.fromkeys((*KERNELS, *CHAINS), 0)
 
 Causal = Union[bool, Tuple[int, int]]
 
@@ -126,6 +143,21 @@ Causal = Union[bool, Tuple[int, int]]
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def kernel_for(op: str, *dtypes: torch.dtype) -> str:
+    """The launch count (a key of :data:`KERNELS`) of the kernel that the
+    wrapper ``op`` (a key of :data:`DTYPE_KERNELS`) launches for tensors of
+    ``dtypes``: their activation dtype, one for all of them (a mix raises),
+    bf16 or fp32 (any other raises)."""
+    if not dtypes or any(dt != dtypes[0] for dt in dtypes):
+        raise TypeError(f"{op}: expected tensors of one activation dtype, got "
+                        f"{', '.join(sorted(set(map(str, dtypes))))}")
+    key = DTYPE_KERNELS[op].get(dtypes[0])
+    if key is None:
+        raise TypeError(f"{op}: no kernel for {dtypes[0]} activations; the kernels take "
+                        f"{', '.join(map(str, DTYPE_KERNELS[op]))}")
+    return key
 
 
 # ---------------------------------------------------------------------------
@@ -239,20 +271,21 @@ def _check_ln_width(D: int, what: str) -> None:
 
 
 def layer_norm_fwd(x, scale, bias, eps: float = 1e-5):
-    """LayerNorm over the last dim of x, any leading shape."""
+    """LayerNorm over the last dim of x (bf16 or fp32), any leading shape."""
     if not x.is_cuda:
         return layer_norm_plain(x, scale, bias, eps)
     D = x.shape[-1]
     _check_ln_width(D, "layernorm_fwd")
-    _require(x, "layernorm_fwd x", torch.bfloat16)
+    key = kernel_for("layernorm_fwd", x.dtype)
+    _require(x, "layernorm_fwd x", x.dtype)
     _require(scale, "layernorm_fwd scale", torch.float32, (D,))
     _require(bias, "layernorm_fwd bias", torch.float32, (D,))
     y = torch.empty_like(x)
     lib = _build.load()["layernorm_fwd"]
     _build.check(lib.layernorm_fwd(x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-                                   y.data_ptr(), x.numel() // D, D, eps, _stream()),
-                 "layernorm_fwd")
-    LAUNCHES["layernorm_fwd"] += 1
+                                   y.data_ptr(), x.numel() // D, D, eps,
+                                   int(x.dtype == torch.float32), _stream()), key)
+    LAUNCHES[key] += 1
     return y
 
 
@@ -272,31 +305,38 @@ def layer_norm_bwd_plain(dxn, x, scale, residual=None, eps: float = 1e-5):
 
 
 def layer_norm_bwd(dxn, x, scale, residual=None, eps: float = 1e-5):
-    """LayerNorm dx over the last dim; ``dxn`` fp32 or bf16, x and the
-    optional residual bf16, any leading shape."""
+    """LayerNorm dx over the last dim, any leading shape: x and the optional
+    residual in one activation dtype; ``dxn`` fp32 or, beside bf16 rows,
+    bf16."""
     if not x.is_cuda:
         return layer_norm_bwd_plain(dxn, x, scale, residual, eps)
     D = x.shape[-1]
     _check_ln_width(D, "layernorm_bwd")
-    _require(x, "layernorm_bwd x", torch.bfloat16)
-    if dxn.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"layernorm_bwd dxn: expected float32 or bfloat16, got {dxn.dtype}")
+    key = kernel_for("layernorm_bwd", x.dtype,
+                     *(() if residual is None else (residual.dtype,)))
+    _require(x, "layernorm_bwd x", x.dtype)
+    dxn_dtypes = (torch.float32,) if x.dtype == torch.float32 else (torch.float32, torch.bfloat16)
+    if dxn.dtype not in dxn_dtypes:
+        raise TypeError(f"layernorm_bwd dxn: expected one of {dxn_dtypes} beside {x.dtype} "
+                        f"rows, got {dxn.dtype}")
     _require(dxn, "layernorm_bwd dxn", dxn.dtype, x.shape)
     _require(scale, "layernorm_bwd scale", torch.float32, (D,))
     if residual is not None:
-        _require(residual, "layernorm_bwd residual", torch.bfloat16, x.shape)
+        _require(residual, "layernorm_bwd residual", x.dtype, x.shape)
     dx = torch.empty_like(x)
     lib = _build.load()["layernorm_bwd"]
     r_ptr = residual.data_ptr() if residual is not None else None
     _build.check(lib.layernorm_bwd(dxn.data_ptr(), int(dxn.dtype == torch.bfloat16),
                                    x.data_ptr(), scale.data_ptr(), r_ptr, dx.data_ptr(),
-                                   x.numel() // D, D, eps, _stream()), "layernorm_bwd")
-    LAUNCHES["layernorm_bwd"] += 1
+                                   x.numel() // D, D, eps, int(x.dtype == torch.float32),
+                                   _stream()), key)
+    LAUNCHES[key] += 1
     return dx
 
 
 # ---------------------------------------------------------------------------
-# GEMM with the layer's epilogues (csrc/gemm_bf16_epilogue.cu)
+# GEMM with the layer's epilogues (csrc/gemm_bf16_epilogue.cu, and
+# csrc/gemm_f32_epilogue.cu on fp32 activations)
 # ---------------------------------------------------------------------------
 
 def _epilogue(epilogue: str):
@@ -374,30 +414,38 @@ def gemm_epilogue(a, w, bias, epilogue: str, extra=None, out=None):
 
 def _gemm_epilogue(a, w, bias, epilogue, extra, out, schedule):
     """:func:`gemm_epilogue` with the kernel's schedule forced on the card
-    (one of ``_GEMM_SCHEDULES``), for the card's checks that every schedule
-    gives the same bits, and for timing each."""
+    (one of ``_GEMM_SCHEDULES``; the fp32 kernel has one, "auto"), for the
+    card's checks that every schedule gives the same bits, and for timing
+    each."""
     if not a.is_cuda:
         return gemm_epilogue_plain(a, w, bias, epilogue, extra, out)
     mode, w_nk = _epilogue(epilogue)
+    # one activation dtype for a, W, the bias and the second operand but
+    # mul_f32's fp32 factor
+    key = kernel_for("gemm_epilogue", a.dtype, w.dtype,
+                     *(() if bias is None else (bias.dtype,)),
+                     *(() if extra is None or epilogue == "mul_f32" else (extra.dtype,)))
+    act = a.dtype
     K = a.shape[-1]
     M = a.numel() // K
     N = w.shape[0] if w_nk else w.shape[1]
     if K % 64 or N % 8:
-        raise ValueError(f"gemm_bf16_epilogue: K={K} must be a multiple of 64, N={N} of 8")
-    if schedule not in _GEMM_SCHEDULES:
-        raise ValueError(f"gemm_bf16_epilogue: schedule {schedule!r} not in {_GEMM_SCHEDULES}")
+        raise ValueError(f"{key}: K={K} must be a multiple of 64, N={N} of 8")
+    if schedule not in (_GEMM_SCHEDULES if act == torch.bfloat16 else ("auto",)):
+        raise ValueError(f"{key}: schedule {schedule!r} not one of the kernel's")
     out_shape = (*a.shape[:-1], N)
-    _require(a, "gemm a", torch.bfloat16)
-    _require(w, "gemm w", torch.bfloat16, (N, K) if w_nk else (K, N), strided_rows=True)
+    _require(a, "gemm a", act)
+    _require(w, "gemm w", act, (N, K) if w_nk else (K, N), strided_rows=True)
     if epilogue in _BIASED or (epilogue == "chunk_residual" and bias is not None):
-        _require(bias, "gemm bias", torch.bfloat16, (N,))
+        _require(bias, "gemm bias", act, (N,))
     elif bias is not None:
         raise ValueError(f"epilogue {epilogue!r} takes no bias")
     if epilogue in _EXTRA:
-        _require(extra, f"gemm {epilogue} operand", _EXTRA[epilogue], out_shape)
+        _require(extra, f"gemm {epilogue} operand",
+                 torch.float32 if epilogue == "mul_f32" else act, out_shape)
     elif extra is not None:
         raise ValueError(f"epilogue {epilogue!r} takes no second operand")
-    dt = torch.float32 if epilogue in _F32_OUT else torch.bfloat16
+    dt = torch.float32 if epilogue in _F32_OUT else act
     r = extra
     if out is not None:
         if epilogue not in _IN_PLACE:
@@ -417,18 +465,22 @@ def _gemm_epilogue(a, w, bias, epilogue, extra, out, schedule):
     else:
         c = torch.empty(out_shape, dtype=dt, device=a.device)
     c2 = torch.empty_like(c) if epilogue == "fc_gelu_save" else None
-    lib = _build.load()["gemm_bf16_epilogue"]
     ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
-    _build.check(lib.gemm_bf16_epilogue(a.data_ptr(), w.data_ptr(), ptr(bias), ptr(r),
-                                        c.data_ptr(), ptr(c2), M, N, K, w.stride(0), mode,
-                                        _GEMM_SCHEDULES.index(schedule), _stream()),
-                 "gemm_bf16_epilogue")
-    LAUNCHES["gemm_bf16_epilogue"] += 1
+    args = (a.data_ptr(), w.data_ptr(), ptr(bias), ptr(r), c.data_ptr(), ptr(c2),
+            M, N, K, w.stride(0), mode)
+    if act == torch.bfloat16:
+        err = _build.load()["gemm_bf16_epilogue"].gemm_bf16_epilogue(
+            *args, _GEMM_SCHEDULES.index(schedule), _stream())
+    else:
+        err = _build.load()["gemm_f32_epilogue"].gemm_f32_epilogue(*args, _stream())
+    _build.check(err, key)
+    LAUNCHES[key] += 1
     return (c, c2) if c2 is not None else c
 
 
 # ---------------------------------------------------------------------------
-# attention forward (csrc/attention_fwd.cu) and backward (csrc/attention_bwd.cu)
+# attention forward (csrc/attention_fwd.cu) and backward (csrc/attention_bwd.cu),
+# on fp32 activations both in csrc/attention_f32.cu
 # ---------------------------------------------------------------------------
 
 def _block_spec(S: int, causal: Causal):
@@ -481,7 +533,7 @@ def attention_plain(qkv, n_head: int, causal: Causal = False, out_f32: bool = Fa
 
 def attention_fwd(qkv, n_head: int, causal: Causal = False, out_f32: bool = False):
     """Attention per (sequence block, head) on the card, any block length;
-    the output bf16, or fp32 with ``out_f32``."""
+    the output in qkv's dtype (bf16 or fp32), or fp32 with ``out_f32``."""
     if not qkv.is_cuda:
         return attention_plain(qkv, n_head, causal, out_f32)
     B, S, D3 = qkv.shape
@@ -489,14 +541,19 @@ def attention_fwd(qkv, n_head: int, causal: Causal = False, out_f32: bool = Fals
     if D != n_head * HEAD_DIM:
         raise ValueError(f"attention_fwd: head dim must be {HEAD_DIM} (D={D}, heads={n_head})")
     L, is_causal, valid = _block_spec(S, causal)
-    _require(qkv, "attention qkv", torch.bfloat16)
-    out = torch.empty((B, S, D), dtype=torch.float32 if out_f32 else torch.bfloat16,
+    key = kernel_for("attention_fwd", qkv.dtype)
+    _require(qkv, "attention qkv", qkv.dtype)
+    f32 = qkv.dtype == torch.float32
+    out = torch.empty((B, S, D), dtype=torch.float32 if out_f32 or f32 else torch.bfloat16,
                       device=qkv.device)
-    lib = _build.load()["attention_fwd"]
-    _build.check(lib.attention_fwd(qkv.data_ptr(), out.data_ptr(), B * (S // L), L, D,
-                                   n_head, int(is_causal), valid, HEAD_DIM ** -0.5,
-                                   int(out_f32), _stream()), "attention_fwd")
-    LAUNCHES["attention_fwd"] += 1
+    args = (qkv.data_ptr(), out.data_ptr(), B * (S // L), L, D, n_head, int(is_causal), valid,
+            HEAD_DIM ** -0.5)
+    if f32:
+        err = _build.load()["attention_f32"].attention_fwd_f32(*args, _stream())
+    else:
+        err = _build.load()["attention_fwd"].attention_fwd(*args, int(out_f32), _stream())
+    _build.check(err, key)
+    LAUNCHES[key] += 1
     return out
 
 
@@ -523,7 +580,8 @@ def attention_bwd_plain(qkv, do, n_head: int, causal: Causal = False):
 
 def attention_bwd(qkv, do, n_head: int, causal: Causal = False):
     """dqkv per (sequence block, head) on the card, any block length, from
-    the saved qkv and the bf16 gradient ``do`` of the attention output."""
+    the saved qkv and the gradient ``do`` of the attention output, both of
+    one activation dtype (bf16 or fp32)."""
     if not qkv.is_cuda:
         return attention_bwd_plain(qkv, do, n_head, causal)
     B, S, D3 = qkv.shape
@@ -531,18 +589,22 @@ def attention_bwd(qkv, do, n_head: int, causal: Causal = False):
     if D != n_head * HEAD_DIM:
         raise ValueError(f"attention_bwd: head dim must be {HEAD_DIM} (D={D}, heads={n_head})")
     L, is_causal, valid = _block_spec(S, causal)
-    _require(qkv, "attention_bwd qkv", torch.bfloat16)
-    _require(do, "attention_bwd do", torch.bfloat16, (B, S, D))
+    key = kernel_for("attention_bwd", qkv.dtype, do.dtype)
+    _require(qkv, "attention_bwd qkv", qkv.dtype)
+    _require(do, "attention_bwd do", qkv.dtype, (B, S, D))
     dqkv = torch.empty_like(qkv)
-    # each row's (max, 1 / sum, rowsum(dp * p), 0): written by the kernel's
-    # query-major pass, read by its key-major pass
+    # each row's statistics (bf16: max, 1 / sum, rowsum(dp * p), 0; fp32:
+    # max, sum, rowsum(dp * p), 0): written by the kernel's query-major
+    # pass, read by its key-major pass
     stats = torch.empty((B * n_head * S, 4), dtype=torch.float32, device=qkv.device)
-    lib = _build.load()["attention_bwd"]
-    _build.check(lib.attention_bwd(qkv.data_ptr(), do.data_ptr(), dqkv.data_ptr(),
-                                   stats.data_ptr(), B * (S // L), L, D, n_head,
-                                   int(is_causal), valid, HEAD_DIM ** -0.5, _stream()),
-                 "attention_bwd")
-    LAUNCHES["attention_bwd"] += 1
+    args = (qkv.data_ptr(), do.data_ptr(), dqkv.data_ptr(), stats.data_ptr(), B * (S // L), L,
+            D, n_head, int(is_causal), valid, HEAD_DIM ** -0.5, _stream())
+    if qkv.dtype == torch.float32:
+        err = _build.load()["attention_f32"].attention_bwd_f32(*args)
+    else:
+        err = _build.load()["attention_bwd"].attention_bwd(*args)
+    _build.check(err, key)
+    LAUNCHES[key] += 1
     return dqkv
 
 
@@ -575,7 +637,7 @@ def _attn_bwd_chain(fns, x, qkv, g, ln_s, ln_b, qkv_w, qkv_b, out_w, n_head, cau
 
 
 def _mlp_chain(fns, x, ln_s, ln_b, fc_w, fc_b, proj_w, proj_b, save):
-    """(y, h) of the MLP half, h the bf16 pre-activation when ``save``
+    """(y, h) of the MLP half, h the pre-activation in dt when ``save``
     (``_mlp_fwd_save_kernel`` :415), else None (``_mlp_fwd_kernel`` :403)."""
     ln, gemm = fns[:2]
     xn = ln(x, ln_s, ln_b)
@@ -587,7 +649,7 @@ def _mlp_chain(fns, x, ln_s, ln_b, fc_w, fc_b, proj_w, proj_b, save):
 
 def _mlp_bwd_chain(fns, x, h, g, ln_s, ln_b, fc_w, fc_b, proj_w):
     """dx of the MLP half (``_mlp_bwd_core`` :429): QuickGELU' of the saved
-    bf16 h (``_mlp_bwd_save_kernel`` :451) or, with h None, of the fp32 h32
+    h in dt (``_mlp_bwd_save_kernel`` :451) or, with h None, of the fp32 h32
     recomputed and never rounded (``_mlp_bwd_kernel`` :444)."""
     ln, gemm, ln_bwd = fns[0], fns[1], fns[3]
     if h is None:
@@ -602,7 +664,10 @@ def _mlp_bwd_chain(fns, x, h, g, ln_s, ln_b, fc_w, fc_b, proj_w):
 def _check_width(x, what: str, max_width: int) -> None:
     if x.shape[-1] > max_width:
         raise ValueError(f"{what} takes D <= {max_width}, got {x.shape[-1]}")
-    _require(x, f"{what} x", torch.bfloat16)
+    if x.dtype not in ACT_DTYPES:
+        raise TypeError(f"{what} x: no kernels for {x.dtype} activations; they take "
+                        f"{', '.join(map(str, ACT_DTYPES))}")
+    _require(x, f"{what} x", x.dtype)
 
 
 def _mlp_saves(x) -> bool:
@@ -677,7 +742,7 @@ class AttnHalfblockFn(torch.autograd.Function):
 
 class MlpHalfblockFn(torch.autograd.Function):
     """``mlp_halfblock.defvjp(_mlp_fwd, _mlp_bwd)`` (:765-806): the forward
-    saves its input x and, when ``save``, the bf16 h; the backward takes
+    saves its input x and, when ``save``, h in dt; the backward takes
     QuickGELU' of that h, or of the fp32 h32 it recomputes, and returns dx
     and no weight gradient.  ``plain`` as in :class:`AttnHalfblockFn`."""
 
@@ -784,7 +849,7 @@ def _mlp_chunked_bwd_chain(fns, x, g, ln_s, ln_b, fc_w, fc_b, proj_w):
     once; per chunk h32 recomputed and never rounded, dh =
     dt(g.proj_w[k]^T * quickgelu'(h32)), dxn += dh.fc_w[:, k]^T in fp32;
     then dx = dt(f32(g) + LN_dx(dxn)).  One (M, c) fp32 factor, one (M, c)
-    bf16 dh and the (M, D) fp32 dxn at a time."""
+    dh in dt and the (M, D) fp32 dxn at a time."""
     ln, gemm, ln_bwd = fns[0], fns[1], fns[3]
     xn = ln(x, ln_s, ln_b)
     dxn = None

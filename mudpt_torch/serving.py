@@ -372,12 +372,12 @@ def export_zero_shot(
     """Export a template-ensembled zero-shot classifier
     (``api.zero_shot_classifier``'s scoring; ``serving.py:380``).
 
-    The class text is encoded once, in fp32 on the XLA route, the one route
-    that takes fp32 activations on the card (a JAX host without a TPU encodes
-    it on XLA too), and the text tower is left out of the artifact.
-    ``compute_dtype`` (default float32) is the vision tower's; the kernel
-    tiers take ``torch.bfloat16`` on the card (fp32 kernels wait, ROADMAP.md
-    B, 'fp32 activations')."""
+    The class text is encoded once, in fp32 on the XLA route (a JAX host
+    without a TPU encodes it on XLA too), and the text tower is left out of
+    the artifact.  ``compute_dtype`` (default float32) is the vision
+    tower's; the int8 tiers take ``torch.bfloat16`` on the card (their fp32
+    kernels wait, ROADMAP.md B, 'fp32 activations'), and the pallas tier's
+    fp32 export is unchecked on the card (ROADMAP.md B)."""
     from mudpt_torch.ops import quant_block
     from mudpt_torch.trainers.zsclip import _encode_templates, _zs_inference
 

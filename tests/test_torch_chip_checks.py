@@ -33,8 +33,12 @@ not fall; ``[export]`` rejects an artifact's logits with the classes
 shifted or the scale 10% off, and a ``pallas`` artifact rate 11% under
 ``[serving]``'s.  ``[mesh]`` passes one process's record against itself
 and rejects the vision prompts' gradient counted once per model rank and a
-loss over the local count of valid rows.  The end-of-run process check
-rejects a child process left running."""
+loss over the local count of valid rows.  ``[fp32]``'s limits reject a GEMM
+whose operands were rounded to TF32 and an fp32 attention half with its qkv
+rounded once to bf16, and pass a change of fp32 sum order; its launch
+checks reject an fp32 run that launched a bf16 or int8 kernel, one that
+launched no fp32 ``attention_bwd``, and one routed to XLA (no launch).
+The end-of-run process check rejects a child process left running."""
 
 import importlib.util
 import os
@@ -1079,3 +1083,96 @@ def test_mesh_check_catches_loss_over_local_valid_rows(mesh_record):
     fault.update({f"grad/{k}": g for k, g in zip(names, grads)})
     with pytest.raises(AssertionError, match="rank 0 vs one process: first loss .*; gradients"):
         C.check_mesh_run("MuDPT (2,1)", [fault, fault], ref)
+
+
+# ---- [fp32]: the fp32 kernels and chains against plain fp32 torch ops
+
+
+def _f32_operands(seed):
+    g = torch.Generator().manual_seed(seed)
+    return (torch.randn(M, K, generator=g), torch.randn(K, N, generator=g) * K ** -0.5,
+            torch.randn(N, generator=g) * 0.1)
+
+
+def _tf32(t):
+    """``t`` rounded to TF32's 10-bit mantissa, to nearest even: a
+    single-pass TF32 product's operands."""
+    i = t.view(torch.int32)
+    return ((i + 0x0FFF + ((i >> 13) & 1)) & ~0x1FFF).view(torch.float32)
+
+
+def test_fp32_kernel_limit_catches_tf32_products_and_passes_sum_order():
+    """A GEMM whose operands were rounded to TF32 reads 2^-11.7 of the fp32
+    product (the limit 2^-14); the fp32 product summed in two halves of K,
+    another order, passes."""
+    C = _chip_smoke()
+    a, w, b = _f32_operands(3)
+    ref = F.gemm_epilogue_plain(a, w, b, "qkv")
+    tf32 = F.gemm_epilogue_plain(_tf32(a), _tf32(w), b, "qkv")
+    norm = ((tf32 - ref).norm() / ref.norm()).item()
+    assert 2.0 ** -13 < norm < 2.0 ** -9
+    with pytest.raises(AssertionError, match="relative norm|max abs err"):
+        C.check_f32("gemm_f32 qkv, TF32 operands", tf32, ref)
+    h = K // 2
+    C.check_f32("gemm_f32 qkv, two halves of K", a[:, :h] @ w[:h] + a[:, h:] @ w[h:] + b, ref)
+
+
+def _f32_attn_half(seed, D=128, H=2):
+    g = torch.Generator().manual_seed(seed)
+    rn = lambda *s, std=1.0: torch.randn(*s, generator=g) * std  # noqa: E731
+    p = (torch.ones(D), torch.zeros(D), rn(D, 3 * D, std=D ** -0.5), rn(3 * D, std=0.1),
+         rn(D, D, std=D ** -0.5), rn(D, std=0.1))
+    return rn(2, 33, D), p, H
+
+
+def test_fp32_chain_limit_catches_one_bf16_rounding():
+    """The attention half in fp32 with its qkv rounded once to bf16 (a cast
+    to bf16 and back anywhere in the chain) reads 2^-10.4 in norm, 2^-10.0
+    of the largest value, and fails the chain limits (2^-12, 2^-10); the
+    same chain, exact, passes."""
+    C = _chip_smoke()
+    x, p, H = _f32_attn_half(4)
+    ref = F.attn_halfblock_plain(x, *p, H)
+
+    def gemm(a, w, bias, ep, extra=None, out=None):
+        y = F.gemm_epilogue_plain(a, w, bias, ep, extra, out)
+        return y.bfloat16().float() if ep == "qkv" else y
+
+    fns = (F.layer_norm_plain, gemm, *F._PLAIN[2:])
+    got = F._attn_chain(fns, x, *p, H, False)[0]
+    with pytest.raises(AssertionError, match="relative norm|max abs err"):
+        C.check_f32("attn_halfblock fp32, qkv rounded to bf16", got, ref,
+                    norm_limit=C.F32_CHAIN_NORM_ERR, max_limit=C.F32_CHAIN_MAX_ERR)
+    C.check_f32("attn_halfblock fp32", F._attn_chain(F._PLAIN, x, *p, H, False)[0], ref,
+                norm_limit=C.F32_CHAIN_NORM_ERR, max_limit=C.F32_CHAIN_MAX_ERR)
+
+
+def _fp32_step_counts(C):
+    return C.in_fp32(F, C.expect(F.LAUNCHES, (24, "full_train"), (1, C.tower_lns(3, 3))))
+
+
+def test_fp32_launch_check_passes_the_fp32_step():
+    C = _chip_smoke()
+    assert "fp32 kernels only" in C.check_fp32_launches(F, "fp32 step", _fp32_step_counts(C))
+
+
+@pytest.mark.parametrize("fault", ["a bf16 GEMM", "no fp32 attention_bwd", "the XLA route",
+                                   "an int8 kernel"])
+def test_fp32_launch_check_catches_a_wrong_route(fault):
+    """An fp32 run that launched a bf16 (or int8) kernel, one that launched
+    no fp32 kernel of a kind it needs, and one routed to XLA (no launch at
+    all) each fail."""
+    C = _chip_smoke()
+    got = _fp32_step_counts(C)
+    if fault == "a bf16 GEMM":
+        got["gemm_bf16_epilogue"] = 1
+    elif fault == "no fp32 attention_bwd":
+        got["attention_bwd_f32"] = 0
+    elif fault == "the XLA route":
+        got = dict.fromkeys(F.LAUNCHES, 0)
+    else:
+        got["quant_rows"] = 24
+    with pytest.raises(AssertionError, match="launched"):
+        C.check_fp32_launches(F, "fp32 step", got)
+    with pytest.raises(AssertionError, match="launches differ"):
+        C.check_launches("fp32 step", got, _fp32_step_counts(C))
