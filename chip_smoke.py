@@ -3,17 +3,20 @@
 GPU, ViT-B/16, ViT-L/14 and ViT-L/14@336px, its training engine, CLI, trainer
 zoo, dataset pipelines, mesh and bench entry point, the int8 tiers at ViT-B/16 and
 ViT-L/14, over the zoo and in CoCoOp, the RN presets, its chunked MLP
-half-block, the kernel chains on fp32 activations (PREC fp32), its serving
-artifacts, REMAT and the XLA block route.
+half-block, the kernel chains on fp32 activations (PREC fp32), the int8
+tiers on fp32 activations, its serving artifacts, REMAT and the XLA block
+route.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --times-of ROOT   # only the kernel times of the
-                                            # checkout at ROOT and its bf16
-                                            # LayerNorms' digests (A/B of two trees)
+                                            # checkout at ROOT and the digests
+                                            # of its bf16 LayerNorms and int8
+                                            # kernels (A/B of two trees)
     python3 chip_smoke.py --mesh-rank RANK WORLD PORT JOB   # one gloo rank of
                                             # [mesh], started by the phase
     python3 chip_smoke.py --cli-launches ARGS   # python -m mudpt_torch.train
-                                            # ARGS, then its launches (for [fp32])
+                                            # ARGS, then its launches (for [fp32]
+                                            # and [fp32 int8])
 
 Phases, each printed with the card's name and power limit:
 
@@ -186,6 +189,26 @@ Phases, each printed with the card's name and power limit:
               evaluate's logits against plain_blocks(); CoCoOp ViT-B/16 at
               1,000 classes x 4 images, one step; the step at 64 and at
               384 and the image encode at 384, beside bf16, peak memory.
+ 12b. fp32 int8   the int8 tiers on fp32 activations: layernorm_q8_f32
+              (dynamic and static) and gemm_s8_epilogue_f32 (every mode, h
+              saved or not) at ViT-B/16's and ViT-L/14's vision rows against
+              their plain versions (codes within a step; qkv, R + v and h
+              bit-equal), relaunched bit-equal, timed beside torch._int_mm;
+              the four q8 chains on fp32 x at D = 768 (384 x 199) and 1024
+              (32 x 259) under the bf16 int8 chains' limits, their launches
+              those of the bf16 chains mapped to the fp32 kernels; then
+              MuDPT ViT-B/16 under PREC fp32: the CLI under int8_ste in a
+              fresh process, through build_trainer the int8_ste and
+              int8_ste_static first steps against the plain route, a traced
+              step, the step at 64 and 384 and the encode at 384 beside
+              [fp32]'s unquantized fp32 (the tiers in bf16: [train int8_ste*],
+              [serving int8*]), the int8 and int8_static evaluates' logits;
+              CoCoOp ViT-B/16 at 1,000 classes under int8_ste, chunked: the
+              logits bit-equal, the gradients within 2^-16, the op where they
+              part found by taps (the kernels replayed bit-equal); the zero-shot
+              pallas_int8 artifact at its default fp32 served in a fresh
+              process, an fp32 trainer's pallas and pallas_int8 artifacts
+              served in this process, each bit-equal to its tier.
  13. export    MuDPT ViT-B/16 through build_trainer (its YAML on the
               synthetic dataset at 100 classes), one training step at batch
               64, then exported under the four serving tiers (xla: PyTorch
@@ -228,7 +251,11 @@ ViT-L/14 (LayerNorm twice, 40 products, LayerNorm dx once).  The fp32
 kernels (names ending in _f32, and gemm_f32_epilogue) have entries of
 their own: totals over one vision layer of the fp32 ViT-B/16 step at batch
 384, their launches those of the fp32 trainer's first step
-("fp32_train_step").  "launches"
+("fp32_train_step"); the int8 tiers' fp32 kernels (layernorm_q8_f32,
+gemm_s8_epilogue_f32) totals over one vision layer of the fp32 int8_ste
+step, under "fp32_int8_ste_static" of the int8_ste_static one, their
+launches those of the fp32 int8_ste trainer's step
+("fp32_int8_ste_train_step").  "launches"
 counts the main path's run ("main_path": the ViT-B/16 train step, or the
 int8 request), "launches_by_path" each path's ("engine_train_step": one
 train step of the engine; "zoo_<trainer>_step" one of each zoo trainer,
@@ -241,7 +268,8 @@ the zoo under the int8 tiers; "cocoop_scale_<tier>_*" and
 "cocoop_pallas_int8_artifact_request" CoCoOp's int8 paths; "rn_*" the RN
 presets' steps and text encodes; "fp32_*" the fp32 paths (the half-block
 chains, the CLI run, the trainer's step, the evaluate's batch, CoCoOp's
-step); "export_<tier>_request" one request of each
+step; "fp32_int8*" and "fp32_*_artifact_request" the int8 tiers' fp32
+paths); "export_<tier>_request" one request of each
 served artifact in its fresh process, "remat_full_step*" a train step under
 REMAT full, "block_xla_request" the text encode and request under BLOCK
 xla, where no kernel runs).  Any failed
@@ -381,13 +409,15 @@ REPLACES = {
     "quant_rows": Q8,
 }
 # the fp32 kernels replace the same Pallas functions on fp32 activations
-# (rows 1-13 of PERF.md's table; the q8 layers' fp32 forms are rows 14-17)
+# (rows 1-13 of PERF.md's table, and the q8 layers' fp32 forms, rows 14-17)
 REPLACES.update({
     "layernorm_fwd_f32": REPLACES["layernorm_fwd"] + " (fp32 x)",
     "gemm_f32_epilogue": REPLACES["gemm_bf16_epilogue"] + " (fp32 x)",
-    "attention_fwd_f32": f"{FWD}, {ATTN_FWD}, :358 _attn_bwd_kernel (fp32 x)",
+    "attention_fwd_f32": f"{FWD}, {ATTN_FWD}, :358 _attn_bwd_kernel; {Q8} (fp32 x)",
     "layernorm_bwd_f32": REPLACES["layernorm_bwd"] + " (fp32 x)",
     "attention_bwd_f32": REPLACES["attention_bwd"] + " (fp32 x)",
+    "layernorm_q8_f32": f"{Q8} (fp32 x)",
+    "gemm_s8_epilogue_f32": f"{Q8} (fp32 x)",
 })
 # the int8 kernels, whose times in the kernel object are those of one
 # vision layer of the ViT-B/16 int8 request, and whose launches are that path's
@@ -1205,10 +1235,13 @@ def _per_layer(kernels: tuple, counts: tuple, *times) -> None:
             k.add(*times)
 
 
-def s8_case(Q, rn, ep: str, M: int, K: int, N: int, save: bool, kern: Kernel = None) -> tuple:
-    """One s8 GEMM epilogue against its plain version on seeded operands:
-    (the call's arguments, the reading).  qkv, residual and the saved h are
-    held bit-equal, g within F32_MAX_ERR, the static codes within a step."""
+def s8_case(Q, rn, ep: str, M: int, K: int, N: int, save: bool, kern: Kernel = None,
+            dtype=None) -> tuple:
+    """One s8 GEMM epilogue against its plain version on seeded operands,
+    the bias, residual and outputs in the activation dtype ``dtype`` (bf16
+    by default, or fp32): (the call's arguments, the reading).  qkv,
+    residual and the saved h are held bit-equal, g within F32_MAX_ERR, the
+    static codes within a step."""
     import torch
 
     one = lambda v: torch.full((), v, dtype=torch.float32, device="cuda")  # noqa: E731
@@ -1223,14 +1256,15 @@ def s8_case(Q, rn, ep: str, M: int, K: int, N: int, save: bool, kern: Kernel = N
     else:
         a, xs = Q.quantize_rows_plain(x32)
     del x32
-    bias = rn(N, std=0.1)
-    extra = rn(M, N) if ep.endswith("residual") else None
+    dtype = dtype or torch.bfloat16
+    bias = rn(N, std=0.1, dtype=dtype)
+    extra = rn(M, N, dtype=dtype) if ep.endswith("residual") else None
     r = None
     if ep == "q8s_fc_gelu":
         v = Q._s8_matmul(a, wq) * ws + bias.float()
         r = one(127.0) / (v * torch.sigmoid(1.702 * v)).abs().amax()
         del v
-    args = (a, xs, wq, ws, bias, ep, extra, r, save)
+    args = (a, xs, wq, ws, bias, ep, extra, r, save, dtype)
     got, ref = Q.gemm_s8(*args), Q.gemm_s8_plain(*args)
     what = f"gemm_s8 {ep} {M}x{K}->{N}"
     reading = ""
@@ -1813,15 +1847,19 @@ def device_time_by_kernel(prof) -> tuple:
             continue  # host-side ops also report their kernels' time
         us = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
         gemm = re.search(r"gemm_bf16_kernel<(\d+), (\d+)>", e.key)
+        gemm32 = re.search(r"gemm_f32_kernel<(true|false)>", e.key)
         if gemm:  # <epilogue, schedule>; epilogues 0-3 and 9 are the forward ones
             mode = int(gemm.group(1))
             name, bwd = f"gemm_bf16_kernel<{mode}, {gemm.group(2)}>", mode >= 4 and mode != 9
+        elif gemm32:  # <W_NK>: W read transposed in the backward epilogues
+            name, bwd = f"gemm_f32_kernel<{gemm32.group(1)}>", gemm32.group(1) == "true"
         else:
             name = next((k for k in ("layernorm_fwd_kernel", "attention_fwd_wgmma_kernel",
                                      "layernorm_bwd_kernel", "attn_bwd_query_kernel",
                                      "attn_bwd_key_kernel",
                                      "gemm_s8_kernel", "layernorm_q8_kernel",
-                                     "quant_rows_kernel")
+                                     "quant_rows_kernel", "attn_fwd_f32_kernel",
+                                     "attn_bwd_query_f32_kernel", "attn_bwd_key_f32_kernel")
                          if k in e.key), None)
             bwd = name is not None and "bwd" in name
         if name is None:
@@ -2448,16 +2486,18 @@ def check_launches(what: str, got: dict, want: dict) -> None:
         raise AssertionError(f"{what}: launches differ (got, expected): {diff}")
 
 
-def zoo_step_case(tr):
-    """(the trainer's first batch as ``grad_readings`` takes a step: its
-    loss, trees and fp32 forward; the device batch)."""
+def zoo_step_case(tr, batch: dict = None):
+    """(the trainer's first batch, or the device ``batch``, as
+    ``grad_readings`` takes a step: its loss, trees and fp32 forward; the
+    device batch)."""
     import copy
     import functools
     from types import SimpleNamespace
 
     import torch
 
-    batch = tr._device_batch(next(iter(copy.copy(tr.dm.train_loader))))
+    if batch is None:
+        batch = tr._device_batch(next(iter(copy.copy(tr.dm.train_loader))))
     st = SimpleNamespace(
         trainable=tr.trainable, params=tr.frozen, aux=tr.aux, clip_cfg=tr.clip_cfg,
         images=batch["image"], labels=batch["label"],
@@ -3205,7 +3245,7 @@ def check_epoch_kept(what: str, loader, epoch: int) -> None:
                              f"{loader._epoch}")
 
 
-def ds_step_case(tr):
+def ds_step_case(tr, batch: dict = None):
     """``zoo_step_case`` with its fp32 reference forward unquantized (the
     fp32 model, as ``[train*]``'s reference is)."""
     import functools
@@ -3214,7 +3254,7 @@ def ds_step_case(tr):
 
     from mudpt_torch.models import layers
 
-    st, batch = zoo_step_case(tr)
+    st, batch = zoo_step_case(tr, batch)
     forward = functools.partial(tr.forward, compute_dtype=torch.float32)
 
     def forward32(*args):
@@ -4263,13 +4303,28 @@ def in_fp32(F, want: dict) -> dict:
     return out
 
 
-def check_fp32_launches(F, what: str, got: dict, backward: bool = True) -> str:
+def fp32_q8_kernels(F) -> list:
+    """The int8 tiers' kernels on fp32 activations: the fp32 counterparts of
+    Q8_KERNELS, and quant_rows, which takes fp32 rows in both dtypes."""
+    names = fp32_kernels(F)
+    return [names.get(k, k) for k in Q8_KERNELS]
+
+
+def check_fp32_launches(F, what: str, got: dict, backward: bool = True,
+                        quant: bool = False) -> str:
     """An fp32 run went through the fp32 kernels and no other: each fp32
-    kernel launched (the backward ones only where it trains), no bf16 or
-    int8 kernel, and the chains counted (the XLA route counts none)."""
-    f32 = [k for k in fp32_kernels(F).values() if backward or "bwd" not in k]
-    wrong = {k: got.get(k, 0) for k in F.KERNELS if k not in fp32_kernels(F).values()
-             and got.get(k, 0)}
+    kernel of its route launched (the backward ones only where it trains;
+    under an int8 tier, ``quant``, the fp32 q8 kernels with quant_rows, and
+    of the unquantized ones the LayerNorm, attention and, training, the
+    layer backward's), no bf16 kernel, no int8 kernel in an unquantized
+    run, and the chains counted (the XLA route counts none)."""
+    q8 = fp32_q8_kernels(F)
+    plain32 = [k for k in fp32_kernels(F).values() if k not in q8]
+    allowed = plain32 + (q8 if quant else [])
+    f32 = [k for k in plain32 if backward or "bwd" not in k]
+    if quant:
+        f32 = q8 + [k for k in f32 if backward or k != "gemm_f32_epilogue"]
+    wrong = {k: got.get(k, 0) for k in F.KERNELS if k not in allowed and got.get(k, 0)}
     idle = [k for k in f32 if not got.get(k, 0)]
     chains = {k: got[k] for k in F.CHAINS if got.get(k, 0)}
     if wrong or idle or not chains:
@@ -4577,16 +4632,136 @@ def hold_fp32_grads(what: str, r: dict) -> str:
     return reading
 
 
-def fp32_cocoop_step(F, device: str = "cuda") -> dict:
+class TextTaps:
+    """Taps on the text encode of ``cocoop_forward``: each call of
+    ``text_forward`` (the prompts in, the features out), of the text
+    tower's ``transformer_forward`` (the packed rows in and out, every
+    kernel of rows 14-15 and their backward) and of ``layer_norm`` (the
+    EOT rows through ln_final, the LayerNorm kernels), with the gradient
+    that reaches its input and its output."""
+
+    SITES = (("trainers.cocoop", "text_forward"), ("models.text", "transformer_forward"),
+             ("models.text", "layer_norm"))
+
+    def __enter__(self):
+        import importlib
+
+        self.calls, self.real = [], {}
+        for mod, name in self.SITES:
+            m = importlib.import_module(f"mudpt_torch.{mod}")
+            self.real[mod, name] = fn = getattr(m, name)
+            setattr(m, name, self._tap(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        import importlib
+
+        for (mod, name), fn in self.real.items():
+            setattr(importlib.import_module(f"mudpt_torch.{mod}"), name, fn)
+
+    def _tap(self, name, fn):
+        def tapped(p, x, *args, **kw):
+            rec = {"site": name, "fn": fn, "p": p, "x": x.detach(), "args": args, "kw": kw}
+            self.calls.append(rec)
+            if x.requires_grad:
+                x.register_hook(lambda g: rec.__setitem__("dx", g))
+            y = fn(p, x, *args, **kw)
+            if y.requires_grad:
+                y.register_hook(lambda g: rec.__setitem__("dy", g))
+            return y
+        return tapped
+
+    def by_site(self) -> dict:
+        """Each site's calls whose gradients arrived (a checkpoint's
+        recompute in the backward has none), in the order of the rows."""
+        out = {}
+        for rec in self.calls:
+            if "dy" in rec:
+                out.setdefault(rec["site"], []).append(rec)
+        return out
+
+
+def chunk_cause(unchunked: dict, chunked: dict, quant: str) -> str:
+    """Where the chunked step's gradients part from the unchunked one's:
+    each tap's output and input gradient on a chunk's rows against the same
+    rows of the unchunked run, from the loss down (the first that differs
+    names the op); then each kernel site replayed on the unchunked run's
+    inputs and output gradients, all rows against one chunk's, which must be
+    bit-equal (the kernels compute a row alike in any batch), and the text
+    projection's backward product (``torch.matmul`` on cuBLAS, between
+    ln_final and the features) replayed the same way.  The features'
+    gradients must be bit-equal: the gradients may part only below them."""
+    import torch
+
+    from mudpt_torch.models import layers
+    from mudpt_torch.ops.fused_block import saved_acts
+
+    def rel(a, b):
+        return "bit-equal" if torch.equal(a, b) else f"{((a - b).norm() / b.norm()).item():.3g}"
+
+    parts, chain = [], []
+    for site in ("text_forward", "layer_norm", "transformer_forward"):
+        (whole,), chunks = unchunked[site], chunked[site]
+        for key, what in (("dy", "output"), ("dx", "input")):
+            start, reads = 0, []
+            for rec in chunks:
+                n = rec[key].shape[0]
+                reads.append(rel(rec[key], whole[key][start:start + n]))
+                start += n
+            if start != whole[key].shape[0]:
+                raise AssertionError(f"{site}: the chunks cover {start} rows of "
+                                     f"{whole[key].shape[0]}")
+            if (site, key) == ("text_forward", "dy") and set(reads) != {"bit-equal"}:
+                raise AssertionError(f"the text features' gradients differ chunked: {reads}")
+            chain.append(f"{site} {what} " + " / ".join(reads))
+    parts.append("gradients, chunked vs unchunked rows (each chunk): " + "; ".join(chain))
+    for site in ("layer_norm", "transformer_forward"):
+        (whole,), n = unchunked[site], chunked[site][0]["x"].shape[0]
+
+        def replay(rows):
+            x = whole["x"][:rows].clone().requires_grad_(True)
+            with layers.quantized(quant), saved_acts(False):
+                y = whole["fn"](whole["p"], x, *whole["args"], **whole["kw"])
+                (dx,) = torch.autograd.grad(y, x, whole["dy"][:rows])
+            return y.detach()[:n], dx[:n]
+
+        got = replay(n)
+        check_bit_equal(f"{site} replayed on {n} rows vs all", got, replay(whole["x"].shape[0]))
+        parts.append(f"{site} replayed on the first chunk's {n} rows vs all "
+                     f"{whole['x'].shape[0]}, the same output gradient: output and input "
+                     f"gradient bit-equal")
+    # out = pooled @ projection; autograd's input gradient is dout @ W^T
+    (whole,), n = unchunked["text_forward"], chunked["layer_norm"][0]["x"].shape[0]
+    w = whole["p"]["projection"].to(whole["dy"].dtype)
+    dout = whole["dy"].reshape(-1, w.shape[-1])
+    parts.append(f"the text projection's backward product dout @ W^T "
+                 f"({tuple(w.shape)}, cuBLAS) on the first chunk's {n} rows vs all "
+                 f"{dout.shape[0]}: " + rel(torch.matmul(dout[:n], w.t()),
+                                            torch.matmul(dout, w.t())[:n]))
+    return "; ".join(parts)
+
+
+def fp32_cocoop_step(F, device: str = "cuda", quant: str = "none") -> dict:
     """CoCoOp ViT-B/16 in fp32 at [zoo]'s cut (1,000 classes, 4 images,
     seeded random weights, CTX_INIT "a photo of a"): one step, unchunked,
     its text rows on the half-blocks with saves off at D = 512 (rows 4, 6,
-    8 and 10), its logits and gradients against the plain route."""
+    8 and 10), its logits and gradients against the plain route.  Under
+    ``int8_ste`` the towers' weights are quantized once as a trainer's build
+    does, the text rows take the quantization-aware q8 chain (rows 14-15 at
+    D = 512, recomputed in the backward), held to the plain route under
+    [cocoop int8]'s limits, and the step in chunks of COCOOP_CHUNK instances
+    is held to the unchunked one: the logits bit-equal, the gradients
+    within F32_CHUNK_GRAD_ERR, the op where they part shown by
+    :func:`chunk_cause`.  Returns each run's launches."""
+    import contextlib
+
     import torch
 
+    from mudpt_torch.models import layers
     from mudpt_torch.models.clip import VIT_B16, init_clip_params, leaves
     from mudpt_torch.models.layers import plain_blocks
     from mudpt_torch.models.text import _auto_pack_g, _text_saves_off
+    from mudpt_torch.ops.quant_block import quantize_blocks
     from mudpt_torch.trainers.cocoop import cocoop_forward
     from mudpt_torch.trainers.prompt_utils import (ctx_vectors_from_init, embed_classnames,
                                                    init_linear)
@@ -4594,8 +4769,13 @@ def fp32_cocoop_step(F, device: str = "cuda") -> dict:
     from mudpt_torch.utils.synth_step import nll_loss
 
     cfg, dev = VIT_B16, torch.device(device)
+    quantized = quant != "none"
+    phase = "fp32 int8" if quantized else "fp32"
     g = new_rng(0, dev)
     params = init_clip_params(cfg, g)
+    if quantized:
+        params = {k: dict(v, blocks=quantize_blocks(v["blocks"])) if isinstance(v, dict) else v
+                  for k, v in params.items()}
     aux = embed_classnames(params["text"], cocoop_names(COCOOP_N_CLS), 4,
                            "a photo of a").as_device_tree()
     trainable = {"ctx": ctx_vectors_from_init(params["text"], "a photo of a", 4),
@@ -4614,39 +4794,93 @@ def fp32_cocoop_step(F, device: str = "cuda") -> dict:
         raise AssertionError(f"CoCoOp fp32 text rows: P {P}; expected {COCOOP_PACK}, saves off")
     names = leaf_names(trainable)
 
-    def run():
-        logits = cocoop_forward(trainable, params, aux, images, clip_cfg=cfg,
-                                compute_dtype=torch.float32, encode_chunk=-1)
-        grads = torch.autograd.grad(nll_loss(logits, labels), leaves(trainable))
+    def run(chunk: int = -1, taps=None):
+        with layers.quantized(quant), taps or contextlib.nullcontext():
+            logits = cocoop_forward(trainable, params, aux, images, clip_cfg=cfg,
+                                    compute_dtype=torch.float32, encode_chunk=chunk)
+            grads = torch.autograd.grad(nll_loss(logits, labels), leaves(trainable))
         check_leaf_grads(names, grads)
         return logits.detach(), grads
 
+    label = f"CoCoOp fp32{' ' + quant if quantized else ''} step"
+    taps = TextTaps() if quantized else None
     F.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    logits, grads = run()
+    logits, grads = run(taps=taps)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
     launches = dict(F.LAUNCHES)
-    check_launches("CoCoOp fp32 step", launches,
-                   in_fp32(F, cocoop_launches(F.LAUNCHES, cfg, 1)))
-    only = check_fp32_launches(F, "CoCoOp fp32 step", launches)
+    check_launches(label, launches, in_fp32(F, cocoop_launches(F.LAUNCHES, cfg, 1, quant)))
+    only = check_fp32_launches(F, label, launches, quant=quantized)
     with plain_blocks():
         logits_ref, grads_ref = run()
     centred = [t - t.mean(-1, keepdim=True) for t in (logits, logits_ref)]
-    reading = check_f32("CoCoOp fp32 logits, rows centred", *centred,
-                        norm_limit=F32_CHAIN_NORM_ERR, max_limit=F32_CHAIN_MAX_ERR)
+    if quantized:  # a flipped code sets the distance: [cocoop int8]'s limits
+        max_limit, norm_limit = LOGITS_MAX_ERR * Q8_STEP, LOGITS_NORM_ERR * Q8_STEP
+        grad_lim = ZOO_GRAD_LIMITS["CoCoOp"][0]
+    else:
+        max_limit, norm_limit, grad_lim = F32_CHAIN_MAX_ERR, F32_CHAIN_NORM_ERR, F32_CHAIN_NORM_ERR
+    reading = check_f32(f"{label} logits, rows centred", *centred, norm_limit=norm_limit,
+                        max_limit=max_limit)
     errs = [((a - b).norm() / b.norm()).item() for a, b in zip(grads, grads_ref)]
-    if not max(errs) <= F32_CHAIN_NORM_ERR:
-        raise AssertionError(f"CoCoOp fp32 gradients: relative norm errors {errs} over "
-                             f"{F32_CHAIN_NORM_ERR}")
-    say("fp32", f"CoCoOp ViT-B/16 fp32, {COCOOP_B} images x {COCOOP_N_CLS} classes (text rows "
-                f"packed {COCOOP_PACK}, D = 512, saves off): one step {ms:.1f} ms (first "
-                f"call), peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
-                f"{only}; vs plain route: logits "
-                f"{reading}; gradients " + ", ".join(f"{n} {e:.3g}" for n, e in zip(names, errs))
-                + f" (limit {F32_CHAIN_NORM_ERR:.3g})")
-    return launches
+    if not max(errs) <= grad_lim:
+        raise AssertionError(f"{label} gradients: relative norm errors {errs} over {grad_lim}")
+    key = f"fp32_{quant + '_' if quantized else ''}cocoop_step"
+    out = {key: launches}
+    chunked = ""
+    if quantized:
+        F.reset_launches()
+        taps_c = TextTaps()
+        logits_c, grads_c = run(COCOOP_CHUNK, taps_c)
+        n_chunks = -(-COCOOP_B // COCOOP_CHUNK)
+        out[key + "_chunked"] = dict(F.LAUNCHES)
+        check_launches(f"{label}, chunks of {COCOOP_CHUNK}", out[key + "_chunked"],
+                       in_fp32(F, cocoop_launches(F.LAUNCHES, cfg, n_chunks, quant)))
+        errs_c = [((a - b).norm() / b.norm()).item() for a, b in zip(grads_c, grads)]
+        if not max(errs_c) <= F32_CHUNK_GRAD_ERR:
+            raise AssertionError(f"{label} chunked vs unchunked: gradient relative norm "
+                                 f"errors {errs_c} over {F32_CHUNK_GRAD_ERR}")
+        chunked = (f"; chunks of {COCOOP_CHUNK} vs unchunked: logits " + check_bit_equal(
+            f"{label} chunked vs unchunked", (logits_c,), (logits,)) + "; gradients "
+            + ", ".join(f"{n} {e:.3g}" for n, e in zip(names, errs_c))
+            + f" (limit {F32_CHUNK_GRAD_ERR:.3g}), bit-equal "
+            + str([bool(torch.equal(a, b)) for a, b in zip(grads_c, grads)])
+            + "; " + chunk_cause(taps.by_site(), taps_c.by_site(), quant))
+        del taps, taps_c
+    say(phase, f"CoCoOp ViT-B/16 fp32{' under ' + quant if quantized else ''}, {COCOOP_B} "
+               f"images x {COCOOP_N_CLS} classes (text rows packed {COCOOP_PACK}, D = 512, "
+               f"saves off): one step {ms:.1f} ms (first call), peak "
+               f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; {only}; vs plain "
+               f"route: logits {reading}; gradients " + ", ".join(
+                   f"{n} {e:.3g}" for n, e in zip(names, errs)) + f" (limit {grad_lim:.3g})"
+               + chunked)
+    return out
+
+
+def fp32_cli_run(F, root: Path, out: str, phase: str, quant: str = "none") -> dict:
+    """``python -m mudpt_torch.train`` under PREC fp32 (and TRAIN.QUANT
+    ``quant``) at [engine]'s configuration, one epoch and the test
+    evaluate, in a fresh process: its launches, fp32 kernels only."""
+    more = () if quant == "none" else ("TRAIN.QUANT", quant)
+    argv = ["--trainer", "MuDPT", "--trainer_config", str(root / ENGINE_FILES[1]),
+            "--dataset_config", str(root / ENGINE_FILES[0]), "--output_dir", out,
+            "--backbone_path", "random", *ENGINE_OPTS, "OPTIM.MAX_EPOCH", "1", *FP32_OPTS, *more]
+    proc = subprocess.run([sys.executable, str(root / "chip_smoke.py"), "--cli-launches",
+                           *argv], cwd=root, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0 or "=> result on test" not in proc.stdout:
+        raise AssertionError(f"fp32 CLI run ({quant}): exit {proc.returncode}, no test result\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    rec = _json_line(proc.stdout)
+    if rec["compute_dtype"] != "torch.float32":
+        raise AssertionError(f"fp32 CLI run computed in {rec['compute_dtype']}")
+    result = next(ln for ln in proc.stdout.splitlines() if "=> result on test" in ln)
+    say(phase, f"python -m mudpt_torch.train --trainer MuDPT ... TRAINER.MUDPT.PREC fp32 "
+               f"{' '.join(more)} (one epoch of 384 images, batch 64, and the test evaluate) "
+               f"in a fresh process: exit 0, {rec['seconds']:.1f} s; {result.strip()}; "
+               + check_fp32_launches(F, f"fp32 CLI run ({quant})", rec["launches"],
+                                     quant=quant != "none"))
+    return rec["launches"]
 
 
 def fp32_timed(tr, batch, n: int) -> tuple:
@@ -4668,7 +4902,8 @@ def phase_fp32(F, root: Path) -> dict:
     and the evaluate's logits against plain_blocks(); CoCoOp's step; then
     the step at 64 and 384 and the image encode at 384, timed beside the
     same trainer's in bf16 (PREC fp16), with peak memory.  Returns each
-    path's launches."""
+    path's launches and the timed fp32 row ((ms, GiB) of the step at 64, at
+    384 and of the encode at 384)."""
     import copy
     import shutil
     import tempfile
@@ -4681,24 +4916,7 @@ def phase_fp32(F, root: Path) -> dict:
     tmp = tempfile.mkdtemp(prefix="mudpt_fp32_")
     try:
         # ---- the CLI, a fresh process
-        argv = ["--trainer", "MuDPT", "--trainer_config", str(root / ENGINE_FILES[1]),
-                "--dataset_config", str(root / ENGINE_FILES[0]), "--output_dir",
-                f"{tmp}/cli", "--backbone_path", "random", *ENGINE_OPTS,
-                "OPTIM.MAX_EPOCH", "1", *FP32_OPTS]
-        proc = subprocess.run([sys.executable, str(root / "chip_smoke.py"), "--cli-launches",
-                               *argv], cwd=root, capture_output=True, text=True, timeout=600)
-        if proc.returncode != 0 or "=> result on test" not in proc.stdout:
-            raise AssertionError(f"fp32 CLI run: exit {proc.returncode}, no test result\n"
-                                 f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
-        rec = _json_line(proc.stdout)
-        if rec["compute_dtype"] != "torch.float32":
-            raise AssertionError(f"fp32 CLI run computed in {rec['compute_dtype']}")
-        paths["fp32_cli_run"] = rec["launches"]
-        result = next(ln for ln in proc.stdout.splitlines() if "=> result on test" in ln)
-        say(phase, f"python -m mudpt_torch.train --trainer MuDPT ... TRAINER.MUDPT.PREC fp32 "
-                   f"(one epoch of 384 images, batch 64, and the test evaluate) in a fresh "
-                   f"process: exit 0, {rec['seconds']:.1f} s; {result.strip()}; "
-                   + check_fp32_launches(F, "fp32 CLI run", rec["launches"]))
+        paths["fp32_cli_run"] = fp32_cli_run(F, root, f"{tmp}/cli", phase)
 
         # ---- build_trainer in this process: the first step and the evaluate
         tr = _engine_trainer(root, f"{tmp}/fp32", "OPTIM.MAX_EPOCH", "1", *FP32_OPTS)
@@ -4736,7 +4954,7 @@ def phase_fp32(F, root: Path) -> dict:
         del logits, logits_ref, txt_ref
 
         # ---- CoCoOp at 1,000 classes in fp32
-        paths["fp32_cocoop_step"] = fp32_cocoop_step(F)
+        paths.update(fp32_cocoop_step(F))
         torch.cuda.empty_cache()
 
         # ---- timed: the step at 64 and on epoch 1's 384 images as one
@@ -4772,6 +4990,418 @@ def phase_fp32(F, root: Path) -> dict:
                    f"{n_img / enc[0] * 1e3:.1f} images/s, vs {henc[0]:.2f} ({henc[1]:.2f}), "
                    f"{n_img / henc[0] * 1e3:.1f} images/s; fp32 / bf16: step "
                    f"{s384[0] / h384[0]:.1f}x, encode {enc[0] / henc[0]:.1f}x")
+        return paths, rows["fp32"]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# [fp32 int8]: the int8 tiers on fp32 activations, rows 14-17 under PREC
+# fp32.  Their kernels at ViT-B/16's and ViT-L/14's vision rows:
+# LayerNorm-quant (rows, D, static), and every s8 epilogue with and without
+# the saved h; the last two fields of a GEMM case: its launches in one
+# vision layer of the fp32 int8_ste and of the fp32 int8_ste_static step at
+# ViT-B/16, whose quantization-aware forward saves h at D = 768
+F32_Q8_LN = tuple((M, D, static) for M, D in ((M_B, 768), (M_L, 1024))
+                  for static in (False, True))
+F32_Q8_GEMM = tuple(
+    (f"{kind}_{ep}", M, K, N, save,
+     *((n * (M == M_B), 0) if kind == "q8" else (0, n * (M == M_B))))
+    for M, D in ((M_B, 768), (M_L, 1024)) for kind in ("q8", "q8s")
+    for ep, K, N, save, n in (("qkv", D, 3 * D, False, 1), ("residual", D, D, False, 1),
+                              ("fc_gelu", D, 4 * D, False, 0),
+                              ("fc_gelu", D, 4 * D, True, 1),
+                              ("residual", 4 * D, D, False, 1)))
+# the q8 chains on fp32 x: label, B, S, D, heads (unmasked vision rows; the
+# quantization-aware layer saves at both: D <= 768, and D = 1024 within the
+# wide-MLP row-token budget)
+F32_Q8_CHAINS = (("ViT-B/16 vision", BATCH, 199, 768, 12),
+                 ("ViT-L/14 vision", GRAD_BATCH, 259, 1024, 16))
+# the fp32 trainer's first step under a quantization-aware tier against the
+# plain route: the loss at a batch of 64 moves with each flipped code (the
+# fp32 sums of the LayerNorm statistics and of attention run in another
+# order, and a value next to a boundary of the int8 grid takes the
+# neighbouring code), as test_torch_zoo_quant.py's loss bound of 2^-7 allows
+# at tiny size; the gradients keep [train int8_ste]'s limits
+F32_Q8_LOSS_REL_ERR = 2.0 ** -7
+# CoCoOp's fp32 step in chunks against the unchunked one: every kernel
+# computes a row alike in any batch, so the logits are held bit-equal; the
+# gradients part below the text features, where the text projection's
+# backward product (dout @ W^T, torch.matmul on cuBLAS) sums its fp32
+# terms in another order at 2,000 rows than at 4,000 (chunk_cause shows
+# it, and holds each kernel site replayed bit-equal); bf16 rounding hid
+# this at [cocoop int8]: they are held to fp32 sum-order differences
+F32_CHUNK_GRAD_ERR = 2.0 ** -16
+
+
+def int_mm_epilogue(a, xs, wq, ws, bias, ep, extra, r, save, dtype):
+    """torch._int_mm followed by the s8 GEMM's epilogue on torch ops: a
+    yardstick of gemm_s8_epilogue_f32, never called by the port."""
+    import torch
+
+    v = torch._int_mm(a, wq.t()).float()
+    if xs is not None:
+        v = v * xs
+    v = v * ws + bias
+    if ep.endswith("qkv"):
+        return v
+    if ep.endswith("residual"):
+        return extra + v
+    g = v * torch.sigmoid(1.702 * v)
+    if ep == "q8s_fc_gelu":
+        g = torch.round(g * r).clamp(-127, 127).to(torch.int8)
+    return (v, g) if save else g
+
+
+def phase_kernels_fp32_int8(F, Q, kq: dict, kqs: dict) -> None:
+    """The int8 tiers' kernels on fp32 activations against their plain
+    versions at ViT-B/16's and ViT-L/14's vision rows (``F32_Q8_LN``,
+    ``F32_Q8_GEMM``): layernorm_q8_f32, dynamic and static (codes within a
+    step, scales within LN_SCALE_ERR); gemm_s8_epilogue_f32 in every mode,
+    with and without the saved h (qkv, R + v and h bit-equal, g and the
+    static codes held as the bf16 kernel's are); each launched twice,
+    bit-equal; timed beside its plain version and torch._int_mm (alone, the
+    library yardstick, and with its epilogue on torch ops), with the bound
+    from bytes and operations, added to ``kq`` (``kqs``) per vision layer
+    of the fp32 int8_ste (int8_ste_static) step at ViT-B/16."""
+    import torch
+
+    tag, f32 = "fp32 int8", torch.float32
+    rn = randn_fn(16)
+    one = lambda v: torch.full((), v, dtype=f32, device="cuda")  # noqa: E731
+
+    for rows, D, static in F32_Q8_LN:
+        x = rn(rows, D, std=2.0, dtype=f32)
+        sc = rn(D, dtype=f32) * 0.1 + 1
+        b = rn(D, dtype=f32) * 0.1
+        r = one(127.0) / F.layer_norm_plain(x, sc, b).abs().amax() if static else None
+        what = f"layernorm_q8_f32 {rows}x{D} {'static' if static else 'dynamic'}"
+        kern = (kqs if static else kq)["layernorm_q8_f32"]
+        (q, s), (q_ref, s_ref) = Q.ln_quant(x, sc, b, r), Q.ln_quant_plain(x, sc, b, r)
+        reading = check_codes(what, q, q_ref, kern)
+        if not static:
+            reading += "; scales " + check_close(f"{what} scales", s, s_ref,
+                                                 max_limit=LN_SCALE_ERR, norm_limit=LN_SCALE_ERR,
+                                                 share_limit=None)
+        del q, s, q_ref, s_ref
+        check_relaunch(what, lambda: tuple(t for t in Q.ln_quant(x, sc, b, r) if t is not None))
+        ms = time_ms(lambda: Q.ln_quant(x, sc, b, r))
+        plain = time_ms(lambda: Q.ln_quant_plain(x, sc, b, r), 3)
+        bms, by = bound(rows * D * 5 + (0 if static else rows * 4) + 2 * D * 4, 0, 12 * rows * D)
+        say(tag, f"{what}: {reading} ms {ms:.4f} plain {plain:.4f} library none "
+                 f"bound {bms:.4f} ({by})")
+        if rows == M_B:
+            _per_layer((kern,), (2,), ms, plain, None, bms, by)
+        del x
+
+    for ep, M, K, N, save, n_dyn, n_st in F32_Q8_GEMM:
+        static = ep.startswith("q8s_")
+        kern = (kqs if static else kq)["gemm_s8_epilogue_f32"]
+        what = f"gemm_s8_epilogue_f32 {ep}{' save h' if save else ''} {M}x{K}->{N}"
+        args, reading = s8_case(Q, rn, ep, M, K, N, save, kern, f32)
+        check_relaunch(what, lambda: Q.gemm_s8(*args))
+        a, wq, extra = args[0], args[2], args[6]
+        ms = time_ms(lambda: Q.gemm_s8(*args))
+        plain = time_ms(lambda: Q.gemm_s8_plain(*args), 3)
+        lib = time_ms(lambda: torch._int_mm(a, wq.t()))  # int32 out, no epilogue
+        lib_ep = time_ms(lambda: int_mm_epilogue(*args))
+        out_bytes = 1 if ep == "q8s_fc_gelu" else 4
+        nbytes = (M * K + N * K + M * N * (out_bytes + (4 if extra is not None or save else 0))
+                  + (0 if static else M * 4) + N * 8)
+        e_ops = Q8_EPILOGUE_OPS[ep.split("_", 1)[1]] - static
+        bms, by = bound(nbytes, 0, e_ops * M * N, 2 * M * N * K)
+        say(tag, f"{what}: {reading} ms {ms:.4f} ({2 * M * N * K / ms / 1e9:.1f} TOP/s) "
+                 f"plain {plain:.4f} library(torch._int_mm) {lib:.4f}, with its epilogue on "
+                 f"torch ops {lib_ep:.4f} bound {bms:.4f} ({by})")
+        _per_layer((kq["gemm_s8_epilogue_f32"], kqs["gemm_s8_epilogue_f32"]), (n_dyn, n_st), ms,
+                   plain, lib, bms, by)
+        del a, wq, extra, args
+    torch.cuda.empty_cache()
+
+
+def phase_fp32_q8_chains(F, Q, layers) -> dict:
+    """Rows 14-17 on fp32 x (``F32_Q8_CHAINS``): the dynamic and the static
+    serving layer, the saving forwards (y1, qkv and h in fp32, y bit-equal
+    to the serving layer's) and the two quantization-aware Functions'
+    forward and backward, each against the plain chain on the card under
+    the bf16 int8 chains' limits (a flipped code, not fp32 rounding, sets
+    the distance), each call's launches those of the bf16 q8 chain with
+    every kernel mapped to its fp32 counterpart (no bf16 kernel launched).
+    Returns the quantization-aware layers' launches."""
+    import torch
+
+    tag, f32 = "fp32 int8", torch.float32
+    rn = randn_fn(17)
+    out = {}
+
+    def fp32_only(what, *ts):
+        if any(t.dtype != f32 for t in ts):
+            raise AssertionError(f"{what}: {[t.dtype for t in ts]}, not fp32")
+
+    for label, B, S, D, H in F32_Q8_CHAINS:
+        x = rn(B, S, D, dtype=f32)
+        ps = layer_params(rn, D, f32)
+        blk = q8_block(ps)
+        amax = Q.calibrate(lambda: layers.residual_block(blk, x, H))[0]
+        qw = Q.quantize_weights(blk)
+        qp = Q._quantize_layer(ps, qw)
+        qps, r = Q._quantize_layer_static(ps, amax, qw)
+        serve = {}
+        for tier, fn, ops, route in (("int8", Q.layer_fullblock_q8, (*qp,), "q8"),
+                                     ("int8_static", Q.layer_fullblock_q8_static, (*qps, r),
+                                      "q8s")):
+            what = f"{tier} layer {label}, fp32"
+            F.reset_launches()
+            y = fn(x, *ops, H)
+            check_launches(what, dict(F.LAUNCHES), in_fp32(F, expect(F.LAUNCHES, (1, route))))
+            y_ref = fn(x, *ops, H, plain=True)
+            fp32_only(what, y)
+            reading = check_close(what, y, y_ref, share_limit=None)
+            serve[tier] = y
+            ms = time_ms(lambda: fn(x, *ops, H))
+            plain = time_ms(lambda: fn(x, *ops, H, plain=True), 2)
+            say(tag, f"{what} B={B} S={S} D={D}: {reading} ms {ms:.4f} plain {plain:.4f}; "
+                     f"launches {json.dumps({k: v for k, v in F.LAUNCHES.items() if v})}")
+            rs = None if tier == "int8" else r
+            qq = qp if rs is None else qps
+            got = Q.q8_save_forward(x, qq, H, False, rs)
+            ref = Q.q8_save_forward(x, qq, H, False, rs, plain=True)
+            fp32_only(f"{tier} saving forward {label}", *got)
+            check_equal(f"{tier} saving forward {label}: y vs the serving forward", got[0], y)
+            readings = [f"{n} " + check_close(f"{tier} saving forward {label} {n}, fp32", g, w,
+                                              share_limit=None)
+                        for n, g, w in zip(("y", "y1", "qkv", "h"), got, ref)]
+            say(tag, f"{tier} saving forward {label}, fp32 (y1, qkv, h fp32; y bit-equal to "
+                     f"the serving layer's): " + "; ".join(readings))
+            del y, y_ref, got, ref
+
+        xg = x.detach().requires_grad_(True)
+        gy = rn(B, S, D, dtype=f32)
+        for tier in ("int8_ste", "int8_ste_static"):
+            def step(plain_fns):
+                if tier == "int8_ste":
+                    y = Q.layer_fullblock_q8_ste(xg, *ps, H, False, plain_fns, qw)
+                else:
+                    y = Q.layer_fullblock_q8_ste_static(xg, amax, *ps, H, False, plain_fns, qw)
+                return y, torch.autograd.grad(y, xg, gy)[0]
+
+            route = qat_route(F, D, B * S, tier)
+            what = f"{tier} {label}, fp32 ({route})"
+            F.reset_launches()
+            y, dx = step(False)
+            launches = dict(F.LAUNCHES)
+            check_launches(what, launches, in_fp32(F, expect(F.LAUNCHES, (1, route))))
+            out[f"fp32_{tier}_layer_D{D}"] = launches
+            (y_ref, dx_ref) = step(True)
+            fp32_only(what, y, dx)
+            served = serve["int8" if tier == "int8_ste" else "int8_static"]
+            check_equal(f"{what}: y vs the serving forward", y.detach(), served)
+            r_y = check_close(f"{what} y", y, y_ref, share_limit=None)
+            r_dx = check_close(f"{what} dx", dx, dx_ref, max_limit=LAYER_DX_MAX_ERR,
+                               norm_limit=LAYER_DX_NORM_ERR, share_limit=None)
+            del y, dx, y_ref, dx_ref
+            ms = time_ms(lambda: step(False), 5)
+            plain = time_ms(lambda: step(True), 1)
+            say(tag, f"{what} forward + backward: y {r_y}; dx {r_dx}; ms {ms:.4f} plain "
+                     f"{plain:.4f}; launches "
+                     f"{json.dumps({k: v for k, v in launches.items() if v})}")
+        del x, xg, gy, ps, blk, qw, qp, qps, serve
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_fp32_int8(F, root: Path, unquantized: tuple) -> dict:
+    """MuDPT ViT-B/16 under PREC fp32 and each int8 tier, [engine]'s
+    configuration: the CLI under int8_ste in a fresh process (fp32 q8
+    kernels only); through build_trainer, under int8_ste and
+    int8_ste_static the first step's loss and gradients against the plain
+    route (and the fp32 unquantized model), a traced step, the step at 64
+    and 384 and the encode at 384 beside ``unquantized``, [fp32]'s timed
+    row (the same tiers in bf16 are timed by [train int8_ste*] and
+    [serving int8*]); under int8 and int8_static (calibrated at build) the
+    evaluate's logits against the plain route and the encode at 384;
+    CoCoOp ViT-B/16 at 1,000 classes under int8_ste; the zero-shot
+    pallas_int8 artifact at the default fp32 served in a fresh process, and
+    an fp32 trainer's pallas and pallas_int8 artifacts served in this
+    process.  Returns each path's launches."""
+    import copy
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from mudpt_torch import serving
+    from mudpt_torch.models.layers import plain_blocks
+    from mudpt_torch.trainers.zsclip import _encode_templates, _zs_inference
+
+    phase, paths = "fp32 int8", {}
+    tmp = tempfile.mkdtemp(prefix="mudpt_fp32_int8_")
+    try:
+        paths["fp32_int8_ste_cli_run"] = fp32_cli_run(F, root, f"{tmp}/cli", phase, "int8_ste")
+
+        def encode_ms(t, images):
+            with torch.no_grad():
+                txt = t._text_features(t.trainable, t.frozen, t.aux)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                enc = [_synced_ms(lambda: t._eval_step_cached(t.trainable, t.frozen, t.aux,
+                                                              images, txt))
+                       for _ in range(1 + FP32_TIMED_STEPS)][1:]
+            return statistics.median(enc), torch.cuda.max_memory_allocated() / 2 ** 30
+
+        # ---- the quantization-aware tiers, timed beside unquantized fp32
+        u64, u384, uenc = unquantized
+        for tier in ("int8_ste", "int8_ste_static"):
+            t0 = time.perf_counter()
+            tr = _engine_trainer(root, f"{tmp}/{tier}", "OPTIM.MAX_EPOCH", "1",
+                                 "TRAIN.QUANT", tier, *FP32_OPTS)
+            build_s = time.perf_counter() - t0
+            if tr.compute_dtype != torch.float32:
+                raise AssertionError(f"PREC fp32 {tier} trainer computes in {tr.compute_dtype}")
+            cfg, route = tr.clip_cfg, Q8_ROUTES[tier]
+            bs = [tr._device_batch(b) for b in list(copy.copy(tr.dm.train_loader))]
+            whole = {k: torch.cat([b[k] for b in bs]) for k in bs[0]}
+            n_img = whole["image"].shape[0]
+            want = in_fp32(F, step_launches(F, cfg, route, route))
+            grad_check(F, ds_step_case(tr, bs[0])[0], phase,
+                       f"PREC fp32 {tier} (built in {build_s:.1f} s): the trainer's first "
+                       f"step, batch {ENGINE_BATCH}", want, loss_limit=F32_Q8_LOSS_REL_ERR)
+            F.reset_launches()
+            if tier == "int8_ste":
+                traced(phase, lambda: tr._train_step(bs[0]), device_time_by_kernel)
+            else:
+                tr._train_step(bs[0])
+            launches = dict(F.LAUNCHES)
+            check_launches(f"PREC fp32 {tier} step", launches, want)
+            paths[f"fp32_{tier}_train_step"] = launches
+            say(phase, f"PREC fp32 {tier} step: " + check_fp32_launches(
+                F, f"PREC fp32 {tier} step", launches, quant=True))
+            s64 = fp32_timed(tr, bs[0], TIMED_STEPS)
+            s384 = fp32_timed(tr, whole, FP32_TIMED_STEPS)
+            enc = encode_ms(tr, whole["image"])
+            say(phase, f"timed PREC fp32 {tier} (median ms, peak GiB) beside unquantized fp32 "
+                       f"([fp32] in this run): trainer step at {ENGINE_BATCH} {s64[0]:.2f} "
+                       f"({s64[1]:.2f} GiB) vs {u64[0]:.2f} ({u64[1]:.2f}); step at {n_img} "
+                       f"{s384[0]:.2f} ({s384[1]:.2f} GiB, {FP32_TIMED_STEPS} steps) vs "
+                       f"{u384[0]:.2f} ({u384[1]:.2f}); image encode and logits at {n_img} "
+                       f"(the tier's serving chain) {enc[0]:.2f} ({enc[1]:.2f} GiB), "
+                       f"{n_img / enc[0] * 1e3:.1f} images/s, vs {uenc[0]:.2f} ({uenc[1]:.2f});"
+                       f" {tier} / unquantized: step {s384[0] / u384[0]:.3f}x, encode "
+                       f"{enc[0] / uenc[0]:.3f}x; {time.perf_counter() - t0:.1f} s")
+            del tr, bs, whole
+            torch.cuda.empty_cache()
+
+        # ---- the serving tiers: the evaluate's logits, the encode at 384
+        for tier in ("int8", "int8_static"):
+            t0 = time.perf_counter()
+            tr = _engine_trainer(root, f"{tmp}/{tier}", "OPTIM.MAX_EPOCH", "1",
+                                 "TRAIN.QUANT", tier, *FP32_OPTS)
+            build_s = time.perf_counter() - t0
+            cfg, route = tr.clip_cfg, Q8_ROUTES[tier]
+            if tr.compute_dtype != torch.float32 or (
+                    tier == "int8_static") != getattr(tr, "_static_calibrated", False):
+                raise AssertionError(f"PREC fp32 {tier} trainer: {tr.compute_dtype}, "
+                                     f"calibrated {getattr(tr, '_static_calibrated', False)}")
+            bs = [tr._device_batch(b) for b in list(copy.copy(tr.dm.train_loader))]
+            images = bs[0]["image"]
+            F.reset_launches()
+            with torch.no_grad():
+                txt = tr._text_features(tr.trainable, tr.frozen, tr.aux)
+                logits = tr.forward_image(tr.trainable, tr.frozen, tr.aux, images, txt)
+                launches = dict(F.LAUNCHES)
+                with plain_blocks():
+                    txt_ref = tr._text_features(tr.trainable, tr.frozen, tr.aux)
+                    logits_ref = tr.forward_image(tr.trainable, tr.frozen, tr.aux, images,
+                                                  txt_ref)
+            want = in_fp32(F, expect(F.LAUNCHES, (cfg.transformer_layers, route),
+                                     (1, tower_lns(1)), (cfg.vision_layers, route),
+                                     (1, tower_lns(2))))
+            check_launches(f"PREC fp32 {tier} evaluate", launches, want)
+            paths[f"fp32_{tier}_evaluate_batch"] = launches
+            centred = [t[:, :tr.num_classes] - t[:, :tr.num_classes].mean(-1, keepdim=True)
+                       for t in (logits, logits_ref)]
+            reading = check_close(f"PREC fp32 {tier} logits, rows centred", *centred,
+                                  max_limit=LOGITS_MAX_ERR * Q8_STEP,
+                                  norm_limit=LOGITS_NORM_ERR * Q8_STEP, share_limit=None)
+            whole = torch.cat([b["image"] for b in bs])
+            enc = encode_ms(tr, whole)
+            say(phase, f"PREC fp32 {tier} (built in {build_s:.1f} s"
+                       f"{', calibrated at build' if tier == 'int8_static' else ''}): the "
+                       f"evaluate's text encode and a batch of {ENGINE_BATCH}, vs "
+                       f"plain_blocks(), logits rows centred: {reading}; "
+                       + check_fp32_launches(F, f"PREC fp32 {tier} evaluate", launches,
+                                             backward=False, quant=True)
+                       + f"; image encode and logits at {whole.shape[0]} {enc[0]:.2f} ms "
+                         f"({enc[1]:.2f} GiB), {whole.shape[0] / enc[0] * 1e3:.1f} images/s")
+            del tr, bs, images, whole, txt, logits, txt_ref, logits_ref
+            torch.cuda.empty_cache()
+
+        # ---- CoCoOp at 1,000 classes under int8_ste
+        paths.update(fp32_cocoop_step(F, quant="int8_ste"))
+        torch.cuda.empty_cache()
+
+        # ---- the fp32 artifacts: the zero-shot pallas_int8 one at its
+        # default compute dtype, served in a fresh process; an fp32 trainer's
+        # pallas and pallas_int8 ones, served in this process
+        tr = _engine_trainer(root, f"{tmp}/export", "OPTIM.MAX_EPOCH", "1", *FP32_OPTS)
+        cfg = tr.clip_cfg
+        images = tr._device_batch(next(iter(copy.copy(tr.dm.train_loader))))["image"]
+        np.save(f"{tmp}/images.npy", images.cpu().numpy())
+        serve_want = in_fp32(F, expect(F.LAUNCHES, (cfg.vision_layers, "q8"), (1, tower_lns(2))))
+        templates = ["a photo of a {}.", "a drawing of a {}."]
+        t0 = time.perf_counter()
+        serving.export_zero_shot(f"{tmp}/zs_q8", cfg, tr.frozen, tr.classnames, templates,
+                                 batch=images.shape[0], block_impl="pallas_int8")
+        export_s = time.perf_counter() - t0
+        with serving._block_impl("xla"):
+            txt = _encode_templates(tr.frozen, cfg, list(tr.classnames), templates,
+                                    torch.float32, images.device)
+        with torch.no_grad(), serving._block_impl("pallas_int8"):
+            ref = _zs_inference(None, serving._quantize_visual(tr.frozen),
+                                {"text_features": txt}, images, clip_cfg=cfg,
+                                compute_dtype=torch.float32).float()
+        logits, child, process_s = served_fresh(root, f"{tmp}/zs_q8", f"{tmp}/images.npy",
+                                                "zero-shot pallas_int8")
+        check_launches("the zero-shot pallas_int8 artifact's request", child["launches"],
+                       serve_want)
+        paths["fp32_zero_shot_pallas_int8_request"] = child["launches"]
+        say(phase, f"zero-shot pallas_int8 artifact, compute dtype fp32 (the default), batch "
+                   f"{images.shape[0]}: exported in {export_s:.2f} s; fresh process "
+                   f"{process_s:.2f} s; vs the tier in this process: "
+                   + check_bit_equal("the zero-shot pallas_int8 artifact", (logits,), (ref,))
+                   + "; " + check_fp32_launches(F, "zero-shot artifact", child["launches"],
+                                                backward=False, quant=True)
+                   + f"; a request there {child['request_ms']:.2f} ms")
+        with torch.no_grad():
+            txt = tr._text_features(tr.trainable, tr.frozen, tr.aux)
+            own = tr.forward_image(tr.trainable, tr.frozen, tr.aux, images, txt)[
+                :, :tr.num_classes].float()
+        for tier in ("pallas", "pallas_int8"):
+            art = f"{tmp}/{tier}"
+            serving.export_trainer(art, tr, batch=images.shape[0], block_impl=tier)
+            clf = serving.load(art)
+            F.reset_launches()
+            got = clf.forward(images)
+            torch.cuda.synchronize()
+            launches = dict(F.LAUNCHES)
+            if tier == "pallas":
+                want, ref_name, ref = (in_fp32(F, expect(F.LAUNCHES, (cfg.vision_layers, "full"),
+                                                         (1, tower_lns(2)))),
+                                       "the trainer's own evaluate", own)
+            else:
+                score, ops, _ = serving.trainer_program(tr, block_impl=tier)
+                with torch.no_grad(), serving._block_impl(tier):
+                    ref = score(ops, images)
+                want, ref_name = serve_want, "the tier in this process"
+                del score, ops
+            check_launches(f"the fp32 trainer's {tier} artifact", launches, want)
+            paths[f"fp32_{tier}_artifact_request"] = launches
+            say(phase, f"the fp32 MuDPT trainer's {tier} artifact, loaded and served in this "
+                       f"process, vs {ref_name}: "
+                       + check_bit_equal(f"fp32 {tier} artifact", (got,), (ref,)) + "; "
+                       + check_fp32_launches(F, f"fp32 {tier} artifact", launches,
+                                             backward=False, quant=tier == "pallas_int8"))
+            del clf, got
         return paths
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -4830,16 +5460,24 @@ AB_ITERS = 40  # launches a kernel time of --times-of averages
 
 def kernel_times(F) -> dict:
     """ms per launch of every GEMM epilogue and attention_bwd case of
-    SHAPES (the three vision towers' paths and the text shapes) on seeded
-    inputs, through the public wrappers only, so that two trees' kernels
-    can be timed in one call (``--times-of``).  attention_bwd also by
-    ``queued_ms``: its text shapes take microseconds, where the host's
-    pace can set ``time_ms``.  A block length that a package refuses (an
-    attention_bwd with a row cap) is left out."""
+    SHAPES (the three vision towers' paths and the text shapes) and of
+    every bf16 s8 GEMM case of Q8_GEMM on seeded inputs, through the public
+    wrappers only, so that two trees' kernels can be timed in one call
+    (``--times-of``).  attention_bwd also by ``queued_ms``: its text shapes
+    take microseconds, where the host's pace can set ``time_ms``.  A block
+    length that a package refuses (an attention_bwd with a row cap) is left
+    out."""
     import torch
+
+    from mudpt_torch.ops import quant_block as Q
 
     rn = randn_fn(11)
     times = {}
+    for ep, M, K, N, save, *_ in Q8_GEMM:
+        args, _ = s8_case(Q, rn, ep, M, K, N, save)
+        times[f"gemm_s8_epilogue {ep}{' save h' if save else ''} {M}x{K}->{N}"] = time_ms(
+            lambda: Q.gemm_s8(*args), AB_ITERS)
+        del args
     for model, spec in SHAPES.items():
         for ep, M, K, N, _ in spec["gemm"]:
             key = f"gemm_bf16_epilogue {ep} {M}x{K}->{N}"
@@ -4865,14 +5503,38 @@ def kernel_times(F) -> dict:
 def kernel_digests(F) -> dict:
     """A digest of the bits of each bf16 LayerNorm output, forward and dx
     (fp32 and bf16 dxn, with and without a residual), at the vision towers'
-    rows and at D = 1280, on seeded inputs: two trees whose digests agree
-    compute the same bits (``--times-of``)."""
+    rows and at D = 1280, of the bf16 LayerNorm-quant's codes and scales,
+    dynamic and static, and of every bf16 s8 GEMM case of Q8_GEMM, on
+    seeded inputs: two trees whose digests agree compute the same bits
+    (``--times-of``)."""
     import hashlib
 
     import torch
 
+    from mudpt_torch.ops import quant_block as Q
+
+    def digest(*ts) -> str:
+        h = hashlib.sha256()
+        for t in ts:
+            if t is not None:
+                h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+        return h.hexdigest()[:16]
+
     rn = randn_fn(12)
     out = {}
+    for rows, D in ((M_B, 768), (M_L, 1024)):
+        x = rn(rows, D, std=2.0)
+        s, b = rn(D, dtype=torch.float32) * 0.1 + 1, rn(D, dtype=torch.float32) * 0.1
+        r = torch.full((), 127.0, device="cuda") / F.layer_norm_plain(x, s, b).float().abs().amax()
+        out[f"layernorm_q8 {rows}x{D} dynamic"] = digest(*Q.ln_quant(x, s, b))
+        out[f"layernorm_q8 {rows}x{D} static"] = digest(*Q.ln_quant(x, s, b, r))
+        del x
+    for ep, M, K, N, save, *_ in Q8_GEMM:
+        args, _ = s8_case(Q, rn, ep, M, K, N, save)
+        got = Q.gemm_s8(*args)
+        out[f"gemm_s8_epilogue {ep}{' save h' if save else ''} {M}x{K}->{N}"] = digest(
+            *(got if save else (got,)))
+        del args, got
     for rows, D in ((M_B, 768), (M_L, 1024), (2048, 1280)):
         x, g16, g32, r = rn(rows, D, std=2.0), rn(rows, D), rn(rows, D, dtype=torch.float32), \
             rn(rows, D)
@@ -4962,8 +5624,11 @@ def main() -> int:
     kernels_c = {name: Kernel(name) for name in CHUNKED_KERNELS}
     # one vision layer of the ViT-L/14@336px train step
     kernels_336 = {name: Kernel(name) for name in bf16_names}
-    # one vision layer of the fp32 ViT-B/16 train step
+    # one vision layer of the fp32 ViT-B/16 train step; the int8 tiers'
+    # fp32 kernels: of the fp32 int8_ste step, and of the int8_ste_static one
     kernels_32 = {name: Kernel(name, F.KERNELS[name][0]) for name in fp32_names}
+    fp32_q8 = [k for k in fp32_q8_kernels(F) if k in kernels_32]
+    kernels_32s = {name: Kernel(name, F.KERNELS[name][0]) for name in fp32_q8}
     paths = {}
 
     def run(phase: str, fn, *args):
@@ -5013,7 +5678,11 @@ def main() -> int:
     paths.update(run("kernels chunked", phase_kernels_chunked, F, kernels_c))
     run("fp32", phase_kernels_fp32, F, kernels_32)
     paths.update(run("fp32", phase_fp32_chains, F))
-    paths.update(run("fp32", phase_fp32, F, root))
+    fp32_paths, fp32_row = run("fp32", phase_fp32, F, root)
+    paths.update(fp32_paths)
+    run("fp32 int8", phase_kernels_fp32_int8, F, Q, kernels_32, kernels_32s)
+    paths.update(run("fp32 int8", phase_fp32_q8_chains, F, Q, layers))
+    paths.update(run("fp32 int8", phase_fp32_int8, F, root, fp32_row))
     paths.update(run("export", phase_export, F, root))
     paths["remat_full_step"] = run("remat", phase_remat, F, "ViT-B/16")
     paths["remat_full_step_vit_l14_336px"] = run("remat ViT-L/14@336px", phase_remat, F,
@@ -5034,7 +5703,11 @@ def main() -> int:
                                        int8_vit_l14=kernels_ql[name],
                                        int8_static_vit_l14=kernels_qls[name])
                 for name in Q8_KERNELS]
-    records += [kernels_32[name].record(by_path(name), "fp32_train_step") for name in fp32_names]
+    records += [kernels_32[name].record(by_path(name), "fp32_train_step") for name in fp32_names
+                if name not in fp32_q8]
+    records += [kernels_32[name].record(by_path(name), "fp32_int8_ste_train_step",
+                                        fp32_int8_ste_static=kernels_32s[name])
+                for name in fp32_q8]
     print(json.dumps({"kernels": records}))
     print(smi())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

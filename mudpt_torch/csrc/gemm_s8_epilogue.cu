@@ -21,6 +21,14 @@
 //   The int32 sum is exact (|acc| <= 127^2 * K < 2^26), so given the same
 //   int8 operands and scales the qkv and residual epilogues are bit-equal
 //   to their plain version; fc_gelu differs by the exp and division of g.
+//   On fp32 activations (the Pallas kernels at x.dtype = fp32, where every
+//   .astype(x.dtype) is a no-op; gemm_s8_epilogue_f32) the bias is fp32 and
+//   the epilogues are
+//     qkv       C = v                                        (fp32)
+//     residual  C = R + v, one fp32 add, R fp32
+//     fc_gelu   g as above; with C2 given, C2 = h = v        (fp32)
+//   the qkv, residual and saved-h outputs again bit-equal to the plain
+//   version.
 // Bound on the H100: near the ridge.  At the vision shapes (M = 384*199 =
 //   76,416 tokens, K, N in 768..3072) a product does 2*M*N*K int8
 //   operations over M*K + N*K + M*N*(1..4) bytes: ~660 operations a byte
@@ -45,7 +53,17 @@
 //   while the next tile's products do, clipped at the matrix's edges; the
 //   residual tile arrives in the slab by TMA during the products and is
 //   added in place.  The fp32 g leaves straight from the registers, a quad
-//   of lanes writing one whole 32-byte sector of a row.  Blocks are
+//   of lanes writing one whole 32-byte sector of a row.  The fp32
+//   instances (F32) keep the products, the ring and the shared-memory
+//   budget as they are: an fp32 slab for TMA stores (64 x 256 x 4 B a
+//   consumer) would add 64 KB to the ~213 KB the three stages and two bf16
+//   slabs take of the SM's 227 KB, so every fp32 output (qkv, R + v, the
+//   saved h) leaves straight from the registers as g does, and R is read
+//   per fragment from device memory, a quad of lanes reading one 32-byte
+//   sector; the bias columns are staged as fp32 in the bytes the bf16
+//   bias and its padding take (BN x 4 B); only the static fc's int8 codes
+//   still leave through the slab.  The bf16 instances compute and store
+//   exactly what they did before.  Blocks are
 //   persistent, one per SM walking the tiles, so the producer loads the
 //   next tile while the consumers finish this one; the producer gives up
 //   registers (setmaxnreg) for the consumers' epilogue.
@@ -67,7 +85,8 @@ constexpr int THREADS = 384;  // warpgroup 0 loads, warpgroups 1 and 2 compute
 constexpr int STAGE_A = BM * BK, STAGE_B = BN * BK;  // bytes: int8
 // each consumer's 64 x 256 output slab, the TMA store's source: four
 // 128-byte-swizzled boxes of 64 rows x 128 B (bf16: 64 columns each; int8
-// codes: two boxes of 128), then the tile's ws (fp32) and bias (bf16) columns
+// codes: two boxes of 128), then the tile's ws (fp32) and bias (bf16, or
+// fp32 in the F32 instances) columns
 constexpr int SLAB = 64 * BN * 2, COLS = BN * 8;
 constexpr int SMEM_BYTES = STAGES * (STAGE_A + STAGE_B) + 2 * (SLAB + COLS) + 1024;  // + align
 
@@ -218,7 +237,21 @@ __device__ __forceinline__ int8_t quant_static(float v, float r) {
   return static_cast<int8_t>(fminf(fmaxf(rintf(__fmul_rn(v, r)), -127.0f), 127.0f));
 }
 
-template <int MODE>
+// the bias columns of a fragment's two outputs (bf16 or fp32 in shared memory)
+template <bool F32>
+__device__ __forceinline__ float2 bias2(const void* b_s, int cl) {
+  if constexpr (F32) {
+    return *reinterpret_cast<const float2*>(static_cast<const float*>(b_s) + cl);
+  } else {
+    return __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(static_cast<const __nv_bfloat16*>(b_s) + cl));
+  }
+}
+
+// F32: fp32 activations; the bias is then fp32 (read through ``bias``), R32
+// the fp32 residual, C32 the fp32 qkv or residual output, or the saved h of
+// the fc modes
+template <int MODE, bool F32>
 __global__ void __launch_bounds__(THREADS, 1)
 gemm_s8_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_w,
                const __grid_constant__ CUtensorMap map_c,
@@ -226,7 +259,7 @@ gemm_s8_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant_
                const __grid_constant__ CUtensorMap map_r, const float* __restrict__ xs,
                const float* __restrict__ ws, const __nv_bfloat16* __restrict__ bias,
                const float* __restrict__ r, float* __restrict__ G, int save_h, int M, int N,
-               int K) {
+               int K, const float* __restrict__ R32, float* __restrict__ C32) {
   constexpr bool kFc = MODE == kFcGelu || MODE == kSFcGelu;
   constexpr bool kRes = MODE == kResidual || MODE == kSResidual;
   extern __shared__ unsigned char smem_raw[];
@@ -281,6 +314,7 @@ gemm_s8_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant_
     unsigned char* slab_p = smem_raw + (slab - raw);
     float* ws_s = reinterpret_cast<float*>(slab_p + SLAB);  // the tile's ws columns
     __nv_bfloat16* b_s = reinterpret_cast<__nv_bfloat16*>(ws_s + BN);  // and its bias
+    float* b32_s = ws_s + BN;  // the F32 instances' fp32 bias, in the same bytes
     const uint32_t my_rbar = rbar0 + 8 * c;
     const bool releaser = (wtid & 31) == 0;
     const int warp = wtid >> 5, lane = wtid & 31, g = lane >> 2, t = lane & 3;
@@ -295,6 +329,10 @@ gemm_s8_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant_
       if (wtid < BN / 4) {
         const int gc = n0 + 4 * wtid;
         cp_async16(ws_s + 4 * wtid, gc < N ? ws + gc : ws, gc < N);
+      } else if constexpr (F32) {  // BN / 4 threads, four fp32 bias columns each
+        const float* b32 = reinterpret_cast<const float*>(bias);
+        const int gc = n0 + 4 * (wtid - BN / 4);
+        cp_async16(b32_s + 4 * (wtid - BN / 4), gc < N ? b32 + gc : b32, gc < N);
       } else if (wtid < BN / 4 + BN / 8) {
         const int gc = n0 + 8 * (wtid - BN / 4);
         cp_async16(b_s + 8 * (wtid - BN / 4), gc < N ? bias + gc : bias, gc < N);
@@ -312,7 +350,7 @@ gemm_s8_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant_
         // the previous tile's stores have read the slab; the residual tile
         // lands in it while the products run
         tma_store_read_wait();
-        if (kRes) {
+        if (kRes && !F32) {
           mbar_expect_tx(my_rbar, SLAB);
 #pragma unroll
           for (int b = 0; b < BN / 64; ++b)
@@ -359,9 +397,36 @@ gemm_s8_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant_
         }
       };
 
-      // bf16(v): the qkv and residual outputs, or the saved h of the fc modes
-      // (bf16 element (row, col) at box col / 64, chunk (col % 64) / 8 ^ row % 8)
-      if (!kFc || save_h) {
+      if constexpr (F32) {
+        // fp32 v straight from the registers: the qkv output, R + v (R read
+        // per fragment), or the saved h of the fc modes; a quad of lanes
+        // covers 32 bytes of a row
+        if (!kFc || save_h) {
+#pragma unroll
+          for (int j = 0; j < BN / 8; ++j) {
+            const int cl = 8 * j + 2 * t;
+            const float2 w2 = *reinterpret_cast<const float2*>(ws_s + cl);
+            const float2 b2 = bias2<true>(b32_s, cl);
+#pragma unroll
+            for (int half = 0; half < 2; ++half) {
+              const int gr = mc + warp * 16 + g + 8 * half, gc = n0 + cl;
+              float v0 = dequant(j, 2 * half, w2.x, b2.x);
+              float v1 = dequant(j, 2 * half + 1, w2.y, b2.y);
+              if (gr < M && gc < N) {
+                const size_t at = (size_t)gr * N + gc;
+                if (kRes) {  // C = R + v, one fp32 add
+                  const float2 r2 = *reinterpret_cast<const float2*>(R32 + at);
+                  v0 = __fadd_rn(r2.x, v0);
+                  v1 = __fadd_rn(r2.y, v1);
+                }
+                *reinterpret_cast<float2*>(C32 + at) = make_float2(v0, v1);
+              }
+            }
+          }
+        }
+      } else if (!kFc || save_h) {
+        // bf16(v): the qkv and residual outputs, or the saved h of the fc modes
+        // (bf16 element (row, col) at box col / 64, chunk (col % 64) / 8 ^ row % 8)
         if (kRes) {
           mbar_wait(my_rbar, n_r & 1);
           ++n_r;
@@ -393,7 +458,7 @@ gemm_s8_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant_
         for (int j = 0; j < BN / 8; ++j) {
           const int cl = 8 * j + 2 * t;
           const float2 w2 = *reinterpret_cast<const float2*>(ws_s + cl);
-          const float2 b2 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(b_s + cl));
+          const float2 b2 = bias2<F32>(F32 ? static_cast<const void*>(b32_s) : b_s, cl);
 #pragma unroll
           for (int half = 0; half < 2; ++half) {
             const int gr = mc + warp * 16 + g + 8 * half, gc = n0 + cl;
@@ -406,7 +471,7 @@ gemm_s8_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant_
       } else if (MODE == kSFcGelu) {
         // int8 codes of g through the slab (byte (row, col) at box col / 128,
         // chunk (col % 128) / 16 ^ row % 8), once the saved h has left it
-        if (save_h) {
+        if (save_h && !F32) {  // the F32 instances' h left from the registers
           if (wtid == 0) tma_store_read_wait();
           warpgroup_sync(1 + c);
         }
@@ -414,7 +479,7 @@ gemm_s8_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant_
         for (int j = 0; j < BN / 8; ++j) {
           const int cl = 8 * j + 2 * t;
           const float2 w2 = *reinterpret_cast<const float2*>(ws_s + cl);
-          const float2 b2 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(b_s + cl));
+          const float2 b2 = bias2<F32>(F32 ? static_cast<const void*>(b32_s) : b_s, cl);
 #pragma unroll
           for (int half = 0; half < 2; ++half) {
             const int rl = warp * 16 + g + 8 * half;
@@ -470,26 +535,29 @@ bool make_map(CUtensorMap* map, const void* ptr, int rows, int cols, int box_row
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int MODE>
-int launch(const int8_t* a, const int8_t* w, const float* xs, const float* ws,
-           const __nv_bfloat16* b, const __nv_bfloat16* R, const float* r, void* c,
-           __nv_bfloat16* c2, int M, int N, int K, cudaStream_t s) {
+template <int MODE, bool F32>
+int launch(const int8_t* a, const int8_t* w, const float* xs, const float* ws, const void* b,
+           const void* R, const float* r, void* c, void* c2, int M, int N, int K,
+           cudaStream_t s) {
   // a runtime call first: it makes the device's primary context current in
   // this thread, which the CUDA driver API's tensor-map encoder below needs
-  auto kernel = gemm_s8_kernel<MODE>;
+  auto kernel = gemm_s8_kernel<MODE, F32>;
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
   // C: bf16 (qkv, residual) or int8 codes (static fc) by TMA; the dynamic
-  // fc's fp32 g by pointer.  Unused maps stay zero
+  // fc's fp32 g by pointer; in the F32 instances every fp32 output and R by
+  // pointer.  Unused maps stay zero
   if ((MODE == kResidual || MODE == kSResidual) && R == nullptr) return (int)cudaErrorInvalidValue;
   CUtensorMap map_a, map_w, map_c = {}, map_c2 = {}, map_r = {};
   bool ok = make_map(&map_a, a, M, K, BM, false) && make_map(&map_w, w, N, K, BN, false);
   if (MODE == kSFcGelu) ok = ok && make_map(&map_c, c, M, N, 64, false);
-  else if (MODE != kFcGelu) ok = ok && make_map(&map_c, c, M, N, 64, true);
-  if (c2 != nullptr) ok = ok && make_map(&map_c2, c2, M, N, 64, true);
-  if (R != nullptr) ok = ok && make_map(&map_r, R, M, N, 64, true);
+  else if (MODE != kFcGelu && !F32) ok = ok && make_map(&map_c, c, M, N, 64, true);
+  if (c2 != nullptr && !F32) ok = ok && make_map(&map_c2, c2, M, N, 64, true);
+  if (R != nullptr && !F32) ok = ok && make_map(&map_r, R, M, N, 64, true);
   if (!ok) return (int)cudaErrorInvalidValue;
+  constexpr bool kFc = MODE == kFcGelu || MODE == kSFcGelu;
+  float* c32 = F32 ? static_cast<float*>(kFc ? c2 : c) : nullptr;
   static int n_sm = 0;
   if (n_sm == 0) {
     int dev = 0;
@@ -498,9 +566,32 @@ int launch(const int8_t* a, const int8_t* w, const float* xs, const float* ws,
   }
   const int n_tiles = ((N + BN - 1) / BN) * ((M + BM - 1) / BM);
   kernel<<<n_tiles < n_sm ? n_tiles : n_sm, THREADS, SMEM_BYTES, s>>>(
-      map_a, map_w, map_c, map_c2, map_r, xs, ws, b, r, static_cast<float*>(c), c2 != nullptr, M,
-      N, K);
+      map_a, map_w, map_c, map_c2, map_r, xs, ws, static_cast<const __nv_bfloat16*>(b), r,
+      static_cast<float*>(c), c2 != nullptr, M, N, K, F32 ? static_cast<const float*>(R) : nullptr,
+      c32);
   return (int)cudaGetLastError();
+}
+
+template <bool F32>
+int dispatch(const void* A, const void* W, const void* xs, const void* ws, const void* bias,
+             const void* R, const void* r, void* C, void* C2, int M, int N, int K, int mode,
+             void* stream) {
+  if (M < 1 || N < 16 || K < 16 || N % 16 || K % 16) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const auto* a = static_cast<const int8_t*>(A);
+  const auto* w = static_cast<const int8_t*>(W);
+  const auto* x = static_cast<const float*>(xs);
+  const auto* wsc = static_cast<const float*>(ws);
+  const auto* rr = static_cast<const float*>(r);
+  switch (mode) {
+    case kQkv: return launch<kQkv, F32>(a, w, x, wsc, bias, R, rr, C, C2, M, N, K, s);
+    case kResidual: return launch<kResidual, F32>(a, w, x, wsc, bias, R, rr, C, C2, M, N, K, s);
+    case kFcGelu: return launch<kFcGelu, F32>(a, w, x, wsc, bias, R, rr, C, C2, M, N, K, s);
+    case kSQkv: return launch<kSQkv, F32>(a, w, x, wsc, bias, R, rr, C, C2, M, N, K, s);
+    case kSResidual: return launch<kSResidual, F32>(a, w, x, wsc, bias, R, rr, C, C2, M, N, K, s);
+    case kSFcGelu: return launch<kSFcGelu, F32>(a, w, x, wsc, bias, R, rr, C, C2, M, N, K, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -514,23 +605,14 @@ int launch(const int8_t* a, const int8_t* w, const float* xs, const float* ws,
 extern "C" int gemm_s8_epilogue(const void* A, const void* W, const void* xs, const void* ws,
                                 const void* bias, const void* R, const void* r, void* C,
                                 void* C2, int M, int N, int K, int mode, void* stream) {
-  if (M < 1 || N < 16 || K < 16 || N % 16 || K % 16) return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = (cudaStream_t)stream;
-  const auto* a = static_cast<const int8_t*>(A);
-  const auto* w = static_cast<const int8_t*>(W);
-  const auto* x = static_cast<const float*>(xs);
-  const auto* wsc = static_cast<const float*>(ws);
-  const auto* b = static_cast<const __nv_bfloat16*>(bias);
-  const auto* res = static_cast<const __nv_bfloat16*>(R);
-  const auto* rr = static_cast<const float*>(r);
-  auto* c2 = static_cast<__nv_bfloat16*>(C2);
-  switch (mode) {
-    case kQkv: return launch<kQkv>(a, w, x, wsc, b, res, rr, C, c2, M, N, K, s);
-    case kResidual: return launch<kResidual>(a, w, x, wsc, b, res, rr, C, c2, M, N, K, s);
-    case kFcGelu: return launch<kFcGelu>(a, w, x, wsc, b, res, rr, C, c2, M, N, K, s);
-    case kSQkv: return launch<kSQkv>(a, w, x, wsc, b, res, rr, C, c2, M, N, K, s);
-    case kSResidual: return launch<kSResidual>(a, w, x, wsc, b, res, rr, C, c2, M, N, K, s);
-    case kSFcGelu: return launch<kSFcGelu>(a, w, x, wsc, b, res, rr, C, c2, M, N, K, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return dispatch<false>(A, W, xs, ws, bias, R, r, C, C2, M, N, K, mode, stream);
+}
+
+// The same on fp32 activations: bias (N), R (M, N), C (modes 0-2) and C2
+// (the saved h) fp32; C int8 codes in mode 5.
+extern "C" int gemm_s8_epilogue_f32(const void* A, const void* W, const void* xs,
+                                    const void* ws, const void* bias, const void* R,
+                                    const void* r, void* C, void* C2, int M, int N, int K,
+                                    int mode, void* stream) {
+  return dispatch<true>(A, W, xs, ws, bias, R, r, C, C2, M, N, K, mode, stream);
 }

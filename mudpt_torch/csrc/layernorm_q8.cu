@@ -1,6 +1,7 @@
-// layernorm_q8: the fp32 LayerNorm of a bf16 row, quantized to int8 at once:
-// symmetric per row (dynamic, with an fp32 row scale) or by one static
-// multiplier.  The fp32 LayerNorm output never reaches device memory.
+// layernorm_q8: the fp32 LayerNorm of a bf16 or fp32 row (the activation
+// dtype), quantized to int8 at once: symmetric per row (dynamic, with an
+// fp32 row scale) or by one static multiplier.  The fp32 LayerNorm output
+// never reaches device memory.
 //
 // Replaces: the LayerNorms of the TPU int8 layer kernels with the
 //   quantization of their fp32 output, mudpt_tpu/ops/quant_block.py
@@ -15,13 +16,17 @@
 //   contraction), rsqrt is rounded to nearest and the division is IEEE;
 //   only the order of the statistics' fp32 sums differs from the plain
 //   version, which can move a code by one where xn / s lies next to a
-//   rounding boundary.
-// Bound on the H100: device-memory bytes (2 read and 1 written per
+//   rounding boundary.  The Pallas kernels take x in bf16 or fp32 (their
+//   statistics are fp32 either way); so does this one.
+// Bound on the H100: device-memory bytes (sizeof(T) read and 1 written per
 //   element, ~12 fp32 operations each).
 // Design: layernorm_fwd's: one warp owns a row (D % 8 == 0, D <= 1024),
-//   16-byte loads kept in registers through the statistics, the affine, the
-//   row max (one more warp shuffle reduction) and the quantization; 8 codes
-//   leave as one 8-byte store a lane.
+//   16-byte loads (8 bf16 or 4 fp32) kept in registers through the
+//   statistics, the affine, the row max (one more warp shuffle reduction)
+//   and the quantization, at most 32 values a lane; a vector's codes leave
+//   as one store a lane (8 bytes from bf16 rows, 4 from fp32).  Both
+//   element types are instances of one template: the bf16 instances
+//   compute what they did before fp32 rows were added, in the same order.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -30,7 +35,6 @@
 
 namespace {
 
-constexpr int kMaxVecPerLane = 4;  // 32 lanes * 4 vectors * 8 = 1024 columns
 constexpr int kRowsPerBlock = 8;   // one warp per row
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -49,29 +53,50 @@ __device__ __forceinline__ int8_t clip_rint(float v) {
   return static_cast<int8_t>(fminf(fmaxf(rintf(v), -127.0f), 127.0f));
 }
 
-template <bool STATIC>
+// a 16-byte vector of T: kN elements, 2^kShift of them; Codes holds its
+// kN int8 codes
+template <typename T> struct Vec;
+
+template <> struct Vec<__nv_bfloat16> {
+  static constexpr int kN = 8, kShift = 3;
+  using Codes = uint2;
+  __device__ __forceinline__ static float get(const uint4& u, int j) {
+    return __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(&u)[j]);
+  }
+};
+
+template <> struct Vec<float> {
+  static constexpr int kN = 4, kShift = 2;
+  using Codes = uint32_t;
+  __device__ __forceinline__ static float get(const uint4& u, int j) {
+    return reinterpret_cast<const float*>(&u)[j];
+  }
+};
+
+template <typename T, bool STATIC>
 __global__ void __launch_bounds__(kRowsPerBlock * 32)
-layernorm_q8_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ scale,
+layernorm_q8_kernel(const T* __restrict__ x, const float* __restrict__ scale,
                     const float* __restrict__ bias, int8_t* __restrict__ q,
                     float* __restrict__ s, const float* __restrict__ r, int rows, int D,
                     float eps) {
+  constexpr int kN = Vec<T>::kN;
+  constexpr int kMaxVecPerLane = 1024 / 32 / kN;  // 32 values a lane at D = 1024
   const int row = blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (row >= rows) return;  // warp-uniform
-  const int nvec = D >> 3;
+  const int nvec = D >> Vec<T>::kShift;
   const uint4* xr = reinterpret_cast<const uint4*>(x + (size_t)row * D);
 
-  float v[kMaxVecPerLane][8];
+  float v[kMaxVecPerLane][kN];
   float sum = 0.f;
 #pragma unroll
   for (int i = 0; i < kMaxVecPerLane; ++i) {
     const int c = lane + i * 32;
     if (c < nvec) {
       uint4 u = xr[c];
-      const __nv_bfloat16* b = reinterpret_cast<const __nv_bfloat16*>(&u);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        v[i][j] = __bfloat162float(b[j]);
+      for (int j = 0; j < kN; ++j) {
+        v[i][j] = Vec<T>::get(u, j);
         sum += v[i][j];
       }
     }
@@ -82,7 +107,7 @@ layernorm_q8_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict
   for (int i = 0; i < kMaxVecPerLane; ++i) {
     if (lane + i * 32 < nvec) {
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < kN; ++j) {
         const float d = __fsub_rn(v[i][j], mean);
         sq = __fadd_rn(sq, __fmul_rn(d, d));
       }
@@ -92,17 +117,21 @@ layernorm_q8_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict
 
   const float4* s4 = reinterpret_cast<const float4*>(scale);
   const float4* b4 = reinterpret_cast<const float4*>(bias);
+  constexpr int kQ = kN / 4;  // float4s of parameters a vector
   float amax = 0.f;
 #pragma unroll
   for (int i = 0; i < kMaxVecPerLane; ++i) {
     const int c = lane + i * 32;
     if (c < nvec) {
-      const float4 sa = s4[2 * c], sb = s4[2 * c + 1];
-      const float4 ba = b4[2 * c], bb = b4[2 * c + 1];
-      const float sc[8] = {sa.x, sa.y, sa.z, sa.w, sb.x, sb.y, sb.z, sb.w};
-      const float bi[8] = {ba.x, ba.y, ba.z, ba.w, bb.x, bb.y, bb.z, bb.w};
+      float4 sq4[kQ], bq4[kQ];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int k = 0; k < kQ; ++k) sq4[k] = s4[kQ * c + k];
+#pragma unroll
+      for (int k = 0; k < kQ; ++k) bq4[k] = b4[kQ * c + k];
+      const float* sc = reinterpret_cast<const float*>(sq4);
+      const float* bi = reinterpret_cast<const float*>(bq4);
+#pragma unroll
+      for (int j = 0; j < kN; ++j) {
         const float xhat = __fmul_rn(__fsub_rn(v[i][j], mean), inv);
         v[i][j] = __fadd_rn(__fmul_rn(xhat, sc[j]), bi[j]);
         amax = fmaxf(amax, fabsf(v[i][j]));
@@ -116,43 +145,52 @@ layernorm_q8_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict
     mult = fmaxf(__fdiv_rn(warp_max(amax), 127.0f), 1e-8f);
     if (lane == 0) s[row] = mult;
   }
-  uint2* qr = reinterpret_cast<uint2*>(q + (size_t)row * D);
+  using Codes = typename Vec<T>::Codes;
+  Codes* qr = reinterpret_cast<Codes*>(q + (size_t)row * D);
 #pragma unroll
   for (int i = 0; i < kMaxVecPerLane; ++i) {
     const int c = lane + i * 32;
     if (c < nvec) {
-      uint2 u;
+      Codes u;
       int8_t* o = reinterpret_cast<int8_t*>(&u);
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < kN; ++j)
         o[j] = clip_rint(STATIC ? __fmul_rn(v[i][j], mult) : __fdiv_rn(v[i][j], mult));
       qr[c] = u;
     }
   }
 }
 
-}  // namespace
-
-// x (rows, D) bf16, scale and bias (D) fp32 -> q (rows, D) int8; dynamic
-// (r null): s (rows) fp32; static: r one fp32 multiplier in device memory.
-extern "C" int layernorm_q8(const void* x, const void* scale, const void* bias, void* q,
-                            void* s, const void* r, int rows, int D, float eps,
-                            void* stream) {
-  if (rows < 1 || D % 8 || D > 1024) return (int)cudaErrorInvalidValue;
+template <typename T>
+int launch(const void* x, const void* scale, const void* bias, void* q, void* s,
+           const void* r, int rows, int D, float eps, cudaStream_t st) {
   const int blocks = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
-  const cudaStream_t st = (cudaStream_t)stream;
-  const auto* xb = static_cast<const __nv_bfloat16*>(x);
+  const auto* xt = static_cast<const T*>(x);
   const auto* sc = static_cast<const float*>(scale);
   const auto* bi = static_cast<const float*>(bias);
   auto* qo = static_cast<int8_t*>(q);
   auto* so = static_cast<float*>(s);
   const auto* rf = static_cast<const float*>(r);
   if (rf != nullptr) {
-    layernorm_q8_kernel<true><<<blocks, kRowsPerBlock * 32, 0, st>>>(xb, sc, bi, qo, so, rf,
-                                                                   rows, D, eps);
+    layernorm_q8_kernel<T, true><<<blocks, kRowsPerBlock * 32, 0, st>>>(xt, sc, bi, qo, so, rf,
+                                                                      rows, D, eps);
   } else {
-    layernorm_q8_kernel<false><<<blocks, kRowsPerBlock * 32, 0, st>>>(xb, sc, bi, qo, so, rf,
-                                                                    rows, D, eps);
+    layernorm_q8_kernel<T, false><<<blocks, kRowsPerBlock * 32, 0, st>>>(xt, sc, bi, qo, so, rf,
+                                                                       rows, D, eps);
   }
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// x (rows, D) bf16, or fp32 when x_f32 != 0; scale and bias (D) fp32 -> q
+// (rows, D) int8; dynamic (r null): s (rows) fp32; static: r one fp32
+// multiplier in device memory.
+extern "C" int layernorm_q8(const void* x, const void* scale, const void* bias, void* q,
+                            void* s, const void* r, int rows, int D, float eps, int x_f32,
+                            void* stream) {
+  if (rows < 1 || D % 8 || D > 1024) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  return x_f32 ? launch<float>(x, scale, bias, q, s, r, rows, D, eps, st)
+               : launch<__nv_bfloat16>(x, scale, bias, q, s, r, rows, D, eps, st);
 }

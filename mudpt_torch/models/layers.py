@@ -240,19 +240,6 @@ def plain_blocks():
         _PLAIN_ON_CUDA = prev
 
 
-def _require_bf16(x: torch.Tensor) -> None:
-    """The int8 tiers' kernels take bf16 activations only: the fp32 forms
-    of the JAX q8 layer kernels (``quant_block.py:89``, :178, :377, :563,
-    rows 14-17 of PERF.md's kernel table) are still to be ported."""
-    if x.dtype != torch.bfloat16:
-        raise NotImplementedError(
-            f"{x.dtype} activations under an int8 tier need the q8 layer chains "
-            "in that type (ROADMAP.md B, 'fp32 activations', rows 14-17: "
-            "layernorm_q8 and quant_rows on fp32 rows, an s8 GEMM with fp32 "
-            "outputs); the int8 kernels take bfloat16"
-        )
-
-
 class LayerNormFn(torch.autograd.Function):
     """A tower LayerNorm whose input needs a gradient: ``layernorm_fwd``
     forward, ``layernorm_bwd`` backward (no residual, the upstream gradient
@@ -397,7 +384,9 @@ def _quant_block(p: dict, x: torch.Tensor, n_head: int, causal,
     """The quant dispatch (``layers.py:218-248``): the int8 tiers exist only
     as the q8 chains, so block impl 'xla', an unsupported mask or a width
     above 1024 raises rather than serve an unquantized block the caller did
-    not ask for."""
+    not ask for.  The chains take bf16 or fp32 activations with the block's
+    weights and biases in the same dtype; a mix (or fp16) raises on either
+    device, as the kernels' dispatch does on the card (nothing casts)."""
     D = x.shape[-1]
     if not (resolve_block_impl() == "pallas" and _valid_mask_spec(causal)
             and (mask is None or causal) and D <= fused_block.MAX_WIDTH):
@@ -407,8 +396,9 @@ def _quant_block(p: dict, x: torch.Tensor, n_head: int, causal,
             f"got impl={resolve_block_impl()!r}, mask spec {causal!r}, D={D}); "
             "set_quant_mode('none') or set_block_impl('pallas')"
         )
-    if x.is_cuda and not _PLAIN_ON_CUDA:
-        _require_bf16(x)
+    fused_block.kernel_for("gemm_s8_epilogue", x.dtype,
+                           *(p[g][f"{n}_{kind}"].dtype for g, n in quant_block._PROJ
+                             for kind in ("w", "b")))
     plain = _PLAIN_ON_CUDA
     if _QUANT_MODE in ("int8_ste", "int8_ste_static"):
         return quant_block.residual_block_q8_ste(p, x, n_head, causal, plain)
@@ -433,8 +423,8 @@ def residual_block(p: dict, x: torch.Tensor, n_head: int,
     else ``layer_fullblock`` while saves are on and D <= 768, else
     ``attn_halfblock`` then ``mlp_halfblock``, on bf16 or fp32 activations
     alike (the gates do not look at the dtype, as JAX's do not).  Under a
-    quant mode the int8 tiers run instead (bf16 only); under
-    :func:`calibration_capture` the XLA route."""
+    quant mode the int8 tiers run instead, on bf16 or fp32 activations
+    alike; under :func:`calibration_capture` the XLA route."""
     if _CALIB_SINK is not None:
         return _xla_route(p, x, n_head, causal, mask)
     if _QUANT_MODE != "none":

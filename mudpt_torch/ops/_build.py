@@ -54,15 +54,17 @@ SIGNATURES = {
         "attention_bwd": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P], _I),
     },
     "layernorm_q8": {
-        "layernorm_q8": ([_P, _P, _P, _P, _P, _P, _I, _I, _F, _P], _I),
+        "layernorm_q8": ([_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P], _I),
     },
     "gemm_s8_epilogue": {
         "gemm_s8_epilogue": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+        "gemm_s8_epilogue_f32": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
     },
     "quant_rows": {
         "quant_rows": ([_P, _P, _P, _P, _I, _I, _P], _I),
     },
-    # fp32 activations (the LayerNorms take them through the sources above)
+    # fp32 activations (the LayerNorms and the int8 tiers take them through
+    # the sources above)
     "gemm_f32_epilogue": {
         "gemm_f32_epilogue": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
     },

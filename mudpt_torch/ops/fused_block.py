@@ -102,7 +102,8 @@ _GEMM_SCHEDULES = ("auto", "pingpong", "cooperative")
 # the activation dtypes the kernel chains take
 ACT_DTYPES = (torch.bfloat16, torch.float32)
 # every kernel, by its launch count: (csrc source, C entry point).  The fp32
-# LayerNorms are instances of the bf16 sources' templates, chosen by a flag
+# LayerNorms (layernorm_q8_f32 too) are instances of the bf16 sources'
+# templates, chosen by a flag
 KERNELS = {
     "layernorm_fwd": ("layernorm_fwd", "layernorm_fwd"),
     "gemm_bf16_epilogue": ("gemm_bf16_epilogue", "gemm_bf16_epilogue"),
@@ -114,10 +115,13 @@ KERNELS = {
     "attention_fwd_f32": ("attention_f32", "attention_fwd_f32"),
     "layernorm_bwd_f32": ("layernorm_bwd", "layernorm_bwd"),
     "attention_bwd_f32": ("attention_f32", "attention_bwd_f32"),
-    # the int8 tiers (ops/quant_block.py), bf16 activations only
+    # the int8 tiers (ops/quant_block.py); quant_rows takes fp32 rows, the
+    # attention accumulator and g, on either activation dtype
     "layernorm_q8": ("layernorm_q8", "layernorm_q8"),
     "gemm_s8_epilogue": ("gemm_s8_epilogue", "gemm_s8_epilogue"),
     "quant_rows": ("quant_rows", "quant_rows"),
+    "layernorm_q8_f32": ("layernorm_q8", "layernorm_q8"),
+    "gemm_s8_epilogue_f32": ("gemm_s8_epilogue", "gemm_s8_epilogue_f32"),
 }
 # the kernel that each dtype-generic wrapper launches, by activation dtype
 DTYPE_KERNELS = {
@@ -127,6 +131,9 @@ DTYPE_KERNELS = {
                       torch.float32: "gemm_f32_epilogue"},
     "attention_fwd": {torch.bfloat16: "attention_fwd", torch.float32: "attention_fwd_f32"},
     "attention_bwd": {torch.bfloat16: "attention_bwd", torch.float32: "attention_bwd_f32"},
+    "layernorm_q8": {torch.bfloat16: "layernorm_q8", torch.float32: "layernorm_q8_f32"},
+    "gemm_s8_epilogue": {torch.bfloat16: "gemm_s8_epilogue",
+                         torch.float32: "gemm_s8_epilogue_f32"},
 }
 # the chains' counts: one a call of a half-block, layer or int8 layer
 CHAINS = (

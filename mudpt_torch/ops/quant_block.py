@@ -9,10 +9,17 @@ Counterpart of ``mudpt_tpu/ops/quant_block.py``: ``_layer_fwd_q8_kernel``
 :418) and ``_layer_fwd_q8_static_save_kernel`` :563.  A Pallas program holds
 one image's layer in VMEM; here each is a chain of tiled kernels (``csrc/``):
 
-  x  -> layernorm_q8 -> (xq int8, xs) -> gemm_s8 q8_qkv -> qkv bf16
+  x  -> layernorm_q8 -> (xq int8, xs) -> gemm_s8 q8_qkv -> qkv dt
   qkv -> attention_fwd (fp32 out) -> quant_rows -> gemm_s8 q8_residual (+ x) -> y1
-  y1 -> layernorm_q8 -> gemm_s8 q8_fc_gelu -> g fp32 [and h bf16 when saving]
+  y1 -> layernorm_q8 -> gemm_s8 q8_fc_gelu -> g fp32 [and h dt when saving]
      -> quant_rows -> gemm_s8 q8_residual (+ y1) -> y
+
+with dt the activation dtype, bf16 or fp32, as the Pallas kernels take
+either (their qkv, residual adds and saves are ``.astype(x.dtype)``, no-ops
+in fp32, their attention runs at ``act_dtype=x.dtype``): ``layernorm_q8``
+and ``gemm_s8_epilogue`` launch the kernel of x's dtype
+(``fused_block.kernel_for``), attention its fp32 form on fp32 qkv, and
+``quant_rows`` takes the fp32 attention accumulator and g in both.
 
 The static chain quantizes by fixed multipliers r (``clip(rint(v * r))``),
 so the fc product's epilogue writes int8 g itself (``q8s_fc_gelu``) and the
@@ -22,14 +29,16 @@ Weights are quantized per output channel (:func:`quantize_cols`) into
 parameter tree by :func:`quantize_blocks` (the ``q8_weights`` entry), or per
 call for a block without it, as the JAX package's traced code does.
 
-The quantization-aware Functions run the saving q8 forward and PR 2's bf16
-layer backward (``fused_block._layer_bwd_chain``, ``_layer_bwd_kernel``
-:868) with the bf16 weights: straight-through, dx only.  The serving
+The quantization-aware Functions run the saving q8 forward and the layer
+backward (``fused_block._layer_bwd_chain``, ``_layer_bwd_kernel`` :868) of
+the activation dtype with the layer's weights in it: straight-through, dx
+only.  The serving
 forwards are inference-only: a backward raises with the JAX message.
 
 Every kernel has a wrapper and a plain PyTorch version beside it; a CPU
-tensor runs the plain version, a CUDA tensor launches or raises.  Launches
-count in ``fused_block.LAUNCHES``, beside the bf16 kernels'.
+tensor runs the plain version, a CUDA tensor launches or raises; nothing
+casts, and a mix of activation dtypes raises.  Launches
+count in ``fused_block.LAUNCHES``, beside the other kernels'.
 """
 
 from __future__ import annotations
@@ -188,13 +197,15 @@ def ln_quant_plain(x, scale, bias, r=None, eps: float = 1e-5):
 
 
 def ln_quant(x, scale, bias, r=None, eps: float = 1e-5):
-    """:func:`ln_quant_plain` on the card, one warp per row."""
+    """:func:`ln_quant_plain` on the card, one warp per row of x (bf16 or
+    fp32)."""
     if not x.is_cuda:
         return ln_quant_plain(x, scale, bias, r, eps)
     D = x.shape[-1]
     if D % 8 or D > 1024:
         raise ValueError(f"layernorm_q8: D={D} must be a multiple of 8 and <= 1024")
-    _require(x, "layernorm_q8 x", torch.bfloat16)
+    key = FB.kernel_for("layernorm_q8", x.dtype)
+    _require(x, "layernorm_q8 x", x.dtype)
     _require(scale, "layernorm_q8 scale", torch.float32, (D,))
     _require(bias, "layernorm_q8 bias", torch.float32, (D,))
     if r is not None:
@@ -204,9 +215,9 @@ def ln_quant(x, scale, bias, r=None, eps: float = 1e-5):
                                                 device=x.device)
     lib = _build.load()["layernorm_q8"]
     _build.check(lib.layernorm_q8(x.data_ptr(), scale.data_ptr(), bias.data_ptr(), q.data_ptr(),
-                                  _ptr(s), _ptr(r), x.numel() // D, D, eps, _stream()),
-                 "layernorm_q8")
-    LAUNCHES["layernorm_q8"] += 1
+                                  _ptr(s), _ptr(r), x.numel() // D, D, eps,
+                                  int(x.dtype == torch.float32), _stream()), key)
+    LAUNCHES[key] += 1
     return q, s
 
 
@@ -255,7 +266,8 @@ def gemm_s8(a, xs, wq, ws, bias, epilogue: str, extra=None, r=None,
             save_h: bool = False, out_dtype=torch.bfloat16):
     """:func:`gemm_s8_plain` on the card: ``xs`` (..., 1) fp32 for the
     dynamic epilogues (None for the static), ``ws`` (1, N) fp32, ``bias`` (N)
-    bf16, ``extra`` the bf16 residual, ``r`` the static fc multiplier."""
+    and ``extra`` (the residual) in the activation dtype ``out_dtype``,
+    bf16 or fp32, which picks the kernel; ``r`` the static fc multiplier."""
     if not a.is_cuda:
         return gemm_s8_plain(a, xs, wq, ws, bias, epilogue, extra, r, save_h, out_dtype)
     if epilogue not in Q8_EPILOGUES:
@@ -264,8 +276,8 @@ def gemm_s8(a, xs, wq, ws, bias, epilogue: str, extra=None, r=None,
     M, N = a.numel() // K, wq.shape[0]
     if N % S8_MULTIPLE or K % S8_MULTIPLE:
         raise ValueError(f"gemm_s8_epilogue: N={N} and K={K} must be multiples of {S8_MULTIPLE}")
-    if out_dtype != torch.bfloat16:
-        raise TypeError(f"gemm_s8_epilogue writes bfloat16 activations, not {out_dtype}")
+    key = FB.kernel_for("gemm_s8_epilogue", out_dtype, bias.dtype,
+                        *(() if extra is None else (extra.dtype,)))
     static = epilogue.startswith("q8s_")
     if static != (xs is None):
         raise ValueError(f"epilogue {epilogue!r}: row scales xs are "
@@ -274,12 +286,12 @@ def gemm_s8(a, xs, wq, ws, bias, epilogue: str, extra=None, r=None,
     _require(a, "gemm_s8 a", torch.int8)
     _require(wq, "gemm_s8 wq", torch.int8, (N, K))
     _require(ws, "gemm_s8 ws", torch.float32, (1, N))
-    _require(bias, "gemm_s8 bias", torch.bfloat16, (N,))
+    _require(bias, "gemm_s8 bias", out_dtype, (N,))
     if xs is not None:
         _require(xs, "gemm_s8 xs", torch.float32, (*a.shape[:-1], 1))
     fc = epilogue.endswith("fc_gelu")
     if epilogue.endswith("residual"):
-        _require(extra, "gemm_s8 residual", torch.bfloat16, out_shape)
+        _require(extra, "gemm_s8 residual", out_dtype, out_shape)
     elif extra is not None:
         raise ValueError(f"epilogue {epilogue!r} takes no residual")
     if epilogue == "q8s_fc_gelu":
@@ -288,15 +300,15 @@ def gemm_s8(a, xs, wq, ws, bias, epilogue: str, extra=None, r=None,
         raise ValueError(f"epilogue {epilogue!r} takes no multiplier")
     if save_h and not fc:
         raise ValueError(f"epilogue {epilogue!r} saves no h")
-    dt = {"q8_fc_gelu": torch.float32, "q8s_fc_gelu": torch.int8}.get(epilogue, torch.bfloat16)
+    dt = {"q8_fc_gelu": torch.float32, "q8s_fc_gelu": torch.int8}.get(epilogue, out_dtype)
     c = torch.empty(out_shape, dtype=dt, device=a.device)
-    c2 = torch.empty(out_shape, dtype=torch.bfloat16, device=a.device) if save_h else None
-    lib = _build.load()["gemm_s8_epilogue"]
-    _build.check(lib.gemm_s8_epilogue(a.data_ptr(), wq.data_ptr(), _ptr(xs), ws.data_ptr(),
-                                      bias.data_ptr(), _ptr(extra), _ptr(r), c.data_ptr(),
-                                      _ptr(c2), M, N, K, Q8_EPILOGUES[epilogue], _stream()),
-                 "gemm_s8_epilogue")
-    LAUNCHES["gemm_s8_epilogue"] += 1
+    c2 = torch.empty(out_shape, dtype=out_dtype, device=a.device) if save_h else None
+    source, entry = FB.KERNELS[key]
+    fn = getattr(_build.load()[source], entry)
+    _build.check(fn(a.data_ptr(), wq.data_ptr(), _ptr(xs), ws.data_ptr(), bias.data_ptr(),
+                    _ptr(extra), _ptr(r), c.data_ptr(), _ptr(c2), M, N, K,
+                    Q8_EPILOGUES[epilogue], _stream()), key)
+    LAUNCHES[key] += 1
     return (c2, c) if save_h else c
 
 
@@ -311,7 +323,7 @@ _KERNELS_Q = (ln_quant, gemm_s8, FB.attention_fwd, quantize_rows)
 def _q8_chain(fns, x, qp, n_head, causal, save=False, r=None):
     """The q8 layer forward on 3-D x: dynamic (r None, ``_layer_fwd_q8_kernel``
     :89) or static (r the (4,) multipliers, ``_layer_fwd_q8_static_kernel``
-    :377); ``save`` also returns y1, qkv and the bf16 h (:178, :563)."""
+    :377); ``save`` also returns y1, qkv and h in x's dtype (:178, :563)."""
     lnq, gemm, attn, qrows = fns
     (ln1_s, ln1_b, qkv_wq, qkv_ws, qkv_b, out_wq, out_ws, out_b,
      ln2_s, ln2_b, fc_wq, fc_ws, fc_b, proj_wq, proj_ws, proj_b) = qp
@@ -320,13 +332,13 @@ def _q8_chain(fns, x, qp, n_head, causal, save=False, r=None):
     xq, xs = lnq(x, ln1_s, ln1_b, site(0))
     qkv = gemm(xq, xs, qkv_wq, qkv_ws, qkv_b, pre + "qkv", out_dtype=x.dtype)
     aq, a_s = qrows(attn(qkv, n_head, causal, out_f32=True), site(1))
-    y1 = gemm(aq, a_s, out_wq, out_ws, out_b, pre + "residual", extra=x)
+    y1 = gemm(aq, a_s, out_wq, out_ws, out_b, pre + "residual", extra=x, out_dtype=x.dtype)
     x2q, x2s = lnq(y1, ln2_s, ln2_b, site(2))
     fc = gemm(x2q, x2s, fc_wq, fc_ws, fc_b, pre + "fc_gelu", r=site(3), save_h=save,
               out_dtype=x.dtype)
     h, g = fc if save else (None, fc)
     gq, gs = (g, None) if r is not None else qrows(g)
-    y = gemm(gq, gs, proj_wq, proj_ws, proj_b, pre + "residual", extra=y1)
+    y = gemm(gq, gs, proj_wq, proj_ws, proj_b, pre + "residual", extra=y1, out_dtype=x.dtype)
     return (y, y1, qkv, h) if save else y
 
 
@@ -418,8 +430,9 @@ def _ste_forward(ctx, x, params, amax, qw, n_head, causal, plain):
 
 def _ste_backward(ctx, g):
     """``_q8_ste_bwd`` :311 / ``_q8_ste_static_bwd`` :672: the saved
-    quantized intermediates, or the saving q8 forward again, then the bf16
-    layer backward with the bf16 weights (QuickGELU' of the saved bf16 h)."""
+    quantized intermediates, or the saving q8 forward again, then the layer
+    backward in x's dtype with the layer's weights (QuickGELU' of the saved
+    h)."""
     x, y1, qkv, h, ln1_s, qkv_w, out_w, ln2_s, fc_w, proj_w = ctx.saved_tensors
     if y1 is None:
         _, y1, qkv, h = _q8_chain(_PLAIN_Q if ctx.plain else _KERNELS_Q, x, ctx.qp,
@@ -487,7 +500,7 @@ def layer_fullblock_q8_ste(x, ln1_s, ln1_b, qkv_w, qkv_b, out_w, out_b,
                            n_head: int, causal: Causal = False, plain: bool = False,
                            qw: dict = None):
     """Quantization-aware prompt tuning (``layer_fullblock_q8_ste`` :223): the
-    bf16 layer parameters in, the int8 forward out; when x needs a gradient
+    layer parameters in, the int8 forward out; when x needs a gradient
     :class:`LayerFullblockQ8SteFn`, otherwise the serving forward."""
     params = (ln1_s, ln1_b, qkv_w, qkv_b, out_w, out_b, ln2_s, ln2_b, fc_w, fc_b,
               proj_w, proj_b)

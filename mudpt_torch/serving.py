@@ -375,9 +375,8 @@ def export_zero_shot(
     The class text is encoded once, in fp32 on the XLA route (a JAX host
     without a TPU encodes it on XLA too), and the text tower is left out of
     the artifact.  ``compute_dtype`` (default float32) is the vision
-    tower's; the int8 tiers take ``torch.bfloat16`` on the card (their fp32
-    kernels wait, ROADMAP.md B, 'fp32 activations'), and the pallas tier's
-    fp32 export is unchecked on the card (ROADMAP.md B)."""
+    tower's; every tier takes float32 or ``torch.bfloat16`` on the card,
+    the kernel tiers through the kernels of that dtype."""
     from mudpt_torch.ops import quant_block
     from mudpt_torch.trainers.zsclip import _encode_templates, _zs_inference
 

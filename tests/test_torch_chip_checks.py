@@ -38,7 +38,13 @@ whose operands were rounded to TF32 and an fp32 attention half with its qkv
 rounded once to bf16, and pass a change of fp32 sum order; its launch
 checks reject an fp32 run that launched a bf16 or int8 kernel, one that
 launched no fp32 ``attention_bwd``, and one routed to XLA (no launch).
-The end-of-run process check rejects a child process left running."""
+``[fp32 int8]``'s bit-equal check rejects an fp32 s8 epilogue that rounds
+qkv or R + v through bf16, its code check LayerNorm-quant codes two steps
+off, and its launch checks an fp32 int8 path that launched the bf16
+LayerNorm-quant or s8 GEMM and a quantization-aware fp32 step without the
+fp32 layer backward; its CoCoOp chunk probe a kernel site whose rows depend
+on the batch and text features' gradients that differ chunked.  The end-of-run process check rejects a child process
+left running."""
 
 import importlib.util
 import os
@@ -1176,3 +1182,145 @@ def test_fp32_launch_check_catches_a_wrong_route(fault):
         C.check_fp32_launches(F, "fp32 step", got)
     with pytest.raises(AssertionError, match="launches differ"):
         C.check_launches("fp32 step", got, _fp32_step_counts(C))
+
+
+# ---- [fp32 int8]: the int8 tiers on fp32 activations
+
+
+def _f32_s8_case(ep):
+    """The args of an fp32 s8 GEMM case and its plain output."""
+    g = torch.Generator().manual_seed(8)
+    x32 = torch.randn(96, 64, generator=g)
+    wq, ws = Q.quantize_cols(torch.randn(64, 128, generator=g) * 0.125)
+    a, xs = Q.quantize_rows_plain(x32)
+    extra = torch.randn(96, 128, generator=g) if ep.endswith("residual") else None
+    args = (a, xs, wq.t().contiguous(), ws, torch.randn(128, generator=g) * 0.1, ep, extra,
+            None, False, torch.float32)
+    return args, Q.gemm_s8_plain(*args)
+
+
+@pytest.mark.parametrize("ep", ["q8_qkv", "q8_residual"])
+def test_fp32_s8_check_catches_a_bf16_rounding(ep):
+    """gemm_s8_epilogue_f32 is held bit-equal: its qkv (or R + v) rounded
+    through bf16 -- the bf16 kernel's epilogue on fp32 tensors -- fails;
+    the fp32 epilogue passes."""
+    C = _chip_smoke()
+    args, ref = _f32_s8_case(ep)
+    v = Q._s8_matmul(args[0], args[2]) * args[1] * args[3] + args[4]
+    faulty = v.bfloat16().float() if ep == "q8_qkv" else (args[6].bfloat16()
+                                                          + v.bfloat16()).float()
+    with pytest.raises(AssertionError, match="max abs err"):
+        C.check_equal(f"gemm_s8_epilogue_f32 {ep}, bf16-rounded", faulty, ref)
+    C.check_equal(f"gemm_s8_epilogue_f32 {ep}", Q.gemm_s8(*args), ref)
+
+
+def test_fp32_codes_check_catches_codes_two_steps_off():
+    """layernorm_q8_f32's codes are held within one step: every code two
+    steps off fails, as does one code two steps off among otherwise equal
+    codes."""
+    C = _chip_smoke()
+    g = torch.Generator().manual_seed(9)
+    x = torch.randn(256, 128, generator=g) * 2
+    s, b = torch.randn(128, generator=g) * 0.1 + 1, torch.randn(128, generator=g) * 0.1
+    ref = Q.ln_quant_plain(x, s, b)[0]
+    C.check_codes("layernorm_q8_f32", Q.ln_quant(x, s, b)[0], ref)
+    off = (ref.int() + 2).clamp(-127, 127).to(torch.int8)
+    with pytest.raises(AssertionError, match="max abs err"):
+        C.check_codes("layernorm_q8_f32, two steps off", off, ref)
+    one = ref.clone()
+    one[3, 5] = ref[3, 5] - 2 if ref[3, 5] > 0 else ref[3, 5] + 2
+    with pytest.raises(AssertionError, match="max abs err"):
+        C.check_codes("layernorm_q8_f32, one code two steps off", one, ref)
+
+
+def _fp32_q8_step_counts(C, route="q8_train"):
+    """The launches of an fp32 step under a quantization-aware tier at
+    ViT-B/16: every layer on the q8 chain, the fp32 backward."""
+    from mudpt_torch.models.clip import VIT_B16
+
+    return C.in_fp32(F, C.step_launches(F, VIT_B16, route, route))
+
+
+def test_fp32_q8_launch_check_passes_the_fp32_qat_step():
+    C = _chip_smoke()
+    got = _fp32_q8_step_counts(C)
+    assert got["layernorm_q8_f32"] == 48 and got["gemm_s8_epilogue_f32"] == 96
+    assert got["quant_rows"] == 48 and got["gemm_f32_epilogue"] == 96
+    assert all(got[k] == 0 for k in C.kernel_groups(F)[0] + ["layernorm_q8", "gemm_s8_epilogue"])
+    assert "fp32 kernels only" in C.check_fp32_launches(F, "fp32 int8_ste step", got, quant=True)
+    # and the unquantized fp32 check refuses it: an int8 kernel there is a wrong route
+    with pytest.raises(AssertionError, match="launched"):
+        C.check_fp32_launches(F, "fp32 step", got)
+
+
+@pytest.mark.parametrize("fault", ["a bf16 layernorm_q8", "a bf16 gemm_s8_epilogue",
+                                   "no fp32 backward", "the bf16 backward"])
+def test_fp32_q8_launch_check_catches_a_wrong_route(fault):
+    """An fp32 path under an int8 tier that launched the bf16 LayerNorm-quant
+    or s8 GEMM, a quantization-aware step without the fp32 layer backward
+    (none, or the bf16 one) each fail the launch checks."""
+    C = _chip_smoke()
+    want = _fp32_q8_step_counts(C)
+    got = dict(want)
+    if fault == "a bf16 layernorm_q8":
+        got["layernorm_q8"], got["layernorm_q8_f32"] = 1, want["layernorm_q8_f32"] - 1
+    elif fault == "a bf16 gemm_s8_epilogue":
+        got["gemm_s8_epilogue"], got["gemm_s8_epilogue_f32"] = 1, want["gemm_s8_epilogue_f32"] - 1
+    else:
+        bwd = ("gemm_f32_epilogue", "layernorm_bwd_f32", "attention_bwd_f32")
+        for k in bwd:
+            got[k] = 0
+        if fault == "the bf16 backward":
+            got.update(gemm_bf16_epilogue=want["gemm_f32_epilogue"],
+                       layernorm_bwd=want["layernorm_bwd_f32"],
+                       attention_bwd=want["attention_bwd_f32"])
+    with pytest.raises(AssertionError, match="launched"):
+        C.check_fp32_launches(F, "fp32 int8_ste step", got, quant=True)
+    with pytest.raises(AssertionError, match="launches differ"):
+        C.check_launches("fp32 int8_ste step", got, want)
+
+
+def _chunk_taps(tower, dfeat_off=0.0):
+    """Taps of an unchunked encode of 8 rows and of two chunks of 4, as
+    ``chip_smoke.TextTaps.by_site`` returns them: the features' gradients
+    (``dfeat_off`` added to the second chunk's), ln_final a row-wise scale
+    and the tower ``tower``, each with its input and output gradients."""
+    g = torch.Generator().manual_seed(13)
+    x, w = torch.randn(8, 6, generator=g), torch.randn(6, 6, generator=g)
+    ln = {"s": torch.randn(6, generator=g)}
+    dy = torch.randn(8, 6, generator=g)
+
+    def rec(site, fn, p, xx, dyy):
+        xx = xx.clone().requires_grad_(True)
+        (dxx,) = torch.autograd.grad(fn(p, xx), xx, dyy)
+        return {"site": site, "fn": fn, "p": p, "x": xx.detach(), "args": (), "kw": {},
+                "dy": dyy, "dx": dxx}
+
+    def recs(rows, off):
+        d = dy[rows] + off
+        return {"text_forward": [rec("text_forward", lambda p, v: v @ p["projection"],
+                                     {"projection": w}, x[rows], d)],
+                "layer_norm": [rec("layer_norm", lambda p, v: v * p["s"], ln, x[rows], d)],
+                "transformer_forward": [rec("transformer_forward", tower, {}, x[rows], d)]}
+
+    whole, first, second = recs(slice(0, 8), 0), recs(slice(0, 4), 0), recs(slice(4, 8), dfeat_off)
+    return whole, {k: first[k] + second[k] for k in whole}
+
+
+@pytest.mark.parametrize("fault", [None, "a tower whose rows depend on the batch",
+                                   "the features' gradients one ulp apart"])
+def test_chunk_cause_catches_a_batch_dependent_kernel(fault):
+    """``[fp32 int8]``'s CoCoOp chunk probe passes row-wise sites and the
+    same features' gradients, and fails a kernel site whose rows depend on
+    the batch (replayed on a chunk's rows against all) and features'
+    gradients that differ chunked."""
+    C = _chip_smoke()
+    tower = ((lambda p, v: v * v.shape[0]) if fault == "a tower whose rows depend on the batch"
+             else (lambda p, v: torch.tanh(v)))
+    whole, chunks = _chunk_taps(tower, 1e-6 if fault == "the features' gradients one ulp apart"
+                                else 0.0)
+    if fault is None:
+        assert "replayed" in C.chunk_cause(whole, chunks, "none")
+    else:
+        with pytest.raises(AssertionError, match="bit-equal|differ chunked"):
+            C.chunk_cause(whole, chunks, "none")

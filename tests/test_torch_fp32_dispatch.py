@@ -1,7 +1,7 @@
 """The fp32 kernel chains' dispatch, on the CPU: the wrappers' table from
 activation dtype to kernel (``fused_block.kernel_for``), bf16 and fp32 each
 to its own entry point, fp16 and a mix of dtypes refused; the int8 tiers
-refusing fp32 activations with a message that names their ROADMAP item;
+routing fp32 activations to their q8 chains and refusing a mix of dtypes;
 every CUDA source bound by ``_build.SIGNATURES`` and every entry there
 backed by a source; every launch count either a kernel of
 ``chip_smoke.py``'s kernel object or a chain; and the routing gates of
@@ -59,11 +59,31 @@ def test_fp16_and_mixed_dtypes_raise(op):
         F.kernel_for(op)
 
 
-def test_quant_route_refuses_fp32_naming_roadmap():
-    roadmap = r"ROADMAP\.md B, 'fp32 activations', rows 14-17"
-    with pytest.raises(NotImplementedError, match=roadmap):
-        TL._require_bf16(torch.zeros(2))
-    TL._require_bf16(torch.zeros(2, dtype=torch.bfloat16))
+QUANT_CHAINS = {"int8": "_InferenceOnlyFn", "int8_static": "_InferenceOnlyFn",
+                "int8_ste": "LayerFullblockQ8SteFn",
+                "int8_ste_static": "LayerFullblockQ8SteStaticFn"}
+
+
+@pytest.mark.parametrize("quant", sorted(QUANT_CHAINS))
+def test_quant_route_takes_fp32_and_refuses_a_mix(quant):
+    """Under each int8 tier an fp32 x takes the q8 chain (on the CPU its
+    plain versions), which returns fp32; an fp32 x with a bf16 block (a
+    mix) raises, as the kernels' dispatch does on the card."""
+    blk = _block(64, 1, torch.float32)
+    if quant.endswith("static"):
+        blk["q8_scales"] = torch.tensor([2.0, 1.5, 2.5, 1.0])
+    x = torch.randn(2, 5, 64, requires_grad=True)
+    with TL.quantized(quant):
+        y = TL.residual_block(blk, x, 1)
+        assert y.dtype == torch.float32 and y.shape == x.shape
+        assert type(y.grad_fn).__name__ == QUANT_CHAINS[quant] + "Backward"
+        if quant.startswith("int8_ste"):
+            (dx,) = torch.autograd.grad(y.sum(), x)
+            assert dx.dtype == torch.float32 and torch.isfinite(dx).all()
+        mixed = _block(64, 1, torch.bfloat16)
+        mixed.update({k: v for k, v in blk.items() if k == "q8_scales"})
+        with pytest.raises(TypeError, match="one activation dtype"):
+            TL.residual_block(mixed, x, 1)
 
 
 def test_every_source_has_signatures_and_every_entry_a_source():
