@@ -232,6 +232,25 @@ Phases, each printed with the card's name and power limit:
               held to the kernel route, timed and traced; one block 1280 wide
               (20 heads, 257 rows, batch 64), routed to XLA, in bf16 against
               fp32 on the card, timed.
+ 15a. probes    the two probes of tools/ on the port's kernels, run in this
+              process through their entry points at the JAX probes' shapes
+              (python -m mudpt_torch.tools.probe_int8_mxu: the tensor cores'
+              rate, bf16 and s8, at 384 x 768 -> 3072, 16 slices a step, G
+              64 and 320, and quant_rows at 384 x 768; python -m
+              mudpt_torch.tools.probe_q8_residual: one ViT-B layer, 128 x
+              200, under six modes, towers of 4 and 16 layers), their
+              readings and launches; then each new kernel instance against
+              its plain version: the s8 sums bit-equal where int32 wraps,
+              the bf16 sums bit-equal on small integers (exact in fp32 in
+              any order) and within stated limits on the probe's draws,
+              each quantizer ablation of quant_rows bit-equal and of
+              layernorm_q8 within a code step, q8_noclip's codes equal to
+              q8's, q8_recip's within a step (share printed), the floor's
+              convert saturating as XLA's, the floor GEMM's qkv and
+              residual bit-equal, and each mode's layer within the q8
+              chains' limits (q8_static and q8_floor, numerically off by
+              the probe's design, within limits of their own); each timed
+              beside its bound.
  16. processes   the loaders' worker processes, their forkserver and
               resource tracker stopped and waited for; any other process
               the run started and left running is killed and fails it.
@@ -255,7 +274,11 @@ their own: totals over one vision layer of the fp32 ViT-B/16 step at batch
 gemm_s8_epilogue_f32) totals over one vision layer of the fp32 int8_ste
 step, under "fp32_int8_ste_static" of the int8_ste_static one, their
 launches those of the fp32 int8_ste trainer's step
-("fp32_int8_ste_train_step").  "launches"
+("fp32_int8_ste_train_step"); the probes' kernels (probe_mma_bf16,
+probe_mma_s8, and the ablations quant_rows_*, layernorm_q8_* and
+gemm_s8_epilogue_floor) totals of one call of the rate kernel at G 64, or
+over one layer of probe_q8_residual, their launches those of the probe's
+entry point run in [probes] ("probe_int8_mxu", "probe_q8_residual").  "launches"
 counts the main path's run ("main_path": the ViT-B/16 train step, or the
 int8 request), "launches_by_path" each path's ("engine_train_step": one
 train step of the engine; "zoo_<trainer>_step" one of each zoo trainer,
@@ -422,6 +445,24 @@ REPLACES.update({
 # the int8 kernels, whose times in the kernel object are those of one
 # vision layer of the ViT-B/16 int8 request, and whose launches are that path's
 Q8_KERNELS = ("layernorm_q8", "gemm_s8_epilogue", "quant_rows")
+# the probes of tools/ (rows 18-19 of PERF.md's table; ops/probe.py): the
+# rate kernel, and the quantizer ablations' instances of the int8 sources;
+# quant_rows is also the rate probe's quantize kernel
+PROBE_INT8_MXU = "tools/probe_int8_mxu.py"
+PROBE_Q8 = "tools/probe_q8_residual.py:116 layer_kernel (launched :142)"
+PROBE_KERNELS = ("probe_mma_bf16", "probe_mma_s8", "quant_rows_recip", "quant_rows_noclip",
+                 "quant_rows_floor", "layernorm_q8_recip", "layernorm_q8_noclip",
+                 "layernorm_q8_floor", "gemm_s8_epilogue_floor")
+REPLACES["quant_rows"] += f"; {PROBE_INT8_MXU}:56 quant_kernel (launched :124)"
+REPLACES.update({
+    "probe_mma_bf16": f"{PROBE_INT8_MXU}:41 mm_kernel (launched :81), bf16 x bf16 -> fp32",
+    "probe_mma_s8": f"{PROBE_INT8_MXU}:41 mm_kernel (launched :81), s8 x s8 -> s32",
+    **{f"quant_rows_{m}": f"{PROBE_Q8}, quant_rows :76 in mode q8_{m}"
+       for m in ("recip", "noclip", "floor")},
+    **{f"layernorm_q8_{m}": f"{PROBE_Q8}, _ln_fp32 + quant_rows :76 in mode q8_{m}"
+       for m in ("recip", "noclip", "floor")},
+    "gemm_s8_epilogue_floor": f"{PROBE_Q8}, q8_matmul :104 in mode q8_floor",
+})
 # the chunked MLP half's kernels, whose times under "chunked" are those of
 # one call of its forward and backward at ViT-L/14's vision MLP
 CHUNKED_KERNELS = ("layernorm_fwd", "gemm_bf16_epilogue", "layernorm_bwd")
@@ -2472,12 +2513,13 @@ def cocoop_launches(keys, cfg, n_chunks: int, quant: str = "none") -> dict:
 
 def kernel_groups(F) -> tuple:
     """The kernel object's entries, every launch count of ``F.KERNELS``
-    once: (the bf16 chains' kernels, the int8 tiers', the fp32 chains')."""
+    once: (the bf16 chains' kernels, the int8 tiers', the fp32 chains', the
+    probes')."""
     import torch
 
     fp32 = [by[torch.float32] for by in F.DTYPE_KERNELS.values()]
-    bf16 = [k for k in F.KERNELS if k not in fp32 and k not in Q8_KERNELS]
-    return bf16, list(Q8_KERNELS), fp32
+    bf16 = [k for k in F.KERNELS if k not in (*fp32, *Q8_KERNELS, *PROBE_KERNELS)]
+    return bf16, list(Q8_KERNELS), fp32, list(PROBE_KERNELS)
 
 
 def check_launches(what: str, got: dict, want: dict) -> None:
@@ -5407,6 +5449,258 @@ def phase_fp32_int8(F, root: Path, unquantized: tuple) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# [probes]: the rate kernel's bf16 sums on the probe's normal draws run in
+# another order than the plain version's (each block's share of the 1,024
+# slice products at G 64 in the tensor cores' fp32 accumulators, then 11
+# atomic adds, against the slices' sum added once a step): 786,432 products
+# an element, about 250 times the GEMM's longest K, so the fp32 limits grow
+# by 2^4 over F32_MAX_ERR and F32_NORM_ERR (the square root of the ratio
+# of the sums' lengths, rounded up), and no element is held bit-equal.  On
+# small integers, where every partial sum is an exact fp32 integer in any
+# order, the sums are held bit-equal instead
+PROBE_BF16_MAX_ERR, PROBE_BF16_NORM_ERR = 2.0 ** -11, 2.0 ** -12
+# the q8_static mode's layer: on the probe's unfolded weight scales its qkv
+# is 8x the layer's and its scores 64x, so the softmax's inputs carry 64x
+# the sum-order differences and the bf16 probabilities round apart far more
+# often than in the production chains, whose limits (2^-5, 2^-8) four of
+# the other modes meet (reading 0.037 of the largest value and 9.3e-3 in norm;
+# tests/test_torch_probes.py reads 1.3e-2 against the JAX probe's kernel):
+# the mode times the chain and computes nothing a model uses
+PROBE_STATIC_MAX_ERR, PROBE_STATIC_NORM_ERR = 2.0 ** -3, 2.0 ** -5
+# the q8_floor mode's layer: its unscaled products put the softmax's inputs
+# near 1e5, so the probabilities are one-hot and a near-tie of two scores,
+# parted by the order of fp32 sums, sends a row's attention to another key:
+# that row of y moves as a whole (reading 0.082 of the largest value, 8.2e-5
+# of the elements not bit-equal) while the norm stays within the chains'
+# 2^-8 (reading 9.9e-4); timing only, like the static mode
+PROBE_FLOOR_MAX_ERR = 2.0 ** -2
+# |x|, |w| <= 4: a sum at G = 64 stays below 16 x 768 x 16 x 64 < 2^24
+PROBE_INT_RANGE = 4
+# positive s8 codes: a step's sum passes 5e7 an element, so at G = 320 every
+# output wraps mod 2^32 (in the blocks' int32 registers and in the atomics)
+PROBE_WRAP_CODES = (64, 128)
+# out-of-range values, infinities and NaN for the floor's convert
+PROBE_FLOOR_SPECIALS = (300.0, -300.0, 127.9, -128.9, 1e30, float("inf"), -float("inf"),
+                        float("nan"))
+
+
+def probe_launches(n_layers: int) -> list:
+    """The (count, route) parts of ``probe_q8_residual``'s launches: each of
+    its six modes' layer route, run for ``n_layers`` layers."""
+    parts = [(n_layers, "full"), (n_layers, "q8"), (n_layers, "q8s")]
+    for m in ("recip", "noclip", "floor"):
+        parts.append((n_layers, {f"layernorm_q8_{m}": 2, f"quant_rows_{m}": 2, "attention_fwd": 1,
+                                 "gemm_s8_epilogue_floor" if m == "floor" else
+                                 "gemm_s8_epilogue": 4}))
+    return parts
+
+
+def phase_probes(F, Q, kernels: dict) -> dict:
+    """The probes of tools/ through their entry points in this process, at
+    the JAX probes' shapes, their launches held; then every new kernel
+    instance against its plain version, timed beside its bound, into
+    ``kernels`` (by launch count: the rate kernel's totals are one call at
+    G1, the ablations' one layer of the probe's shape)."""
+    import torch
+
+    from mudpt_torch.ops import probe as P
+    from mudpt_torch.tools import probe_int8_mxu, probe_q8_residual
+
+    tag = "probes"
+    paths = {}
+    F.reset_launches()
+    mxu = probe_int8_mxu.main([])
+    torch.cuda.synchronize()
+    paths["probe_int8_mxu"] = dict(F.LAUNCHES)
+    F.reset_launches()
+    q8r = probe_q8_residual.main([])
+    torch.cuda.synchronize()
+    paths["probe_q8_residual"] = dict(F.LAUNCHES)
+    sh, reps = mxu["shape"], 1 + 4  # the entry point's warm-up and --rep 4
+    check_launches("probe_int8_mxu", paths["probe_int8_mxu"],
+                   expect(F.LAUNCHES, (1, dict(probe_mma_bf16=2 * reps, probe_mma_s8=2 * reps,
+                                                quant_rows=1))))
+    lsh = q8r["shape"]
+    n_layers = (1 + 6) * (lsh["l1"] + lsh["l2"]) + lsh["l2"]  # --rep 6, then the finite check
+    check_launches("probe_q8_residual", paths["probe_q8_residual"],
+                   expect(F.LAUNCHES, *probe_launches(n_layers)))
+    if not mxu["quant_exact"] or not all(q8r["finite"].values()):
+        raise AssertionError(f"probes: quantizer exact {mxu['quant_exact']}, finite towers "
+                             f"{q8r['finite']}")
+    say(tag, f"probe_int8_mxu: bf16 {mxu['bf16_ops_per_s'] / 1e12:.1f} TFLOP/s "
+             f"({mxu['bf16_ops_per_s'] / PEAK_BF16_FLOPS:.3f} of 989), int8 "
+             f"{mxu['int8_ops_per_s'] / 1e12:.1f} TOP/s "
+             f"({mxu['int8_ops_per_s'] / PEAK_INT8_OPS:.3f} of 1,979), "
+             f"{mxu['int8_ops_per_s'] / mxu['bf16_ops_per_s']:.3f}x bf16; G {sh['g1']} / "
+             f"{sh['g2']} ms bf16 {mxu['bf16_s'][0] * 1e3:.3f} / {mxu['bf16_s'][1] * 1e3:.3f}, "
+             f"int8 {mxu['int8_s'][0] * 1e3:.3f} / {mxu['int8_s'][1] * 1e3:.3f}; yardstick "
+             + ", ".join(f"{k} {v / 1e12:.1f} T/s" for k, v in mxu["yardstick_ops_per_s"].items())
+             + f"; launches {paths['probe_int8_mxu']['probe_mma_bf16']} + "
+             f"{paths['probe_int8_mxu']['probe_mma_s8']}, quant_rows 1")
+    B, S, D, H = lsh["B"], lsh["S"], lsh["D"], lsh["H"]
+    bounds = [float(chain_bound(B, S, D, False, int8=q).split()[1]) for q in (False, True)]
+    tool = [q8r["bound_s"][k] * 1e3 for k in ("bf16", "int8")]
+    if any(abs(a - b) > 1e-4 for a, b in zip(bounds, tool)):
+        raise AssertionError(f"probe_q8_residual's bound {tool} is not chain_bound's {bounds}")
+    say(tag, "probe_q8_residual ms a layer: " + ", ".join(
+        f"{m} {v * 1e3:.4f}" for m, v in q8r["per_layer_s"].items()) + "; deltas: " + ", ".join(
+        f"{k} {v * 1e3:.4f}" for k, v in q8r["deltas_s"].items())
+        + f"; chain_bound bf16 {bounds[0]:.4f}, int8 {bounds[1]:.4f} ms; "
+        f"{n_layers} layers a mode")
+
+    # the rate kernel: s8 where int32 wraps, bf16 exact on small integers
+    # and within limits on the probe's draws; each timed at G1
+    rn = randn_fn(16)
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    iters, M, K, N, g1, g2 = sh["iters"], sh["S"], sh["D"], sh["DO"], sh["g1"], sh["g2"]
+    blocks = P.probe_blocks(M, N, iters * g1, n_sm)
+    ops = probe_int8_mxu.operands(M, K, N, iters, "cuda")
+    lo, hi = PROBE_WRAP_CODES
+    xw = torch.randint(lo, hi, (iters, M, K), generator=gen, device="cuda").to(torch.int8)
+    ww = torch.randint(lo, hi, (N, K), generator=gen, device="cuda").to(torch.int8)
+    least = P.mma_probe_plain(xw, ww, 1).abs().min().item()  # one step's sums: no wrap
+    wraps = least * g2 >= 2 ** 31
+    reading = check_equal("probe_mma s8 wrapping", P.mma_probe(xw, ww, g2),
+                          P.mma_probe_plain(xw, ww, g2), kernels["probe_mma_s8"])
+    reading += "; probe's draws at G1 " + check_equal(
+        "probe_mma s8", P.mma_probe(*ops["int8"], g1), P.mma_probe_plain(*ops["int8"], g1))
+    if not wraps:
+        raise AssertionError(f"probe_mma s8: not every output wraps ({least} x {g2} < 2^31)")
+    del xw, ww
+    r_ = PROBE_INT_RANGE
+    xi = torch.randint(-r_, r_ + 1, (iters, M, K), generator=gen, device="cuda").bfloat16()
+    wi = torch.randint(-r_, r_ + 1, (N, K), generator=gen, device="cuda").bfloat16()
+    reading_b = "small integers " + check_equal("probe_mma bf16 integers", P.mma_probe(xi, wi, g1),
+                                                P.mma_probe_plain(xi, wi, g1),
+                                                kernels["probe_mma_bf16"])
+    reading_b += "; probe's draws " + check_close(
+        "probe_mma bf16", P.mma_probe(*ops["bf16"], g1), P.mma_probe_plain(*ops["bf16"], g1),
+        kernels["probe_mma_bf16"], max_limit=PROBE_BF16_MAX_ERR,
+        norm_limit=PROBE_BF16_NORM_ERR, share_limit=None)
+    del xi, wi
+    for dt, rd in (("bf16", reading_b), ("s8", reading)):
+        xs, wt = ops["bf16" if dt == "bf16" else "int8"]
+        ms = time_ms(lambda: P.mma_probe(xs, wt, g1), 5)
+        plain = time_ms(lambda: P.mma_probe_plain(xs, wt, g1), 2)
+        work = 2 * M * K * N * iters * g1
+        nbytes = xs.numel() * xs.element_size() + wt.numel() * wt.element_size() + M * N * 4
+        bms, by = bound(nbytes, work if dt == "bf16" else 0, 0, work if dt == "s8" else 0)
+        kernels[f"probe_mma_{dt}"].add(ms, plain, None, bms, by)
+        say(tag, f"probe_mma {dt} {iters}x{M}x{K}->{N}, G {g1}: {rd}; ms {ms:.4f} "
+                 f"({work / ms / 1e9:.1f} T/s) plain {plain:.4f} library none bound {bms:.4f} "
+                 f"({by}); {blocks} blocks on {n_sm} SMs ({blocks / n_sm:.2f} waves, "
+                 f"{min(blocks, n_sm)} SMs busy)")
+    del ops
+
+    # the quantizer ablations at the probe layer's rows: the attention
+    # output (D wide) and g (4 D wide) for quant_rows, LN rows for
+    # layernorm_q8, each twice a layer
+    rows = B * S
+    x_att = rn(rows, D, dtype=torch.float32)
+    x_g = rn(rows, 4 * D, dtype=torch.float32) * 200  # g past 127, as the floor's
+    specials = rn(1, D, dtype=torch.float32)
+    specials[0, :len(PROBE_FLOOR_SPECIALS)] = torch.tensor(PROBE_FLOOR_SPECIALS, device="cuda")
+    q_dyn, s_dyn = Q.quantize_rows(x_att)
+    for m in ("recip", "noclip", "floor"):
+        mode, kern = f"q8_{m}", kernels[f"quant_rows_{m}"]
+        readings, ms = [], 0.0
+        for x in (x_att, x_g):
+            what = f"quant_rows {mode} {rows}x{x.shape[1]}"
+            (q, sc), (q_ref, sc_ref) = P.quantize_rows_mode(x, mode), \
+                P.quantize_rows_mode_plain(x, mode)
+            readings.append(check_equal(what, q, q_ref, kern))
+            if sc is not None:
+                readings[-1] += "; scales " + check_equal(f"{what} scales", sc, sc_ref)
+            t = time_ms(lambda: P.quantize_rows_mode(x, mode))
+            plain = time_ms(lambda: P.quantize_rows_mode_plain(x, mode), 3)
+            bms, by = bound(x.numel() * 5 + (0 if m == "floor" else rows * 4), 0, 5 * x.numel())
+            kern.add(t, plain, None, bms, by)
+            ms += t
+        if m == "noclip":
+            q, sc = P.quantize_rows_mode(x_att, mode)
+            readings.append("codes vs q8 " + check_equal("q8_noclip codes vs q8", q, q_dyn)
+                            + "; scales " + check_equal("q8_noclip scales vs q8", sc, s_dyn))
+        elif m == "recip":
+            q = P.quantize_rows_mode(x_att, mode)[0]
+            readings.append("codes vs q8 " + check_codes("q8_recip codes vs q8", q, q_dyn))
+        else:
+            q, q_ref = P.quantize_rows_mode(specials, mode)[0], P.sat_s8(specials)
+            readings.append("specials " + check_equal("q8_floor specials", q, q_ref))
+            got = q[0, :len(PROBE_FLOOR_SPECIALS)].tolist()
+            if got != [127, -128, 127, -128, 127, 127, -128, 0]:
+                raise AssertionError(f"quant_rows q8_floor: {PROBE_FLOOR_SPECIALS} -> {got}, "
+                                     "not XLA's saturating convert")
+            readings.append(f"{PROBE_FLOOR_SPECIALS} -> {got}")
+        say(tag, f"quant_rows {mode}: " + "; ".join(readings) + f"; ms a layer {ms:.4f}")
+    del x_att, x_g, specials, q_dyn, s_dyn
+
+    x = rn(rows, D, std=2.0)
+    sc_ln, b_ln = rn(D, dtype=torch.float32) * 0.1 + 1, rn(D, dtype=torch.float32) * 0.1
+    for m in ("recip", "noclip", "floor"):
+        mode, kern = f"q8_{m}", kernels[f"layernorm_q8_{m}"]
+        (q, sc), (q_ref, sc_ref) = P.ln_quant_mode(x, sc_ln, b_ln, mode), \
+            P.ln_quant_mode_plain(x, sc_ln, b_ln, mode)
+        reading = check_codes(f"layernorm_q8 {mode}", q, q_ref, kern)
+        if sc is not None:
+            reading += "; scales " + check_close(f"layernorm_q8 {mode} scales", sc, sc_ref,
+                                                 max_limit=LN_SCALE_ERR, norm_limit=LN_SCALE_ERR,
+                                                 share_limit=None)
+        ms = time_ms(lambda: P.ln_quant_mode(x, sc_ln, b_ln, mode))
+        plain = time_ms(lambda: P.ln_quant_mode_plain(x, sc_ln, b_ln, mode), 3)
+        bms, by = bound(rows * D * 3 + (0 if m == "floor" else rows * 4) + 2 * D * 4, 0,
+                        12 * rows * D)
+        _per_layer((kern,), (2,), ms, plain, None, bms, by)
+        say(tag, f"layernorm_q8 {mode} {rows}x{D}: {reading}; ms {ms:.4f} plain {plain:.4f} "
+                 f"bound {bms:.4f} ({by})")
+    del x
+
+    # the floor GEMM's four products of the layer
+    kern = kernels["gemm_s8_epilogue_floor"]
+    for ep, K_, N_ in (("q8f_qkv", D, 3 * D), ("q8f_residual", D, D),
+                       ("q8f_fc_gelu", D, 4 * D), ("q8f_residual", 4 * D, D)):
+        a = P.sat_s8(rn(rows, K_, dtype=torch.float32) * 2)
+        wq, ws = Q.quantize_cols(rn(K_, N_, std=K_ ** -0.5))
+        wq = wq.t().contiguous()
+        bias = rn(N_, std=0.1)
+        extra = rn(rows, N_) if ep.endswith("residual") else None
+        args = (a, None, wq, ws, bias, ep, extra)
+        got, ref = Q.gemm_s8(*args), Q.gemm_s8_plain(*args)
+        what = f"gemm_s8_epilogue {ep} {rows}x{K_}->{N_}"
+        if ep == "q8f_fc_gelu":
+            reading = "g " + check_close(what, got, ref, kern, max_limit=F32_MAX_ERR,
+                                         norm_limit=F32_NORM_ERR, share_limit=None)
+        else:
+            reading = check_equal(what, got, ref, kern)
+        ms = time_ms(lambda: Q.gemm_s8(*args))
+        plain = time_ms(lambda: Q.gemm_s8_plain(*args), 3)
+        lib = time_ms(lambda: torch._int_mm(a, wq.t()))  # the yardstick: int32 out, no epilogue
+        out_bytes = 4 if ep == "q8f_fc_gelu" else 2
+        nbytes = rows * K_ + N_ * K_ + rows * N_ * (out_bytes + (2 if extra is not None else 0)) \
+            + N_ * 2
+        bms, by = bound(nbytes, 0, (Q8_EPILOGUE_OPS[ep.split("_", 1)[1]] - 2) * rows * N_,
+                        2 * rows * N_ * K_)
+        kern.add(ms, plain, lib, bms, by)
+        say(tag, f"{what}: {reading}; ms {ms:.4f} ({2 * rows * N_ * K_ / ms / 1e9:.1f} TOP/s) "
+                 f"plain {plain:.4f} library(torch._int_mm) {lib:.4f} bound {bms:.4f} ({by})")
+        del a, wq, extra, args, got, ref
+
+    # each mode's layer against its plain version
+    params = probe_q8_residual.layer_params(D, "cuda")
+    x = torch.randn(B, S, D, generator=torch.Generator(device="cuda").manual_seed(1),
+                    device="cuda").bfloat16()
+    for mode in P.MODES:
+        qp = P.probe_operands(params, mode)
+        limits = {"q8_static": (PROBE_STATIC_MAX_ERR, PROBE_STATIC_NORM_ERR),
+                  "q8_floor": (PROBE_FLOOR_MAX_ERR, NORM_ERR)}.get(mode,
+                                                                  (MAX_ERR_OF_MAX, NORM_ERR))
+        reading = check_close(f"probe layer {mode}", P.probe_layer(x, qp, mode, H),
+                              P.probe_layer(x, qp, mode, H, plain=True), None, *limits,
+                              share_limit=None)
+        say(tag, f"layer {mode} {B}x{S}x{D}: {reading}")
+    return paths
+
+
 def descendants(pid: int) -> list:
     """The pids of the running processes descended from ``pid`` (/proc),
     parents before their children."""
@@ -5460,8 +5754,10 @@ AB_ITERS = 40  # launches a kernel time of --times-of averages
 
 def kernel_times(F) -> dict:
     """ms per launch of every GEMM epilogue and attention_bwd case of
-    SHAPES (the three vision towers' paths and the text shapes) and of
-    every bf16 s8 GEMM case of Q8_GEMM on seeded inputs, through the public
+    SHAPES (the three vision towers' paths and the text shapes), of every
+    bf16 s8 GEMM case of Q8_GEMM and of the row quantizer and the bf16
+    LayerNorm-quant (dynamic and static) at ViT-B/16's rows, on seeded
+    inputs, through the public
     wrappers only, so that two trees' kernels can be timed in one call
     (``--times-of``).  attention_bwd also by ``queued_ms``: its text shapes
     take microseconds, where the host's pace can set ``time_ms``.  A block
@@ -5473,6 +5769,8 @@ def kernel_times(F) -> dict:
 
     rn = randn_fn(11)
     times = {}
+    for key, fn in q8_row_cases(F, Q, rn):
+        times[key] = time_ms(fn, AB_ITERS)
     for ep, M, K, N, save, *_ in Q8_GEMM:
         args, _ = s8_case(Q, rn, ep, M, K, N, save)
         times[f"gemm_s8_epilogue {ep}{' save h' if save else ''} {M}x{K}->{N}"] = time_ms(
@@ -5500,13 +5798,29 @@ def kernel_times(F) -> dict:
     return times
 
 
+def q8_row_cases(F, Q, rn) -> list:
+    """(name, call) of the row quantizer at ViT-B/16's attention and g rows
+    and of the bf16 LayerNorm-quant at its LN rows, dynamic and static."""
+    import torch
+
+    one = torch.full((), 127.0, device="cuda")
+    x_att, x_g = rn(M_B, 768, dtype=torch.float32), rn(M_B, 3072, dtype=torch.float32)
+    x = rn(M_B, 768, std=2.0)
+    s, b = rn(768, dtype=torch.float32) * 0.1 + 1, rn(768, dtype=torch.float32) * 0.1
+    r = one / F.layer_norm_plain(x, s, b).float().abs().amax()
+    return [(f"quant_rows {M_B}x{v.shape[1]} {kind}", (lambda v=v, rr=rr: Q.quantize_rows(v, rr)))
+            for v in (x_att, x_g) for kind, rr in (("dynamic", None), ("static", one / 4))] + [
+        (f"layernorm_q8 {M_B}x768 {kind}", (lambda rr=rr: Q.ln_quant(x, s, b, rr)))
+        for kind, rr in (("dynamic", None), ("static", r))]
+
+
 def kernel_digests(F) -> dict:
     """A digest of the bits of each bf16 LayerNorm output, forward and dx
     (fp32 and bf16 dxn, with and without a residual), at the vision towers'
     rows and at D = 1280, of the bf16 LayerNorm-quant's codes and scales,
-    dynamic and static, and of every bf16 s8 GEMM case of Q8_GEMM, on
-    seeded inputs: two trees whose digests agree compute the same bits
-    (``--times-of``)."""
+    dynamic and static, of the row quantizer's, and of every bf16 s8 GEMM
+    case of Q8_GEMM, on seeded inputs: two trees whose digests agree
+    compute the same bits (``--times-of``)."""
     import hashlib
 
     import torch
@@ -5522,6 +5836,8 @@ def kernel_digests(F) -> dict:
 
     rn = randn_fn(12)
     out = {}
+    for key, fn in q8_row_cases(F, Q, rn):
+        out[key] = digest(*fn())
     for rows, D in ((M_B, 768), (M_L, 1024)):
         x = rn(rows, D, std=2.0)
         s, b = rn(D, dtype=torch.float32) * 0.1 + 1, rn(D, dtype=torch.float32) * 0.1
@@ -5610,7 +5926,7 @@ def main() -> int:
     say("build", f"{len(_build.SIGNATURES)} kernel sources built in "
                  f"{_build.build_seconds:.2f} s; ptxas: {json.dumps(regs)}")
 
-    bf16_names, _, fp32_names = kernel_groups(F)
+    bf16_names, _, fp32_names, probe_names = kernel_groups(F)
     kernels = {name: Kernel(name) for name in bf16_names}
     kernels_l = {name: Kernel(name) for name in bf16_names}
     # one vision layer of the int8 request (attention_fwd's fp32 output
@@ -5629,6 +5945,9 @@ def main() -> int:
     kernels_32 = {name: Kernel(name, F.KERNELS[name][0]) for name in fp32_names}
     fp32_q8 = [k for k in fp32_q8_kernels(F) if k in kernels_32]
     kernels_32s = {name: Kernel(name, F.KERNELS[name][0]) for name in fp32_q8}
+    # the probes' kernels: the rate kernel's one call at G1, the ablations'
+    # one layer of the probe's shape
+    kernels_p = {name: Kernel(name, F.KERNELS[name][0]) for name in probe_names}
     paths = {}
 
     def run(phase: str, fn, *args):
@@ -5688,6 +6007,7 @@ def main() -> int:
     paths["remat_full_step_vit_l14_336px"] = run("remat ViT-L/14@336px", phase_remat, F,
                                                  "ViT-L/14@336px")
     paths["block_xla_request"] = run("block xla", phase_block_xla, F)
+    paths.update(run("probes", phase_probes, F, Q, kernels_p))
     say("processes", check_no_process_left())
 
     def by_path(name: str) -> dict:
@@ -5708,6 +6028,8 @@ def main() -> int:
     records += [kernels_32[name].record(by_path(name), "fp32_int8_ste_train_step",
                                         fp32_int8_ste_static=kernels_32s[name])
                 for name in fp32_q8]
+    records += [kernels_p[name].record(by_path(name), "probe_int8_mxu" if name.startswith(
+        "probe_mma") else "probe_q8_residual") for name in probe_names]
     print(json.dumps({"kernels": records}))
     print(smi())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -29,6 +29,10 @@
 //     fc_gelu   g as above; with C2 given, C2 = h = v        (fp32)
 //   the qkv, residual and saved-h outputs again bit-equal to the plain
 //   version.
+//   The floor modes (bf16 only, through ops/probe.py) are the matmul of
+//   tools/probe_q8_residual.py's q8_floor ablation (q8_matmul :104-114): no
+//   scale, v = f32(acc) + f32(b), then the qkv, residual or (fp32 g)
+//   fc_gelu epilogue as above; ws is neither read nor applied.
 // Bound on the H100: near the ridge.  At the vision shapes (M = 384*199 =
 //   76,416 tokens, K, N in 768..3072) a product does 2*M*N*K int8
 //   operations over M*K + N*K + M*N*(1..4) bytes: ~660 operations a byte
@@ -76,9 +80,18 @@
 
 namespace {
 
-enum Mode { kQkv = 0, kResidual = 1, kFcGelu = 2, kSQkv = 3, kSResidual = 4, kSFcGelu = 5 };
+enum Mode { kQkv = 0, kResidual = 1, kFcGelu = 2, kSQkv = 3, kSResidual = 4, kSFcGelu = 5,
+            kFQkv = 6, kFResidual = 7, kFFcGelu = 8 };
 
-__host__ __device__ constexpr bool is_static(int mode) { return mode >= kSQkv; }
+__host__ __device__ constexpr bool is_static(int mode) { return mode >= kSQkv && mode <= kSFcGelu; }
+// the probe's floor: no scale at all
+__host__ __device__ constexpr bool is_floor(int mode) { return mode >= kFQkv; }
+__host__ __device__ constexpr bool is_fc(int mode) {
+  return mode == kFcGelu || mode == kSFcGelu || mode == kFFcGelu;
+}
+__host__ __device__ constexpr bool is_residual(int mode) {
+  return mode == kResidual || mode == kSResidual || mode == kFResidual;
+}
 
 constexpr int BM = 128, BN = 256, BK = 128, STAGES = 3;
 constexpr int THREADS = 384;  // warpgroup 0 loads, warpgroups 1 and 2 compute
@@ -260,8 +273,8 @@ gemm_s8_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant_
                const float* __restrict__ ws, const __nv_bfloat16* __restrict__ bias,
                const float* __restrict__ r, float* __restrict__ G, int save_h, int M, int N,
                int K, const float* __restrict__ R32, float* __restrict__ C32) {
-  constexpr bool kFc = MODE == kFcGelu || MODE == kSFcGelu;
-  constexpr bool kRes = MODE == kResidual || MODE == kSResidual;
+  constexpr bool kFc = is_fc(MODE);
+  constexpr bool kRes = is_residual(MODE);
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES], rbar[2];
   const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
@@ -328,7 +341,7 @@ gemm_s8_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant_
       warpgroup_sync(1 + c);
       if (wtid < BN / 4) {
         const int gc = n0 + 4 * wtid;
-        cp_async16(ws_s + 4 * wtid, gc < N ? ws + gc : ws, gc < N);
+        if constexpr (!is_floor(MODE)) cp_async16(ws_s + 4 * wtid, gc < N ? ws + gc : ws, gc < N);
       } else if constexpr (F32) {  // BN / 4 threads, four fp32 bias columns each
         const float* b32 = reinterpret_cast<const float*>(bias);
         const int gc = n0 + 4 * (wtid - BN / 4);
@@ -339,7 +352,7 @@ gemm_s8_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant_
       }
       asm volatile("cp.async.commit_group;\n" ::: "memory");
       float xr[2] = {1.f, 1.f};
-      if (!is_static(MODE)) {
+      if (!is_static(MODE) && !is_floor(MODE)) {
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
           const int gr = mc + warp * 16 + g + 8 * half;
@@ -382,6 +395,7 @@ gemm_s8_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant_
       // v of fragment element e (row half e >> 1) of column group j
       auto dequant = [&](int j, int e, float w, float bb) {
         float a = __int2float_rn(d[4 * j + e]);
+        if (is_floor(MODE)) return __fadd_rn(a, bb);
         if (!is_static(MODE)) a = __fmul_rn(a, xr[e >> 1]);
         return __fadd_rn(__fmul_rn(a, w), bb);
       };
@@ -452,7 +466,7 @@ gemm_s8_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant_
         }
         store_slab(kFc ? &map_c2 : &map_c, 64);
       }
-      if (MODE == kFcGelu) {
+      if (MODE == kFcGelu || MODE == kFFcGelu) {
         // g in fp32 straight from the registers: a quad writes 32 bytes of a row
 #pragma unroll
         for (int j = 0; j < BN / 8; ++j) {
@@ -548,15 +562,15 @@ int launch(const int8_t* a, const int8_t* w, const float* xs, const float* ws, c
   // C: bf16 (qkv, residual) or int8 codes (static fc) by TMA; the dynamic
   // fc's fp32 g by pointer; in the F32 instances every fp32 output and R by
   // pointer.  Unused maps stay zero
-  if ((MODE == kResidual || MODE == kSResidual) && R == nullptr) return (int)cudaErrorInvalidValue;
+  if (is_residual(MODE) && R == nullptr) return (int)cudaErrorInvalidValue;
   CUtensorMap map_a, map_w, map_c = {}, map_c2 = {}, map_r = {};
   bool ok = make_map(&map_a, a, M, K, BM, false) && make_map(&map_w, w, N, K, BN, false);
   if (MODE == kSFcGelu) ok = ok && make_map(&map_c, c, M, N, 64, false);
-  else if (MODE != kFcGelu && !F32) ok = ok && make_map(&map_c, c, M, N, 64, true);
+  else if (MODE != kFcGelu && MODE != kFFcGelu && !F32) ok = ok && make_map(&map_c, c, M, N, 64, true);
   if (c2 != nullptr && !F32) ok = ok && make_map(&map_c2, c2, M, N, 64, true);
   if (R != nullptr && !F32) ok = ok && make_map(&map_r, R, M, N, 64, true);
   if (!ok) return (int)cudaErrorInvalidValue;
-  constexpr bool kFc = MODE == kFcGelu || MODE == kSFcGelu;
+  constexpr bool kFc = is_fc(MODE);
   float* c32 = F32 ? static_cast<float*>(kFc ? c2 : c) : nullptr;
   static int n_sm = 0;
   if (n_sm == 0) {
@@ -590,18 +604,27 @@ int dispatch(const void* A, const void* W, const void* xs, const void* ws, const
     case kSQkv: return launch<kSQkv, F32>(a, w, x, wsc, bias, R, rr, C, C2, M, N, K, s);
     case kSResidual: return launch<kSResidual, F32>(a, w, x, wsc, bias, R, rr, C, C2, M, N, K, s);
     case kSFcGelu: return launch<kSFcGelu, F32>(a, w, x, wsc, bias, R, rr, C, C2, M, N, K, s);
-    default: return (int)cudaErrorInvalidValue;
+    default: break;
   }
+  if constexpr (!F32) {  // the floor modes take bf16 activations only
+    switch (mode) {
+      case kFQkv: return launch<kFQkv, F32>(a, w, x, wsc, bias, R, rr, C, C2, M, N, K, s);
+      case kFResidual: return launch<kFResidual, F32>(a, w, x, wsc, bias, R, rr, C, C2, M, N, K, s);
+      case kFFcGelu: return launch<kFFcGelu, F32>(a, w, x, wsc, bias, R, rr, C, C2, M, N, K, s);
+      default: break;
+    }
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // A (M, K) int8; W (N, K) int8; xs (M) fp32 row scales (dynamic modes
-// 0-2, else unused); ws (N) fp32 column scales; bias (N) bf16; R (M, N)
-// bf16 residual (modes 1, 4); r one fp32 multiplier (mode 5).  C (M, N):
-// bf16 (modes 0, 1, 3, 4), fp32 (2) or int8 (5); C2 (M, N) bf16 h for the
-// fc modes 2 and 5, or null.  Every pointer 16-byte aligned; N and K
-// multiples of 16.
+// 0-2, else unused); ws (N) fp32 column scales (unused in the floor modes
+// 6-8); bias (N) bf16; R (M, N) bf16 residual (modes 1, 4, 7); r one fp32
+// multiplier (mode 5).  C (M, N): bf16 (modes 0, 1, 3, 4, 6, 7), fp32 (2,
+// 8) or int8 (5); C2 (M, N) bf16 h for the fc modes 2, 5 and 8, or null.
+// Every pointer 16-byte aligned; N and K multiples of 16.
 extern "C" int gemm_s8_epilogue(const void* A, const void* W, const void* xs, const void* ws,
                                 const void* bias, const void* R, const void* r, void* C,
                                 void* C2, int M, int N, int K, int mode, void* stream) {

@@ -18,6 +18,12 @@
 //   version, which can move a code by one where xn / s lies next to a
 //   rounding boundary.  The Pallas kernels take x in bf16 or fp32 (their
 //   statistics are fp32 either way); so does this one.
+//   On bf16 rows it also quantizes xn as the ablations of
+//   tools/probe_q8_residual.py quant_rows (:76-102) do, through
+//   layernorm_q8_mode only (ops/probe.py), each dropping one step:
+//     recip:   m = max(max|xn|, 1e-8), q = clip(rint(xn * (127 / m))), s = m / 127
+//     noclip:  the dynamic codes without the clip (equal to them)
+//     floor:   q = int8(xn), XLA's convert: toward zero, saturated, NaN -> 0
 // Bound on the H100: device-memory bytes (sizeof(T) read and 1 written per
 //   element, ~12 fp32 operations each).
 // Design: layernorm_fwd's: one warp owns a row (D % 8 == 0, D <= 1024),
@@ -53,6 +59,34 @@ __device__ __forceinline__ int8_t clip_rint(float v) {
   return static_cast<int8_t>(fminf(fmaxf(rintf(v), -127.0f), 127.0f));
 }
 
+// the quantizer: dynamic (divide by the row scale), static (multiply by r),
+// and the probe's ablations
+enum Mode { kDiv = 0, kStatic = 1, kRecip = 2, kNoclip = 3, kFloor = 4 };
+
+// fp32 -> int8 saturating to [-128, 127], NaN to 0: toward zero (RZI, XLA's
+// convert) or to the nearest, ties to even (RNI)
+__device__ __forceinline__ int8_t cvt_rzi_sat(float v) {
+  int q;
+  asm("cvt.rzi.sat.s8.f32 %0, %1;" : "=r"(q) : "f"(v));
+  return static_cast<int8_t>(q);
+}
+
+__device__ __forceinline__ int8_t cvt_rni_sat(float v) {
+  int q;
+  asm("cvt.rni.sat.s8.f32 %0, %1;" : "=r"(q) : "f"(v));
+  return static_cast<int8_t>(q);
+}
+
+// one code: mult is the row scale (kDiv, kNoclip) or a multiplier (kStatic:
+// r, kRecip: 127 / m); kFloor takes none
+template <int MODE>
+__device__ __forceinline__ int8_t code(float v, float mult) {
+  if (MODE == kDiv) return clip_rint(__fdiv_rn(v, mult));
+  if (MODE == kNoclip) return cvt_rni_sat(__fdiv_rn(v, mult));
+  if (MODE == kFloor) return cvt_rzi_sat(v);
+  return clip_rint(__fmul_rn(v, mult));
+}
+
 // a 16-byte vector of T: kN elements, 2^kShift of them; Codes holds its
 // kN int8 codes
 template <typename T> struct Vec;
@@ -73,7 +107,7 @@ template <> struct Vec<float> {
   }
 };
 
-template <typename T, bool STATIC>
+template <typename T, int MODE>
 __global__ void __launch_bounds__(kRowsPerBlock * 32)
 layernorm_q8_kernel(const T* __restrict__ x, const float* __restrict__ scale,
                     const float* __restrict__ bias, int8_t* __restrict__ q,
@@ -138,10 +172,14 @@ layernorm_q8_kernel(const T* __restrict__ x, const float* __restrict__ scale,
       }
     }
   }
-  float mult;
-  if (STATIC) {
+  float mult = 0.f;
+  if (MODE == kStatic) {
     mult = *r;
-  } else {
+  } else if (MODE == kRecip) {
+    const float m = fmaxf(warp_max(amax), 1e-8f);
+    if (lane == 0) s[row] = __fdiv_rn(m, 127.0f);
+    mult = __fdiv_rn(127.0f, m);
+  } else if (MODE != kFloor) {
     mult = fmaxf(__fdiv_rn(warp_max(amax), 127.0f), 1e-8f);
     if (lane == 0) s[row] = mult;
   }
@@ -155,29 +193,20 @@ layernorm_q8_kernel(const T* __restrict__ x, const float* __restrict__ scale,
       int8_t* o = reinterpret_cast<int8_t*>(&u);
 #pragma unroll
       for (int j = 0; j < kN; ++j)
-        o[j] = clip_rint(STATIC ? __fmul_rn(v[i][j], mult) : __fdiv_rn(v[i][j], mult));
+        o[j] = code<MODE>(v[i][j], mult);
       qr[c] = u;
     }
   }
 }
 
-template <typename T>
+template <typename T, int MODE>
 int launch(const void* x, const void* scale, const void* bias, void* q, void* s,
            const void* r, int rows, int D, float eps, cudaStream_t st) {
   const int blocks = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
-  const auto* xt = static_cast<const T*>(x);
-  const auto* sc = static_cast<const float*>(scale);
-  const auto* bi = static_cast<const float*>(bias);
-  auto* qo = static_cast<int8_t*>(q);
-  auto* so = static_cast<float*>(s);
-  const auto* rf = static_cast<const float*>(r);
-  if (rf != nullptr) {
-    layernorm_q8_kernel<T, true><<<blocks, kRowsPerBlock * 32, 0, st>>>(xt, sc, bi, qo, so, rf,
-                                                                      rows, D, eps);
-  } else {
-    layernorm_q8_kernel<T, false><<<blocks, kRowsPerBlock * 32, 0, st>>>(xt, sc, bi, qo, so, rf,
-                                                                       rows, D, eps);
-  }
+  layernorm_q8_kernel<T, MODE><<<blocks, kRowsPerBlock * 32, 0, st>>>(
+      static_cast<const T*>(x), static_cast<const float*>(scale),
+      static_cast<const float*>(bias), static_cast<int8_t*>(q), static_cast<float*>(s),
+      static_cast<const float*>(r), rows, D, eps);
   return (int)cudaGetLastError();
 }
 
@@ -191,6 +220,25 @@ extern "C" int layernorm_q8(const void* x, const void* scale, const void* bias, 
                             void* stream) {
   if (rows < 1 || D % 8 || D > 1024) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  return x_f32 ? launch<float>(x, scale, bias, q, s, r, rows, D, eps, st)
-               : launch<__nv_bfloat16>(x, scale, bias, q, s, r, rows, D, eps, st);
+  if (r != nullptr) {
+    return x_f32 ? launch<float, kStatic>(x, scale, bias, q, s, r, rows, D, eps, st)
+                 : launch<__nv_bfloat16, kStatic>(x, scale, bias, q, s, r, rows, D, eps, st);
+  }
+  return x_f32 ? launch<float, kDiv>(x, scale, bias, q, s, r, rows, D, eps, st)
+               : launch<__nv_bfloat16, kDiv>(x, scale, bias, q, s, r, rows, D, eps, st);
+}
+
+// The probe's ablations on bf16 rows: mode 2 recip (s (rows) fp32), 3 noclip
+// (s (rows) fp32), 4 floor (s unused); r unused.
+extern "C" int layernorm_q8_mode(const void* x, const void* scale, const void* bias, void* q,
+                                 void* s, int rows, int D, float eps, int mode, void* stream) {
+  if (rows < 1 || D % 8 || D > 1024) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  using B = __nv_bfloat16;
+  switch (mode) {
+    case kRecip: return launch<B, kRecip>(x, scale, bias, q, s, nullptr, rows, D, eps, st);
+    case kNoclip: return launch<B, kNoclip>(x, scale, bias, q, s, nullptr, rows, D, eps, st);
+    case kFloor: return launch<B, kFloor>(x, scale, bias, q, s, nullptr, rows, D, eps, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

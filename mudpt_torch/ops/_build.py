@@ -55,6 +55,7 @@ SIGNATURES = {
     },
     "layernorm_q8": {
         "layernorm_q8": ([_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P], _I),
+        "layernorm_q8_mode": ([_P, _P, _P, _P, _P, _I, _I, _F, _I, _P], _I),
     },
     "gemm_s8_epilogue": {
         "gemm_s8_epilogue": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
@@ -62,6 +63,7 @@ SIGNATURES = {
     },
     "quant_rows": {
         "quant_rows": ([_P, _P, _P, _P, _I, _I, _P], _I),
+        "quant_rows_mode": ([_P, _P, _P, _P, _I, _I, _I, _P], _I),
     },
     # fp32 activations (the LayerNorms and the int8 tiers take them through
     # the sources above)
@@ -71,6 +73,11 @@ SIGNATURES = {
     "attention_f32": {
         "attention_fwd_f32": ([_P, _P, _I, _I, _I, _I, _I, _I, _F, _P], _I),
         "attention_bwd_f32": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P], _I),
+    },
+    # the tensor-core rate probe (ops/probe.py; the probes' quantizer
+    # ablations are the *_mode entry points above)
+    "probe_mma": {
+        "probe_mma": ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P], _I),
     },
 }
 

@@ -122,6 +122,17 @@ KERNELS = {
     "quant_rows": ("quant_rows", "quant_rows"),
     "layernorm_q8_f32": ("layernorm_q8", "layernorm_q8"),
     "gemm_s8_epilogue_f32": ("gemm_s8_epilogue", "gemm_s8_epilogue_f32"),
+    # the probes of tools/ (ops/probe.py): the tensor-core rate probe, and
+    # the q8 layer's quantizer ablations as instances of the int8 sources
+    "probe_mma_bf16": ("probe_mma", "probe_mma"),
+    "probe_mma_s8": ("probe_mma", "probe_mma"),
+    "quant_rows_recip": ("quant_rows", "quant_rows_mode"),
+    "quant_rows_noclip": ("quant_rows", "quant_rows_mode"),
+    "quant_rows_floor": ("quant_rows", "quant_rows_mode"),
+    "layernorm_q8_recip": ("layernorm_q8", "layernorm_q8_mode"),
+    "layernorm_q8_noclip": ("layernorm_q8", "layernorm_q8_mode"),
+    "layernorm_q8_floor": ("layernorm_q8", "layernorm_q8_mode"),
+    "gemm_s8_epilogue_floor": ("gemm_s8_epilogue", "gemm_s8_epilogue"),
 }
 # the kernel that each dtype-generic wrapper launches, by activation dtype
 DTYPE_KERNELS = {

@@ -49,9 +49,11 @@ from mudpt_torch.ops import _build
 from mudpt_torch.ops import fused_block as FB
 from mudpt_torch.ops.fused_block import LAUNCHES, Causal, _require, _stream
 
-# epilogue -> kernel mode (csrc/gemm_s8_epilogue.cu); "q8s_" are the static
+# epilogue -> kernel mode (csrc/gemm_s8_epilogue.cu); "q8s_" are the static,
+# "q8f_" the unscaled floor of tools/probe_q8_residual.py (ops/probe.py)
 Q8_EPILOGUES = {"q8_qkv": 0, "q8_residual": 1, "q8_fc_gelu": 2,
-                "q8s_qkv": 3, "q8s_residual": 4, "q8s_fc_gelu": 5}
+                "q8s_qkv": 3, "q8s_residual": 4, "q8s_fc_gelu": 5,
+                "q8f_qkv": 6, "q8f_residual": 7, "q8f_fc_gelu": 8}
 # the s8 GEMM reads and writes rows of N and K values in 16-byte pieces
 # (TMA zero-fills the ragged tile edges): N and K multiples of this
 S8_MULTIPLE = 16
@@ -240,6 +242,7 @@ def gemm_s8_plain(a, xs, wq, ws, bias, epilogue: str, extra=None, r=None,
 
       v = (f32(acc) * xs) * ws + f32(b)   dynamic "q8_"   (``_q8_matmul`` :79)
       v = f32(acc) * ws + f32(b)          static "q8s_"   (:394-399)
+      v = f32(acc) + f32(b)               floor "q8f_" (the probe's, bf16 only)
       qkv       dt(v)
       residual  extra + dt(v), in extra's dtype           (:102, :109)
       fc_gelu   g = v * sigmoid(1.702 v) in fp32; static: int8
@@ -249,9 +252,12 @@ def gemm_s8_plain(a, xs, wq, ws, bias, epilogue: str, extra=None, r=None,
     if epilogue not in Q8_EPILOGUES:
         raise ValueError(f"unknown epilogue {epilogue!r}; known: {sorted(Q8_EPILOGUES)}")
     v = _s8_matmul(a, wq)
-    if xs is not None:
-        v = v * xs
-    v = v * ws + bias.float()
+    if epilogue.startswith("q8f_"):
+        v = v + bias.float()
+    else:
+        if xs is not None:
+            v = v * xs
+        v = v * ws + bias.float()
     if epilogue.endswith("qkv"):
         return v.to(out_dtype)
     if epilogue.endswith("residual"):
@@ -278,10 +284,14 @@ def gemm_s8(a, xs, wq, ws, bias, epilogue: str, extra=None, r=None,
         raise ValueError(f"gemm_s8_epilogue: N={N} and K={K} must be multiples of {S8_MULTIPLE}")
     key = FB.kernel_for("gemm_s8_epilogue", out_dtype, bias.dtype,
                         *(() if extra is None else (extra.dtype,)))
-    static = epilogue.startswith("q8s_")
-    if static != (xs is None):
+    if epilogue.startswith("q8f_"):
+        if out_dtype != torch.bfloat16:
+            raise TypeError(f"epilogue {epilogue!r}: bf16 activations only, got {out_dtype}")
+        key = "gemm_s8_epilogue_floor"
+    dynamic = epilogue.startswith("q8_")
+    if dynamic == (xs is None):
         raise ValueError(f"epilogue {epilogue!r}: row scales xs are "
-                         f"{'not taken' if static else 'required'}")
+                         f"{'required' if dynamic else 'not taken'}")
     out_shape = (*a.shape[:-1], N)
     _require(a, "gemm_s8 a", torch.int8)
     _require(wq, "gemm_s8 wq", torch.int8, (N, K))
@@ -300,7 +310,8 @@ def gemm_s8(a, xs, wq, ws, bias, epilogue: str, extra=None, r=None,
         raise ValueError(f"epilogue {epilogue!r} takes no multiplier")
     if save_h and not fc:
         raise ValueError(f"epilogue {epilogue!r} saves no h")
-    dt = {"q8_fc_gelu": torch.float32, "q8s_fc_gelu": torch.int8}.get(epilogue, out_dtype)
+    dt = {"q8_fc_gelu": torch.float32, "q8f_fc_gelu": torch.float32,
+          "q8s_fc_gelu": torch.int8}.get(epilogue, out_dtype)
     c = torch.empty(out_shape, dtype=dt, device=a.device)
     c2 = torch.empty(out_shape, dtype=out_dtype, device=a.device) if save_h else None
     source, entry = FB.KERNELS[key]

@@ -43,7 +43,11 @@ qkv or R + v through bf16, its code check LayerNorm-quant codes two steps
 off, and its launch checks an fp32 int8 path that launched the bf16
 LayerNorm-quant or s8 GEMM and a quantization-aware fp32 step without the
 fp32 layer backward; its CoCoOp chunk probe a kernel site whose rows depend
-on the batch and text features' gradients that differ chunked.  The end-of-run process check rejects a child process
+on the batch and text features' gradients that differ chunked.  ``[probes]``'s
+bit-equal checks reject an s8 rate-probe sum that saturates instead of
+wrapping, a q8_recip quantizer that divides, a floor GEMM that applies the
+weight scales, a q8_noclip code a step off q8's, and a floor convert that
+wraps as torch's does.  The end-of-run process check rejects a child process
 left running."""
 
 import importlib.util
@@ -1324,3 +1328,92 @@ def test_chunk_cause_catches_a_batch_dependent_kernel(fault):
     else:
         with pytest.raises(AssertionError, match="bit-equal|differ chunked"):
             C.chunk_cause(whole, chunks, "none")
+
+
+# ---------------------------------------------------------------------------
+# [probes]: the probes of tools/ (ops/probe.py)
+# ---------------------------------------------------------------------------
+
+def test_probe_s8_check_catches_a_saturating_sum():
+    """Positive codes wrap every output at G = 320: the bit-equal check
+    passes the plain version's wrapped sums and rejects sums that saturate
+    at the int32 range instead."""
+    from mudpt_torch.ops import probe as P
+
+    C = _chip_smoke()
+    g = torch.Generator().manual_seed(21)
+    lo, hi = C.PROBE_WRAP_CODES
+    xs = torch.randint(lo, hi, (16, 8, 256), generator=g).to(torch.int8)
+    wt = torch.randint(lo, hi, (16, 256), generator=g).to(torch.int8)
+    ref = P.mma_probe_plain(xs, wt, 320)
+    exact = torch.matmul(xs.long(), wt.long().t()).sum(0) * 320
+    assert (exact.abs() >= 2 ** 31).all()
+    C.check_equal("probe_mma s8", P.mma_probe(xs, wt, 320), ref)
+    with pytest.raises(AssertionError, match="max abs err"):
+        C.check_equal("probe_mma s8", exact.clamp(-2 ** 31, 2 ** 31 - 1).int(), ref)
+
+
+def test_probe_recip_check_catches_a_division():
+    """Rows whose absmax is 889: x / (889 / 127) = x / 7 lands on the ties
+    k + 1/2 exactly, x * fp32(127 / 889) an ulp above them from k = 86 up, so
+    a q8_recip quantizer that divides (the q8 codes) takes the even
+    neighbour where the multiply rounds up, and the bit-equal check of
+    quant_rows_recip rejects it."""
+    from mudpt_torch.ops import probe as P
+
+    C = _chip_smoke()
+    row = torch.tensor([889.0] + [7.0 * k + 3.5 for k in range(86, 127)])
+    x = torch.stack([row, -row])
+    ref, s = P.quantize_rows_mode_plain(x, "q8_recip")
+    divides = Q.quantize_rows_plain(x)[0]
+    assert (ref != divides).any() and s[0].item() == 7.0
+    C.check_equal("quant_rows q8_recip", ref, ref)
+    with pytest.raises(AssertionError, match="max abs err"):
+        C.check_equal("quant_rows q8_recip", divides, ref)
+
+
+def test_probe_floor_gemm_check_catches_the_scales():
+    """The floor's products carry no scale: an epilogue that applies the
+    weight scales (the static one) fails the bit-equal check."""
+    from mudpt_torch.ops import probe as P
+
+    C = _chip_smoke()
+    g = torch.Generator().manual_seed(22)
+    a = P.sat_s8(torch.randn(64, 128, generator=g) * 2)
+    wq, ws = Q.quantize_cols(torch.randn(128, 96, generator=g) * 128 ** -0.5)
+    wq = wq.t().contiguous()
+    bias = (torch.randn(96, generator=g) * 0.1).bfloat16()
+    ref = Q.gemm_s8_plain(a, None, wq, ws, bias, "q8f_qkv")
+    with pytest.raises(AssertionError, match="max abs err"):
+        C.check_equal("gemm_s8_epilogue q8f_qkv", Q.gemm_s8_plain(a, None, wq, ws, bias,
+                                                                 "q8s_qkv"), ref)
+
+
+def test_probe_noclip_check_catches_a_code_off_q8():
+    """q8_noclip's codes are held equal to q8's: one code a step off fails."""
+    from mudpt_torch.ops import probe as P
+
+    C = _chip_smoke()
+    x = torch.randn(32, 256, generator=torch.Generator().manual_seed(23))
+    q8 = Q.quantize_rows_plain(x)[0]
+    noclip = P.quantize_rows_mode_plain(x, "q8_noclip")[0]
+    C.check_equal("q8_noclip codes vs q8", noclip, q8)
+    off = noclip.clone()
+    off[3, 7] += 1 if off[3, 7] < 127 else -1
+    with pytest.raises(AssertionError, match="max abs err"):
+        C.check_equal("q8_noclip codes vs q8", off, q8)
+
+
+def test_probe_floor_check_catches_a_wrapping_convert():
+    """The floor converts as XLA does (saturating, NaN to 0): torch's own
+    convert, which wraps 300 to 44, fails the bit-equal check, and gives
+    other codes than [probes]' specials expect."""
+    from mudpt_torch.ops import probe as P
+
+    C = _chip_smoke()
+    x = torch.randn(16, 256, generator=torch.Generator().manual_seed(24)) * 200
+    with pytest.raises(AssertionError, match="max abs err"):
+        C.check_equal("quant_rows q8_floor", x.to(torch.int8), P.sat_s8(x))
+    finite = torch.tensor(C.PROBE_FLOOR_SPECIALS[:5])
+    assert P.sat_s8(finite).tolist() == [127, -128, 127, -128, 127]
+    assert finite[:4].to(torch.int8).tolist() != [127, -128, 127, -128]

@@ -55,9 +55,11 @@ def test_parallel_is_scanned():
 
 
 def test_tools_are_scanned():
-    """The serving tools are among the scanned sources, beside the modules
-    they drive."""
+    """The serving tools and the probes are among the scanned sources,
+    beside the modules they drive."""
     names = {str(p.relative_to(ROOT)) for p in SOURCES}
     assert {"mudpt_torch/tools/export_serving.py", "mudpt_torch/tools/predict.py",
             "mudpt_torch/tools/bench_artifact.py", "mudpt_torch/serving.py",
-            "mudpt_torch/api.py", "mudpt_torch/ops/library.py"} <= names
+            "mudpt_torch/api.py", "mudpt_torch/ops/library.py",
+            "mudpt_torch/tools/probe_int8_mxu.py", "mudpt_torch/tools/probe_q8_residual.py",
+            "mudpt_torch/ops/probe.py"} <= names
