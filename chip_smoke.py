@@ -1900,7 +1900,7 @@ def device_time_by_kernel(prof) -> tuple:
                                      "attn_bwd_key_kernel",
                                      "gemm_s8_kernel", "layernorm_q8_kernel",
                                      "quant_rows_kernel", "attn_fwd_f32_kernel",
-                                     "attn_bwd_query_f32_kernel", "attn_bwd_key_f32_kernel")
+                                     "attn_bwd_query_tc_kernel", "attn_bwd_key_tc_kernel")
                          if k in e.key), None)
             bwd = name is not None and "bwd" in name
         if name is None:
@@ -4313,10 +4313,17 @@ F32_LOSS_REL_ERR = 2.0 ** -14
 # card has, the bound of an fp32 product's operations
 PEAK_TF32_FLOPS = 494.7e12
 FP32_OPTS = ("TRAINER.MUDPT.PREC", "fp32")
-# the step at 384 runs about 3x the request's products on the SIMT kernels
+# the step at 384 runs about 3x the request's products on the fp32 kernels
 FP32_TIMED_STEPS = 2
 FP32_CHAIN = (32, 259, 1024, 16)   # rows 4-11: batch, tokens, width, heads
 FP32_CHUNKED = (8, 197, 1280)      # rows 12-13: batch, tokens, width (10 chunks)
+# the fp32 GEMM cases of [fp32] and --times-of: ViT-B/16's, and the MLP's
+# recompute epilogues
+FP32_GEMM = SHAPES["ViT-B/16"]["gemm"] + (("fc_gelu_grad", M_B, 768, 3072, 0),
+                                          ("mul_f32", M_B, 768, 3072, 0))
+# attention_bwd_f32 in --times-of: ViT-B/16's blocks, and the halves' at D = 1024
+FP32_ATTN_BWD = tuple(a[:5] for a in SHAPES["ViT-B/16"]["attn"]) + (
+    ("fp32 chain", FP32_CHAIN[0], FP32_CHAIN[1], FP32_CHAIN[3], False),)
 
 
 def bound32(bytes_moved: float, product_ops: float, fp32_ops: float = 0.0):
@@ -4424,8 +4431,7 @@ def phase_kernels_fp32(F, kernels: dict) -> None:
             kern.add(ms, plain, lib, bms, by)
         del x
 
-    gemms = spec["gemm"] + (("fc_gelu_grad", M_B, 768, 3072, 0), ("mul_f32", M_B, 768, 3072, 0))
-    for ep, M, K, N, per_layer in gemms:
+    for ep, M, K, N, per_layer in FP32_GEMM:
         a, w, bias, extra = gemm_operands(F, rn, ep, M, K, N, f32)
         kern = kernels["gemm_f32_epilogue"]
         got, ref = (F.gemm_epilogue(a, w, bias, ep, extra),
@@ -5759,10 +5765,11 @@ def kernel_times(F) -> dict:
     LayerNorm-quant (dynamic and static) at ViT-B/16's rows, on seeded
     inputs, through the public
     wrappers only, so that two trees' kernels can be timed in one call
-    (``--times-of``).  attention_bwd also by ``queued_ms``: its text shapes
-    take microseconds, where the host's pace can set ``time_ms``.  A block
-    length that a package refuses (an attention_bwd with a row cap) is left
-    out."""
+    (``--times-of``); and of every fp32 GEMM mode of ``FP32_GEMM`` and
+    attention_bwd_f32 case of ``FP32_ATTN_BWD``.  attention_bwd, bf16 and
+    fp32, also by ``queued_ms``: its text shapes take microseconds, where
+    the host's pace can set ``time_ms``.  A block length that a package
+    refuses (an attention_bwd with a row cap) is left out."""
     import torch
 
     from mudpt_torch.ops import quant_block as Q
@@ -5795,6 +5802,20 @@ def kernel_times(F) -> dict:
                 lambda: F.attention_bwd(qkv, do, H, causal), AB_ITERS)
             del qkv, do
         torch.cuda.empty_cache()
+    f32 = torch.float32
+    for ep, M, K, N, _ in FP32_GEMM:
+        a, w, bias, extra = gemm_operands(F, rn, ep, M, K, N, f32)
+        times[f"gemm_f32_epilogue {ep} {M}x{K}->{N}"] = time_ms(
+            lambda: F.gemm_epilogue(a, w, bias, ep, extra), AB_ITERS)
+        del a, w, bias, extra
+    for label, B, S, H, causal in FP32_ATTN_BWD:
+        key = f"attention_bwd_f32 {label} {B}x{S} H={H}"
+        qkv, do = rn(B, S, 3 * 64 * H, dtype=f32), rn(B, S, 64 * H, std=0.1, dtype=f32)
+        times[key] = time_ms(lambda: F.attention_bwd(qkv, do, H, causal), AB_ITERS)
+        times[key + " device"], times[key + " host us"] = queued_ms(
+            lambda: F.attention_bwd(qkv, do, H, causal), AB_ITERS)
+        del qkv, do
+    torch.cuda.empty_cache()
     return times
 
 

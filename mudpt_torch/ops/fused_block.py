@@ -611,9 +611,8 @@ def attention_bwd(qkv, do, n_head: int, causal: Causal = False):
     _require(qkv, "attention_bwd qkv", qkv.dtype)
     _require(do, "attention_bwd do", qkv.dtype, (B, S, D))
     dqkv = torch.empty_like(qkv)
-    # each row's statistics (bf16: max, 1 / sum, rowsum(dp * p), 0; fp32:
-    # max, sum, rowsum(dp * p), 0): written by the kernel's query-major
-    # pass, read by its key-major pass
+    # each row's statistics (max, 1 / sum, rowsum(dp * p), 0): written by
+    # the kernel's query-major pass, read by its key-major pass
     stats = torch.empty((B * n_head * S, 4), dtype=torch.float32, device=qkv.device)
     args = (qkv.data_ptr(), do.data_ptr(), dqkv.data_ptr(), stats.data_ptr(), B * (S // L), L,
             D, n_head, int(is_causal), valid, HEAD_DIM ** -0.5, _stream())

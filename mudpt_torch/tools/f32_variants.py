@@ -1,0 +1,149 @@
+"""What two design choices of the fp32 tensor-core kernels are worth, read on
+the card by building variants of their sources beside the kernels:
+
+- ``csrc/gemm_f32_epilogue.cu`` with the wgmma partial sums added into the
+  register fp32 sum every 4 K slices of 32 (the kernel), every 8, and never
+  (one wgmma accumulator over the whole K): the relative norm error of the
+  ``store_f32`` product against fp64 and against the plain fp32 product
+  (TF32 off), at K = 768, 2304, 3072 (the modes' K) and 6144, M = 76,416,
+  N = 768, and its ms;
+- ``csrc/attention_f32.cu``'s query-major kernel with one or two
+  warpgroups a block at every block length (the launcher takes one for a
+  block of one tile, else two): ``attention_bwd_f32``'s ms at ViT-B/16's
+  vision and text blocks.
+
+Each variant is the source with one constant or condition replaced, built
+by ``nvcc`` with the kernels' flags and called through the public wrappers
+(``fused_block.gemm_epilogue``, ``attention_bwd``).  One JSON line a case,
+the card's name and power limit first.
+
+  python -m mudpt_torch.tools.f32_variants
+
+It runs on the card only, and raises without CUDA.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+
+# (source, variant name, text of the kernel, text of the variant)
+VARIANTS = (
+    ("gemm_f32_epilogue", "promote every 8 slices",
+     "constexpr int K_PROMOTE = 4;", "constexpr int K_PROMOTE = 8;"),
+    ("gemm_f32_epilogue", "never promote",
+     "constexpr int K_PROMOTE = 4;", "constexpr int K_PROMOTE = 1 << 30;"),
+    ("attention_f32", "one warpgroup a query block",
+     "n_t == 1 ? launch_query<1>", "true ? launch_query<1>"),
+    ("attention_f32", "two warpgroups a query block",
+     "n_t == 1 ? launch_query<1>", "false ? launch_query<1>"),
+)
+GEMM_K = (768, 2304, 3072, 6144)
+GEMM_M, GEMM_N = 384 * 199, 768
+ATTN = (("vision", 384, 199, 12, False), ("text causal", 100, 16, 8, True),
+        ("text packed (16,16)", 13, 128, 8, (16, 16)))
+
+
+def build_variants() -> dict:
+    """{(source, variant): the bound library}, the sources' own under
+    variant "kernel"; every variant built in parallel."""
+    from mudpt_torch.ops import _build
+
+    libs = _build.load()
+    out = {(name, "kernel"): libs[name] for name in {v[0] for v in VARIANTS}}
+    vdir = _build.BUILD_DIR / "variants"
+    vdir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for i, (name, label, old, new) in enumerate(VARIANTS):
+        text = (_build.CSRC / f"{name}.cu").read_text()
+        if text.count(old) != 1:
+            raise RuntimeError(f"{name}.cu: {old!r} is not in the source once")
+        src, lib = vdir / f"{name}_{i}.cu", vdir / f"lib{name}_{i}.so"
+        src.write_text(text.replace(old, new))
+        procs[(name, label)] = (subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib)
+    for key, (proc, lib) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"variant {key} failed to build:\n{log}")
+        out[key] = _build._bind(key[0], lib)
+    return out
+
+
+def time_ms(fn, iters: int = 10) -> float:
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def main() -> int:
+    import torch
+
+    from mudpt_torch.ops import _build
+    from mudpt_torch.ops import fused_block as F
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("f32_variants builds and times CUDA kernels: no card here")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip().splitlines()[0]
+    print(json.dumps({"card": card}), flush=True)
+    libs = build_variants()
+    kernels = dict(_build._libs)
+    g = torch.Generator(device="cuda").manual_seed(17)
+
+    def rel(got, ref) -> float:
+        return ((got.double() - ref.double()).norm() / ref.double().norm()).item()
+
+    try:
+        for k in GEMM_K:
+            a = torch.randn(GEMM_M, k, generator=g, device="cuda")
+            w = torch.randn(GEMM_N, k, generator=g, device="cuda") * k ** -0.5
+            plain = F.gemm_epilogue_plain(a, w, None, "store_f32")
+            exact = a.double() @ w.double().t()
+            print(json.dumps({"case": f"store_f32 {GEMM_M}x{k}->{GEMM_N}", "variant": "plain",
+                              "norm_vs_fp64": rel(plain, exact)}), flush=True)
+            for (name, label), lib in libs.items():
+                if name != "gemm_f32_epilogue":
+                    continue
+                _build._libs[name] = lib
+                got = F.gemm_epilogue(a, w, None, "store_f32")
+                print(json.dumps({
+                    "case": f"store_f32 {GEMM_M}x{k}->{GEMM_N}", "variant": label,
+                    "norm_vs_fp64": rel(got, exact), "norm_vs_plain": rel(got, plain),
+                    "ms": time_ms(lambda: F.gemm_epilogue(a, w, None, "store_f32"))}),
+                    flush=True)
+            _build._libs.update(kernels)
+            del a, w, plain, exact
+        for label, B, S, H, causal in ATTN:
+            qkv = torch.randn(B, S, 3 * 64 * H, generator=g, device="cuda")
+            do = torch.randn(B, S, 64 * H, generator=g, device="cuda") * 0.1
+            ref = F.attention_bwd_plain(qkv, do, H, causal)
+            for (name, variant), lib in libs.items():
+                if name != "attention_f32":
+                    continue
+                _build._libs[name] = lib
+                got = F.attention_bwd(qkv, do, H, causal)
+                print(json.dumps({
+                    "case": f"attention_bwd_f32 {label} {B}x{S} H={H}", "variant": variant,
+                    "norm_vs_plain": rel(got, ref),
+                    "ms": time_ms(lambda: F.attention_bwd(qkv, do, H, causal))}), flush=True)
+            _build._libs.update(kernels)
+            del qkv, do, ref
+    finally:
+        _build._libs.update(kernels)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -35,7 +35,11 @@ shifted or the scale 10% off, and a ``pallas`` artifact rate 11% under
 and rejects the vision prompts' gradient counted once per model rank and a
 loss over the local count of valid rows.  ``[fp32]``'s limits reject a GEMM
 whose operands were rounded to TF32 and an fp32 attention half with its qkv
-rounded once to bf16, and pass a change of fp32 sum order; its launch
+rounded once to bf16, and pass a change of fp32 sum order and products
+split into three TF32 products (3xTF32, the fp32 kernels' tensor-core
+design) at K = 768 and 3072 and in the 199-row attention backward, where
+one TF32 pass fails; ``--times-of`` times every fp32 GEMM mode and
+attention_bwd_f32 case (rehearsed with stubbed timers); its launch
 checks reject an fp32 run that launched a bf16 or int8 kernel, one that
 launched no fp32 ``attention_bwd``, and one routed to XLA (no launch).
 ``[fp32 int8]``'s bit-equal check rejects an fp32 s8 epilogue that rounds
@@ -1125,6 +1129,117 @@ def test_fp32_kernel_limit_catches_tf32_products_and_passes_sum_order():
         C.check_f32("gemm_f32 qkv, TF32 operands", tf32, ref)
     h = K // 2
     C.check_f32("gemm_f32 qkv, two halves of K", a[:, :h] @ w[:h] + a[:, h:] @ w[h:] + b, ref)
+
+
+def _tf32x3_matmul(a, b):
+    """``a @ b`` as the fp32 kernels' tensor cores compute it: each operand
+    split into hi = _tf32(x) and lo = _tf32(x - hi), then lo.hi + hi.lo +
+    hi.hi in fp32 sums, lo.lo dropped."""
+    a_hi, b_hi = _tf32(a.contiguous()), _tf32(b.contiguous())
+    a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
+    mm = torch.Tensor.__matmul__
+    return mm(a_lo, b_hi) + mm(a_hi, b_lo) + mm(a_hi, b_hi)
+
+
+def _tf32_matmul(a, b):
+    return torch.Tensor.__matmul__(_tf32(a.contiguous()), _tf32(b.contiguous()))
+
+
+@pytest.mark.parametrize("case", ["qkv K=768", "store_f32 K=3072", "attention_bwd L=199"])
+def test_fp32_kernel_limit_passes_3xtf32_and_catches_one_tf32_pass(case, monkeypatch):
+    """The premise of the fp32 GEMM's and attention backward's tensor-core
+    design: every product as three TF32 products (3xTF32) meets the fp32
+    kernels' limits (2^-14 in norm, 2^-12 of the largest value) at the
+    GEMM's K = 768 and 3072 and at the attention backward's 199-row blocks
+    (its five products over the head dim and over the block), while one
+    TF32 pass fails them."""
+    C = _chip_smoke()
+    g = torch.Generator().manual_seed(17)
+    if case.startswith("attention"):
+        qkv = torch.randn(2, 199, 3 * 128, generator=g)
+        do = torch.randn(2, 199, 128, generator=g) * 0.1
+        fn = lambda: F.attention_bwd_plain(qkv, do, 2)  # noqa: E731
+    else:
+        ep, k = case.split(" K=")
+        k = int(k)
+        a = torch.randn(M, k, generator=g)
+        w = torch.randn(N, k, generator=g) * k ** -0.5
+        b = None
+        if ep == "qkv":
+            w, b = w.t().contiguous(), torch.randn(N, generator=g) * 0.1
+        fn = lambda: F.gemm_epilogue_plain(a, w, b, ep)  # noqa: E731
+    ref = fn()
+    with monkeypatch.context() as mp:
+        mp.setattr(torch, "matmul", _tf32x3_matmul)
+        split = fn()
+    with monkeypatch.context() as mp:
+        mp.setattr(torch, "matmul", _tf32_matmul)
+        one_pass = fn()
+    C.check_f32(f"{case}, 3xTF32", split, ref)
+    with pytest.raises(AssertionError, match="relative norm|max abs err"):
+        C.check_f32(f"{case}, one TF32 pass", one_pass, ref)
+
+
+@pytest.mark.parametrize("variant", range(4))
+def test_f32_variants_replace_text_the_sources_hold_once(variant):
+    """``mudpt_torch.tools.f32_variants`` builds each variant by replacing
+    one constant or condition of a kernel source: each must stand in the
+    source exactly once, or the variant would silently be the kernel."""
+    from mudpt_torch.ops import _build
+    from mudpt_torch.tools import f32_variants
+
+    name, _, old, new = f32_variants.VARIANTS[variant]
+    text = (_build.CSRC / f"{name}.cu").read_text()
+    assert text.count(old) == 1 and old != new
+
+
+def test_f32_variants_refuse_without_a_card(monkeypatch):
+    from mudpt_torch.tools import f32_variants
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no card"):
+        f32_variants.main()
+
+
+def test_times_of_times_every_fp32_case(monkeypatch):
+    """``--times-of`` times the fp32 GEMM's every mode (``FP32_GEMM``) and
+    attention_bwd_f32 at every block of ``FP32_ATTN_BWD``, also queued,
+    through the public wrappers: rehearsed on the CPU at small shapes with
+    the card's timers stubbed, the bf16 and int8 cases left out."""
+    C = _chip_smoke()
+    cpu = torch.Generator().manual_seed(5)
+
+    def randn_fn(seed):
+        return lambda *shape, std=1.0, dtype=torch.bfloat16: (
+            torch.randn(shape, generator=cpu) * std).to(dtype)
+
+    timed = []
+
+    def time_ms(fn, iters=10):
+        timed.append(fn())
+        return 1.0
+
+    monkeypatch.setattr(C, "randn_fn", randn_fn)
+    monkeypatch.setattr(C, "time_ms", time_ms)
+    monkeypatch.setattr(C, "queued_ms", lambda fn, iters=10: (time_ms(fn), 2.0))
+    monkeypatch.setattr(C, "q8_row_cases", lambda F, Q, rn: [])
+    monkeypatch.setattr(C, "Q8_GEMM", ())
+    monkeypatch.setattr(C, "SHAPES", {})
+    monkeypatch.setattr(C, "FP32_GEMM", tuple((ep, 96, K // 12, N // 48, n)
+                                              for ep, _, K, N, n in C.FP32_GEMM))
+    monkeypatch.setattr(C, "FP32_ATTN_BWD", tuple(
+        (label, 2, 2 * causal[0] if isinstance(causal, tuple) else min(S, 70), 2, causal)
+        for label, B, S, H, causal in C.FP32_ATTN_BWD))
+    times = C.kernel_times(F)
+    gemm = {k for k in times if k.startswith("gemm_f32_epilogue")}
+    attn = [k for k in times if k.startswith("attention_bwd_f32")]
+    assert gemm == {f"gemm_f32_epilogue {ep} 96x{K}->{N}" for ep, _, K, N, _ in C.FP32_GEMM}
+    assert len(gemm) == 11
+    assert {k.split()[1] for k in gemm} == set(F.EPILOGUES) - {"chunk_residual", "add_f32"}
+    assert len(attn) == 3 * len(C.FP32_ATTN_BWD) == 15
+    assert len(times) == len(gemm) + len(attn)
+    assert len(timed) == len(gemm) + 2 * len(C.FP32_ATTN_BWD)  # timed, and queued
+    assert all(torch.isfinite(t).all() for r in timed for t in (r if isinstance(r, tuple) else (r,)))
 
 
 def _f32_attn_half(seed, D=128, H=2):
