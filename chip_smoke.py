@@ -11,7 +11,8 @@ route.
     python3 chip_smoke.py --times-of ROOT   # only the kernel times of the
                                             # checkout at ROOT and the digests
                                             # of its bf16 LayerNorms and int8
-                                            # kernels (A/B of two trees)
+                                            # kernels and of its fp32 s8 GEMM
+                                            # (A/B of two trees)
     python3 chip_smoke.py --mesh-rank RANK WORLD PORT JOB   # one gloo rank of
                                             # [mesh], started by the phase
     python3 chip_smoke.py --cli-launches ARGS   # python -m mudpt_torch.train
@@ -179,10 +180,15 @@ Phases, each printed with the card's name and power limit:
               attention_fwd_f32 and attention_bwd_f32 with the vision and
               text masks) at the ViT-B/16 step's shapes, relaunched
               bit-equal, timed beside its plain version and a library call
-              (F.layer_norm, torch.addmm, SDPA, in fp32); the half-blocks at
-              D = 1024 (batch 32 x 259 tokens, 16 heads), qkv and h saved
-              and recomputed, forward and dx, and the chunked MLP half at D
-              = 1280; then MuDPT ViT-B/16 under TRAINER.MUDPT.PREC fp32:
+              (F.layer_norm, torch.addmm, SDPA, in fp32); attention_f32
+              both ways at 16-1,024 rows under every mask spec; the
+              ViT-B/16 vision layer (forward, and the saving forward with
+              dx), the half-blocks at D = 1024 (batch 32 x 259 tokens, 16
+              heads), qkv and h saved and recomputed, forward and dx, and
+              the chunked MLP half at D = 1280, each chain timed beside the
+              plain chain with its fp32 bound (products at the 3xTF32 rate,
+              4-byte activations); then MuDPT ViT-B/16 under
+              TRAINER.MUDPT.PREC fp32:
               the CLI in a fresh process ([engine]'s configuration, one
               epoch and the test evaluate), fp32 kernels only; the
               trainer's first step (loss and every leaf's gradient) and the
@@ -194,9 +200,11 @@ Phases, each printed with the card's name and power limit:
               saved or not) at ViT-B/16's and ViT-L/14's vision rows against
               their plain versions (codes within a step; qkv, R + v and h
               bit-equal), relaunched bit-equal, timed beside torch._int_mm;
+              every mode at ragged tile edges (1000 x 80 -> 784 and 912);
               the four q8 chains on fp32 x at D = 768 (384 x 199) and 1024
               (32 x 259) under the bf16 int8 chains' limits, their launches
-              those of the bf16 chains mapped to the fp32 kernels; then
+              those of the bf16 chains mapped to the fp32 kernels, timed
+              with their fp32 bound; then
               MuDPT ViT-B/16 under PREC fp32: the CLI under int8_ste in a
               fresh process, through build_trainer the int8_ste and
               int8_ste_static first steps against the plain route, a traced
@@ -317,6 +325,10 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_FP32_FLOPS = 67e12
 PEAK_INT8_OPS = 1979e12
+# TF32 tensor cores, dense (NVIDIA data sheet, at 700 W): three TF32
+# products (3xTF32) a product are the fastest fp32-accurate product the
+# card has, the bound of an fp32 product's operations
+PEAK_TF32_FLOPS = 494.7e12
 
 # Kernel vs plain version: the same rounding points, but a different order
 # of fp32 sums and hardware exp, rsqrt and division, so a bf16 rounding
@@ -591,15 +603,17 @@ def queued_ms(fn, iters: int = 10) -> tuple:
     return start.elapsed_time(end) / iters, host_ms * 1e3 / iters
 
 
-def bound(bytes_moved: float, bf16_ops: float, fp32_ops: float = 0.0, int8_ops: float = 0.0):
+def bound(bytes_moved: float, bf16_ops: float, fp32_ops: float = 0.0, int8_ops: float = 0.0,
+          tf32_ops: float = 0.0):
     """(ms, 'bytes' | 'operations'): the least time for the work."""
     t_bytes = bytes_moved / PEAK_BYTES_PER_S
-    t_ops = bf16_ops / PEAK_BF16_FLOPS + fp32_ops / PEAK_FP32_FLOPS + int8_ops / PEAK_INT8_OPS
+    t_ops = (bf16_ops / PEAK_BF16_FLOPS + fp32_ops / PEAK_FP32_FLOPS + int8_ops / PEAK_INT8_OPS
+             + tf32_ops / PEAK_TF32_FLOPS)
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
 def chain_bound(B: int, S: int, D: int, causal, halves=("attn", "mlp"), bwd: bool = False,
-                int8: bool = False) -> str:
+                int8: bool = False, fp32: bool = False) -> str:
     """The least time of a layer chain (both halves or one) over B blocks
     of S rows: its forward, with ``bwd`` also the dx-only backward.  Bytes:
     x in and y out, the weights, and with the backward g in and dx out, each
@@ -608,7 +622,11 @@ def chain_bound(B: int, S: int, D: int, causal, halves=("attn", "mlp"), bwd: boo
     backward is bf16, its weights read as bf16 too), attention's two
     score-sized products over the keys each row attends (a causal row's
     earlier keys, a packed block's own valid keys), four in the backward.
-    The recompute routes do the same work."""
+    With ``fp32`` the same bytes and products on fp32 activations: every
+    activation and weight (the backward's under ``int8``) at 4 bytes, and
+    every product fp32-accurate, three TF32 products at the TF32 peak (as
+    ``bound32`` counts them), but the int8 forward's projections.  The
+    recompute routes do the same work."""
     M, attn, mlp = B * S, "attn" in halves, "mlp" in halves
     if causal is False:
         keys = S
@@ -620,8 +638,12 @@ def chain_bound(B: int, S: int, D: int, causal, halves=("attn", "mlp"), bwd: boo
     weights = (4 * attn + 8 * mlp) * D * D
     fwd_ops, bwd_ops = 2 * M * weights, 2 * M * weights * bwd
     att_ops = 4 * M * keys * D * attn * (3 if bwd else 1)
-    nbytes = M * D * 2 * (4 if bwd else 2) + weights * ((1 + 2 * bwd) if int8 else 2)
-    if int8:
+    act = 4 if fp32 else 2
+    nbytes = M * D * act * (4 if bwd else 2) + weights * ((1 + act * bwd) if int8 else act)
+    if fp32:
+        ms, by = bound(nbytes, 0, int8_ops=fwd_ops if int8 else 0,
+                       tf32_ops=3 * (att_ops + bwd_ops + (0 if int8 else fwd_ops)))
+    elif int8:
         ms, by = bound(nbytes, att_ops + bwd_ops, int8_ops=fwd_ops)
     else:
         ms, by = bound(nbytes, fwd_ops + bwd_ops + att_ops)
@@ -1285,9 +1307,10 @@ def s8_case(Q, rn, ep: str, M: int, K: int, N: int, save: bool, kern: Kernel = N
     static codes within a step."""
     import torch
 
-    one = lambda v: torch.full((), v, dtype=torch.float32, device="cuda")  # noqa: E731
     static = ep.startswith("q8s_")
     x32 = rn(M, K, dtype=torch.float32)
+    dev = x32.device
+    one = lambda v: torch.full((), v, dtype=torch.float32, device=dev)  # noqa: E731
     wq, ws = Q.quantize_cols(rn(K, N, std=K ** -0.5))
     wq = wq.t().contiguous()
     if static:  # per-tensor codes, the site's dequant factor folded into ws
@@ -1899,7 +1922,7 @@ def device_time_by_kernel(prof) -> tuple:
                                      "layernorm_bwd_kernel", "attn_bwd_query_kernel",
                                      "attn_bwd_key_kernel",
                                      "gemm_s8_kernel", "layernorm_q8_kernel",
-                                     "quant_rows_kernel", "attn_fwd_f32_kernel",
+                                     "quant_rows_kernel", "attn_fwd_tc_kernel", "probe_mma_kernel",
                                      "attn_bwd_query_tc_kernel", "attn_bwd_key_tc_kernel")
                          if k in e.key), None)
             bwd = name is not None and "bwd" in name
@@ -4308,10 +4331,6 @@ F32_CHAIN_MAX_ERR = 2.0 ** -10
 # the step's loss: a mean over the batch, which one bf16 rounding moves by
 # ~2^-10 of itself at these sizes
 F32_LOSS_REL_ERR = 2.0 ** -14
-# TF32 tensor cores, dense (NVIDIA data sheet, at 700 W): three TF32
-# products (3xTF32) a product are the fastest fp32-accurate product the
-# card has, the bound of an fp32 product's operations
-PEAK_TF32_FLOPS = 494.7e12
 FP32_OPTS = ("TRAINER.MUDPT.PREC", "fp32")
 # the step at 384 runs about 3x the request's products on the fp32 kernels
 FP32_TIMED_STEPS = 2
@@ -4321,7 +4340,8 @@ FP32_CHUNKED = (8, 197, 1280)      # rows 12-13: batch, tokens, width (10 chunks
 # recompute epilogues
 FP32_GEMM = SHAPES["ViT-B/16"]["gemm"] + (("fc_gelu_grad", M_B, 768, 3072, 0),
                                           ("mul_f32", M_B, 768, 3072, 0))
-# attention_bwd_f32 in --times-of: ViT-B/16's blocks, and the halves' at D = 1024
+# attention_f32 (both ways) in --times-of: ViT-B/16's blocks, and the
+# halves' at D = 1024
 FP32_ATTN_BWD = tuple(a[:5] for a in SHAPES["ViT-B/16"]["attn"]) + (
     ("fp32 chain", FP32_CHAIN[0], FP32_CHAIN[1], FP32_CHAIN[3], False),)
 
@@ -4330,9 +4350,7 @@ def bound32(bytes_moved: float, product_ops: float, fp32_ops: float = 0.0):
     """(ms, 'bytes' | 'operations'): the least time for fp32 work whose
     products must be fp32-accurate, at best three TF32 products each
     (3 x ops / 494.7 TFLOP/s), the rest on the FMA pipes."""
-    t_bytes = bytes_moved / PEAK_BYTES_PER_S
-    t_ops = 3 * product_ops / PEAK_TF32_FLOPS + fp32_ops / PEAK_FP32_FLOPS
-    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+    return bound(bytes_moved, 0, fp32_ops, tf32_ops=3 * product_ops)
 
 
 def fp32_kernels(F) -> dict:
@@ -4405,7 +4423,9 @@ def phase_kernels_fp32(F, kernels: dict) -> None:
     shapes (SHAPES, and the MLP's recompute epilogues), relaunched
     bit-equal, timed beside its plain version and one library call
     (F.layer_norm, torch.addmm or torch.matmul, SDPA, all in fp32 with TF32
-    off), added to ``kernels`` per vision layer of the step."""
+    off), added to ``kernels`` per vision layer of the step; then
+    attention_f32 both ways at every block length of ``ATTN_SWEEP_S``
+    (16-1,024 rows) under every mask spec, relaunched bit-equal."""
     import torch
     import torch.nn.functional as tf
 
@@ -4531,29 +4551,79 @@ def phase_kernels_fp32(F, kernels: dict) -> None:
         del qkv, do, q, k, v
     torch.cuda.empty_cache()
 
+    # both entry points at every block length of the models and past them,
+    # every mask spec, 4 sequences of 2 heads, each relaunched bit-equal
+    for S in ATTN_SWEEP_S:
+        readings = []
+        for mask in (False, True, (S, S - 7), (16, 11)):
+            if S % mask[0] if isinstance(mask, tuple) else False:
+                continue
+            qkv, do = rn(4, S, 3 * 128, dtype=f32), rn(4, S, 128, std=0.1, dtype=f32)
+            for name, fn, plain_fn in (
+                    ("attention_fwd_f32", lambda: F.attention_fwd(qkv, 2, mask),
+                     lambda: F.attention_plain(qkv, 2, mask)),
+                    ("attention_bwd_f32", lambda: F.attention_bwd(qkv, do, 2, mask),
+                     lambda: F.attention_bwd_plain(qkv, do, 2, mask))):
+                what = f"{name} S={S} mask={mask}"
+                reading = check_f32(what, fn(), plain_fn(), kernels[name])
+                check_relaunch(what, fn)
+                readings.append(f"{mask}/{name[10:13]} 2^{reading.rsplit('2^', 1)[1][:-1]}")
+        say(tag, f"attention_f32 S={S}: within limits, relaunched bit-equal: {', '.join(readings)}")
 
-def fp32_chain_case(F, what: str, fn, ref_fn, want: dict) -> str:
+
+def fp32_chain_case(F, what: str, fn, ref_fn, want: dict, bound_text: str) -> tuple:
     """A chain's output (and, where it trains, its dx) against the plain
-    chain's, its launches held to ``want`` (fp32 kernels only)."""
+    chain's, its launches held to ``want`` (fp32 kernels only), timed beside
+    the plain chain: (the reading with ms, plain ms and ``bound_text``, the
+    launches of one call)."""
     F.reset_launches()
     got = fn()
-    check_launches(what, dict(F.LAUNCHES), want)
-    return check_f32(what, got, ref_fn(), norm_limit=F32_CHAIN_NORM_ERR,
-                     max_limit=F32_CHAIN_MAX_ERR)
+    launches = dict(F.LAUNCHES)
+    check_launches(what, launches, want)
+    reading = check_f32(what, got, ref_fn(), norm_limit=F32_CHAIN_NORM_ERR,
+                        max_limit=F32_CHAIN_MAX_ERR)
+    del got
+    ms = time_ms(fn, 3)
+    plain = time_ms(ref_fn, 1)
+    return f"{reading} ms {ms:.4f} plain {plain:.4f} {bound_text}", launches
 
 
 def phase_fp32_chains(F) -> dict:
-    """Rows 4-11 of PERF.md's table: the attention and MLP halves at D =
-    1024 (16 heads, 259 tokens, batch 32) in fp32, forward alone and forward
-    with dx, qkv and h saved (saves on) and recomputed (saves off), each
-    against the plain chain; then rows 12-13: the chunked MLP half at D =
-    1280 (10 chunks of 512), forward and dx.  Returns the launches of one
-    forward and backward of each half, saving."""
+    """Rows 1-3 of PERF.md's table in fp32: the ViT-B/16 vision layer
+    (384 x 199, D = 768), its forward and its saving forward with dx; rows
+    4-11: the attention and MLP halves at D = 1024 (16 heads, 259 tokens,
+    batch 32), forward alone and forward with dx, qkv and h saved (saves on)
+    and recomputed (saves off); then rows 12-13: the chunked MLP half at D
+    = 1280 (10 chunks of 512), forward and dx.  Each against the plain
+    chain, timed beside it with its fp32 bound (``chain_bound``).  Returns
+    the launches of one forward and backward of each half, saving."""
     import torch
 
-    B, S, D, H = FP32_CHAIN
     rn = randn_fn(15)
     f32 = torch.float32
+    B, S, D, H = BATCH, 199, 768, 12
+    ps = layer_params(rn, D, f32)
+    x = rn(B, S, D, dtype=f32)
+    g = rn(B, S, D, std=0.1, dtype=f32)
+    with torch.no_grad():
+        fwd, _ = fp32_chain_case(
+            F, "layer_fullblock fp32 forward", lambda: F.layer_fullblock(x, *ps, H),
+            lambda: F.layer_fullblock_plain(x, *ps, H),
+            in_fp32(F, expect(F.LAUNCHES, (1, "full"))), chain_bound(B, S, D, False, fp32=True))
+
+    def layer_step(plain=False):
+        xr = x.detach().requires_grad_(True)
+        y = F.layer_fullblock(xr, *ps, H, plain=plain)
+        return torch.autograd.grad(y, xr, g)[0]
+
+    bwd, _ = fp32_chain_case(F, "layer_fullblock fp32 forward-save + dx", layer_step,
+                             lambda: layer_step(plain=True),
+                             in_fp32(F, expect(F.LAUNCHES, (1, "full_train"))),
+                             chain_bound(B, S, D, False, bwd=True, fp32=True))
+    say("fp32", f"layer_fullblock D={D} B={B} S={S}: forward {fwd}; forward-save + dx {bwd}")
+    del ps, x, g
+
+    B, S, D, H = FP32_CHAIN
     ps = layer_params(rn, D, f32)
     x = rn(B, S, D, dtype=f32)
     g = rn(B, S, D, std=0.1, dtype=f32)
@@ -4568,7 +4638,8 @@ def phase_fp32_chains(F) -> dict:
                          "attention_fwd_f32": int(half == "attn")})
             readings.append("forward " + fp32_chain_case(
                 F, f"{name} fp32 forward", lambda: fn(x, *p, *more),
-                lambda: fn(x, *p, *more, plain=True), want))
+                lambda: fn(x, *p, *more, plain=True), want,
+                chain_bound(B, S, D, False, (half,), fp32=True))[0])
         for saves in (True, False):
             def fwd_bwd(plain=False):
                 xr = x.detach().requires_grad_(True)
@@ -4586,10 +4657,12 @@ def phase_fp32_chains(F) -> dict:
             if half == "attn":
                 want.update(attention_fwd_f32=1, attention_bwd_f32=1)
             what = f"{name} fp32 forward + dx, {'saved' if saves else 'recomputed'}"
-            readings.append(("saved " if saves else "recomputed ") + fp32_chain_case(
-                F, what, fwd_bwd, lambda: fwd_bwd(plain=True), want))
+            reading, launches = fp32_chain_case(F, what, fwd_bwd, lambda: fwd_bwd(plain=True),
+                                                want, chain_bound(B, S, D, False, (half,),
+                                                                  bwd=True, fp32=True))
+            readings.append(("saved " if saves else "recomputed ") + reading)
             if saves:
-                out[f"fp32_{name}_train"] = dict(F.LAUNCHES)
+                out[f"fp32_{name}_train"] = launches
         say("fp32", f"{name} D={D} B={B} S={S}: " + "; ".join(readings))
 
     B, S, D = FP32_CHUNKED
@@ -4601,9 +4674,10 @@ def phase_fp32_chains(F) -> dict:
         want = {k: 0 for k in F.LAUNCHES}
         want.update(mlp_halfblock_chunked=1, layernorm_fwd_f32=1,
                     gemm_f32_epilogue=2 * n_chunks)
-        fwd = fp32_chain_case(F, "mlp_halfblock_chunked fp32 forward",
-                              lambda: F.mlp_halfblock_chunked(x, *p),
-                              lambda: F.mlp_halfblock_chunked(x, *p, plain=True), want)
+        fwd, _ = fp32_chain_case(F, "mlp_halfblock_chunked fp32 forward",
+                                 lambda: F.mlp_halfblock_chunked(x, *p),
+                                 lambda: F.mlp_halfblock_chunked(x, *p, plain=True), want,
+                                 chain_bound(B, S, D, False, ("mlp",), fp32=True))
 
     def fwd_bwd(plain=False):
         xr = x.detach().requires_grad_(True)
@@ -4613,9 +4687,9 @@ def phase_fp32_chains(F) -> dict:
     want = {k: 0 for k in F.LAUNCHES}
     want.update(mlp_halfblock_chunked=1, mlp_halfblock_chunked_bwd=1, layernorm_fwd_f32=2,
                 gemm_f32_epilogue=5 * n_chunks, layernorm_bwd_f32=1)
-    bwd = fp32_chain_case(F, "mlp_halfblock_chunked fp32 forward + dx", fwd_bwd,
-                          lambda: fwd_bwd(plain=True), want)
-    out["fp32_mlp_halfblock_chunked_train"] = dict(F.LAUNCHES)
+    bwd, out["fp32_mlp_halfblock_chunked_train"] = fp32_chain_case(
+        F, "mlp_halfblock_chunked fp32 forward + dx", fwd_bwd, lambda: fwd_bwd(plain=True), want,
+        chain_bound(B, S, D, False, ("mlp",), bwd=True, fp32=True))
     say("fp32", f"mlp_halfblock_chunked D={D} B={B} S={S} ({n_chunks} chunks): forward {fwd}; "
                 f"forward + dx {bwd}")
     return out
@@ -5164,6 +5238,14 @@ def phase_kernels_fp32_int8(F, Q, kq: dict, kqs: dict) -> None:
                    plain, lib, bms, by)
         del a, wq, extra, args
     torch.cuda.empty_cache()
+    # the ragged tile edges: N = 784 leaves a tile's second column half
+    # outside the matrix, N = 912 cuts it at 16 columns
+    M, K, _ = S8_RAGGED_MKN
+    for N in (S8_RAGGED_MKN[2], 912):
+        for ep, save in S8_RAGGED:
+            _, reading = s8_case(Q, rn, ep, M, K, N, save, dtype=f32)
+            say(tag, f"gemm_s8_epilogue_f32 {ep}{' save h' if save else ''} {M}x{K}->{N}: "
+                     f"{reading}")
 
 
 def phase_fp32_q8_chains(F, Q, layers) -> dict:
@@ -5173,7 +5255,9 @@ def phase_fp32_q8_chains(F, Q, layers) -> dict:
     forward and backward, each against the plain chain on the card under
     the bf16 int8 chains' limits (a flipped code, not fp32 rounding, sets
     the distance), each call's launches those of the bf16 q8 chain with
-    every kernel mapped to its fp32 counterpart (no bf16 kernel launched).
+    every kernel mapped to its fp32 counterpart (no bf16 kernel launched),
+    timed beside the plain chain with the fp32 bound (``chain_bound``: the
+    forward's projections at the int8 peak, every other product 3xTF32).
     Returns the quantization-aware layers' launches."""
     import torch
 
@@ -5207,7 +5291,8 @@ def phase_fp32_q8_chains(F, Q, layers) -> dict:
             serve[tier] = y
             ms = time_ms(lambda: fn(x, *ops, H))
             plain = time_ms(lambda: fn(x, *ops, H, plain=True), 2)
-            say(tag, f"{what} B={B} S={S} D={D}: {reading} ms {ms:.4f} plain {plain:.4f}; "
+            say(tag, f"{what} B={B} S={S} D={D}: {reading} ms {ms:.4f} plain {plain:.4f} "
+                     f"{chain_bound(B, S, D, False, int8=True, fp32=True)}; "
                      f"launches {json.dumps({k: v for k, v in F.LAUNCHES.items() if v})}")
             rs = None if tier == "int8" else r
             qq = qp if rs is None else qps
@@ -5250,8 +5335,8 @@ def phase_fp32_q8_chains(F, Q, layers) -> dict:
             ms = time_ms(lambda: step(False), 5)
             plain = time_ms(lambda: step(True), 1)
             say(tag, f"{what} forward + backward: y {r_y}; dx {r_dx}; ms {ms:.4f} plain "
-                     f"{plain:.4f}; launches "
-                     f"{json.dumps({k: v for k, v in launches.items() if v})}")
+                     f"{plain:.4f} {chain_bound(B, S, D, False, bwd=True, int8=True, fp32=True)}; "
+                     f"launches {json.dumps({k: v for k, v in launches.items() if v})}")
         del x, xg, gy, ps, blk, qw, qp, qps, serve
         torch.cuda.empty_cache()
     return out
@@ -5765,11 +5850,14 @@ def kernel_times(F) -> dict:
     LayerNorm-quant (dynamic and static) at ViT-B/16's rows, on seeded
     inputs, through the public
     wrappers only, so that two trees' kernels can be timed in one call
-    (``--times-of``); and of every fp32 GEMM mode of ``FP32_GEMM`` and
-    attention_bwd_f32 case of ``FP32_ATTN_BWD``.  attention_bwd, bf16 and
-    fp32, also by ``queued_ms``: its text shapes take microseconds, where
-    the host's pace can set ``time_ms``.  A block length that a package
-    refuses (an attention_bwd with a row cap) is left out."""
+    (``--times-of``); and of every fp32 GEMM mode of ``FP32_GEMM``, of
+    attention_fwd_f32 and attention_bwd_f32 at every case of
+    ``FP32_ATTN_BWD`` and of every gemm_s8_epilogue_f32 case of
+    ``F32_Q8_GEMM`` (ViT-B/16's and ViT-L/14's rows, dynamic and static).
+    attention, bf16 backward and fp32 both ways, also by ``queued_ms``: its
+    text shapes take microseconds, where the host's pace can set
+    ``time_ms``.  A block length that a package refuses (an attention_bwd
+    with a row cap) is left out."""
     import torch
 
     from mudpt_torch.ops import quant_block as Q
@@ -5809,12 +5897,18 @@ def kernel_times(F) -> dict:
             lambda: F.gemm_epilogue(a, w, bias, ep, extra), AB_ITERS)
         del a, w, bias, extra
     for label, B, S, H, causal in FP32_ATTN_BWD:
-        key = f"attention_bwd_f32 {label} {B}x{S} H={H}"
         qkv, do = rn(B, S, 3 * 64 * H, dtype=f32), rn(B, S, 64 * H, std=0.1, dtype=f32)
-        times[key] = time_ms(lambda: F.attention_bwd(qkv, do, H, causal), AB_ITERS)
-        times[key + " device"], times[key + " host us"] = queued_ms(
-            lambda: F.attention_bwd(qkv, do, H, causal), AB_ITERS)
+        for name, fn in (("attention_fwd_f32", lambda: F.attention_fwd(qkv, H, causal)),
+                         ("attention_bwd_f32", lambda: F.attention_bwd(qkv, do, H, causal))):
+            key = f"{name} {label} {B}x{S} H={H}"
+            times[key] = time_ms(fn, AB_ITERS)
+            times[key + " device"], times[key + " host us"] = queued_ms(fn, AB_ITERS)
         del qkv, do
+    for ep, M, K, N, save, *_ in F32_Q8_GEMM:
+        args, _ = s8_case(Q, rn, ep, M, K, N, save, dtype=f32)
+        times[f"gemm_s8_epilogue_f32 {ep}{' save h' if save else ''} {M}x{K}->{N}"] = time_ms(
+            lambda: Q.gemm_s8(*args), AB_ITERS)
+        del args
     torch.cuda.empty_cache()
     return times
 
@@ -5841,7 +5935,8 @@ def kernel_digests(F) -> dict:
     rows and at D = 1280, of the bf16 LayerNorm-quant's codes and scales,
     dynamic and static, of the row quantizer's, and of every bf16 s8 GEMM
     case of Q8_GEMM, on seeded inputs: two trees whose digests agree
-    compute the same bits (``--times-of``)."""
+    compute the same bits (``--times-of``); and of every fp32 s8 GEMM case
+    at ViT-B/16's rows."""
     import hashlib
 
     import torch
@@ -5866,12 +5961,15 @@ def kernel_digests(F) -> dict:
         out[f"layernorm_q8 {rows}x{D} dynamic"] = digest(*Q.ln_quant(x, s, b))
         out[f"layernorm_q8 {rows}x{D} static"] = digest(*Q.ln_quant(x, s, b, r))
         del x
-    for ep, M, K, N, save, *_ in Q8_GEMM:
-        args, _ = s8_case(Q, rn, ep, M, K, N, save)
-        got = Q.gemm_s8(*args)
-        out[f"gemm_s8_epilogue {ep}{' save h' if save else ''} {M}x{K}->{N}"] = digest(
-            *(got if save else (got,)))
-        del args, got
+    for kernel, cases, dtype in (("gemm_s8_epilogue", Q8_GEMM, None),
+                                 ("gemm_s8_epilogue_f32",
+                                  [c for c in F32_Q8_GEMM if c[1] == M_B], torch.float32)):
+        for ep, M, K, N, save, *_ in cases:
+            args, _ = s8_case(Q, rn, ep, M, K, N, save, dtype=dtype)
+            got = Q.gemm_s8(*args)
+            out[f"{kernel} {ep}{' save h' if save else ''} {M}x{K}->{N}"] = digest(
+                *(got if save else (got,)))
+            del args, got
     for rows, D in ((M_B, 768), (M_L, 1024), (2048, 1280)):
         x, g16, g32, r = rn(rows, D, std=2.0), rn(rows, D), rn(rows, D, dtype=torch.float32), \
             rn(rows, D)

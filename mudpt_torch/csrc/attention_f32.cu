@@ -28,23 +28,22 @@
 //   bytes: ~200 operations a byte.  One TF32 product reads ~2^-11 of an
 //   fp32 one, so an fp32-accurate product is three TF32 ones (3xTF32, 494.7
 //   / 3 TFLOP/s on the tensor cores) or FMAs (67 TFLOP/s).
-// Forward (attn_fwd_f32_kernel): SIMT fp32 FMAs on 64 x 64 tiles in shared
-//   memory (rows padded to 68 floats so that 16-byte reads of eight rows
-//   hit distinct banks), 256 threads a block, each owning 4 x 4 elements of
-//   a tile product: rows ty + 16a and columns tx + 16b for a product over
-//   the head dim (s), columns tx*4 + c for one over keys (o).  One block a
-//   (sequence block, head, 64-row query tile): pass 1 over the streamed key
-//   tiles gives each row's max m and sum l of exp(s - m), rescaled as m
-//   grows; pass 2 recomputes s and accumulates o += p.v with p = exp(s - m)
-//   / l.  Any block length (579 rows at 336 px).
-// Backward: two kernels on Hopper's warpgroup MMA in TF32, every product
+// Both directions run on Hopper's warpgroup MMA in TF32, every product
 //   3xTF32: x = hi + lo exactly, hi = cvt.rna.tf32(x), lo = cvt.rna.tf32(x
 //   - hi), lo.hi + hi.lo + hi.hi into one fp32 accumulator, lo.lo (below
 //   2^-20 of a product) dropped.  The softmax, its statistics and ds stay in
 //   fp32 on the CUDA cores, exp as exp2 with log2(e) folded into the score
 //   and / sum a multiply by its reciprocal (a few fp32 ulps on p).
-//     query-major (attn_bwd_query_tc_kernel<NWG>): two warpgroups a block
-//       (one for a block of one tile, the text tower's), each owning a
+//     forward (attn_fwd_tc_kernel<NWG>): NWG warpgroups a block (one for
+//       a block of one tile, the text tower's), each owning a 64-row query
+//       tile, its Q split into shared memory once; 32-row key steps stream
+//       past, shared by all, K split K-major and V transposed.  One pass:
+//       S = Q.K^T (wgmma m64n32k8, both operands from shared memory), each
+//       row's running max and sum of exp2(u - max), the output accumulator
+//       rescaled as the max grows, O += P.V with P as register A fragments
+//       (m64n64k8); O times 1 / sum once at the end.
+//     query-major backward (attn_bwd_query_tc_kernel<NWG>): two warpgroups
+//       a block (one for a block of one tile), each owning a
 //       64-row query tile, its Q and dO split into shared memory once;
 //       32-row key steps stream past, shared by both.  Pass 1: S =
 //       Q.K^T and dP = dO.V^T (wgmma m64n32k8, both operands from shared
@@ -54,8 +53,8 @@
 //       ds = p * (dp - rowsum(dp * p)) * hd^-0.5 in the accumulator
 //       registers, then dQ += dS.K with dS as register A fragments
 //       (m64n64k8).
-//     key-major (attn_bwd_key_tc_kernel): two warpgroups a block, each
-//       owning a 64-row key tile, its K and V split into shared memory;
+//     key-major backward (attn_bwd_key_tc_kernel): two warpgroups a block,
+//       each owning a 64-row key tile, its K and V split into shared memory;
 //       32-row query steps stream past, shared by both: S^T = K.Q^T and
 //       dP^T = V.dO^T, p^T and ds^T from the scratch's statistics, then dV
 //       += P^T.dO and dK += dS^T.Q with P^T and dS^T as register A
@@ -63,10 +62,10 @@
 //   TF32 wgmma reads its shared-memory operands K-major only (only 16-bit
 //   types transpose through the descriptor).  The products over the head
 //   dim (S, dP and their transposes) find all four operands hd-contiguous.
-//   The products over the sequence (dQ, dK, dV) need K, Q and dO with the
-//   sequence contiguous: each streamed step is prefetched into registers
+//   The products over the sequence (O, dQ, dK, dV) need V, K, Q and dO with
+//   the sequence contiguous: each streamed step is prefetched into registers
 //   while the previous step's products run, then split into shared memory
-//   twice, K-major and transposed (the 32 lanes of a warp writing one
+//   K-major, transposed or both (the 32 lanes of a warp writing one
 //   transposed row: distinct banks).  Inside each 8-row chunk the
 //   transposed copy puts row 2t + e at k = t + 4e, the k where the
 //   accumulator fragment that becomes the A operand already holds that
@@ -75,7 +74,8 @@
 //   tile, keys at or past `valid`); any block length, and the text tower's
 //   16-row blocks run the same kernels (an m64 tile mostly empty, yet
 //   faster than the SIMT kernels these replaced).  No atomics and a fixed
-//   order of sums: a result repeats exactly from launch to launch.
+//   order of sums: a result repeats exactly from launch to launch, and a
+//   (block, head)'s result does not depend on the blocks beside it.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -85,10 +85,9 @@ namespace {
 
 constexpr int HD = 64;          // head dim
 constexpr int T = 64;           // tile rows
-constexpr int LDT = 68;         // a tile row in shared memory, padded
-constexpr int TILE = T * LDT;   // floats a tile
-constexpr int THREADS = 256;
+constexpr int SR = 32;          // rows of the streamed steps
 constexpr float kNeg = -1e30f;  // the Pallas kernels' additive mask value
+constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
@@ -96,83 +95,6 @@ __device__ __forceinline__ float4 ld4(const float* p) {
 
 __device__ __forceinline__ void st4(float* p, const float (&v)[4]) {
   *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-}
-
-// rows [r0, r0 + 64) of a matrix whose rows lie `ld` floats apart (the
-// head's 64 columns at g), rows at or past n as zeros
-__device__ __forceinline__ void load_tile(float* s, const float* g, int r0, int n, int ld) {
-#pragma unroll
-  for (int i = 0; i < T * HD / 4 / THREADS; ++i) {
-    const int idx = threadIdx.x + i * THREADS;
-    const int r = idx >> 4, c = (idx & 15) * 4;
-    const float4 v = r0 + r < n ? ld4(g + (size_t)(r0 + r) * ld + c) : make_float4(0, 0, 0, 0);
-    *reinterpret_cast<float4*>(s + r * LDT + c) = v;
-  }
-}
-
-// o[a][b] = sum_d X[ty + 16a][d] * Y[tx + 16b][d]
-__device__ __forceinline__ void prod_nt(const float* X, const float* Y, float (&o)[4][4]) {
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < 4; ++b) o[a][b] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < HD; d += 4) {
-    float4 x[4], y[4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a) x[a] = ld4(X + (ty + 16 * a) * LDT + d);
-#pragma unroll
-    for (int b = 0; b < 4; ++b) y[b] = ld4(Y + (tx + 16 * b) * LDT + d);
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        float v = o[a][b];
-        v = fmaf(x[a].x, y[b].x, v);
-        v = fmaf(x[a].y, y[b].y, v);
-        v = fmaf(x[a].z, y[b].z, v);
-        o[a][b] = fmaf(x[a].w, y[b].w, v);
-      }
-  }
-}
-
-// o[a][c] += sum_j P[ty + 16a][j] * V[j][tx*4 + c]
-__device__ __forceinline__ void prod_nn(const float* P, const float* V, float (&o)[4][4]) {
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-#pragma unroll 4
-  for (int j = 0; j < T; j += 4) {
-    float p[4][4], v[4][4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const float4 q = ld4(P + (ty + 16 * a) * LDT + j);
-      p[a][0] = q.x; p[a][1] = q.y; p[a][2] = q.z; p[a][3] = q.w;
-    }
-#pragma unroll
-    for (int t = 0; t < 4; ++t) {
-      const float4 q = ld4(V + (j + t) * LDT + tx * 4);
-      v[t][0] = q.x; v[t][1] = q.y; v[t][2] = q.z; v[t][3] = q.w;
-    }
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int t = 0; t < 4; ++t)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) o[a][c] = fmaf(p[a][t], v[t][c], o[a][c]);
-  }
-}
-
-// over the 16 lanes that share ty (one half of a warp)
-__device__ __forceinline__ float row_max(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float row_sum(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
 }
 
 struct Mask {
@@ -185,93 +107,7 @@ struct Mask {
     const float s = qk * scale;
     return (j >= valid || (causal && j > i)) ? s + kNeg : s;
   }
-  // key tiles that a query tile starting at q0 attends: keys below valid,
-  // and for a causal mask up to the tile's last row
-  __device__ __forceinline__ int key_tiles(int q0) const {
-    int end = L < valid ? L : valid;
-    if (causal && q0 + T < end) end = q0 + T;
-    return (end + T - 1) / T;
-  }
 };
-
-__global__ void __launch_bounds__(THREADS)
-attn_fwd_f32_kernel(const float* __restrict__ qkv, float* __restrict__ out, int n_head, int D,
-                    Mask mk, int n_qt) {
-  extern __shared__ __align__(16) float sm[];
-  float* Qs = sm;
-  float* Ks = Qs + TILE;
-  float* Vs = Ks + TILE;
-  float* Ps = Vs + TILE;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int qt = blockIdx.x % n_qt, h = (blockIdx.x / n_qt) % n_head;
-  const int seq = blockIdx.x / n_qt / n_head;
-  const int L = mk.L, q0 = qt * T, ld = 3 * D;
-  const float* base = qkv + (size_t)seq * L * ld + h * HD;
-  load_tile(Qs, base, q0, L, ld);
-  const int n_kt = mk.key_tiles(q0);
-
-  // pass 1: each row's max and sum of exp(s - max)
-  float m[4], l[4], s[4][4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a) m[a] = -INFINITY, l[a] = 0.f;
-  for (int kt = 0; kt < n_kt; ++kt) {
-    __syncthreads();
-    load_tile(Ks, base + D, kt * T, L, ld);
-    __syncthreads();
-    prod_nt(Qs, Ks, s);
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int i = q0 + ty + 16 * a;
-      float tmax = -INFINITY;
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        s[a][b] = mk.score(s[a][b], i, kt * T + tx + 16 * b);
-        tmax = fmaxf(tmax, s[a][b]);
-      }
-      const float m_new = fmaxf(m[a], row_max(tmax));
-      float e = 0.f;
-#pragma unroll
-      for (int b = 0; b < 4; ++b) e += expf(s[a][b] - m_new);
-      l[a] = l[a] * expf(m[a] - m_new) + row_sum(e);
-      m[a] = m_new;
-    }
-  }
-
-  // pass 2: o = sum over the key tiles of p.v, p = exp(s - m) / l
-  float o[4][4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) o[a][c] = 0.f;
-  for (int kt = 0; kt < n_kt; ++kt) {
-    __syncthreads();
-    load_tile(Ks, base + D, kt * T, L, ld);
-    load_tile(Vs, base + 2 * D, kt * T, L, ld);
-    __syncthreads();
-    prod_nt(Qs, Ks, s);
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int i = q0 + ty + 16 * a;
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const float sc = mk.score(s[a][b], i, kt * T + tx + 16 * b);
-        Ps[(ty + 16 * a) * LDT + tx + 16 * b] = expf(sc - m[a]) / l[a];
-      }
-    }
-    __syncthreads();
-    prod_nn(Ps, Vs, o);
-  }
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int i = q0 + ty + 16 * a;
-    if (i < L) st4(out + ((size_t)seq * L + i) * D + h * HD + tx * 4, o[a]);
-  }
-}
-
-// ---- the backward, on the tensor cores
-
-constexpr int SR = 32;        // rows of a streamed step
-constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -429,50 +265,65 @@ __device__ __forceinline__ void load_tile_tc(unsigned char* hi, unsigned char* l
 
 // a streamed step of NT threads: rows [r0, r0 + 32) of two matrices X, Y
 // (a head's 64 columns, rows `ld` floats apart), prefetched into registers
-// (lanes on rows), then split into shared memory
+// (lanes on rows), then split into shared memory.  The index arithmetic
+// (idx % SR, (kr >> 5) * 8192 + swz(.., kr & 31)) is kept in this form:
+// idx & 31 and swz(.., kr) give the same addresses, but nvcc then builds
+// other SASS, and both directions ran ~3% slower on the H100
 template <int NT>
 struct Step {
-  static constexpr int V = 32 * 16 / NT;  // 16-byte vectors of each matrix a thread
+  static constexpr int V = SR * 16 / NT;  // 16-byte vectors of each matrix a thread
   float4 x[V], y[V];
   __device__ __forceinline__ void load(const float* gx, const float* gy, int r0, int n, int ldx,
                                        int ldy) {
 #pragma unroll
     for (int i = 0; i < V; ++i) {
-      const int idx = threadIdx.x + NT * i, r = idx & 31, c4 = idx >> 5;
+      const int idx = threadIdx.x + NT * i, r = idx % SR, c4 = idx / SR;
       const bool in = r0 + r < n;
       x[i] = in ? ld4(gx + (size_t)(r0 + r) * ldx + 4 * c4) : make_float4(0, 0, 0, 0);
       y[i] = in ? ld4(gy + (size_t)(r0 + r) * ldy + 4 * c4) : make_float4(0, 0, 0, 0);
     }
   }
-  // hi and lo K-major (two panels of 32 rows), and with `t` also
-  // transposed (one panel: 64 rows, the step's rows as k in seq_k order;
-  // the 32 lanes of a warp write one row's 32 k: distinct banks)
+  // hi and lo K-major (two panels of 32 rows) where `k`, and transposed
+  // where `t` (one panel: 64 rows, the step's rows as k in seq_k order; the
+  // 32 lanes of a warp write one row's 32 k: distinct banks)
   __device__ __forceinline__ static void put(float4 v, unsigned char* hi, unsigned char* lo,
                                              unsigned char* thi, unsigned char* tlo, int r,
-                                             int c4, bool t) {
+                                             int c4, bool k, bool t) {
     const float4 l = split4(v);
-    const int off = (c4 >> 3) * 4096 + swz(r, 4 * (c4 & 7));
-    *reinterpret_cast<float4*>(hi + off) = v;
-    *reinterpret_cast<float4*>(lo + off) = l;
+    if (k) {
+      const int off = (c4 >> 3) * 4096 + swz(r, 4 * (c4 & 7));
+      *reinterpret_cast<float4*>(hi + off) = v;
+      *reinterpret_cast<float4*>(lo + off) = l;
+    }
     if (t) {
-      const int k = seq_k(r);
+      const int kr = seq_k(r);
       const float vh[4] = {v.x, v.y, v.z, v.w}, vl[4] = {l.x, l.y, l.z, l.w};
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int o = swz(4 * c4 + e, k);
+        const int o = (kr >> 5) * 8192 + swz(4 * c4 + e, kr & 31);
         *reinterpret_cast<float*>(thi + o) = vh[e];
         *reinterpret_cast<float*>(tlo + o) = vl[e];
       }
     }
   }
-  // sm: X hi, X lo, Y hi, Y lo (8 KB each), then X^T hi, X^T lo where tx,
-  // Y^T hi, Y^T lo where ty (8 KB each)
+  // the backward's step, sm: X hi, X lo, Y hi, Y lo (8 KB each), then X^T
+  // hi, X^T lo where tx, Y^T hi, Y^T lo where ty (8 KB each)
   __device__ __forceinline__ void store(unsigned char* sm, bool tx, bool ty) const {
 #pragma unroll
     for (int i = 0; i < V; ++i) {
-      const int idx = threadIdx.x + NT * i, r = idx & 31, c4 = idx >> 5;
-      put(x[i], sm, sm + 8192, sm + 4 * 8192, sm + 5 * 8192, r, c4, tx);
-      put(y[i], sm + 2 * 8192, sm + 3 * 8192, sm + 6 * 8192, sm + 7 * 8192, r, c4, ty);
+      const int idx = threadIdx.x + NT * i, r = idx % SR, c4 = idx / SR;
+      put(x[i], sm, sm + 8192, sm + 4 * 8192, sm + 5 * 8192, r, c4, true, tx);
+      put(y[i], sm + 2 * 8192, sm + 3 * 8192, sm + 6 * 8192, sm + 7 * 8192, r, c4, true, ty);
+    }
+  }
+  // the forward's step, sm: X (K) hi, X lo K-major, Y (V) hi, Y lo
+  // transposed (8 KB each)
+  __device__ __forceinline__ void store_fwd(unsigned char* sm) const {
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      const int idx = threadIdx.x + NT * i, r = idx % SR, c4 = idx / SR;
+      put(x[i], sm, sm + 8192, nullptr, nullptr, r, c4, true, false);
+      put(y[i], nullptr, nullptr, sm + 2 * 8192, sm + 3 * 8192, r, c4, false, true);
     }
   }
 };
@@ -485,6 +336,104 @@ __device__ __forceinline__ float quad_max(float v) {
 __device__ __forceinline__ float quad_sum(float v) {
   v += __shfl_xor_sync(0xffffffffu, v, 1);
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// the forward: each of NWG warpgroups owns one 64-row query tile, its Q
+// split in shared memory; 32-row key steps (K K-major, V transposed) stream
+// past.  One pass: S = Q.K^T, each row's running max m and sum l of
+// exp2(u - m) (u = s * log2(e)), O rescaled by exp2(m_old - m) as m grows,
+// O += P.V with P = exp2(u - m) as register A fragments; O / l at the end.
+// The registers are capped so that as many blocks share an SM as its shared
+// memory holds: 3 of one warpgroup (65 KB), 2 of two (97 KB)
+template <int NWG>
+__global__ void __launch_bounds__(NWG * 128, 4 - NWG)
+attn_fwd_tc_kernel(const float* __restrict__ qkv, float* __restrict__ out, int n_head, int D,
+                   Mask mk, int per_head) {
+  constexpr int NT = NWG * 128;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* const sm = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const int tid = threadIdx.x, c = tid >> 7, wtid = tid & 127;
+  const int warp = wtid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int grp = blockIdx.x % per_head, h = (blockIdx.x / per_head) % n_head;
+  const int seq = blockIdx.x / per_head / n_head;
+  const int L = mk.L, ld = 3 * D, q0 = (NWG * grp + c) * T;
+  const bool active = q0 < L;  // warpgroup-uniform
+  const float* base = qkv + (size_t)seq * L * ld + h * HD;
+  // per warpgroup: Q hi, Q lo (16 KB each); then the step: K hi, K lo, V^T
+  // hi, V^T lo
+  unsigned char* const own = sm + c * 32768;
+  unsigned char* const step = sm + NWG * 32768;
+  const uint32_t qh = smem_u32(own), ql = qh + 16384, sk = smem_u32(step);
+  if (active) load_tile_tc(own, own + 16384, base, q0, L, ld, wtid);
+  // keys below valid, and for a causal mask up to the block's last row
+  int end = min(L, mk.valid);
+  if (mk.causal) end = min(end, (NWG * grp + NWG) * T);
+  const int n_ks = (end + SR - 1) / SR;
+  const int row0 = q0 + 16 * warp + g, row1 = row0 + 8;
+
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float o[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  Step<NT> pf;
+  if (n_ks > 0) pf.load(base + D, base + 2 * D, 0, L, ld, ld);
+  for (int js = 0; js < n_ks; ++js) {
+    const int k0 = js * SR;
+    __syncthreads();  // every warpgroup is done with the last step
+    pf.store_fwd(step);
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    if (js + 1 < n_ks) pf.load(base + D, base + 2 * D, k0 + SR, L, ld, ld);
+    if (!active || (mk.causal && k0 > q0 + T - 1)) continue;
+    float s[16];
+    wgmma_fence();
+    prod_hd(s, qh, ql, sk, sk + 8192);
+    wgmma_commit_wait();
+    // s[4j + 2hh + e]: row hh ? row1 : row0, key k0 + 8j + 2t + e
+#pragma unroll
+    for (int e = 0; e < 16; ++e)
+      s[e] = mk.score(s[e], (e & 2) ? row1 : row0, k0 + 8 * (e >> 2) + 2 * t + (e & 1)) * kLog2e;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      float tmax = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < SR / 8; ++j)
+        tmax = fmaxf(tmax, fmaxf(s[4 * j + 2 * hh], s[4 * j + 2 * hh + 1]));
+      // finite: every step holds a key below L, and a row's first step an
+      // unmasked one (key 0)
+      const float m_new = fmaxf(m[hh], quad_max(tmax));
+      const float alpha = ex2(m[hh] - m_new);
+      float a = 0.f;
+#pragma unroll
+      for (int j = 0; j < SR / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float p = ex2(s[4 * j + 2 * hh + e] - m_new);  // masked: exactly 0
+          s[4 * j + 2 * hh + e] = p;
+          a += p;
+        }
+      l[hh] = l[hh] * alpha + a;
+      m[hh] = m_new;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        o[4 * j + 2 * hh] *= alpha;
+        o[4 * j + 2 * hh + 1] *= alpha;
+      }
+    }
+    prod_seq(o, s, sk + 16384, sk + 24576);
+  }
+  if (!active) return;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const float inv = 1.f / quad_sum(l[hh]);
+    const int i = hh ? row1 : row0;
+    if (i >= L) continue;
+    float* row = out + ((size_t)seq * L + i) * D + h * HD;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      *reinterpret_cast<float2*>(row + 8 * j + 2 * t) =
+          make_float2(o[4 * j + 2 * hh] * inv, o[4 * j + 2 * hh + 1] * inv);
+  }
 }
 
 // 1. query-major: each of NWG warpgroups owns one 64-row query tile, its Q
@@ -714,6 +663,19 @@ int launch_query(const float* q, const float* g, float* d, float* st, long long 
   return (int)cudaGetLastError();
 }
 
+template <int NWG>
+int launch_fwd(const float* q, float* o, long long heads, int n_head, int D, const Mask& mk,
+               int n_t, cudaStream_t s) {
+  constexpr int smem = NWG * 32768 + 4 * 8192 + 1024;  // own tiles, the step, alignment
+  static bool ready = false;
+  const cudaError_t e = allow_smem(attn_fwd_tc_kernel<NWG>, smem, &ready);
+  if (e != cudaSuccess) return (int)e;
+  const int per_q = (n_t + NWG - 1) / NWG;
+  attn_fwd_tc_kernel<NWG><<<(unsigned)(heads * per_q), NWG * 128, smem, s>>>(
+      q, o, n_head, D, mk, per_q);
+  return (int)cudaGetLastError();
+}
+
 bool valid_args(int n_seq, int L, int D, int n_head, int valid) {
   return n_seq >= 1 && L >= 1 && valid >= 1 && n_head >= 1 && D == n_head * HD;
 }
@@ -725,17 +687,17 @@ bool valid_args(int n_seq, int L, int D, int n_head, int valid) {
 extern "C" int attention_fwd_f32(const void* qkv, void* out, int n_seq, int L, int D,
                                  int n_head, int causal, int valid, float scale, void* stream) {
   if (!valid_args(n_seq, L, D, n_head, valid)) return (int)cudaErrorInvalidValue;
-  const int n_qt = (L + T - 1) / T;
-  const long long blocks = (long long)n_seq * n_head * n_qt;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  constexpr int smem = 4 * TILE * (int)sizeof(float);
-  static bool ready = false;
-  cudaError_t e = allow_smem(attn_fwd_f32_kernel, smem, &ready);
-  if (e != cudaSuccess) return (int)e;
+  const int n_t = (L + T - 1) / T;
+  const long long heads = (long long)n_seq * n_head;
+  if (heads * n_t > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const Mask mk{L, causal, valid, scale};
-  attn_fwd_f32_kernel<<<(unsigned)blocks, THREADS, smem, (cudaStream_t)stream>>>(
-      static_cast<const float*>(qkv), static_cast<float*>(out), n_head, D, mk, n_qt);
-  return (int)cudaGetLastError();
+  const auto* q = static_cast<const float*>(qkv);
+  auto* o = static_cast<float*>(out);
+  const cudaStream_t s = (cudaStream_t)stream;
+  // two query tiles a block, sharing each key step's split; a block of
+  // one tile (the text tower's) takes one warpgroup
+  return n_t == 1 ? launch_fwd<1>(q, o, heads, n_head, D, mk, n_t, s)
+                  : launch_fwd<2>(q, o, heads, n_head, D, mk, n_t, s);
 }
 
 // qkv, dqkv: (n_seq * L, 3D) fp32.  dout: (n_seq * L, D) fp32.  stats:

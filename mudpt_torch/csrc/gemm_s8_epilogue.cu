@@ -56,19 +56,28 @@
 //   (conflict-free from the fragments) and leave by TMA stores that run on
 //   while the next tile's products do, clipped at the matrix's edges; the
 //   residual tile arrives in the slab by TMA during the products and is
-//   added in place.  The fp32 g leaves straight from the registers, a quad
-//   of lanes writing one whole 32-byte sector of a row.  The fp32
-//   instances (F32) keep the products, the ring and the shared-memory
-//   budget as they are: an fp32 slab for TMA stores (64 x 256 x 4 B a
-//   consumer) would add 64 KB to the ~213 KB the three stages and two bf16
-//   slabs take of the SM's 227 KB, so every fp32 output (qkv, R + v, the
-//   saved h) leaves straight from the registers as g does, and R is read
-//   per fragment from device memory, a quad of lanes reading one 32-byte
-//   sector; the bias columns are staged as fp32 in the bytes the bf16
-//   bias and its padding take (BN x 4 B); only the static fc's int8 codes
-//   still leave through the slab.  The bf16 instances compute and store
-//   exactly what they did before.  Blocks are
-//   persistent, one per SM walking the tiles, so the producer loads the
+//   added in place.  The bf16 instances' fp32 g leaves straight from the
+//   registers, a quad of lanes writing one whole 32-byte sector of a row.
+//   The fp32 instances (F32) keep the products, the ring and the
+//   shared-memory budget: a consumer's 64 x 256 fp32 tile (64 KB) would not
+//   fit beside the three stages, but the bf16 slab's 32 KB hold two 64 x 64
+//   fp32 quarters, so every fp32 output (qkv, R + v, the saved h, the
+//   dynamic fc's g) leaves through the slab quarter by quarter, the two
+//   buffers in turn: a quarter is written from the fragments (two
+//   128-byte-swizzled boxes of 64 rows x 32 fp32), its TMA stores are
+//   issued, and the quarter after next waits only until those stores have
+//   read the buffer (cp.async.bulk.wait_group.read 1), so writing one
+//   quarter overlaps the stores of the one before, and the consumers go on
+//   to the next tile's products while the last bytes move.  The residual's
+//   R arrives by TMA into the buffers, quarters 0 and 1 during the
+//   products, each later one q + 1 into the buffer of quarter q - 1 while
+//   quarter q is written; R + v is written in place.  Quarter q - 1's
+//   stores are the latest issued when that load is, so the residual
+//   instances wait before it until every store has read its buffer
+//   (wait_group.read 0), not only the quarter before last's.  The bias columns are staged as fp32 in the bytes the bf16 bias
+//   and its padding take (BN x 4 B).  The bf16 instances compute and store
+//   exactly what they did before.  Blocks are persistent, one per SM
+//   walking the tiles, so the producer loads the
 //   next tile while the consumers finish this one; the producer gives up
 //   registers (setmaxnreg) for the consumers' epilogue.
 
@@ -156,6 +165,11 @@ __device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, uint32_t sr
 // the stores committed so far have read their shared memory
 __device__ __forceinline__ void tma_store_read_wait() {
   asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// the same for all but the last committed group
+__device__ __forceinline__ void tma_store_read_wait_but_last() {
+  asm volatile("cp.async.bulk.wait_group.read 1;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
@@ -261,9 +275,8 @@ __device__ __forceinline__ float2 bias2(const void* b_s, int cl) {
   }
 }
 
-// F32: fp32 activations; the bias is then fp32 (read through ``bias``), R32
-// the fp32 residual, C32 the fp32 qkv or residual output, or the saved h of
-// the fc modes
+// F32: fp32 activations; the bias, R, C (qkv, residual, the dynamic fc's g)
+// and C2 (the saved h) are then fp32, every map of 32-column boxes
 template <int MODE, bool F32>
 __global__ void __launch_bounds__(THREADS, 1)
 gemm_s8_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_w,
@@ -272,11 +285,12 @@ gemm_s8_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant_
                const __grid_constant__ CUtensorMap map_r, const float* __restrict__ xs,
                const float* __restrict__ ws, const __nv_bfloat16* __restrict__ bias,
                const float* __restrict__ r, float* __restrict__ G, int save_h, int M, int N,
-               int K, const float* __restrict__ R32, float* __restrict__ C32) {
+               int K) {
   constexpr bool kFc = is_fc(MODE);
   constexpr bool kRes = is_residual(MODE);
   extern __shared__ unsigned char smem_raw[];
-  __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES], rbar[2];
+  // rbar: each consumer's residual slab (two a consumer in F32, one a buffer)
+  __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES], rbar[F32 ? 4 : 2];
   const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
   const uint32_t sA = (raw + 1023) & ~1023u;  // swizzle atoms need 1024-byte alignment
   const uint32_t sB = sA + STAGES * STAGE_A;
@@ -292,8 +306,7 @@ gemm_s8_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant_
       mbar_init(full0 + 8 * s, 1);    // the producer's expect_tx arrival (+ bytes)
       mbar_init(empty0 + 8 * s, 8);   // lane 0 of each consumer warp
     }
-    mbar_init(rbar0, 1);
-    mbar_init(rbar0 + 8, 1);
+    for (int b = 0; b < (F32 ? 4 : 2); ++b) mbar_init(rbar0 + 8 * b, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
@@ -329,10 +342,11 @@ gemm_s8_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant_
     __nv_bfloat16* b_s = reinterpret_cast<__nv_bfloat16*>(ws_s + BN);  // and its bias
     float* b32_s = ws_s + BN;  // the F32 instances' fp32 bias, in the same bytes
     const uint32_t my_rbar = rbar0 + 8 * c;
+    const uint32_t rb32 = rbar0 + 16 * c;  // F32: the barriers of the two buffers
     const bool releaser = (wtid & 31) == 0;
     const int warp = wtid >> 5, lane = wtid & 31, g = lane >> 2, t = lane & 3;
     const float r3 = MODE == kSFcGelu ? *r : 0.f;
-    int it = 0, n_r = 0;
+    int it = 0, n_r = 0, n_r1 = 0;  // F32: n_r, n_r1 count the two buffers' phases
     for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
       const int m0 = (tile / n_nb) * BM, n0 = (tile % n_nb) * BN, mc = m0 + c * 64;
       // the tile's ws and bias columns and its rows' xs are read while the
@@ -368,6 +382,17 @@ gemm_s8_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant_
 #pragma unroll
           for (int b = 0; b < BN / 64; ++b)
             tma_load_2d(slab + b * 8192, &map_r, n0 + 64 * b, mc, my_rbar);
+        }
+        if constexpr (F32 && kRes) {  // the fp32 residual's first two quarters
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            if (n0 + 64 * q >= N) break;
+            mbar_expect_tx(rb32 + 8 * q, SLAB / 2);
+#pragma unroll
+            for (int k = 0; k < 2; ++k)
+              tma_load_2d(slab + q * 16384 + k * 8192, &map_r, n0 + 64 * q + 32 * k, mc,
+                          rb32 + 8 * q);
+          }
         }
       }
       // no zero-fill: the first products are written with scale-d = 0
@@ -412,32 +437,77 @@ gemm_s8_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant_
       };
 
       if constexpr (F32) {
-        // fp32 v straight from the registers: the qkv output, R + v (R read
-        // per fragment), or the saved h of the fc modes; a quad of lanes
-        // covers 32 bytes of a row
-        if (!kFc || save_h) {
+        // fp32 element (row rl, column cl) of quarter cl / 64 in buffer bf:
+        // box (cl % 64) / 32, chunk (cl % 32) / 4 ^ rl % 8; a fragment's
+        // pair (columns 8j + 2t, + 1) is one 8-byte slot
+        auto slot = [&](int bf, int j, int rl) {
+          return reinterpret_cast<float2*>(slab_p + bf * 16384 + ((j & 7) >> 2) * 8192 +
+                                           rl * 128 +
+                                           (((2 * (j & 3) + (t >> 1)) ^ (rl & 7)) << 4) +
+                                           (t & 1) * 8);
+        };
+        const int nq = min(BN / 64, (N - n0 + 63) / 64);  // quarters holding columns of C
+        int piece = 0;  // quarters written into the slab this tile
+        // every quarter of one output: v (qkv, R + v, the saved h) or g
+        auto put = [&](const CUtensorMap* map, bool gelu) {
 #pragma unroll
-          for (int j = 0; j < BN / 8; ++j) {
-            const int cl = 8 * j + 2 * t;
-            const float2 w2 = *reinterpret_cast<const float2*>(ws_s + cl);
-            const float2 b2 = bias2<true>(b32_s, cl);
+          for (int q = 0; q < BN / 64; ++q) {
+            if (q >= nq) break;
+            const int bf = piece & 1;
+            if (kRes) {
+              // R's quarter q + 1 lands in the buffer of quarter q - 1 once
+              // that quarter's stores, the latest issued, have read it (so
+              // every store's: read 0); quarter q's is waited for
+              if (q >= 1 && q + 1 < nq && wtid == 0) {
+                tma_store_read_wait();
+                const uint32_t bar = rb32 + 8 * ((q + 1) & 1);
+                mbar_expect_tx(bar, SLAB / 2);
 #pragma unroll
-            for (int half = 0; half < 2; ++half) {
-              const int gr = mc + warp * 16 + g + 8 * half, gc = n0 + cl;
-              float v0 = dequant(j, 2 * half, w2.x, b2.x);
-              float v1 = dequant(j, 2 * half + 1, w2.y, b2.y);
-              if (gr < M && gc < N) {
-                const size_t at = (size_t)gr * N + gc;
-                if (kRes) {  // C = R + v, one fp32 add
-                  const float2 r2 = *reinterpret_cast<const float2*>(R32 + at);
+                for (int k = 0; k < 2; ++k)
+                  tma_load_2d(slab + ((q + 1) & 1) * 16384 + k * 8192, &map_r,
+                              n0 + 64 * (q + 1) + 32 * k, mc, bar);
+              }
+              mbar_wait(rb32 + 8 * (q & 1), ((q & 1) ? n_r1 : n_r) & 1);
+              if (q & 1) ++n_r1; else ++n_r;
+            } else if (piece >= 2) {
+              // the quarter before last's stores have read this buffer
+              if (wtid == 0) tma_store_read_wait_but_last();
+              warpgroup_sync(1 + c);
+            }
+#pragma unroll
+            for (int jj = 0; jj < 8; ++jj) {
+              const int j = 8 * q + jj, cl = 8 * j + 2 * t;
+              const float2 w2 = *reinterpret_cast<const float2*>(ws_s + cl);
+              const float2 b2 = bias2<true>(b32_s, cl);
+#pragma unroll
+              for (int half = 0; half < 2; ++half) {
+                float2* sl = slot(bf, j, warp * 16 + g + 8 * half);
+                float v0 = dequant(j, 2 * half, w2.x, b2.x);
+                float v1 = dequant(j, 2 * half + 1, w2.y, b2.y);
+                if (gelu) {
+                  v0 = quick_gelu(v0);
+                  v1 = quick_gelu(v1);
+                } else if (kRes) {  // C = R + v, one fp32 add
+                  const float2 r2 = *sl;
                   v0 = __fadd_rn(r2.x, v0);
                   v1 = __fadd_rn(r2.y, v1);
                 }
-                *reinterpret_cast<float2*>(C32 + at) = make_float2(v0, v1);
+                *sl = make_float2(v0, v1);
               }
             }
+            asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+            warpgroup_sync(1 + c);
+            if (wtid == 0) {
+#pragma unroll
+              for (int k = 0; k < 2; ++k)
+                tma_store_2d(map, slab + bf * 16384 + k * 8192, n0 + 64 * q + 32 * k, mc);
+              asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+            }
+            ++piece;
           }
-        }
+        };
+        if (!kFc || save_h) put(kFc ? &map_c2 : &map_c, false);
+        if constexpr (MODE == kFcGelu) put(&map_c, true);  // g, quantized by quant_rows next
       } else if (!kFc || save_h) {
         // bf16(v): the qkv and residual outputs, or the saved h of the fc modes
         // (bf16 element (row, col) at box col / 64, chunk (col % 64) / 8 ^ row % 8)
@@ -466,13 +536,13 @@ gemm_s8_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant_
         }
         store_slab(kFc ? &map_c2 : &map_c, 64);
       }
-      if (MODE == kFcGelu || MODE == kFFcGelu) {
+      if ((MODE == kFcGelu || MODE == kFFcGelu) && !F32) {
         // g in fp32 straight from the registers: a quad writes 32 bytes of a row
 #pragma unroll
         for (int j = 0; j < BN / 8; ++j) {
           const int cl = 8 * j + 2 * t;
           const float2 w2 = *reinterpret_cast<const float2*>(ws_s + cl);
-          const float2 b2 = bias2<F32>(F32 ? static_cast<const void*>(b32_s) : b_s, cl);
+          const float2 b2 = bias2<false>(b_s, cl);
 #pragma unroll
           for (int half = 0; half < 2; ++half) {
             const int gr = mc + warp * 16 + g + 8 * half, gc = n0 + cl;
@@ -485,7 +555,7 @@ gemm_s8_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant_
       } else if (MODE == kSFcGelu) {
         // int8 codes of g through the slab (byte (row, col) at box col / 128,
         // chunk (col % 128) / 16 ^ row % 8), once the saved h has left it
-        if (save_h && !F32) {  // the F32 instances' h left from the registers
+        if (save_h) {
           if (wtid == 0) tma_store_read_wait();
           warpgroup_sync(1 + c);
         }
@@ -531,22 +601,23 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// a row-major (rows, cols) matrix of 1- or 2-byte elements in boxes of
-// box_rows x 128 bytes, 128-byte swizzled (the wgmma descriptors' layout,
-// and the epilogue slab's); out-of-range elements load as zeros and are
-// not stored
-bool make_map(CUtensorMap* map, const void* ptr, int rows, int cols, int box_rows, bool bf16) {
+// a row-major (rows, cols) matrix of 1-, 2- or 4-byte elements (int8,
+// bf16, fp32) in boxes of box_rows x 128 bytes, 128-byte swizzled (the wgmma
+// descriptors' layout, and the epilogue slab's); out-of-range elements load
+// as zeros and are not stored
+bool make_map(CUtensorMap* map, const void* ptr, int rows, int cols, int box_rows, int elem) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
-  const int elem = bf16 ? 2 : 1;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)cols * elem};
   const cuuint32_t box[2] = {(cuuint32_t)(128 / elem), (cuuint32_t)box_rows};
   const cuuint32_t estr[2] = {1, 1};
-  return fn(map, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_UINT8, 2,
-            const_cast<void*>(ptr), dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  const CUtensorMapDataType type = elem == 4   ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                   : elem == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                               : CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  return fn(map, type, 2, const_cast<void*>(ptr), dims, strides, box, estr,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int MODE, bool F32>
@@ -559,19 +630,18 @@ int launch(const int8_t* a, const int8_t* w, const float* xs, const float* ws, c
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
-  // C: bf16 (qkv, residual) or int8 codes (static fc) by TMA; the dynamic
-  // fc's fp32 g by pointer; in the F32 instances every fp32 output and R by
-  // pointer.  Unused maps stay zero
+  // by TMA: C as int8 codes (static fc), else in the activation dtype, but
+  // the bf16 instances' dynamic fc g (fp32, by pointer); C2 (the saved h)
+  // and R in the activation dtype.  Unused maps stay zero
   if (is_residual(MODE) && R == nullptr) return (int)cudaErrorInvalidValue;
+  const int act = F32 ? 4 : 2;
   CUtensorMap map_a, map_w, map_c = {}, map_c2 = {}, map_r = {};
-  bool ok = make_map(&map_a, a, M, K, BM, false) && make_map(&map_w, w, N, K, BN, false);
-  if (MODE == kSFcGelu) ok = ok && make_map(&map_c, c, M, N, 64, false);
-  else if (MODE != kFcGelu && MODE != kFFcGelu && !F32) ok = ok && make_map(&map_c, c, M, N, 64, true);
-  if (c2 != nullptr && !F32) ok = ok && make_map(&map_c2, c2, M, N, 64, true);
-  if (R != nullptr && !F32) ok = ok && make_map(&map_r, R, M, N, 64, true);
+  bool ok = make_map(&map_a, a, M, K, BM, 1) && make_map(&map_w, w, N, K, BN, 1);
+  if (MODE == kSFcGelu) ok = ok && make_map(&map_c, c, M, N, 64, 1);
+  else if ((MODE != kFcGelu && MODE != kFFcGelu) || F32) ok = ok && make_map(&map_c, c, M, N, 64, act);
+  if (c2 != nullptr) ok = ok && make_map(&map_c2, c2, M, N, 64, act);
+  if (R != nullptr) ok = ok && make_map(&map_r, R, M, N, 64, act);
   if (!ok) return (int)cudaErrorInvalidValue;
-  constexpr bool kFc = is_fc(MODE);
-  float* c32 = F32 ? static_cast<float*>(kFc ? c2 : c) : nullptr;
   static int n_sm = 0;
   if (n_sm == 0) {
     int dev = 0;
@@ -581,8 +651,7 @@ int launch(const int8_t* a, const int8_t* w, const float* xs, const float* ws, c
   const int n_tiles = ((N + BN - 1) / BN) * ((M + BM - 1) / BM);
   kernel<<<n_tiles < n_sm ? n_tiles : n_sm, THREADS, SMEM_BYTES, s>>>(
       map_a, map_w, map_c, map_c2, map_r, xs, ws, static_cast<const __nv_bfloat16*>(b), r,
-      static_cast<float*>(c), c2 != nullptr, M, N, K, F32 ? static_cast<const float*>(R) : nullptr,
-      c32);
+      static_cast<float*>(c), c2 != nullptr, M, N, K);
   return (int)cudaGetLastError();
 }
 

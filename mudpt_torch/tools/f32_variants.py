@@ -7,14 +7,16 @@ the card by building variants of their sources beside the kernels:
   ``store_f32`` product against fp64 and against the plain fp32 product
   (TF32 off), at K = 768, 2304, 3072 (the modes' K) and 6144, M = 76,416,
   N = 768, and its ms;
-- ``csrc/attention_f32.cu``'s query-major kernel with one or two
+- ``csrc/attention_f32.cu``'s query-major backward kernel with one or two
   warpgroups a block at every block length (the launcher takes one for a
-  block of one tile, else two): ``attention_bwd_f32``'s ms at ViT-B/16's
-  vision and text blocks.
+  block of one tile, else two), and its forward kernel likewise:
+  ``attention_fwd_f32``'s and
+  ``attention_bwd_f32``'s ms at ViT-B/16's vision and text blocks, and
+  their relative norm error from the plain version.
 
 Each variant is the source with one constant or condition replaced, built
 by ``nvcc`` with the kernels' flags and called through the public wrappers
-(``fused_block.gemm_epilogue``, ``attention_bwd``).  One JSON line a case,
+(``fused_block.gemm_epilogue``, ``attention_fwd``, ``attention_bwd``).  One JSON line a case,
 the card's name and power limit first.
 
   python -m mudpt_torch.tools.f32_variants
@@ -37,6 +39,10 @@ VARIANTS = (
      "n_t == 1 ? launch_query<1>", "true ? launch_query<1>"),
     ("attention_f32", "two warpgroups a query block",
      "n_t == 1 ? launch_query<1>", "false ? launch_query<1>"),
+    ("attention_f32", "forward: one warpgroup a query block",
+     "n_t == 1 ? launch_fwd<1", "true ? launch_fwd<1"),
+    ("attention_f32", "forward: two warpgroups a query block",
+     "n_t == 1 ? launch_fwd<1", "false ? launch_fwd<1"),
 )
 GEMM_K = (768, 2304, 3072, 6144)
 GEMM_M, GEMM_N = 384 * 199, 768
@@ -128,18 +134,22 @@ def main() -> int:
         for label, B, S, H, causal in ATTN:
             qkv = torch.randn(B, S, 3 * 64 * H, generator=g, device="cuda")
             do = torch.randn(B, S, 64 * H, generator=g, device="cuda") * 0.1
-            ref = F.attention_bwd_plain(qkv, do, H, causal)
-            for (name, variant), lib in libs.items():
-                if name != "attention_f32":
-                    continue
-                _build._libs[name] = lib
-                got = F.attention_bwd(qkv, do, H, causal)
-                print(json.dumps({
-                    "case": f"attention_bwd_f32 {label} {B}x{S} H={H}", "variant": variant,
-                    "norm_vs_plain": rel(got, ref),
-                    "ms": time_ms(lambda: F.attention_bwd(qkv, do, H, causal))}), flush=True)
-            _build._libs.update(kernels)
-            del qkv, do, ref
+            for entry, fn, plain_fn in (
+                    ("attention_fwd_f32", lambda: F.attention_fwd(qkv, H, causal),
+                     lambda: F.attention_plain(qkv, H, causal)),
+                    ("attention_bwd_f32", lambda: F.attention_bwd(qkv, do, H, causal),
+                     lambda: F.attention_bwd_plain(qkv, do, H, causal))):
+                plain = plain_fn()
+                for (name, variant), lib in libs.items():
+                    if name != "attention_f32":
+                        continue
+                    _build._libs[name] = lib
+                    print(json.dumps({
+                        "case": f"{entry} {label} {B}x{S} H={H}", "variant": variant,
+                        "norm_vs_plain": rel(fn(), plain), "ms": time_ms(fn)}), flush=True)
+                _build._libs.update(kernels)
+                del plain
+            del qkv, do
     finally:
         _build._libs.update(kernels)
     return 0

@@ -37,9 +37,12 @@ loss over the local count of valid rows.  ``[fp32]``'s limits reject a GEMM
 whose operands were rounded to TF32 and an fp32 attention half with its qkv
 rounded once to bf16, and pass a change of fp32 sum order and products
 split into three TF32 products (3xTF32, the fp32 kernels' tensor-core
-design) at K = 768 and 3072 and in the 199-row attention backward, where
-one TF32 pass fails; ``--times-of`` times every fp32 GEMM mode and
-attention_bwd_f32 case (rehearsed with stubbed timers); its launch
+design) at K = 768 and 3072, in the 199-row attention backward and in the
+forward's online-softmax order at 199 and 16 causal rows, where one TF32
+pass fails; the fp32 chain bound prices the bf16 form's work at the 3xTF32
+rate and 4-byte activations; ``--times-of`` times every fp32 GEMM mode,
+attention_f32 case both ways and fp32 s8 GEMM case (rehearsed with
+stubbed timers); its launch
 checks reject an fp32 run that launched a bf16 or int8 kernel, one that
 launched no fp32 ``attention_bwd``, and one routed to XLA (no launch).
 ``[fp32 int8]``'s bit-equal check rejects an fp32 s8 epilogue that rounds
@@ -65,6 +68,7 @@ import torch.nn.functional as tf
 
 from mudpt_torch.ops import fused_block as F
 from mudpt_torch.ops import quant_block as Q
+from mudpt_torch.tools import f32_variants
 
 ROOT = Path(__file__).resolve().parent.parent
 M, K, N = 512, 768, 768
@@ -616,6 +620,62 @@ def test_chain_bound_counts_the_layer():
     assert C.chain_bound(100, 16, 512, True) == f"bound {causal / 989e12 * 1e3:.4f} (operations)"
 
 
+def test_chain_bound_fp32_prices_the_same_work_at_3xtf32_and_4_bytes():
+    """The fp32 form of the chain bound counts the bf16 form's products and
+    bytes: every product fp32-accurate as three TF32 products at 494.7
+    TFLOP/s (but the int8 forward's projections, at the int8 peak), every
+    activation and weight at 4 bytes (the int8 forward's weights at 1)."""
+    C = _chip_smoke()
+    M, D, S = 384 * 199, 768, 199
+    proj, att = 2 * M * 12 * D * D, 4 * M * S * D
+    tf32 = lambda ops: f"bound {3 * ops / 494.7e12 * 1e3:.4f} (operations)"  # noqa: E731
+    assert C.chain_bound(384, S, D, False, fp32=True) == tf32(proj + att)
+    assert C.chain_bound(384, S, D, False, bwd=True, fp32=True) == tf32(2 * proj + 3 * att)
+    assert C.chain_bound(384, S, D, False, ("mlp",), bwd=True, fp32=True) == tf32(
+        2 * 2 * M * 8 * D * D)
+    q8 = proj / 1979e12 + 3 * att / 494.7e12
+    assert C.chain_bound(384, S, D, False, int8=True, fp32=True) == f"bound {q8 * 1e3:.4f} (operations)"
+    q8_train = proj / 1979e12 + 3 * (proj + 3 * att) / 494.7e12
+    assert C.chain_bound(384, S, D, False, bwd=True, int8=True, fp32=True) == (
+        f"bound {q8_train * 1e3:.4f} (operations)")
+    # one causal text block of 16 rows: bound by its bytes, x and y and the
+    # weights at 4 bytes (the int8 forward's weights at 1, its backward's at 4)
+    nbytes = 16 * 512 * 4 * 2 + 12 * 512 ** 2 * 4
+    assert C.chain_bound(1, 16, 512, True, fp32=True) == f"bound {nbytes / 3.35e12 * 1e3:.4f} (bytes)"
+    nbytes = 16 * 512 * 4 * 4 + 12 * 512 ** 2 * (1 + 4)
+    assert C.chain_bound(1, 16, 512, True, bwd=True, int8=True, fp32=True) == (
+        f"bound {nbytes / 3.35e12 * 1e3:.4f} (bytes)")
+
+
+@pytest.mark.parametrize("source", sorted(p.name for p in (ROOT / "mudpt_torch" / "csrc").glob("*.cu")))
+def test_device_time_by_kernel_names_every_kernel_of_the_sources(source):
+    """Every ``__global__`` of a ``mudpt_torch/csrc`` source, as the profiler
+    names an instance of it, falls under a kernel of ``device_time_by_kernel``
+    and none under 'other' (device time outside the kernels): a kernel that
+    is renamed or added is still read in the traced steps."""
+    import re
+    from types import SimpleNamespace
+
+    C = _chip_smoke()
+    sample = {"int": "1", "bool": "true", "typename": "float"}
+    events = []
+    text = (ROOT / "mudpt_torch" / "csrc" / source).read_text()
+    for m in re.finditer(r"(?:template\s*<([^>]*)>\s*)?__global__\s+void\s+"
+                         r"(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\s*\(", text):
+        params, name = m.group(1), m.group(2)
+        args = ("<" + ", ".join(sample[p.split()[0]] for p in params.split(",")) + ">"
+                if params else "")
+        events.append(SimpleNamespace(key=f"void {name}{args}(float const*, int)",
+                                      device_type=torch.autograd.DeviceType.CUDA,
+                                      self_device_time_total=1.0))
+    assert events, f"no kernel found in {source}"
+    cats, by_kernel, others = C.device_time_by_kernel(
+        SimpleNamespace(key_averages=lambda: events))
+    assert others == {} and cats["other"] == 0.0
+    assert sum(by_kernel.values()) == len(events)
+    assert cats["forward kernels"] + cats["backward kernels"] == len(events)
+
+
 def _tiny_zoo():
     """A tiny CLIP and its class buffers, on the CPU in fp32."""
     from mudpt_torch.models.clip import CLIPConfig, init_clip_params
@@ -1145,17 +1205,50 @@ def _tf32_matmul(a, b):
     return torch.Tensor.__matmul__(_tf32(a.contiguous()), _tf32(b.contiguous()))
 
 
-@pytest.mark.parametrize("case", ["qkv K=768", "store_f32 K=3072", "attention_bwd L=199"])
+def _attention_online(qkv, n_head: int, causal, step: int = 32):
+    """attention_fwd_f32's order of work: one pass over ``step``-row key
+    steps, each row's running max m and sum l of exp2(u - m) (u = s *
+    log2(e), masked scores at -1e30), the output rescaled by exp2(m_old -
+    m) as m grows and multiplied by 1 / l at the end; every product through
+    torch.matmul."""
+    B, S, D3 = qkv.shape
+    q, k, v, L, is_causal, valid = F._split_heads(qkv, n_head, causal)
+    row = torch.arange(L)[:, None]
+    m = torch.full((*q.shape[:-1], 1), -float("inf"))
+    l, o = torch.zeros_like(m), torch.zeros_like(q)
+    for k0 in range(0, L, step):
+        col = torch.arange(k0, min(k0 + step, L))[None, :]
+        s = torch.matmul(q, k[..., k0:k0 + step, :].transpose(-1, -2)) * q.shape[-1] ** -0.5
+        masked = (col >= valid) | ((col > row) & is_causal)
+        u = torch.where(masked, s + F.NEG, s) * 1.4426950408889634
+        m_new = torch.maximum(m, u.amax(-1, keepdim=True))
+        alpha, p = torch.exp2(m - m_new), torch.exp2(u - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        o = o * alpha + torch.matmul(p, v[..., k0:k0 + step, :])
+        m = m_new
+    return (o * (1 / l)).permute(0, 2, 1, 3).reshape(B, S, D3 // 3)
+
+
+@pytest.mark.parametrize("case", ["qkv K=768", "store_f32 K=3072", "attention_bwd L=199",
+                                  "attention_fwd L=199", "attention_fwd causal L=16"])
 def test_fp32_kernel_limit_passes_3xtf32_and_catches_one_tf32_pass(case, monkeypatch):
-    """The premise of the fp32 GEMM's and attention backward's tensor-core
-    design: every product as three TF32 products (3xTF32) meets the fp32
-    kernels' limits (2^-14 in norm, 2^-12 of the largest value) at the
-    GEMM's K = 768 and 3072 and at the attention backward's 199-row blocks
-    (its five products over the head dim and over the block), while one
-    TF32 pass fails them."""
+    """The premise of the fp32 GEMM's and attention's tensor-core design:
+    every product as three TF32 products (3xTF32) meets the fp32 kernels'
+    limits (2^-14 in norm, 2^-12 of the largest value) at the GEMM's K =
+    768 and 3072, at the attention backward's 199-row blocks (its five
+    products over the head dim and over the block) and in the forward's
+    one-pass online-softmax order at the vision tower's 199-row blocks and
+    a causal text block of 16 rows, each against the plain version, while
+    one TF32 pass fails them."""
     C = _chip_smoke()
     g = torch.Generator().manual_seed(17)
-    if case.startswith("attention"):
+    if case.startswith("attention_fwd"):
+        S = int(case.rsplit("L=", 1)[1])
+        causal = "causal" in case
+        qkv = torch.randn(4 if causal else 2, S, 3 * 128, generator=g)
+        fn = lambda: _attention_online(qkv, 2, causal)  # noqa: E731
+        ref = F.attention_plain(qkv, 2, causal)
+    elif case.startswith("attention"):
         qkv = torch.randn(2, 199, 3 * 128, generator=g)
         do = torch.randn(2, 199, 128, generator=g) * 0.1
         fn = lambda: F.attention_bwd_plain(qkv, do, 2)  # noqa: E731
@@ -1168,7 +1261,8 @@ def test_fp32_kernel_limit_passes_3xtf32_and_catches_one_tf32_pass(case, monkeyp
         if ep == "qkv":
             w, b = w.t().contiguous(), torch.randn(N, generator=g) * 0.1
         fn = lambda: F.gemm_epilogue_plain(a, w, b, ep)  # noqa: E731
-    ref = fn()
+    if not case.startswith("attention_fwd"):
+        ref = fn()
     with monkeypatch.context() as mp:
         mp.setattr(torch, "matmul", _tf32x3_matmul)
         split = fn()
@@ -1180,13 +1274,12 @@ def test_fp32_kernel_limit_passes_3xtf32_and_catches_one_tf32_pass(case, monkeyp
         C.check_f32(f"{case}, one TF32 pass", one_pass, ref)
 
 
-@pytest.mark.parametrize("variant", range(4))
+@pytest.mark.parametrize("variant", range(len(f32_variants.VARIANTS)))
 def test_f32_variants_replace_text_the_sources_hold_once(variant):
     """``mudpt_torch.tools.f32_variants`` builds each variant by replacing
     one constant or condition of a kernel source: each must stand in the
     source exactly once, or the variant would silently be the kernel."""
     from mudpt_torch.ops import _build
-    from mudpt_torch.tools import f32_variants
 
     name, _, old, new = f32_variants.VARIANTS[variant]
     text = (_build.CSRC / f"{name}.cu").read_text()
@@ -1194,18 +1287,18 @@ def test_f32_variants_replace_text_the_sources_hold_once(variant):
 
 
 def test_f32_variants_refuse_without_a_card(monkeypatch):
-    from mudpt_torch.tools import f32_variants
-
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no card"):
         f32_variants.main()
 
 
 def test_times_of_times_every_fp32_case(monkeypatch):
-    """``--times-of`` times the fp32 GEMM's every mode (``FP32_GEMM``) and
-    attention_bwd_f32 at every block of ``FP32_ATTN_BWD``, also queued,
-    through the public wrappers: rehearsed on the CPU at small shapes with
-    the card's timers stubbed, the bf16 and int8 cases left out."""
+    """``--times-of`` times the fp32 GEMM's every mode (``FP32_GEMM``),
+    attention_fwd_f32 and attention_bwd_f32 at every block of
+    ``FP32_ATTN_BWD``, also queued, and the fp32 s8 GEMM at every case of
+    ``F32_Q8_GEMM`` (both models' rows, dynamic and static, h saved or
+    not), through the public wrappers: rehearsed on the CPU at small shapes
+    with the card's timers stubbed, the bf16 and int8 cases left out."""
     C = _chip_smoke()
     cpu = torch.Generator().manual_seed(5)
 
@@ -1230,15 +1323,26 @@ def test_times_of_times_every_fp32_case(monkeypatch):
     monkeypatch.setattr(C, "FP32_ATTN_BWD", tuple(
         (label, 2, 2 * causal[0] if isinstance(causal, tuple) else min(S, 70), 2, causal)
         for label, B, S, H, causal in C.FP32_ATTN_BWD))
+    monkeypatch.setattr(C, "F32_Q8_GEMM", tuple((ep, 96, K // 16, N // 16, *more)
+                                                for ep, _, K, N, *more in C.F32_Q8_GEMM))
     times = C.kernel_times(F)
     gemm = {k for k in times if k.startswith("gemm_f32_epilogue")}
     attn = [k for k in times if k.startswith("attention_bwd_f32")]
+    fwd = [k for k in times if k.startswith("attention_fwd_f32")]
+    s8 = {k for k in times if k.startswith("gemm_s8_epilogue_f32")}
     assert gemm == {f"gemm_f32_epilogue {ep} 96x{K}->{N}" for ep, _, K, N, _ in C.FP32_GEMM}
     assert len(gemm) == 11
     assert {k.split()[1] for k in gemm} == set(F.EPILOGUES) - {"chunk_residual", "add_f32"}
-    assert len(attn) == 3 * len(C.FP32_ATTN_BWD) == 15
-    assert len(times) == len(gemm) + len(attn)
-    assert len(timed) == len(gemm) + 2 * len(C.FP32_ATTN_BWD)  # timed, and queued
+    assert len(attn) == len(fwd) == 3 * len(C.FP32_ATTN_BWD) == 15
+    assert {k.replace("_bwd_", "_fwd_") for k in attn} == set(fwd)
+    assert s8 == {f"gemm_s8_epilogue_f32 {ep}{' save h' if save else ''} 96x{K}->{N}"
+                  for ep, _, K, N, save, *_ in C.F32_Q8_GEMM}
+    assert len(s8) == 20
+    assert {k.split()[1] for k in s8} == {f"{kind}_{ep}" for kind in ("q8", "q8s")
+                                          for ep in ("qkv", "residual", "fc_gelu")}
+    assert len(times) == len(gemm) + len(attn) + len(fwd) + len(s8)
+    # timed, and the attention cases queued too
+    assert len(timed) == len(gemm) + 4 * len(C.FP32_ATTN_BWD) + len(s8)
     assert all(torch.isfinite(t).all() for r in timed for t in (r if isinstance(r, tuple) else (r,)))
 
 
