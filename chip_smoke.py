@@ -13,6 +13,10 @@ route.
                                             # of its bf16 LayerNorms and int8
                                             # kernels and of its fp32 s8 GEMM
                                             # (A/B of two trees)
+    python3 chip_smoke.py --steps-of ROOT   # only the fp32 trainer's step
+                                            # and encode ms with the package of
+                                            # the checkout at ROOT (A/B of two
+                                            # trees end to end)
     python3 chip_smoke.py --mesh-rank RANK WORLD PORT JOB   # one gloo rank of
                                             # [mesh], started by the phase
     python3 chip_smoke.py --cli-launches ARGS   # python -m mudpt_torch.train
@@ -1919,8 +1923,8 @@ def device_time_by_kernel(prof) -> tuple:
             name, bwd = f"gemm_f32_kernel<{gemm32.group(1)}>", gemm32.group(1) == "true"
         else:
             name = next((k for k in ("layernorm_fwd_kernel", "attention_fwd_wgmma_kernel",
-                                     "layernorm_bwd_kernel", "attn_bwd_query_kernel",
-                                     "attn_bwd_key_kernel",
+                                     "layernorm_bwd_kernel", "layernorm_bwd_f32_kernel",
+                                     "attn_bwd_query_kernel", "attn_bwd_key_kernel",
                                      "gemm_s8_kernel", "layernorm_q8_kernel",
                                      "quant_rows_kernel", "attn_fwd_tc_kernel", "probe_mma_kernel",
                                      "attn_bwd_query_tc_kernel", "attn_bwd_key_tc_kernel")
@@ -4344,6 +4348,12 @@ FP32_GEMM = SHAPES["ViT-B/16"]["gemm"] + (("fc_gelu_grad", M_B, 768, 3072, 0),
 # halves' at D = 1024
 FP32_ATTN_BWD = tuple(a[:5] for a in SHAPES["ViT-B/16"]["attn"]) + (
     ("fp32 chain", FP32_CHAIN[0], FP32_CHAIN[1], FP32_CHAIN[3], False),)
+# the fp32 LayerNorms' rows in [fp32] beyond the step's (SHAPES) and in
+# --times-of: ViT-B/16's vision and text rows, the halves' at D = 1024 and
+# the chunked half's at 1280, each way (forward, dx with a residual, dx)
+FP32_LN = ((M_B, 768), (13 * 128, 512), (FP32_CHAIN[0] * FP32_CHAIN[1], FP32_CHAIN[2]),
+           (FP32_CHUNKED[0] * FP32_CHUNKED[1], FP32_CHUNKED[2]))
+LN_WAYS = ("forward", "dx + r", "dx")
 
 
 def bound32(bytes_moved: float, product_ops: float, fp32_ops: float = 0.0):
@@ -4351,6 +4361,60 @@ def bound32(bytes_moved: float, product_ops: float, fp32_ops: float = 0.0):
     products must be fp32-accurate, at best three TF32 products each
     (3 x ops / 494.7 TFLOP/s), the rest on the FMA pipes."""
     return bound(bytes_moved, 0, fp32_ops, tf32_ops=3 * product_ops)
+
+
+def fp32_ln_case(F, rn, rows: int, D: int, way: str) -> dict:
+    """One fp32 LayerNorm case of ``LN_WAYS`` at (rows, D) on seeded inputs:
+    its name, the kernel's call, the plain version's, F.layer_norm's (the
+    forward, or its backward without a residual: the same dx) and the bytes
+    each moves: the kernel each input once and its output (with the
+    scale and bias), the library's backward dy and x in, dx out, and its
+    saved mean and rstd."""
+    import torch
+    import torch.nn.functional as tf
+
+    f32 = torch.float32
+    x = rn(rows, D, std=2.0, dtype=f32)
+    s = rn(D, dtype=f32) * 0.1 + 1
+    if way == "forward":
+        b = rn(D, dtype=f32) * 0.1
+        return dict(name=f"layernorm_fwd_f32 {rows}x{D}", fn=lambda: F.layer_norm_fwd(x, s, b),
+                    plain=lambda: F.layer_norm_plain(x, s, b),
+                    lib=lambda: tf.layer_norm(x, (D,), s, b, 1e-5),
+                    bytes=2 * rows * D * 4 + 2 * D * 4, lib_bytes=2 * rows * D * 4 + 2 * D * 4,
+                    ops=8 * rows * D)
+    dxn = rn(rows, D, dtype=f32)
+    r = rn(rows, D, dtype=f32) if way == "dx + r" else None
+    xr = x.detach().requires_grad_(True)
+    y = tf.layer_norm(xr, (D,), s, s, 1e-5)
+    return dict(name=f"layernorm_bwd_f32 {way} {rows}x{D}",
+                fn=lambda: F.layer_norm_bwd(dxn, x, s, r),
+                plain=lambda: F.layer_norm_bwd_plain(dxn, x, s, r),
+                lib=lambda: torch.autograd.grad(y, xr, dxn, retain_graph=True)[0],
+                bytes=rows * D * 4 * (3 + (r is not None)) + D * 4,
+                lib_bytes=rows * D * 4 * 3 + rows * 8 + D * 4, ops=15 * rows * D)
+
+
+def fp32_ln_check(F, tag: str, case: dict, kern: "Kernel" = None, per_layer: int = 0) -> None:
+    """An fp32 LayerNorm case against its plain version (``F32_LN_NORM_ERR``),
+    relaunched bit-equal, timed beside its plain version and F.layer_norm
+    (by ``time_ms``, and queued: device ms and the host's us a call), each
+    side's bytes and TB/s; added ``per_layer`` times to ``kern``."""
+    name = case["name"]
+    reading = check_f32(name, case["fn"](), case["plain"](), kern, F32_LN_NORM_ERR)
+    check_relaunch(name, case["fn"])
+    ms, lib = time_ms(case["fn"]), time_ms(case["lib"])
+    plain = time_ms(case["plain"])
+    (dev, host), (lib_dev, lib_host) = queued_ms(case["fn"]), queued_ms(case["lib"])
+    bms, by = bound32(case["bytes"], 0, case["ops"])
+    lib_name = "F.layer_norm" + (" backward" if "bwd" in name else "")
+    say(tag, f"{name}: {reading} ms {ms:.4f} plain {plain:.4f} library({lib_name}) {lib:.4f} "
+             f"bound {bms:.4f} ({by}); queued device ms {dev:.4f}, host {host:.1f} us a call; "
+             f"library {lib_dev:.4f}, host {lib_host:.1f} us; bytes {case['bytes'] / 1e6:.1f} MB "
+             f"({case['bytes'] / dev / 1e9:.3f} TB/s queued), library "
+             f"{case['lib_bytes'] / 1e6:.1f} MB ({case['lib_bytes'] / lib_dev / 1e9:.3f} TB/s)")
+    for _ in range(per_layer):
+        kern.add(ms, plain, lib, bms, by)
 
 
 def fp32_kernels(F) -> dict:
@@ -4434,22 +4498,8 @@ def phase_kernels_fp32(F, kernels: dict) -> None:
     rn = randn_fn(14)
 
     for rows, D, per_layer in spec["ln"]:
-        x = rn(rows, D, std=2.0, dtype=f32)
-        s = rn(D, dtype=f32) * 0.1 + 1
-        b = rn(D, dtype=f32) * 0.1
-        kern = kernels["layernorm_fwd_f32"]
-        reading = check_f32(f"layernorm_fwd_f32 {rows}x{D}", F.layer_norm_fwd(x, s, b),
-                            F.layer_norm_plain(x, s, b), kern, F32_LN_NORM_ERR)
-        check_relaunch(f"layernorm_fwd_f32 {rows}x{D}", lambda: F.layer_norm_fwd(x, s, b))
-        ms = time_ms(lambda: F.layer_norm_fwd(x, s, b))
-        plain = time_ms(lambda: F.layer_norm_plain(x, s, b))
-        lib = time_ms(lambda: tf.layer_norm(x, (D,), s, b, 1e-5))
-        bms, by = bound32(2 * rows * D * 4 + 2 * D * 4, 0, 8 * rows * D)
-        say(tag, f"layernorm_fwd_f32 {rows}x{D}: {reading} ms {ms:.4f} plain {plain:.4f} "
-                 f"library(F.layer_norm) {lib:.4f} bound {bms:.4f} ({by})")
-        for _ in range(per_layer):
-            kern.add(ms, plain, lib, bms, by)
-        del x
+        fp32_ln_check(F, tag, fp32_ln_case(F, rn, rows, D, "forward"),
+                      kernels["layernorm_fwd_f32"], per_layer)
 
     for ep, M, K, N, per_layer in FP32_GEMM:
         a, w, bias, extra = gemm_operands(F, rn, ep, M, K, N, f32)
@@ -4486,26 +4536,17 @@ def phase_kernels_fp32(F, kernels: dict) -> None:
         del a, w, bias, extra
 
     for rows, D, _, with_r, per_layer in spec["ln_bwd"]:
-        x = rn(rows, D, std=2.0, dtype=f32)
-        dxn = rn(rows, D, dtype=f32)
-        s = rn(D, dtype=f32) * 0.1 + 1
-        r = rn(rows, D, dtype=f32) if with_r else None
-        kern = kernels["layernorm_bwd_f32"]
-        reading = check_f32(f"layernorm_bwd_f32 {rows}x{D}", F.layer_norm_bwd(dxn, x, s, r),
-                            F.layer_norm_bwd_plain(dxn, x, s, r), kern, F32_LN_NORM_ERR)
-        check_relaunch(f"layernorm_bwd_f32 {rows}x{D}", lambda: F.layer_norm_bwd(dxn, x, s, r))
-        ms = time_ms(lambda: F.layer_norm_bwd(dxn, x, s, r))
-        plain = time_ms(lambda: F.layer_norm_bwd_plain(dxn, x, s, r))
-        xr = x.detach().requires_grad_(True)
-        y = tf.layer_norm(xr, (D,), s, s, 1e-5)
-        lib = time_ms(lambda: torch.autograd.grad(y, xr, dxn, retain_graph=True))
-        bms, by = bound32(rows * D * 4 * (3 + with_r) + D * 4, 0, 15 * rows * D)
-        say(tag, f"layernorm_bwd_f32 {rows}x{D} residual {with_r}: {reading} ms {ms:.4f} "
-                 f"plain {plain:.4f} library(F.layer_norm backward) {lib:.4f} bound "
-                 f"{bms:.4f} ({by})")
-        for _ in range(per_layer):
-            kern.add(ms, plain, lib, bms, by)
-        del x, dxn, r, xr, y
+        fp32_ln_check(F, tag, fp32_ln_case(F, rn, rows, D, "dx + r" if with_r else "dx"),
+                      kernels["layernorm_bwd_f32"], per_layer)
+    # the rest of FP32_LN's cases: checked and timed, in no layer's totals
+    done = {(rows, D, "forward") for rows, D, _ in spec["ln"]} | {
+        (rows, D, "dx + r" if with_r else "dx") for rows, D, _, with_r, _ in spec["ln_bwd"]}
+    for rows, D in FP32_LN:
+        for way in LN_WAYS:
+            if (rows, D, way) not in done:
+                fp32_ln_check(F, tag, fp32_ln_case(F, rn, rows, D, way),
+                              kernels["layernorm_fwd_f32" if way == "forward"
+                                      else "layernorm_bwd_f32"])
 
     for label, B, S, H, causal, per_layer in spec["attn"]:
         D = 64 * H
@@ -5852,11 +5893,12 @@ def kernel_times(F) -> dict:
     wrappers only, so that two trees' kernels can be timed in one call
     (``--times-of``); and of every fp32 GEMM mode of ``FP32_GEMM``, of
     attention_fwd_f32 and attention_bwd_f32 at every case of
-    ``FP32_ATTN_BWD`` and of every gemm_s8_epilogue_f32 case of
-    ``F32_Q8_GEMM`` (ViT-B/16's and ViT-L/14's rows, dynamic and static).
-    attention, bf16 backward and fp32 both ways, also by ``queued_ms``: its
-    text shapes take microseconds, where the host's pace can set
-    ``time_ms``.  A block length that a package refuses (an attention_bwd
+    ``FP32_ATTN_BWD``, of every gemm_s8_epilogue_f32 case of
+    ``F32_Q8_GEMM`` (ViT-B/16's and ViT-L/14's rows, dynamic and static) and
+    of the fp32 LayerNorms at every row count of ``FP32_LN``, each way.
+    attention (bf16 backward and fp32 both ways) and the fp32 LayerNorms
+    also by ``queued_ms``: their text shapes take microseconds, where the
+    host's pace can set ``time_ms``.  A block length that a package refuses (an attention_bwd
     with a row cap) is left out."""
     import torch
 
@@ -5909,6 +5951,13 @@ def kernel_times(F) -> dict:
         times[f"gemm_s8_epilogue_f32 {ep}{' save h' if save else ''} {M}x{K}->{N}"] = time_ms(
             lambda: Q.gemm_s8(*args), AB_ITERS)
         del args
+    for rows, D in FP32_LN:
+        for way in LN_WAYS:
+            case = fp32_ln_case(F, rn, rows, D, way)
+            times[case["name"]] = time_ms(case["fn"], AB_ITERS)
+            times[case["name"] + " device"], times[case["name"] + " host us"] = queued_ms(
+                case["fn"], AB_ITERS)
+            del case
     torch.cuda.empty_cache()
     return times
 
@@ -6006,6 +6055,57 @@ def times_of(root: Path) -> int:
     return 0
 
 
+AB_STEPS = 5  # timed steps a median of --steps-of takes at 384
+
+
+def steps_of(root: Path) -> int:
+    """``python3 chip_smoke.py --steps-of ROOT``: MuDPT ViT-B/16 under PREC
+    fp32 ([engine]'s configuration) on the mudpt_torch package of the
+    checkout at ROOT (its kernels built there): the median ms of the step at
+    64 and on the 384 images of epoch 1 as one batch and of the image
+    encode at 384, then the same steps under TRAIN.QUANT int8_ste, one JSON
+    line.  Run on two trees in turns (parent, change, change, parent) in
+    one call to compare them end to end on one card."""
+    import copy
+    import shutil
+    import tempfile
+
+    import torch
+
+    sys.path.insert(0, str(root))
+    from mudpt_torch.ops import _build
+    from mudpt_torch.ops import fused_block as F
+
+    if Path(F.__file__).resolve().parents[2] != root:
+        raise AssertionError(f"imported {F.__file__}, not the package under {root}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.load()
+    out = {"steps_of": str(root), "card": smi()}
+    tmp = tempfile.mkdtemp(prefix="mudpt_steps_of_")
+    try:
+        for label, quant in (("fp32", ()), ("fp32 int8_ste", ("TRAIN.QUANT", "int8_ste"))):
+            tr = _engine_trainer(root, f"{tmp}/{label}", "OPTIM.MAX_EPOCH", "1", *quant,
+                                 *FP32_OPTS)
+            bs = [tr._device_batch(b) for b in list(copy.copy(tr.dm.train_loader))]
+            whole = {k: torch.cat([b[k] for b in bs]) for k in bs[0]}
+            out[f"{label} step {ENGINE_BATCH}"] = fp32_timed(tr, bs[0], TIMED_STEPS)[0]
+            out[f"{label} step {len(whole['image'])}"] = fp32_timed(tr, whole, AB_STEPS)[0]
+            if not quant:
+                with torch.no_grad():
+                    txt = tr._text_features(tr.trainable, tr.frozen, tr.aux)
+                    enc = [_synced_ms(lambda: tr._eval_step_cached(
+                        tr.trainable, tr.frozen, tr.aux, whole["image"], txt))
+                        for _ in range(1 + AB_STEPS)][1:]
+                out[f"{label} encode {len(whole['image'])}"] = statistics.median(enc)
+            del tr, bs, whole
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(json.dumps(out), flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -6013,13 +6113,15 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     root = Path(__file__).resolve().parent
-    if sys.argv[1:2] == ["--times-of"]:
+    if sys.argv[1:2] in (["--times-of"], ["--steps-of"]):
         root = Path(sys.argv[2]).resolve()
     if not (root / "mudpt_torch" / "__init__.py").is_file():
         print(f"chip_smoke: no mudpt_torch package in {root}", file=sys.stderr)
         return 3
     if sys.argv[1:2] == ["--times-of"]:
         return times_of(root)
+    if sys.argv[1:2] == ["--steps-of"]:
+        return steps_of(root)
     if sys.argv[1:2] == ["--serve-artifact"]:
         return serve_artifact(root, *sys.argv[2:5])
     if sys.argv[1:2] == ["--mesh-rank"]:

@@ -12,21 +12,32 @@
 // Bound on the H100: device-memory bytes.  Each row is read once and
 //   written once (2 * D * sizeof(T) bytes) for ~8 fp32 operations per
 //   element, far below the ~295 operations per byte where the tensor cores
-//   would bind.
+//   would bind.  So the time is what it takes to keep enough bytes in
+//   flight: a row's only round trip is its load, issued whole before the
+//   first reduction.
 // Design: one warp owns one row, so the mean and variance are two warp
 //   shuffle reductions with no shared memory and no block barrier.  Each lane
 //   loads 16-byte vectors (8 bf16 or 4 fp32) with neighbouring lanes on
 //   neighbouring addresses and keeps its slice of the row in registers
 //   between the two statistics passes and the affine, so x is read from
 //   device memory once.  Statistics are fp32 (mean, then the mean of squared
-//   deviations, then rsqrt(var + eps)) as in the TPU kernel; the output is
-//   rounded to T once (a no-op for fp32).  Supports D % 8 == 0 and
+//   deviations, then rsqrt(var + eps)) as in the TPU kernel, a lane's
+//   elements summed in order and the 32 lane sums by a shuffle tree, so a
+//   row's arithmetic is the same whatever warp or block takes it; the output
+//   is rounded to T once (a no-op for fp32).  Supports D % 8 == 0 and
 //   D <= 1024 (four bf16 or eight fp32 vectors a lane), and, compiled as a
 //   case of its own so that the narrower rows keep their code, D % 64 == 0
 //   and D <= 2048 (eight or sixteen vectors a lane: the chunked MLP half's
 //   towers wider than 1024).  Both element types are instances of one
 //   template: the bf16 instances compute what they did before fp32 rows
 //   were added, in the same order.
+// fp32 rows keep this body: it reaches 0.89 of the bytes bound at ViT-B/16's
+//   76,416 x 768 on the H100, and three redesigns timed beside it in one
+//   call were no faster anywhere from 1,576 to 76,416 rows (PERF.md, the
+//   fp32 LayerNorms): a persistent ring of 1-D bulk copies into shared
+//   memory, the statistics read from there (1.06x its time at 76,416 x 768),
+//   and registers sized to the width at one and at two rows a warp (1.00x,
+//   1.01x; at two rows 1.14x at 8,288 x 1024).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>

@@ -1,5 +1,5 @@
-"""What two design choices of the fp32 tensor-core kernels are worth, read on
-the card by building variants of their sources beside the kernels:
+"""What design choices of the fp32 kernels are worth, read on the card by
+building variants of their sources beside the kernels:
 
 - ``csrc/gemm_f32_epilogue.cu`` with the wgmma partial sums added into the
   register fp32 sum every 4 K slices of 32 (the kernel), every 8, and never
@@ -12,12 +12,20 @@ the card by building variants of their sources beside the kernels:
   block of one tile, else two), and its forward kernel likewise:
   ``attention_fwd_f32``'s and
   ``attention_bwd_f32``'s ms at ViT-B/16's vision and text blocks, and
-  their relative norm error from the plain version.
+  their relative norm error from the plain version;
+- ``csrc/layernorm_bwd.cu``'s fp32 kernel at one row a warp (the kernel)
+  and two: ``layernorm_bwd``'s ms (with a residual and without) at ViT-B/16's
+  vision rows (76,416 x 768) and text rows (1,664 x 512), the halves' rows
+  at D = 1024 (8,288) and the chunked half's at 1280 (1,576), by
+  ``time_ms`` and queued behind a sleeping kernel (device ms, and the
+  host's us to issue a call), beside ``F.layer_norm``'s backward, and their
+  relative norm error from the plain version.
 
 Each variant is the source with one constant or condition replaced, built
 by ``nvcc`` with the kernels' flags and called through the public wrappers
-(``fused_block.gemm_epilogue``, ``attention_fwd``, ``attention_bwd``).  One JSON line a case,
-the card's name and power limit first.
+(``fused_block.gemm_epilogue``, ``attention_fwd``, ``attention_bwd``,
+``layer_norm_bwd``).  One JSON line a case, the card's name and power
+limit first.
 
   python -m mudpt_torch.tools.f32_variants
 
@@ -43,11 +51,15 @@ VARIANTS = (
      "n_t == 1 ? launch_fwd<1", "true ? launch_fwd<1"),
     ("attention_f32", "forward: two warpgroups a query block",
      "n_t == 1 ? launch_fwd<1", "false ? launch_fwd<1"),
+    ("layernorm_bwd", "two rows a warp",
+     "constexpr int kRegRows = 1;", "constexpr int kRegRows = 2;"),
 )
 GEMM_K = (768, 2304, 3072, 6144)
 GEMM_M, GEMM_N = 384 * 199, 768
 ATTN = (("vision", 384, 199, 12, False), ("text causal", 100, 16, 8, True),
         ("text packed (16,16)", 13, 128, 8, (16, 16)))
+# ViT-B/16's vision and text rows; the halves' at D = 1024, the chunked half's at 1280
+LN = ((384 * 199, 768), (13 * 128, 512), (32 * 259, 1024), (8 * 197, 1280))
 
 
 def build_variants() -> dict:
@@ -91,6 +103,76 @@ def time_ms(fn, iters: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
+def rel(got, ref) -> float:
+    """Relative norm error of ``got`` from ``ref``, in fp64."""
+    return ((got.double() - ref.double()).norm() / ref.double().norm()).item()
+
+
+SLEEP_CYCLES = 60_000_000  # ~30 ms of the card's clock: the queue's head start
+
+
+def queued_ms(fn, iters: int = 10) -> tuple:
+    """(device ms, host us) a call of ``fn``, the calls issued while the card
+    sleeps, so that it runs them back to back whatever the host's pace."""
+    import time
+
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_us = (time.perf_counter() - t0) * 1e6 / iters
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters, host_us
+
+
+def time_layernorms(libs: dict, g) -> None:
+    """Each layernorm_bwd variant of ``libs`` and F.layer_norm's backward at
+    the rows of ``LN``: dx with a residual and without."""
+    import torch
+    import torch.nn.functional as tf
+
+    from mudpt_torch.ops import _build
+    from mudpt_torch.ops import fused_block as F
+
+    kernels = dict(_build._libs)
+    for rows, D in LN:
+        x = torch.randn(rows, D, generator=g, device="cuda") * 2
+        dxn, r = (torch.randn(rows, D, generator=g, device="cuda") for _ in range(2))
+        s = torch.randn(D, generator=g, device="cuda") * 0.1 + 1
+        xr = x.detach().requires_grad_(True)
+        y = tf.layer_norm(xr, (D,), s, s, 1e-5)
+        try:
+            for what, res in (("dx + r", r), ("dx", None)):
+                case = f"layernorm_bwd {what} {rows}x{D}"
+                fn = lambda: F.layer_norm_bwd(dxn, x, s, res)  # noqa: E731
+                plain = F.layer_norm_bwd_plain(dxn, x, s, res)
+                for (name, variant), lib in libs.items():
+                    if name != "layernorm_bwd":
+                        continue
+                    _build._libs[name] = lib
+                    device, host = queued_ms(fn)
+                    print(json.dumps({"case": case, "variant": variant,
+                                      "norm_vs_plain": rel(fn(), plain), "ms": time_ms(fn),
+                                      "device_ms": device, "host_us": host}), flush=True)
+                _build._libs.update(kernels)
+                del plain
+            lib_fn = lambda: torch.autograd.grad(y, xr, dxn, retain_graph=True)  # noqa: E731
+            device, host = queued_ms(lib_fn)
+            print(json.dumps({"case": f"layernorm_bwd dx {rows}x{D}", "variant": "F.layer_norm",
+                              "ms": time_ms(lib_fn), "device_ms": device, "host_us": host}),
+                  flush=True)
+        finally:
+            _build._libs.update(kernels)
+        del x, dxn, r, xr, y
+
+
 def main() -> int:
     import torch
 
@@ -107,11 +189,8 @@ def main() -> int:
     libs = build_variants()
     kernels = dict(_build._libs)
     g = torch.Generator(device="cuda").manual_seed(17)
-
-    def rel(got, ref) -> float:
-        return ((got.double() - ref.double()).norm() / ref.double().norm()).item()
-
     try:
+        time_layernorms(libs, g)
         for k in GEMM_K:
             a = torch.randn(GEMM_M, k, generator=g, device="cuda")
             w = torch.randn(GEMM_N, k, generator=g, device="cuda") * k ** -0.5

@@ -41,8 +41,12 @@ design) at K = 768 and 3072, in the 199-row attention backward and in the
 forward's online-softmax order at 199 and 16 causal rows, where one TF32
 pass fails; the fp32 chain bound prices the bf16 form's work at the 3xTF32
 rate and 4-byte activations; ``--times-of`` times every fp32 GEMM mode,
-attention_f32 case both ways and fp32 s8 GEMM case (rehearsed with
-stubbed timers); its launch
+attention_f32 case both ways, fp32 s8 GEMM case and fp32 LayerNorm case
+and ``--steps-of`` both fp32 trainers' steps (rehearsed with stubbed
+timers); the fp32 LayerNorms' order of work (lane
+sums, the shuffle tree, one or two rows a warp) meets their limit against
+fp64 at 1,663 rows, while one row's statistics applied to its warp's other
+row, a skipped tail of rows and a tail that lost its residual fail it; its launch
 checks reject an fp32 run that launched a bf16 or int8 kernel, one that
 launched no fp32 ``attention_bwd``, and one routed to XLA (no launch).
 ``[fp32 int8]``'s bit-equal check rejects an fp32 s8 epilogue that rounds
@@ -1295,10 +1299,13 @@ def test_f32_variants_refuse_without_a_card(monkeypatch):
 def test_times_of_times_every_fp32_case(monkeypatch):
     """``--times-of`` times the fp32 GEMM's every mode (``FP32_GEMM``),
     attention_fwd_f32 and attention_bwd_f32 at every block of
-    ``FP32_ATTN_BWD``, also queued, and the fp32 s8 GEMM at every case of
+    ``FP32_ATTN_BWD``, also queued, the fp32 s8 GEMM at every case of
     ``F32_Q8_GEMM`` (both models' rows, dynamic and static, h saved or
-    not), through the public wrappers: rehearsed on the CPU at small shapes
-    with the card's timers stubbed, the bf16 and int8 cases left out."""
+    not), and the fp32 LayerNorms at every row count of ``FP32_LN`` (D =
+    768, 512, 1024, 1280), forward and dx with a residual and without, also
+    queued, through the public wrappers: rehearsed on the CPU at small
+    shapes with the card's timers stubbed, the bf16 and int8 cases left
+    out."""
     C = _chip_smoke()
     cpu = torch.Generator().manual_seed(5)
 
@@ -1325,6 +1332,8 @@ def test_times_of_times_every_fp32_case(monkeypatch):
         for label, B, S, H, causal in C.FP32_ATTN_BWD))
     monkeypatch.setattr(C, "F32_Q8_GEMM", tuple((ep, 96, K // 16, N // 16, *more)
                                                 for ep, _, K, N, *more in C.F32_Q8_GEMM))
+    assert [D for _, D in C.FP32_LN] == [768, 512, 1024, 1280]
+    monkeypatch.setattr(C, "FP32_LN", tuple((rows // 796 + 1, D // 8) for rows, D in C.FP32_LN))
     times = C.kernel_times(F)
     gemm = {k for k in times if k.startswith("gemm_f32_epilogue")}
     attn = [k for k in times if k.startswith("attention_bwd_f32")]
@@ -1340,10 +1349,185 @@ def test_times_of_times_every_fp32_case(monkeypatch):
     assert len(s8) == 20
     assert {k.split()[1] for k in s8} == {f"{kind}_{ep}" for kind in ("q8", "q8s")
                                           for ep in ("qkv", "residual", "fc_gelu")}
-    assert len(times) == len(gemm) + len(attn) + len(fwd) + len(s8)
-    # timed, and the attention cases queued too
-    assert len(timed) == len(gemm) + 4 * len(C.FP32_ATTN_BWD) + len(s8)
+    ln = {k for k in times if k.startswith("layernorm_")}
+    assert ln == {f"{name} {rows}x{D}{how}" for rows, D in C.FP32_LN
+                  for name in ("layernorm_fwd_f32", "layernorm_bwd_f32 dx + r",
+                               "layernorm_bwd_f32 dx")
+                  for how in ("", " device", " host us")}
+    assert len(ln) == 36
+    assert len(times) == len(gemm) + len(attn) + len(fwd) + len(s8) + len(ln)
+    # timed, and the attention and LayerNorm cases queued too
+    assert len(timed) == len(gemm) + 4 * len(C.FP32_ATTN_BWD) + len(s8) + 2 * len(ln) // 3
     assert all(torch.isfinite(t).all() for r in timed for t in (r if isinstance(r, tuple) else (r,)))
+
+
+# ---- the fp32 LayerNorms (csrc/layernorm_{fwd,bwd}.cu): each row's order
+# of work, and the grid's order of rows
+
+
+def _lane_sums(terms):
+    """The fp32 kernels' row sums of ``terms`` (n, D): lane l adds the
+    elements of its 16-byte vectors l, l + 32, ... in order, then the warp
+    adds its 32 lane sums by the xor shuffle tree (16, 8, 4, 2, 1)."""
+    n, D = terms.shape
+    per = -(-(D // 4) // 32)
+    padded = np.zeros((n, per * 128), np.float32)
+    padded[:, :D] = terms
+    padded = padded.reshape(n, per, 32, 4)
+    acc = np.zeros((n, 32), np.float32)
+    for i in range(per):
+        for j in range(4):
+            acc = acc + padded[:, i, :, j]
+    lane = np.arange(32)
+    for o in (16, 8, 4, 2, 1):
+        acc = acc + acc[:, lane ^ o]
+    return acc[:, 0]
+
+
+def _ln_rows(x, scale, bias=None, dxn=None, r=None, rows_a_warp=1, warps=4, fault=None,
+             eps=1e-5):
+    """layernorm_fwd's (``dxn`` None) or layernorm_bwd's fp32 rows in their
+    kernels' order, in fp32: blocks of ``warps`` warps, ``rows_a_warp``
+    consecutive rows a warp, every load of a warp's rows issued before its
+    first reduction (a row past the end reads the last row's bytes and is
+    not written); a row's statistics in ``_lane_sums``' order.  Faults:
+    "rows crossed" (a row's statistics applied to its warp's other row's
+    bytes), "tail skipped" (the grid rounds its blocks down), "tail without
+    r" (the last block's rows lose their residual)."""
+    f = np.float32
+    rows, D = x.shape
+    per_block = rows_a_warp * warps
+    blocks = rows // per_block if fault == "tail skipped" else -(-rows // per_block)
+    out = np.zeros_like(x)
+    first = np.arange(blocks * warps) * rows_a_warp
+    for q in range(rows_a_warp):
+        row = first + q
+        src = np.minimum(row, rows - 1)
+        dst = np.minimum(first + (q + 1) % rows_a_warp, rows - 1) if fault == "rows crossed" \
+            else src
+        xs = x[src]
+        mean = _lane_sums(xs) / f(D)
+        dev = xs - mean[:, None]
+        inv = (f(1) / np.sqrt(_lane_sums(dev * dev) / f(D) + f(eps))).astype(f)
+        xhat = (x[dst] - mean[:, None]) * inv[:, None]
+        if dxn is None:
+            o = xhat * scale + bias
+        else:
+            g = dxn[src] * scale
+            gm = _lane_sums(g) / f(D)
+            gx = _lane_sums(g * (dev * inv[:, None])) / f(D)
+            o = (dxn[dst] * scale - gm[:, None] - xhat * gx[:, None]) * inv[:, None]
+            if r is not None:
+                lost = (row >= (blocks - 1) * per_block) & (fault == "tail without r")
+                o = np.where(lost[:, None], o, r[dst] + o)
+        keep = row < rows
+        out[row[keep]] = o[keep]
+    return out
+
+
+def _ln_fp64(x, scale, bias=None, dxn=None, r=None, eps=1e-5):
+    """The same function in fp64, two-pass statistics."""
+    x = x.astype(np.float64)
+    mean = x.mean(-1, keepdims=True)
+    inv = 1 / np.sqrt(((x - mean) ** 2).mean(-1, keepdims=True) + eps)
+    xhat = (x - mean) * inv
+    if dxn is None:
+        return xhat * scale + bias
+    g = dxn * scale.astype(np.float64)
+    dx = (g - g.mean(-1, keepdims=True) - xhat * (g * xhat).mean(-1, keepdims=True)) * inv
+    return dx if r is None else r + dx
+
+
+def _ln_case(way, rows, D, seed=19):
+    rng = np.random.default_rng(seed)
+    f = np.float32
+    args = dict(x=(rng.standard_normal((rows, D)) * 2).astype(f),
+                scale=(rng.standard_normal(D) * 0.1 + 1).astype(f))
+    if way == "forward":
+        args["bias"] = (rng.standard_normal(D) * 0.1).astype(f)
+    else:
+        args["dxn"] = rng.standard_normal((rows, D)).astype(f)
+        if way == "dx + r":
+            args["r"] = rng.standard_normal((rows, D)).astype(f)
+    return args
+
+
+@pytest.mark.parametrize("way, D, rows_a_warp", [(way, D, 1) for way in ("forward", "dx + r", "dx")
+                                                 for D in (512, 768, 1280)]
+                         + [(way, 768, 2) for way in ("forward", "dx + r", "dx")])
+def test_ln_fp32_order_meets_the_fp32_layernorm_limit(way, D, rows_a_warp):
+    """The fp32 LayerNorms' order of work (lane sums, the shuffle tree,
+    two-pass statistics, one or two rows a warp, blocks of four warps) at
+    1,663 rows, a count that no block's rows divide, meets
+    ``F32_LN_NORM_ERR`` (2^-16) against fp64 at ViT-B/16's widths and the
+    chunked half's 1280."""
+    C = _chip_smoke()
+    args = _ln_case(way, 1663, D)
+    got = torch.from_numpy(_ln_rows(**args, rows_a_warp=rows_a_warp))
+    C.check_f32(f"fp32 LayerNorm {way} 1663x{D}", got, torch.from_numpy(_ln_fp64(**args)),
+                norm_limit=C.F32_LN_NORM_ERR)
+
+
+@pytest.mark.parametrize("fault, way", [("rows crossed", "dx + r"), ("rows crossed", "forward"),
+                                        ("tail skipped", "forward"), ("tail skipped", "dx"),
+                                        ("tail without r", "dx + r")])
+def test_ln_fp32_check_catches_a_row_fault(fault, way):
+    """The same check rejects a warp that applies one row's mean and
+    inverse to its other row's bytes (two rows a warp), a grid that skips
+    the 3 rows of 1,663 past its last whole block, and one where those rows
+    lose their residual."""
+    C = _chip_smoke()
+    args = _ln_case(way, 1663, 768)
+    got = torch.from_numpy(_ln_rows(**args, rows_a_warp=2 if fault == "rows crossed" else 1,
+                                    fault=fault))
+    with pytest.raises(AssertionError, match="relative norm|max abs err"):
+        C.check_f32(f"fp32 LayerNorm {way}, {fault}", got, torch.from_numpy(_ln_fp64(**args)),
+                    norm_limit=C.F32_LN_NORM_ERR)
+
+
+def test_steps_of_times_both_fp32_trainers(monkeypatch, capsys):
+    """``--steps-of ROOT`` builds [engine]'s MuDPT under PREC fp32 and under
+    PREC fp32 with TRAIN.QUANT int8_ste on the tree at ROOT, times each
+    one's step at 64 and on the 384 images as one batch and the fp32
+    encode, and prints them on one JSON line: rehearsed on the CPU with the
+    trainers, the kernel build and the card's timers stubbed."""
+    import json
+    from types import SimpleNamespace
+
+    from mudpt_torch.ops import _build
+
+    C = _chip_smoke()
+    built = []
+
+    class Trainer:
+        trainable = frozen = aux = None
+
+        def __init__(self):
+            self.dm = SimpleNamespace(train_loader=[{"image": torch.zeros(64, 3)}] * 6)
+
+        def _device_batch(self, batch):
+            return batch
+
+        def _text_features(self, *args):
+            return None
+
+        def _eval_step_cached(self, *args):
+            return None
+
+    monkeypatch.setattr(C, "_engine_trainer", lambda root, out, *more: (
+        built.append((root, more)), Trainer())[1])
+    monkeypatch.setattr(C, "fp32_timed", lambda tr, batch, n: (len(batch["image"]) + n / 100, 1.0))
+    monkeypatch.setattr(C, "_synced_ms", lambda fn: (fn(), 7.0)[1])
+    monkeypatch.setattr(C, "smi", lambda: "stub card")
+    monkeypatch.setattr(_build, "load", lambda: {})
+    assert C.steps_of(ROOT) == 0
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    steps = {"step 64": 64 + C.TIMED_STEPS / 100, "step 384": 384 + C.AB_STEPS / 100}
+    assert line == {"steps_of": str(ROOT), "card": "stub card", "fp32 encode 384": 7.0,
+                    **{f"{label} {k}": v for label in ("fp32", "fp32 int8_ste")
+                       for k, v in steps.items()}}
+    assert built == [(ROOT, ("OPTIM.MAX_EPOCH", "1", *C.FP32_OPTS)),
+                     (ROOT, ("OPTIM.MAX_EPOCH", "1", "TRAIN.QUANT", "int8_ste", *C.FP32_OPTS))]
 
 
 def _f32_attn_half(seed, D=128, H=2):
