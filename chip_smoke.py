@@ -4,8 +4,8 @@ GPU, ViT-B/16, ViT-L/14 and ViT-L/14@336px, its training engine, CLI, trainer
 zoo, dataset pipelines, mesh and bench entry point, the int8 tiers at ViT-B/16 and
 ViT-L/14, over the zoo and in CoCoOp, the RN presets, its chunked MLP
 half-block, the kernel chains on fp32 activations (PREC fp32), the int8
-tiers on fp32 activations, its serving artifacts, REMAT and the XLA block
-route.
+tiers on fp32 activations, its serving artifacts, REMAT, the XLA block
+route, the text tower's switches and the tools.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --times-of ROOT   # only the kernel times of the
@@ -263,6 +263,27 @@ Phases, each printed with the card's name and power limit:
               chains' limits (q8_static and q8_floor, numerically off by
               the probe's design, within limits of their own); each timed
               beside its bound.
+ 15b. text switches   the text tower's three switches (PERF.TEXT_PACK,
+              TEXT_TRUNC, TEXT_RECOMPUTE), every value, on the ViT-B/16
+              text tower (512 x 12 layers, 8 heads) at 100 classes with
+              deep prompts: features and the prompts' gradients against
+              the plain route, the rows the tower takes (G to a row, 16 or
+              77 tokens), the layers' route and launches; CoOp and
+              ZeroshotCLIP built with PERF.TEXT_TRUNC 0 through the CLI
+              (full rows; logits and text features against the plain
+              route and the truncated rows'); attention on 77-token rows,
+              unpacked and packed (80, 77), at the text tower's and
+              CoCoOp's shapes, both ways, bf16 and fp32, against the plain
+              versions, relaunched bit-equal, timed beside SDPA and the bound.
+ 15c. tools     the port's tools through main(argv) in this process, each
+              line held to its keys: bench_cocoop at its defaults (CoCoOp
+              ViT-B/16, 8 images x 1,000 classes), with --text-trunc 0,
+              --mode eval --quant int8, and under TEXT_PACK 1 and
+              TEXT_RECOMPUTE 0 and 1 (its peak memory; the rows its tower
+              took); sweep_bench 384:none:pallas:save; profile_step at its
+              defaults (device time by kernel); bench_zoo --trainers CoOp
+              CoCoOp --steps 2; run_protocol --synthetic (test-tiny, one
+              dataset, one seed); launches held where the path is known.
  16. processes   the loaders' worker processes, their forkserver and
               resource tracker stopped and waited for; any other process
               the run started and left running is killed and fails it.
@@ -290,7 +311,9 @@ launches those of the fp32 int8_ste trainer's step
 probe_mma_s8, and the ablations quant_rows_*, layernorm_q8_* and
 gemm_s8_epilogue_floor) totals of one call of the rate kernel at G 64, or
 over one layer of probe_q8_residual, their launches those of the probe's
-entry point run in [probes] ("probe_int8_mxu", "probe_q8_residual").  "launches"
+entry point run in [probes] ("probe_int8_mxu", "probe_q8_residual"); under
+"text_77" the four attention entries' (bf16 and fp32) totals over the
+77-token cases of [text switches].  "launches"
 counts the main path's run ("main_path": the ViT-B/16 train step, or the
 int8 request), "launches_by_path" each path's ("engine_train_step": one
 train step of the engine; "zoo_<trainer>_step" one of each zoo trainer,
@@ -317,6 +340,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
 import signal
 import statistics
 import subprocess
@@ -1901,43 +1925,12 @@ def to_float(tree):
 
 
 def device_time_by_kernel(prof) -> tuple:
-    """({category: device us}, {other kernel: us}) from a profiler run:
-    the forward kernels, the backward kernels (the GEMM by its epilogue's
-    template argument), and everything else."""
-    import re
+    """({category: device us}, {kernel: us}, {other kernel: us}) from a
+    profiler run (``mudpt_torch.utils.profiling.device_time_by_kernel``:
+    the forward kernels, the backward kernels, and everything else)."""
+    from mudpt_torch.utils.profiling import device_time_by_kernel as by_kernel
 
-    import torch
-
-    cats = {"forward kernels": 0.0, "backward kernels": 0.0, "other": 0.0}
-    by_kernel, others = {}, {}
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue  # host-side ops also report their kernels' time
-        us = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
-        gemm = re.search(r"gemm_bf16_kernel<(\d+), (\d+)>", e.key)
-        gemm32 = re.search(r"gemm_f32_kernel<(true|false)>", e.key)
-        if gemm:  # <epilogue, schedule>; epilogues 0-3 and 9 are the forward ones
-            mode = int(gemm.group(1))
-            name, bwd = f"gemm_bf16_kernel<{mode}, {gemm.group(2)}>", mode >= 4 and mode != 9
-        elif gemm32:  # <W_NK>: W read transposed in the backward epilogues
-            name, bwd = f"gemm_f32_kernel<{gemm32.group(1)}>", gemm32.group(1) == "true"
-        else:
-            name = next((k for k in ("layernorm_fwd_kernel", "attention_fwd_wgmma_kernel",
-                                     "layernorm_bwd_kernel", "layernorm_bwd_f32_kernel",
-                                     "attn_bwd_query_kernel", "attn_bwd_key_kernel",
-                                     "gemm_s8_kernel", "layernorm_q8_kernel",
-                                     "quant_rows_kernel", "attn_fwd_tc_kernel", "probe_mma_kernel",
-                                     "attn_bwd_query_tc_kernel", "attn_bwd_key_tc_kernel")
-                         if k in e.key), None)
-            bwd = name is not None and "bwd" in name
-        if name is None:
-            cats["other"] += us
-            if us > 0:
-                others[e.key[:60]] = others.get(e.key[:60], 0.0) + us
-            continue
-        cats["backward kernels" if bwd else "forward kernels"] += us
-        by_kernel[name] = by_kernel.get(name, 0.0) + us
-    return cats, by_kernel, others
+    return by_kernel(prof)
 
 
 def grad_limit(cfg) -> float:
@@ -4851,9 +4844,9 @@ def chunk_cause(unchunked: dict, chunked: dict, quant: str) -> str:
     names the op); then each kernel site replayed on the unchunked run's
     inputs and output gradients, all rows against one chunk's, which must be
     bit-equal (the kernels compute a row alike in any batch), and the text
-    projection's backward product (``torch.matmul`` on cuBLAS, between
-    ln_final and the features) replayed the same way.  The features'
-    gradients must be bit-equal: the gradients may part only below them."""
+    projection's backward product (``models.text._project``, products of a
+    fixed row count, between ln_final and the features) replayed the same
+    way.  The features' gradients must be bit-equal."""
     import torch
 
     from mudpt_torch.models import layers
@@ -4893,14 +4886,21 @@ def chunk_cause(unchunked: dict, chunked: dict, quant: str) -> str:
         parts.append(f"{site} replayed on the first chunk's {n} rows vs all "
                      f"{whole['x'].shape[0]}, the same output gradient: output and input "
                      f"gradient bit-equal")
-    # out = pooled @ projection; autograd's input gradient is dout @ W^T
+    # out = _project(pooled, projection); its input gradient, replayed
+    from mudpt_torch.models.text import _project
+
     (whole,), n = unchunked["text_forward"], chunked["layer_norm"][0]["x"].shape[0]
     w = whole["p"]["projection"].to(whole["dy"].dtype)
     dout = whole["dy"].reshape(-1, w.shape[-1])
-    parts.append(f"the text projection's backward product dout @ W^T "
-                 f"({tuple(w.shape)}, cuBLAS) on the first chunk's {n} rows vs all "
-                 f"{dout.shape[0]}: " + rel(torch.matmul(dout[:n], w.t()),
-                                            torch.matmul(dout, w.t())[:n]))
+
+    def project_dx(rows):
+        pooled = torch.zeros(rows, w.shape[0], device=w.device, dtype=w.dtype,
+                             requires_grad=True)
+        return torch.autograd.grad(_project(pooled, w), pooled, dout[:rows])[0][:n]
+
+    parts.append(f"the text projection's backward product ({tuple(w.shape)}, products of "
+                 f"a fixed row count) on the first chunk's {n} rows vs all {dout.shape[0]}: "
+                 + rel(project_dx(n), project_dx(dout.shape[0])))
     return "; ".join(parts)
 
 
@@ -4913,9 +4913,9 @@ def fp32_cocoop_step(F, device: str = "cuda", quant: str = "none") -> dict:
     does, the text rows take the quantization-aware q8 chain (rows 14-15 at
     D = 512, recomputed in the backward), held to the plain route under
     [cocoop int8]'s limits, and the step in chunks of COCOOP_CHUNK instances
-    is held to the unchunked one: the logits bit-equal, the gradients
-    within F32_CHUNK_GRAD_ERR, the op where they part shown by
-    :func:`chunk_cause`.  Returns each run's launches."""
+    is held to the unchunked one: the logits and the gradients bit-equal,
+    each op's gradients on a chunk's rows shown by :func:`chunk_cause`.
+    Returns each run's launches."""
     import contextlib
 
     import torch
@@ -5000,16 +5000,15 @@ def fp32_cocoop_step(F, device: str = "cuda", quant: str = "none") -> dict:
         out[key + "_chunked"] = dict(F.LAUNCHES)
         check_launches(f"{label}, chunks of {COCOOP_CHUNK}", out[key + "_chunked"],
                        in_fp32(F, cocoop_launches(F.LAUNCHES, cfg, n_chunks, quant)))
-        errs_c = [((a - b).norm() / b.norm()).item() for a, b in zip(grads_c, grads)]
-        if not max(errs_c) <= F32_CHUNK_GRAD_ERR:
-            raise AssertionError(f"{label} chunked vs unchunked: gradient relative norm "
-                                 f"errors {errs_c} over {F32_CHUNK_GRAD_ERR}")
-        chunked = (f"; chunks of {COCOOP_CHUNK} vs unchunked: logits " + check_bit_equal(
-            f"{label} chunked vs unchunked", (logits_c,), (logits,)) + "; gradients "
-            + ", ".join(f"{n} {e:.3g}" for n, e in zip(names, errs_c))
-            + f" (limit {F32_CHUNK_GRAD_ERR:.3g}), bit-equal "
-            + str([bool(torch.equal(a, b)) for a, b in zip(grads_c, grads)])
-            + "; " + chunk_cause(taps.by_site(), taps_c.by_site(), quant))
+        cause = chunk_cause(taps.by_site(), taps_c.by_site(), quant)
+        try:
+            equal = check_bit_equal(f"{label} chunked vs unchunked", (logits_c, *grads_c),
+                                    (logits, *grads))
+        except AssertionError as e:
+            errs_c = [((a - b).norm() / b.norm()).item() for a, b in zip(grads_c, grads)]
+            raise AssertionError(f"{e}; gradient relative norm errors {errs_c}; {cause}") from e
+        chunked = (f"; chunks of {COCOOP_CHUNK} vs unchunked: logits and gradients {equal}; "
+                   + cause)
         del taps, taps_c
     say(phase, f"CoCoOp ViT-B/16 fp32{' under ' + quant if quantized else ''}, {COCOOP_B} "
                f"images x {COCOOP_N_CLS} classes (text rows packed {COCOOP_PACK}, D = 512, "
@@ -5186,16 +5185,6 @@ F32_Q8_CHAINS = (("ViT-B/16 vision", BATCH, 199, 768, 12),
 # neighbouring code), as test_torch_zoo_quant.py's loss bound of 2^-7 allows
 # at tiny size; the gradients keep [train int8_ste]'s limits
 F32_Q8_LOSS_REL_ERR = 2.0 ** -7
-# CoCoOp's fp32 step in chunks against the unchunked one: every kernel
-# computes a row alike in any batch, so the logits are held bit-equal; the
-# gradients part below the text features, where the text projection's
-# backward product (dout @ W^T, torch.matmul on cuBLAS) sums its fp32
-# terms in another order at 2,000 rows than at 4,000 (chunk_cause shows
-# it, and holds each kernel site replayed bit-equal); bf16 rounding hid
-# this at [cocoop int8]: they are held to fp32 sum-order differences
-F32_CHUNK_GRAD_ERR = 2.0 ** -16
-
-
 def int_mm_epilogue(a, xs, wq, ws, bias, ep, extra, r, save, dtype):
     """torch._int_mm followed by the s8 GEMM's epilogue on torch ops: a
     yardstick of gemm_s8_epilogue_f32, never called by the port."""
@@ -5833,6 +5822,493 @@ def phase_probes(F, Q, kernels: dict) -> dict:
     return paths
 
 
+# [text switches]: the text tower's three switches (models/text:
+# set_text_pack, set_text_truncate, set_text_recompute; PERF.TEXT_PACK,
+# TEXT_TRUNC, TEXT_RECOMPUTE), each value on the ViT-B/16 text tower (512 x
+# 12 layers, 8 heads) at the bench's 100 classes with 2 context vectors and
+# 8 deep prompt layers, forward and backward against the plain route; the
+# trainers that read truncation; and attention on the 77-token rows that
+# TEXT_TRUNC 0 brings, unpacked and packed, both ways, in both dtypes.
+# Each case: (TEXT_PACK, TEXT_TRUNC, TEXT_RECOMPUTE); together they take
+# every value of each switch
+TEXT_SW_CASES = ((0, "auto", "auto"), (1, "auto", "auto"), (4, "auto", "0"), (2, "0", "auto"),
+                 (0, "0", "auto"), (1, "0", "1"), (0, "auto", "1"), (4, "0", "0"))
+TEXT_SW_N_CLS, TEXT_SW_N_CTX, TEXT_SW_DEPTH = 100, 2, 9
+TEXT_FULL = 77  # the class prompts' full length (the tokenizer's context)
+# attention on 77-token rows: (label, blocks, rows, heads, mask): the text
+# tower at 100 classes unpacked and packed 4 to a row (TEXT_TRUNC 0's auto
+# G), and CoCoOp's chunk of 4 instances x 1,000 classes the same two ways
+ATTN_77 = (("text 100 x 77, causal", 100, 77, 8, True),
+           ("text packed (80, 77), 25 x 320", 25, 320, 8, (80, 77)),
+           ("CoCoOp chunk 4000 x 77, causal", 4000, 77, 8, True),
+           ("CoCoOp chunk packed (80, 77), 1000 x 320", 1000, 320, 8, (80, 77)))
+ATTN_77_KERNELS = ("attention_fwd", "attention_bwd", "attention_fwd_f32", "attention_bwd_f32")
+
+
+class text_switches:
+    """The port's text switches set inside the context (None: left as
+    they are), every one restored after it."""
+
+    def __init__(self, pack=None, trunc=None, recompute=None):
+        self.values = pack, trunc, recompute
+
+    def __enter__(self):
+        from mudpt_torch.models import text
+
+        self.prev = text.text_pack(), text.text_truncate(), text.text_recompute()
+        self._set(*self.values)
+        return self
+
+    def __exit__(self, *exc):
+        self._set(*self.prev)
+
+    @staticmethod
+    def _set(pack, trunc, recompute):
+        from mudpt_torch.models import text
+
+        if pack is not None:
+            text.set_text_pack(pack)
+        if trunc is not None:
+            text.set_text_truncate(str(trunc) != "0")
+        if recompute is not None:
+            text.set_text_recompute(recompute)
+
+
+class TowerRows:
+    """The rows each call of the text tower's ``transformer_forward`` takes:
+    (shape, mask spec, splice period)."""
+
+    def __enter__(self):
+        from mudpt_torch.models import text
+
+        self.seen, self.real = [], text.transformer_forward
+
+        def spy(blocks, x, **kw):
+            self.seen.append((tuple(x.shape), kw.get("causal"), kw.get("splice_period", 0)))
+            return self.real(blocks, x, **kw)
+
+        text.transformer_forward = spy
+        return self
+
+    def __exit__(self, *exc):
+        from mudpt_torch.models import text
+
+        text.transformer_forward = self.real
+
+
+class BlockCalls:
+    """Calls of the kernel route's whole layer (``layer_fullblock``) and of
+    its attention half (``attn_halfblock``): the route each layer took, on
+    either device."""
+
+    NAMES = ("layer_fullblock", "attn_halfblock")
+
+    def __enter__(self):
+        from mudpt_torch.ops import fused_block
+
+        self.n, self.real = dict.fromkeys(self.NAMES, 0), {}
+        for name in self.NAMES:
+            self.real[name] = real = getattr(fused_block, name)
+            setattr(fused_block, name, self._count(name, real))
+        return self
+
+    def _count(self, name, real):
+        def counted(*args, **kwargs):
+            self.n[name] += 1
+            return real(*args, **kwargs)
+        return counted
+
+    def __exit__(self, *exc):
+        from mudpt_torch.ops import fused_block
+
+        for name, fn in self.real.items():
+            setattr(fused_block, name, fn)
+
+
+def text_rows_want(n_rows: int, S: int, D: int, G: int) -> tuple:
+    """The rows the text tower must take for ``n_rows`` sequences of ``S``
+    tokens at ``G`` a row: G > 1, ceil(n / G) rows of G x P tokens (P, S
+    rounded up to 8) under the packed (P, S) mask, spliced every P; else
+    the n rows of S tokens, causal."""
+    P = -(-S // 8) * 8
+    if G > 1:
+        return (-(-n_rows // G), G * P, D), (P, S), P
+    return (n_rows, S, D), True, 0
+
+
+def text_switch_case(F, text_p: dict, names: list, case: tuple, n_head: int,
+                     device: str = "cuda", hold_launches: bool = True) -> dict:
+    """One switch case on the text tower: the class bank built under the
+    switches (its row length: max(eot) + 1 rounded up to 8, at least 16,
+    under TEXT_TRUNC auto; the full 77 under 0), then the features and the
+    gradients of the context vectors and the deep prompts, against the
+    plain route; the rows the tower took held to the pack switch (G, or
+    the auto rule under 0), and the layers' route (``BlockCalls``) and
+    launches to the recompute switch's (the halves with saves off under '1'
+    or past the row-token crossover under 'auto', else the whole layer that
+    saves)."""
+    import torch
+
+    from mudpt_torch.models import text
+    from mudpt_torch.models.layers import plain_blocks
+    from mudpt_torch.models.transformer import num_layers_of
+    from mudpt_torch.trainers.prompt_utils import embed_classnames
+
+    pack, trunc, recompute = case
+    n, D = len(names), text_p["token_embedding"].shape[1]
+    layers_n = num_layers_of(text_p["blocks"])
+    dtype = text_p["blocks"]["attn"]["qkv_w"].dtype
+    g = torch.Generator(device=device).manual_seed(11)
+    ctx = (torch.randn(TEXT_SW_N_CTX, D, generator=g, device=device) * 0.02).requires_grad_(True)
+    deep = (torch.randn(TEXT_SW_DEPTH - 1, TEXT_SW_N_CTX, D, generator=g, device=device)
+            * 0.02).requires_grad_(True)
+    cot = torch.randn(n, text_p["projection"].shape[1], generator=g, device=device)
+    with text_switches(pack, trunc, recompute):
+        aux = embed_classnames(text_p, names, TEXT_SW_N_CTX, "a photo of a").as_device_tree()
+
+        def run():
+            prompts = torch.cat([aux["token_prefix"], ctx[None].expand(n, -1, -1),
+                                 aux["token_suffix"]], dim=1).to(dtype)
+            with TowerRows() as rows:
+                feats = text.text_forward(text_p, prompts, aux["eot_idx"], n_head=n_head,
+                                          deep_prompts=deep)
+                grads = torch.autograd.grad(feats.float(), (ctx, deep), cot)
+            return feats.detach(), grads, rows.seen
+
+        F.reset_launches()
+        with BlockCalls() as calls:
+            feats, grads, seen = run()
+        launches = dict(F.LAUNCHES)
+        with plain_blocks():
+            feats_ref, grads_ref, _ = run()
+        ms = _synced_ms(run) if device != "cpu" else None
+    S = aux["token_suffix"].shape[1] + 1 + TEXT_SW_N_CTX
+    max_eot = int(aux["eot_idx"].max())
+    S_want = TEXT_FULL if trunc == "0" else max(16, -(-(max_eot + 1) // 8) * 8)
+    if S != S_want:
+        raise AssertionError(f"text switches {case}: rows of {S} tokens, expected {S_want}")
+    P = -(-S // 8) * 8
+    G = pack or text._auto_pack_g(P, n)
+    want = text_rows_want(n, S, D, G)
+    if seen != [want]:
+        raise AssertionError(f"text switches {case}: the tower took {seen}, expected {[want]}")
+    saves_off = recompute == "1" or (recompute == "auto" and n * P >= 512 * 80)
+    route = "half_train_saves_off" if saves_off else "full_train"
+    blocks = dict(layer_fullblock=0, attn_halfblock=layers_n) if saves_off else dict(
+        layer_fullblock=layers_n, attn_halfblock=0)
+    if calls.n != blocks:
+        raise AssertionError(f"text switches {case}: blocks {calls.n}, expected {blocks} "
+                             f"({route})")
+    if hold_launches:
+        check_launches(f"text switches {case}", launches,
+                       expect(F.LAUNCHES, (layers_n, route), (1, tower_lns(1, 1))))
+    f_read = check_close(f"text switches {case} features", feats, feats_ref,
+                         max_limit=TEXT_MAX_ERR, norm_limit=TEXT_NORM_ERR, share_limit=None)
+    errs = [((a - b).norm() / b.norm()).item() for a, b in zip(grads, grads_ref)]
+    if not max(errs) <= GRAD_NORM_ERR:
+        raise AssertionError(f"text switches {case}: gradient relative norm errors {errs} "
+                             f"over {GRAD_NORM_ERR}")
+    return {"S": S, "G": G, "route": route, "launches": launches, "ms": ms,
+            "reading": f"features {f_read}; gradients ctx {errs[0]:.3g}, deep prompts "
+                       f"{errs[1]:.3g} (limit {GRAD_NORM_ERR:.3g})"}
+
+
+def attention_77_case(F, rn, label: str, B: int, S: int, H: int, causal, dtype,
+                      kernels: dict) -> list:
+    """attention_fwd and attention_bwd (``dtype`` bf16: the bf16 kernels;
+    fp32: attention_f32's) on ``B`` blocks of ``S`` rows under ``causal``,
+    against their plain versions at the kernel limits, relaunched
+    bit-equal; each timed beside its plain version and SDPA, with its
+    bound.  Returns the lines."""
+    import torch
+    import torch.nn.functional as tf
+
+    f32 = dtype == torch.float32
+    D, esize = 64 * H, 4 if f32 else 2
+    qkv, do = rn(B, S, 3 * D, dtype=dtype), rn(B, S, D, std=0.1, dtype=dtype)
+    L, is_causal, valid = F._block_spec(S, causal)
+    n = B * (S // L)
+    pairs = sum(min(r + 1, valid) if is_causal else valid for r in range(L))
+    q, k, v = (t.detach().requires_grad_(True)
+               for t in qkv.view(n, L, 3, H, 64).permute(2, 0, 3, 1, 4))
+    if isinstance(causal, tuple):
+        i = torch.arange(L, device=qkv.device)
+        allowed = (i[None, :] <= i[:, None]) & (i[None, :] < valid)
+        sdpa = lambda: tf.scaled_dot_product_attention(q, k, v, attn_mask=allowed)  # noqa: E731
+    else:
+        sdpa = lambda: tf.scaled_dot_product_attention(q, k, v, is_causal=is_causal)  # noqa: E731
+    lines = []
+    for way, fn, plain_fn, nbytes, prods, others in (
+            ("fwd", lambda: F.attention_fwd(qkv, H, causal),
+             lambda: F.attention_plain(qkv, H, causal), 4, 2, 5),
+            ("bwd", lambda: F.attention_bwd(qkv, do, H, causal),
+             lambda: F.attention_bwd_plain(qkv, do, H, causal), 7, 5, 8)):
+        name = f"attention_{way}{'_f32' if f32 else ''}"
+        kern = kernels[name]
+        what = f"{name} {label}"
+        if f32:
+            reading = check_f32(what, fn(), plain_fn(), kern)
+        else:
+            reading = check_close(what, fn(), plain_fn(), kern)
+        check_relaunch(what, fn)
+        ms = time_ms(fn)
+        plain = time_ms(plain_fn, 3)
+        if way == "fwd":
+            with torch.no_grad():
+                lib = time_ms(sdpa)
+        else:
+            out = sdpa()
+            do4 = do.view(n, L, H, 64).permute(0, 2, 1, 3)
+            lib = time_ms(lambda: torch.autograd.grad(out, (q, k, v), do4, retain_graph=True))
+            del out, do4
+        work = nbytes * B * S * D * esize, prods * 2 * 64 * pairs * n * H, others * pairs * n * H
+        bms, by = bound32(*work) if f32 else bound(work[0], work[1], work[2])
+        kern.add(ms, plain, lib, bms, by)
+        lines.append(f"{name} {label}, {H} heads: {reading} ms {ms:.4f} plain {plain:.4f} "
+                     f"library(sdpa{' backward' if way == 'bwd' else ''}"
+                     f"{', fp32' if f32 else ''}) {lib:.4f} bound {bms:.4f} ({by})")
+    del qkv, do, q, k, v
+    return lines
+
+
+def phase_text_switches(F, root: Path, kernels: dict) -> dict:
+    """Every text switch value on the ViT-B/16 text tower against the plain
+    route (``TEXT_SW_CASES``); CoOp built with ``PERF.TEXT_TRUNC 0`` through
+    the CLI (its class bank of the full 77 tokens, its logits against the
+    plain route) and ZeroshotCLIP's text features under it against the
+    plain route and against the truncated rows'; then attention on 77-token
+    rows (``ATTN_77``) both ways in both dtypes into ``kernels``.  Returns
+    each case's launches."""
+    import tempfile
+
+    import torch
+
+    from mudpt_torch.models.clip import VIT_B16, cast_matmul_weights, init_clip_params
+    from mudpt_torch.models.layers import plain_blocks
+    from mudpt_torch.trainers.zsclip import _encode_templates
+
+    phase = "text switches"
+    cfg = VIT_B16
+    params = cast_matmul_weights(init_clip_params(cfg, torch.Generator(
+        device="cuda").manual_seed(0)), torch.bfloat16)
+    names = [f"object number {i}" for i in range(TEXT_SW_N_CLS)]
+    paths = {}
+    for case in TEXT_SW_CASES:
+        r = text_switch_case(F, params["text"], names, case, cfg.transformer_heads)
+        paths["text_switches_" + "_".join(map(str, case))] = r["launches"]
+        say(phase, f"TEXT_PACK {case[0]}, TEXT_TRUNC {case[1]}, TEXT_RECOMPUTE {case[2]}: "
+                   f"{TEXT_SW_N_CLS} rows of {r['S']} tokens, {r['G']} a kernel row, route "
+                   f"{r['route']}; forward + backward {r['ms']:.2f} ms; vs plain route: "
+                   f"{r['reading']}")
+    del params
+    # ---- the trainers that read truncation, built under PERF.TEXT_TRUNC 0
+    tmp = tempfile.mkdtemp(prefix="mudpt_text_switches_")
+    try:
+        with text_switches():  # the config sets the switch: restored after
+            label, trainer, yaml, more = ZOO[0]
+            tr = zoo_trainer(root, trainer, yaml, more + ("PERF.TEXT_TRUNC", "0"),
+                             f"{tmp}/{label}")
+            n_ctx = tr.cfg.TRAINER.COOP.N_CTX
+            if tr.aux["token_suffix"].shape[1] != TEXT_FULL - 1 - n_ctx or \
+                    tr.perf_resolved["TEXT_TRUNC"] != "0":
+                raise AssertionError(f"CoOp under TEXT_TRUNC 0: suffix "
+                                     f"{tuple(tr.aux['token_suffix'].shape)}, perf "
+                                     f"{tr.perf_resolved['TEXT_TRUNC']}")
+            images = tr._device_batch(next(iter(tr.dm.test_loader)))["image"]
+            with torch.no_grad():
+                logits = tr.forward(tr.trainable, tr.frozen, tr.aux, images)
+                with plain_blocks():
+                    logits_ref = tr.forward(tr.trainable, tr.frozen, tr.aux, images)
+            centred = [t - t.mean(-1, keepdim=True) for t in (logits, logits_ref)]
+            reading = check_close("CoOp under TEXT_TRUNC 0 logits, rows centred", *centred,
+                                  max_limit=LOGITS_MAX_ERR, norm_limit=LOGITS_NORM_ERR,
+                                  share_limit=None)
+            say(phase, f"CoOp built through the CLI with PERF.TEXT_TRUNC 0: class rows of "
+                       f"{TEXT_FULL} tokens; logits of {images.shape[0]} images vs plain "
+                       f"route, rows centred: {reading}")
+            del tr
+            label, trainer, yaml, more = next(z for z in ZOO if z[0] == "ZeroshotCLIP")
+            tr = zoo_trainer(root, trainer, yaml, more + ("PERF.TEXT_TRUNC", "0"),
+                             f"{tmp}/{label}")
+            txt = tr.aux["text_features"]
+            args = (tr.frozen, tr.clip_cfg, tr.classnames, tr.template_list(),
+                    tr.compute_dtype, tr.device)
+            with torch.no_grad():
+                with plain_blocks():
+                    txt_ref = _encode_templates(*args)
+                with text_switches(trunc="auto"):
+                    txt_trunc = _encode_templates(*args)
+            r_plain = check_close("ZeroshotCLIP under TEXT_TRUNC 0 text features", txt,
+                                  txt_ref, max_limit=TEXT_MAX_ERR, norm_limit=TEXT_NORM_ERR,
+                                  share_limit=None)
+            r_trunc = check_close("ZeroshotCLIP text features, full vs truncated rows", txt,
+                                  txt_trunc, max_limit=TEXT_MAX_ERR, norm_limit=TEXT_NORM_ERR,
+                                  share_limit=None)
+            say(phase, f"ZeroshotCLIP built with PERF.TEXT_TRUNC 0: text features vs plain "
+                       f"route {r_plain}; vs the truncated rows {r_trunc}")
+            del tr
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    # ---- attention on 77-token rows, both dtypes
+    rn = randn_fn(12)
+    for dtype in (torch.bfloat16, torch.float32):
+        for label, B, S, H, causal in ATTN_77:
+            for line in attention_77_case(F, rn, label, B, S, H, causal, dtype, kernels):
+                say(phase, line)
+            torch.cuda.empty_cache()
+    return paths
+
+
+# [tools]: the port's tools through main(argv) in this process, each line
+# held to its keys (and, where it launches kernels of a known path, to its
+# launches).  Under TOOL_KEYS: the keys each line must carry
+TOOL_KEYS = {
+    "bench_cocoop": ("metric", "value", "unit", "img_per_sec", "text_trunc", "encode_chunk"),
+    "sweep_bench": ("spec", "B", "remat", "block", "save", "img_per_sec", "ms_per_step", "loss"),
+    "profile_step": ("metric", "self_time", "total_ms", "steps", "top", "by_kernel_ms",
+                     "final_loss"),
+    "bench_zoo": ("trainer", "img_per_sec", "ms_per_step", "static_text_cache", "first_step_s",
+                  "final_loss"),
+    "run_protocol": ("n_units", "zeroshot", "fewshot", "base2new", "domain_gen", "failures"),
+}
+# bench_cocoop's runs: (label, argv, switches (pack, trunc, recompute), the
+# chunks of its encode, whether its text rows train with saves off, the
+# tokens of its class rows).  Its defaults (8 images x 1,000 classes, P =
+# 16) encode unchunked, past the row-token crossover (saves off); full rows
+# (P = 80) in chunks of 4 instances; the switch runs take 3 timed steps
+COCOOP_TOOL = (
+    ("defaults", [], (None, None, None), 1, True, 16),
+    ("--text-trunc 0", ["--text-trunc", "0"], (None, None, None), 2, True, 77),
+    ("--mode eval --quant int8", ["--mode", "eval", "--quant", "int8"], (None, None, None), 1,
+     True, 16),
+    ("TEXT_PACK 1", ["--steps", "3", "--warmup", "1"], (1, None, None), 1, True, 16),
+    ("TEXT_RECOMPUTE 0", ["--steps", "3", "--warmup", "1"], (None, None, "0"), 1, False, 16),
+    ("TEXT_RECOMPUTE 1", ["--steps", "3", "--warmup", "1"], (None, None, "1"), 1, True, 16),
+)
+
+
+def check_tool_line(tool: str, line: dict, extra: tuple = ()) -> dict:
+    """A tool's line carries its keys (``TOOL_KEYS`` and ``extra``), no
+    ``error``, and its numbers are finite."""
+    missing = [k for k in (*TOOL_KEYS[tool], *extra) if k not in line]
+    if missing or "error" in line:
+        raise AssertionError(f"{tool}: line {line} lacks {missing} or holds an error")
+    bad = [k for k, v in line.items() if isinstance(v, float) and not math.isfinite(v)]
+    if bad:
+        raise AssertionError(f"{tool}: {bad} not finite in {line}")
+    return line
+
+
+def cocoop_tool_launches(keys, cfg, n_chunks: int, saves_off: bool, quant: str) -> dict:
+    """One bench_cocoop step's launches: ``cocoop_launches``, its text rows
+    on the whole layer that saves where ``saves_off`` is False (unchunked)."""
+    if quant != "none" or saves_off:
+        return cocoop_launches(keys, cfg, n_chunks, quant)
+    return expect(keys, (cfg.vision_layers, "full"), (1, tower_lns(2)),
+                  (cfg.transformer_layers, "full_train"), (1, tower_lns(1, 1)))
+
+
+def phase_tools(F, root: Path) -> dict:
+    """``mudpt_torch.tools``' bench_cocoop (its defaults, full rows, int8
+    serving, and its step under TEXT_PACK 1 and TEXT_RECOMPUTE 0 and 1, its
+    peak memory beside), sweep_bench at one spec, profile_step at its
+    defaults, bench_zoo for CoOp and CoCoOp and run_protocol's synthetic
+    dry run, each through ``main(argv)`` in this process: its line held to
+    its keys, its launches to its path where the path is known."""
+    import tempfile
+
+    import torch
+
+    from mudpt_torch.models.clip import VIT_B16
+    from mudpt_torch.tools import bench_cocoop, bench_zoo, profile_step, run_protocol, sweep_bench
+
+    phase = "tools"
+    paths = {}
+    steps_of = {"--steps": 8, "--warmup": 2}
+    for label, argv, switches, n_chunks, saves_off, S in COCOOP_TOOL:
+        n_steps = sum(int(argv[argv.index(k) + 1]) if k in argv else v
+                      for k, v in steps_of.items())
+        quant = "int8" if "int8" in argv else "none"
+        F.reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with text_switches(*switches), TowerRows() as rows:
+            line = check_tool_line("bench_cocoop", bench_cocoop.main(argv),
+                                   () if quant != "none" else ("final_loss",))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        launches = dict(F.LAUNCHES)
+        per_step = cocoop_tool_launches(F.LAUNCHES, VIT_B16, n_chunks, saves_off, quant)
+        check_launches(f"bench_cocoop {label}", launches,
+                       {k: v * n_steps for k, v in per_step.items()})
+        n_rows = 8000 // n_chunks
+        G = switches[0] or (8 if S == 16 else 4)
+        want = text_rows_want(n_rows, S, VIT_B16.transformer_width, G)
+        if rows.seen[0] != want:
+            raise AssertionError(f"bench_cocoop {label}: the text tower took {rows.seen[0]}, "
+                                 f"expected {want}")
+        paths["tools_bench_cocoop_" + label.replace(" ", "_").replace("-", "")] = launches
+        say(phase, f"bench_cocoop {label}: {json.dumps(line)}; peak {peak:.2f} GiB; text rows "
+                   f"{rows.seen[0]}; {n_steps} steps' launches held")
+    torch.cuda.empty_cache()
+    # ---- sweep_bench at the JAX tool's first example spec
+    F.reset_launches()
+    out = sweep_bench.main(["384:none:pallas:save"])
+    (row,) = out["results"]
+    check_tool_line("sweep_bench", row)
+    n_steps = sweep_bench.WARMUP + sweep_bench.TIMED
+    check_launches("sweep_bench 384:none:pallas:save", dict(F.LAUNCHES),
+                   {k: v * n_steps for k, v in step_launches(F, VIT_B16, "full_train",
+                                                             "full_train").items()})
+    paths["tools_sweep_bench"] = dict(F.LAUNCHES)
+    say(phase, f"sweep_bench: {json.dumps(row)}")
+    torch.cuda.empty_cache()
+    # ---- profile_step at its defaults (batch 192, 1,000 classes, depth 9)
+    tmp = tempfile.mkdtemp(prefix="mudpt_tools_")
+    try:
+        F.reset_launches()
+        rec = check_tool_line("profile_step", profile_step.main(["--outdir", f"{tmp}/profile"]))
+        # 1,000 rows of 16 tokens: under the crossover, the text layers save
+        check_launches("profile_step", dict(F.LAUNCHES),
+                       {k: v * (2 + rec["steps"]) for k, v in step_launches(
+                           F, VIT_B16, "full_train", "full_train").items()})
+        paths["tools_profile_step"] = dict(F.LAUNCHES)
+        kernel_ms = {k: v for k, v in (rec["by_kernel_ms"] or {}).items()
+                     if k not in ("forward kernels", "backward kernels", "other")}
+        if not (rec["self_time"] == "device" and rec["total_ms"] > 0 and kernel_ms):
+            raise AssertionError(f"profile_step: no device time by kernel in {rec}")
+        top = "; ".join(f"{t['op'][:48]} {t['self_ms']:.2f} ms ({t['share']:.1%}, "
+                        f"{t['occurrences']})" for t in rec["top"][:8])
+        say(phase, f"profile_step (batch 192, 1,000 classes, {rec['steps']} steps): device "
+                   f"{rec['total_ms']:.2f} ms; top ops: {top}; by kernel: " + ", ".join(
+                       f"{k} {v:.3f}" for k, v in sorted(kernel_ms.items(), key=lambda kv: -kv[1])))
+        # ---- bench_zoo: CoOp and CoCoOp's train steps at its defaults
+        F.reset_launches()
+        rows = bench_zoo.main(["--trainers", "CoOp", "CoCoOp", "--steps", "2"])
+        for name in ("CoOp", "CoCoOp"):
+            check_tool_line("bench_zoo", rows[name])
+        paths["tools_bench_zoo"] = dict(F.LAUNCHES)
+        # CoOp's text rows train on the whole layer, CoCoOp's chunks on the halves
+        if not (F.LAUNCHES["layer_fullblock_bwd"] and F.LAUNCHES["attn_halfblock_bwd"]):
+            raise AssertionError(f"bench_zoo: a tower's backward not launched: {F.LAUNCHES}")
+        say(phase, "bench_zoo: " + "; ".join(json.dumps(r) for r in rows.values()))
+        # ---- run_protocol's synthetic dry run (test-tiny, one dataset, one seed)
+        F.reset_launches()
+        summary = check_tool_line("run_protocol", run_protocol.main(
+            ["--synthetic", "--output_root", f"{tmp}/protocol"]))
+        fp32_launched = [k for k in ("layernorm_fwd_f32", "gemm_f32_epilogue",
+                                     "attention_fwd_f32", "attention_bwd_f32") if F.LAUNCHES[k]]
+        if summary["n_units"] != 6 or summary["failures"] or len(fp32_launched) != 4:
+            raise AssertionError(f"run_protocol --synthetic: {summary}, fp32 kernels launched "
+                                 f"{fp32_launched}")
+        paths["tools_run_protocol"] = dict(F.LAUNCHES)
+        say(phase, f"run_protocol --synthetic: {summary['n_units']} units, no failure; "
+                   f"launches {dict((k, v) for k, v in F.LAUNCHES.items() if v)}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return paths
+
+
 def descendants(pid: int) -> list:
     """The pids of the running processes descended from ``pid`` (/proc),
     parents before their children."""
@@ -6169,6 +6645,8 @@ def main() -> int:
     # the probes' kernels: the rate kernel's one call at G1, the ablations'
     # one layer of the probe's shape
     kernels_p = {name: Kernel(name, F.KERNELS[name][0]) for name in probe_names}
+    # attention on the 77-token rows of TEXT_TRUNC 0, both dtypes (ATTN_77)
+    kernels_t77 = {name: Kernel(name, F.KERNELS[name][0]) for name in ATTN_77_KERNELS}
     paths = {}
 
     def run(phase: str, fn, *args):
@@ -6229,6 +6707,8 @@ def main() -> int:
                                                  "ViT-L/14@336px")
     paths["block_xla_request"] = run("block xla", phase_block_xla, F)
     paths.update(run("probes", phase_probes, F, Q, kernels_p))
+    paths.update(run("text switches", phase_text_switches, F, root, kernels_t77))
+    paths.update(run("tools", phase_tools, F, root))
     say("processes", check_no_process_left())
 
     def by_path(name: str) -> dict:
@@ -6238,14 +6718,17 @@ def main() -> int:
                         vit_l14_336px=kernels_336[name],
                         **({"int8": kernels_q[name], "int8_vit_l14": kernels_ql[name]}
                            if name in kernels_q else {}),
-                        **({"chunked": kernels_c[name]} if name in kernels_c else {}))
+                        **({"chunked": kernels_c[name]} if name in kernels_c else {}),
+                        **({"text_77": kernels_t77[name]} if name in kernels_t77 else {}))
                for name, k in kernels.items()]
     records += [kernels_q[name].record(by_path(name), "serving_int8", int8_static=kernels_qs[name],
                                        int8_vit_l14=kernels_ql[name],
                                        int8_static_vit_l14=kernels_qls[name])
                 for name in Q8_KERNELS]
-    records += [kernels_32[name].record(by_path(name), "fp32_train_step") for name in fp32_names
-                if name not in fp32_q8]
+    records += [kernels_32[name].record(
+        by_path(name), "fp32_train_step",
+        **({"text_77": kernels_t77[name]} if name in kernels_t77 else {}))
+        for name in fp32_names if name not in fp32_q8]
     records += [kernels_32[name].record(by_path(name), "fp32_int8_ste_train_step",
                                         fp32_int8_ste_static=kernels_32s[name])
                 for name in fp32_q8]

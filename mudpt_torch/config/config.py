@@ -238,8 +238,7 @@ class PerfCfg:
     ``metrics.jsonl`` (kind=perf_config), so a run's numerics envelope
     reproduces from its config dump alone.  ``TRAIN.QUANT`` is the
     quantization knob (kept under TRAIN: it changes the training
-    objective, not just execution).  The port takes the knobs its models
-    have; config/perf.py raises for a non-default value of the others."""
+    objective, not just execution)."""
 
     BLOCK: str = "auto"           # auto | pallas | xla   (models/layers)
     SAVE_ACTS: bool = True        # save-activations backward (ops/fused_block)

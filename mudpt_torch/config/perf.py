@@ -9,13 +9,13 @@ tests and tools that call the setters directly keep working; a field that
 a YAML file or an opt wrote, even at its default, calls the setter.  The
 port reads no ``MUDPT_TPU_<FIELD>`` environment variables.
 
-The port has the knobs of its models: BLOCK, LN (``models/layers``),
-SAVE_ACTS and SAVE_MLP_WIDE (``ops/fused_block``), SCAN_UNROLL and REMAT
-(``models/transformer``).  The text tower runs the JAX package's auto
-rules for packing, truncation and recompute (``models/text``), so
-TEXT_PACK, TEXT_TRUNC and TEXT_RECOMPUTE take their defaults only; another
-value raises ``NotImplementedError`` naming its ROADMAP.md item.
-``perf_snapshot()`` reports the resolved live values.
+Every knob of the JAX package: BLOCK, LN (``models/layers``), SAVE_ACTS
+and SAVE_MLP_WIDE (``ops/fused_block``), SCAN_UNROLL and REMAT
+(``models/transformer``), and the text tower's TEXT_PACK, TEXT_TRUNC and
+TEXT_RECOMPUTE (``models/text``).  TEXT_TRUNC shapes the class-prompt
+bank, which a trainer builds after this runs (``TrainerBase.__init__``).
+A tool that would set a ``MUDPT_TPU_*`` variable of the JAX package takes
+a flag instead.  ``perf_snapshot()`` reports the resolved live values.
 """
 
 from __future__ import annotations
@@ -28,18 +28,8 @@ def _as_bool(v: Any) -> bool:
     return str(v).lower() not in ("0", "false", "no", "")
 
 
-def _not_ported(knob: str, allowed: tuple, item: str):
-    def setter(v):
-        if str(v) not in allowed:
-            raise NotImplementedError(
-                f"PERF.{knob}={v!r}: the port takes {allowed} only; the rest waits "
-                f"for ROADMAP.md {item}"
-            )
-    return setter
-
-
 def _setters() -> dict:
-    from mudpt_torch.models import layers, transformer
+    from mudpt_torch.models import layers, text, transformer
     from mudpt_torch.ops import fused_block
 
     return {
@@ -48,10 +38,9 @@ def _setters() -> dict:
         "SAVE_MLP_WIDE": lambda v: fused_block.set_save_mlp_wide(str(v)),
         "SCAN_UNROLL": lambda v: transformer.set_scan_unroll(v),
         "REMAT": lambda v: transformer.set_remat_mode(str(v)),
-        "TEXT_PACK": _not_ported("TEXT_PACK", ("0",), "A, 'the text tower's switches'"),
-        "TEXT_TRUNC": _not_ported("TEXT_TRUNC", ("auto",), "A, 'the text tower's switches'"),
-        "TEXT_RECOMPUTE": _not_ported("TEXT_RECOMPUTE", ("auto",),
-                                      "A, 'the text tower's switches'"),
+        "TEXT_PACK": lambda v: text.set_text_pack(int(v)),
+        "TEXT_TRUNC": lambda v: text.set_text_truncate(str(v) != "0"),
+        "TEXT_RECOMPUTE": lambda v: text.set_text_recompute(v),
         "LN": lambda v: layers.set_ln_dtype(str(v)),
     }
 
@@ -69,8 +58,8 @@ def apply_perf_config(perf) -> Dict[str, Any]:
 
 def perf_snapshot() -> Dict[str, Any]:
     """The live, resolved policy state: what this process executes
-    (``perf.py:87-107``; the text tower's switches at their auto rules)."""
-    from mudpt_torch.models import layers, transformer
+    (``perf.py:87-107``)."""
+    from mudpt_torch.models import layers, text, transformer
     from mudpt_torch.ops import fused_block
 
     return {
@@ -81,8 +70,8 @@ def perf_snapshot() -> Dict[str, Any]:
         "SAVE_MLP_WIDE": fused_block._SAVE_MLP_WIDE,
         "SCAN_UNROLL": transformer._SCAN_UNROLL,
         "REMAT": transformer.remat_mode(),
-        "TEXT_PACK": 0,
-        "TEXT_TRUNC": "auto",
-        "TEXT_RECOMPUTE": "auto",
+        "TEXT_PACK": text.text_pack(),
+        "TEXT_TRUNC": text.text_truncate(),
+        "TEXT_RECOMPUTE": text.text_recompute(),
         "LN": layers.ln_dtype(),
     }

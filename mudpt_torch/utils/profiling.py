@@ -6,12 +6,15 @@ synchronizes the device before each reading: a CUDA call returns before the
 card has finished, so a host clock without it times the enqueue.
 :func:`profile_trace` records a ``torch.profiler`` trace (host and CUDA
 activity) into ``TRAIN.PROFILE_DIR`` as a Chrome trace file.
+:func:`device_time_by_kernel` turns a trace into device time by kernel of
+``mudpt_torch/csrc`` and :func:`top_ops` into its ops by self time.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+import re
 import time
 from typing import Optional, Union
 
@@ -67,9 +70,9 @@ class StepTimer:
 @contextlib.contextmanager
 def profile_trace(logdir: Optional[str]):
     """Trace host and CUDA activity into ``<logdir>/trace-<time>.json``
-    when ``logdir`` is set, else no-op."""
+    when ``logdir`` is set, and yield the profiler; else no-op (None)."""
     if not logdir:
-        yield
+        yield None
         return
     from torch.profiler import ProfilerActivity, profile
 
@@ -78,5 +81,67 @@ def profile_trace(logdir: Optional[str]):
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(logdir, exist_ok=True)
     with profile(activities=activities) as prof:
-        yield
+        yield prof
     prof.export_chrome_trace(os.path.join(logdir, f"trace-{time.time_ns()}.json"))
+
+
+# the kernels of mudpt_torch/csrc by the name the profiler gives them (the
+# GEMMs by their template arguments, below)
+KERNELS = ("layernorm_fwd_kernel", "attention_fwd_wgmma_kernel", "layernorm_bwd_kernel",
+           "layernorm_bwd_f32_kernel", "attn_bwd_query_kernel", "attn_bwd_key_kernel",
+           "gemm_s8_kernel", "layernorm_q8_kernel", "quant_rows_kernel", "attn_fwd_tc_kernel",
+           "probe_mma_kernel", "attn_bwd_query_tc_kernel", "attn_bwd_key_tc_kernel")
+
+
+def _self_device_us(e) -> float:
+    return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+
+
+def device_time_by_kernel(prof) -> tuple:
+    """({category: device us}, {kernel: us}, {other kernel: us}) from a
+    profiler run: the forward kernels, the backward kernels (the GEMM by
+    its epilogue's template argument), and everything else."""
+    import torch
+
+    cats = {"forward kernels": 0.0, "backward kernels": 0.0, "other": 0.0}
+    by_kernel, others = {}, {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue  # host-side ops also report their kernels' time
+        us = _self_device_us(e)
+        gemm = re.search(r"gemm_bf16_kernel<(\d+), (\d+)>", e.key)
+        gemm32 = re.search(r"gemm_f32_kernel<(true|false)>", e.key)
+        if gemm:  # <epilogue, schedule>; epilogues 0-3 and 9 are the forward ones
+            mode = int(gemm.group(1))
+            name, bwd = f"gemm_bf16_kernel<{mode}, {gemm.group(2)}>", mode >= 4 and mode != 9
+        elif gemm32:  # <W_NK>: W read transposed in the backward epilogues
+            name, bwd = f"gemm_f32_kernel<{gemm32.group(1)}>", gemm32.group(1) == "true"
+        else:
+            name = next((k for k in KERNELS if k in e.key), None)
+            bwd = name is not None and "bwd" in name
+        if name is None:
+            cats["other"] += us
+            if us > 0:
+                others[e.key[:60]] = others.get(e.key[:60], 0.0) + us
+            continue
+        cats["backward kernels" if bwd else "forward kernels"] += us
+        by_kernel[name] = by_kernel.get(name, 0.0) + us
+    return cats, by_kernel, others
+
+
+def top_ops(prof, device: bool) -> list:
+    """[(op, self us, occurrences)] by self time, the largest first: the
+    device's kernels (``device``), else the host's ops."""
+    import torch
+
+    rows = []
+    for e in prof.key_averages():
+        if device:
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            us = _self_device_us(e)
+        else:
+            us = e.self_cpu_time_total
+        if us > 0:
+            rows.append((e.key, us, e.count))
+    return sorted(rows, key=lambda r: -r[1])

@@ -59,7 +59,10 @@ bit-equal checks reject an s8 rate-probe sum that saturates instead of
 wrapping, a q8_recip quantizer that divides, a floor GEMM that applies the
 weight scales, a q8_noclip code a step off q8's, and a floor convert that
 wraps as torch's does.  The end-of-run process check rejects a child process
-left running."""
+left running.  ``[text switches]``' case check rejects a pack, truncation or
+recompute switch that the text module ignores, and its 77-token attention
+check an attention that lets in the pad keys of packed (80, 77) rows;
+``[tools]``' line check rejects a tool line that lacks a key."""
 
 import importlib.util
 import os
@@ -1820,3 +1823,75 @@ def test_probe_floor_check_catches_a_wrapping_convert():
     finite = torch.tensor(C.PROBE_FLOOR_SPECIALS[:5])
     assert P.sat_s8(finite).tolist() == [127, -128, 127, -128, 127]
     assert finite[:4].to(torch.int8).tolist() != [127, -128, 127, -128]
+
+
+# ---------------------------------------------------------------------------
+# [text switches] and [tools]: the text tower's switches, 77-token attention,
+# the tools' lines
+# ---------------------------------------------------------------------------
+
+def _tiny_text():
+    from mudpt_torch.models.clip import TINY_TEST, init_clip_params
+
+    return init_clip_params(TINY_TEST, torch.Generator().manual_seed(0))["text"]
+
+
+@pytest.mark.parametrize("fault", [None, "pack", "trunc", "recompute"])
+def test_text_switch_case_catches_an_ignored_switch(monkeypatch, fault):
+    """``[text switches]``' case check passes each switch obeyed, and fails
+    a switch that the text module ignores: the pack switch (the tower takes
+    its rows unpacked), the truncation switch (the class rows stay cut) and
+    the recompute switch (the layers keep the whole saving block)."""
+    from mudpt_torch.models import text
+
+    C = _chip_smoke()
+    names = [f"object number {i}" for i in range(20)]
+    case = {None: (4, "0", "1"), "pack": (4, "auto", "auto"), "trunc": (1, "0", "auto"),
+            "recompute": (1, "auto", "1")}[fault]
+    if fault is not None:
+        monkeypatch.setattr(text, f"set_text_{'truncate' if fault == 'trunc' else fault}",
+                            lambda v: None)
+    run = lambda: C.text_switch_case(F, _tiny_text(), names, case, 1, device="cpu",  # noqa: E731
+                                     hold_launches=False)
+    if fault is None:
+        r = run()
+        assert (r["S"], r["G"], r["route"]) == (77, 4, "half_train_saves_off")
+    else:
+        with pytest.raises(AssertionError, match="the tower took|rows of|blocks"):
+            run()
+
+
+def test_attention_77_check_catches_pad_keys_let_in():
+    """The 77-token attention checks hold the packed (80, 77) rows whole: an
+    attention that reads the pad keys past each block's 77 valid rows fails
+    both ways, while the packed rows' valid outputs pass against the
+    unpacked causal 77-row blocks."""
+    C = _chip_smoke()
+    g = torch.Generator().manual_seed(31)
+    qkv = torch.randn(2, 320, 3 * 128, generator=g).bfloat16()
+    do = (torch.randn(2, 320, 128, generator=g) * 0.1).bfloat16()
+    ref = F.attention_plain(qkv, 2, (80, 77))
+    with pytest.raises(AssertionError, match="share of differing|max abs err|relative norm"):
+        C.check_close("attention_fwd packed (80, 77)", F.attention_plain(qkv, 2, (80, 80)), ref)
+    with pytest.raises(AssertionError, match="share of differing|max abs err|relative norm"):
+        C.check_close("attention_bwd packed (80, 77)", F.attention_bwd_plain(qkv, do, 2, (80, 80)),
+                      F.attention_bwd_plain(qkv, do, 2, (80, 77)))
+    blocks = qkv.view(8, 80, 3 * 128)[:, :77]
+    unpacked = F.attention_plain(blocks, 2, True)
+    C.check_close("attention_fwd packed vs unpacked", ref.view(8, 80, 128)[:, :77], unpacked)
+
+
+def test_tool_line_check_catches_a_missing_key():
+    """``[tools]``' line check passes a line with its tool's keys, and fails
+    one that lacks a key, carries an error, or holds a number that is not
+    finite."""
+    C = _chip_smoke()
+    line = {"metric": "CoCoOp", "value": 120.5, "unit": "ms/step", "img_per_sec": 66.4,
+            "text_trunc": "auto", "encode_chunk": 0, "final_loss": 6.9}
+    assert C.check_tool_line("bench_cocoop", line, ("final_loss",)) is line
+    for bad in ({k: v for k, v in line.items() if k != "img_per_sec"},
+                {k: v for k, v in line.items() if k != "final_loss"},
+                dict(line, error="RuntimeError: out of memory"),
+                dict(line, final_loss=float("nan"))):
+        with pytest.raises(AssertionError, match="lacks|not finite"):
+            C.check_tool_line("bench_cocoop", bad, ("final_loss",))

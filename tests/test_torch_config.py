@@ -67,11 +67,10 @@ def test_bad_opts_raise_alike(opts):
 
 
 def test_perf_knobs_apply_and_the_rest_raise():
-    """A PERF knob the port has reaches its module (BLOCK, LN, SCAN_UNROLL
-    and REMAT too) and the snapshot reports its live value; one it lacks
-    raises, naming its ROADMAP.md item; an unset knob leaves the module
-    alone; the text tower's switches take their defaults (the auto rules)
-    only."""
+    """A PERF knob reaches its module (BLOCK, LN, SCAN_UNROLL, REMAT and the
+    text tower's three switches too) and the snapshot reports its live
+    value; a value the module refuses raises; an unset knob leaves the
+    module alone."""
     from mudpt_torch.ops import fused_block
 
     cfg = T.load_config(opts=["PERF.TEXT_PACK", "0", "PERF.TEXT_TRUNC", "auto",
@@ -101,8 +100,18 @@ def test_perf_knobs_apply_and_the_rest_raise():
             "PERF.REMAT", "none", "PERF.BLOCK", "auto", "PERF.LN", "fp32",
             "PERF.SCAN_UNROLL", "auto"]).PERF)
     assert T.perf_snapshot()["BLOCK"] == "auto" and transformer.remat_mode() == "none"
-    for knob, value, item in (("TEXT_PACK", "1", "the text tower's switches"),
-                              ("TEXT_TRUNC", "0", "the text tower's switches"),
-                              ("TEXT_RECOMPUTE", "1", "the text tower's switches")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md A, '{item}'"):
-            T.apply_perf_config(T.load_config(opts=[f"PERF.{knob}", value]).PERF)
+    from mudpt_torch.models import text
+
+    try:
+        snap = T.apply_perf_config(T.load_config(opts=[
+            "PERF.TEXT_PACK", "1", "PERF.TEXT_TRUNC", "0", "PERF.TEXT_RECOMPUTE", "1"]).PERF)
+        assert (snap["TEXT_PACK"], snap["TEXT_TRUNC"], snap["TEXT_RECOMPUTE"]) == (1, "0", "1")
+        assert (text.text_pack(), text.text_truncate_enabled(), text.text_recompute()) == (
+            1, False, "1")
+        with pytest.raises(ValueError, match="TEXT_RECOMPUTE"):
+            T.apply_perf_config(T.load_config(opts=["PERF.TEXT_RECOMPUTE", "2"]).PERF)
+    finally:
+        T.apply_perf_config(T.load_config(opts=[
+            "PERF.TEXT_PACK", "0", "PERF.TEXT_TRUNC", "auto", "PERF.TEXT_RECOMPUTE",
+            "auto"]).PERF)
+    assert (T.perf_snapshot()["TEXT_PACK"], text.text_truncate()) == (0, "auto")
