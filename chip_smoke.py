@@ -5,7 +5,8 @@ zoo, dataset pipelines, mesh and bench entry point, the int8 tiers at ViT-B/16 a
 ViT-L/14, over the zoo and in CoCoOp, the RN presets, its chunked MLP
 half-block, the kernel chains on fp32 activations (PREC fp32), the int8
 tiers on fp32 activations, its serving artifacts, REMAT, the XLA block
-route, the text tower's switches and the tools.
+route, the text tower's switches, the tools, the feature extractor and
+reference (Dassl) checkpoints.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --times-of ROOT   # only the kernel times of the
@@ -281,9 +282,25 @@ Phases, each printed with the card's name and power limit:
               --mode eval --quant int8, and under TEXT_PACK 1 and
               TEXT_RECOMPUTE 0 and 1 (its peak memory; the rows its tower
               took); sweep_bench 384:none:pallas:save; profile_step at its
-              defaults (device time by kernel); bench_zoo --trainers CoOp
-              CoCoOp --steps 2; run_protocol --synthetic (test-tiny, one
-              dataset, one seed); launches held where the path is known.
+              defaults (device time by kernel; its trace's launches of each
+              kernel equal to the counter's for the traced steps);
+              bench_zoo --trainers CoOp CoCoOp --steps 2; run_protocol
+              --synthetic (test-tiny, one dataset, one seed); launches held
+              where the path is known.
+ 15d. periphery   python -m mudpt_torch.tools.feat_extractor in this process
+              at ViT-B/16 (random weights, seed 0) on a Caltech101-layout
+              JPEG tree of 20 classes x 40 images, splits train and test,
+              --dtype bf16 and fp32: the files' keys and shapes, labels in
+              the split's order, features against encode_image under
+              plain_blocks() on the same images, launches per batch (the
+              fp32 run on the fp32 kernels only), images/s; then a MuDPT
+              ViT-B/16 trainer's seeded prompts saved, exported by
+              tools.export_reference_checkpoint to a Dassl pickle and
+              evaluated through python -m mudpt_torch.train --eval_only
+              --model_dir <the exported dir> (accuracy and logits bit-equal
+              to the native checkpoint's --eval_only, launches those of an
+              evaluate), and imported back by
+              tools.import_reference_checkpoint (the tree bit-equal).
  16. processes   the loaders' worker processes, their forkserver and
               resource tracker stopped and waited for; any other process
               the run started and left running is killed and fails it.
@@ -321,7 +338,9 @@ train step of the engine; "zoo_<trainer>_step" one of each zoo trainer,
 CoCoOp at 1,000 classes, "datasets_<pipeline>_step" a loader-fed step,
 "datasets_int8_ste_static_step" and "datasets_int8_static_evaluate" the
 static tiers through the CLI; "serving_vit_l14_<tier>" and
-"train_step_vit_l14_int8_ste" ViT-L/14's int8 paths; "zoo_<tier>_<trainer>_*"
+"train_step_vit_l14_int8_ste" ViT-L/14's int8 paths; "periphery_feat_bf16"
+and "periphery_feat_fp32" the feature extractor over both splits,
+"periphery_reference_eval" the --eval_only of an exported Dassl checkpoint; "zoo_<tier>_<trainer>_*"
 the zoo under the int8 tiers; "cocoop_scale_<tier>_*" and
 "cocoop_pallas_int8_artifact_request" CoCoOp's int8 paths; "rn_*" the RN
 presets' steps and text encodes; "fp32_*" the fp32 paths (the half-block
@@ -3218,7 +3237,7 @@ DS_BENCH = ("--mode", "train", "--model", "ViT-B/16", "--batch", str(BATCH), "--
 DS_RESULTS = {}
 
 
-def write_jpeg_tree(root: Path) -> int:
+def write_jpeg_tree(root: Path, n_classes: int = DS_CLASSES, per_class: int = DS_PER_CLASS) -> int:
     """The Caltech101 reader's layout under ``root``; returns the JPEG count."""
     from concurrent.futures import ThreadPoolExecutor
 
@@ -3226,8 +3245,8 @@ def write_jpeg_tree(root: Path) -> int:
     from PIL import Image
 
     img_root = root / "caltech101" / "caltech-101" / "101_ObjectCategories"
-    folders = [(f"object_{k:03d}", k, DS_PER_CLASS) for k in range(DS_CLASSES)]
-    folders += [("BACKGROUND_Google", DS_CLASSES, 3), ("Faces_easy", DS_CLASSES + 1, 3)]
+    folders = [(f"object_{k:03d}", k, per_class) for k in range(n_classes)]
+    folders += [("BACKGROUND_Google", n_classes, 3), ("Faces_easy", n_classes + 1, 3)]
     yy, xx = np.mgrid[0:DS_H, 0:DS_W].astype(np.float32)
     ramp = np.stack([yy / DS_H, xx / DS_W, (yy + xx) / (DS_H + DS_W)], -1) * 160
     noise = np.random.RandomState(0).normal(0, 16, (8, DS_H, DS_W, 3)).astype(np.float32)
@@ -6209,6 +6228,57 @@ def cocoop_tool_launches(keys, cfg, n_chunks: int, saves_off: bool, quant: str) 
                   (cfg.transformer_layers, "full_train"), (1, tower_lns(1, 1)))
 
 
+# profile_step's trace against the launch counter: each kernel of
+# utils/profiling.KERNELS (the GEMMs under their name without template
+# arguments) and the counts of the wrappers that launch it once a call
+# (attention's backward launches its query and its key kernel)
+TRACE_COUNTS = {
+    "layernorm_fwd_kernel": ("layernorm_fwd", "layernorm_fwd_f32"),
+    "gemm_bf16_kernel": ("gemm_bf16_epilogue",),
+    "attention_fwd_wgmma_kernel": ("attention_fwd",),
+    "layernorm_bwd_kernel": ("layernorm_bwd",),
+    "attn_bwd_query_kernel": ("attention_bwd",),
+    "attn_bwd_key_kernel": ("attention_bwd",),
+    "layernorm_bwd_f32_kernel": ("layernorm_bwd_f32",),
+    "gemm_f32_kernel": ("gemm_f32_epilogue",),
+    "attn_fwd_tc_kernel": ("attention_fwd_f32",),
+    "attn_bwd_query_tc_kernel": ("attention_bwd_f32",),
+    "attn_bwd_key_tc_kernel": ("attention_bwd_f32",),
+    "gemm_s8_kernel": ("gemm_s8_epilogue", "gemm_s8_epilogue_f32", "gemm_s8_epilogue_floor"),
+    "layernorm_q8_kernel": ("layernorm_q8", "layernorm_q8_f32", "layernorm_q8_recip",
+                            "layernorm_q8_noclip", "layernorm_q8_floor"),
+    "quant_rows_kernel": ("quant_rows", "quant_rows_recip", "quant_rows_noclip",
+                          "quant_rows_floor"),
+    "probe_mma_kernel": ("probe_mma_bf16", "probe_mma_s8"),
+}
+
+
+def check_trace_launches(what: str, traced: dict, launches: dict, steps: int, of: int) -> str:
+    """A trace's launches of each kernel (``utils/profiling.kernel_launches``)
+    against the counter's for the traced steps: ``steps`` of the ``of``
+    steps that ``launches`` counts, each step launching alike.  Every kernel
+    the trace names is held, none may be missing or extra."""
+    got = {}
+    for name, n in traced.items():
+        base = name.split("<")[0]
+        got[base] = got.get(base, 0) + n
+    want = {}
+    for kernel, counts in TRACE_COUNTS.items():
+        total = sum(launches.get(c, 0) for c in counts)
+        if total * steps % of:
+            raise AssertionError(f"{what}: {total} launches of {kernel} do not split evenly "
+                                 f"into {of} steps")
+        if total:
+            want[kernel] = total * steps // of
+    if got != want or not want:
+        diff = {k: (got.get(k, 0), want.get(k, 0)) for k in {*got, *want}
+                if got.get(k, 0) != want.get(k, 0)}
+        raise AssertionError(f"{what}: the trace's launches differ from the counter's for "
+                             f"{steps} steps (traced, counted): {diff}")
+    return f"the trace holds every launch of the {steps} traced steps: " + ", ".join(
+        f"{k} {v}" for k, v in sorted(want.items()))
+
+
 def phase_tools(F, root: Path) -> dict:
     """``mudpt_torch.tools``' bench_cocoop (its defaults, full rows, int8
     serving, and its step under TEXT_PACK 1 and TEXT_RECOMPUTE 0 and 1, its
@@ -6216,12 +6286,14 @@ def phase_tools(F, root: Path) -> dict:
     defaults, bench_zoo for CoOp and CoCoOp and run_protocol's synthetic
     dry run, each through ``main(argv)`` in this process: its line held to
     its keys, its launches to its path where the path is known."""
+    import glob
     import tempfile
 
     import torch
 
     from mudpt_torch.models.clip import VIT_B16
     from mudpt_torch.tools import bench_cocoop, bench_zoo, profile_step, run_protocol, sweep_bench
+    from mudpt_torch.utils.profiling import kernel_launches
 
     phase = "tools"
     paths = {}
@@ -6273,6 +6345,9 @@ def phase_tools(F, root: Path) -> dict:
                        {k: v * (2 + rec["steps"]) for k, v in step_launches(
                            F, VIT_B16, "full_train", "full_train").items()})
         paths["tools_profile_step"] = dict(F.LAUNCHES)
+        (trace,) = glob.glob(f"{tmp}/profile/trace-*.json")
+        say(phase, "profile_step: " + check_trace_launches(
+            "profile_step", kernel_launches(trace), F.LAUNCHES, rec["steps"], 2 + rec["steps"]))
         kernel_ms = {k: v for k, v in (rec["by_kernel_ms"] or {}).items()
                      if k not in ("forward kernels", "backward kernels", "other")}
         if not (rec["self_time"] == "device" and rec["total_ms"] > 0 and kernel_ms):
@@ -6304,6 +6379,226 @@ def phase_tools(F, root: Path) -> dict:
         paths["tools_run_protocol"] = dict(F.LAUNCHES)
         say(phase, f"run_protocol --synthetic: {summary['n_units']} units, no failure; "
                    f"launches {dict((k, v) for k, v in F.LAUNCHES.items() if v)}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return paths
+
+
+# [periphery] (a): python -m mudpt_torch.tools.feat_extractor at ViT-B/16 on
+# a Caltech101-layout JPEG tree of its own, small enough that each split is
+# a few hundred images (the reader's 50 / 20 / 30 split of 40 a class:
+# train 400, test 240); (b) a MuDPT ViT-B/16 trainer on the synthetic
+# dataset (32 classes, its 128 test images in batches of 64), its prompts
+# through a Dassl pickle and back
+PERI_CLASSES, PERI_PER_CLASS, PERI_BATCH = 20, 40, 128
+PERI_SPLITS = ("train", "test")
+PERI_OPTS = ("DATALOADER.TRAIN_X.BATCH_SIZE", str(PERI_BATCH), "DATALOADER.NUM_WORKERS", "8")
+PERI_CLI = ("DATASET.SYNTHETIC_NUM_CLASSES", "32", "DATASET.SYNTHETIC_PER_CLASS", "1",
+            "DATALOADER.TEST.BATCH_SIZE", "64")
+
+
+def plain_features(params: dict, clip_cfg, images, dtype):
+    """``encode_image`` under ``plain_blocks()`` on host ``images`` (N, H, W,
+    3), ``PERI_BATCH`` at a time, as fp32 on the card."""
+    import torch
+
+    from mudpt_torch.models.clip import encode_image
+    from mudpt_torch.models.layers import plain_blocks
+
+    out = []
+    with torch.no_grad(), plain_blocks():
+        for i in range(0, len(images), PERI_BATCH):
+            x = torch.from_numpy(images[i:i + PERI_BATCH]).to(dtype).cuda()
+            out.append(encode_image(params, x, clip_cfg, compute_dtype=dtype).float())
+    return torch.cat(out)
+
+
+def check_features(what: str, path: str, labels: list, ref, embed_dim: int, dtype: str) -> str:
+    """A feat_extractor file: its two keys, (N, embed_dim) fp32 features
+    against ``ref`` (bf16 within [serving]'s feature limits, fp32 within the
+    fp32 chains'), ``label_list`` the split's labels in order."""
+    import numpy as np
+    import torch
+
+    with np.load(path) as f:
+        keys, feats, labs = sorted(f.files), f["feature_list"], f["label_list"]
+    if keys != ["feature_list", "label_list"] or feats.shape != (len(labels), embed_dim) \
+            or feats.dtype != np.float32:
+        raise AssertionError(f"{what}: keys {keys}, features {feats.shape} {feats.dtype}, "
+                             f"expected ({len(labels)}, {embed_dim}) float32")
+    if labs.tolist() != list(labels):
+        raise AssertionError(f"{what}: label_list is not the split's labels in order")
+    limits = (dict(max_limit=TEXT_MAX_ERR, norm_limit=TEXT_NORM_ERR) if dtype == "bf16" else
+              dict(max_limit=F32_CHAIN_MAX_ERR, norm_limit=F32_CHAIN_NORM_ERR))
+    return check_close(what, torch.from_numpy(feats).to(ref.device), ref, share_limit=None,
+                       **limits)
+
+
+def check_same_tree(what: str, want: dict, got: dict) -> str:
+    """Two prompt trees (tensors or arrays) with the same leaves, bit-equal."""
+    import numpy as np
+
+    from mudpt_torch.utils.checkpoint import _flatten
+
+    want, got = _flatten(want), _flatten(got)
+    differ = [k for k in want if k not in got or not np.array_equal(got[k], want[k])]
+    if differ or len(got) != len(want):
+        raise AssertionError(f"{what}: leaves differ or missing: {differ}; extra: "
+                             f"{sorted(set(got) - set(want))}")
+    return f"{len(want)} leaves bit-equal"
+
+
+def periphery_cli(root: Path, out: str, *argv: str):
+    """``python -m mudpt_torch.train`` for MuDPT ViT-B/16 on the synthetic
+    dataset (PERI_CLI), in this process (the CLI's tee of stdout undone)."""
+    from mudpt_torch import train as train_cli
+
+    args = ["--trainer", "MuDPT", "--trainer_config", str(root / ENGINE_FILES[1]),
+            "--dataset_config", str(root / ENGINE_FILES[0]), "--output_dir", out,
+            "--backbone_path", "random", *argv, *PERI_CLI]
+    streams = sys.stdout, sys.stderr
+    try:
+        return train_cli.main(train_cli.parse_args(args))
+    finally:
+        sys.stdout, sys.stderr = streams
+
+
+def eval_record(out: str) -> dict:
+    """The run's last evaluate record, its time stamp left out."""
+    with open(Path(out) / "metrics.jsonl") as f:
+        rec = [r for r in map(json.loads, f) if r["kind"] == "eval"][-1]
+    return {k: v for k, v in rec.items() if k != "time"}
+
+
+def phase_periphery(F, root: Path) -> dict:
+    """(a) feat_extractor through ``main(argv)`` at ViT-B/16, both splits,
+    bf16 and fp32: files, labels, features against the plain path, launches,
+    images/s; (b) a trainer's seeded prompts saved, exported to a Dassl
+    pickle, evaluated through the CLI's --eval_only (bit-equal to the native
+    checkpoint's, launches an evaluate's) and imported back (bit-equal).
+    Returns each path's launches."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from mudpt_torch.models.clip import cast_matmul_weights, leaves
+    from mudpt_torch.models.import_reference import is_torch_checkpoint
+    from mudpt_torch.tools import export_reference_checkpoint, feat_extractor
+    from mudpt_torch.tools import import_reference_checkpoint
+    from mudpt_torch.trainers.base import load_backbone
+    from mudpt_torch.utils.checkpoint import load_checkpoint
+
+    phase, paths = "periphery", {}
+    tmp = tempfile.mkdtemp(prefix="mudpt_periphery_")
+    try:
+        # ---- (a) the feature extractor
+        t0 = time.perf_counter()
+        tree = Path(tmp) / "data"
+        n_jpegs = write_jpeg_tree(tree, PERI_CLASSES, PERI_PER_CLASS)
+        base = ["--root", str(tree), "--output_dir", f"{tmp}/feat", "--dataset_config_file",
+                str(root / DS_DATA), "--backbone_name", "ViT-B/16", "--backbone_path", "random"]
+        cfg = feat_extractor.setup_config(feat_extractor.parse_args(
+            [*base, "--split", "train", *PERI_OPTS]))
+        splits = {}
+        for split in PERI_SPLITS:  # each split decoded once for the plain path
+            items = feat_extractor.split_items(cfg, split)
+            batches = list(feat_extractor.split_loader(cfg, items))
+            splits[split] = ([it.label for it in items], len(batches),
+                             np.concatenate([b["image"][b["valid"]] for b in batches]))
+        say(phase, f"{n_jpegs} JPEGs written and the splits ("
+                   + ", ".join(f"{s} {len(v[0])}" for s, v in splits.items())
+                   + f") decoded once in {time.perf_counter() - t0:.2f} s")
+        for dtype in ("bf16", "fp32"):
+            compute = torch.bfloat16 if dtype == "bf16" else torch.float32
+            clip_cfg, params = load_backbone(cfg, "cuda")  # the tool's weights (seed 0)
+            if dtype == "bf16":
+                params = cast_matmul_weights(params, torch.bfloat16)
+            launches = dict.fromkeys(F.LAUNCHES, 0)
+            timed = seconds = 0.0
+            readings = []
+            for split in PERI_SPLITS:
+                labels, n_batches, images = splits[split]
+                F.reset_launches()
+                rec = feat_extractor.main([*base, "--split", split, "--dtype", dtype,
+                                           *PERI_OPTS])
+                got = dict(F.LAUNCHES)
+                want = expect(F.LAUNCHES, (n_batches * clip_cfg.vision_layers, "full"),
+                              (n_batches, tower_lns(2)))
+                if dtype == "fp32":
+                    want = in_fp32(F, want)
+                    check_fp32_launches(F, f"feat_extractor {split} fp32", got, backward=False)
+                check_launches(f"feat_extractor {split} {dtype}", got, want)
+                for k, v in got.items():
+                    launches[k] += v
+                ref = plain_features(params, clip_cfg, images, compute)
+                readings.append(f"{split} ({rec['n_images']} images, {n_batches} batches): "
+                                + check_features(f"feat_extractor {split} {dtype}", rec["path"],
+                                                 labels, ref, clip_cfg.embed_dim, dtype))
+                timed += rec["timed_images"]
+                seconds += rec["seconds"]
+            paths[f"periphery_feat_{dtype}"] = launches
+            per_batch = expect(F.LAUNCHES, (clip_cfg.vision_layers, "full"), (1, tower_lns(2)))
+            per_batch = per_batch if dtype == "bf16" else in_fp32(F, per_batch)
+            if not timed > 0:
+                raise AssertionError(f"feat_extractor {dtype}: no image timed")
+            say(phase, f"feat_extractor --dtype {dtype}: {timed / seconds:.1f} images/s "
+                       f"({int(timed)} images counted as collected, {seconds:.2f} s); launches a "
+                       f"batch { {k: v for k, v in per_batch.items() if v} }, held; "
+                       "vs plain_blocks(): " + "; ".join(readings))
+            del params
+            torch.cuda.empty_cache()
+
+        # ---- (b) a Dassl pickle of the trainer's prompts, out and back in
+        t0 = time.perf_counter()
+        tr = periphery_cli(root, f"{tmp}/native", "--no_train")
+        g = torch.Generator(device=tr.device).manual_seed(21)
+        with torch.no_grad():
+            for leaf in leaves(tr.trainable):
+                leaf.add_(0.02 * torch.randn(leaf.shape, device=leaf.device, generator=g))
+        tr.save_model()
+        if export_reference_checkpoint.main(["--src", f"{tmp}/native", "--dst",
+                                             f"{tmp}/exported"]) != 0:
+            raise AssertionError("export_reference_checkpoint failed")
+        exported = Path(tmp) / "exported" / tr.model_name / "model.pth.tar-1"
+        if not is_torch_checkpoint(str(exported)):
+            raise AssertionError(f"{exported} is not a torch pickle")
+        evals = ("--eval_only", "--load_epoch", "1", "--model_dir")
+        native = periphery_cli(root, f"{tmp}/eval_native", *evals, f"{tmp}/native")
+        F.reset_launches()
+        ref_tr = periphery_cli(root, f"{tmp}/eval_reference", *evals, f"{tmp}/exported")
+        launches = dict(F.LAUNCHES)
+        n_batches = len(ref_tr.dm.test_loader)
+        check_launches("--eval_only of the Dassl checkpoint", launches,
+                       zoo_eval_launches(F.LAUNCHES, ref_tr.clip_cfg, n_batches, 1, False))
+        paths["periphery_reference_eval"] = launches
+        check_same_tree("the prompts --eval_only loaded from the Dassl checkpoint",
+                        tr.trainable, ref_tr.trainable)
+        rec_n, rec_r = eval_record(f"{tmp}/eval_native"), eval_record(f"{tmp}/eval_reference")
+        if rec_n != rec_r:
+            raise AssertionError(f"--eval_only: Dassl {rec_r} != native {rec_n}")
+        n_logits = 0
+        with torch.no_grad():
+            txt_n = native._text_features(native.trainable, native.frozen, native.aux)
+            txt_r = ref_tr._text_features(ref_tr.trainable, ref_tr.frozen, ref_tr.aux)
+            for batch in ref_tr.dm.test_loader:
+                images = ref_tr._device_batch(batch)["image"]
+                a = native.forward_image(native.trainable, native.frozen, native.aux, images, txt_n)
+                b = ref_tr.forward_image(ref_tr.trainable, ref_tr.frozen, ref_tr.aux, images, txt_r)
+                check_equal("eval logits, Dassl vs native checkpoint", b, a)
+                n_logits += a.numel()
+        if import_reference_checkpoint.main(["--src", f"{tmp}/exported", "--dst",
+                                             f"{tmp}/converted"]) != 0:
+            raise AssertionError("import_reference_checkpoint failed")
+        back, _, meta = load_checkpoint(f"{tmp}/converted", tr.model_name, 1)
+        back_read = check_same_tree("import_reference_checkpoint's tree", tr.trainable, back)
+        say(phase, f"MuDPT ViT-B/16 prompts -> native checkpoint -> Dassl pickle "
+                   f"({exported.stat().st_size} bytes) -> --eval_only: accuracy "
+                   f"{rec_r['accuracy']:.2f} and {n_logits} logits bit-equal to the native "
+                   f"checkpoint's; launches {n_batches} batches + 1 text encode, held "
+                   f"{ {k: v for k, v in launches.items() if v} }; imported back "
+                   f"({meta['trainer']}): {back_read}; "
+                   f"{time.perf_counter() - t0:.2f} s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return paths
@@ -6709,6 +7004,7 @@ def main() -> int:
     paths.update(run("probes", phase_probes, F, Q, kernels_p))
     paths.update(run("text switches", phase_text_switches, F, root, kernels_t77))
     paths.update(run("tools", phase_tools, F, root))
+    paths.update(run("periphery", phase_periphery, F, root))
     say("processes", check_no_process_left())
 
     def by_path(name: str) -> dict:

@@ -4,7 +4,9 @@
 Runs the step ``python -m mudpt_torch.bench`` times
 (``utils/synth_step.build_synth_mudpt_step``: seeded random weights, bf16
 backbone) under ``torch.profiler`` (``utils/profiling.profile_trace``,
-which also writes the Chrome trace into ``--outdir``), then prints the
+which also writes the Chrome trace into ``--outdir``): one step to warm
+up, one inside the profiler whose events are dropped, then ``--steps``
+traced steps, whose every launch the trace holds.  Then it prints the
 top ops by self device time, as the JAX tool prints xprof's
 ``framework_op_stats``, and the device time by kernel of
 ``mudpt_torch/csrc`` (``utils/profiling.device_time_by_kernel``).  The last
@@ -51,11 +53,14 @@ def main(argv=None) -> dict:
     st = build_synth_mudpt_step(args.model, args.batch, args.n_cls, args.n_ctx, args.depth,
                                 device=dev)
     print("warmup...", flush=True)
-    for _ in range(2):  # the kernels' first launches and the allocator's growth
-        loss = st.train_step(st.images, st.labels)
-    float(loss)
+    # the kernels' first launches and the allocator's growth
+    float(st.train_step(st.images, st.labels))
     print("tracing...", flush=True)
-    with profile_trace(args.outdir) as prof:
+    # a second warmup step inside the profiler, its events dropped: the CUDA
+    # activity collection is on before the traced steps' first launch
+    with profile_trace(args.outdir, warmup=1) as prof:
+        float(st.train_step(st.images, st.labels))
+        prof.step()
         for _ in range(args.steps):
             loss = st.train_step(st.images, st.labels)
         float(loss)

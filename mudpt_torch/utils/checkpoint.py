@@ -19,8 +19,10 @@ tree written by either package loads in the other.  The optimizer state is
 a list of arrays (``opt/<i>``) in each package's own leaf order, so it
 resumes only the package that wrote it.  Leaves may be numpy arrays or
 tensors; loaded leaves are numpy arrays, grafted onto a tensor template by
-:func:`restore_into`.  Reference-trained (Dassl ``torch.save``)
-checkpoints are not read here: their import waits (ROADMAP.md A, 'periphery').
+:func:`restore_into`.  A reference-trained (Dassl ``torch.save``)
+checkpoint under the same names loads too: :func:`load_checkpoint` detects
+the torch pickle and imports its prompt weights through
+``models/import_reference.py`` (``mudpt_tpu/utils/checkpoint.py:120-130``).
 """
 
 from __future__ import annotations
@@ -132,6 +134,14 @@ def load_checkpoint(
     path = os.path.join(directory, name, fname)
     if not os.path.exists(path):
         raise FileNotFoundError(f'Model not found at "{path}"')
+    # a reference-trained (PyTorch/Dassl) checkpoint keeps the same directory
+    # and filename contract: import it, so `--eval_only --model_dir <reference
+    # output dir>` loads its prompts (no optimizer state)
+    from mudpt_torch.models.import_reference import is_torch_checkpoint, load_reference_checkpoint
+
+    if is_torch_checkpoint(path):
+        tree, meta = load_reference_checkpoint(path)
+        return tree, None, meta
     data = dict(np.load(path, allow_pickle=False))
     trainable = _unflatten(
         {k[len("trainable/"):]: v for k, v in data.items() if k.startswith("trainable/")}

@@ -5,9 +5,11 @@
 synchronizes the device before each reading: a CUDA call returns before the
 card has finished, so a host clock without it times the enqueue.
 :func:`profile_trace` records a ``torch.profiler`` trace (host and CUDA
-activity) into ``TRAIN.PROFILE_DIR`` as a Chrome trace file.
+activity) into ``TRAIN.PROFILE_DIR`` as a Chrome trace file, after warmup
+steps of its own where the caller steps it.
 :func:`device_time_by_kernel` turns a trace into device time by kernel of
-``mudpt_torch/csrc`` and :func:`top_ops` into its ops by self time.
+``mudpt_torch/csrc``, :func:`kernel_launches` a written trace into the
+launches of each, and :func:`top_ops` into its ops by self time.
 """
 
 from __future__ import annotations
@@ -68,19 +70,28 @@ class StepTimer:
 
 
 @contextlib.contextmanager
-def profile_trace(logdir: Optional[str]):
+def profile_trace(logdir: Optional[str], warmup: int = 0):
     """Trace host and CUDA activity into ``<logdir>/trace-<time>.json``
-    when ``logdir`` is set, and yield the profiler; else no-op (None)."""
+    when ``logdir`` is set, and yield the profiler; else no-op (None).
+
+    With ``warmup`` the caller runs that many steps first, each ended by
+    ``prof.step()`` after a synchronize: the CUDA activity collection is
+    enabled during them and their events are dropped, so it is on before
+    the recorded window (every step after) begins.  A window opened bare
+    starts the collection with its first launch, and inside
+    ``chip_smoke.py``'s long process on an H100 such a window lost 6-7 of
+    a step's first 72 forward launches."""
     if not logdir:
         yield None
         return
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(logdir, exist_ok=True)
-    with profile(activities=activities) as prof:
+    steps = schedule(wait=0, warmup=warmup, active=1 << 30) if warmup else None
+    with profile(activities=activities, schedule=steps) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(logdir, f"trace-{time.time_ns()}.json"))
 
@@ -93,8 +104,46 @@ KERNELS = ("layernorm_fwd_kernel", "attention_fwd_wgmma_kernel", "layernorm_bwd_
            "probe_mma_kernel", "attn_bwd_query_tc_kernel", "attn_bwd_key_tc_kernel")
 
 
+def _step_mark(e) -> bool:
+    """The profiler's own step annotation (``ProfilerStep#N`` under a
+    schedule), which also spans the device's kernels: not an op."""
+    return e.key.startswith("ProfilerStep")
+
+
 def _self_device_us(e) -> float:
     return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+
+
+def kernel_name(key: str) -> tuple:
+    """(the name :func:`device_time_by_kernel` gives a kernel of
+    ``mudpt_torch/csrc``, None for any other kernel; whether it runs in the
+    backward) of a profiler kernel name."""
+    gemm = re.search(r"gemm_bf16_kernel<(\d+), (\d+)>", key)
+    gemm32 = re.search(r"gemm_f32_kernel<(true|false)>", key)
+    if gemm:  # <epilogue, schedule>; epilogues 0-3 and 9 are the forward ones
+        mode = int(gemm.group(1))
+        return f"gemm_bf16_kernel<{mode}, {gemm.group(2)}>", mode >= 4 and mode != 9
+    if gemm32:  # <W_NK>: W read transposed in the backward epilogues
+        return f"gemm_f32_kernel<{gemm32.group(1)}>", gemm32.group(1) == "true"
+    name = next((k for k in KERNELS if k in key), None)
+    return name, name is not None and "bwd" in name
+
+
+def kernel_launches(trace_path: str) -> dict:
+    """{kernel of ``mudpt_torch/csrc``, named as :func:`kernel_name` names
+    it: launches} in a Chrome trace that :func:`profile_trace` wrote (its
+    events of category ``kernel``)."""
+    import json
+
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    out = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            name = kernel_name(e.get("name", ""))[0]
+            if name is not None:
+                out[name] = out.get(name, 0) + 1
+    return out
 
 
 def device_time_by_kernel(prof) -> tuple:
@@ -106,19 +155,10 @@ def device_time_by_kernel(prof) -> tuple:
     cats = {"forward kernels": 0.0, "backward kernels": 0.0, "other": 0.0}
     by_kernel, others = {}, {}
     for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+        if e.device_type != torch.autograd.DeviceType.CUDA or _step_mark(e):
             continue  # host-side ops also report their kernels' time
         us = _self_device_us(e)
-        gemm = re.search(r"gemm_bf16_kernel<(\d+), (\d+)>", e.key)
-        gemm32 = re.search(r"gemm_f32_kernel<(true|false)>", e.key)
-        if gemm:  # <epilogue, schedule>; epilogues 0-3 and 9 are the forward ones
-            mode = int(gemm.group(1))
-            name, bwd = f"gemm_bf16_kernel<{mode}, {gemm.group(2)}>", mode >= 4 and mode != 9
-        elif gemm32:  # <W_NK>: W read transposed in the backward epilogues
-            name, bwd = f"gemm_f32_kernel<{gemm32.group(1)}>", gemm32.group(1) == "true"
-        else:
-            name = next((k for k in KERNELS if k in e.key), None)
-            bwd = name is not None and "bwd" in name
+        name, bwd = kernel_name(e.key)
         if name is None:
             cats["other"] += us
             if us > 0:
@@ -137,7 +177,7 @@ def top_ops(prof, device: bool) -> list:
     rows = []
     for e in prof.key_averages():
         if device:
-            if e.device_type != torch.autograd.DeviceType.CUDA:
+            if e.device_type != torch.autograd.DeviceType.CUDA or _step_mark(e):
                 continue
             us = _self_device_us(e)
         else:

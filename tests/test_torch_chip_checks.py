@@ -62,7 +62,13 @@ wraps as torch's does.  The end-of-run process check rejects a child process
 left running.  ``[text switches]``' case check rejects a pack, truncation or
 recompute switch that the text module ignores, and its 77-token attention
 check an attention that lets in the pad keys of packed (80, 77) rows;
-``[tools]``' line check rejects a tool line that lacks a key."""
+``[tools]``' line check rejects a tool line that lacks a key, and its trace
+check a profiler trace that holds fewer launches of a kernel than the
+counter (or launches of a kernel the counter did not count).
+``[periphery]``'s checks reject a Dassl export with two leaves' keys
+swapped (the eval's prompts and the imported tree differ from the
+trainer's), fp32 features off by one bf16 rounding, and a feature file
+whose labels are out of the split's order."""
 
 import importlib.util
 import os
@@ -1895,3 +1901,132 @@ def test_tool_line_check_catches_a_missing_key():
                 dict(line, final_loss=float("nan"))):
         with pytest.raises(AssertionError, match="lacks|not finite"):
             C.check_tool_line("bench_cocoop", bad, ("final_loss",))
+
+
+def _profile_step_launches(F, steps: int) -> dict:
+    """The launch counter after ``steps`` bf16 MuDPT train steps, each the
+    route's 24 whole layers with the towers' LayerNorms."""
+    C = _chip_smoke()
+    per = C.expect(F.LAUNCHES, (24, "full_train"), (1, C.tower_lns(3, 3)))
+    return {k: v * steps for k, v in per.items()}
+
+
+def _traced(F, launches: dict, steps: int, of: int) -> dict:
+    """A trace of ``steps`` of the ``of`` steps, every launch in it, the
+    GEMMs spread over their template arguments."""
+    C = _chip_smoke()
+    out = {}
+    for kernel, counts in C.TRACE_COUNTS.items():
+        n = sum(launches.get(c, 0) for c in counts) * steps // of
+        if n and kernel.startswith("gemm"):
+            out[f"{kernel}<0, 1>"], out[f"{kernel}<6, 2>"] = n - n // 3, n // 3
+        elif n:
+            out[kernel] = n
+    return out
+
+
+def test_trace_check_catches_missing_launches():
+    """``[tools]`` holds profile_step's trace to the counter: a trace with
+    every launch of the 3 traced steps (of 5 counted) passes; one that lost
+    the window's first launches of a kernel, or that names a kernel the
+    counter did not count, fails.  ``TRACE_COUNTS`` names every kernel of
+    ``utils/profiling.KERNELS`` and maps every count of ``F.KERNELS``."""
+    from mudpt_torch.utils.profiling import KERNELS
+
+    C = _chip_smoke()
+    assert set(C.TRACE_COUNTS) == {*KERNELS, "gemm_bf16_kernel", "gemm_f32_kernel"}
+    mapped = [c for counts in C.TRACE_COUNTS.values() for c in counts]
+    assert sorted(set(mapped)) == sorted(F.KERNELS)
+    launches = _profile_step_launches(F, 5)
+    traced = _traced(F, launches, 3, 5)
+    assert traced["layernorm_fwd_kernel"] == 3 * (24 * 2 + 3)
+    assert "every launch" in C.check_trace_launches("profile_step", traced, launches, 3, 5)
+    for bad in (dict(traced, attention_fwd_wgmma_kernel=traced["attention_fwd_wgmma_kernel"] - 6),
+                dict(traced, attn_bwd_key_kernel=traced["attn_bwd_key_kernel"] - 1),
+                {**traced, "gemm_bf16_kernel<0, 1>": traced["gemm_bf16_kernel<0, 1>"] - 7},
+                dict(traced, quant_rows_kernel=12)):
+        with pytest.raises(AssertionError, match="differ from the counter"):
+            C.check_trace_launches("profile_step", bad, launches, 3, 5)
+    with pytest.raises(AssertionError, match="split evenly"):
+        C.check_trace_launches("profile_step", traced, launches, 3, 4)
+
+
+def test_trace_launches_read_from_a_chrome_trace(tmp_path):
+    """``utils/profiling.kernel_launches`` counts a Chrome trace's kernel
+    events of the port's kernels by name, nothing else."""
+    import json
+
+    from mudpt_torch.utils.profiling import kernel_launches
+
+    events = [{"ph": "X", "cat": "kernel", "name": "void gemm_bf16_kernel<3, 1>(CUtensorMap)"},
+              {"ph": "X", "cat": "kernel", "name": "void gemm_bf16_kernel<3, 1>(CUtensorMap)"},
+              {"ph": "X", "cat": "kernel", "name": "void attn_bwd_key_kernel<2>(CUtensorMap)"},
+              {"ph": "X", "cat": "kernel", "name": "ampere_sgemm_128x64_nn"},
+              {"ph": "X", "cat": "cpu_op", "name": "layernorm_fwd_kernel"}]
+    (tmp_path / "t.json").write_text(json.dumps({"traceEvents": events}))
+    assert kernel_launches(str(tmp_path / "t.json")) == {"gemm_bf16_kernel<3, 1>": 2,
+                                                         "attn_bwd_key_kernel": 1}
+
+
+def test_periphery_checks_catch_a_miskeyed_export(tmp_path):
+    """``[periphery]`` holds the prompts an --eval_only loaded from the
+    exported Dassl checkpoint to the trainer's: an export that swaps two
+    same-shape leaves' keys loads without an error into a trainer's tree
+    (``restore_into``), and the check rejects it; the right export passes."""
+    from mudpt_torch.models import export_reference as TE
+    from mudpt_torch.utils.checkpoint import load_checkpoint, restore_into
+
+    C = _chip_smoke()
+    g = torch.Generator().manual_seed(4)
+
+    def lin(i, o):
+        return {"w": torch.randn(i, o, generator=g), "b": torch.randn(o, generator=g)}
+
+    tree = {"ctx": torch.randn(2, 16, generator=g), "deep_prompts": torch.randn(8, 2, 16, generator=g),
+            "embed_projection": lin(16, 24), "deep_projections": lin(16, 24),
+            "visual_ctx": torch.randn(2, 24, generator=g),
+            "visual_ctx_deep_prompts": torch.randn(8, 2, 24, generator=g),
+            "visual_ctx_deep_projections": lin(24, 16)}
+    fresh = {k: ({kk: torch.zeros_like(vv) for kk, vv in v.items()} if isinstance(v, dict)
+                 else torch.zeros_like(v)) for k, v in tree.items()}
+    for swap in (False, True):
+        sd, _ = TE.trainable_to_reference_state_dict(tree, "MuDPT")
+        if swap:
+            a, b = "mudpt_prompt_learner.embed_projection", "mudpt_prompt_learner.deep_projections"
+            sd[f"{a}.weight"], sd[f"{b}.weight"] = sd[f"{b}.weight"], sd[f"{a}.weight"]
+        d = tmp_path / str(swap) / "MultimodalDeepPromptTuning"
+        d.mkdir(parents=True)
+        torch.save({"state_dict": {k: torch.from_numpy(v) for k, v in sd.items()}, "epoch": 1},
+                   d / "model.pth.tar-1")
+        loaded = restore_into(fresh, load_checkpoint(str(d.parent), d.name, 1)[0])
+        if swap:
+            with pytest.raises(AssertionError, match="leaves differ"):
+                C.check_same_tree("eval prompts", tree, loaded)
+        else:
+            assert C.check_same_tree("eval prompts", tree, loaded) == "10 leaves bit-equal"
+
+
+def test_periphery_feature_check_catches_a_bf16_rounding(tmp_path):
+    """``[periphery]`` holds the fp32 extractor's features within the fp32
+    chains' limits (2^-12) of the plain path: features rounded once to bf16
+    fail, a change of fp32 sum order passes; the bf16 run's wider limits
+    take that rounding; labels out of the split's order fail."""
+    C = _chip_smoke()
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(64, 768, generator=g)
+    w = torch.randn(768, 512, generator=g) * 768 ** -0.5
+    ref = x @ w
+    reordered = (x[:, :384] @ w[:384] + x[:, 384:] @ w[384:])
+    labels = list(range(64))
+    for feats, dtype, ok in ((reordered, "fp32", True), (ref.bfloat16().float(), "fp32", False),
+                             (ref.bfloat16().float(), "bf16", True)):
+        path = tmp_path / f"{dtype}_{ok}.npz"
+        np.savez(path, feature_list=feats.numpy(), label_list=np.asarray(labels, np.int32))
+        if ok:
+            C.check_features("features", str(path), labels, ref, 512, dtype)
+        else:
+            with pytest.raises(AssertionError, match="relative norm error|max abs err"):
+                C.check_features("features", str(path), labels, ref, 512, dtype)
+    with pytest.raises(AssertionError, match="labels in order"):
+        C.check_features("features", str(tmp_path / "fp32_True.npz"), labels[::-1], ref, 512,
+                         "fp32")
