@@ -6,7 +6,8 @@ ViT-L/14, over the zoo and in CoCoOp, the RN presets, its chunked MLP
 half-block, the kernel chains on fp32 activations (PREC fp32), the int8
 tiers on fp32 activations, its serving artifacts, REMAT, the XLA block
 route, the text tower's switches, the tools, the feature extractor and
-reference (Dassl) checkpoints.
+reference (Dassl) checkpoints, and the user-facing layer (clip_forward,
+validate_zeroshot, the bench's --remat, the trainer's trace).
 
     python3 chip_smoke.py
     python3 chip_smoke.py --times-of ROOT   # only the kernel times of the
@@ -229,12 +230,16 @@ Phases, each printed with the card's name and power limit:
               the kernel chains as custom ops, batch 384, the static tier
               calibrated on 64 training images); each artifact loaded and
               served on 384 test images in a fresh process (python3
-              chip_smoke.py --serve-artifact ART IMAGES OUT), its logits held
-              to the tier in this process (bit-equality printed) and the xla
-              tier's to the kernel route, its launches held, no model module
-              imported by the loader; each timed by python -m
-              mudpt_torch.tools.bench_artifact at 384, the pallas tier within
-              10% of [serving]'s images/s; then a zero-shot classifier in fp32
+              chip_smoke.py --serve-artifact ART IMAGES OUT GO), started as
+              soon as its artifact is written so that its import and load
+              overlap the next exports here, and serving only after every
+              child has loaded and this process gives its word (no two timed
+              windows on the card at once); its logits held to the tier in
+              this process (bit-equality printed) and the xla tier's to the
+              kernel route, its launches held, no model module imported by
+              the loader; each timed by mudpt_torch.tools.bench_artifact's
+              main at 384, in turn, the pallas tier within 10% of
+              [serving]'s images/s; then a zero-shot classifier in fp32
               exported on the CPU under xla and served on the card against
               api.zero_shot_classifier.
  14. remat, remat ViT-L/14@336px   the train step at batch 384 under REMAT
@@ -301,6 +306,23 @@ Phases, each printed with the card's name and power limit:
               to the native checkpoint's --eval_only, launches those of an
               evaluate), and imported back by
               tools.import_reference_checkpoint (the tree bit-equal).
+ 15e. api       the user-facing layer at ViT-B/16: api.clip_forward (random
+              weights, 64 images x 100 prompts, bf16 and fp32): 12 + 12
+              layers' launches on the dtype's kernels, logits_per_text the
+              transpose, logits against the same call on the CPU's plain
+              versions on 8 x 16, and the towers' features (encode_image,
+              encode_text) against the CPU's on the same rows;
+              validate_zeroshot.main in this process on
+              a Caltech101 tree of 20 classes x 40 images with
+              --backbone_path random: exit 1, its FAIL line's accuracy that
+              of build_trainer(cfg).test() on the same config, launches a
+              test batch and one text encode; mudpt_torch.bench at batch 384
+              under --remat none and full: the final loss bit-equal, 24
+              against 48 saving forwards a step, vs_baseline, each value within
+              10% of [train]'s and [remat]'s; one epoch of [engine]'s
+              trainer with TRAIN.PROFILE_DIR: the trace records one step
+              (after its warmup step) and holds every launch the counter
+              counted for it.
  16. processes   the loaders' worker processes, their forkserver and
               resource tracker stopped and waited for; any other process
               the run started and left running is killed and fails it.
@@ -340,7 +362,10 @@ CoCoOp at 1,000 classes, "datasets_<pipeline>_step" a loader-fed step,
 static tiers through the CLI; "serving_vit_l14_<tier>" and
 "train_step_vit_l14_int8_ste" ViT-L/14's int8 paths; "periphery_feat_bf16"
 and "periphery_feat_fp32" the feature extractor over both splits,
-"periphery_reference_eval" the --eval_only of an exported Dassl checkpoint; "zoo_<tier>_<trainer>_*"
+"periphery_reference_eval" the --eval_only of an exported Dassl checkpoint;
+"api_clip_forward_<dtype>" one api.clip_forward call, "api_validate_zeroshot"
+the tool's run, "api_bench_remat_full" the bench under --remat full,
+"api_trainer_trace_epoch" the traced epoch; "zoo_<tier>_<trainer>_*"
 the zoo under the int8 tiers; "cocoop_scale_<tier>_*" and
 "cocoop_pallas_int8_artifact_request" CoCoOp's int8 paths; "rn_*" the RN
 presets' steps and text encodes; "fp32_*" the fp32 paths (the half-block
@@ -3972,12 +3997,14 @@ def check_artifact_rate(value: float, reference: float) -> str:
     return f"{value:.1f} images/s, {rel:+.2%} from [serving]'s {reference:.1f}"
 
 
-def serve_artifact(root: Path, art: str, images_npy: str, out_npy: str) -> int:
-    """``python3 chip_smoke.py --serve-artifact ART IMAGES OUT``: load the
-    artifact in this fresh process, serve the batch once with the launches
-    counted, write the logits to OUT, time the request, and print one JSON
-    line (launches, load seconds, the model modules this process imported,
-    request ms and images/s)."""
+def serve_artifact(root: Path, art: str, images_npy: str, out_npy: str, go: str) -> int:
+    """``python3 chip_smoke.py --serve-artifact ART IMAGES OUT GO``: load
+    the artifact in this fresh process, write GO.ready and wait for the file
+    GO (the parent's word that no timed window of its own is on the card);
+    serve the batch once with the launches counted, write the logits
+    to OUT, time the request, and print one JSON line (launches, load
+    seconds, the model modules this process imported, request ms and
+    images/s)."""
     import numpy as np
     import torch
 
@@ -3990,6 +4017,9 @@ def serve_artifact(root: Path, art: str, images_npy: str, out_npy: str) -> int:
     images = torch.from_numpy(np.load(images_npy)).cuda()
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
+    Path(go + ".ready").touch()
+    while not os.path.exists(go):
+        time.sleep(0.02)
     F.reset_launches()
     logits = clf.forward(images)
     torch.cuda.synchronize()
@@ -4011,47 +4041,101 @@ def _json_line(out: str) -> dict:
     return json.loads([ln for ln in out.splitlines() if ln.strip()][-1])
 
 
+class FreshServer:
+    """``--serve-artifact`` in a fresh process, started at once: the child
+    imports the package and loads the artifact while this process goes on,
+    then waits for :meth:`finish`'s word before its counted and timed
+    request, so no two timed windows share the card."""
+
+    def __init__(self, root: Path, art: str, images_npy: str, what: str):
+        self.what, self.out_npy, self.go = what, f"{art}.logits.npy", f"{art}.go"
+        self.t0 = time.perf_counter()
+        # the child's streams into files: a pipe nobody reads while it waits
+        # could fill and stop it
+        self.streams = open(f"{art}.stdout", "w+"), open(f"{art}.stderr", "w+")
+        self.proc = subprocess.Popen(
+            [sys.executable, str(root / "chip_smoke.py"), "--serve-artifact", art, images_npy,
+             self.out_npy, self.go],
+            cwd=root, stdout=self.streams[0], stderr=self.streams[1], text=True)
+
+    def wait_loaded(self, timeout: float = 600) -> float:
+        """Seconds from the start until the child had loaded its artifact."""
+        while not os.path.exists(self.go + ".ready"):
+            if self.proc.poll() is not None or time.perf_counter() - self.t0 > timeout:
+                err = self.close()[1]
+                raise AssertionError(f"serving the {self.what} artifact failed before its "
+                                     f"request:\n{err[-4000:]}")
+            time.sleep(0.02)
+        return time.perf_counter() - self.t0
+
+    def finish(self) -> tuple:
+        """(logits on the card, the child's JSON line, seconds from the word
+        to its exit): the child's request, after it has loaded; the child
+        must import no model module."""
+        import numpy as np
+        import torch
+
+        self.wait_loaded()
+        t0 = time.perf_counter()
+        Path(self.go).touch()
+        try:
+            self.proc.wait(timeout=600)
+        finally:
+            out, err = self.close()
+        if self.proc.returncode != 0:
+            raise AssertionError(f"serving the {self.what} artifact failed:\n{err[-4000:]}")
+        child = _json_line(out)
+        if child["model_modules"]:
+            raise AssertionError(f"the loader imported model code: {child['model_modules']}")
+        return torch.from_numpy(np.load(self.out_npy)).cuda(), child, time.perf_counter() - t0
+
+    def close(self) -> tuple:
+        """Stop the child if it still runs; its (stdout, stderr)."""
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        out = []
+        for f in self.streams:
+            if not f.closed:
+                f.seek(0)
+                out.append(f.read())
+                f.close()
+        return tuple(out) if out else ("", "")
+
+
 def served_fresh(root: Path, art: str, images_npy: str, what: str) -> tuple:
     """(logits on the card, the child's JSON line, seconds): the artifact
     served by ``--serve-artifact`` in a fresh process, which must import no
     model module."""
-    import numpy as np
-    import torch
-
-    out_npy = images_npy[:-len(".npy")] + ".logits.npy"
     t0 = time.perf_counter()
-    r = subprocess.run([sys.executable, str(root / "chip_smoke.py"), "--serve-artifact",
-                        art, images_npy, out_npy],
-                       cwd=root, capture_output=True, text=True, timeout=600)
-    if r.returncode != 0:
-        raise AssertionError(f"serving the {what} artifact failed:\n{r.stderr[-4000:]}")
-    child = _json_line(r.stdout)
-    process_s = time.perf_counter() - t0
-    if child["model_modules"]:
-        raise AssertionError(f"the loader imported model code: {child['model_modules']}")
-    return torch.from_numpy(np.load(out_npy)).cuda(), child, process_s
+    logits, child, _ = FreshServer(root, art, images_npy, what).finish()
+    return logits, child, time.perf_counter() - t0
 
 
-def bench_artifact(root: Path, art: str, batch: int, what: str) -> dict:
-    """``python -m mudpt_torch.tools.bench_artifact``'s JSON line at ``batch``,
-    its values finite and the card named."""
-    r = subprocess.run([sys.executable, "-m", "mudpt_torch.tools.bench_artifact",
-                        "--artifact", art, "--batch", str(batch),
-                        "--steps", str(REQUESTS), "--warmup", str(WARMUP_STEPS)],
-                       cwd=root, capture_output=True, text=True, timeout=600)
-    if r.returncode != 0:
-        raise AssertionError(f"bench_artifact {what} failed:\n{r.stderr[-4000:]}")
-    rec = _json_line(r.stdout)
-    if not rec["finite"] or rec["card"] is None:
+def bench_artifact(art: str, batch: int, what: str) -> dict:
+    """``python -m mudpt_torch.tools.bench_artifact``'s JSON line at
+    ``batch``, through its ``main(argv)`` in this process: its values finite
+    and the card named."""
+    import contextlib
+    import io
+
+    from mudpt_torch.tools import bench_artifact as tool
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rec = tool.main(["--artifact", art, "--batch", str(batch), "--steps", str(REQUESTS),
+                         "--warmup", str(WARMUP_STEPS)])
+    if _json_line(out.getvalue()) != rec or not rec["finite"] or rec["card"] is None:
         raise AssertionError(f"bench_artifact {what}: {rec}")
     return rec
 
 
 def phase_export(F, root: Path) -> dict:
     """MuDPT ViT-B/16 trained one step, exported under the four tiers; each
-    artifact served in a fresh process, its logits held to the tier in this
+    artifact served in a fresh process (started as soon as it is written,
+    serving on this process's word), its logits held to the tier in this
     process (and the xla tier to the kernel route), its launches counted and
-    its images/s read by ``python -m mudpt_torch.tools.bench_artifact``;
+    its images/s read by ``mudpt_torch.tools.bench_artifact``'s ``main``;
     then a zero-shot classifier exported on the CPU in fp32 and served on
     the card (the program moved there) against ``api.zero_shot_classifier``."""
     import gc
@@ -4069,7 +4153,7 @@ def phase_export(F, root: Path) -> dict:
 
     phase = "export"
     tmp = tempfile.mkdtemp(prefix="mudpt_export_")
-    paths = {}
+    paths, servers = {}, {}
     try:
         t0 = time.perf_counter()
         cfg = load_config(*(str(root / f) for f in ENGINE_FILES),
@@ -4090,7 +4174,10 @@ def phase_export(F, root: Path) -> dict:
                    f"{float(loss):.5f}) in {time.perf_counter() - t0:.2f} s; serving "
                    f"{BATCH} test images, calibrating on {len(calib)} training images")
         vision = tr.clip_cfg.vision_layers
-        refs, rates = {}, {}
+        refs, rates, exported = {}, {}, {}
+        # each tier's serving child starts as soon as its artifact is
+        # written: its import and load overlap the next tiers' exports and
+        # checks here.  The children are all loaded before the first request
         for tier in EXPORT_TIERS:
             art = f"{tmp}/{tier}"
             kw = dict(calib_images=calib) if tier == "pallas_int8_static" else {}
@@ -4102,12 +4189,24 @@ def phase_export(F, root: Path) -> dict:
                 raise AssertionError(f"export {tier} left {layers.block_impl()!r}, "
                                      f"{layers.quant_mode()!r} set")
             size = sum(f.stat().st_size for f in Path(art).iterdir()) / 1e6
+            servers[tier] = FreshServer(root, art, f"{tmp}/images.npy", tier)
             # the same program in this process, on the same images
+            t0 = time.perf_counter()
             score, ops, _ = serving.trainer_program(tr, block_impl=tier, **kw)
             with torch.no_grad(), serving._block_impl(tier):
                 refs[tier] = score(ops, images)
+            torch.cuda.synchronize()
             del score, ops
-            logits, child, process_s = served_fresh(root, art, f"{tmp}/images.npy", tier)
+            exported[tier] = (export_s, size, time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        loaded = {tier: server.wait_loaded() for tier, server in servers.items()}
+        say(phase, f"exports and in-process references done; the children loaded "
+                   f"{time.perf_counter() - t0:.2f} s later (each loaded "
+                   f"{json.dumps({k: round(v, 2) for k, v in loaded.items()})} s after its "
+                   "start)")
+        for tier in EXPORT_TIERS:
+            art = f"{tmp}/{tier}"
+            logits, child, request_s = servers.pop(tier).finish()
             route = EXPORT_ROUTES[tier]
             want = (dict.fromkeys(F.LAUNCHES, 0) if route is None else
                     expect(F.LAUNCHES, (vision, route), (1, tower_lns(2))))
@@ -4117,15 +4216,20 @@ def phase_export(F, root: Path) -> dict:
                 raise AssertionError(f"{tier} artifact logits malformed: {tuple(logits.shape)}")
             same = torch.equal(logits, refs[tier])
             reading = hold_logits(logits, refs[tier])
-            say(phase, f"{tier}: exported in {export_s:.2f} s ({size:.1f} MB); fresh process "
-                       f"{process_s:.2f} s (load {child['load_s']:.2f} s); launches "
+            export_s, size, ref_s = exported[tier]
+            say(phase, f"{tier}: exported in {export_s:.2f} s ({size:.1f} MB), its reference "
+                       f"in this process {ref_s:.2f} s; fresh process "
+                       f"loaded {loaded[tier]:.2f} s after its start (load {child['load_s']:.2f} "
+                       f"s), served {request_s:.2f} s after the word; launches "
                        f"{ {k: v for k, v in child['launches'].items() if v} }; vs the tier in "
                        f"this process: bit-equal {same}; {reading}")
             if tier == "xla":
                 xla_logits = logits
-            rec = bench_artifact(root, art, BATCH, tier)
+            t0 = time.perf_counter()
+            rec = bench_artifact(art, BATCH, tier)
             rates[tier] = rec["value"]
-            say(phase, f"{tier}: bench_artifact {json.dumps(rec)}")
+            say(phase, f"{tier}: bench_artifact in this process, {time.perf_counter() - t0:.2f} "
+                       f"s: {json.dumps(rec)}")
         say(phase, "xla artifact vs the kernel route in this process: "
                    + hold_logits(xla_logits, refs["pallas"]))
         say(phase, "pallas artifact vs [serving]: "
@@ -4160,6 +4264,8 @@ def phase_export(F, root: Path) -> dict:
                    f"{reading}; no kernel launched")
         return paths
     finally:
+        for server in servers.values():
+            server.close()
         shutil.rmtree(tmp, ignore_errors=True)
 
 
@@ -4241,6 +4347,8 @@ def phase_remat(F, model: str) -> dict:
             torch.cuda.reset_peak_memory_stats()
             ms = [_synced_ms(lambda: st.train_step(st.images, st.labels))
                   for _ in range(REMAT_TIMED)]
+            if model == "ViT-B/16":  # for [api]'s bench under --remat
+                THROUGHPUT[f"remat_{mode}"] = BATCH * 1e3 / statistics.median(ms)
             say(phase, f"REMAT {mode}: {REMAT_TIMED} steps of {BATCH} images, median "
                        f"{statistics.median(ms):.2f} ms ({BATCH * 1e3 / statistics.median(ms):.1f} "
                        f"images/s); peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
@@ -6604,6 +6712,250 @@ def phase_periphery(F, root: Path) -> dict:
     return paths
 
 
+# [api]: the user-facing layer at ViT-B/16's full width.  (a)
+# api.clip_forward on API_IMAGES images x API_PROMPTS prompts, bf16 and
+# fp32, against the same call on the CPU's plain versions on the first
+# API_REF_IMAGES x API_REF_PROMPTS; (b) validate_zeroshot on a Caltech101
+# tree of API_CLASSES classes x 40 images (the reader's split: 12 test
+# images a class); (c) the bench under --remat none and full; (d) one
+# epoch of [engine]'s trainer with TRAIN.PROFILE_DIR set
+API_IMAGES, API_PROMPTS, API_REF_IMAGES, API_REF_PROMPTS = 64, 100, 8, 16
+API_CLASSES = 20
+API_BENCH = ("--mode", "train", "--model", "ViT-B/16", "--batch", str(BATCH),
+             "--n-cls", str(N_CLS), "--n-ctx", str(N_CTX), "--depth", str(DEPTH),
+             "--steps", "5", "--warmup", "2")
+
+
+def clip_forward_launches(F, cfg, fp32: bool) -> dict:
+    """One ``clip_forward`` call: both towers' layers on the no-save
+    forward, ln_pre, ln_post and ln_final; on fp32 activations the fp32
+    kernels."""
+    want = expect(F.LAUNCHES, (cfg.vision_layers, "full"), (cfg.transformer_layers, "full"),
+                  (1, tower_lns(3)))
+    return in_fp32(F, want) if fp32 else want
+
+
+def check_clip_forward(what: str, launches: dict, want: dict, per_image, per_text) -> str:
+    """A ``clip_forward`` call: its launches ``want`` and its
+    logits_per_text the transpose of logits_per_image."""
+    import torch
+
+    check_launches(what, launches, want)
+    if not torch.equal(per_text, per_image.T):
+        raise AssertionError(f"{what}: logits_per_text is not logits_per_image transposed")
+    return (f"launches held ({launches['layer_fullblock']} layer_fullblock), "
+            "logits_per_text the transpose")
+
+
+def check_zeroshot_report(out: str, rc: int, dataset: str, accuracy: float) -> str:
+    """``validate_zeroshot``'s report on random weights: exit 1, and the
+    dataset's FAIL line with the accuracy of ``test()`` on the same
+    config and its delta from the published value."""
+    from mudpt_torch.tools.validate_zeroshot import PUBLISHED_VIT_B16
+
+    published = PUBLISHED_VIT_B16[dataset]
+    want = (f"{dataset}: measured {accuracy:.2f} published {published:.2f} "
+            f"delta {accuracy - published:+.2f} [FAIL]")
+    lines = [ln for ln in out.splitlines() if ln.startswith(f"{dataset}: measured")]
+    if rc != 1 or lines != [want] or f"FAILED: ['{dataset}']" not in out:
+        raise AssertionError(f"validate_zeroshot: exit {rc}, report {lines}, expected exit 1 "
+                             f"and {want!r}")
+    return want
+
+
+def check_remat_bench(recs: dict, launches: dict, want: dict) -> str:
+    """The bench under --remat none and full: the final loss bit-equal, each
+    run's launches ``want`` (full: one more forward of every layer a step),
+    its line's remat the mode asked for and vs_baseline the line's own.
+    The executed TFLOP/s are printed, not held: the recomputed forward runs
+    at about the step's own rate, so their order is within the runs'
+    spread."""
+    from mudpt_torch.bench import A100_BASELINE_IPS
+
+    none, full = recs["none"], recs["full"]
+    if none["final_loss"] != full["final_loss"]:
+        raise AssertionError(f"--remat full final loss {full['final_loss']!r} != none's "
+                             f"{none['final_loss']!r}")
+    for mode, rec in recs.items():
+        check_launches(f"bench --remat {mode}", launches[mode], want[mode])
+        vs = rec["vs_baseline"]
+        if rec["remat"] != mode or not (math.isfinite(vs) and vs == round(
+                rec["value"] / A100_BASELINE_IPS, 3)):
+            raise AssertionError(f"bench --remat {mode}: remat {rec['remat']!r}, vs_baseline "
+                                 f"{vs!r} for {rec['value']} images/s")
+    return (f"final loss {none['final_loss']!r} bit-equal; layer_fullblock "
+            f"{launches['none']['layer_fullblock']} -> {launches['full']['layer_fullblock']}; "
+            f"exec TFLOP/s {none['exec_tflops_per_sec']} -> {full['exec_tflops_per_sec']}")
+
+
+def check_trainer_trace(what: str, trace: str, launches: dict, n_steps: int) -> str:
+    """The trainer's TRAIN.PROFILE_DIR trace: exactly one recorded step (the
+    profiler's step 1, after its warmup step), holding every launch the
+    counter counted for one of the epoch's ``n_steps`` steps."""
+    from mudpt_torch.utils.profiling import kernel_launches
+
+    with open(trace) as f:
+        steps = sorted({e["name"] for e in json.load(f)["traceEvents"]
+                        if e.get("name", "").startswith("ProfilerStep#")})
+    if steps != ["ProfilerStep#1"]:
+        raise AssertionError(f"{what}: the trace records steps {steps}, not the one after "
+                             "its warmup")
+    return check_trace_launches(what, kernel_launches(trace), launches, 1, n_steps)
+
+
+def phase_api(F, root: Path) -> dict:
+    """(a) ``api.clip_forward`` at ViT-B/16, bf16 and fp32: launches, the
+    transpose, logits against the CPU's plain versions; (b)
+    ``validate_zeroshot.main`` on a Caltech101 tree with random weights:
+    exit 1, its FAIL line's accuracy that of ``test()`` in this process,
+    launches; (c) ``mudpt_torch.bench.main`` under --remat none and full;
+    (d) the engine's TRAIN.PROFILE_DIR trace held to the counter.  Returns
+    each path's launches."""
+    import contextlib
+    import glob
+    import io
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from mudpt_torch import api, bench
+    from mudpt_torch.models.clip import VIT_B16, _map, cast_matmul_weights, init_clip_params
+    from mudpt_torch.tools import validate_zeroshot
+    from mudpt_torch.trainers.base import build_trainer
+
+    phase, paths = "api", {}
+    tmp = tempfile.mkdtemp(prefix="mudpt_api_")
+    try:
+        # ---- (a) clip_forward, random weights from a seeded generator
+        t0 = time.perf_counter()
+        cfg = VIT_B16
+        params = init_clip_params(cfg, torch.Generator(device="cuda").manual_seed(22))
+        rs = np.random.RandomState(22)
+        side = cfg.image_resolution
+        images = torch.from_numpy(rs.randn(API_IMAGES, side, side, 3).astype(np.float32))
+        names = cocoop_names(API_PROMPTS)
+        tokens = torch.from_numpy(np.asarray(
+            api.tokenize([f"a photo of a {n}." for n in names]))).long()
+        readings = []
+        for dtype in ("bf16", "fp32"):
+            compute = torch.bfloat16 if dtype == "bf16" else torch.float32
+            p = cast_matmul_weights(params, compute) if dtype == "bf16" else params
+            F.reset_launches()
+            with torch.no_grad():
+                per_image, per_text = api.clip_forward(p, images.cuda(), tokens.cuda(), cfg,
+                                                       compute_dtype=compute)
+            torch.cuda.synchronize()
+            launches = dict(F.LAUNCHES)
+            want = clip_forward_launches(F, cfg, dtype == "fp32")
+            held = check_clip_forward(f"api.clip_forward {dtype}", launches, want, per_image,
+                                      per_text)
+            if dtype == "fp32":
+                check_fp32_launches(F, "api.clip_forward fp32", launches, backward=False)
+            paths[f"api_clip_forward_{dtype}"] = launches
+            cpu = _map(p, lambda t: t.cpu())
+            few = images[:API_REF_IMAGES], tokens[:API_REF_PROMPTS]
+            with torch.no_grad():
+                ref, _ = api.clip_forward(cpu, *few, cfg, compute_dtype=compute)
+                # the towers' features, wider-ranged than the random
+                # weights' logits: a fault in a few rows shows there
+                feats = [(what, enc(p, x.cuda(), cfg, compute_dtype=compute),
+                          enc(cpu, x, cfg, compute_dtype=compute))
+                         for what, enc, x in (("image", api.encode_image, few[0]),
+                                              ("text", api.encode_text, few[1]))]
+            got = per_image[:API_REF_IMAGES, :API_REF_PROMPTS]
+            got, ref = (t - t.mean(-1, keepdim=True) for t in (got, ref.cuda()))
+            limits, feat_limits = (
+                (dict(max_limit=LOGITS_MAX_ERR, norm_limit=LOGITS_NORM_ERR),
+                 dict(max_limit=TEXT_MAX_ERR, norm_limit=TEXT_NORM_ERR)) if dtype == "bf16" else
+                (dict(max_limit=F32_CHAIN_MAX_ERR, norm_limit=F32_CHAIN_NORM_ERR),) * 2)
+            readings.append(f"{dtype}: {tuple(per_image.shape)} logits, {held}; vs the CPU's "
+                            f"plain versions on {API_REF_IMAGES} x {API_REF_PROMPTS}, rows "
+                            "centred: " + check_close(f"api.clip_forward {dtype} logits", got,
+                                                      ref, share_limit=None, **limits)
+                            + "".join(f"; {what} features: " + check_close(
+                                f"api.encode_{what} {dtype}", a.float(), b.float().cuda(),
+                                share_limit=None, **feat_limits) for what, a, b in feats))
+        del params, p
+        torch.cuda.empty_cache()
+        say(phase, f"api.clip_forward, ViT-B/16, {API_IMAGES} images x {API_PROMPTS} "
+                   f"prompts: " + "; ".join(readings)
+                   + f" ({time.perf_counter() - t0:.2f} s)")
+
+        # ---- (b) validate_zeroshot on a Caltech101 tree, random weights
+        t0 = time.perf_counter()
+        tree = Path(tmp) / "data"
+        n_jpegs = write_jpeg_tree(tree, API_CLASSES, 40)
+        argv = ["--dataset_root", str(tree), "--backbone", "ViT-B/16", "--backbone_path",
+                "random", "--datasets", "caltech101"]
+        out = io.StringIO()
+        F.reset_launches()
+        with contextlib.redirect_stdout(out):
+            rc = validate_zeroshot.main(argv)
+        launches = dict(F.LAUNCHES)
+        tr = build_trainer(validate_zeroshot.dataset_config("caltech101", str(tree), "ViT-B/16",
+                                                            "random"))
+        with contextlib.redirect_stdout(io.StringIO()):
+            rec = tr.test()
+        line = check_zeroshot_report(out.getvalue(), rc, "caltech101", rec["accuracy"])
+        n_batches = len(tr.dm.test_loader)
+        check_launches("validate_zeroshot", launches,
+                       zoo_eval_launches(F.LAUNCHES, tr.clip_cfg, n_batches, 1, False))
+        paths["api_validate_zeroshot"] = launches
+        say(phase, f"validate_zeroshot --backbone ViT-B/16 --backbone_path random on "
+                   f"{n_jpegs} JPEGs ({rec['total']} test images, {n_batches} batches): exit "
+                   f"{rc}, {line!r}, the accuracy of test() on the same config; launches "
+                   f"{n_batches} batches + 1 text encode, held "
+                   f"({time.perf_counter() - t0:.2f} s)")
+        del tr
+
+        # ---- (c) the bench under --remat none and full
+        t0 = time.perf_counter()
+        recs, launches = {}, {}
+        per_step = step_launches(F, cfg, "full_train", "full_train")
+        want = {"none": per_step, "full": expect(F.LAUNCHES, (1, per_step), (
+            cfg.transformer_layers, "full"), (cfg.vision_layers, "full"))}
+        n_steps = int(API_BENCH[API_BENCH.index("--steps") + 1]) + int(
+            API_BENCH[API_BENCH.index("--warmup") + 1])
+        for mode in ("none", "full"):
+            out = io.StringIO()
+            F.reset_launches()
+            with contextlib.redirect_stdout(out):
+                bench.main([*API_BENCH, "--remat", mode])
+            recs[mode] = parse_bench_line(out.getvalue())
+            launches[mode] = dict(F.LAUNCHES)
+            want[mode] = {k: v * n_steps for k, v in want[mode].items()}
+            say(phase, f"bench --remat {mode}: {json.dumps(recs[mode])}")
+        paths["api_bench_remat_full"] = launches["full"]
+        say(phase, "bench --remat full vs none: " + check_remat_bench(recs, launches, want)
+                   + "; vs [train]: " + check_bench("--remat none", recs["none"]["value"],
+                                                     THROUGHPUT["train"])
+                   + "; vs [remat]'s full: " + check_bench(
+                       "--remat full", recs["full"]["value"], THROUGHPUT["remat_full"])
+                   + f" ({time.perf_counter() - t0:.2f} s)")
+
+        # ---- (d) the trainer's TRAIN.PROFILE_DIR trace, one epoch
+        t0 = time.perf_counter()
+        tr = _engine_trainer(root, f"{tmp}/engine", "OPTIM.MAX_EPOCH", "1",
+                             "TRAIN.PROFILE_DIR", f"{tmp}/trace", "TEST.NO_TEST", "True")
+        F.reset_launches()
+        tr.train()
+        torch.cuda.synchronize()
+        launches = dict(F.LAUNCHES)
+        n_steps = len(tr.dm.train_loader)
+        check_launches("the traced epoch", launches,
+                       {k: v * n_steps for k, v in per_step.items()})
+        paths["api_trainer_trace_epoch"] = launches
+        (trace,) = glob.glob(f"{tmp}/trace/trace-*.json")
+        say(phase, f"TRAIN.PROFILE_DIR, one epoch of {n_steps} steps of {ENGINE_BATCH} "
+                   "images: " + check_trainer_trace("the trainer's trace", trace, launches,
+                                                    n_steps)
+                   + f" ({time.perf_counter() - t0:.2f} s)")
+        return paths
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def descendants(pid: int) -> list:
     """The pids of the running processes descended from ``pid`` (/proc),
     parents before their children."""
@@ -6894,7 +7246,7 @@ def main() -> int:
     if sys.argv[1:2] == ["--steps-of"]:
         return steps_of(root)
     if sys.argv[1:2] == ["--serve-artifact"]:
-        return serve_artifact(root, *sys.argv[2:5])
+        return serve_artifact(root, *sys.argv[2:6])
     if sys.argv[1:2] == ["--mesh-rank"]:
         return mesh_rank(root, *sys.argv[2:6])
     if sys.argv[1:2] == ["--cli-launches"]:
@@ -7005,6 +7357,7 @@ def main() -> int:
     paths.update(run("text switches", phase_text_switches, F, root, kernels_t77))
     paths.update(run("tools", phase_tools, F, root))
     paths.update(run("periphery", phase_periphery, F, root))
+    paths.update(run("api", phase_api, F, root))
     say("processes", check_no_process_left())
 
     def by_path(name: str) -> dict:

@@ -3,20 +3,21 @@
 
     import mudpt_torch.api as clip
 
-    clip_cfg, params, preprocess = clip.load("ViT-B-16.pt")     # a local path
+    clip_cfg, params, preprocess = clip.load("ViT-B/16")        # or a local path
     tokens = torch.from_numpy(clip.tokenize(["a photo of a cat"]))  # (1, 77)
     image = preprocess(PIL.Image.open("cat.jpg"))                # (224, 224, 3)
 
     img_feats = clip.encode_image(params, images, clip_cfg)
     txt_feats = clip.encode_text(params, tokens, clip_cfg)
+    logits_per_image, logits_per_text = clip.clip_forward(params, images, tokens, clip_cfg)
 
     # serving: text tower encoded once, then one image pass per batch
     classify = clip.zero_shot_classifier(clip_cfg, params, ["cat", "dog"])
     logits = classify(images)                                    # (B, n_cls)
 
-Loading by registry name ("ViT-B/16") needs a download, which waits: the
-port reads local ``.pt`` / ``.npz`` files only.  Without ``device`` the
-parameters go to the card (raises without CUDA).
+A registry name (``available_models()``) loads the verified ``.pt`` from
+``download_root``, downloading it first on a miss (``download_model``).
+Without ``device`` the parameters go to the card (raises without CUDA).
 """
 
 from __future__ import annotations
@@ -29,12 +30,14 @@ import torch
 from mudpt_torch.data.transforms import EvalTransform
 from mudpt_torch.models.clip import (  # noqa: F401  (re-exports)
     CLIPConfig,
+    clip_forward,
     cosine_logits,
     encode_image,
     encode_text,
 )
 from mudpt_torch.models.clip import _map
 from mudpt_torch.models.convert import load_clip_checkpoint
+from mudpt_torch.models.download import available_models, download_model  # noqa: F401
 from mudpt_torch.tokenizer import tokenize  # noqa: F401
 from mudpt_torch.utils.device import resolve_device
 
@@ -65,19 +68,14 @@ def zero_shot_classifier(clip_cfg, params, classnames, templates=("a photo of a 
 
 
 def load(name_or_path: str, download_root: str = "~/.cache/clip", device=None) -> Tuple:
-    """``(clip_cfg, params, preprocess)`` of a local CLIP checkpoint, an
-    OpenAI ``.pt`` or a converted ``.npz`` (``api.py:84``); ``params`` fp32 on
-    ``device`` (None: the card), ``preprocess`` maps a PIL image to a
-    normalized (H, W, 3) float32 array.  A registry name raises: downloads
-    wait (there is no network to fetch from)."""
+    """``(clip_cfg, params, preprocess)`` of a CLIP model by registry name or
+    local checkpoint path, an OpenAI ``.pt`` or a converted ``.npz``
+    (``api.py:92-110``); ``params`` fp32 on ``device`` (None: the card),
+    ``preprocess`` maps a PIL image to a normalized (H, W, 3) float32
+    array."""
     path = os.path.expanduser(name_or_path)
     if not os.path.exists(path):
-        raise FileNotFoundError(
-            f"{name_or_path!r} is not a local file; loading CLIP by registry name "
-            f"needs a download (into {download_root}), which the port does not do "
-            "(ROADMAP.md A, 'periphery': models/download.py waits): pass the path "
-            "of a .pt or .npz checkpoint"
-        )
+        path = download_model(name_or_path, download_root)
     cfg, params = load_clip_checkpoint(path)
     dev = resolve_device(device)
     return cfg, _map(params, lambda t: t.to(dev)), EvalTransform(size=cfg.image_resolution)

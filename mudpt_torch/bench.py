@@ -4,7 +4,8 @@ serving throughput (images/s) on one device, one JSON line
 
     python -m mudpt_torch.bench [--mode train|eval] [--model ViT-B/16]
         [--batch 384] [--n-cls 100] [--n-ctx 2] [--depth 9] [--steps 20]
-        [--warmup 3] [--quant none|int8|int8_static|int8_ste|int8_ste_static]
+        [--warmup 3] [--remat auto|selective|full|none]
+        [--quant none|int8|int8_static|int8_ste|int8_ste_static]
         [--input resident|threads|tfdata|grain] [--n-jpegs 2048]
         [--device cuda|cpu]
 
@@ -21,11 +22,17 @@ processes, 16 by default, as ``bench.py:190-246``, ``:449-480``) or
 ``build_synth_mudpt_server`` (``--mode eval``: the class text encoded once,
 then one vision pass per batch, its predictions fetched to the host, against
 re-encoding the text every batch).
+``--remat`` sets ``models/transformer.set_remat_mode`` for the run (the
+previous mode is restored after it): ``auto`` is ``none`` on the kernel
+route and, under ``PERF.BLOCK xla``, ``none`` at batch <= 96, else ``full``
+(``bench.py:374-388``); ``--mode eval`` runs ``none`` (``:263-265``).
 The line carries ``bench.py``'s ``metric``, ``value`` and ``unit`` and its
 FLOP accounts (``bench.py:340-346``, ``:511-559``): ``model_*`` counts the
 algorithmic FLOPs (forward and dx-only backward, no recompute), ``exec_*``
 adds what the port's blocks recompute, each over the H100's dense peak
-(989e12 bf16, 1979e12 int8 for the int8 serving tiers).  It adds the
+(989e12 bf16, 1979e12 int8 for the int8 serving tiers).  The train line's
+``vs_baseline`` is images/s over ``A100_BASELINE_IPS``, ``bench.py:45``'s
+estimate of the reference's PyTorch MuDPT on one A100 (BASELINE.md).  It adds the
 device's name and, on the card, its name and power limit as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
 them.  On the CPU (``--device cpu``, the plain versions) the FLOP rates and
@@ -49,7 +56,8 @@ from mudpt_torch.data.grain_pipeline import GrainLoader
 from mudpt_torch.data.loader import DataLoader
 from mudpt_torch.data.tfdata import TFDataLoader
 from mudpt_torch.data.transforms import TrainTransform
-from mudpt_torch.models.layers import QUANT_MODES
+from mudpt_torch.models import transformer
+from mudpt_torch.models.layers import QUANT_MODES, resolve_block_impl
 from mudpt_torch.models.text import _text_saves_off
 from mudpt_torch.ops import fused_block
 from mudpt_torch.utils.device import card, resolve_device
@@ -60,6 +68,10 @@ INPUTS = ("resident", "threads", "tfdata", "grain")
 # H100 SXM published dense peaks (NVIDIA data sheet, at the 700 W limit)
 PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
+# bench.py:45: the reference's PyTorch MuDPT on one A100-80G, estimated
+# images/s (BASELINE.md's addendum), the denominator of vs_baseline
+A100_BASELINE_IPS = 850.0
+REMATS = ("auto", "selective", "full", "none")
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -73,6 +85,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--depth", type=int, default=9)
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--warmup", type=int, default=3)
+    ap.add_argument("--remat", choices=REMATS, default="auto")
     ap.add_argument("--quant", choices=QUANT_MODES, default="none")
     ap.add_argument("--input", choices=INPUTS, default="resident",
                     help="resident: one device-resident batch every step; threads, tfdata "
@@ -111,11 +124,27 @@ def tower_bwd_dx_flops(n_seq: int, n_layers: int, d: int, rows: int) -> float:
     return (12 * d * d + 8 * n_seq * d) * 2 * n_seq * n_layers * rows
 
 
-def train_flops(cfg, batch: int, n_cls: int, n_ctx: int, text_seq: int) -> tuple:
+def resolve_remat(remat: str, batch: int) -> str:
+    """The REMAT mode of ``--remat`` (``bench.py:374-386``): ``auto`` is
+    'none' on the kernel route (its layers save what their backward
+    reads), and on the XLA route 'none' up to batch 96, else 'full'."""
+    if remat != "auto":
+        return remat
+    if resolve_block_impl() == "pallas":
+        return "none"
+    return "none" if batch <= 96 else "full"
+
+
+def train_flops(cfg, batch: int, n_cls: int, n_ctx: int, text_seq: int,
+                remat: str = "none") -> tuple:
     """(model FLOPs, executed FLOPs) of one train step: executed adds the
     products the port's blocks run again in the backward: the fc product
     where a vision MLP recomputes h (768 < D, over the row-token budget),
-    the qkv and fc products where the text tower trains with saves off."""
+    the qkv and fc products where the text tower trains with saves off;
+    under REMAT 'full' each tower's whole forward (every layer runs again
+    in the backward), under 'selective' the XLA route's attention products
+    (its scores and probs recomputed; the kernel route recomputes
+    nothing more)."""
     vis_seq = cfg.vision_seq_len + n_ctx
     vis = (cfg.vision_layers, cfg.vision_width, batch)
     txt = (cfg.transformer_layers, cfg.transformer_width, n_cls)
@@ -128,6 +157,11 @@ def train_flops(cfg, batch: int, n_cls: int, n_ctx: int, text_seq: int) -> tuple
     if _text_saves_off(n_cls, -(-text_seq // 8) * 8):
         d = cfg.transformer_width
         recompute += 7 * d * d * 2 * text_seq * cfg.transformer_layers * n_cls
+    if remat == "full":
+        recompute += tower_fwd_flops(vis_seq, *vis) + tower_fwd_flops(text_seq, *txt)
+    elif remat == "selective" and resolve_block_impl() == "xla":
+        for S, (L, D, rows) in ((vis_seq, vis), (text_seq, txt)):
+            recompute += 4 * S * D * 2 * S * L * rows
     return model, model + recompute
 
 
@@ -231,7 +265,8 @@ def run_train(args, dev: torch.device) -> dict:
     if not all(map(math.isfinite, losses)):
         raise FloatingPointError(f"non-finite loss in the benchmark: {losses}")
     text_seq = int(st.aux["token_suffix"].shape[1]) + 1 + args.n_ctx
-    model, executed = train_flops(st.clip_cfg, args.batch, args.n_cls, args.n_ctx, text_seq)
+    model, executed = train_flops(st.clip_cfg, args.batch, args.n_cls, args.n_ctx, text_seq,
+                                  transformer.remat_mode())
     qlabel = {"int8_ste": "int8-ste", "int8_ste_static": "int8-ste-static"}.get(args.quant, "bf16")
     source = "" if args.input == "resident" else f", input {args.input}"
     return {
@@ -239,6 +274,8 @@ def run_train(args, dev: torch.device) -> dict:
                    f"{args.batch}, n_cls {args.n_cls}, depth {args.depth}{source})"),
         "value": round(args.batch * args.steps / dt, 2),
         "unit": "images/sec/chip",
+        "vs_baseline": round(args.batch * args.steps / dt / A100_BASELINE_IPS, 3),
+        "remat": transformer.remat_mode(),
         "step_ms": round(dt / args.steps * 1e3, 3),
         "final_loss": final_loss,
         **_device_metrics(dev, model_tflops_per_sec=(model * args.steps / dt / 1e12, 2),
@@ -302,7 +339,13 @@ def main(argv=None) -> dict:
     """Run the benchmark; print and return its JSON record."""
     args = parse_args(argv)
     dev = resolve_device(args.device)
-    record = run_eval(args, dev) if args.mode == "eval" else run_train(args, dev)
+    prev = transformer.remat_mode()
+    transformer.set_remat_mode("none" if args.mode == "eval"
+                               else resolve_remat(args.remat, args.batch))
+    try:
+        record = run_eval(args, dev) if args.mode == "eval" else run_train(args, dev)
+    finally:
+        transformer.set_remat_mode(prev)
     record["device"] = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     record["card"] = card() if dev.type == "cuda" else None
     print(json.dumps(record), flush=True)

@@ -339,3 +339,19 @@ def cosine_logits(image_features, text_features, logit_scale) -> torch.Tensor:
     img = img / img.norm(dim=-1, keepdim=True)
     txt = txt / txt.norm(dim=-1, keepdim=True)
     return logit_scale.float().exp() * (img @ txt.T)
+
+
+def clip_forward(params: dict, images: torch.Tensor, tokens: torch.Tensor,
+                 cfg: CLIPConfig = VIT_B16, *, compute_dtype: torch.dtype = torch.float32):
+    """(logits_per_image (N_img, N_txt), logits_per_text, its transpose):
+    the reference's ``model(image, text)`` (``clip.py:380-386``), both
+    towers in ``compute_dtype`` and the logits from their fp32 features."""
+    img = encode_image(params, images, cfg, compute_dtype=compute_dtype)
+    txt = encode_text(params, tokens, cfg, compute_dtype=compute_dtype)
+    logits_per_image = cosine_logits(img.float(), txt.float(), params["logit_scale"])
+    return logits_per_image, logits_per_image.T
+
+
+def num_params(tree: dict) -> int:
+    """The number of parameters in a tree (``clip.py:389-390``)."""
+    return sum(t.numel() for t in leaves(tree))

@@ -24,6 +24,7 @@ that read them.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import glob
@@ -78,17 +79,15 @@ NAMED_CONFIGS = {
     ),
     "test-tiny": TINY_TEST,
 }
-# the basenames of the OpenAI download cache (mudpt_tpu/models/download.py)
-_CACHE_NAMES = {"ViT-L/14@336px": "ViT-L-14-336px.pt"}
 
 
 def load_backbone(cfg, device):
     """CLIP backbone (``base.py:101-158``): from a local ``.pt`` or ``.npz``
-    (MODEL.BACKBONE.PATH), the ``~/.cache/clip`` download cache, or random
-    init for the named architecture, ONLY when PATH='random' is explicit.
-    The port has no download: with PATH unset and no cached file it raises
-    as the JAX package does when its download fails.  Returns the config and
-    an fp32 tree on ``device``."""
+    (MODEL.BACKBONE.PATH), the ``~/.cache/clip`` download cache (downloading
+    on a miss, as the reference's ``clip.load``, clip/clip.py:95-109), or
+    random init for the named architecture, ONLY when PATH='random' is
+    explicit: a fresh host never trains prompts on a random-weight CLIP
+    silently.  Returns the config and an fp32 tree on ``device``."""
     path = cfg.MODEL.BACKBONE.PATH
     name = cfg.MODEL.BACKBONE.NAME
     if path and path != "random":
@@ -104,16 +103,34 @@ def load_backbone(cfg, device):
             raise KeyError(f"Unknown backbone {name!r}; known: {list(NAMED_CONFIGS)}")
         clip_cfg = NAMED_CONFIGS[name]
         return clip_cfg, init_clip_params(clip_cfg, new_rng(0, device))
-    basename = _CACHE_NAMES.get(name, name.replace("/", "-") + ".pt")
+    # PATH unset: pretrained weights are required, a cache hit or a download
+    from mudpt_torch.models import download
+
+    # the cache file is the download URL's basename: 'ViT-L-14-336px.pt'
+    # for 'ViT-L/14@336px', which name.replace('/', '-') would miss
+    basename = (os.path.basename(download._MODELS[name]) if name in download._MODELS
+                else name.replace("/", "-") + ".pt")
     cache = os.path.expanduser(os.path.join("~/.cache/clip", basename))
     if os.path.exists(cache):
         clip_cfg, params = load_clip_checkpoint(cache)
         return clip_cfg, _to_device(params, device)
+    if name in download._MODELS:
+        try:
+            clip_cfg, params = load_clip_checkpoint(download.download_model(name))
+        except Exception as e:  # URLError, socket timeout, checksum, ...
+            raise RuntimeError(
+                f"Pretrained CLIP {name!r} is not cached at {cache} and the "
+                f"download failed ({type(e).__name__}: {e}). Place the OpenAI "
+                f".pt file at that path (or set MODEL.BACKBONE.PATH to a local "
+                f".pt/.npz), or opt into random weights explicitly with "
+                f"MODEL.BACKBONE.PATH='random'."
+            ) from e
+        return clip_cfg, _to_device(params, device)
     raise RuntimeError(
-        f"Pretrained CLIP {name!r} is not cached at {cache} and the port has no "
-        f"download. Place the OpenAI .pt file at that path (or set "
-        f"MODEL.BACKBONE.PATH to a local .pt/.npz), or opt into random weights "
-        f"explicitly with MODEL.BACKBONE.PATH='random'."
+        f"Backbone {name!r} has no pretrained checkpoint (not cached at "
+        f"{cache}, not a known download). Set MODEL.BACKBONE.PATH to a local "
+        f".pt/.npz file, or request random init explicitly with "
+        f"MODEL.BACKBONE.PATH='random'."
     )
 
 
@@ -610,7 +627,6 @@ class TrainerBase:
         num_batches = len(self.dm.train_loader)
         t0 = time.time()
         timer = StepTimer(device=self.device)
-        profiling = bool(cfg.TRAIN.PROFILE_DIR) and self.epoch == 0
         skip = self._skip_batches
         self._skip_batches = 0
         src = self.dm.train_loader
@@ -624,34 +640,52 @@ class TrainerBase:
                 yield from it
 
             src = _fast_forward()
-        for offset, batch in enumerate(self._device_prefetch(src)):
-            batch_idx = skip + offset
-            trace = profile_trace(cfg.TRAIN.PROFILE_DIR if profiling and batch_idx == 1 else None)
-            timer.start()
-            with trace:
+        # TRAIN.PROFILE_DIR traces batch 1 of epoch 0, as the JAX package
+        # does (base.py:780-781).  The window opens before the epoch's first
+        # batch, which runs as the profiler's warmup step (its events
+        # dropped), so the CUDA collection is on before batch 1's first
+        # launch; it closes after batch 1.  A run resumed at batch 1 warms up
+        # on the loader's fast-forward and first copies alone.
+        trace_dir = (cfg.TRAIN.PROFILE_DIR if self.epoch == 0 and skip <= 1 < num_batches
+                     else None)
+        window = contextlib.ExitStack()
+        prof = window.enter_context(profile_trace(trace_dir, warmup=1))
+        with window:
+            for offset, batch in enumerate(self._device_prefetch(src)):
+                batch_idx = skip + offset
+                if prof is not None and batch_idx == 1:
+                    if self.device.type == "cuda":
+                        torch.cuda.synchronize(self.device)
+                    prof.step()  # the warmup ends: batch 1 is the window
+                timer.start()
                 loss, acc = self._train_step(batch)
-            timer.stop()
-            self.global_step += 1
-            if (batch_idx + 1) % max(1, cfg.TRAIN.PRINT_FREQ) == 0 or batch_idx + 1 == num_batches:
-                loss_v, acc_v = float(loss), float(acc)
-                lr = float(self.lr_schedule(self.global_step - 1))
-                bsz = cfg.DATALOADER.TRAIN_X.BATCH_SIZE
-                print(
-                    f"epoch [{self.epoch + 1}/{cfg.OPTIM.MAX_EPOCH}] "
-                    f"batch [{batch_idx + 1}/{num_batches}] "
-                    f"loss {loss_v:.4f} acc {100 * acc_v:.2f} lr {lr:.2e} "
-                    f"step {timer.avg * 1e3:.0f}ms "
-                    f"{timer.throughput(bsz):.1f}img/s ({time.time() - t0:.1f}s)"
-                )
-                self.metrics.log({
-                    "kind": "train", "epoch": self.epoch + 1, "step": self.global_step,
-                    "loss": loss_v, "acc": acc_v, "lr": lr, "step_time": timer.avg,
-                    "imgs_per_sec": timer.throughput(bsz),
-                })
-            if self._preempt and batch_idx + 1 < num_batches:
-                # strictly mid-epoch: record the exact position
-                self._save_preempt(batch_idx + 1)
-                return
+                timer.stop()
+                if prof is not None and batch_idx == 1:
+                    window.close()  # writes the trace
+                    prof = None
+                self.global_step += 1
+                if (batch_idx + 1) % max(1, cfg.TRAIN.PRINT_FREQ) == 0 \
+                        or batch_idx + 1 == num_batches:
+                    loss_v, acc_v = float(loss), float(acc)
+                    lr = float(self.lr_schedule(self.global_step - 1))
+                    bsz = cfg.DATALOADER.TRAIN_X.BATCH_SIZE
+                    print(
+                        f"epoch [{self.epoch + 1}/{cfg.OPTIM.MAX_EPOCH}] "
+                        f"batch [{batch_idx + 1}/{num_batches}] "
+                        f"loss {loss_v:.4f} acc {100 * acc_v:.2f} lr {lr:.2e} "
+                        f"step {timer.avg * 1e3:.0f}ms "
+                        f"{timer.throughput(bsz):.1f}img/s ({time.time() - t0:.1f}s)"
+                    )
+                    self.metrics.log({
+                        "kind": "train", "epoch": self.epoch + 1, "step": self.global_step,
+                        "loss": loss_v, "acc": acc_v, "lr": lr, "step_time": timer.avg,
+                        "imgs_per_sec": timer.throughput(bsz),
+                    })
+                if self._preempt and batch_idx + 1 < num_batches:
+                    # strictly mid-epoch: record the exact position (a window
+                    # still in its warmup closes without writing a trace)
+                    self._save_preempt(batch_idx + 1)
+                    return
 
     def after_epoch(self):
         cfg = self.cfg

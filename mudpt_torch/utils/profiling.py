@@ -80,7 +80,8 @@ def profile_trace(logdir: Optional[str], warmup: int = 0):
     the recorded window (every step after) begins.  A window opened bare
     starts the collection with its first launch, and inside
     ``chip_smoke.py``'s long process on an H100 such a window lost 6-7 of
-    a step's first 72 forward launches."""
+    a step's first 72 forward launches.  A window closed before its warmup
+    ended recorded nothing and writes no file."""
     if not logdir:
         yield None
         return
@@ -93,7 +94,8 @@ def profile_trace(logdir: Optional[str], warmup: int = 0):
     steps = schedule(wait=0, warmup=warmup, active=1 << 30) if warmup else None
     with profile(activities=activities, schedule=steps) as prof:
         yield prof
-    prof.export_chrome_trace(os.path.join(logdir, f"trace-{time.time_ns()}.json"))
+    if prof.step_num >= warmup:
+        prof.export_chrome_trace(os.path.join(logdir, f"trace-{time.time_ns()}.json"))
 
 
 # the kernels of mudpt_torch/csrc by the name the profiler gives them (the

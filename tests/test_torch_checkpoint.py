@@ -142,10 +142,17 @@ def test_load_clip_checkpoint_same_tree(tmp_path, first):
 
 def test_load_backbone_sources(tmp_path, monkeypatch):
     """MODEL.BACKBONE.PATH: a local file loads as load_clip_checkpoint does;
-    a missing one, or PATH unset with no ~/.cache/clip file, raises (the
-    port has no download); 'random' inits the named config."""
+    a missing one raises, and so does PATH unset with no ~/.cache/clip file
+    once the download fails (replaced here by one that raises, as it would
+    without a network); 'random' inits the named config."""
     from mudpt_torch.config import default_config
+    from mudpt_torch.models import download
     from mudpt_torch.trainers.base import load_backbone
+
+    def no_download(name, root="~/.cache/clip"):
+        raise OSError("no network")
+
+    monkeypatch.setattr(download, "download_model", no_download)
 
     torch.save(_state_dict(np.random.RandomState(3)), tmp_path / "clip.pt")
     cfg = default_config()

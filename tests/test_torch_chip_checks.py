@@ -68,7 +68,11 @@ counter (or launches of a kernel the counter did not count).
 ``[periphery]``'s checks reject a Dassl export with two leaves' keys
 swapped (the eval's prompts and the imported tree differ from the
 trainer's), fp32 features off by one bf16 rounding, and a feature file
-whose labels are out of the split's order."""
+whose labels are out of the split's order.  ``[api]``'s checks reject a
+``clip_forward`` launch count one off, a ``validate_zeroshot`` line whose
+accuracy is not ``test()``'s, a ``--remat full`` final loss one ulp off
+``none``'s, and a trainer's trace missing one launch; ``[export]``'s
+serving child waits for the parent's word before its request."""
 
 import importlib.util
 import os
@@ -2030,3 +2034,148 @@ def test_periphery_feature_check_catches_a_bf16_rounding(tmp_path):
     with pytest.raises(AssertionError, match="labels in order"):
         C.check_features("features", str(tmp_path / "fp32_True.npz"), labels[::-1], ref, 512,
                          "fp32")
+
+
+def test_api_clip_forward_check_catches_a_launch_off_by_one():
+    """``[api]`` (a) holds a ``clip_forward`` call to both towers' 12 + 12
+    no-save layers and their three LayerNorms, on the dtype's kernels, and
+    logits_per_text to the transpose: a count one off, or per-text logits
+    that are not the transpose, fail."""
+    from mudpt_torch.models.clip import VIT_B16
+
+    C = _chip_smoke()
+    want = C.clip_forward_launches(F, VIT_B16, False)
+    assert want["layer_fullblock"] == 24 and want["layernorm_fwd"] == 24 * 2 + 3
+    want32 = C.clip_forward_launches(F, VIT_B16, True)
+    assert want32["layernorm_fwd_f32"] == want["layernorm_fwd"] and not want32["layernorm_fwd"]
+    per_image = torch.randn(8, 5, generator=torch.Generator().manual_seed(7))
+    assert "24 layer_fullblock" in C.check_clip_forward("bf16", dict(want), want, per_image,
+                                                        per_image.T)
+    for k in ("layer_fullblock", "attention_fwd", "gemm_bf16_epilogue"):
+        with pytest.raises(AssertionError):
+            C.check_clip_forward("bf16", dict(want, **{k: want[k] - 1}), want, per_image,
+                                 per_image.T)
+    with pytest.raises(AssertionError, match="transposed"):
+        C.check_clip_forward("bf16", dict(want), want, per_image, per_image.T.flip(0))
+
+
+def test_zeroshot_report_check_catches_another_accuracy():
+    """``[api]`` (b) holds validate_zeroshot's report to exit 1 and the FAIL
+    line of ``test()``'s accuracy on the same config: a line with another
+    accuracy, or an exit 0, fails."""
+    C = _chip_smoke()
+
+    def report(acc):
+        return (f"=> result on test: ...\ncaltech101: measured {acc:.2f} published 92.90 "
+                f"delta {acc - 92.9:+.2f} [FAIL]\n\nFAILED: ['caltech101']\n")
+
+    assert "measured 5.42" in C.check_zeroshot_report(report(5.4166), 1, "caltech101", 5.4166)
+    for out, rc in ((report(5.83), 1), (report(5.4166), 0), ("", 1)):
+        with pytest.raises(AssertionError, match="validate_zeroshot"):
+            C.check_zeroshot_report(out, rc, "caltech101", 5.4166)
+
+
+def _remat_bench_case():
+    from mudpt_torch.models.clip import VIT_B16
+
+    C = _chip_smoke()
+    per_step = C.step_launches(F, VIT_B16, "full_train", "full_train")
+    want = {"none": per_step, "full": C.expect(F.LAUNCHES, (1, per_step), (12, "full"),
+                                               (12, "full"))}
+    want = {m: {k: v * 7 for k, v in w.items()} for m, w in want.items()}
+    recs = {"none": {"remat": "none", "value": 4391.57, "vs_baseline": 5.167,
+                     "final_loss": 4.587772846221924, "model_tflops_per_sec": 338.18,
+                     "exec_tflops_per_sec": 338.18},
+            "full": {"remat": "full", "value": 2980.0, "vs_baseline": 3.506,
+                     "final_loss": 4.587772846221924, "model_tflops_per_sec": 229.49,
+                     "exec_tflops_per_sec": 340.42}}
+    return C, recs, {m: dict(w) for m, w in want.items()}, want
+
+
+def test_remat_bench_check_catches_a_loss_not_bit_equal():
+    """``[api]`` (c) holds the bench under --remat full to none's final loss
+    bit for bit, 48 layer_fullblock launches a step against 24 and
+    vs_baseline the line's own: a loss one ulp off fails, and so do a full
+    run counted without its recompute, a line whose remat is not the mode
+    asked for and a vs_baseline that is not images/s over 850."""
+    import math
+
+    C, recs, launches, want = _remat_bench_case()
+    assert launches["full"]["layer_fullblock"] == 48 * 7 == 2 * launches["none"][
+        "layer_fullblock"]
+    assert "bit-equal" in C.check_remat_bench(recs, launches, want)
+    bad = dict(recs, full=dict(recs["full"], final_loss=math.nextafter(4.587772846221924, 5)))
+    with pytest.raises(AssertionError, match="final loss"):
+        C.check_remat_bench(bad, launches, want)
+    with pytest.raises(AssertionError):
+        C.check_remat_bench(recs, dict(launches, full=launches["none"]), want)
+    with pytest.raises(AssertionError, match="remat 'none'"):
+        C.check_remat_bench(dict(recs, full=dict(recs["full"], remat="none")), launches, want)
+    with pytest.raises(AssertionError, match="vs_baseline"):
+        C.check_remat_bench(dict(recs, none=dict(recs["none"], vs_baseline=4.392)),
+                            launches, want)
+
+
+def _trace_file(path, traced: dict, steps=("ProfilerStep#1",)):
+    import json
+
+    events = [{"ph": "X", "cat": "user_annotation", "name": s} for s in steps]
+    for name, n in traced.items():
+        events += [{"ph": "X", "cat": "kernel", "name": f"void {name}(CUtensorMap)"}] * n
+    path.write_text(json.dumps({"traceEvents": events}))
+    return str(path)
+
+
+def test_trainer_trace_check_catches_a_missing_launch(tmp_path):
+    """``[api]`` (d) holds the trainer's TRAIN.PROFILE_DIR trace to one
+    recorded step (the profiler's step 1) holding every launch the counter
+    counted for one of the epoch's six steps: a trace missing one launch,
+    or recording two steps, fails."""
+    C = _chip_smoke()
+    launches = _profile_step_launches(F, 6)
+    traced = _traced(F, launches, 1, 6)
+    ok = _trace_file(tmp_path / "ok.json", traced)
+    assert "every launch of the 1 traced steps" in C.check_trainer_trace("trace", ok, launches, 6)
+    for name in ("layernorm_fwd_kernel", "attn_bwd_query_kernel", "gemm_bf16_kernel<6, 2>"):
+        short = _trace_file(tmp_path / "short.json", dict(traced, **{name: traced[name] - 1}))
+        with pytest.raises(AssertionError, match="differ from the counter"):
+            C.check_trainer_trace("trace", short, launches, 6)
+    two = _trace_file(tmp_path / "two.json", traced, ("ProfilerStep#1", "ProfilerStep#2"))
+    with pytest.raises(AssertionError, match="records steps"):
+        C.check_trainer_trace("trace", two, launches, 6)
+
+
+def test_fresh_server_waits_for_the_word(tmp_path, monkeypatch):
+    """``[export]``'s children start as soon as their artifact is written,
+    load, and serve only after the parent's word: a stand-in child (the
+    protocol of ``--serve-artifact ART IMAGES OUT GO``) has written nothing
+    before it, and its line and logits come back after; a child that fails
+    before loading raises with its error."""
+    import textwrap
+    import time
+
+    C = _chip_smoke()
+    (tmp_path / "chip_smoke.py").write_text(textwrap.dedent("""
+        import json, os, sys, time
+        import numpy as np
+        art, images, out, go = sys.argv[2:6]
+        if art.endswith("bad"):
+            sys.exit("no such artifact")
+        open(go + ".ready", "w").close()
+        while not os.path.exists(go):
+            time.sleep(0.01)
+        np.save(out, np.load(images)[:, :3])
+        print(json.dumps({"launches": {}, "load_s": 0.1, "model_modules": []}))
+    """))
+    np.save(tmp_path / "images.npy", np.arange(12, dtype=np.float32).reshape(2, 6))
+    monkeypatch.setattr(torch.Tensor, "cuda", lambda self: self)
+    server = C.FreshServer(tmp_path, str(tmp_path / "art"), str(tmp_path / "images.npy"), "art")
+    assert server.wait_loaded() > 0
+    time.sleep(0.2)
+    assert not os.path.exists(server.out_npy) and server.proc.poll() is None
+    logits, child, _ = server.finish()
+    assert child == {"launches": {}, "load_s": 0.1, "model_modules": []}
+    assert logits.tolist() == [[0, 1, 2], [6, 7, 8]]
+    bad = C.FreshServer(tmp_path, str(tmp_path / "bad"), str(tmp_path / "images.npy"), "bad")
+    with pytest.raises(AssertionError, match="no such artifact"):
+        bad.wait_loaded()
