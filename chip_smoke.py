@@ -381,6 +381,7 @@ without CUDA, and outside a checkout of the repository.
 
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import os
@@ -830,8 +831,9 @@ SHAPES = {
               ("residual", M_B, 3072, 768, 1), ("gelu_bwd", M_B, 768, 3072, 1),
               ("store_f32", M_B, 3072, 768, 1), ("store_bf16", M_B, 768, 768, 1),
               ("store_f32", M_B, 2304, 768, 1)),
+        # the text rows at D = 640 are RN50x4's (its text tower, 10 heads)
         ln_bwd=((M_B, 768, "float32", True, 2), (13 * 128, 512, "float32", True, 0),
-                (M_B, 768, "bfloat16", False, 0)),
+                (13 * 128, 640, "float32", True, 0), (M_B, 768, "bfloat16", False, 0)),
         attn=(("vision", 384, 199, 12, False, True), ("text causal", 100, 16, 8, True, False),
               ("text packed (16,16)", 13, 128, 8, (16, 16), False),
               ("text packed (16,11)", 13, 128, 8, (16, 11), False)),
@@ -1323,8 +1325,10 @@ def phase_halfblock_chains(F) -> None:
 
 # the int8 kernels' cases at the ViT-B/16 shapes; the last two fields of a
 # case: its launches in one vision layer of the int8 and of the int8_static
-# request.  LayerNorm-quant: rows, D, static
-Q8_LN = ((M_B, 768, False, 2, 0), (M_B, 768, True, 0, 2), (13 * 128, 512, False, 0, 0))
+# request.  LayerNorm-quant: rows, D, static (the text rows at D = 640:
+# RN50x4's text tower)
+Q8_LN = ((M_B, 768, False, 2, 0), (M_B, 768, True, 0, 2), (13 * 128, 512, False, 0, 0),
+         (13 * 128, 640, False, 0, 0))
 # the row quantizer: rows, X (the attention output, g), static
 Q8_ROWS = ((M_B, 768, False, 1, 0), (M_B, 3072, False, 1, 0), (M_B, 768, True, 0, 1))
 # the s8 GEMM: epilogue, M, K, N, h saved (the quantization-aware forward)
@@ -1658,6 +1662,20 @@ M_H = 128 * 259
 CHUNK_D, CHUNK_DH = 1024, 4096
 CHUNKED = (("ViT-L/14", BATCH, 259, 1024), ("ViT-B/16", BATCH, 199, 768),
            ("D=1280", 128, 259, 1280))
+# its LayerNorm dx (fp32 dxn, with a residual): rows, D, launches a call at
+# ViT-L/14; D = 2048 is CHUNKED_MAX_WIDTH, the widest the op takes
+CHUNKED_LN_BWD = ((M_L, CHUNK_D, 1), (M_H, 1280, 0), (M_H, 2048, 0))
+
+
+def ln_bwd_widths() -> set:
+    """The widths at which ``[kernels*]`` holds the bf16 LayerNorm dx."""
+    return ({c[1] for spec in SHAPES.values() for c in spec["ln_bwd"]}
+            | {D for _, D, _ in CHUNKED_LN_BWD})
+
+
+def q8_ln_widths() -> set:
+    """The widths at which ``[kernels int8*]`` holds the bf16 LayerNorm-quant."""
+    return {c[1] for ln, *_ in Q8_SHAPES.values() for c in ln}
 
 
 def chunked_launches(K: int) -> tuple:
@@ -1671,7 +1689,8 @@ def chunked_launches(K: int) -> tuple:
 
 
 def phase_kernels_chunked(F, kc: dict) -> dict:
-    """The chunked MLP half: LayerNorm forward and dx at D = 1024 and 1280;
+    """The chunked MLP half: LayerNorm forward at D = 1024 and 1280, dx at
+    ``CHUNKED_LN_BWD``'s widths (1024, 1280, 2048);
     each GEMM of its chain at ViT-L/14's chunk, the fc weight's column
     chunk read in place (strided rows); then the op against its plain
     version at the three CHUNKED shapes, forward and forward + backward,
@@ -1688,8 +1707,8 @@ def phase_kernels_chunked(F, kc: dict) -> dict:
     # LayerNorm: twice per call (the forward's and the backward's), dx once
     check_ln_fwd(F, rn, tag, M_L, D, kc["layernorm_fwd"], 2)
     check_ln_fwd(F, rn, tag, M_H, 1280, kc["layernorm_fwd"], 0)
-    check_ln_bwd(F, rn, tag, M_L, D, "float32", True, kc["layernorm_bwd"], 1)
-    check_ln_bwd(F, rn, tag, M_H, 1280, "float32", True, kc["layernorm_bwd"], 0)
+    for rows, width, n in CHUNKED_LN_BWD:
+        check_ln_bwd(F, rn, tag, rows, width, "float32", True, kc["layernorm_bwd"], n)
 
     # the chain's GEMMs at the second chunk (a column chunk off the start of
     # fc_w, 16-byte aligned): per call K each, the first chunk's proj and
@@ -7010,9 +7029,11 @@ AB_ITERS = 40  # launches a kernel time of --times-of averages
 def kernel_times(F) -> dict:
     """ms per launch of every GEMM epilogue and attention_bwd case of
     SHAPES (the three vision towers' paths and the text shapes), of every
-    bf16 s8 GEMM case of Q8_GEMM and of the row quantizer and the bf16
-    LayerNorm-quant (dynamic and static) at ViT-B/16's rows, on seeded
-    inputs, through the public
+    bf16 s8 GEMM case of Q8_GEMM, of the row quantizer at ViT-B/16's rows,
+    of LayerNorm-quant at every case of ``Q8_LN_AB`` and of the bf16
+    LayerNorm dx at every case of ``LN_BWD_AB`` (these also queued: a
+    launch takes 4-800 us, where the host's pace can set ``time_ms``), on
+    seeded inputs, through the public
     wrappers only, so that two trees' kernels can be timed in one call
     (``--times-of``); and of every fp32 GEMM mode of ``FP32_GEMM``, of
     attention_fwd_f32 and attention_bwd_f32 at every case of
@@ -7029,8 +7050,9 @@ def kernel_times(F) -> dict:
 
     rn = randn_fn(11)
     times = {}
-    for key, fn in q8_row_cases(F, Q, rn):
+    for key, fn in itertools.chain(q8_row_cases(F, Q, rn), ln_bwd_cases(F, rn)):
         times[key] = time_ms(fn, AB_ITERS)
+        times[key + " device"], times[key + " host us"] = queued_ms(fn, AB_ITERS)
     for ep, M, K, N, save, *_ in Q8_GEMM:
         args, _ = s8_case(Q, rn, ep, M, K, N, save)
         times[f"gemm_s8_epilogue {ep}{' save h' if save else ''} {M}x{K}->{N}"] = time_ms(
@@ -7085,30 +7107,89 @@ def kernel_times(F) -> dict:
     return times
 
 
-def q8_row_cases(F, Q, rn) -> list:
-    """(name, call) of the row quantizer at ViT-B/16's attention and g rows
-    and of the bf16 LayerNorm-quant at its LN rows, dynamic and static."""
+# CoCoOp's packed text rows at 1,000 classes (500 blocks of 192 rows)
+M_T = 500 * 192
+# the bf16 LayerNorm dx at every width a path reaches, as --times-of reads
+# it: rows, D, dxn dtype, residual (the layers' fp32 dxn with r; the towers'
+# own LayerNorms' bf16 dxn without); the text rows of ViT-B/16 and RN50
+# (512; also CoCoOp's M_T), RN50x4 (640), ViT-L/14 (768); the chunked
+# half's 1280 and 2048
+LN_BWD_AB = ((M_B, 768, "float32", True), (M_B, 768, "bfloat16", False),
+             (13 * 128, 512, "float32", True), (13 * 128, 512, "bfloat16", False),
+             (M_T, 512, "float32", True), (M_T, 640, "float32", True),
+             (13 * 128, 640, "float32", True), (13 * 128, 768, "float32", True),
+             (M_L, 1024, "float32", True), (M_L, 1024, "bfloat16", False),
+             (M_336, 1024, "float32", True), (M_336, 1024, "bfloat16", False),
+             (M_H, 1280, "float32", True), (M_H, 2048, "float32", True))
+# LayerNorm-quant as --times-of reads it: rows, D, x dtype, modes (the
+# probe's ablations on its 128 x 200 rows)
+Q8_LN_AB = ((M_B, 768, "bfloat16", ("q8", "q8_static")),
+            (13 * 128, 512, "bfloat16", ("q8",)), (13 * 128, 640, "bfloat16", ("q8",)),
+            (13 * 128, 768, "bfloat16", ("q8",)), (M_T, 512, "bfloat16", ("q8",)),
+            (M_T, 640, "bfloat16", ("q8",)),
+            (M_L, 1024, "bfloat16", ("q8", "q8_static")),
+            (M_B, 768, "float32", ("q8", "q8_static")),
+            (M_L, 1024, "float32", ("q8", "q8_static")),
+            (128 * 200, 768, "bfloat16", ("q8_recip", "q8_noclip", "q8_floor")))
+DTYPE_TAGS = {"float32": "fp32", "bfloat16": "bf16"}
+
+
+def ln_bwd_cases(F, rn):
+    """(name, call) of the bf16 LayerNorm dx at each case of
+    ``LN_BWD_AB``, one case's tensors alive at a time."""
     import torch
 
-    one = torch.full((), 127.0, device="cuda")
-    x_att, x_g = rn(M_B, 768, dtype=torch.float32), rn(M_B, 3072, dtype=torch.float32)
-    x = rn(M_B, 768, std=2.0)
-    s, b = rn(768, dtype=torch.float32) * 0.1 + 1, rn(768, dtype=torch.float32) * 0.1
-    r = one / F.layer_norm_plain(x, s, b).float().abs().amax()
-    return [(f"quant_rows {M_B}x{v.shape[1]} {kind}", (lambda v=v, rr=rr: Q.quantize_rows(v, rr)))
-            for v in (x_att, x_g) for kind, rr in (("dynamic", None), ("static", one / 4))] + [
-        (f"layernorm_q8 {M_B}x768 {kind}", (lambda rr=rr: Q.ln_quant(x, s, b, rr)))
-        for kind, rr in (("dynamic", None), ("static", r))]
+    for rows, D, dxn_name, with_r in LN_BWD_AB:
+        x = rn(rows, D, std=2.0)
+        dxn = rn(rows, D, dtype=getattr(torch, dxn_name))
+        s = rn(D, dtype=torch.float32) * 0.1 + 1
+        r = rn(rows, D) if with_r else None
+        name = f"layernorm_bwd {rows}x{D} {DTYPE_TAGS[dxn_name]} dxn" + (" + r" if with_r else "")
+        yield name, lambda x=x, dxn=dxn, s=s, r=r: F.layer_norm_bwd(dxn, x, s, r)
+        del x, dxn, s, r
+
+
+def q8_row_cases(F, Q, rn):
+    """(name, call) of the row quantizer at ViT-B/16's attention and g
+    rows and of LayerNorm-quant at each case of ``Q8_LN_AB`` (its bf16 and
+    fp32 instances, dynamic and static, and the probe's ablations), one
+    case's tensors alive at a time."""
+    import torch
+
+    from mudpt_torch.ops import probe as P
+
+    for X in (768, 3072):
+        v = rn(M_B, X, dtype=torch.float32)
+        one = torch.full((), 127.0, device=v.device)
+        for kind, rr in (("dynamic", None), ("static", one / 4)):
+            yield f"quant_rows {M_B}x{X} {kind}", lambda v=v, rr=rr: Q.quantize_rows(v, rr)
+        del v
+    for rows, D, dtype, modes in Q8_LN_AB:
+        x = rn(rows, D, std=2.0, dtype=getattr(torch, dtype))
+        s, b = rn(D, dtype=torch.float32) * 0.1 + 1, rn(D, dtype=torch.float32) * 0.1
+        r = one / F.layer_norm_plain(x, s, b).float().abs().amax()
+        for mode in modes:
+            kind = {"q8": "dynamic", "q8_static": "static"}.get(mode, mode[3:])
+            name = "layernorm_q8" + ("_f32" if dtype == "float32" else "")
+            if mode.startswith("q8_") and mode != "q8_static":
+                name += "_" + mode[3:]
+                yield (f"{name} {rows}x{D}",
+                       lambda x=x, s=s, b=b, mode=mode: P.ln_quant_mode(x, s, b, mode))
+            else:
+                yield (f"{name} {rows}x{D} {kind}",
+                       lambda x=x, s=s, b=b, rr=r if mode == "q8_static" else None:
+                       Q.ln_quant(x, s, b, rr))
+        del x, s, b, r
 
 
 def kernel_digests(F) -> dict:
-    """A digest of the bits of each bf16 LayerNorm output, forward and dx
-    (fp32 and bf16 dxn, with and without a residual), at the vision towers'
-    rows and at D = 1280, of the bf16 LayerNorm-quant's codes and scales,
-    dynamic and static, of the row quantizer's, and of every bf16 s8 GEMM
-    case of Q8_GEMM, on seeded inputs: two trees whose digests agree
-    compute the same bits (``--times-of``); and of every fp32 s8 GEMM case
-    at ViT-B/16's rows."""
+    """A digest of the bits of each bf16 LayerNorm output, forward at the
+    vision towers' rows and at D = 1280, dx at every case of ``LN_BWD_AB``,
+    of the LayerNorm-quant's codes and scales at every case of ``Q8_LN_AB``
+    (bf16 and fp32 rows, dynamic, static, the probe's ablations), of the
+    row quantizer's, and of every bf16 s8 GEMM case of Q8_GEMM, on seeded
+    inputs: two trees whose digests agree compute the same bits
+    (``--times-of``); and of every fp32 s8 GEMM case at ViT-B/16's rows."""
     import hashlib
 
     import torch
@@ -7126,13 +7207,8 @@ def kernel_digests(F) -> dict:
     out = {}
     for key, fn in q8_row_cases(F, Q, rn):
         out[key] = digest(*fn())
-    for rows, D in ((M_B, 768), (M_L, 1024)):
-        x = rn(rows, D, std=2.0)
-        s, b = rn(D, dtype=torch.float32) * 0.1 + 1, rn(D, dtype=torch.float32) * 0.1
-        r = torch.full((), 127.0, device="cuda") / F.layer_norm_plain(x, s, b).float().abs().amax()
-        out[f"layernorm_q8 {rows}x{D} dynamic"] = digest(*Q.ln_quant(x, s, b))
-        out[f"layernorm_q8 {rows}x{D} static"] = digest(*Q.ln_quant(x, s, b, r))
-        del x
+    for key, fn in ln_bwd_cases(F, rn):
+        out[key] = digest(fn())
     for kernel, cases, dtype in (("gemm_s8_epilogue", Q8_GEMM, None),
                                  ("gemm_s8_epilogue_f32",
                                   [c for c in F32_Q8_GEMM if c[1] == M_B], torch.float32)):
@@ -7143,17 +7219,10 @@ def kernel_digests(F) -> dict:
                 *(got if save else (got,)))
             del args, got
     for rows, D in ((M_B, 768), (M_L, 1024), (2048, 1280)):
-        x, g16, g32, r = rn(rows, D, std=2.0), rn(rows, D), rn(rows, D, dtype=torch.float32), \
-            rn(rows, D)
+        x = rn(rows, D, std=2.0)
         s, b = rn(D, dtype=torch.float32) * 0.1 + 1, rn(D, dtype=torch.float32) * 0.1
-        for key, fn in ((f"layernorm_fwd {rows}x{D}", lambda: F.layer_norm_fwd(x, s, b)),
-                        (f"layernorm_bwd {rows}x{D} fp32 dxn + r",
-                         lambda: F.layer_norm_bwd(g32, x, s, r)),
-                        (f"layernorm_bwd {rows}x{D} bf16 dxn",
-                         lambda: F.layer_norm_bwd(g16, x, s))):
-            bits = fn().view(torch.int16).cpu().numpy().tobytes()
-            out[key] = hashlib.sha256(bits).hexdigest()[:16]
-        del x, g16, g32, r
+        out[f"layernorm_fwd {rows}x{D}"] = digest(F.layer_norm_fwd(x, s, b))
+        del x
     return out
 
 

@@ -27,28 +27,35 @@
 //   in order, vector by vector, and the warp adds its 32 lane sums by a
 //   shuffle tree, so a row's arithmetic is the same whatever warp or block
 //   takes it (no atomics; a relaunch is bit-equal).
-// bf16 rows (layernorm_bwd_kernel): one warp owns one row, 16-byte vectors
-//   with neighbouring lanes on neighbouring addresses, x and g kept in
-//   registers between the passes, so every input is read once.  Supports D %
-//   8 == 0 and D <= 1024, and, compiled as cases of their own so that the
-//   narrower rows keep their code, D % 64 == 0 and D <= 2048.
-// fp32 rows (layernorm_bwd_f32_kernel): that design lost to F.layer_norm's
-//   backward on the card.  Its three loads of a row (x; then dxn and the
-//   scale; then r) depended on each other only by their place in the code,
-//   each a full round trip behind the reductions before it, and its
-//   registers, sized for D = 1024 at every width, capped the warps an SM
-//   held.  Here every load of the row (x, dxn, r and the scale) is issued
-//   before the first reduction, so a row waits for one round trip, and the
-//   registers follow the instance's width: D <= 512, 768, 1024, 1280 and
-//   2048 are instances of their own (4-16 vectors a lane, 79-255 registers
-//   with r, none spilled), blocks of four warps.  One row a warp; dx leaves
-//   by 16-byte stores.  Timed beside it on the card (PERF.md, the fp32
-//   LayerNorms): a persistent grid walking each warp's rows through a ring
-//   of 1-D bulk copies into shared memory (the statistics read from there),
-//   at two and three stages, 1.08-1.14x its time at ViT-B/16's 76,416 x
-//   768; two rows a warp (kRegRows, the variant), cache-streaming loads and
-//   stores and eight warps a block, within 1% there and none faster by more
-//   than 0.1 us at the text rows.
+// The first design, one warp a row with three loads in turn (x; then dxn
+//   and the scale; then r), each a full round trip behind the reductions
+//   before it, and registers sized for D = 1024 at every width up to 1024
+//   and for 2048 above, lost to F.layer_norm's backward on the card (2.2x
+//   its time at 33,152 x 1280) and read 0.49-0.85 of its bytes bound.  Both
+//   kernels below replace it with one design:
+// fp32 rows (layernorm_bwd_f32_kernel) and bf16 rows
+//   (layernorm_bwd_kernel): every load of the row (x, dxn, r and the
+//   scale) is issued before the first reduction, so a row waits for one
+//   round trip, and the registers follow the instance's width: D <= 512,
+//   768 (640 too: three 8-element vectors a lane), 1024, 1280 and 2048 are
+//   instances of their own, none spilled.  A lane's elements are its
+//   vectors lane + 32 * i, 16 bytes each; dx leaves by 16-byte stores.
+//   fp32 rows: 4-16 vectors a lane, 79-255 registers with r, one row a
+//   warp, blocks of four warps.  Timed beside it on the card (PERF.md, the
+//   fp32 LayerNorms): a persistent grid walking each warp's rows through a
+//   ring of 1-D bulk copies into shared memory (the statistics read from
+//   there), at two and three stages, 1.08-1.14x its time at ViT-B/16's
+//   76,416 x 768; two rows a warp (kRegRows, the variant), cache-streaming
+//   loads and stores and eight warps a block, within 1% there and none
+//   faster by more than 0.1 us at the text rows.
+//   bf16 rows: x and r held as loaded (bf16, 4 registers a vector), dxn
+//   fp32 or bf16; the scale held in registers to D = 1280.  Each row's
+//   arithmetic is the first design's, in its order (x and g converted to
+//   fp32 vector by vector, xhat in place of x, the same expressions), so
+//   dx is bit-equal to it.  One row a warp, four warps a block: timed
+//   beside it on the card (PERF.md), two rows a warp (kBf16Rows, to D =
+//   1024) ran 1.10-1.53x its time at the vision rows, two and eight warps a
+//   block within 2%.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -56,32 +63,43 @@
 
 namespace {
 
-constexpr int kRowsPerBlock = 8;  // one warp per row
-
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
 
-// kN consecutive elements as floats: 8 bf16 are one 16-byte vector, kN
-// floats kN / 4 of them
-template <int kN>
-__device__ __forceinline__ void loadn(const __nv_bfloat16* p, float (&out)[kN]) {
-  static_assert(kN == 8, "bf16 rows take 8-element vectors");
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
+// ---------------------------------------------------------------------------
+// bf16 rows
+// ---------------------------------------------------------------------------
+
+constexpr int kBf16Rows = 1;   // rows a warp to D = 1024 (one beyond)
+constexpr int kBf16Warps = 4;  // warps a block
+
+// 8 consecutive elements as floats, from their 16-byte vectors as loaded:
+// one of bf16 (as uint4, or the one vector of a bf16 dxn), two of fp32
+__device__ __forceinline__ void to_float(const uint4& u, float (&out)[8]) {
   const __nv_bfloat16* b = reinterpret_cast<const __nv_bfloat16*>(&u);
 #pragma unroll
   for (int j = 0; j < 8; ++j) out[j] = __bfloat162float(b[j]);
 }
 
-template <int kN>
-__device__ __forceinline__ void loadn(const float* p, float (&out)[kN]) {
+__device__ __forceinline__ void to_float(const uint4 (&u)[1], float (&out)[8]) {
+  to_float(u[0], out);
+}
+
+__device__ __forceinline__ void to_float(const uint4 (&u)[2], float (&out)[8]) {
 #pragma unroll
-  for (int q = 0; q < kN / 4; ++q) {
-    const float4 a = reinterpret_cast<const float4*>(p)[q];
-    out[4 * q] = a.x; out[4 * q + 1] = a.y; out[4 * q + 2] = a.z; out[4 * q + 3] = a.w;
+  for (int k = 0; k < 2; ++k) {
+    const float* f = reinterpret_cast<const float*>(&u[k]);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) out[4 * k + j] = f[j];
   }
+}
+
+__device__ __forceinline__ void to_float(const float4 (&v)[2], float (&out)[8]) {
+  out[0] = v[0].x; out[1] = v[0].y; out[2] = v[0].z; out[3] = v[0].w;
+  out[4] = v[1].x; out[5] = v[1].y; out[6] = v[1].z; out[7] = v[1].w;
 }
 
 __device__ __forceinline__ void storen(__nv_bfloat16* p, const float (&v)[8]) {
@@ -92,105 +110,162 @@ __device__ __forceinline__ void storen(__nv_bfloat16* p, const float (&v)[8]) {
   *reinterpret_cast<uint4*>(p) = u;
 }
 
-// T: the element type of x, r and dx; DXN: of dxn (T, or fp32 beside bf16
-// rows); kN: elements a lane's vector (16 / sizeof(T)); kMaxVecPerLane:
-// 1024 (or 2048) columns over 32 lanes of such vectors
-template <typename T, typename DXN, int kN, int kMaxVecPerLane>
-__global__ void __launch_bounds__(kRowsPerBlock * 32)
-layernorm_bwd_kernel(const DXN* __restrict__ dxn, const T* __restrict__ x,
-                     const float* __restrict__ scale, const T* __restrict__ r,
-                     T* __restrict__ dx, int rows, int D, float eps) {
-  const int row = blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
+// dx of bf16 rows, DXN: dxn's type (fp32 or bf16), kR: with a residual.
+// kRows rows a warp, every load of them (x, dxn, r, the scale) issued
+// before the first reduction; kVec: 8-element vectors a lane at the
+// instance's widest D
+template <typename DXN, int kVec, int kRows, bool kR>
+__global__ void __launch_bounds__(kBf16Warps * 32)
+layernorm_bwd_kernel(const DXN* __restrict__ dxn, const __nv_bfloat16* __restrict__ x,
+                     const float* __restrict__ scale, const __nv_bfloat16* __restrict__ r,
+                     __nv_bfloat16* __restrict__ dx, int rows, int D, float eps) {
+  constexpr int kG = sizeof(DXN) / 2;  // 16-byte vectors of dxn to 8 elements
+  constexpr bool kHold = kVec <= 5;
   const int lane = threadIdx.x & 31;
-  if (row >= rows) return;  // warp-uniform
-  const int nvec = D >> (kN == 8 ? 3 : 2);
-  const size_t base = (size_t)row * D;
-
-  // pass 1: x into registers, its mean
-  float xv[kMaxVecPerLane][kN];
-  float sum = 0.f;
+  const int row0 = (blockIdx.x * kBf16Warps + (threadIdx.x >> 5)) * kRows;
+  const int nvec = D >> 3;
+  if (row0 >= rows) return;  // warp-uniform
+  const uint4* x4 = reinterpret_cast<const uint4*>(x);
+  const uint4* d4 = reinterpret_cast<const uint4*>(dxn);
+  const uint4* r4 = reinterpret_cast<const uint4*>(r);
+  const float4* s4 = reinterpret_cast<const float4*>(scale);
+  uint4 xr[kRows][kVec], dr[kRows][kVec][kG], rr[kR ? kRows : 1][kR ? kVec : 1];
+  float4 sv[kHold ? kVec : 1][2];
 #pragma unroll
-  for (int i = 0; i < kMaxVecPerLane; ++i) {
-    const int c = lane + i * 32;
+  for (int i = 0; i < kVec; ++i) {
+    const int c = lane + 32 * i;
     if (c < nvec) {
-      loadn<kN>(x + base + kN * c, xv[i]);
+      if (kHold) {
+        sv[kHold ? i : 0][0] = s4[2 * c];
+        sv[kHold ? i : 0][1] = s4[2 * c + 1];
+      }
 #pragma unroll
-      for (int j = 0; j < kN; ++j) sum += xv[i][j];
-    }
-  }
-  const float mean = warp_sum(sum) / (float)D;
-  float sq = 0.f;
+      for (int q = 0; q < kRows; ++q) {
+        // a row past the end reads the last row's bytes and is not written
+        const size_t off = (size_t)(row0 + q < rows ? row0 + q : rows - 1) * nvec + c;
+        xr[q][i] = x4[off];
 #pragma unroll
-  for (int i = 0; i < kMaxVecPerLane; ++i) {
-    if (lane + i * 32 < nvec) {
-#pragma unroll
-      for (int j = 0; j < kN; ++j) {
-        const float d = xv[i][j] - mean;
-        sq += d * d;
+        for (int k = 0; k < kG; ++k) dr[q][i][k] = d4[off * kG + k];
+        if (kR) rr[kR ? q : 0][kR ? i : 0] = r4[off];
       }
     }
   }
-  const float inv = rsqrtf(warp_sum(sq) / (float)D + eps);
 
-  // pass 2: g = dxn * scale and xhat in registers, their two row means
-  float gv[kMaxVecPerLane][kN];
-  float gsum = 0.f, gxsum = 0.f;
+  // x's mean and inv, row by row
+  float xv[kRows][kVec][8], mean[kRows], inv[kRows];
 #pragma unroll
-  for (int i = 0; i < kMaxVecPerLane; ++i) {
-    const int c = lane + i * 32;
-    if (c < nvec) {
-      float sc[kN];
-      loadn<kN>(dxn + base + kN * c, gv[i]);
-      loadn<kN>(scale + kN * c, sc);
+  for (int q = 0; q < kRows; ++q) {
+    float sum = 0.f;
 #pragma unroll
-      for (int j = 0; j < kN; ++j) {
-        gv[i][j] *= sc[j];
-        xv[i][j] = (xv[i][j] - mean) * inv;  // now xhat
-        gsum += gv[i][j];
-        gxsum += gv[i][j] * xv[i][j];
+    for (int i = 0; i < kVec; ++i) {
+      if (lane + 32 * i < nvec) {
+        to_float(xr[q][i], xv[q][i]);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) sum += xv[q][i][j];
       }
     }
+    mean[q] = warp_sum(sum) / (float)D;
   }
-  const float gm = warp_sum(gsum) / (float)D;
-  const float gx = warp_sum(gxsum) / (float)D;
+#pragma unroll
+  for (int q = 0; q < kRows; ++q) {
+    float sq = 0.f;
+#pragma unroll
+    for (int i = 0; i < kVec; ++i) {
+      if (lane + 32 * i < nvec) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float d = xv[q][i][j] - mean[q];
+          sq += d * d;
+        }
+      }
+    }
+    inv[q] = rsqrtf(warp_sum(sq) / (float)D + eps);
+  }
 
-  // pass 3: dx = T(f32(r) + (g - gm - xhat * gx) * inv)
+  // g = dxn * scale and xhat (in place of x), the means of g and g * xhat
+  float gv[kRows][kVec][8], gm[kRows], gx[kRows];
 #pragma unroll
-  for (int i = 0; i < kMaxVecPerLane; ++i) {
-    const int c = lane + i * 32;
-    if (c < nvec) {
-      float rv[kN];
+  for (int q = 0; q < kRows; ++q) {
+    float gsum = 0.f, gxsum = 0.f;
 #pragma unroll
-      for (int j = 0; j < kN; ++j) rv[j] = 0.f;
-      if (r != nullptr) loadn<kN>(r + base + kN * c, rv);
-      float o[kN];
+    for (int i = 0; i < kVec; ++i) {
+      const int c = lane + 32 * i;
+      if (c < nvec) {
+        float sc[8];
+        if (kHold) {
+          to_float(sv[kHold ? i : 0], sc);
+        } else {
+          const float4 s2[2] = {s4[2 * c], s4[2 * c + 1]};
+          to_float(s2, sc);
+        }
+        to_float(dr[q][i], gv[q][i]);
 #pragma unroll
-      for (int j = 0; j < kN; ++j) o[j] = rv[j] + (gv[i][j] - gm - xv[i][j] * gx) * inv;
-      storen(dx + base + kN * c, o);
+        for (int j = 0; j < 8; ++j) {
+          gv[q][i][j] *= sc[j];
+          xv[q][i][j] = (xv[q][i][j] - mean[q]) * inv[q];  // now xhat
+          gsum += gv[q][i][j];
+          gxsum += gv[q][i][j] * xv[q][i][j];
+        }
+      }
+    }
+    gm[q] = warp_sum(gsum) / (float)D;
+    gx[q] = warp_sum(gxsum) / (float)D;
+  }
+
+  // dx = bf16(f32(r) + (g - gm - xhat * gx) * inv), r = 0 without a residual
+#pragma unroll
+  for (int q = 0; q < kRows; ++q) {
+    if (row0 + q >= rows) continue;
+#pragma unroll
+    for (int i = 0; i < kVec; ++i) {
+      const int c = lane + 32 * i;
+      if (c < nvec) {
+        float rv[8];
+        if (kR) {
+          to_float(rr[kR ? q : 0][kR ? i : 0], rv);
+        } else {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) rv[j] = 0.f;
+        }
+        float o[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          o[j] = rv[j] + (gv[q][i][j] - gm[q] - xv[q][i][j] * gx[q]) * inv[q];
+        }
+        storen(dx + ((size_t)(row0 + q) * nvec + c) * 8, o);
+      }
     }
   }
 }
 
-template <typename T, typename DXN>
-int launch(const void* dxn, const void* x, const void* scale, const void* r, void* dx,
-           int rows, int D, float eps, cudaStream_t s) {
-  constexpr int kN = 16 / sizeof(T);
-  constexpr int kNarrow = 1024 / 32 / kN;  // vectors a lane at D <= 1024
-  const int blocks = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
-  const int threads = kRowsPerBlock * 32;
-  const auto* d = static_cast<const DXN*>(dxn);
-  const auto* xt = static_cast<const T*>(x);
-  const auto* sc = static_cast<const float*>(scale);
-  const auto* rt = static_cast<const T*>(r);
-  auto* out = static_cast<T*>(dx);
-  if (D <= 1024) {
-    layernorm_bwd_kernel<T, DXN, kN, kNarrow><<<blocks, threads, 0, s>>>(d, xt, sc, rt, out,
-                                                                         rows, D, eps);
-  } else {
-    layernorm_bwd_kernel<T, DXN, kN, 2 * kNarrow><<<blocks, threads, 0, s>>>(d, xt, sc, rt, out,
-                                                                             rows, D, eps);
-  }
+template <typename DXN, int kVec, int kRows, bool kR>
+int launch_bf16_at(const DXN* dxn, const __nv_bfloat16* x, const float* scale,
+                   const __nv_bfloat16* r, __nv_bfloat16* dx, int rows, int D, float eps,
+                   cudaStream_t s) {
+  const int per_block = kRows * kBf16Warps;
+  layernorm_bwd_kernel<DXN, kVec, kRows, kR><<<(rows + per_block - 1) / per_block,
+                                               kBf16Warps * 32, 0, s>>>(
+      dxn, x, scale, r, dx, rows, D, eps);
   return (int)cudaGetLastError();
+}
+
+// the instance whose registers fit D: the text rows (512; RN50x4's 640 and
+// ViT-L/14's 768 on the 768 instance), ViT-B/16's vision rows (768), the
+// halves' 1024, the chunked half's 1280 and its widest, 2048
+template <typename DXN, bool kR>
+int launch_bf16(const void* dxn, const void* x, const void* scale, const void* r, void* dx,
+                int rows, int D, float eps, cudaStream_t s) {
+  using B = __nv_bfloat16;
+  const auto* d = static_cast<const DXN*>(dxn);
+  const auto* xt = static_cast<const B*>(x);
+  const auto* sc = static_cast<const float*>(scale);
+  const auto* rt = static_cast<const B*>(r);
+  auto* out = static_cast<B*>(dx);
+  if (D <= 512) return launch_bf16_at<DXN, 2, kBf16Rows, kR>(d, xt, sc, rt, out, rows, D, eps, s);
+  if (D <= 768) return launch_bf16_at<DXN, 3, kBf16Rows, kR>(d, xt, sc, rt, out, rows, D, eps, s);
+  if (D <= 1024) return launch_bf16_at<DXN, 4, kBf16Rows, kR>(d, xt, sc, rt, out, rows, D, eps, s);
+  if (D <= 1280) return launch_bf16_at<DXN, 5, 1, kR>(d, xt, sc, rt, out, rows, D, eps, s);
+  return launch_bf16_at<DXN, 8, 1, kR>(d, xt, sc, rt, out, rows, D, eps, s);
 }
 
 // ---------------------------------------------------------------------------
@@ -354,8 +429,11 @@ extern "C" int layernorm_bwd(const void* dxn, int dxn_bf16, const void* x, const
     return r != nullptr ? launch_f32<true>(d, xt, sc, rt, out, rows, D, eps, s)
                         : launch_f32<false>(d, xt, sc, rt, out, rows, D, eps, s);
   }
+  using B = __nv_bfloat16;
   if (dxn_bf16) {
-    return launch<__nv_bfloat16, __nv_bfloat16>(dxn, x, scale, r, dx, rows, D, eps, s);
+    return r != nullptr ? launch_bf16<B, true>(dxn, x, scale, r, dx, rows, D, eps, s)
+                        : launch_bf16<B, false>(dxn, x, scale, r, dx, rows, D, eps, s);
   }
-  return launch<__nv_bfloat16, float>(dxn, x, scale, r, dx, rows, D, eps, s);
+  return r != nullptr ? launch_bf16<float, true>(dxn, x, scale, r, dx, rows, D, eps, s)
+                      : launch_bf16<float, false>(dxn, x, scale, r, dx, rows, D, eps, s);
 }

@@ -26,13 +26,30 @@
 //     floor:   q = int8(xn), XLA's convert: toward zero, saturated, NaN -> 0
 // Bound on the H100: device-memory bytes (sizeof(T) read and 1 written per
 //   element, ~12 fp32 operations each).
-// Design: layernorm_fwd's: one warp owns a row (D % 8 == 0, D <= 1024),
-//   16-byte loads (8 bf16 or 4 fp32) kept in registers through the
-//   statistics, the affine, the row max (one more warp shuffle reduction)
-//   and the quantization, at most 32 values a lane; a vector's codes leave
-//   as one store a lane (8 bytes from bf16 rows, 4 from fp32).  Both
-//   element types are instances of one template: the bf16 instances
-//   compute what they did before fp32 rows were added, in the same order.
+// Design: one warp owns a row at a time (D % 8 == 0, D <= 1024), 16-byte
+//   loads (8 bf16 or 4 fp32) kept in registers through the statistics, the
+//   affine, the row max (one more warp shuffle reduction) and the
+//   quantization; a vector's codes leave as one store a lane (8 bytes from
+//   bf16 rows, 4 from fp32).  The registers follow the instance's width: D
+//   <= 512, 768 and 1024 are instances of their own.  A row's loads are
+//   issued first; the scale and the bias are staged once a block in shared
+//   memory while they fly (laid out so that a warp reads them contiguously),
+//   so no load waits behind a reduction.  The first design (one row a warp,
+//   registers for D = 1024 at every width, the scale and bias loaded after
+//   two reductions, a division a code) read 0.56-0.85 of its bytes bound on
+//   the card (PERF.md); at about 40 instructions an element in the dynamic
+//   mode, half of them the IEEE division, it was bound by the instructions
+//   a warp issues as much as by the bytes.  Here a dynamic code is one
+//   multiply by the row scale's reciprocal unless it lies next to a rounding
+//   boundary (kRecipFirst, below), a clipped code one max and one saturating
+//   convert, and v - mean is kept from the variance for xhat; bf16 rows
+//   under a dynamic quantizer walk their rows with the next one in flight
+//   (kWalk, below).  Timed beside it on the card and lost: the scale and
+//   bias held in registers (110-176 registers halved the warps an SM
+//   holds), two rows a warp, the scale and bias read from global memory
+//   where each vector needs them.  Both element types are instances of one
+//   template; each row's arithmetic is the first design's, in its order,
+//   so codes and scales are bit-equal to it.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -41,7 +58,18 @@
 
 namespace {
 
-constexpr int kRowsPerBlock = 8;   // one warp per row
+constexpr int kQ8Rows = 1;  // rows a warp at a time
+// The launch of an instance.  bf16 rows under a dynamic quantizer (and the
+// probe's ablations) walk: a grid of the blocks the card holds at once,
+// kWalkWarps warps a block, each warp walking its rows with the next row's
+// x in flight (a row waits on three reductions there).  The static
+// quantizer and fp32 rows take a block of kBlockWarps warps for every
+// kBlockWarps rows: there the next row's registers cost more warps than its
+// early loads win (timed on the card: PERF.md).
+constexpr bool kWalk = true;
+constexpr int kWalkWarps = 8;
+constexpr int kBlockWarps = 4;
+constexpr bool kQ8Stage = true;  // the scale and bias staged in shared memory
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -53,10 +81,6 @@ __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
-}
-
-__device__ __forceinline__ int8_t clip_rint(float v) {
-  return static_cast<int8_t>(fminf(fmaxf(rintf(v), -127.0f), 127.0f));
 }
 
 // the quantizer: dynamic (divide by the row scale), static (multiply by r),
@@ -77,14 +101,46 @@ __device__ __forceinline__ int8_t cvt_rni_sat(float v) {
   return static_cast<int8_t>(q);
 }
 
-// one code: mult is the row scale (kDiv, kNoclip) or a multiplier (kStatic:
-// r, kRecip: 127 / m); kFloor takes none
-template <int MODE>
-__device__ __forceinline__ int8_t code(float v, float mult) {
-  if (MODE == kDiv) return clip_rint(__fdiv_rn(v, mult));
-  if (MODE == kNoclip) return cvt_rni_sat(__fdiv_rn(v, mult));
-  if (MODE == kFloor) return cvt_rzi_sat(v);
-  return clip_rint(__fmul_rn(v, mult));
+// int8(clip(rint(v), -127, 127)) for every float v, NaN included (-127):
+// rint commutes with the max at the integer -127, and the convert's
+// saturation at 127 is the upper clip
+__device__ __forceinline__ int8_t clip_rint(float v) { return cvt_rni_sat(fmaxf(v, -127.0f)); }
+
+// The dynamic codes divide by the row scale s: q = rint(RN(v / s)).  With y
+// = RN(1 / s), t = RN(v * y) lies within 2^-15 of RN(v / s) wherever |v /
+// s| <= 128 (two roundings of 2^-24 each, and that of the quotient), which
+// the row scale ensures (|v| <= absmax = 127 s, up to an ulp); so where t
+// is more than 2^-15 from every half-integer, rint(t) = rint(RN(v / s)).
+// A vector with a code nearer than that (or a NaN or inf) divides.
+constexpr bool kRecipFirst = true;
+constexpr float kNearHalf = 0.5f - 1.0f / 32768.0f;
+
+// the codes of a vector of n values: mult is the row scale (kDiv, kNoclip;
+// y its reciprocal) or a multiplier (kStatic: r, kRecip: 127 / m); kFloor
+// takes none
+template <int MODE, int n>
+__device__ __forceinline__ void codes(const float (&v)[n], float mult, float y,
+                                      int8_t (&o)[n]) {
+  if (MODE == kDiv || MODE == kNoclip) {
+    float t[n];
+    bool divide = !kRecipFirst;
+#pragma unroll
+    for (int j = 0; j < n; ++j) {
+      t[j] = __fmul_rn(v[j], y);
+      divide |= !(fabsf(__fsub_rn(t[j], rintf(t[j]))) < kNearHalf);
+    }
+    if (divide) {
+#pragma unroll
+      for (int j = 0; j < n; ++j) t[j] = __fdiv_rn(v[j], mult);
+    }
+#pragma unroll
+    for (int j = 0; j < n; ++j) o[j] = MODE == kDiv ? clip_rint(t[j]) : cvt_rni_sat(t[j]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < n; ++j) {
+      o[j] = MODE == kFloor ? cvt_rzi_sat(v[j]) : clip_rint(__fmul_rn(v[j], mult));
+    }
+  }
 }
 
 // a 16-byte vector of T: kN elements, 2^kShift of them; Codes holds its
@@ -107,107 +163,192 @@ template <> struct Vec<float> {
   }
 };
 
-template <typename T, int MODE>
-__global__ void __launch_bounds__(kRowsPerBlock * 32)
+// x's 16-byte vectors of kRows rows from row0 on (a row past the end reads
+// the last row's bytes and is not written)
+template <int kVec, int kRows>
+__device__ __forceinline__ void load_rows(const uint4* x4, int row0, int rows, int nvec,
+                                          int lane, uint4 (&xr)[kRows][kVec]) {
+#pragma unroll
+  for (int i = 0; i < kVec; ++i) {
+    const int c = lane + i * 32;
+#pragma unroll
+    for (int p = 0; p < kRows; ++p) {
+      if (c < nvec) xr[p][i] = x4[(size_t)(row0 + p < rows ? row0 + p : rows - 1) * nvec + c];
+    }
+  }
+}
+
+// kRows rows a warp at a time, the warp walking its rows by the grid's
+// stride with the next rows' x in flight; kVec: 16-byte vectors of x a lane
+// at the instance's widest D
+template <typename T, int MODE, int kVec, int kRows, int kWarps>
+__global__ void __launch_bounds__(kWarps * 32)
 layernorm_q8_kernel(const T* __restrict__ x, const float* __restrict__ scale,
                     const float* __restrict__ bias, int8_t* __restrict__ q,
                     float* __restrict__ s, const float* __restrict__ r, int rows, int D,
                     float eps) {
   constexpr int kN = Vec<T>::kN;
-  constexpr int kMaxVecPerLane = 1024 / 32 / kN;  // 32 values a lane at D = 1024
-  const int row = blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
+  constexpr int kQ = kN / 4;  // float4s of parameters a vector
+  // the scale and the bias, staged once a block: a vector's k-th float4 of
+  // either at k * nvec + c, so that a warp's loads of it are contiguous
+  __shared__ float4 sp[2][1024 / 4];
   const int lane = threadIdx.x & 31;
-  if (row >= rows) return;  // warp-uniform
+  const int stride = gridDim.x * kWarps * kRows;
   const int nvec = D >> Vec<T>::kShift;
-  const uint4* xr = reinterpret_cast<const uint4*>(x + (size_t)row * D);
+  const uint4* x4 = reinterpret_cast<const uint4*>(x);
+  int row0 = (blockIdx.x * kWarps + (threadIdx.x >> 5)) * kRows;
 
-  float v[kMaxVecPerLane][kN];
-  float sum = 0.f;
-#pragma unroll
-  for (int i = 0; i < kMaxVecPerLane; ++i) {
-    const int c = lane + i * 32;
-    if (c < nvec) {
-      uint4 u = xr[c];
-#pragma unroll
-      for (int j = 0; j < kN; ++j) {
-        v[i][j] = Vec<T>::get(u, j);
-        sum += v[i][j];
-      }
-    }
-  }
-  const float mean = __fdiv_rn(warp_sum(sum), (float)D);
-  float sq = 0.f;
-#pragma unroll
-  for (int i = 0; i < kMaxVecPerLane; ++i) {
-    if (lane + i * 32 < nvec) {
-#pragma unroll
-      for (int j = 0; j < kN; ++j) {
-        const float d = __fsub_rn(v[i][j], mean);
-        sq = __fadd_rn(sq, __fmul_rn(d, d));
-      }
-    }
-  }
-  const float inv = __frsqrt_rn(__fadd_rn(__fdiv_rn(warp_sum(sq), (float)D), eps));
-
+  uint4 xr[kRows][kVec];
+  if (row0 < rows) load_rows(x4, row0, rows, nvec, lane, xr);
   const float4* s4 = reinterpret_cast<const float4*>(scale);
   const float4* b4 = reinterpret_cast<const float4*>(bias);
-  constexpr int kQ = kN / 4;  // float4s of parameters a vector
-  float amax = 0.f;
-#pragma unroll
-  for (int i = 0; i < kMaxVecPerLane; ++i) {
-    const int c = lane + i * 32;
-    if (c < nvec) {
-      float4 sq4[kQ], bq4[kQ];
-#pragma unroll
-      for (int k = 0; k < kQ; ++k) sq4[k] = s4[kQ * c + k];
-#pragma unroll
-      for (int k = 0; k < kQ; ++k) bq4[k] = b4[kQ * c + k];
-      const float* sc = reinterpret_cast<const float*>(sq4);
-      const float* bi = reinterpret_cast<const float*>(bq4);
-#pragma unroll
-      for (int j = 0; j < kN; ++j) {
-        const float xhat = __fmul_rn(__fsub_rn(v[i][j], mean), inv);
-        v[i][j] = __fadd_rn(__fmul_rn(xhat, sc[j]), bi[j]);
-        amax = fmaxf(amax, fabsf(v[i][j]));
-      }
+  if (kQ8Stage) {
+    for (int k = threadIdx.x; k < D / 4; k += kWarps * 32) {
+      sp[0][(k % kQ) * nvec + k / kQ] = s4[k];
+      sp[1][(k % kQ) * nvec + k / kQ] = b4[k];
     }
   }
-  float mult = 0.f;
-  if (MODE == kStatic) {
-    mult = *r;
-  } else if (MODE == kRecip) {
-    const float m = fmaxf(warp_max(amax), 1e-8f);
-    if (lane == 0) s[row] = __fdiv_rn(m, 127.0f);
-    mult = __fdiv_rn(127.0f, m);
-  } else if (MODE != kFloor) {
-    mult = fmaxf(__fdiv_rn(warp_max(amax), 127.0f), 1e-8f);
-    if (lane == 0) s[row] = mult;
-  }
-  using Codes = typename Vec<T>::Codes;
-  Codes* qr = reinterpret_cast<Codes*>(q + (size_t)row * D);
+  const float mult_static = MODE == kStatic ? *r : 0.f;
+  if (kQ8Stage) __syncthreads();
+
+  for (; row0 < rows; row0 += stride) {  // warp-uniform
+    // x as fp32 and its row sums; then the next rows' loads
+    float v[kRows][kVec][kN], mean[kRows], inv[kRows];
 #pragma unroll
-  for (int i = 0; i < kMaxVecPerLane; ++i) {
-    const int c = lane + i * 32;
-    if (c < nvec) {
-      Codes u;
-      int8_t* o = reinterpret_cast<int8_t*>(&u);
+    for (int p = 0; p < kRows; ++p) {
+      float sum = 0.f;
 #pragma unroll
-      for (int j = 0; j < kN; ++j)
-        o[j] = code<MODE>(v[i][j], mult);
-      qr[c] = u;
+      for (int i = 0; i < kVec; ++i) {
+        if (lane + i * 32 < nvec) {
+#pragma unroll
+          for (int j = 0; j < kN; ++j) {
+            v[p][i][j] = Vec<T>::get(xr[p][i], j);
+            sum += v[p][i][j];
+          }
+        }
+      }
+      mean[p] = sum;
+    }
+    if (row0 + stride < rows) load_rows(x4, row0 + stride, rows, nvec, lane, xr);
+
+    // the statistics: the mean, then v - mean in place of v, then inv
+#pragma unroll
+    for (int p = 0; p < kRows; ++p) mean[p] = __fdiv_rn(warp_sum(mean[p]), (float)D);
+#pragma unroll
+    for (int p = 0; p < kRows; ++p) {
+      float sq = 0.f;
+#pragma unroll
+      for (int i = 0; i < kVec; ++i) {
+        if (lane + i * 32 < nvec) {
+#pragma unroll
+          for (int j = 0; j < kN; ++j) {
+            v[p][i][j] = __fsub_rn(v[p][i][j], mean[p]);
+            sq = __fadd_rn(sq, __fmul_rn(v[p][i][j], v[p][i][j]));
+          }
+        }
+      }
+      inv[p] = __frsqrt_rn(__fadd_rn(__fdiv_rn(warp_sum(sq), (float)D), eps));
+    }
+
+    // xn = xhat * scale + bias in place of v, and the row's absmax
+    float amax[kRows];
+#pragma unroll
+    for (int p = 0; p < kRows; ++p) {
+      amax[p] = 0.f;
+#pragma unroll
+      for (int i = 0; i < kVec; ++i) {
+        const int c = lane + i * 32;
+        if (c < nvec) {
+          float4 sq4[kQ], bq4[kQ];
+#pragma unroll
+          for (int k = 0; k < kQ; ++k) {
+            sq4[k] = kQ8Stage ? sp[0][k * nvec + c] : s4[kQ * c + k];
+            bq4[k] = kQ8Stage ? sp[1][k * nvec + c] : b4[kQ * c + k];
+          }
+          const float* sc = reinterpret_cast<const float*>(sq4);
+          const float* bi = reinterpret_cast<const float*>(bq4);
+#pragma unroll
+          for (int j = 0; j < kN; ++j) {
+            const float xhat = __fmul_rn(v[p][i][j], inv[p]);
+            v[p][i][j] = __fadd_rn(__fmul_rn(xhat, sc[j]), bi[j]);
+            amax[p] = fmaxf(amax[p], fabsf(v[p][i][j]));
+          }
+        }
+      }
+    }
+    using Codes = typename Vec<T>::Codes;
+#pragma unroll
+    for (int p = 0; p < kRows; ++p) {
+      const int row = row0 + p;
+      float mult = 0.f, y = 0.f;
+      if (MODE == kStatic) {
+        mult = mult_static;
+      } else if (MODE == kRecip) {
+        const float m = fmaxf(warp_max(amax[p]), 1e-8f);
+        if (lane == 0 && row < rows) s[row] = __fdiv_rn(m, 127.0f);
+        mult = __fdiv_rn(127.0f, m);
+      } else if (MODE != kFloor) {
+        mult = fmaxf(__fdiv_rn(warp_max(amax[p]), 127.0f), 1e-8f);
+        y = __frcp_rn(mult);
+        if (lane == 0 && row < rows) s[row] = mult;
+      }
+      if (row >= rows) continue;
+      Codes* qr = reinterpret_cast<Codes*>(q + (size_t)row * D);
+#pragma unroll
+      for (int i = 0; i < kVec; ++i) {
+        const int c = lane + i * 32;
+        if (c < nvec) {
+          Codes u;
+          codes<MODE>(v[p][i], mult, y, *reinterpret_cast<int8_t(*)[kN]>(&u));
+          qr[c] = u;
+        }
+      }
     }
   }
 }
 
-template <typename T, int MODE>
-int launch(const void* x, const void* scale, const void* bias, void* q, void* s,
-           const void* r, int rows, int D, float eps, cudaStream_t st) {
-  const int blocks = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
-  layernorm_q8_kernel<T, MODE><<<blocks, kRowsPerBlock * 32, 0, st>>>(
+template <typename T, int MODE, int kVec, int kRows>
+int launch_at(const void* x, const void* scale, const void* bias, void* q, void* s,
+              const void* r, int rows, int D, float eps, cudaStream_t st) {
+  constexpr bool walk = kWalk && sizeof(T) == 2 && MODE != kStatic;
+  constexpr int warps = walk ? kWalkWarps : kBlockWarps;
+  const auto kernel = layernorm_q8_kernel<T, MODE, kVec, kRows, warps>;
+  const int per_block = kRows * warps;
+  int blocks = (rows + per_block - 1) / per_block;
+  if (walk) {
+    static int resident = 0;  // the instance's blocks the card holds at once
+    if (resident == 0) {
+      int dev = 0, sms = 0, per_sm = 0;
+      cudaError_t e = cudaGetDevice(&dev);
+      if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+      if (e == cudaSuccess) {
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, warps * 32, 0);
+      }
+      if (e != cudaSuccess) return (int)e;
+      resident = sms * per_sm;
+    }
+    if (resident > 0 && blocks > resident) blocks = resident;
+  }
+  kernel<<<blocks, warps * 32, 0, st>>>(
       static_cast<const T*>(x), static_cast<const float*>(scale),
       static_cast<const float*>(bias), static_cast<int8_t*>(q), static_cast<float*>(s),
       static_cast<const float*>(r), rows, D, eps);
   return (int)cudaGetLastError();
+}
+
+// the instance whose registers fit D: the text rows (512; 640 and 768 on
+// the 768 instance), ViT-B/16's vision rows (768) and ViT-L/14's (1024)
+template <typename T, int MODE>
+int launch(const void* x, const void* scale, const void* bias, void* q, void* s,
+           const void* r, int rows, int D, float eps, cudaStream_t st) {
+  constexpr int kLane = 32 * Vec<T>::kN;  // columns a vector a lane covers
+  if (D <= 512) {
+    return launch_at<T, MODE, 512 / kLane, kQ8Rows>(x, scale, bias, q, s, r, rows, D, eps, st);
+  }
+  if (D <= 768) {
+    return launch_at<T, MODE, 768 / kLane, kQ8Rows>(x, scale, bias, q, s, r, rows, D, eps, st);
+  }
+  return launch_at<T, MODE, 1024 / kLane, kQ8Rows>(x, scale, bias, q, s, r, rows, D, eps, st);
 }
 
 }  // namespace

@@ -62,21 +62,22 @@ ATTN = (("vision", 384, 199, 12, False), ("text causal", 100, 16, 8, True),
 LN = ((384 * 199, 768), (13 * 128, 512), (32 * 259, 1024), (8 * 197, 1280))
 
 
-def build_variants() -> dict:
+def build_variants(variants: tuple = VARIANTS, tag: str = "f32") -> dict:
     """{(source, variant): the bound library}, the sources' own under
-    variant "kernel"; every variant built in parallel."""
+    variant "kernel"; every variant of ``variants`` built in parallel, its
+    files named by ``tag``."""
     from mudpt_torch.ops import _build
 
     libs = _build.load()
-    out = {(name, "kernel"): libs[name] for name in {v[0] for v in VARIANTS}}
+    out = {(name, "kernel"): libs[name] for name in {v[0] for v in variants}}
     vdir = _build.BUILD_DIR / "variants"
     vdir.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for i, (name, label, old, new) in enumerate(VARIANTS):
+    for i, (name, label, old, new) in enumerate(variants):
         text = (_build.CSRC / f"{name}.cu").read_text()
         if text.count(old) != 1:
             raise RuntimeError(f"{name}.cu: {old!r} is not in the source once")
-        src, lib = vdir / f"{name}_{i}.cu", vdir / f"lib{name}_{i}.so"
+        src, lib = vdir / f"{name}_{tag}{i}.cu", vdir / f"lib{name}_{tag}{i}.so"
         src.write_text(text.replace(old, new))
         procs[(name, label)] = (subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(src)],

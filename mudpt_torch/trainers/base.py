@@ -55,7 +55,7 @@ from mudpt_torch.utils.checkpoint import (load_checkpoint, restore_into, save_ch
 from mudpt_torch.utils.device import resolve_device
 from mudpt_torch.utils.logging import MetricsLogger
 from mudpt_torch.utils.metrics import build_evaluator
-from mudpt_torch.utils.profiling import StepTimer, profile_trace
+from mudpt_torch.utils.profiling import StepTimer, profile_trace, window_edge
 from mudpt_torch.utils.registry import TRAINER_REGISTRY
 from mudpt_torch.utils.rng import new_rng, set_seed
 
@@ -657,10 +657,12 @@ class TrainerBase:
                     if self.device.type == "cuda":
                         torch.cuda.synchronize(self.device)
                     prof.step()  # the warmup ends: batch 1 is the window
+                    window_edge(self.device)
                 timer.start()
                 loss, acc = self._train_step(batch)
                 timer.stop()
                 if prof is not None and batch_idx == 1:
+                    window_edge(self.device)
                     window.close()  # writes the trace
                     prof = None
                 self.global_step += 1

@@ -69,6 +69,24 @@ class StepTimer:
         return items / a if a else 0.0
 
 
+# the card's idle time at each edge of a recorded window
+WINDOW_EDGE_S = 0.005
+
+
+def window_edge(device: torch.device) -> None:
+    """At an edge of a recorded window (right after ``prof.step()`` opens
+    it, and before it closes), let the card sit idle for ``WINDOW_EDGE_S``.
+    The collection keeps the device activity whose timestamps, mapped onto
+    the host's clock, fall inside the window, so a kernel run within
+    microseconds of an edge can be left out: in ``chip_smoke.py``'s long
+    process on an H100 a trainer's trace lacked one of a step's 51
+    ``layernorm_fwd`` launches, the step's first kernels running on a card
+    synchronized just before the window opened."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+        time.sleep(WINDOW_EDGE_S)
+
+
 @contextlib.contextmanager
 def profile_trace(logdir: Optional[str], warmup: int = 0):
     """Trace host and CUDA activity into ``<logdir>/trace-<time>.json``

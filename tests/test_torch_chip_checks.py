@@ -85,7 +85,7 @@ import torch.nn.functional as tf
 
 from mudpt_torch.ops import fused_block as F
 from mudpt_torch.ops import quant_block as Q
-from mudpt_torch.tools import f32_variants
+from mudpt_torch.tools import f32_variants, ln_variants
 
 ROOT = Path(__file__).resolve().parent.parent
 M, K, N = 512, 768, 768
@@ -1309,6 +1309,113 @@ def test_f32_variants_refuse_without_a_card(monkeypatch):
         f32_variants.main()
 
 
+@pytest.mark.parametrize("variant", range(len(ln_variants.VARIANTS)))
+def test_ln_variants_replace_text_the_sources_hold_once(variant):
+    """``mudpt_torch.tools.ln_variants`` builds each variant of the bf16
+    LayerNorm dx and of LayerNorm-quant by replacing one constant of its
+    source: each must stand in the source exactly once."""
+    from mudpt_torch.ops import _build
+
+    name, _, old, new = ln_variants.VARIANTS[variant]
+    text = (_build.CSRC / f"{name}.cu").read_text()
+    assert text.count(old) == 1 and old != new
+
+
+def test_ln_variants_refuse_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no card"):
+        ln_variants.main()
+
+
+def test_chip_smoke_layernorm_widths_cover_every_preset():
+    """``[kernels*]`` holds the bf16 LayerNorm dx, and ``[kernels int8*]``
+    LayerNorm-quant, at every width that a preset of the port reaches: the
+    towers of ``synth_step.MODELS`` and of the named backbones (the RN
+    presets' text towers among them; the CPU's test-tiny sizes aside), and,
+    for the dx, the chunked half's ``CHUNKED`` shapes and its widest D
+    (``CHUNKED_MAX_WIDTH``).  ``--times-of`` reads both kernels at every
+    one of these widths too."""
+    from mudpt_torch.trainers.base import NAMED_CONFIGS
+    from mudpt_torch.utils.synth_step import MODELS
+
+    C = _chip_smoke()
+    towers = set()
+    for name, cfg in {**MODELS, **NAMED_CONFIGS}.items():
+        if name.startswith("test-tiny"):
+            continue
+        towers.add(cfg.transformer_width)
+        if cfg.vision_arch == "vit":
+            towers.add(cfg.vision_width)
+    assert towers == {512, 640, 768, 1024}
+    chunked = {D for *_, D in C.CHUNKED} | {F.CHUNKED_MAX_WIDTH}
+    assert towers | chunked <= C.ln_bwd_widths()
+    assert towers <= C.q8_ln_widths()
+    assert towers | chunked <= {D for _, D, *_ in C.LN_BWD_AB}
+    assert towers <= {D for _, D, *_ in C.Q8_LN_AB}
+    # a width missing from the list fails the check
+    lacking = {c[1] for c in C.SHAPES["ViT-B/16"]["ln_bwd"] if c[1] != 640}
+    assert not towers <= lacking | {D for _, D, _ in C.CHUNKED_LN_BWD}
+
+
+def test_times_of_times_and_digests_every_layernorm_case(monkeypatch):
+    """``--times-of`` times, and digests the bits of, the bf16 LayerNorm dx
+    at every case of ``LN_BWD_AB`` (fp32 and bf16 dxn, with a residual and
+    without) and LayerNorm-quant at every case of ``Q8_LN_AB`` (bf16 and
+    fp32 rows, dynamic, static and the probe's three ablations), the
+    cases also queued, through the public wrappers: rehearsed
+    on the CPU at small row counts with the card's timers stubbed and the
+    GEMM cases left out; each call's output is its plain version's."""
+    from mudpt_torch.ops import probe as P
+
+    C = _chip_smoke()
+    cpu = torch.Generator().manual_seed(6)
+
+    def randn_fn(seed):
+        return lambda *shape, std=1.0, dtype=torch.bfloat16: (
+            torch.randn(shape, generator=cpu) * std).to(dtype)
+
+    timed = []
+    monkeypatch.setattr(C, "randn_fn", randn_fn)
+    monkeypatch.setattr(C, "time_ms", lambda fn, iters=10: timed.append(fn()) or 1.0)
+    monkeypatch.setattr(C, "queued_ms", lambda fn, iters=10: (1.0, 2.0))
+    for name in ("Q8_GEMM", "F32_Q8_GEMM", "FP32_GEMM", "FP32_ATTN_BWD", "FP32_LN"):
+        monkeypatch.setattr(C, name, ())
+    monkeypatch.setattr(C, "SHAPES", {})
+    monkeypatch.setattr(C, "M_B", 24)
+    monkeypatch.setattr(C, "M_L", 12)
+    ln = tuple((rows // 8192 + 3, *more) for rows, *more in C.LN_BWD_AB)
+    q8 = tuple((rows // 8192 + 3, *more) for rows, *more in C.Q8_LN_AB)
+    monkeypatch.setattr(C, "LN_BWD_AB", ln)
+    monkeypatch.setattr(C, "Q8_LN_AB", q8)
+    want_ln = {f"layernorm_bwd {rows}x{D} {C.DTYPE_TAGS[dt]} dxn{' + r' if r else ''}"
+               for rows, D, dt, r in ln}
+    assert {k.split()[2] for k in want_ln} == {"fp32", "bf16"}
+    want_q8 = set()
+    for rows, D, dt, modes in q8:
+        for mode in modes:
+            name = "layernorm_q8" + ("_f32" if dt == "float32" else "")
+            want_q8.add(f"{name}_{mode[3:]} {rows}x{D}" if mode in P.ABLATIONS else
+                        f"{name} {rows}x{D} {'static' if mode == 'q8_static' else 'dynamic'}")
+    assert len(want_ln) == len(ln) == 14 and len(want_q8) == 16
+    assert {k.split()[0] for k in want_q8} == {
+        "layernorm_q8", "layernorm_q8_f32", "layernorm_q8_recip", "layernorm_q8_noclip",
+        "layernorm_q8_floor"}
+    times = C.kernel_times(F)
+    cases = want_ln | want_q8 | {f"quant_rows 24x{X} {kind}" for X in (768, 3072)
+                                 for kind in ("dynamic", "static")}
+    assert set(times) == {k + how for k in cases for how in ("", " device", " host us")}
+    assert all(torch.isfinite(t.float()).all() for r in timed
+               for t in (r if isinstance(r, tuple) else (r,)) if t is not None)
+    digests = C.kernel_digests(F)
+    assert want_ln | want_q8 <= set(digests)
+    assert {k for k in digests if k.startswith("layernorm_fwd")} == {
+        "layernorm_fwd 24x768", "layernorm_fwd 12x1024", "layernorm_fwd 2048x1280"}
+    # the calls are the plain versions on CPU tensors: the same bits twice
+    rn = randn_fn(0)
+    for key, fn in C.ln_bwd_cases(F, rn):
+        assert torch.equal(fn(), fn()), key
+
+
 def test_times_of_times_every_fp32_case(monkeypatch):
     """``--times-of`` times the fp32 GEMM's every mode (``FP32_GEMM``),
     attention_fwd_f32 and attention_bwd_f32 at every block of
@@ -1336,6 +1443,7 @@ def test_times_of_times_every_fp32_case(monkeypatch):
     monkeypatch.setattr(C, "time_ms", time_ms)
     monkeypatch.setattr(C, "queued_ms", lambda fn, iters=10: (time_ms(fn), 2.0))
     monkeypatch.setattr(C, "q8_row_cases", lambda F, Q, rn: [])
+    monkeypatch.setattr(C, "ln_bwd_cases", lambda F, rn: [])
     monkeypatch.setattr(C, "Q8_GEMM", ())
     monkeypatch.setattr(C, "SHAPES", {})
     monkeypatch.setattr(C, "FP32_GEMM", tuple((ep, 96, K // 12, N // 48, n)

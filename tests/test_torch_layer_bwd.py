@@ -140,13 +140,16 @@ def test_weights_that_need_grad_are_refused():
         TFB.layer_fullblock(tx, *tp, H, False)
 
 
-def test_layer_norm_bwd_matches_pallas_piece():
+# the widths of the bf16 LayerNorm dx's instances on the card: the text
+# rows (512; RN50x4's 640; 768), the layers' 768 and 1280, the widest 2048
+@pytest.mark.parametrize("width", [D, 512, 640, 768, 1280, 2048])
+def test_layer_norm_bwd_matches_pallas_piece(width):
     rng = np.random.RandomState(6)
-    x = rng.randn(B * S, D).astype(np.float32) * 2 + 0.5
-    dxn = rng.randn(B * S, D).astype(np.float32)
-    r = rng.randn(B * S, D).astype(np.float32)
-    s = (rng.rand(D) + 0.5).astype(np.float32)
-    _, xhat, inv = JFB._ln_fp32(jnp.asarray(x), jnp.asarray(s), jnp.zeros(D))
+    x = rng.randn(B * S, width).astype(np.float32) * 2 + 0.5
+    dxn = rng.randn(B * S, width).astype(np.float32)
+    r = rng.randn(B * S, width).astype(np.float32)
+    s = (rng.rand(width) + 0.5).astype(np.float32)
+    _, xhat, inv = JFB._ln_fp32(jnp.asarray(x), jnp.asarray(s), jnp.zeros(width))
     j = np.asarray(JFB._ln_bwd_dx(jnp.asarray(dxn), xhat, inv, jnp.asarray(s)))
     t = TFB.layer_norm_bwd_plain(*(torch.from_numpy(v) for v in (dxn, x, s)))
     np.testing.assert_allclose(t.numpy(), j, rtol=1e-5, atol=1e-5)

@@ -185,17 +185,20 @@ def test_quant_rows_static_bit_equal_to_jax():
     assert np.abs(got.numpy()).max() == 127  # the outliers saturate
 
 
+# the widths of LayerNorm-quant's instances on the card: the text rows
+# (512; RN50x4's 640 on the 768 instance) and ViT-B/16's 768
+@pytest.mark.parametrize("width", [D, 512, 640, 768])
 @pytest.mark.parametrize("static", [False, True], ids=["dynamic", "static"])
-def test_ln_quant_matches_jax(static):
+def test_ln_quant_matches_jax(static, width):
     """``_ln_fp32`` + the quantizer of its fp32 output, on bf16 rows: codes
     within one step, at most 2^-8 of them differing (the order of the
     statistics' sums; reading: none); scales within 4 fp32 ulps (2^-21
     relative: the row's absmax may move by an ulp and the scale by one
     more; reading: 2 ulps)."""
     rng = np.random.RandomState(4)
-    x = jnp.asarray(rng.randn(80, D) * 2, jnp.bfloat16)
-    sc = (rng.rand(D) + 0.5).astype(np.float32)
-    bi = (rng.randn(D) * 0.1).astype(np.float32)
+    x = jnp.asarray(rng.randn(80, width) * 2, jnp.bfloat16)
+    sc = (rng.rand(width) + 0.5).astype(np.float32)
+    bi = (rng.randn(width) * 0.1).astype(np.float32)
     xn, _, _ = JFB._ln_fp32(x, jnp.asarray(sc), jnp.asarray(bi))
     r = np.float32(127.0) / np.float32(4.0)
     if static:

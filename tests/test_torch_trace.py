@@ -126,3 +126,19 @@ def test_one_batch_epoch_traces_nothing(tmp_path):
     tr = _trainer(tmp_path / "out", tmp_path / "prof", "DATALOADER.TRAIN_X.BATCH_SIZE", "64")
     tr.train()
     assert len(tr.dm.train_loader) == 1 and not glob.glob(f"{tmp_path}/prof/trace-*.json")
+
+
+def test_window_edge_idles_the_card_only(monkeypatch):
+    """``window_edge`` (the trainer's recorded window, at both edges):
+    on a card it synchronizes, then lets the card sit idle for
+    ``WINDOW_EDGE_S``; on the CPU it does nothing."""
+    from mudpt_torch.utils import profiling
+
+    calls = []
+    monkeypatch.setattr(profiling.torch.cuda, "synchronize", lambda d: calls.append(("sync", d)))
+    monkeypatch.setattr(profiling.time, "sleep", lambda s: calls.append(("sleep", s)))
+    profiling.window_edge(torch.device("cpu"))
+    assert calls == []
+    card = torch.device("cuda", 0)
+    profiling.window_edge(card)
+    assert calls == [("sync", card), ("sleep", profiling.WINDOW_EDGE_S)]
