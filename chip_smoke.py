@@ -1833,14 +1833,16 @@ def serving_time_by_kernel(prof) -> tuple:
     """({kernel or "other": device us}, {}, {other kernel: us}) of a request."""
     import torch
 
+    from mudpt_torch.utils.profiling import SPAN_PREFIX
+
     by_kernel = {"gemm_bf16_kernel": 0.0, "gemm_s8_kernel": 0.0,
                  "attention_fwd_wgmma_kernel": 0.0,
                  "layernorm_fwd_kernel": 0.0, "layernorm_q8_kernel": 0.0,
                  "quant_rows_kernel": 0.0, "other": 0.0}
     others = {}
     for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue  # host-side ops also report their kernels' time
+        if e.device_type != torch.autograd.DeviceType.CUDA or e.key.startswith(SPAN_PREFIX):
+            continue  # host-side ops and the program's spans also report their kernels' time
         us = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
         key = next((k for k in by_kernel if k in e.key), "other")
         by_kernel[key] += us

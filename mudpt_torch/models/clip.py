@@ -334,11 +334,14 @@ def encode_text(
 
 def cosine_logits(image_features, text_features, logit_scale) -> torch.Tensor:
     """L2-normalize both sides and scale by exp(logit_scale), in fp32."""
-    img = image_features.float()
-    txt = text_features.float()
-    img = img / img.norm(dim=-1, keepdim=True)
-    txt = txt / txt.norm(dim=-1, keepdim=True)
-    return logit_scale.float().exp() * (img @ txt.T)
+    from mudpt_torch.utils.profiling import span  # mudpt_torch.utils imports this module
+
+    with span("mudpt.logits"):
+        img = image_features.float()
+        txt = text_features.float()
+        img = img / img.norm(dim=-1, keepdim=True)
+        txt = txt / txt.norm(dim=-1, keepdim=True)
+        return logit_scale.float().exp() * (img @ txt.T)
 
 
 def clip_forward(params: dict, images: torch.Tensor, tokens: torch.Tensor,

@@ -23,6 +23,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from mudpt_torch.utils.profiling import span
+
 
 def conv2d(x: torch.Tensor, w: torch.Tensor, stride: int = 1, padding: int = 0) -> torch.Tensor:
     """(B, C, H, W) conv with an HWIO kernel, symmetric padding (``conv2d`` :24)."""
@@ -86,17 +88,18 @@ def attention_pool(p: dict, x: torch.Tensor, num_heads: int) -> torch.Tensor:
 def resnet_forward(p: dict, images: torch.Tensor, *, layers: Sequence[int], heads: int,
                    compute_dtype=torch.float32) -> torch.Tensor:
     """images (B, H, W, 3) -> features (B, output_dim) (``resnet_forward`` :94)."""
-    x = images.to(compute_dtype).permute(0, 3, 1, 2)
-    for i in (1, 2, 3):
-        x = torch.relu(batch_norm(p[f"bn{i}"], conv2d(x, p[f"conv{i}"],
-                                                      stride=2 if i == 1 else 1, padding=1)))
-    x = avg_pool(x, 2)
-    for stage_idx, blocks in enumerate(layers, start=1):
-        stage = p[f"layer{stage_idx}"]
-        for block_idx in range(blocks):
-            stride = 2 if (stage_idx > 1 and block_idx == 0) else 1
-            x = bottleneck(stage[str(block_idx)], x, stride)
-    return attention_pool(p["attnpool"], x, heads)
+    with span("mudpt.vision"):
+        x = images.to(compute_dtype).permute(0, 3, 1, 2)
+        for i in (1, 2, 3):
+            x = torch.relu(batch_norm(p[f"bn{i}"], conv2d(x, p[f"conv{i}"],
+                                                          stride=2 if i == 1 else 1, padding=1)))
+        x = avg_pool(x, 2)
+        for stage_idx, blocks in enumerate(layers, start=1):
+            stage = p[f"layer{stage_idx}"]
+            for block_idx in range(blocks):
+                stride = 2 if (stage_idx > 1 and block_idx == 0) else 1
+                x = bottleneck(stage[str(block_idx)], x, stride)
+        return attention_pool(p["attnpool"], x, heads)
 
 
 # ---------------------------------------------------------------------------

@@ -45,6 +45,7 @@ from mudpt_torch.models.transformer import (make_injection_schedule, num_layers_
                                             resolve_unroll, transformer_forward)
 from mudpt_torch.ops.fused_block import saved_acts
 from mudpt_torch.parallel.mesh import shard_rows, shard_rows_2d
+from mudpt_torch.utils.profiling import span
 
 # 0 = auto; 1 = off; G > 1 forces G rows a kernel row (text.py:44)
 _TEXT_PACK = 0
@@ -178,52 +179,53 @@ def text_forward(
     as the JAX package's auto rule does (on the kernel route only).  1 runs
     the unpacked causal tower; G > 1 packs on either block route, and under
     a rolled scan (``SCAN_UNROLL`` below the depth) raises."""
-    lead = prompt_embeddings.shape[:-2]
-    S, D = prompt_embeddings.shape[-2:]
-    x = prompt_embeddings + p["pos_embedding"][:S].to(prompt_embeddings.dtype)
-    N = math.prod(lead)
-    if len(lead) == 2 and mesh_ctx is not None:
-        N *= mesh_ctx.n_data  # the global batch's instances
-    n_ctx = deep_prompts.shape[-2] if deep_prompts is not None else 0
-    if 1 + n_ctx > S:
-        raise ValueError(
-            f"deep-prompt splice window 1+{n_ctx} exceeds the text row length {S}; "
-            "set PERF.TEXT_TRUNC 0 or shrink N_CTX"
-        )
-    prompts, pmask = make_injection_schedule(num_layers_of(p["blocks"]), deep_prompts)
-    P = -(-S // 8) * 8
-    G = _resolve_pack(N, num_layers_of(p["blocks"]), P) if pack is None else pack
-    kw = dict(n_head=n_head, prompts=prompts, prompt_mask=pmask, n_ctx=n_ctx, is_text=True)
+    with span("mudpt.text"):
+        lead = prompt_embeddings.shape[:-2]
+        S, D = prompt_embeddings.shape[-2:]
+        x = prompt_embeddings + p["pos_embedding"][:S].to(prompt_embeddings.dtype)
+        N = math.prod(lead)
+        if len(lead) == 2 and mesh_ctx is not None:
+            N *= mesh_ctx.n_data  # the global batch's instances
+        n_ctx = deep_prompts.shape[-2] if deep_prompts is not None else 0
+        if 1 + n_ctx > S:
+            raise ValueError(
+                f"deep-prompt splice window 1+{n_ctx} exceeds the text row length {S}; "
+                "set PERF.TEXT_TRUNC 0 or shrink N_CTX"
+            )
+        prompts, pmask = make_injection_schedule(num_layers_of(p["blocks"]), deep_prompts)
+        P = -(-S // 8) * 8
+        G = _resolve_pack(N, num_layers_of(p["blocks"]), P) if pack is None else pack
+        kw = dict(n_head=n_head, prompts=prompts, prompt_mask=pmask, n_ctx=n_ctx, is_text=True)
 
-    def tower(xx):
-        # (n, S, D) rows -> (n, S, D); the rows this rank encodes
-        n = xx.shape[0]
-        if G == 1:
-            return transformer_forward(p["blocks"], xx, causal=True, **kw)
-        # (n, S, D) -> (npad/G, G*P, D): sequences at offsets g*P, pad rows
-        # and pad positions zero; their outputs are dropped at unpack
-        npad = -(-n // G) * G
-        xp = xx.new_zeros((npad, P, D))
-        xp[:n, :S] = xx
-        xp = transformer_forward(
-            p["blocks"], xp.reshape(npad // G, G * P, D),
-            causal=(P, S), splice_period=P, **kw,
-        )
-        return xp.reshape(npad, P, D)[:n, :S]
+        def tower(xx):
+            # (n, S, D) rows -> (n, S, D); the rows this rank encodes
+            n = xx.shape[0]
+            if G == 1:
+                return transformer_forward(p["blocks"], xx, causal=True, **kw)
+            # (n, S, D) -> (npad/G, G*P, D): sequences at offsets g*P, pad rows
+            # and pad positions zero; their outputs are dropped at unpack
+            npad = -(-n // G) * G
+            xp = xx.new_zeros((npad, P, D))
+            xp[:n, :S] = xx
+            xp = transformer_forward(
+                p["blocks"], xp.reshape(npad // G, G * P, D),
+                causal=(P, S), splice_period=P, **kw,
+            )
+            return xp.reshape(npad, P, D)[:n, :S]
 
-    with saved_acts(False) if _text_saves_off(N, P) else contextlib.nullcontext():
+        with saved_acts(False) if _text_saves_off(N, P) else contextlib.nullcontext():
+            if len(lead) == 2:
+                x = shard_rows_2d(mesh_ctx, ("data", "model"),
+                                  lambda xx: tower(xx.reshape(-1, S, D)).reshape(xx.shape), x)
+            else:
+                x = shard_rows(mesh_ctx, "model", tower, x.reshape(-1, S, D))
+        x = x.reshape(-1, S, D)
         if len(lead) == 2:
-            x = shard_rows_2d(mesh_ctx, ("data", "model"),
-                              lambda xx: tower(xx.reshape(-1, S, D)).reshape(xx.shape), x)
-        else:
-            x = shard_rows(mesh_ctx, "model", tower, x.reshape(-1, S, D))
-    x = x.reshape(-1, S, D)
-    if len(lead) == 2:
-        eot_idx = eot_idx.repeat(lead[0])
-    pooled = layer_norm(p["ln_final"], x[torch.arange(x.shape[0], device=x.device),
-                                         eot_idx.long()])
-    out = _project(pooled, p["projection"].to(pooled.dtype))
-    return out.reshape(*lead, out.shape[-1])
+            eot_idx = eot_idx.repeat(lead[0])
+        pooled = layer_norm(p["ln_final"], x[torch.arange(x.shape[0], device=x.device),
+                                             eot_idx.long()])
+        out = _project(pooled, p["projection"].to(pooled.dtype))
+        return out.reshape(*lead, out.shape[-1])
 
 
 def _project(pooled: torch.Tensor, proj: torch.Tensor) -> torch.Tensor:

@@ -17,6 +17,7 @@ import torch
 from mudpt_torch.models.layers import layer_norm
 from mudpt_torch.models.transformer import make_injection_schedule, num_layers_of, transformer_forward
 from mudpt_torch.parallel.mesh import shard_rows
+from mudpt_torch.utils.profiling import span
 
 
 def patchify(p: dict, images: torch.Tensor, patch_size: int, compute_dtype) -> torch.Tensor:
@@ -43,23 +44,24 @@ def vit_forward(
     """images (B, H, W, 3) -> features (B, embed_dim).  Under a mesh the
     tower runs on this rank's rows of the 'data' axis (``vit.py:105-107``:
     ``shard_rows``, where a rank's batch already is its shard)."""
-    x = patchify(p, images, patch_size, compute_dtype)
-    B, _, width = x.shape
-    cls = p["class_embedding"].to(compute_dtype).expand(B, 1, width)
-    x = torch.cat([cls, x], dim=1) + p["pos_embedding"].to(compute_dtype)[None]
-    if layer0_prompt is not None:
-        n0 = layer0_prompt.shape[-2]
-        prompt0 = layer0_prompt.to(compute_dtype).reshape(-1, n0, width)[:1]
-        x = torch.cat([x, prompt0.expand(B, n0, width)], dim=1)
-    x = layer_norm(p["ln_pre"], x)
+    with span("mudpt.vision"):
+        x = patchify(p, images, patch_size, compute_dtype)
+        B, _, width = x.shape
+        cls = p["class_embedding"].to(compute_dtype).expand(B, 1, width)
+        x = torch.cat([cls, x], dim=1) + p["pos_embedding"].to(compute_dtype)[None]
+        if layer0_prompt is not None:
+            n0 = layer0_prompt.shape[-2]
+            prompt0 = layer0_prompt.to(compute_dtype).reshape(-1, n0, width)[:1]
+            x = torch.cat([x, prompt0.expand(B, n0, width)], dim=1)
+        x = layer_norm(p["ln_pre"], x)
 
-    n_ctx = deep_prompts.shape[-2] if deep_prompts is not None else 0
-    prompts, mask = make_injection_schedule(num_layers_of(p["blocks"]), deep_prompts)
+        n_ctx = deep_prompts.shape[-2] if deep_prompts is not None else 0
+        prompts, mask = make_injection_schedule(num_layers_of(p["blocks"]), deep_prompts)
 
-    def tower(xx):
-        return transformer_forward(p["blocks"], xx, n_head=n_head, prompts=prompts,
-                                   prompt_mask=mask, n_ctx=n_ctx, is_text=False)
+        def tower(xx):
+            return transformer_forward(p["blocks"], xx, n_head=n_head, prompts=prompts,
+                                       prompt_mask=mask, n_ctx=n_ctx, is_text=False)
 
-    x = shard_rows(mesh_ctx, "data", tower, x)
-    pooled = layer_norm(p["ln_post"], x[:, 0])
-    return torch.matmul(pooled, p["proj"].to(pooled.dtype))
+        x = shard_rows(mesh_ctx, "data", tower, x)
+        pooled = layer_norm(p["ln_post"], x[:, 0])
+        return torch.matmul(pooled, p["proj"].to(pooled.dtype))

@@ -55,7 +55,7 @@ from mudpt_torch.utils.checkpoint import (load_checkpoint, restore_into, save_ch
 from mudpt_torch.utils.device import resolve_device
 from mudpt_torch.utils.logging import MetricsLogger
 from mudpt_torch.utils.metrics import build_evaluator
-from mudpt_torch.utils.profiling import StepTimer, profile_trace, window_edge
+from mudpt_torch.utils.profiling import profile_trace, window_edge
 from mudpt_torch.utils.registry import TRAINER_REGISTRY
 from mudpt_torch.utils.rng import new_rng, set_seed
 
@@ -626,7 +626,6 @@ class TrainerBase:
         cfg = self.cfg
         num_batches = len(self.dm.train_loader)
         t0 = time.time()
-        timer = StepTimer(device=self.device)
         skip = self._skip_batches
         self._skip_batches = 0
         src = self.dm.train_loader
@@ -650,6 +649,10 @@ class TrainerBase:
                      else None)
         window = contextlib.ExitStack()
         prof = window.enter_context(profile_trace(trace_dir, warmup=1))
+        # the step time a print reports: the host clock's mean over the
+        # steps since the last print, read after the print's loss fetch, so
+        # no step waits for the card to be timed
+        t_print, steps = time.perf_counter(), 0
         with window:
             for offset, batch in enumerate(self._device_prefetch(src)):
                 batch_idx = skip + offset
@@ -658,9 +661,8 @@ class TrainerBase:
                         torch.cuda.synchronize(self.device)
                     prof.step()  # the warmup ends: batch 1 is the window
                     window_edge(self.device)
-                timer.start()
                 loss, acc = self._train_step(batch)
-                timer.stop()
+                steps += 1
                 if prof is not None and batch_idx == 1:
                     window_edge(self.device)
                     window.close()  # writes the trace
@@ -669,19 +671,22 @@ class TrainerBase:
                 if (batch_idx + 1) % max(1, cfg.TRAIN.PRINT_FREQ) == 0 \
                         or batch_idx + 1 == num_batches:
                     loss_v, acc_v = float(loss), float(acc)
+                    now = time.perf_counter()
+                    step_s = (now - t_print) / steps
+                    t_print, steps = now, 0
                     lr = float(self.lr_schedule(self.global_step - 1))
                     bsz = cfg.DATALOADER.TRAIN_X.BATCH_SIZE
                     print(
                         f"epoch [{self.epoch + 1}/{cfg.OPTIM.MAX_EPOCH}] "
                         f"batch [{batch_idx + 1}/{num_batches}] "
                         f"loss {loss_v:.4f} acc {100 * acc_v:.2f} lr {lr:.2e} "
-                        f"step {timer.avg * 1e3:.0f}ms "
-                        f"{timer.throughput(bsz):.1f}img/s ({time.time() - t0:.1f}s)"
+                        f"step {step_s * 1e3:.0f}ms "
+                        f"{bsz / step_s:.1f}img/s ({time.time() - t0:.1f}s)"
                     )
                     self.metrics.log({
                         "kind": "train", "epoch": self.epoch + 1, "step": self.global_step,
-                        "loss": loss_v, "acc": acc_v, "lr": lr, "step_time": timer.avg,
-                        "imgs_per_sec": timer.throughput(bsz),
+                        "loss": loss_v, "acc": acc_v, "lr": lr, "step_time": step_s,
+                        "imgs_per_sec": bsz / step_s,
                     })
                 if self._preempt and batch_idx + 1 < num_batches:
                     # strictly mid-epoch: record the exact position (a window

@@ -22,6 +22,7 @@ from mudpt_torch.models.text import text_forward
 from mudpt_torch.trainers.base import TrainerBase
 from mudpt_torch.trainers.prompt_utils import (compose_prompts, ctx_vectors_from_init,
                                                embed_classnames, init_linear, random_ctx)
+from mudpt_torch.utils.profiling import span
 from mudpt_torch.utils.registry import TRAINER_REGISTRY
 from mudpt_torch.utils.rng import new_rng
 
@@ -29,12 +30,15 @@ from mudpt_torch.utils.rng import new_rng
 def mudpt_text_features(trainable, frozen, aux, *, clip_cfg, compute_dtype,
                         mesh_ctx=None):
     """Class text features (n_cls, embed_dim), encoded once per prompt set."""
-    v2t = linear(trainable["visual_ctx_deep_projections"], trainable["visual_ctx_deep_prompts"])
-    text_deep = trainable["deep_prompts"] + v2t
-    prompts = compose_prompts(trainable["ctx"], aux["token_prefix"], aux["token_suffix"])
+    with span("mudpt.prompts"):
+        v2t = linear(trainable["visual_ctx_deep_projections"],
+                     trainable["visual_ctx_deep_prompts"])
+        text_deep = trainable["deep_prompts"] + v2t
+        prompts = compose_prompts(trainable["ctx"], aux["token_prefix"],
+                                  aux["token_suffix"]).to(compute_dtype)
     return text_forward(
         frozen["text"],
-        prompts.to(compute_dtype),
+        prompts,
         aux["eot_idx"],
         n_head=clip_cfg.transformer_heads,
         deep_prompts=text_deep,
@@ -45,17 +49,19 @@ def mudpt_text_features(trainable, frozen, aux, *, clip_cfg, compute_dtype,
 def mudpt_image_logits(trainable, frozen, aux, images, txt, *, clip_cfg, compute_dtype,
                        mesh_ctx=None):
     """fp32 logits (B, n_cls) of an image batch against cached text features."""
-    shared_ctx = linear(trainable["embed_projection"], trainable["ctx"])
-    layer0_visual = trainable["visual_ctx"] + shared_ctx
-    visual_deep = (
-        linear(trainable["deep_projections"], trainable["deep_prompts"])
-        + trainable["visual_ctx_deep_prompts"]
-    )
+    with span("mudpt.prompts"):
+        shared_ctx = linear(trainable["embed_projection"], trainable["ctx"])
+        layer0_visual = trainable["visual_ctx"] + shared_ctx
+        visual_deep = (
+            linear(trainable["deep_projections"], trainable["deep_prompts"])
+            + trainable["visual_ctx_deep_prompts"]
+        )
     img = encode_image(
         frozen, images, clip_cfg, compute_dtype=compute_dtype, mesh_ctx=mesh_ctx,
         layer0_prompt=layer0_visual, deep_prompts=visual_deep,
     )
-    return cosine_logits(img.float(), txt.float(), frozen["logit_scale"])
+    # cosine_logits casts both sides to fp32 inside its span
+    return cosine_logits(img, txt, frozen["logit_scale"])
 
 
 def mudpt_forward(trainable, frozen, aux, images, *, clip_cfg, compute_dtype,

@@ -19,6 +19,7 @@ import torch
 from mudpt_torch.models.layers import layer_norm_trainable, linear, residual_block_trainable
 from mudpt_torch.models.text import effective_text_length
 from mudpt_torch.tokenizer import get_tokenizer, tokenize
+from mudpt_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -118,19 +119,20 @@ def compose_prompts(ctx: torch.Tensor, prefix: torch.Tensor, suffix: torch.Tenso
     ``torch.gather`` over the bank [prefix | suffix | ctx].  The map permutes
     the bank's columns, so the gather's backward adds into distinct
     positions, in no order that could change a sum."""
-    n_cls = prefix.shape[0]
-    if ctx.dim() == 2:
-        ctx = ctx[None].expand(n_cls, *ctx.shape)
-    ctx = ctx.to(prefix.dtype)
-    lead = ctx.shape[:-3]
-    prefix = prefix.expand(*lead, *prefix.shape)
-    suffix = suffix.expand(*lead, *suffix.shape)
-    if index_map is None:
-        return torch.cat([prefix, ctx, suffix], dim=-2)
-    bank = torch.cat([prefix, suffix, ctx], dim=-2)
-    index = torch.as_tensor(index_map, device=bank.device).long()
-    index = index[..., None].expand(*lead, *index.shape, bank.shape[-1])
-    return torch.gather(bank, -2, index)
+    with span("mudpt.prompts"):
+        n_cls = prefix.shape[0]
+        if ctx.dim() == 2:
+            ctx = ctx[None].expand(n_cls, *ctx.shape)
+        ctx = ctx.to(prefix.dtype)
+        lead = ctx.shape[:-3]
+        prefix = prefix.expand(*lead, *prefix.shape)
+        suffix = suffix.expand(*lead, *suffix.shape)
+        if index_map is None:
+            return torch.cat([prefix, ctx, suffix], dim=-2)
+        bank = torch.cat([prefix, suffix, ctx], dim=-2)
+        index = torch.as_tensor(index_map, device=bank.device).long()
+        index = index[..., None].expand(*lead, *index.shape, bank.shape[-1])
+        return torch.gather(bank, -2, index)
 
 
 def _uniform(g: torch.Generator, shape, bound: float) -> torch.Tensor:

@@ -1,9 +1,9 @@
-"""Step timing and an optional trace window (counterpart of
+"""Spans and an optional trace window (counterpart of
 ``mudpt_tpu/utils/profiling.py``).
 
-:class:`StepTimer` is the JAX package's EMA step timer, except that it
-synchronizes the device before each reading: a CUDA call returns before the
-card has finished, so a host clock without it times the enqueue.
+:func:`span` names a part of the program (``mudpt.vision``, ``mudpt.text``,
+``mudpt.prompts``, ``mudpt.logits``) in a ``torch.profiler`` trace, on the
+trace's own clock; with no profiler recording it does nothing.
 :func:`profile_trace` records a ``torch.profiler`` trace (host and CUDA
 activity) into ``TRAIN.PROFILE_DIR`` as a Chrome trace file, after warmup
 steps of its own where the caller steps it.
@@ -18,55 +18,25 @@ import contextlib
 import os
 import re
 import time
-from typing import Optional, Union
+from typing import Optional
 
 import torch
 
-
-def _sync(device: Optional[torch.device]) -> None:
-    if device is not None and device.type == "cuda":
-        torch.cuda.synchronize(device)
+SPAN_PREFIX = "mudpt."
+_NO_SPAN = contextlib.nullcontext()
 
 
-class StepTimer:
-    """Tracks per-step wall time + images/sec with a warmup-aware EMA."""
-
-    def __init__(self, ema: float = 0.9, device: Optional[Union[str, torch.device]] = None):
-        self._ema = ema
-        self._device = torch.device(device) if device is not None else None
-        self._avg: Optional[float] = None
-        self._last = None
-        self._t0 = None
-        self._count = 0
-
-    def start(self) -> None:
-        _sync(self._device)
-        self._t0 = time.perf_counter()
-
-    def stop(self) -> float:
-        _sync(self._device)
-        dt = time.perf_counter() - self._t0
-        self._last = dt
-        self._count += 1
-        # the first step carries one-time costs (kernel builds, allocator
-        # growth): never let it into the average; seed from step 2
-        if self._count == 1:
-            return dt
-        if self._avg is None:
-            self._avg = dt
-        else:
-            self._avg = self._ema * self._avg + (1 - self._ema) * dt
-        return dt
-
-    @property
-    def avg(self) -> float:
-        if self._avg is not None:
-            return self._avg
-        return self._last or 0.0
-
-    def throughput(self, items: int) -> float:
-        a = self.avg
-        return items / a if a else 0.0
+def span(name: str):
+    """A ``record_function`` named ``name`` while a profiler session records
+    (``torch.autograd._profiler_enabled()``: off outside a session and in a
+    schedule's warmup step), else a no-op context, so a run without a
+    profiler pays a flag's read, not a ``record_function``.  A span goes
+    around forward code only: the profiler gives each backward op the
+    ``Sequence number`` of the forward op it differentiates, so a reader
+    maps backward work to the span of its forward op."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 # the card's idle time at each edge of a recorded window
@@ -126,8 +96,9 @@ KERNELS = ("layernorm_fwd_kernel", "attention_fwd_wgmma_kernel", "layernorm_bwd_
 
 def _step_mark(e) -> bool:
     """The profiler's own step annotation (``ProfilerStep#N`` under a
-    schedule), which also spans the device's kernels: not an op."""
-    return e.key.startswith("ProfilerStep")
+    schedule) or a :func:`span`, each of which also spans the device's
+    kernels: not an op."""
+    return e.key.startswith(("ProfilerStep", SPAN_PREFIX))
 
 
 def _self_device_us(e) -> float:

@@ -4,18 +4,22 @@ before batch 0, whose step runs as the profiler's warmup (its events
 dropped).  On the CPU at tiny size: one trace file whose recorded window
 holds exactly one train step's ops, for a fresh epoch and for a run
 resumed at batch 1; no file where the JAX package traces nothing (a run
-resumed past batch 1, a one-batch epoch, a run preempted after batch 0)."""
+resumed past batch 1, a one-batch epoch, a run preempted after batch 0).
+The step time a print logs is the host clock's mean since the last print,
+with no synchronize a step."""
 
 import collections
 import glob
 import json
 import os
 import signal
+from types import SimpleNamespace
 
 import pytest
 import torch
 
 from mudpt_torch.config import load_config
+from mudpt_torch.trainers import base
 from mudpt_torch.trainers.base import build_trainer
 
 FILES = ("configs/datasets/synthetic.yaml", "configs/trainers/test/tiny.yaml")
@@ -142,3 +146,25 @@ def test_window_edge_idles_the_card_only(monkeypatch):
     card = torch.device("cuda", 0)
     profiling.window_edge(card)
     assert calls == [("sync", card), ("sleep", profiling.WINDOW_EDGE_S)]
+
+
+def test_step_time_is_the_host_mean_since_the_last_print(tmp_path, monkeypatch):
+    """At ``TRAIN.PRINT_FREQ 2`` the 4-batch epoch logs two step times, each
+    the mean of its 2 steps on the host clock, which is read at the epoch's
+    start and after each print's loss fetch only; no step synchronizes."""
+    out = tmp_path / "out"
+    opts = ["TRAINER.NAME", "MuDPT", "OUTPUT_DIR", str(out), "TRAIN.PRINT_FREQ", "2",
+            "TEST.NO_TEST", "True"]
+    tr = build_trainer(load_config(*FILES, opts=opts), devices="cpu")
+    reads = iter([10.0, 10.5, 13.0])
+    monkeypatch.setattr(base, "time", SimpleNamespace(perf_counter=lambda: next(reads),
+                                                      time=base.time.time))
+    syncs = []
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: syncs.append(a))
+    tr.train()
+    assert len(tr.dm.train_loader) == 4 and tr.global_step == 4
+    with open(out / "metrics.jsonl") as f:
+        rows = [json.loads(line) for line in f]
+    logged = [(r["step"], r["step_time"], r["imgs_per_sec"]) for r in rows if r["kind"] == "train"]
+    assert logged == [(2, 0.25, 32.0), (4, 1.25, 6.4)]
+    assert syncs == [] and next(reads, None) is None
